@@ -1,0 +1,487 @@
+"""Auto-tuning mechanism (paper §3.2) for the port's kernels.
+
+The reference probes a TPU and sweeps its Pallas kernels through an
+analytic roofline model; the port keeps the same sweep, the same cost
+formulas and the same persisted :class:`TuningDB`, and changes only the
+hardware model:
+
+* :func:`probe_hardware` returns an NVIDIA Hopper model (data-sheet
+  constants: 3.35 TB/s, 80 GB, 132 SMs, 227 KB of shared memory a block).
+* The three TPU rules stay driven by :class:`HardwareModel` fields, and the
+  Hopper instance sets them to what the hand kernels need: ``lane = 1``
+  (the 128-lane K gate becomes "any K" — the kernels take K = 602),
+  ``sublane = 1`` (no (1, K)-tile penalty for ELL: a warp per row uses
+  all of its lanes), and ``vmem_bytes`` = the shared-memory budget of a
+  block for the tile check.
+* ``measure=True`` raises ``NotImplementedError`` until candidates are
+  timed with CUDA events.
+
+Module map
+----------
+``HardwareModel``/``probe_hardware``  roofline constants per chip
+``GraphStats``/``graph_stats``        host-side sparsity fingerprint
+``KernelPlan``                        the tuner's hashable decision
+``estimate_plan_time``                analytic roofline cost per plan
+``autotune``                          the analytic sweep
+``TuningDB``                          persisted decisions (JSON, schema 2)
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import warnings
+from typing import Sequence
+
+import numpy as np
+
+from repro_torch.core.sparse import _np, sell_slice_degrees
+
+__all__ = [
+    "HardwareModel",
+    "KernelPlan",
+    "GraphStats",
+    "probe_hardware",
+    "graph_stats",
+    "estimate_plan_time",
+    "autotune",
+    "TuningDB",
+    "sell_sigma_candidates",
+    "sell_candidates_from_degrees",
+    "H100",
+    "TPU_V5E",
+]
+
+
+# --------------------------------------------------------------------------
+# Hardware model (the probe)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HardwareModel:
+    """Roofline constants for the target chip. The defaults are the TPU
+    v5e model of the reference, kept so that the port's tuner can be held
+    against the reference's picks; :data:`H100` is the port's target."""
+
+    name: str = "tpu-v5e"
+    mxu_dim: int = 128                 # matrix-unit tile edge
+    lane: int = 128                    # K alignment the kernels need
+    sublane: int = 8                   # ELL per-row output-tile penalty
+    vmem_bytes: int = 64 * 1024 * 1024  # on-chip tile budget
+    hbm_bytes: int = 16 * 1024 * 1024 * 1024
+    peak_flops: float = 197e12         # matrix-unit peak
+    vpu_flops: float = 197e12 / 16     # non-matmul throughput
+    hbm_bw: float = 819e9              # bytes/s
+    ici_bw: float = 50e9               # bytes/s per link
+
+    def mxu_time(self, flops: float) -> float:
+        return flops / self.peak_flops
+
+    def vpu_time(self, flops: float) -> float:
+        return flops / self.vpu_flops
+
+    def mem_time(self, nbytes: float) -> float:
+        return nbytes / self.hbm_bw
+
+
+TPU_V5E = HardwareModel()
+
+# NVIDIA H100 SXM data sheet: 80 GB at 3.35 TB/s, 132 SMs, 227 KB of
+# shared memory a block, 989 TFLOP/s dense bf16 tensor cores, 67 TFLOP/s
+# fp32 outside them, NVLink 450 GB/s each way.
+H100 = HardwareModel(
+    name="h100-sxm", mxu_dim=64, lane=1, sublane=1,
+    vmem_bytes=232_448, hbm_bytes=80 * 10 ** 9,
+    peak_flops=989e12, vpu_flops=67e12, hbm_bw=3.35e12, ici_bw=450e9)
+
+
+def probe_hardware() -> HardwareModel:
+    """The H100 model, the port's only target (the tuner is analytic, so
+    the model is all it needs). A card of another kind gets a warning."""
+    import torch
+    if torch.cuda.is_available():
+        name = torch.cuda.get_device_name()
+        if "H100" not in name:
+            warnings.warn(f"tuning for an H100 on a {name}", stacklevel=2)
+    return H100
+
+
+# --------------------------------------------------------------------------
+# Graph statistics (host-side, cheap, computed once)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GraphStats:
+    nrows: int
+    ncols: int
+    nse: int
+    avg_deg: float
+    max_deg: int
+    p99_deg: int
+    tile_counts: tuple       # ((br, bc, n_tiles), ...)
+    sell_counts: tuple = ()  # ((c, sigma, n_steps), ...)
+
+    def n_tiles(self, br: int, bc: int) -> int:
+        for b_r, b_c, n in self.tile_counts:
+            if (b_r, b_c) == (br, bc):
+                return n
+        raise KeyError((br, bc))
+
+    def sell_steps(self, c: int, sigma: int) -> int:
+        for cc, ss, n in self.sell_counts:
+            if (cc, ss) == (c, sigma):
+                return n
+        raise KeyError((c, sigma))
+
+
+_DEFAULT_TILES: tuple = ((128, 128), (256, 128), (128, 256), (64, 128), (32, 128))
+_SELL_C_VALUES: tuple = (8, 16, 32)
+_SELL_SIGMA_FALLBACK: tuple = (0, 256)
+_SELL_SIGMA_MAX: int = 3
+
+
+def sell_sigma_candidates(degrees: np.ndarray,
+                          fallback: Sequence[int] = _SELL_SIGMA_FALLBACK
+                          ) -> tuple:
+    """SELL sort-window (σ) candidates from the degree histogram: {0
+    (global sort), the Lorenz-curve knee window, 4x that window}, clipped
+    to the row count and capped at ``_SELL_SIGMA_MAX``. No rows / no
+    edges -> the static fallback; constant degrees -> ``(0,)``."""
+    deg = np.asarray(degrees, np.int64)
+    n = int(deg.shape[0])
+    if n == 0 or deg.sum() == 0:
+        return tuple(fallback)
+    d = np.sort(deg)[::-1]
+    if d[0] == d[-1]:
+        return (0,)
+    lorenz = np.cumsum(d) / d.sum()
+    frac = np.arange(1, n + 1) / n
+    knee = int(np.argmax(lorenz - frac)) + 1
+    window = 1 << int(np.ceil(np.log2(max(knee, 8))))
+    cands = {0}
+    for w in (window, 4 * window):
+        if w < n:
+            cands.add(w)
+    return tuple(sorted(cands))[:_SELL_SIGMA_MAX]
+
+
+def sell_candidates_from_degrees(degrees: np.ndarray,
+                                 c_values: Sequence[int] = _SELL_C_VALUES
+                                 ) -> tuple:
+    """(C, σ) sweep set: slice heights x histogram-derived sort windows."""
+    return tuple((c, s) for c in c_values
+                 for s in sell_sigma_candidates(degrees))
+
+
+def graph_stats(a, tile_candidates: Sequence[tuple] = _DEFAULT_TILES,
+                sell_candidates: Sequence[tuple] | None = None
+                ) -> GraphStats:
+    """``a`` is a COO. Host-side numpy pass."""
+    row = _np(a.row)[: a.nse].astype(np.int64)
+    col = _np(a.col)[: a.nse].astype(np.int64)
+    deg = np.bincount(row, minlength=a.nrows)
+    if sell_candidates is None:
+        sell_candidates = sell_candidates_from_degrees(deg)
+    counts = []
+    for br, bc in tile_candidates:
+        nbc = -(-a.ncols // bc)
+        key = (row // br) * nbc + (col // bc)
+        counts.append((br, bc, int(np.unique(key).size)))
+    sells = []
+    for c, sigma in sell_candidates:
+        slice_deg, _ = sell_slice_degrees(deg, c, sigma)
+        sells.append((c, sigma, int(slice_deg.sum())))
+    return GraphStats(
+        nrows=a.nrows, ncols=a.ncols, nse=a.nse,
+        avg_deg=float(deg.mean()) if a.nrows else 0.0,
+        max_deg=int(deg.max()) if a.nrows else 0,
+        p99_deg=int(np.percentile(deg, 99)) if a.nrows else 0,
+        tile_counts=tuple(counts),
+        sell_counts=tuple(sells),
+    )
+
+
+# --------------------------------------------------------------------------
+# Kernel plan — the tuner's (static, hashable) decision
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """Which kernel serves a (graph, K) point, plus its tile shape.
+
+    kind: 'bsr' (block-sparse tiles), 'ell' (row gather), 'sell'
+    (SELL-C-σ sliced gather) — sum/mean only — or 'trusted' (gather +
+    segment reduce, any semiring).
+    """
+
+    kind: str = "trusted"
+    br: int = 128
+    bc: int = 128
+    fk: int = 256
+    k_hint: int = 128
+    sell_c: int = 8
+    sell_sigma: int = 0
+    est_generated_s: float = float("inf")
+    est_trusted_s: float = float("inf")
+
+    def __post_init__(self):
+        assert self.kind in ("bsr", "ell", "sell", "trusted"), self.kind
+
+    @property
+    def wants_bsr(self) -> bool:
+        return self.kind == "bsr"
+
+    @property
+    def wants_ell(self) -> bool:
+        return self.kind == "ell"
+
+    @property
+    def wants_sell(self) -> bool:
+        return self.kind == "sell"
+
+    @property
+    def predicted_speedup(self) -> float:
+        if self.kind == "trusted" or self.est_generated_s == 0:
+            return 1.0
+        return self.est_trusted_s / self.est_generated_s
+
+    @classmethod
+    def trusted(cls, k_hint: int = 128) -> "KernelPlan":
+        return cls(kind="trusted", k_hint=k_hint)
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: dict) -> "KernelPlan":
+        return cls(**d)
+
+
+# --------------------------------------------------------------------------
+# Analytic cost model
+# --------------------------------------------------------------------------
+
+def _bytes_of(dtype) -> int:
+    return np.dtype(dtype).itemsize
+
+
+def estimate_plan_time(stats: GraphStats, k: int, plan: KernelPlan,
+                       hw: HardwareModel, dtype=np.float32) -> float:
+    """Seconds for one SpMM under the roofline model: max(compute, memory)."""
+    e = _bytes_of(dtype)
+    if plan.kind == "bsr":
+        nt = stats.n_tiles(plan.br, plan.bc)
+        flops = 2.0 * nt * plan.br * plan.bc * k
+        nbytes = nt * (plan.br * plan.bc * e + plan.bc * k * e) \
+            + stats.nrows * k * e
+        return max(hw.mxu_time(flops), hw.mem_time(nbytes))
+    if plan.kind == "ell":
+        md = max(stats.p99_deg, 1)
+        flops = 2.0 * stats.nrows * md * k
+        nbytes = stats.nrows * md * (4 + k * e) + stats.nrows * k * e
+        return max(hw.vpu_time(flops * hw.sublane), hw.mem_time(nbytes))
+    if plan.kind == "sell":
+        steps = stats.sell_steps(plan.sell_c, plan.sell_sigma)
+        slots = steps * plan.sell_c
+        flops = 2.0 * slots * k
+        nbytes = slots * (4 + k * e) + stats.nrows * k * e
+        return max(hw.vpu_time(flops), hw.mem_time(nbytes))
+    flops = 2.0 * stats.nse * k
+    nbytes = stats.nse * (8 + 2 * k * e) + stats.nrows * k * e
+    return max(hw.vpu_time(flops), hw.mem_time(nbytes))
+
+
+def _vmem_ok(br: int, bc: int, fk: int, hw: HardwareModel,
+             dtype=np.float32) -> bool:
+    """A-tile + H-tile + fp32 accumulator (double-buffered) must fit the
+    on-chip budget (VMEM on a TPU, a block's shared memory on Hopper)."""
+    e = _bytes_of(dtype)
+    need = 2 * (br * bc * e + bc * fk * e) + br * fk * 4
+    return need <= hw.vmem_bytes * 0.8
+
+
+# --------------------------------------------------------------------------
+# The tuner
+# --------------------------------------------------------------------------
+
+def autotune(a, k_hint: int = 128, *, hw: HardwareModel | None = None,
+             measure: bool = False, semiring_reduce: str = "sum",
+             tile_candidates: Sequence[tuple] = _DEFAULT_TILES,
+             sell_candidates: Sequence[tuple] | None = None,
+             stats: GraphStats | None = None) -> KernelPlan:
+    """Pick the kernel variant + tile shape for (graph ``a``, width
+    ``k_hint``) by the analytic roofline sweep. Generated kernels serve
+    only K that is a multiple of ``hw.lane`` and the sum/mean semiring;
+    every other point takes the trusted kernel."""
+    if measure:
+        raise NotImplementedError(
+            "measured tuning is not ported yet: it needs candidates timed "
+            "with CUDA events (ROADMAP.md queue 1)")
+    hw = hw or probe_hardware()
+    stats = stats or graph_stats(a, tile_candidates, sell_candidates)
+
+    trusted = KernelPlan.trusted(k_hint)
+    t_trusted = estimate_plan_time(stats, k_hint, trusted, hw)
+    evaluated: list = [("trusted", t_trusted)]
+
+    lane_aligned = k_hint % hw.lane == 0
+    mxu_semiring = semiring_reduce in ("sum", "mean")
+    if not (lane_aligned and mxu_semiring):
+        plan = dataclasses.replace(trusted, est_trusted_s=t_trusted,
+                                   est_generated_s=float("inf"))
+        _log_sweep(stats, k_hint, semiring_reduce, evaluated, plan,
+                   gated="lane" if not lane_aligned else "semiring")
+        return plan
+
+    best: KernelPlan = dataclasses.replace(
+        trusted, est_trusted_s=t_trusted, est_generated_s=float("inf"))
+    best_t = t_trusted
+
+    fk = min(256, max(128, ((k_hint + 127) // 128) * 128))
+    for br, bc in tile_candidates:
+        if not _vmem_ok(br, bc, fk, hw):
+            continue
+        cand = KernelPlan(kind="bsr", br=br, bc=bc, fk=fk, k_hint=k_hint)
+        t = estimate_plan_time(stats, k_hint, cand, hw)
+        evaluated.append((f"bsr{br}x{bc}", t))
+        if t < best_t:
+            best_t = t
+            best = dataclasses.replace(cand, est_generated_s=t,
+                                       est_trusted_s=t_trusted)
+
+    # ELL candidate: only when padding is bounded (near-regular degree)
+    if stats.max_deg <= max(4 * stats.avg_deg, 8):
+        cand = KernelPlan(kind="ell", k_hint=k_hint)
+        t = estimate_plan_time(stats, k_hint, cand, hw)
+        evaluated.append(("ell", t))
+        if t < best_t:
+            best_t = t
+            best = dataclasses.replace(cand, est_generated_s=t,
+                                       est_trusted_s=t_trusted)
+
+    for c, sigma, _ in stats.sell_counts:
+        cand = KernelPlan(kind="sell", sell_c=c, sell_sigma=sigma,
+                          k_hint=k_hint)
+        t = estimate_plan_time(stats, k_hint, cand, hw)
+        evaluated.append((f"sellc{c}s{sigma}", t))
+        if t < best_t:
+            best_t = t
+            best = dataclasses.replace(cand, est_generated_s=t,
+                                       est_trusted_s=t_trusted)
+
+    _log_sweep(stats, k_hint, semiring_reduce, evaluated, best)
+    return best
+
+
+def _plan_label(plan: KernelPlan) -> str:
+    if plan.kind == "bsr":
+        return f"bsr{plan.br}x{plan.bc}"
+    if plan.kind == "sell":
+        return f"sellc{plan.sell_c}s{plan.sell_sigma}"
+    return plan.kind
+
+
+def _log_sweep(stats: GraphStats, k: int, semiring: str, evaluated: list,
+               winner: KernelPlan, *, gated: str | None = None) -> None:
+    """One ``tuning.sweep`` instant (every candidate's estimate and the
+    pick) when tracing is on; always bumps the sweep counter."""
+    from repro_torch import obs
+    obs.metrics().counter("tuning.sweeps").inc()
+    if not obs.enabled():
+        return
+    attrs = dict(
+        graph=f"{stats.nrows}x{stats.ncols}nse{stats.nse}", k=k,
+        semiring=semiring, winner=_plan_label(winner),
+        candidates=[[name, float(t)] for name, t in evaluated])
+    if gated:
+        attrs["gated"] = gated
+    obs.instant("tuning.sweep", **attrs)
+
+
+# --------------------------------------------------------------------------
+# Tuning DB — persisted tuner decisions
+# --------------------------------------------------------------------------
+
+class TuningDB:
+    """JSON-file store of tuner decisions so repeated runs skip the sweep.
+
+    On-disk format (schema 2): ``{"schema": 2, "plans": {...}}``; legacy
+    flat dicts still load. A corrupt or incompatible-schema file is
+    quarantined to ``<path>.corrupt`` with a warning. The caller names the
+    file: the port reads and writes nothing it was not pointed at."""
+
+    _SCHEMA_VERSION = 2
+
+    def __init__(self, path: str):
+        self.path = str(path)
+        self._db: dict[str, dict] = self._load(self.path)
+
+    @classmethod
+    def _load(cls, path: str) -> dict[str, dict]:
+        if not os.path.exists(path):
+            return {}
+        try:
+            if os.path.getsize(path) == 0:
+                return {}
+            with open(path) as f:
+                raw = json.load(f)
+            if not isinstance(raw, dict):
+                raise ValueError(f"expected a JSON object, got {type(raw)}")
+            if "schema" in raw:
+                if raw["schema"] != cls._SCHEMA_VERSION or \
+                        not isinstance(raw.get("plans"), dict):
+                    raise ValueError(
+                        f"unsupported TuningDB schema {raw.get('schema')!r} "
+                        f"(this build reads {cls._SCHEMA_VERSION})")
+                return raw["plans"]
+            return raw
+        except (json.JSONDecodeError, ValueError, OSError) as exc:
+            quarantine = path + ".corrupt"
+            try:
+                os.replace(path, quarantine)
+                where = f"quarantined to {quarantine}"
+            except OSError:
+                where = "left in place"
+            warnings.warn(
+                f"TuningDB at {path} is unreadable ({exc}); {where}. "
+                f"Starting with an empty DB.")
+            return {}
+
+    def __len__(self) -> int:
+        return len(self._db)
+
+    @staticmethod
+    def key(a, k: int, semiring: str = "sum") -> str:
+        """Structural fingerprint of (graph, K, semiring): sizes plus a CRC
+        over the sorted edge list; sum keys carry no suffix."""
+        import zlib
+        row = _np(a.row)[: a.nse]
+        col = _np(a.col)[: a.nse]
+        order = np.lexsort((col, row))
+        row = np.ascontiguousarray(row[order], np.int32)
+        col = np.ascontiguousarray(col[order], np.int32)
+        fp = zlib.crc32(col.tobytes(), zlib.crc32(row.tobytes()))
+        sfx = "" if semiring == "sum" else f"sr{semiring}"
+        return f"{a.nrows}x{a.ncols}nse{a.nse}fp{fp:08x}k{k}{sfx}"
+
+    def get(self, a, k: int, semiring: str = "sum") -> KernelPlan | None:
+        return self.get_key(self.key(a, k, semiring))
+
+    def put(self, a, k: int, plan: KernelPlan,
+            semiring: str = "sum") -> None:
+        self.put_key(self.key(a, k, semiring), plan)
+
+    def get_key(self, key: str) -> KernelPlan | None:
+        d = self._db.get(key)
+        return KernelPlan.from_json(d) if d else None
+
+    def put_key(self, key: str, plan: KernelPlan) -> None:
+        self._db[key] = plan.to_json()
+
+    def save(self) -> None:
+        """Atomically write the schema-2 envelope (tmp file + rename)."""
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"schema": self._SCHEMA_VERSION, "plans": self._db},
+                      f, indent=1)
+        os.replace(tmp, self.path)

@@ -1,0 +1,104 @@
+"""Device dispatch over the port's kernels.
+
+``ell_spmm`` / ``sell_spmm`` choose by the device of the dense operand and
+by nothing else: a CUDA tensor launches the hand-written kernel (which
+raises if it cannot build or launch), a CPU tensor runs the plain PyTorch
+version, any other device raises. There is no fallback between the two.
+
+``slot_gather`` / ``table_insert`` are the serving feature cache's device
+primitives. The reference writes them as plain array ops, so plain tensor
+indexing is their port.
+
+Profile-ops mode (``repro_torch.obs``): every dispatcher records one
+``op.<name>`` event per call; disabled, the cost is one flag check.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.sparse import ELL, SELL
+from repro_torch.kernels.build import build_kernels, load_kernel
+from repro_torch.kernels.ell_spmm import ell_spmm_cuda, ell_spmm_plain
+from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
+from repro_torch.obs import op_record, op_t0
+
+__all__ = ["ell_spmm", "sell_spmm", "slot_gather", "table_insert",
+           "build_kernels", "load_kernel", "kernel_launches",
+           "reset_kernel_launches"]
+
+_CUDA_WRAPPERS = {"ell_spmm": ell_spmm_cuda, "sell_spmm": sell_spmm_cuda}
+
+
+def _backend(h: torch.Tensor) -> str:
+    if h.device.type == "cuda":
+        return "cuda"
+    if h.device.type == "cpu":
+        return "plain"
+    raise ValueError(f"no SpMM implementation for device {h.device}")
+
+
+def ell_spmm(a: ELL, h: torch.Tensor) -> torch.Tensor:
+    """(a.nrows, K) fp32 = a @ h over the row-padded ELLPACK neighbor
+    lists (sum semiring). Rectangular operands are first-class: ``h`` has
+    ``a.ncols`` rows (a sampled block's source count)."""
+    t0 = op_t0()
+    backend = _backend(h)
+    out = ell_spmm_cuda(a, h) if backend == "cuda" else ell_spmm_plain(a, h)
+    op_record("ell_spmm", out, a.idx, h, t0_ns=t0, backend=backend)
+    return out
+
+
+def sell_spmm(a: SELL, h: torch.Tensor) -> torch.Tensor:
+    """(a.nrows, K) fp32 = a @ h over SELL-C-σ packed slices (sum
+    semiring), rows in original order."""
+    t0 = op_t0()
+    backend = _backend(h)
+    out = sell_spmm_cuda(a, h) if backend == "cuda" else sell_spmm_plain(a, h)
+    op_record("sell_spmm", out, a.idx, h, t0_ns=t0, backend=backend)
+    return out
+
+
+def kernel_launches() -> dict[str, int]:
+    """Launch count of each hand kernel's wrapper since the last reset."""
+    return {name: fn.launches for name, fn in _CUDA_WRAPPERS.items()}
+
+
+def reset_kernel_launches() -> None:
+    for fn in _CUDA_WRAPPERS.values():
+        fn.launches = 0
+
+
+def slot_gather(table: torch.Tensor, slots: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """``out[i] = table[slots[i]]`` where ``slots[i] >= 0`` (a cache hit),
+    else ``rows[i]`` (the staged fallback row). Rows are copied, never
+    recomputed, so a hit is bitwise the row it was filled from. Miss lanes
+    are clamped before the gather so the table read stays in bounds."""
+    t0 = op_t0()
+    safe = slots.clamp(0, max(table.shape[0] - 1, 0)).long()
+    out = torch.where((slots >= 0)[:, None], table[safe], rows)
+    op_record("slot_gather", out, table, slots, rows, t0_ns=t0)
+    return out
+
+
+def table_insert(table: torch.Tensor, slots, rows: torch.Tensor
+                 ) -> torch.Tensor:
+    """``table[slots] = rows``, in place, returning ``table``. The
+    reference donates the old buffer to a functional scatter; a torch
+    tensor is updated in place with ``index_copy_`` instead, which is the
+    same steady-state cost without the donation. ``slots`` is the host
+    slot map's output (numpy or a CPU tensor); negative lanes are the
+    "no insert" lanes and are dropped on the host before the scatter."""
+    t0 = op_t0()
+    slots = np.asarray(slots.cpu() if isinstance(slots, torch.Tensor)
+                       else slots)
+    keep = slots >= 0
+    if not keep.all():
+        rows = rows[torch.from_numpy(keep).to(rows.device)]
+        slots = slots[keep]
+    if slots.size:
+        index = torch.from_numpy(slots.astype(np.int64)).to(table.device)
+        table.index_copy_(0, index, rows.to(table.dtype))
+    op_record("table_insert", table, slots, rows, t0_ns=t0)
+    return table

@@ -1,0 +1,83 @@
+"""GNN layers over sampled blocks (GraphSAGE / GIN), patch-aware.
+
+Functional, like the reference: ``init_*(generator, ...) -> params`` (a
+dict of tensors) and ``*_conv_block(params, pb, h) -> h'``. Parameters
+keep the reference's layout (``x @ w`` with ``w`` of shape (in, out)) and
+its layer-keyed structure (``l0``, ``l1``, ...), so
+:func:`params_from_jax` hands weights across unchanged.
+
+The aggregation resolves through the patch registry (``block_spmm``):
+tuned = the bucket plan's packed ELL/SELL kernel, baseline = the trusted
+segment reduce.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.patch import resolve
+from repro_torch.kernels.ref import take_rows
+
+__all__ = ["init_sage", "init_gin", "sage_conv_block", "gin_conv_block",
+           "params_from_jax"]
+
+
+def _glorot(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Glorot-uniform, drawn on the CPU from ``generator`` (so a seed gives
+    the same weights whatever the device) and then moved."""
+    fan_in, fan_out = shape[0], shape[-1]
+    lim = (6.0 / (fan_in + fan_out)) ** 0.5
+    w = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return (w * (2 * lim) - lim).to(device)
+
+
+def init_sage(generator: torch.Generator, in_dim: int, out_dim: int,
+              device="cuda") -> dict:
+    return {"w_self": _glorot(generator, (in_dim, out_dim), device),
+            "w_neigh": _glorot(generator, (in_dim, out_dim), device),
+            "b": torch.zeros((out_dim,), dtype=torch.float32, device=device)}
+
+
+def init_gin(generator: torch.Generator, in_dim: int, out_dim: int,
+             hidden: int | None = None, device="cuda") -> dict:
+    hidden = hidden or out_dim
+    return {"eps": torch.zeros((), dtype=torch.float32, device=device),
+            "w1": _glorot(generator, (in_dim, hidden), device),
+            "b1": torch.zeros((hidden,), dtype=torch.float32, device=device),
+            "w2": _glorot(generator, (hidden, out_dim), device),
+            "b2": torch.zeros((out_dim,), dtype=torch.float32, device=device)}
+
+
+def params_from_jax(params: dict, device="cuda") -> dict:
+    """The reference's layer-keyed params (``{'l0': {'w_self': ...}}``,
+    leaves handed over as numpy arrays or anything ``np.asarray`` takes)
+    as the port's: the same keys, fp32 tensors on ``device``."""
+    return {layer: {name: torch.from_numpy(
+                        np.array(leaf, dtype=np.float32, copy=True)
+                    ).to(device)
+                    for name, leaf in p.items()}
+            for layer, p in params.items()}
+
+
+def _block_dst(pb, h: torch.Tensor) -> torch.Tensor:
+    """Destination-row view of a block's source features: a ``dst_pos``
+    gather (pad positions read zero rows)."""
+    return take_rows(h, pb.dst_pos)
+
+
+def sage_conv_block(params: dict, pb, h: torch.Tensor,
+                    aggr: str = "mean") -> torch.Tensor:
+    """GraphSAGE over one sampled bipartite block: ``h`` holds the block's
+    source rows; the output has the block's (padded) dst rows."""
+    agg = resolve("block_spmm")(pb, h, aggr)
+    h_dst = _block_dst(pb, h)
+    return h_dst @ params["w_self"] + agg @ params["w_neigh"] + params["b"]
+
+
+def gin_conv_block(params: dict, pb, h: torch.Tensor) -> torch.Tensor:
+    """GIN over one sampled bipartite block (operands as
+    :func:`sage_conv_block`)."""
+    s = resolve("block_spmm")(pb, h, "sum")
+    z = (1.0 + params["eps"]) * _block_dst(pb, h) + s
+    z = torch.relu(z @ params["w1"] + params["b1"])
+    return z @ params["w2"] + params["b2"]
