@@ -29,13 +29,31 @@ failure:
    its bound and ``torch.sparse.mm`` on the same matrix in CSR (timed as a
    yardstick only; the port never calls it). Each output element must
    agree within 2 d eps sum|terms|, d being its row's real slots;
-5. the kernels line (one JSON object), the card line, and last
+6. full-graph training on reddit at scale 1 — GraphSAGE-mean, hidden 256,
+   lr 1e-2, weight decay 5e-4, tuned (the tuner picks SELL; the plan is
+   logged). From the same weights, one step patched and one unpatched
+   must agree (loss within rtol 1e-5, every parameter gradient within
+   1e-4 of its largest element); every SELL operand that step launched
+   (A at K = 602 and 256 forward, the cached A^T at K = 256 backward) is
+   held against the plain version on the step's own inputs with phase
+   4's per-row bound. Then ``train_gnn`` runs patched and unpatched for a
+   few epochs each, launch counts zeroed just before the patched run and
+   read just after it (split into forward on A and backward on A^T); the
+   unpatched run must launch no kernel;
+7. the same on ogbn-proteins, cut to scale 1/4 for device memory (four
+   128 x 128 BSR operands of ~4 GB each: A, A^T, Â, Â^T), GCN, hidden
+   256, with the plan pinned to BSR 128 x 128 through
+   ``build_bundle(plan=...)`` (the tuner's own pick is logged): BSR on Â
+   at K = 256 and 112 forward and on the cached Â^T backward;
+5. last, the kernels line (one JSON object: the serving kernels as timed
+   in phase 4, BSR as timed in phase 7), the card line, and
    ``{"ok": true, "device": {...}}``.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -62,7 +80,15 @@ KERNEL_META = {
                      replaces="src/repro/kernels/ell_spmm.py:42"),
     "sell_spmm": dict(source="src/repro_torch/csrc/sell_spmm.cu",
                       replaces="src/repro/kernels/sell_spmm.py:50"),
+    "bsr_spmm": dict(source="src/repro_torch/csrc/bsr_spmm.cu",
+                     replaces="src/repro/kernels/bsr_spmm.py:53"),
 }
+SERVE_KERNELS = ("ell_spmm", "sell_spmm")   # what serving launches
+TRAIN_EPOCHS, TRAIN_LR, TRAIN_WD = 5, 1e-2, 5e-4
+LOSS_RTOL = 1e-5        # patched vs unpatched first-step loss, fp32
+GRAD_TOL = 1e-4         # max |diff| / max |unpatched| of each gradient
+PROTEINS_SCALE = 1 / 4  # device memory: four ~4 GB BSR operands
+TF32_FLOPS = 495e12     # H100 SXM dense TF32 tensor-core peak
 
 
 def log(*args):
@@ -169,24 +195,51 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_us(fn, reps: int):
-    """Device time (µs) of the kernels ``reps`` calls of ``fn`` run, by
-    kernel name, from a ``torch.profiler`` trace (CUPTI)."""
+def profiled(fn, reps: int = 1):
+    """Device-side µs by name of ``reps`` calls of ``fn``, and their wall
+    seconds, from a ``torch.profiler`` trace (CUPTI). A trace misses the
+    device work of its first tens of milliseconds (on the H100 machine it
+    lost 15–35 ms of kernels, a whole 12 ms SpMM among them), so one
+    traced warm-up call runs first and is discarded, and the measured
+    window opens with a quarter second in which nothing is launched."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    got = {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: got.setdefault(
+                     "events", p.key_averages())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.25)
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return kernel_times(prof)
+        wall = time.perf_counter() - t0
+        prof.step()
+    return kernel_times(got["events"]), wall
 
 
-def kernel_times(prof) -> dict:
-    """{name: self device µs} of every entry with device time."""
+def device_us(fn, reps: int):
+    """Device time (µs) of the kernels ``reps`` calls of ``fn`` run, by
+    kernel name."""
+    return profiled(fn, reps)[0]
+
+
+def kernel_times(events) -> dict:
+    """{name: self device µs} of every device-side entry (kernels, copies,
+    memsets) of a profiler's key averages. Host-side ops and the
+    ``ProfilerStep`` annotation are skipped: their device time repeats
+    that of the kernels inside them."""
+    from torch.autograd import DeviceType
     out = {}
-    for e in prof.key_averages():
+    for e in events:
+        if getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CUDA \
+                or e.key.startswith("ProfilerStep"):
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
@@ -197,11 +250,12 @@ def kernel_times(prof) -> dict:
 
 def kernel_fns(name):
     """(hand kernel, plain version) of ``name``."""
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, bsr_spmm_plain
     from repro_torch.kernels.ell_spmm import ell_spmm_cuda, ell_spmm_plain
     from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
-    if name == "ell_spmm":
-        return ell_spmm_cuda, ell_spmm_plain
-    return sell_spmm_cuda, sell_spmm_plain
+    return {"ell_spmm": (ell_spmm_cuda, ell_spmm_plain),
+            "sell_spmm": (sell_spmm_cuda, sell_spmm_plain),
+            "bsr_spmm": (bsr_spmm_cuda, bsr_spmm_plain)}[name]
 
 
 def operand(pb):
@@ -212,8 +266,15 @@ def operand(pb):
 
 def real_slots_per_row(name, a):
     """Per output row (original order), the slots holding a real edge
-    (``idx < ncols``); sentinel slots add no term and so no rounding."""
+    (``idx < ncols``; for BSR the nonzero tile entries): sentinel slots
+    and zero entries add no term and so no rounding."""
     import torch
+    if name == "bsr_spmm":
+        nz = (a.blocks != 0).sum(dim=2, dtype=torch.int32)
+        per = torch.zeros((a.n_block_rows, a.br), dtype=torch.int32,
+                          device=nz.device)
+        per.index_add_(0, a.blk_row.long(), nz)
+        return per.reshape(-1)
     real = (a.idx < a.ncols).to(torch.int32)
     if name == "ell_spmm":
         return real.sum(1)
@@ -233,7 +294,9 @@ def check_kernel(name, a, h, tag):
     kernel, plain = kernel_fns(name)
     out = kernel(a, h)
     want = plain(a, h)
-    mag = plain(dataclasses.replace(a, val=a.val.abs()), h.abs())
+    mag = plain(dataclasses.replace(a, blocks=a.blocks.abs())
+                if name == "bsr_spmm" else
+                dataclasses.replace(a, val=a.val.abs()), h.abs())
     d = real_slots_per_row(name, a)
     err = (out - want).abs()
     bound = 2 * EPS32 * d.to(torch.float32)[:, None] * mag + 1e-30
@@ -330,14 +393,7 @@ def span_breakdown(spans, n_flushes: int) -> dict:
 def device_busy(srv, reqs) -> dict:
     """Share of a serving window in which the card runs kernels or copies:
     Σ device time in a ``torch.profiler`` trace over the window's wall."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        window = closed_loop(srv, reqs, CLIENTS)
-        torch.cuda.synchronize()
-    times = kernel_times(prof)
+    times, window = profiled(lambda: closed_loop(srv, reqs, CLIENTS))
     top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
     return dict(window_s=window, requests=len(reqs),
                 device_s=sum(times.values()) / 1e6,
@@ -359,6 +415,238 @@ def pinned_plans_db(path, kind: str):
                                           "mean"), plan)
     db.save()
     return db
+
+
+# -- full-graph training (phases 6 and 7) --------------------------------
+
+def operand_ptr(a) -> int:
+    """Storage of a packed operand (its tiles or its slot table): a
+    CachedGraph moved to the card keeps it, whatever wraps it."""
+    return (a.blocks if hasattr(a, "blocks") else a.idx).data_ptr()
+
+
+@contextlib.contextmanager
+def record_spmm(keep_inputs: bool):
+    """Record every ``sell_spmm`` / ``bsr_spmm`` dispatch the training path
+    makes (kernel name, operand, K and, with ``keep_inputs``, a copy of
+    h). The dispatchers and their launch counts are unchanged."""
+    from repro_torch.kernels import ops as kops
+    calls: list = []
+    saved = {n: getattr(kops, n) for n in ("sell_spmm", "bsr_spmm")}
+
+    def wrap(name, fn):
+        def recorded(a, h):
+            calls.append(dict(name=name, a=a, k=h.shape[1],
+                              ptr=operand_ptr(a),
+                              h=h.detach().clone() if keep_inputs else None))
+            return fn(a, h)
+        return recorded
+    for name, fn in saved.items():
+        setattr(kops, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(kops, name, fn)
+
+
+def device_csr(coo):
+    """``coo`` as a CSR tensor on the card, for ``torch.sparse.mm`` (a
+    yardstick the port never calls). Rows are sorted already."""
+    import torch
+    n = coo.nse
+    row = coo.row[:n].long()
+    crow = torch.zeros(coo.nrows + 1, dtype=torch.int64, device=row.device)
+    crow[1:] = torch.cumsum(torch.bincount(row, minlength=coo.nrows), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # "sparse CSR is in beta"
+        return torch.sparse_csr_tensor(crow, coo.col[:n].long(),
+                                       coo.val[:n].float(),
+                                       size=(coo.nrows, coo.ncols))
+
+
+def time_full(name, a, coo, k, tag, gen) -> dict:
+    """Check a whole-graph operand's kernel against its plain version on a
+    random h, then time both, the kernel's device time and
+    ``torch.sparse.mm`` on ``coo`` (the same matrix) in CSR. The bound
+    counts each input byte once: the stored tiles (BSR) or real edges'
+    (index, value) pairs, each h row the operand reads, each output row;
+    operations are 2 K per edge (gather) or per tile entry (BSR)."""
+    import torch
+    from repro_torch.core.autotune import H100
+    kernel, plain = kernel_fns(name)
+    h = random_h(coo.ncols, k, gen)
+    err, width, ratio = check_kernel(name, a, h, tag)
+    csr = device_csr(coo)
+    lib_err = float((torch.sparse.mm(csr, h)
+                     - plain(a, h)[: coo.nrows]).abs().max())
+    reps = 10
+    by_kernel = device_us(lambda: kernel(a, h), reps=reps)
+    kernel_us = sum(us for key, us in by_kernel.items()
+                    if f"{name}_kernel" in key)
+    n_rows_out = coo.nrows
+    if name == "bsr_spmm":
+        src_rows = min(int(torch.unique(a.blk_col).numel()) * a.bc, coo.ncols)
+        nbytes = a.nblocks * (a.br * a.bc * 4 + 8)
+        flops = 2.0 * a.nblocks * a.br * a.bc * k
+    else:
+        src_rows = int(torch.unique(coo.col[: coo.nse]).numel())
+        nbytes = coo.nse * 8
+        flops = 2.0 * coo.nse * k
+    nbytes += src_rows * k * 4 + n_rows_out * k * 4
+    t_bytes, t_ops = H100.mem_time(nbytes), H100.vpu_time(flops)
+    case = dict(
+        name=name, tag=tag, k=k, n_dst=coo.nrows, n_src=coo.ncols,
+        nnz=coo.nse, width=width, max_abs_err=err, max_err_over_bound=ratio,
+        ms=cuda_ms(lambda: kernel(a, h), reps=reps),
+        device_ms=kernel_us / reps / 1e3 if kernel_us else None,
+        plain_ms=cuda_ms(lambda: plain(a, h), reps=3, warmup=1),
+        library_ms=cuda_ms(lambda: torch.sparse.mm(csr, h), reps=reps),
+        library_max_abs_diff=lib_err,
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, flops=flops)
+    if name == "bsr_spmm":
+        case.update(tiles=a.nblocks, tile=f"{a.br}x{a.bc}",
+                    bound_tc_ms=max(t_bytes, flops / TF32_FLOPS) * 1e3)
+    del csr
+    return case
+
+
+def step_profile(fn) -> dict:
+    """Device busy share and the device time by kernel of one call of
+    ``fn`` (a training step) from a ``torch.profiler`` trace."""
+    times, wall = profiled(fn)
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])
+    return dict(wall_s=wall, device_s=sum(times.values()) / 1e6,
+                busy_share=sum(times.values()) / 1e6 / wall,
+                top=[[key[:60], round(us / 1e3, 3)] for key, us in ranked[:6]],
+                device_ms={key[:90]: us / 1e3 for key, us in ranked})
+
+
+def train_phase(tag, ds, arch, bundle, kernel) -> dict:
+    """Phases 6 and 7 on a device ``bundle``: the first step patched
+    against unpatched from the same weights, every operand that step
+    launched against the plain version, then ``train_gnn`` patched (the
+    main path, launch counts zeroed just before and read just after) and
+    unpatched. Raises on any disagreement."""
+    import torch
+    from repro_torch.core.patch import patched
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.gnn import make_gnn
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train.gnn import loss_and_grads, train_gnn
+
+    g = bundle.tuned_norm if arch == "gcn" else bundle.tuned
+    fmt = "bsr" if kernel == "bsr_spmm" else "sell"
+    way = {operand_ptr(getattr(g, fmt)): "fwd", operand_ptr(
+        getattr(g, fmt + "_t")): "bwd"}
+    init, apply = make_gnn(arch, ds.num_features, HIDDEN, ds.num_classes)
+    params = init(torch.Generator().manual_seed(0), device=DEVICE)
+    x, y, m = (t.to(DEVICE) for t in (ds.x, ds.y, ds.train_mask))
+
+    # (a) one step from the same weights, patched against unpatched
+    with record_spmm(keep_inputs=True) as calls, patched(True):
+        loss_t, g_t = loss_and_grads(apply, params, bundle, x, y, m)
+    with patched(False):
+        loss_b, g_b = loss_and_grads(apply, params, bundle, x, y, m)
+    torch.cuda.synchronize()
+    if abs(float(loss_t) - float(loss_b)) > LOSS_RTOL * abs(float(loss_b)):
+        raise AssertionError(f"{tag}: first-step loss {float(loss_t)} "
+                             f"patched vs {float(loss_b)} unpatched")
+    grad_err = {}
+
+    def compare(name):
+        def check(a, b):
+            rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            grad_err[f"{name}.{len(grad_err)}"] = rel
+            if not rel <= GRAD_TOL or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{tag}: gradient {name} differs, "
+                                     f"{rel:.3e} of its max")
+        return check
+    for layer in g_t:
+        tree_map(compare(layer), g_t[layer], g_b[layer])
+    log(f"{tag}: first step loss {float(loss_t):.6f} patched, "
+        f"{float(loss_b):.6f} unpatched; gradients agree to "
+        f"{max(grad_err.values()):.2e} of their max (tolerance {GRAD_TOL})")
+
+    # (b) every operand that step launched, on its own inputs
+    operand_checks = []
+    for c in calls:
+        err, _, ratio = check_kernel(c["name"], c["a"], c["h"],
+                                     f"{tag} {way[c['ptr']]} k{c['k']}")
+        operand_checks.append(dict(kernel=c["name"], way=way[c["ptr"]],
+                                   k=c["k"], max_abs_err=err,
+                                   max_err_over_bound=ratio))
+    del calls
+    ways = sorted((o["way"], o["k"]) for o in operand_checks)
+    log(f"{tag}: {len(operand_checks)} operands held against the plain "
+        f"version {ways}, worst err/bound "
+        f"{max(o['max_err_over_bound'] for o in operand_checks):.3f}")
+    with patched(True):
+        prof_t = step_profile(lambda: loss_and_grads(apply, params, bundle,
+                                                     x, y, m))
+    with patched(False):
+        prof_b = step_profile(lambda: loss_and_grads(apply, params, bundle,
+                                                     x, y, m))
+
+    # (c) the main path: train_gnn patched, counts read around it
+    kops.reset_kernel_launches()
+    with record_spmm(keep_inputs=False) as calls:
+        res_t = train_gnn(arch, ds, hidden=HIDDEN, epochs=TRAIN_EPOCHS,
+                          lr=TRAIN_LR, weight_decay=TRAIN_WD, bundle=bundle,
+                          params=params, use_isplib=True, device=DEVICE)
+    launches = kops.kernel_launches()
+    split = {w: sum(1 for c in calls if c["name"] == kernel
+                    and way.get(c["ptr"]) == w) for w in ("fwd", "bwd")}
+    if launches[kernel] == 0 or split["fwd"] == 0 or split["bwd"] == 0 or \
+            launches[kernel] != len(calls):
+        raise AssertionError(f"{tag}: {kernel} launches {launches}, "
+                             f"dispatches {len(calls)}, split {split}")
+    del calls
+    kops.reset_kernel_launches()
+    res_b = train_gnn(arch, ds, hidden=HIDDEN, epochs=TRAIN_EPOCHS,
+                      lr=TRAIN_LR, weight_decay=TRAIN_WD, bundle=bundle,
+                      params=params, use_isplib=False, device=DEVICE)
+    if any(kops.kernel_launches().values()):
+        raise AssertionError(f"{tag}: the unpatched run launched "
+                             f"{kops.kernel_launches()}")
+    for res in (res_t, res_b):
+        if len(res.losses) != TRAIN_EPOCHS or \
+                not np.isfinite(res.losses).all():
+            raise AssertionError(f"{tag}: losses {res.losses}")
+    log(f"{tag}: epoch {res_t.epoch_time_s * 1e3:.2f} ms tuned vs "
+        f"{res_b.epoch_time_s * 1e3:.2f} ms baseline "
+        f"({res_b.epoch_time_s / res_t.epoch_time_s:.2f}x); first epoch "
+        f"{res_t.first_epoch_s:.2f} / {res_b.first_epoch_s:.2f} s")
+    log(f"{tag}: losses tuned {[round(v, 5) for v in res_t.losses]}, "
+        f"baseline {[round(v, 5) for v in res_b.losses]}; accuracy train "
+        f"{res_t.train_acc:.4f} / {res_b.train_acc:.4f}, test "
+        f"{res_t.test_acc:.4f} / {res_b.test_acc:.4f} (tuned / baseline)")
+    mat = "Â" if arch == "gcn" else "A"
+    log(f"{tag}: {kernel} launches {launches[kernel]} over "
+        f"{TRAIN_EPOCHS} epochs + eval: forward on {mat} {split['fwd']}, "
+        f"backward on the cached {mat}^T {split['bwd']}")
+    own_ms = sum(ms for key, ms in prof_t["device_ms"].items()
+                 if f"{kernel}_kernel" in key)
+    log(f"{tag}: one step, device busy {prof_t['busy_share']:.3f} tuned "
+        f"({prof_t['device_s'] * 1e3:.2f} ms of device time in "
+        f"{prof_t['wall_s'] * 1e3:.2f} ms, {own_ms:.2f} ms of it in "
+        f"{kernel}; top {prof_t['top'][:3]}), {prof_b['busy_share']:.3f} "
+        f"baseline ({prof_b['device_s'] * 1e3:.2f} ms in "
+        f"{prof_b['wall_s'] * 1e3:.2f} ms; top {prof_b['top'][:3]})")
+    return dict(arch=arch, hidden=HIDDEN, epochs=TRAIN_EPOCHS, lr=TRAIN_LR,
+                weight_decay=TRAIN_WD, plan=g.plan.to_json(),
+                first_step=dict(loss_patched=float(loss_t),
+                                loss_unpatched=float(loss_b),
+                                grad_err_over_max=grad_err),
+                operand_checks=operand_checks, launches=launches[kernel],
+                launches_fwd=split["fwd"], launches_bwd=split["bwd"],
+                tuned={k: v for k, v in dataclasses.asdict(res_t).items()},
+                baseline={k: v for k, v in
+                          dataclasses.asdict(res_b).items()},
+                speedup=res_b.epoch_time_s / res_t.epoch_time_s,
+                step_profile=dict(tuned=prof_t, baseline=prof_b))
 
 
 def main() -> int:
@@ -427,7 +715,7 @@ def main() -> int:
         warm = kops.kernel_launches()
         log(f"warm-up volley: plans {srv.plan_cache.kinds()}, "
             f"launches {warm}")
-        missing = [n for n, c in warm.items() if c == 0]
+        missing = [n for n in SERVE_KERNELS if warm[n] == 0]
         if missing:
             # the tuner left a kernel unlaunched: pin layer 1 to it
             assert len(missing) == 1, warm
@@ -474,8 +762,8 @@ def main() -> int:
     log(f"  device busy share {busy['busy_share']:.4f} over a "
         f"{busy['window_s']:.3f} s window ({busy['requests']} requests); "
         f"top kernels {busy['top']}")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the serving "
                                  f"path ({launches})")
 
@@ -536,8 +824,9 @@ def main() -> int:
               "full": check_served(fsrv.records, dims, gen)}
     for mode, counts in (("sampled", launches), ("full", full_launches)):
         checked = {n: served[mode].get(n, {}).get("operands", 0)
-                   for n in KERNELS}
-        if checked != counts:
+                   for n in SERVE_KERNELS}
+        if checked != {n: counts[n] for n in SERVE_KERNELS} or \
+                counts["bsr_spmm"]:
             raise AssertionError(f"{mode}: operands checked {checked} are "
                                  f"not the launches {counts}")
         log(f"served {mode} operands held against the plain versions: "
@@ -557,7 +846,7 @@ def main() -> int:
     # (b) per kernel, the largest block of the sampled run that launched it,
     # timed as served: the kernels line reports these
     main_cases = {}
-    for name in KERNELS:
+    for name in SERVE_KERNELS:
         layer, pb = max(((l, pb) for r in sampled_records
                          for l, pb in enumerate(r["pbs"])
                          if operand(pb)[0] == name
@@ -595,11 +884,91 @@ def main() -> int:
                 del pb
     report["cases"] = cases
 
+    # -- phase 6: full-graph training on reddit at scale 1 -------------------
+    from repro_torch.core.autotune import autotune
+    from repro_torch.models.gnn import build_bundle
+    t0 = time.perf_counter()
+    bundle = build_bundle(ds, k_hint=HIDDEN).to(DEVICE)
+    plan = bundle.tuned.plan
+    log(f"reddit: bundle built in {time.perf_counter() - t0:.1f} s; tuned "
+        f"plan {plan.kind} (C={plan.sell_c}, sigma={plan.sell_sigma}) at "
+        f"K={HIDDEN}, predicted {plan.predicted_speedup:.2f}x over trusted; "
+        f"max degree {int(bundle.tuned.degrees.max())} in A, "
+        f"{int(bundle.tuned.degrees_t.max())} in A^T")
+    train_pinned = plan.kind != "sell"
+    if train_pinned:
+        # the tuner left SELL off this path: pin it, as phase 2 pins ELL
+        bundle = build_bundle(ds, k_hint=HIDDEN, plan=KernelPlan(
+            kind="sell", sell_c=8, k_hint=HIDDEN)).to(DEVICE)
+        log("reddit: pinned the plan to SELL C=8")
+    reddit = train_phase("reddit", ds, ARCH, bundle, "sell_spmm")
+    reddit["pinned"] = train_pinned
+    reddit["cases"] = []
+    g = bundle.tuned
+    for a, coo, k, tag in ((g.sell, g.coo, ds.num_features, "A"),
+                           (g.sell, g.coo, HIDDEN, "A"),
+                           (g.sell_t, g.coo_t, HIDDEN, "A^T")):
+        reddit["cases"].append(time_full("sell_spmm", a, coo, k,
+                                         f"reddit/{tag}/k{k}", gen))
+        log_case(reddit["cases"][-1])
+    report["train_reddit"] = reddit
+    del bundle, g, a, coo
+    torch.cuda.empty_cache()
+
+    # -- phase 7: full-graph training on ogbn-proteins, BSR pinned -----------
+    t0 = time.perf_counter()
+    pds = make_dataset("ogbn-proteins", scale=PROTEINS_SCALE)
+    cut = (f"ogbn-proteins at scale 1/{round(1 / PROTEINS_SCALE)} "
+           f"({pds.num_nodes} nodes, {pds.coo.nse} edges): four 128x128 BSR "
+           f"operands (A, A^T, Â, Â^T) must fit the card's memory")
+    log(f"cut: {cut}")
+    would = autotune(sp.gcn_normalize(pds.coo), HIDDEN)
+    log(f"proteins: the tuner would pick {would.kind} "
+        f"(br={would.br}, bc={would.bc}, C={would.sell_c}) for Â at "
+        f"K={HIDDEN}; pinned to bsr 128x128")
+    bsr_plan = KernelPlan(kind="bsr", br=128, bc=128, fk=64, k_hint=HIDDEN)
+    bundle = build_bundle(pds, k_hint=HIDDEN, plan=bsr_plan).to(DEVICE)
+    g = bundle.tuned_norm
+    log(f"proteins: {pds.num_nodes} nodes, {pds.coo.nse} edges, "
+        f"{pds.num_features} features, {pds.num_classes} classes; Â has "
+        f"{g.bsr.nblocks} tiles of 128x128 ({g.bsr.density:.4f} of all), "
+        f"built and moved in {time.perf_counter() - t0:.1f} s")
+    proteins = train_phase("proteins", pds, "gcn", bundle, "bsr_spmm")
+    proteins.update(cut=cut, pinned=True, tuner_pick=would.to_json(),
+                    tiles=g.bsr.nblocks, cases=[])
+    for a, coo, k, tag in ((g.bsr, g.coo, HIDDEN, "Â"),
+                           (g.bsr, g.coo, pds.num_classes, "Â"),
+                           (g.bsr_t, g.coo_t, HIDDEN, "Â^T")):
+        proteins["cases"].append(time_full("bsr_spmm", a, coo, k,
+                                           f"proteins/{tag}/k{k}", gen))
+        log_case(proteins["cases"][-1])
+        log(f"    tensor-core (TF32) bound "
+            f"{proteins['cases'][-1]['bound_tc_ms']:.4f} ms")
+    report["train_proteins"] = proteins
+    del bundle, g, a, coo
+    torch.cuda.empty_cache()
+
     # -- phase 5: the kernels line ------------------------------------------
     kernels = []
     for name in KERNELS:
+        if name == "bsr_spmm":
+            rep = proteins["cases"][0]
+            kernels.append(dict(
+                name=name, route="cuda", **KERNEL_META[name],
+                launches=proteins["launches"],
+                max_abs_err=max([c["max_abs_err"]
+                                 for c in proteins["cases"]] +
+                                [o["max_abs_err"]
+                                 for o in proteins["operand_checks"]]),
+                ms=rep["ms"], device_ms=rep["device_ms"],
+                plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+                bound_by=rep["bound_by"], bound_tc_ms=rep["bound_tc_ms"],
+                library_ms=rep["library_ms"], shape=rep["tag"],
+                launches_fwd=proteins["launches_fwd"],
+                launches_bwd=proteins["launches_bwd"], pinned=True))
+            continue
         rep = main_cases[name]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", **KERNEL_META[name],
             launches=launches[name],
             max_abs_err=max([c["max_abs_err"] for c in cases
@@ -610,7 +979,16 @@ def main() -> int:
             plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
             library_ms=rep["library_ms"], shape=rep["tag"],
-            launches_full=full_launches[name], pinned=pinned[name]))
+            launches_full=full_launches[name], pinned=pinned[name])
+        if name == "sell_spmm":
+            entry["max_abs_err"] = max(
+                [entry["max_abs_err"]] +
+                [c["max_abs_err"] for c in reddit["cases"]] +
+                [o["max_abs_err"] for o in reddit["operand_checks"]])
+            entry.update(launches_train=reddit["launches"],
+                         launches_train_fwd=reddit["launches_fwd"],
+                         launches_train_bwd=reddit["launches_bwd"])
+        kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1,

@@ -6,6 +6,8 @@ kernels become CUDA kernels written by hand for Hopper (``csrc/``), each
 with a plain PyTorch version beside it; entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.
 
-This slice covers online serving (``repro_torch.serving.GNNServer``, modes
-``sampled`` and ``full``) through the ELL and SELL SpMM kernels.
+Ported so far: online serving (``repro_torch.serving.GNNServer``, modes
+``sampled`` and ``full``) through the ELL and SELL SpMM kernels, and
+full-graph training through ``patch()`` (``repro_torch.train.gnn.train_gnn``)
+with cache-enabled backpropagation over the SELL, ELL and BSR kernels.
 """

@@ -1,21 +1,26 @@
-"""repro_torch.core: sparse formats, semirings, the autotuner and the
-patch registry of the PyTorch port.
+"""repro_torch.core: sparse formats, semirings, the autotuner, the cached
+graph, and the patch registry of the PyTorch port (the differentiable
+SpMM is ``repro_torch.core.spmm.spmm``).
 
 Functions named like their submodule (``patch``, ``autotune``) are
 imported from that module (``from repro_torch.core.patch import
 patched``): this package rebinds no submodule name.
 """
-from repro_torch.core.sparse import (COO, CSR, ELL, SELL, coo_from_edges,
-                                     csr_from_coo, ell_from_coo,
-                                     sell_from_coo, sell_slice_degrees,
-                                     to_device)
+from repro_torch.core.sparse import (BSR, COO, CSR, ELL, SELL,
+                                     bsr_from_coo, coo_from_edges,
+                                     coo_transpose, csr_from_coo,
+                                     ell_from_coo, gcn_normalize,
+                                     row_degrees, sell_from_coo,
+                                     sell_slice_degrees, to_device)
 from repro_torch.core.semiring import Semiring, get_semiring
 from repro_torch.core.autotune import (H100, HardwareModel, KernelPlan,
                                        TuningDB, probe_hardware)
+from repro_torch.core.cache import CachedGraph, build_cached_graph
 
 __all__ = [
-    "COO", "CSR", "ELL", "SELL", "coo_from_edges", "csr_from_coo",
-    "ell_from_coo", "sell_from_coo", "sell_slice_degrees", "to_device",
+    "COO", "CSR", "BSR", "ELL", "SELL", "coo_from_edges", "csr_from_coo",
+    "bsr_from_coo", "ell_from_coo", "sell_from_coo", "sell_slice_degrees",
+    "to_device", "coo_transpose", "row_degrees", "gcn_normalize",
     "Semiring", "get_semiring", "H100", "HardwareModel", "KernelPlan",
-    "TuningDB", "probe_hardware",
+    "TuningDB", "probe_hardware", "CachedGraph", "build_cached_graph",
 ]

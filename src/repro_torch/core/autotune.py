@@ -13,6 +13,11 @@ hardware model:
   ``sublane = 1`` (no (1, K)-tile penalty for ELL: a warp per row uses
   all of its lanes), and ``vmem_bytes`` = the shared-memory budget of a
   block for the tile check.
+* The BSR tile check charges the kernel of the target: on the TPU model
+  the Pallas kernel's double-buffered VMEM tiles at ``fk`` = K rounded to
+  lanes (as the reference); on Hopper what ``csrc/bsr_spmm.cu`` holds in
+  shared memory at its own K tile (``kernels.bsr_spmm.smem_bytes``),
+  which is also the plan's ``fk``.
 * ``measure=True`` raises ``NotImplementedError`` until candidates are
   timed with CUDA events.
 
@@ -293,11 +298,28 @@ def estimate_plan_time(stats: GraphStats, k: int, plan: KernelPlan,
 
 def _vmem_ok(br: int, bc: int, fk: int, hw: HardwareModel,
              dtype=np.float32) -> bool:
-    """A-tile + H-tile + fp32 accumulator (double-buffered) must fit the
-    on-chip budget (VMEM on a TPU, a block's shared memory on Hopper)."""
+    """TPU rule: A-tile + H-tile (double-buffered) + fp32 accumulator must
+    fit the VMEM budget."""
     e = _bytes_of(dtype)
     need = 2 * (br * bc * e + bc * fk * e) + br * fk * 4
     return need <= hw.vmem_bytes * 0.8
+
+
+def _bsr_k_tile(br: int, bc: int, k_hint: int,
+                hw: HardwareModel) -> int | None:
+    """The BSR kernel's K tile for a (br x bc) candidate on ``hw``, or None
+    when the kernel cannot take that tile. On Hopper the hand kernel has a
+    fixed K tile and holds ``smem_bytes(br)`` of shared memory (its fp32
+    accumulator is in registers), built for ``TILE_ROWS`` and any ``bc``
+    that is a multiple of its staging depth; the TPU model keeps the
+    reference's rule."""
+    if hw.name == H100.name:
+        from repro_torch.kernels import bsr_spmm as kb
+        fits = (br in kb.TILE_ROWS and bc % kb.DEPTH == 0
+                and kb.smem_bytes(br) <= hw.vmem_bytes)
+        return kb.K_TILE if fits else None
+    fk = min(256, max(128, ((k_hint + 127) // 128) * 128))
+    return fk if _vmem_ok(br, bc, fk, hw) else None
 
 
 # --------------------------------------------------------------------------
@@ -337,9 +359,9 @@ def autotune(a, k_hint: int = 128, *, hw: HardwareModel | None = None,
         trusted, est_trusted_s=t_trusted, est_generated_s=float("inf"))
     best_t = t_trusted
 
-    fk = min(256, max(128, ((k_hint + 127) // 128) * 128))
     for br, bc in tile_candidates:
-        if not _vmem_ok(br, bc, fk, hw):
+        fk = _bsr_k_tile(br, bc, k_hint, hw)
+        if fk is None:
             continue
         cand = KernelPlan(kind="bsr", br=br, bc=bc, fk=fk, k_hint=k_hint)
         t = estimate_plan_time(stats, k_hint, cand, hw)

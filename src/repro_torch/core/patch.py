@@ -3,8 +3,11 @@
 Model code routes its aggregation through ``resolve(name)``; ``patch()``
 binds every registered op to its tuned implementation (plan-routed hand
 kernels), ``unpatch()`` to its baseline (the trusted reduce), and
-``patched()`` is the context-manager form. In this slice only
-``block_spmm`` is registered (by :mod:`repro_torch.sampling`).
+``patched()`` is the context-manager form. Registered ops: ``spmm``
+(tuned = :func:`repro_torch.core.spmm.spmm` over a CachedGraph, baseline
+= :func:`repro_torch.core.baselines.spmm_uncached`; registered at the
+first ``resolve``) and ``block_spmm`` (by :mod:`repro_torch.sampling`).
+``fusedmm`` comes with the ``gat`` architecture (ROADMAP.md queue 1).
 
 Profile mode (``repro_torch.obs``): with op profiling on, ``resolve``
 hands back a recording wrapper that logs the op, operand shapes and
@@ -60,6 +63,7 @@ def patched(enable: bool = True):
 def resolve(name: str) -> Callable:
     """The binding model code calls: tuned when patched, else baseline
     (whichever exists if only one was registered)."""
+    _ensure_defaults()
     table = _TUNED if _ACTIVE else _BASELINE
     variant = "tuned" if _ACTIVE else "baseline"
     if name not in table:
@@ -85,3 +89,22 @@ def _profiled_binding(name: str, variant: str, fn: Callable) -> Callable:
         op_record(name, out, *args, t0_ns=t0, variant=variant)
         return out
     return recorded
+
+
+# --------------------------------------------------------------------------
+# Default registrations: baseline = uncached/untuned PyTorch-equivalent,
+# tuned = the CachedGraph-aware iSpLib path. Layers call resolve('spmm').
+# --------------------------------------------------------------------------
+
+def _register_defaults() -> None:
+    from repro_torch.core import baselines
+    from repro_torch.core.spmm import spmm as tuned_spmm
+
+    register_tuned("spmm", tuned_spmm)
+    register_baseline("spmm", baselines.spmm_uncached)
+
+
+# deferred: core.spmm imports the kernels, which import core
+def _ensure_defaults() -> None:
+    if "spmm" not in _TUNED:
+        _register_defaults()

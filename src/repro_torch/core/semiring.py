@@ -61,14 +61,19 @@ class Semiring:
 
     def reduce_into(self, out: torch.Tensor, data: torch.Tensor,
                     segment_ids: torch.Tensor) -> torch.Tensor:
-        """The trusted reduce: ``out[segment_ids[i]] ⊕= data[i]`` in place,
-        returning ``out``. Start ``out`` at :attr:`identity`; empty max/min
-        rows keep the ±inf identity until :meth:`finalize`."""
+        """The trusted reduce: ``out[segment_ids[i]] ⊕= data[i]``, returning
+        the result. Start ``out`` at :attr:`identity`; empty max/min rows
+        keep the ±inf identity until :meth:`finalize`. In place, except a
+        max/min that autograd records: the backward of each scatter reads
+        its own result, so chained chunks must not overwrite it."""
         ids = segment_ids.long()
         if self.reduce in ("sum", "mean"):
             return out.index_add_(0, ids, data)
         ids = ids.view(-1, *([1] * (data.dim() - 1))).expand_as(data)
         how = "amax" if self.reduce == "max" else "amin"
+        if torch.is_grad_enabled() and (data.requires_grad
+                                        or out.requires_grad):
+            return out.scatter_reduce(0, ids, data, how, include_self=True)
         return out.scatter_reduce_(0, ids, data, how, include_self=True)
 
     def finalize(self, out: torch.Tensor, degrees=None) -> torch.Tensor:

@@ -11,6 +11,8 @@ Formats
 COO   : canonical triplet form; the trusted (``index_add_`` /
         ``scatter_reduce``) reduce and every reference consume this.
 CSR   : indptr/indices/val plus the cached expanded ``row_ids``.
+BSR   : block-sparse rows of dense Br x Bc tiles — the tiled ("generated")
+        kernel format for full-graph training.
 ELL   : ELLPACK (row-padded neighbor lists) — the gather kernel format for
         fanout-capped sampled blocks.
 SELL  : SELL-C-σ (sliced ELLPACK) — rows sorted by degree within windows
@@ -20,7 +22,12 @@ SELL  : SELL-C-σ (sliced ELLPACK) — rows sorted by degree within windows
 Conventions match the reference package exactly (the parity tests compare
 the index tables bitwise): COO pads ``row = nrows - 1, col = 0, val = 0``;
 ELL/SELL pad slots hold the one-past-the-end sentinel ``idx == ncols``
-with ``val == 0``.
+with ``val == 0``; BSR padding blocks replicate the last block row with
+zero data.
+
+The graph-static precomputations that cached backpropagation reuses
+(:func:`coo_transpose`, :func:`row_degrees`, :func:`gcn_normalize`) are
+here too, as in the reference.
 """
 from __future__ import annotations
 
@@ -35,14 +42,19 @@ Array = Any
 __all__ = [
     "COO",
     "CSR",
+    "BSR",
     "ELL",
     "SELL",
     "coo_from_edges",
     "csr_from_coo",
+    "bsr_from_coo",
     "ell_from_coo",
     "sell_from_coo",
     "sell_slice_degrees",
     "to_device",
+    "coo_transpose",
+    "row_degrees",
+    "gcn_normalize",
 ]
 
 
@@ -108,6 +120,46 @@ class CSR:
     @property
     def shape(self):
         return (self.nrows, self.ncols)
+
+
+@dataclasses.dataclass(frozen=True)
+class BSR:
+    """Block-sparse rows, sorted by (block_row, block_col).
+
+    Invariants (enforced by :func:`bsr_from_coo`, relied on by the kernel):
+      * blocks sorted by (blk_row, blk_col);
+      * every block row owns at least one block (an explicit zero block if
+        it is empty);
+      * padding blocks replicate the final block row with zero data, so
+        they fall inside that row's range and add nothing;
+      * nrows % br == 0 and ncols % bc == 0 (the matrix is padded up front).
+    """
+
+    blk_row: Array  # (nblocks,) int32
+    blk_col: Array  # (nblocks,) int32
+    blocks: Array   # (nblocks, br, bc)
+    nrows: int      # padded row count (multiple of br)
+    ncols: int      # padded col count (multiple of bc)
+    br: int
+    bc: int
+    n_real_blocks: int
+
+    @property
+    def nblocks(self) -> int:
+        return self.blk_row.shape[0]
+
+    @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    @property
+    def n_block_rows(self) -> int:
+        return self.nrows // self.br
+
+    @property
+    def density(self) -> float:
+        total = self.n_block_rows * (self.ncols // self.bc)
+        return self.n_real_blocks / max(total, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,6 +266,50 @@ def csr_from_coo(a: COO) -> CSR:
                nrows=a.nrows, ncols=a.ncols, nse=a.nse)
 
 
+def bsr_from_coo(a: COO, br: int = 128, bc: int = 128,
+                 pad_blocks_to: int | None = None) -> BSR:
+    """Tile a COO matrix into dense Br x Bc blocks (host-side).
+
+    Every block row is guaranteed >= 1 block (explicit zeros) — see BSR
+    invariants. Rows/cols are padded up to multiples of (br, bc); duplicate
+    entries accumulate. The tile array is handed to torch without a copy
+    (at full graph scale it is gigabytes)."""
+    nrows_p, ncols_p = _round_up(a.nrows, br), _round_up(a.ncols, bc)
+    n_brows, n_bcols = nrows_p // br, ncols_p // bc
+    row = _np(a.row)[: a.nse].astype(np.int64)
+    col = _np(a.col)[: a.nse].astype(np.int64)
+    val = _np(a.val)[: a.nse]
+
+    key = (row // br) * n_bcols + col // bc
+    uniq, inv = np.unique(key, return_inverse=True)
+    ub_row, ub_col = uniq // n_bcols, uniq % n_bcols
+
+    # ensure every block row non-empty
+    missing = np.setdiff1d(np.arange(n_brows), ub_row)
+    all_rows = np.concatenate([ub_row, missing])
+    all_cols = np.concatenate([ub_col, np.zeros(len(missing), np.int64)])
+    order = np.lexsort((all_cols, all_rows))
+    all_rows, all_cols = all_rows[order], all_cols[order]
+    n_real = len(all_rows)
+
+    # map original unique-block index -> slot after sort/merge
+    slot_of_uniq = np.empty(n_real, np.int64)
+    slot_of_uniq[order] = np.arange(n_real)
+
+    nb = pad_blocks_to if pad_blocks_to is not None else n_real
+    assert nb >= n_real, (nb, n_real)
+    blocks = np.zeros((nb, br, bc), val.dtype)
+    flat = (slot_of_uniq[inv.reshape(-1)] * br + row % br) * bc + col % bc
+    np.add.at(blocks.reshape(-1), flat, val)  # duplicates accumulate
+    pad = nb - n_real
+    last = all_rows[-1] if n_real else 0
+    blk_row = np.concatenate([all_rows, np.full(pad, last, np.int64)])
+    blk_col = np.concatenate([all_cols, np.zeros(pad, np.int64)])
+    return BSR(blk_row=_t(blk_row, np.int32), blk_col=_t(blk_col, np.int32),
+               blocks=torch.from_numpy(blocks), nrows=nrows_p, ncols=ncols_p,
+               br=br, bc=bc, n_real_blocks=n_real)
+
+
 def ell_from_coo(a: COO, max_deg: int | None = None) -> ELL:
     """Degenerate cases are explicit: an empty graph and a requested
     ``max_deg == 0`` both yield a single all-sentinel column, so the
@@ -299,3 +395,46 @@ def sell_from_coo(a: COO, c: int = 8, sigma: int = 0) -> SELL:
                 inv_perm=_t(inv[: a.nrows], np.int32),
                 nrows=a.nrows, ncols=a.ncols, nse=a.nse,
                 c=c, sigma=sigma, nslices=nslices)
+
+
+# --------------------------------------------------------------------------
+# Graph-static precomputations (the things iSpLib caches)
+# --------------------------------------------------------------------------
+
+def coo_transpose(a: COO) -> COO:
+    """Host-side transpose with re-sort — built ONCE and cached (iSpLib
+    §3.3); the uncached baseline pays a sort per backward step instead."""
+    row = _np(a.row)[: a.nse]
+    col = _np(a.col)[: a.nse]
+    val = _np(a.val)[: a.nse]
+    order = np.lexsort((row, col))
+    return coo_from_edges(row[order], col[order], val[order],
+                          nrows=a.ncols, ncols=a.nrows,
+                          pad_to=a.nnz_padded, dtype=val.dtype)
+
+
+def row_degrees(a: COO) -> torch.Tensor:
+    """``(nrows,)`` fp32 count of the real entries of each row, on the
+    device of ``a.row``."""
+    return torch.bincount(a.row[: a.nse].long(),
+                          minlength=a.nrows).to(torch.float32)
+
+
+def gcn_normalize(a: COO, add_self_loops: bool = True) -> COO:
+    """D^-1/2 (A + I) D^-1/2 — host-side (float64), cached once per graph."""
+    row = _np(a.row)[: a.nse]
+    col = _np(a.col)[: a.nse]
+    val = _np(a.val)[: a.nse].astype(np.float64)
+    if add_self_loops:
+        eye = np.arange(min(a.nrows, a.ncols))
+        row = np.concatenate([row, eye])
+        col = np.concatenate([col, eye])
+        val = np.concatenate([val, np.ones(len(eye))])
+    deg = np.zeros(a.nrows)
+    np.add.at(deg, row, val)
+    dinv = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
+    val = dinv[row] * val * dinv[col]
+    pad_to = max(a.nnz_padded + (min(a.nrows, a.ncols) if add_self_loops
+                                 else 0), len(row))
+    return coo_from_edges(col, row, val.astype(np.float32), a.nrows, a.ncols,
+                          pad_to=pad_to)

@@ -27,7 +27,7 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "build_kernels", "load_kernel",
            "build_log", "build_dir"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("ell_spmm", "sell_spmm")
+KERNELS = ("ell_spmm", "sell_spmm", "bsr_spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,7 @@ _SIGNATURES = {
     "ell_spmm": ("ell_spmm_f32", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "sell_spmm": ("sell_spmm_f32",
                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "bsr_spmm": ("bsr_spmm_f32", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -1,9 +1,10 @@
 """Device dispatch over the port's kernels.
 
-``ell_spmm`` / ``sell_spmm`` choose by the device of the dense operand and
-by nothing else: a CUDA tensor launches the hand-written kernel (which
-raises if it cannot build or launch), a CPU tensor runs the plain PyTorch
-version, any other device raises. There is no fallback between the two.
+``bsr_spmm`` / ``ell_spmm`` / ``sell_spmm`` choose by the device of the
+dense operand and by nothing else: a CUDA tensor launches the
+hand-written kernel (which raises if it cannot build or launch), a CPU
+tensor runs the plain PyTorch version, any other device raises. There is
+no fallback between the two.
 
 ``slot_gather`` / ``table_insert`` are the serving feature cache's device
 primitives. The reference writes them as plain array ops, so plain tensor
@@ -17,17 +18,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.sparse import ELL, SELL
+from repro_torch.core.sparse import BSR, ELL, SELL
+from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, bsr_spmm_plain
 from repro_torch.kernels.build import build_kernels, load_kernel
 from repro_torch.kernels.ell_spmm import ell_spmm_cuda, ell_spmm_plain
 from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
 from repro_torch.obs import op_record, op_t0
 
-__all__ = ["ell_spmm", "sell_spmm", "slot_gather", "table_insert",
-           "build_kernels", "load_kernel", "kernel_launches",
+__all__ = ["bsr_spmm", "ell_spmm", "sell_spmm", "slot_gather",
+           "table_insert", "build_kernels", "load_kernel", "kernel_launches",
            "reset_kernel_launches"]
 
-_CUDA_WRAPPERS = {"ell_spmm": ell_spmm_cuda, "sell_spmm": sell_spmm_cuda}
+_CUDA_WRAPPERS = {"ell_spmm": ell_spmm_cuda, "sell_spmm": sell_spmm_cuda,
+                  "bsr_spmm": bsr_spmm_cuda}
 
 
 def _backend(h: torch.Tensor) -> str:
@@ -36,6 +39,18 @@ def _backend(h: torch.Tensor) -> str:
     if h.device.type == "cpu":
         return "plain"
     raise ValueError(f"no SpMM implementation for device {h.device}")
+
+
+def bsr_spmm(a: BSR, h: torch.Tensor) -> torch.Tensor:
+    """(a.nrows, K) fp32 = a @ h over the dense Br x Bc tiles (sum
+    semiring). ``a.nrows`` is padded to a multiple of ``br``: the caller
+    crops. ``h`` may have fewer than ``a.ncols`` rows; the padding rows
+    read as zero."""
+    t0 = op_t0()
+    backend = _backend(h)
+    out = bsr_spmm_cuda(a, h) if backend == "cuda" else bsr_spmm_plain(a, h)
+    op_record("bsr_spmm", out, a.blocks, h, t0_ns=t0, backend=backend)
+    return out
 
 
 def ell_spmm(a: ELL, h: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,10 @@ These are the ground truth of the tests, the trusted path for any
 dispatchers in :mod:`repro_torch.kernels.ops` run for tensors on the CPU.
 Every gather is zero-filled for the ``idx == ncols`` sentinel.
 
-The gathered message tensors are built in chunks (of edges, ELL rows or
-SELL steps) so that a full-neighbor block around a hub never needs the
-whole ``(edges, K)`` tensor at once.
+The gathered message tensors are built in chunks (of edges, ELL rows,
+SELL steps or BSR blocks) so that a full-neighbor block around a hub, or
+a whole graph's tiles, never needs the whole ``(edges, K)`` or
+``(nblocks, br, K)`` tensor at once.
 """
 from __future__ import annotations
 
@@ -17,10 +18,10 @@ import torch
 
 if TYPE_CHECKING:  # annotation-only
     from repro_torch.core.semiring import Semiring
-    from repro_torch.core.sparse import COO, ELL, SELL
+    from repro_torch.core.sparse import BSR, COO, ELL, SELL
 
 __all__ = ["coo_reduce", "spmm_coo_ref", "spmm_ell_ref", "spmm_sell_ref",
-           "sell_packed_reduce", "take_rows"]
+           "spmm_bsr_ref", "sell_packed_reduce", "take_rows"]
 
 # gathered elements per chunk (fp32: 256 MiB of messages at a time)
 _CHUNK_ELEMS = 1 << 26
@@ -57,7 +58,7 @@ def coo_reduce(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     for lo in range(0, n_valid, step):
         hi = min(lo + step, n_valid)
         msgs = sr.apply_combine(val[lo:hi, None], take_rows(h, col[lo:hi]))
-        sr.reduce_into(out, msgs.to(out.dtype), row[lo:hi])
+        out = sr.reduce_into(out, msgs.to(out.dtype), row[lo:hi])
     return sr.finalize(out, degrees)
 
 
@@ -108,3 +109,23 @@ def spmm_sell_ref(a: "SELL", h: torch.Tensor) -> torch.Tensor:
     """Sum-semiring SELL-C-σ SpMM in fp32, rows in original order."""
     return sell_packed_reduce(a.idx, a.val, a.slice_of, a.nslices,
                               a.inv_perm, h)
+
+
+def spmm_bsr_ref(a: "BSR", h: torch.Tensor) -> torch.Tensor:
+    """Sum-semiring BSR SpMM in fp32 with the tiled kernel's block
+    algorithm: gather h's block rows, a batched tile product, a segment sum
+    into the block rows — in chunks of blocks, so ``(nblocks, br, K)``
+    never exists at once. ``h`` may have fewer than ``a.ncols`` rows (the
+    rest read as zero); the output has the padded ``a.nrows`` rows."""
+    k = h.shape[1]
+    h = h.float()
+    if h.shape[0] < a.ncols:
+        h = torch.cat([h, h.new_zeros((a.ncols - h.shape[0], k))])
+    hb = h.view(a.ncols // a.bc, a.bc, k)
+    out = h.new_zeros((a.n_block_rows, a.br, k))
+    step = _rows_per_chunk(max(a.br, a.bc), k)
+    for lo in range(0, a.nblocks, step):
+        contrib = torch.bmm(a.blocks[lo: lo + step].float(),
+                            hb[a.blk_col[lo: lo + step].long()])
+        out.index_add_(0, a.blk_row[lo: lo + step].long(), contrib)
+    return out.reshape(a.nrows, k)

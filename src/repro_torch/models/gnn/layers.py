@@ -1,24 +1,31 @@
-"""GNN layers over sampled blocks (GraphSAGE / GIN), patch-aware.
+"""GNN layers (GCN / GraphSAGE / GIN), full-graph and over sampled
+blocks, patch-aware.
 
 Functional, like the reference: ``init_*(generator, ...) -> params`` (a
-dict of tensors) and ``*_conv_block(params, pb, h) -> h'``. Parameters
-keep the reference's layout (``x @ w`` with ``w`` of shape (in, out)) and
-its layer-keyed structure (``l0``, ``l1``, ...), so
-:func:`params_from_jax` hands weights across unchanged.
+dict of tensors), ``*_conv(params, bundle, h) -> h'`` over a whole graph
+and ``*_conv_block(params, pb, h) -> h'`` over one sampled block; both
+forms share the same params. Parameters keep the reference's layout
+(``x @ w`` with ``w`` of shape (in, out)) and its layer-keyed structure,
+so :func:`params_from_jax` hands weights across unchanged.
 
-The aggregation resolves through the patch registry (``block_spmm``):
-tuned = the bucket plan's packed ELL/SELL kernel, baseline = the trusted
-segment reduce.
+The aggregation resolves through the patch registry: ``spmm`` for a
+whole graph (tuned = the CachedGraph's planned kernel with cached
+normalization and transpose, baseline = the uncached trusted path with
+GCN normalization in the step) and ``block_spmm`` for a block (tuned =
+the bucket plan's packed ELL/SELL kernel, baseline = the trusted segment
+reduce).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.patch import resolve
+from repro_torch.core import baselines
+from repro_torch.core.patch import is_patched, resolve
 from repro_torch.kernels.ref import take_rows
 
-__all__ = ["init_sage", "init_gin", "sage_conv_block", "gin_conv_block",
+__all__ = ["init_gcn", "gcn_conv", "init_sage", "sage_conv", "init_gin",
+           "gin_conv", "sage_conv_block", "gin_conv_block",
            "params_from_jax"]
 
 
@@ -29,6 +36,12 @@ def _glorot(generator: torch.Generator, shape, device) -> torch.Tensor:
     lim = (6.0 / (fan_in + fan_out)) ** 0.5
     w = torch.rand(shape, generator=generator, dtype=torch.float32)
     return (w * (2 * lim) - lim).to(device)
+
+
+def init_gcn(generator: torch.Generator, in_dim: int, out_dim: int,
+             device="cuda") -> dict:
+    return {"w": _glorot(generator, (in_dim, out_dim), device),
+            "b": torch.zeros((out_dim,), dtype=torch.float32, device=device)}
 
 
 def init_sage(generator: torch.Generator, in_dim: int, out_dim: int,
@@ -58,6 +71,44 @@ def params_from_jax(params: dict, device="cuda") -> dict:
                     for name, leaf in p.items()}
             for layer, p in params.items()}
 
+
+# --------------------------------------------------------------------------
+# Full-graph layers (a GraphBundle)
+# --------------------------------------------------------------------------
+
+def gcn_conv(params: dict, bundle, h: torch.Tensor) -> torch.Tensor:
+    """GCN (Kipf & Welling): ``Â (h W) + b`` with Â = D^-1/2 (A+I) D^-1/2.
+    Projects first, so the SpMM runs at the output width."""
+    h = h @ params["w"]
+    spmm_fn = resolve("spmm")
+    if is_patched():
+        out = spmm_fn(bundle.tuned_norm, h, "sum")       # cached Â — §3.3
+    else:
+        a_n = baselines.gcn_norm_in_step(bundle.raw_sl)   # per-step norm
+        out = spmm_fn(a_n, h, "sum")
+    return out + params["b"]
+
+
+def sage_conv(params: dict, bundle, h: torch.Tensor,
+              aggr: str = "mean") -> torch.Tensor:
+    """GraphSAGE: ``h W_s + agg_{j in N(i)} h_j W_n + b``."""
+    g = bundle.tuned if is_patched() else bundle.raw
+    agg = resolve("spmm")(g, h, aggr)
+    return h @ params["w_self"] + agg @ params["w_neigh"] + params["b"]
+
+
+def gin_conv(params: dict, bundle, h: torch.Tensor) -> torch.Tensor:
+    """GIN: ``MLP((1 + eps) h + sum_{j in N(i)} h_j)``."""
+    g = bundle.tuned if is_patched() else bundle.raw
+    s = resolve("spmm")(g, h, "sum")
+    z = (1.0 + params["eps"]) * h + s
+    z = torch.relu(z @ params["w1"] + params["b1"])
+    return z @ params["w2"] + params["b2"]
+
+
+# --------------------------------------------------------------------------
+# Block layers (one sampled bipartite block)
+# --------------------------------------------------------------------------
 
 def _block_dst(pb, h: torch.Tensor) -> torch.Tensor:
     """Destination-row view of a block's source features: a ``dst_pos``

@@ -7,13 +7,16 @@ runs on a machine with only PyTorch:
 
 Tolerance: fp32, atol 1e-5 / rtol 1e-5 — the kernel sums a row's slots
 in slot order with fma, the plain version with ``sum(dim=1)`` /
-``index_add_``; at most ~30 terms of magnitude ~1 per output here."""
+``index_add_`` (for BSR: ``bmm`` with TF32 off, then ``index_add_``); at
+most ~30 terms of magnitude ~1 per output here. Wider sums state their
+own tolerance."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import sparse as tsp
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, bsr_spmm_plain
 from repro_torch.kernels.ell_spmm import ell_spmm_cuda, ell_spmm_plain
 from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
 
@@ -26,6 +29,7 @@ pytestmark = pytest.mark.cuda
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 references
     return torch.device("cuda")
 
 
@@ -93,14 +97,16 @@ def test_dispatch_counts_launches_and_rejects_bad_operands(card):
     tops.ell_spmm(ell, h)
     tops.sell_spmm(sell, h)
     tops.sell_spmm(sell, h)
-    assert tops.kernel_launches() == {"ell_spmm": 1, "sell_spmm": 2}
+    assert tops.kernel_launches() == {"ell_spmm": 1, "sell_spmm": 2,
+                                      "bsr_spmm": 0}
     with pytest.raises(ValueError, match="contiguous fp32"):
         tops.ell_spmm(ell, h.t().contiguous().t())
     with pytest.raises(ValueError, match="rows"):
         tops.ell_spmm(ell, h[:10])
     with pytest.raises(ValueError, match="contiguous fp32"):
         tops.sell_spmm(sell, h.double())
-    assert tops.kernel_launches() == {"ell_spmm": 1, "sell_spmm": 2}
+    assert tops.kernel_launches() == {"ell_spmm": 1, "sell_spmm": 2,
+                                      "bsr_spmm": 0}
 
 
 def test_runs_on_the_current_stream(card):
@@ -117,3 +123,127 @@ def test_runs_on_the_current_stream(card):
     np.testing.assert_allclose(
         out2.cpu().numpy(),
         ell_spmm_plain(tsp.ell_from_coo(coo), h.cpu()).numpy(), **TOL)
+
+
+def _bsr_case(rng, br, bc, pad_blocks):
+    """A 300 x 280 graph whose rows 128..255 are empty: at br <= 128 some
+    block rows own only their explicit zero block; ``pad_blocks`` padding
+    blocks replicate the last block row."""
+    n, m = 300, 280
+    rows = np.concatenate([np.arange(0, 128), np.arange(256, n)])
+    lin = rng.choice(len(rows) * m, size=2000, replace=False)
+    dst, src = rows[lin // m], lin % m
+    coo = tsp.coo_from_edges(src, dst, rng.standard_normal(2000)
+                             .astype(np.float32), n, m)
+    bsr = tsp.bsr_from_coo(coo, br=br, bc=bc)
+    return tsp.bsr_from_coo(coo, br=br, bc=bc,
+                            pad_blocks_to=bsr.nblocks + pad_blocks)
+
+
+@pytest.mark.parametrize("br,bc", [(32, 128), (64, 128), (128, 128),
+                                   (256, 128), (128, 256)])
+@pytest.mark.parametrize("k", [1, 16, 112, 256, 602])
+def test_bsr_kernel_matches_plain(card, br, bc, k):
+    rng = np.random.default_rng(br + bc + k)
+    bsr = _bsr_case(rng, br, bc, pad_blocks=3)
+    h = _h(rng, 280, k)                  # fewer rows than the padded ncols
+    out = bsr_spmm_cuda(tsp.to_device(bsr, card), h.to(card))
+    torch.cuda.synchronize()
+    assert out.shape == (bsr.nrows, k)
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               bsr_spmm_plain(bsr, h).numpy(), **TOL)
+
+
+def test_bsr_kernel_zero_block_rows(card):
+    """A block row that holds only its explicit zero block stores zeros."""
+    rng = np.random.default_rng(5)
+    bsr = _bsr_case(rng, 64, 128, pad_blocks=0)
+    ptr = tsp.to_device(bsr, card)
+    out = bsr_spmm_cuda(ptr, _h(rng, 280, 64).to(card))
+    torch.cuda.synchronize()
+    assert (out[128:256] == 0).all()
+    assert (out[:128] != 0).any()
+
+
+def test_bsr_kernel_64bit_offsets(card):
+    """132,096 tiles of 128 x 128: the tile array passes 2^31 elements
+    (8.7 GB), and only the last block row's tiles, all past the 2^31
+    offset, hold data. Each output sums 16,512 products of N(0,1) terms
+    (|sum| ~ 130): atol 2e-3 / rtol 1e-4 for the summation order."""
+    n_brows, per_row, t = 1024, 129, 128
+    blk_row = torch.arange(n_brows, dtype=torch.int32,
+                           device=card).repeat_interleave(per_row)
+    blk_col = torch.arange(per_row, dtype=torch.int32,
+                           device=card).repeat(n_brows)
+    blocks = torch.zeros((n_brows * per_row, t, t), device=card)
+    assert blocks.numel() > 2 ** 31
+    gen = torch.Generator(device=card).manual_seed(0)
+    blocks[-per_row:] = torch.randn((per_row, t, t), generator=gen,
+                                    device=card)
+    bsr = tsp.BSR(blk_row=blk_row, blk_col=blk_col, blocks=blocks,
+                  nrows=n_brows * t, ncols=per_row * t, br=t, bc=t,
+                  n_real_blocks=n_brows * per_row)
+    h = torch.randn((per_row * t, 16), generator=gen, device=card)
+    out = bsr_spmm_cuda(bsr, h)
+    want = bsr_spmm_plain(bsr, h)
+    torch.cuda.synchronize()
+    assert (out[:-t] == 0).all()
+    np.testing.assert_allclose(out[-t:].cpu().numpy(),
+                               want[-t:].cpu().numpy(), atol=2e-3,
+                               rtol=1e-4)
+
+
+def test_bsr_dispatch_counts_and_rejects(card):
+    rng = np.random.default_rng(3)
+    bsr = tsp.to_device(_bsr_case(rng, 128, 128, pad_blocks=0), card)
+    h = _h(rng, 280, 32).to(card)
+    tops.reset_kernel_launches()
+    tops.bsr_spmm(bsr, h)
+    assert tops.kernel_launches()["bsr_spmm"] == 1
+    import dataclasses
+    with pytest.raises(ValueError, match="not built"):
+        tops.bsr_spmm(dataclasses.replace(bsr, br=48), h)
+    with pytest.raises(ValueError, match="rows"):
+        tops.bsr_spmm(bsr, _h(rng, 400, 32).to(card))
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        tops.bsr_spmm(bsr, h.double())
+    assert tops.kernel_launches()["bsr_spmm"] == 1
+
+
+@pytest.mark.parametrize("arch,plan", [("gcn", "bsr"), ("sage-mean", "sell"),
+                                       ("gin", "ell")])
+def test_patched_training_step_matches_unpatched(card, arch, plan):
+    """One training step on the card, patched (the plan's kernel forward
+    and on the cached transpose) against unpatched (the trusted path with
+    plain autograd), from the same weights. Loss within rtol 1e-5, each
+    gradient within 1e-4 of its largest element (fp32, another
+    summation order over a few hundred terms)."""
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.core.patch import patched
+    from repro_torch.data import make_dataset
+    from repro_torch.models.gnn import build_bundle, make_gnn
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train.gnn import loss_and_grads
+
+    ds = make_dataset("reddit", scale=1 / 512, seed=1)
+    bundle = build_bundle(ds, k_hint=64, plan=KernelPlan(
+        kind=plan, br=64, bc=128, fk=64, sell_c=8)).to(card)
+    init, apply = make_gnn(arch, ds.num_features, 64, ds.num_classes)
+    params = init(torch.Generator().manual_seed(0), device=card)
+    x, y, m = (t.to(card) for t in (ds.x, ds.y, ds.train_mask))
+    tops.reset_kernel_launches()
+    with patched(True):
+        loss_t, g_t = loss_and_grads(apply, params, bundle, x, y, m)
+    launches = tops.kernel_launches()
+    with patched(False):
+        loss_b, g_b = loss_and_grads(apply, params, bundle, x, y, m)
+    torch.cuda.synchronize()
+    # forward on A (or Â) per layer, backward on the cached transpose
+    assert launches[f"{plan}_spmm"] >= 3
+    np.testing.assert_allclose(float(loss_t), float(loss_b), rtol=1e-5)
+
+    def close(a, b):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-4 * float(b.abs().max()) + 1e-12,
+                                   rtol=0)
+    tree_map(close, g_t, g_b)

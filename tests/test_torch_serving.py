@@ -261,4 +261,5 @@ def test_profiled_flush_records_spans_and_ops(port_dataset):
     assert names & {"op.ell_spmm", "op.sell_spmm"}
     assert not obs.enabled()
     # on the CPU the plain versions ran: no kernel launch was counted
-    assert tops.kernel_launches() == {"ell_spmm": 0, "sell_spmm": 0}
+    assert tops.kernel_launches() == {"ell_spmm": 0, "sell_spmm": 0,
+                                      "bsr_spmm": 0}
