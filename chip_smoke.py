@@ -40,11 +40,12 @@ failure:
    few epochs each, launch counts zeroed just before the patched run and
    read just after it (split into forward on A and backward on A^T); the
    unpatched run must launch no kernel;
-7. the same on ogbn-proteins, cut to scale 1/4 for device memory (four
-   128 x 128 BSR operands of ~4 GB each: A, A^T, Â, Â^T), GCN, hidden
-   256, with the plan pinned to BSR 128 x 128 through
-   ``build_bundle(plan=...)`` (the tuner's own pick is logged): BSR on Â
-   at K = 256 and 112 forward and on the cached Â^T backward;
+7. the same on ogbn-proteins, cut to scale 1/2 for device memory (the
+   GCN bundle's two 128 x 128 BSR operands, Â and Â^T, take ~15 GB each
+   there and would take ~51 GB each at scale 1), GCN, hidden 256, with
+   the plan pinned to BSR 128 x 128 through ``build_bundle(plan=...)``
+   (the tuner's own pick is logged): BSR on Â at K = 256 and 112 forward
+   and on the cached Â^T backward;
 5. last, the kernels line (one JSON object: the serving kernels as timed
    in phase 4, BSR as timed in phase 7), the card line, and
    ``{"ok": true, "device": {...}}``.
@@ -87,7 +88,7 @@ SERVE_KERNELS = ("ell_spmm", "sell_spmm")   # what serving launches
 TRAIN_EPOCHS, TRAIN_LR, TRAIN_WD = 5, 1e-2, 5e-4
 LOSS_RTOL = 1e-5        # patched vs unpatched first-step loss, fp32
 GRAD_TOL = 1e-4         # max |diff| / max |unpatched| of each gradient
-PROTEINS_SCALE = 1 / 4  # device memory: four ~4 GB BSR operands
+PROTEINS_SCALE = 1 / 2  # device memory: two ~15 GB BSR operands
 TF32_FLOPS = 495e12     # H100 SXM dense TF32 tensor-core peak
 
 
@@ -537,7 +538,7 @@ def train_phase(tag, ds, arch, bundle, kernel) -> dict:
     from repro_torch.optim.optimizer import tree_map
     from repro_torch.train.gnn import loss_and_grads, train_gnn
 
-    g = bundle.tuned_norm if arch == "gcn" else bundle.tuned
+    g = bundle.graph(arch)
     fmt = "bsr" if kernel == "bsr_spmm" else "sell"
     way = {operand_ptr(getattr(g, fmt)): "fwd", operand_ptr(
         getattr(g, fmt + "_t")): "bwd"}
@@ -888,7 +889,7 @@ def main() -> int:
     from repro_torch.core.autotune import autotune
     from repro_torch.models.gnn import build_bundle
     t0 = time.perf_counter()
-    bundle = build_bundle(ds, k_hint=HIDDEN).to(DEVICE)
+    bundle = build_bundle(ds, k_hint=HIDDEN, arch=ARCH).to(DEVICE)
     plan = bundle.tuned.plan
     log(f"reddit: bundle built in {time.perf_counter() - t0:.1f} s; tuned "
         f"plan {plan.kind} (C={plan.sell_c}, sigma={plan.sell_sigma}) at "
@@ -898,7 +899,7 @@ def main() -> int:
     train_pinned = plan.kind != "sell"
     if train_pinned:
         # the tuner left SELL off this path: pin it, as phase 2 pins ELL
-        bundle = build_bundle(ds, k_hint=HIDDEN, plan=KernelPlan(
+        bundle = build_bundle(ds, k_hint=HIDDEN, arch=ARCH, plan=KernelPlan(
             kind="sell", sell_c=8, k_hint=HIDDEN)).to(DEVICE)
         log("reddit: pinned the plan to SELL C=8")
     reddit = train_phase("reddit", ds, ARCH, bundle, "sell_spmm")
@@ -919,21 +920,27 @@ def main() -> int:
     t0 = time.perf_counter()
     pds = make_dataset("ogbn-proteins", scale=PROTEINS_SCALE)
     cut = (f"ogbn-proteins at scale 1/{round(1 / PROTEINS_SCALE)} "
-           f"({pds.num_nodes} nodes, {pds.coo.nse} edges): four 128x128 BSR "
-           f"operands (A, A^T, Â, Â^T) must fit the card's memory")
+           f"({pds.num_nodes} nodes, {pds.coo.nse} edges): the GCN "
+           f"bundle's two 128x128 BSR operands (Â, Â^T) must fit the "
+           f"card's memory, ~51 GB each at scale 1")
     log(f"cut: {cut}")
     would = autotune(sp.gcn_normalize(pds.coo), HIDDEN)
     log(f"proteins: the tuner would pick {would.kind} "
         f"(br={would.br}, bc={would.bc}, C={would.sell_c}) for Â at "
         f"K={HIDDEN}; pinned to bsr 128x128")
     bsr_plan = KernelPlan(kind="bsr", br=128, bc=128, fk=64, k_hint=HIDDEN)
-    bundle = build_bundle(pds, k_hint=HIDDEN, plan=bsr_plan).to(DEVICE)
+    bundle = build_bundle(pds, k_hint=HIDDEN, plan=bsr_plan,
+                          arch="gcn").to(DEVICE)
     g = bundle.tuned_norm
     log(f"proteins: {pds.num_nodes} nodes, {pds.coo.nse} edges, "
         f"{pds.num_features} features, {pds.num_classes} classes; Â has "
-        f"{g.bsr.nblocks} tiles of 128x128 ({g.bsr.density:.4f} of all), "
-        f"built and moved in {time.perf_counter() - t0:.1f} s")
+        f"{g.bsr.nblocks} tiles of 128x128 ({g.bsr.density:.4f} of all, "
+        f"{g.bsr.blocks.numel() * 4 / 1e9:.2f} GB), built and moved in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
     proteins = train_phase("proteins", pds, "gcn", bundle, "bsr_spmm")
+    proteins["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"proteins: peak device memory {proteins['peak_gb']:.2f} GB")
     proteins.update(cut=cut, pinned=True, tuner_pick=would.to_json(),
                     tiles=g.bsr.nblocks, cases=[])
     for a, coo, k, tag in ((g.bsr, g.coo, HIDDEN, "Â"),

@@ -13,11 +13,12 @@ hardware model:
   ``sublane = 1`` (no (1, K)-tile penalty for ELL: a warp per row uses
   all of its lanes), and ``vmem_bytes`` = the shared-memory budget of a
   block for the tile check.
-* The BSR tile check charges the kernel of the target: on the TPU model
-  the Pallas kernel's double-buffered VMEM tiles at ``fk`` = K rounded to
-  lanes (as the reference); on Hopper what ``csrc/bsr_spmm.cu`` holds in
-  shared memory at its own K tile (``kernels.bsr_spmm.smem_bytes``),
-  which is also the plan's ``fk``.
+* The BSR kernel of the target is described by the model too: on the TPU
+  model the Pallas kernel (double-buffered VMEM tiles at ``fk`` = K
+  rounded to lanes, tile products on the matrix unit, as the reference);
+  on Hopper ``csrc/bsr_spmm.cu`` (a fixed K tile, which is also the
+  plan's ``fk``, the shared memory it stages, ``HardwareModel.bsr_smem``,
+  and fp32 tile products on CUDA cores at ``bsr_flops``).
 * ``measure=True`` raises ``NotImplementedError`` until candidates are
   timed with CUDA events.
 
@@ -78,6 +79,15 @@ class HardwareModel:
     vpu_flops: float = 197e12 / 16     # non-matmul throughput
     hbm_bw: float = 819e9              # bytes/s
     ici_bw: float = 50e9               # bytes/s per link
+    # the target's BSR kernel. bsr_k_tile = 0 is the reference's Pallas
+    # kernel: K tile = K rounded to lanes, double-buffered tiles in VMEM.
+    # Otherwise a kernel with that fixed K tile, built for the tile heights
+    # bsr_rows and for bc a multiple of bsr_depth, whose accumulator lives
+    # in registers. bsr_flops = 0: its tile products run at peak_flops.
+    bsr_k_tile: int = 0
+    bsr_depth: int = 1
+    bsr_rows: tuple = ()
+    bsr_flops: float = 0.0
 
     def mxu_time(self, flops: float) -> float:
         return flops / self.peak_flops
@@ -88,16 +98,30 @@ class HardwareModel:
     def mem_time(self, nbytes: float) -> float:
         return nbytes / self.hbm_bw
 
+    def bsr_time(self, flops: float) -> float:
+        return flops / (self.bsr_flops or self.peak_flops)
+
+    def bsr_smem(self, br: int) -> int:
+        """Shared memory a fixed-K-tile BSR kernel holds for tiles of ``br``
+        rows: a transposed (bsr_depth, br + 4) slice of the A tile (rows
+        padded to 16 bytes) and a (bsr_depth, bsr_k_tile) slice of h,
+        fp32, single-buffered."""
+        return 4 * self.bsr_depth * ((br + 4) + self.bsr_k_tile)
+
 
 TPU_V5E = HardwareModel()
 
 # NVIDIA H100 SXM data sheet: 80 GB at 3.35 TB/s, 132 SMs, 227 KB of
 # shared memory a block, 989 TFLOP/s dense bf16 tensor cores, 67 TFLOP/s
-# fp32 outside them, NVLink 450 GB/s each way.
+# fp32 outside them, NVLink 450 GB/s each way. The BSR fields are the
+# tiling of csrc/bsr_spmm.cu (kFk, kDepth, its templates), whose fp32 tile
+# products run on CUDA cores, not tensor cores.
 H100 = HardwareModel(
     name="h100-sxm", mxu_dim=64, lane=1, sublane=1,
     vmem_bytes=232_448, hbm_bytes=80 * 10 ** 9,
-    peak_flops=989e12, vpu_flops=67e12, hbm_bw=3.35e12, ici_bw=450e9)
+    peak_flops=989e12, vpu_flops=67e12, hbm_bw=3.35e12, ici_bw=450e9,
+    bsr_k_tile=64, bsr_depth=32, bsr_rows=(32, 64, 128, 256),
+    bsr_flops=67e12)
 
 
 def probe_hardware() -> HardwareModel:
@@ -279,7 +303,7 @@ def estimate_plan_time(stats: GraphStats, k: int, plan: KernelPlan,
         flops = 2.0 * nt * plan.br * plan.bc * k
         nbytes = nt * (plan.br * plan.bc * e + plan.bc * k * e) \
             + stats.nrows * k * e
-        return max(hw.mxu_time(flops), hw.mem_time(nbytes))
+        return max(hw.bsr_time(flops), hw.mem_time(nbytes))
     if plan.kind == "ell":
         md = max(stats.p99_deg, 1)
         flops = 2.0 * stats.nrows * md * k
@@ -308,16 +332,13 @@ def _vmem_ok(br: int, bc: int, fk: int, hw: HardwareModel,
 def _bsr_k_tile(br: int, bc: int, k_hint: int,
                 hw: HardwareModel) -> int | None:
     """The BSR kernel's K tile for a (br x bc) candidate on ``hw``, or None
-    when the kernel cannot take that tile. On Hopper the hand kernel has a
-    fixed K tile and holds ``smem_bytes(br)`` of shared memory (its fp32
-    accumulator is in registers), built for ``TILE_ROWS`` and any ``bc``
-    that is a multiple of its staging depth; the TPU model keeps the
-    reference's rule."""
-    if hw.name == H100.name:
-        from repro_torch.kernels import bsr_spmm as kb
-        fits = (br in kb.TILE_ROWS and bc % kb.DEPTH == 0
-                and kb.smem_bytes(br) <= hw.vmem_bytes)
-        return kb.K_TILE if fits else None
+    when the kernel cannot take that tile: a fixed-K-tile kernel must be
+    built for the tile and fit its shared memory; the reference's kernel
+    must fit its double-buffered tiles at K rounded to lanes."""
+    if hw.bsr_k_tile:
+        fits = (br in hw.bsr_rows and bc % hw.bsr_depth == 0
+                and hw.bsr_smem(br) <= hw.vmem_bytes)
+        return hw.bsr_k_tile if fits else None
     fk = min(256, max(128, ((k_hint + 127) // 128) * 128))
     return fk if _vmem_ok(br, bc, fk, hw) else None
 

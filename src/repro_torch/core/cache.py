@@ -8,9 +8,7 @@ ONCE and reusing them every step:
   * the GCN-normalized adjacency — built by
     :func:`repro_torch.core.sparse.gcn_normalize` before caching;
   * row degrees and inverse degrees (mean semiring);
-  * the format conversion and the kernel plan (autotuner output), and,
-    across processes, the tuner decision itself through a
-    :class:`~repro_torch.core.autotune.TuningDB` passed as ``db=``.
+  * the format conversion and the kernel plan (autotuner output).
 
 Built on the host (numpy packing, CPU tensors); :meth:`CachedGraph.to`
 moves every operand to the device that runs the kernels.
@@ -23,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import sparse as sp
-from repro_torch.core.autotune import KernelPlan, TuningDB, autotune
+from repro_torch.core.autotune import KernelPlan, autotune
 
 __all__ = ["CachedGraph", "build_cached_graph"]
 
@@ -64,15 +62,10 @@ class CachedGraph:
 def build_cached_graph(a: sp.COO, *, k_hint: int = 128,
                        plan: KernelPlan | None = None,
                        tune: bool = True,
-                       measure: bool = False,
-                       semiring_reduce: str = "sum",
-                       db: Optional[TuningDB] = None) -> CachedGraph:
+                       semiring_reduce: str = "sum") -> CachedGraph:
     """Host-side one-time preprocessing: transpose, degrees, BSR/SELL/ELL
     packing, kernel plan. ``k_hint`` is the embedding width the tuner
-    optimizes for; a ``plan`` pins the decision. A ``db`` short-circuits the
-    sweep with a persisted decision and records fresh ones — the paper's
-    tune-once amortization across runs. ``measure=True`` raises until
-    measured tuning is ported (``autotune``)."""
+    optimizes for; a ``plan`` pins the decision."""
     a_t = sp.coo_transpose(a)
     deg = sp.row_degrees(a)
     deg_t = sp.row_degrees(a_t)
@@ -80,23 +73,12 @@ def build_cached_graph(a: sp.COO, *, k_hint: int = 128,
     from repro_torch import obs
     source = "caller"
     if plan is None:
-        if db is not None:
-            plan = db.get(a, k_hint, semiring=semiring_reduce)
-            source = "db"
-            obs.metrics().counter(
-                "tuning.db.hit" if plan is not None
-                else "tuning.db.miss").inc()
-        if plan is None:
-            if tune:
-                plan = autotune(a, k_hint, measure=measure,
-                                semiring_reduce=semiring_reduce)
-                source = "sweep"
-                if db is not None:
-                    db.put(a, k_hint, plan, semiring=semiring_reduce)
-                    db.save()
-            else:
-                plan = KernelPlan.trusted()
-                source = "untuned"
+        if tune:
+            plan = autotune(a, k_hint, semiring_reduce=semiring_reduce)
+            source = "sweep"
+        else:
+            plan = KernelPlan.trusted()
+            source = "untuned"
     if obs.enabled():
         obs.instant("tuning.plan", site="build_cached_graph", source=source,
                     kind=plan.kind, k=k_hint, semiring=semiring_reduce,

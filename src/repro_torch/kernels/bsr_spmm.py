@@ -10,13 +10,15 @@ over the sorted ``blk_row`` in this wrapper. The work is bound by fp32
 operations (2 br bc K per stored tile). ``bsr_spmm_plain`` runs the same
 block algorithm with tensor ops (CPU dispatch, tests).
 
-The kernel's tiling constants live here beside it, and the autotuner
-charges its shared memory from them (:func:`smem_bytes`).
+The kernel's tiling is the H100 hardware model's (``bsr_k_tile``,
+``bsr_depth``, ``bsr_rows``), so the autotuner charges the shared memory
+this kernel holds (:func:`smem_bytes`) without importing it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.autotune import H100
 from repro_torch.core.sparse import BSR
 from repro_torch.kernels.ell_spmm import check_launch_operands
 from repro_torch.kernels.ref import spmm_bsr_ref
@@ -24,18 +26,11 @@ from repro_torch.kernels.ref import spmm_bsr_ref
 __all__ = ["bsr_spmm_cuda", "bsr_spmm_plain", "block_row_pointers",
            "K_TILE", "DEPTH", "TILE_ROWS", "smem_bytes"]
 
-# the kernel's compile-time tiling (csrc/bsr_spmm.cu: kFk, kDepth, kPad)
-K_TILE = 64          # output columns per CTA
-DEPTH = 32           # tile columns staged per step; bc must be a multiple
-TILE_ROWS = (32, 64, 128, 256)   # br values the kernel is built for
-_PAD = 4
-
-
-def smem_bytes(br: int) -> int:
-    """Shared memory one CTA holds for tiles of ``br`` rows: a transposed
-    (DEPTH, br + 4) slice of the A tile and a (DEPTH, K_TILE) slice of h,
-    fp32, single-buffered (the accumulator lives in registers)."""
-    return 4 * DEPTH * ((br + _PAD) + K_TILE)
+# the kernel's compile-time tiling (csrc/bsr_spmm.cu: kFk, kDepth and the
+# br templates): output columns per CTA, tile columns staged per step (bc
+# must be a multiple), tile heights built
+K_TILE, DEPTH, TILE_ROWS = H100.bsr_k_tile, H100.bsr_depth, H100.bsr_rows
+smem_bytes = H100.bsr_smem
 
 
 def bsr_spmm_plain(a: BSR, h: torch.Tensor) -> torch.Tensor:

@@ -43,7 +43,7 @@ class GNNTrainResult:
     test_acc: float
     epoch_time_s: float      # mean per-epoch wall-clock, first excluded
     first_epoch_s: float     # the first epoch (kernel builds, warm-up)
-    plan_kind: str
+    plan_kind: str           # the plan of the graph the arch aggregates over
     epochs: int
     device: str
 
@@ -78,14 +78,13 @@ def loss_and_grads(apply, params: dict, bundle, x: torch.Tensor,
 
 def train_gnn(arch: str, dataset, *, hidden: int = 128, epochs: int = 30,
               lr: float = 1e-2, weight_decay: float = 5e-4,
-              use_isplib: bool = True, tune: bool = True,
-              measure_tuning: bool = False, seed: int = 0,
-              bundle=None, tuning_db=None, profile: bool = False,
+              use_isplib: bool = True, tune: bool = True, seed: int = 0,
+              bundle=None, profile: bool = False,
               params: dict | None = None,
               device="cuda") -> GNNTrainResult:
     """Train a 2-layer GNN on ``dataset`` (a ``data.graphs.GraphDataset``)
-    on ``device``. ``bundle`` (host or device) skips the build;
-    ``tuning_db`` (a TuningDB) reuses persisted plans.
+    on ``device``. ``bundle`` (host or device) skips the build, which
+    otherwise packs only the cached graph ``arch`` uses.
 
     ``profile=True`` turns the ``repro_torch.obs`` tracer on for the run
     (if it is off) and records ``train.build`` / ``train.init`` /
@@ -100,7 +99,7 @@ def train_gnn(arch: str, dataset, *, hidden: int = 128, epochs: int = 30,
         if bundle is None:
             with obs.span("train.build"):
                 bundle = build_bundle(dataset, k_hint=hidden, tune=tune,
-                                      measure=measure_tuning, db=tuning_db)
+                                      arch=arch)
         with obs.span("train.init"):
             bundle = bundle.to(device)
             init, apply = make_gnn(arch, dataset.num_features, hidden,
@@ -149,4 +148,5 @@ def train_gnn(arch: str, dataset, *, hidden: int = 128, epochs: int = 30,
         arch=arch, dataset=dataset.name, use_isplib=use_isplib,
         losses=losses, train_acc=train_acc, test_acc=test_acc,
         epoch_time_s=epoch_time, first_epoch_s=first_epoch,
-        plan_kind=bundle.tuned.plan.kind, epochs=epochs, device=str(device))
+        plan_kind=bundle.graph(arch).plan.kind, epochs=epochs,
+        device=str(device))

@@ -160,10 +160,24 @@ def test_train_gnn_profile_records_spans(datasets):
     assert dataclasses.asdict(res)["plan_kind"] == res.plan_kind
 
 
-def test_unported_paths_raise(datasets):
-    _, ds = datasets
+def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="queue 1"):
         make_gnn("gat", 8, 8, 2)
-    with pytest.raises(NotImplementedError, match="CUDA events"):
-        train_gnn("gcn", ds, hidden=8, epochs=1, device="cpu",
-                  measure_tuning=True)
+
+
+@pytest.mark.parametrize("arch", ["gcn", "sage-mean"])
+def test_bundle_for_one_arch_packs_only_its_graph(datasets, bundles, arch):
+    """Built for one arch, the bundle plans and packs only the cached graph
+    that arch aggregates over (GCN: Â and its transpose), and that graph
+    is the one a bundle for every arch holds."""
+    _, ds = datasets
+    _, full = bundles
+    plan = KernelPlan(kind="bsr", br=64, bc=128, fk=64)
+    one = build_bundle(ds, k_hint=HIDDEN, plan=plan, arch=arch)
+    g = one.graph(arch)
+    assert (one.tuned is None) == (arch == "gcn")
+    assert (one.tuned_norm is None) == (arch != "gcn")
+    assert g.bsr is not None and g.bsr_t is not None
+    assert torch.equal(g.coo.val, full.graph(arch).coo.val)
+    with pytest.raises(ValueError, match="another arch"):
+        one.graph("sage-sum" if arch == "gcn" else "gcn")

@@ -59,7 +59,13 @@ def test_autotune_v5e_model_matches_reference(rng, shape, k, semiring):
     ref, _ = random_coo(rng, *shape)
     want = jax_autotune(ref, k, hw=JHardware(), semiring_reduce=semiring)
     got = autotune(_port_coo(ref), k, hw=TPU_V5E, semiring_reduce=semiring)
-    assert dataclasses.asdict(JHardware()) == dataclasses.asdict(TPU_V5E)
+    # every field of the reference's model, and the port's BSR fields at
+    # their defaults: the reference's Pallas kernel and its rule
+    ref_hw = dataclasses.asdict(JHardware())
+    port_hw = dataclasses.asdict(TPU_V5E)
+    assert {f: port_hw.pop(f) for f in ref_hw} == ref_hw
+    assert port_hw == dict(bsr_k_tile=0, bsr_depth=1, bsr_rows=(),
+                           bsr_flops=0.0)
     assert got.to_json() == want.to_json()
 
 

@@ -28,7 +28,8 @@ from repro.kernels import ops as jops
 from repro_torch import obs
 from repro_torch.core import baselines as tbase
 from repro_torch.core import sparse as tsp
-from repro_torch.core.autotune import H100, TPU_V5E, KernelPlan, autotune
+from repro_torch.core.autotune import (H100, TPU_V5E, KernelPlan, autotune,
+                                       estimate_plan_time, graph_stats)
 from repro_torch.core.cache import build_cached_graph
 from repro_torch.core.spmm import matmul, spmm
 from repro_torch.kernels import bsr_spmm as kbsr
@@ -256,3 +257,27 @@ def test_h100_tuner_evaluates_and_picks_bsr_on_dense_tiles():
     # the TPU model keeps the reference's rule: fk = K rounded to lanes
     tpu = autotune(coo, 128, hw=TPU_V5E)
     assert tpu.kind != "bsr" or tpu.fk == 128
+
+
+def test_h100_tuner_costs_bsr_at_the_kernels_fp32_rate():
+    """The hand BSR kernel runs fp32 on CUDA cores (67 TFLOP/s), and the
+    H100 model charges its tile products at that rate, not at the tensor
+    cores' peak. On 128 x 128 tiles 1.6 % full (every tile stored) the
+    tile products then cost more than a gather kernel's (ELL here: every
+    row has the same degree); at the tensor-core rate BSR would have
+    won."""
+    n, deg, k = 4096, 64, 256
+    rng = np.random.default_rng(0)
+    dst = np.repeat(np.arange(n), deg)
+    src = (dst + rng.integers(1, n, dst.size)) % n
+    coo = tsp.coo_from_edges(src, dst, np.ones(dst.size, np.float32), n, n)
+    stats = graph_stats(coo)
+    bsr = KernelPlan(kind="bsr", br=128, bc=128, fk=64, k_hint=k)
+    nt = stats.n_tiles(128, 128)
+    flops = 2.0 * nt * 128 * 128 * k
+    nbytes = nt * (128 * 128 * 4 + 128 * k * 4) + n * k * 4
+    assert estimate_plan_time(stats, k, bsr, H100) == \
+        max(flops / 67e12, nbytes / 3.35e12)
+    assert autotune(coo, k, hw=H100, stats=stats).kind == "ell"
+    tensor_cores = dataclasses.replace(H100, bsr_flops=0.0)
+    assert autotune(coo, k, hw=tensor_cores, stats=stats).kind == "bsr"
