@@ -15,8 +15,11 @@ failure:
    weights from the port's init under a fixed ``torch.Generator``. Four
    client threads send zipf-skewed 4-seed requests, a warm-up volley and
    then a measured one; kernel launch counts are zeroed just before the
-   measured volley and read just after it. Eight of its flushes are
-   recomputed by the port on the CPU and compared;
+   measured volley and read just after it. If the tuner's plans left the
+   ELL or the SELL kernel unlaunched in it (the flush sizes follow the
+   clients' timing), layer 1 is pinned to that kernel and both volleys
+   run again. Eight of its flushes are recomputed by the port on the CPU
+   and compared;
 3. full-neighbor serving — 2-seed requests on the same graph (two zipf,
    two uniform), with its own launch counts; flushes whose outermost block
    has at most 2 M edges are recomputed on the CPU;
@@ -40,14 +43,30 @@ failure:
    few epochs each, launch counts zeroed just before the patched run and
    read just after it (split into forward on A and backward on A^T); the
    unpatched run must launch no kernel;
+8. (run after phase 6) device-sampled minibatch training on the same
+   graph — GraphSAGE-mean, hidden 256, fanouts (10, 25), batches of 1024
+   seeds, lr 1e-2, weight decay 5e-4, the trainer's probed capacities
+   and plans. Batch 0 sampled on the card must equal the plain CPU run
+   bit for bit (every block field and the overflow count); the first
+   step is recorded and each sampling kernel (``segment_sample``,
+   ``expand_indptr``, ``flat_gather``) must equal its plain version on
+   the card on that step's own hop inputs bit for bit, the ELL forward and
+   the block backward stay within the per-row bound; eight more steps run
+   under ``torch.cuda.set_sync_debug_mode("error")`` (any host sync
+   raises); one step is traced for the device busy share; host sampling +
+   packing of 8 batches is timed beside ``sample_blocks`` on the card.
+   Then ``train_gnn_minibatch(sampler="device")`` runs 2 epochs and the
+   layer-wise evaluation, launch counts zeroed just before and read just
+   after;
 7. the same on ogbn-proteins, cut to scale 1/2 for device memory (the
    GCN bundle's two 128 x 128 BSR operands, Â and Â^T, take ~15 GB each
    there and would take ~51 GB each at scale 1), GCN, hidden 256, with
    the plan pinned to BSR 128 x 128 through ``build_bundle(plan=...)``
    (the tuner's own pick is logged): BSR on Â at K = 256 and 112 forward
    and on the cached Â^T backward;
-5. last, the kernels line (one JSON object: the serving kernels as timed
-   in phase 4, BSR as timed in phase 7), the card line, and
+5. last, the kernels line (one JSON object: the sampling kernels as timed
+   in phase 8, the serving kernels as timed in phase 4, BSR as timed in
+   phase 7), the card line, and
    ``{"ok": true, "device": {...}}``.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
@@ -83,6 +102,12 @@ KERNEL_META = {
                       replaces="src/repro/kernels/sell_spmm.py:50"),
     "bsr_spmm": dict(source="src/repro_torch/csrc/bsr_spmm.cu",
                      replaces="src/repro/kernels/bsr_spmm.py:53"),
+    "segment_sample": dict(source="src/repro_torch/csrc/sample.cu",
+                           replaces="src/repro/kernels/sample.py:158"),
+    "expand_indptr": dict(source="src/repro_torch/csrc/sample.cu",
+                          replaces="src/repro/kernels/sample.py:218"),
+    "flat_gather": dict(source="src/repro_torch/csrc/sample.cu",
+                        replaces="src/repro/kernels/sample.py:263"),
 }
 SERVE_KERNELS = ("ell_spmm", "sell_spmm")   # what serving launches
 TRAIN_EPOCHS, TRAIN_LR, TRAIN_WD = 5, 1e-2, 5e-4
@@ -90,6 +115,12 @@ LOSS_RTOL = 1e-5        # patched vs unpatched first-step loss, fp32
 GRAD_TOL = 1e-4         # max |diff| / max |unpatched| of each gradient
 PROTEINS_SCALE = 1 / 2  # device memory: two ~15 GB BSR operands
 TF32_FLOPS = 495e12     # H100 SXM dense TF32 tensor-core peak
+# H100 SXM int32 rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost, one
+# operation a lane a clock (the Hopper white paper's SM: 64 INT32 units)
+INT32_OPS = 132 * 64 * 1.98e9
+MB_BATCH, MB_EPOCHS = 1024, 2   # PyG's / DGL's Reddit minibatch setting
+MB_SYNC_STEPS = 8               # steps run under the host-sync check
+MB_INFER_BATCH = 4096           # layer-wise inference dst rows per block
 
 
 def log(*args):
@@ -224,6 +255,10 @@ def profiled(fn, reps: int = 1):
     return kernel_times(got["events"]), wall
 
 
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def device_us(fn, reps: int):
     """Device time (µs) of the kernels ``reps`` calls of ``fn`` run, by
     kernel name."""
@@ -285,15 +320,17 @@ def real_slots_per_row(name, a):
     return per.reshape(-1)[a.inv_perm.long()]
 
 
-def check_kernel(name, a, h, tag):
-    """Run the kernel and its plain version on the same card tensors and
-    raise unless every element agrees. Tolerance: two fp32 sums of the
+def check_kernel(name, a, h, tag, out=None):
+    """Run the kernel (or take ``out``, what it already gave on these
+    operands) and its plain version on the same card tensors and raise
+    unless every element agrees. Tolerance: two fp32 sums of the
     same d terms in different orders differ by at most 2 d eps sum|terms|,
     d being the row's real slots. Returns (max |diff|, max d, the
     largest ratio of |diff| to its bound)."""
     import torch
     kernel, plain = kernel_fns(name)
-    out = kernel(a, h)
+    if out is None:
+        out = kernel(a, h)
     want = plain(a, h)
     mag = plain(dataclasses.replace(a, blocks=a.blocks.abs())
                 if name == "bsr_spmm" else
@@ -650,6 +687,552 @@ def train_phase(tag, ds, arch, bundle, kernel) -> dict:
                 step_profile=dict(tuned=prof_t, baseline=prof_b))
 
 
+# -- device-sampled minibatch training (phase 8) ---------------------------
+
+SAMPLE_KERNELS = ("segment_sample", "expand_indptr", "flat_gather")
+
+
+@contextlib.contextmanager
+def record_sampling():
+    """Record the inputs and output of every sampling primitive, ELL
+    forward and block backward the device sampler and the block SpMM
+    dispatch (copies, so later steps cannot touch them). The dispatchers
+    and their launch counts are unchanged."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sample as ks
+    from repro_torch.sampling import blocks as bl
+    calls: list = []
+    saved = [(ks, n, getattr(ks, n)) for n in SAMPLE_KERNELS] + [
+        (kops, "ell_spmm", kops.ell_spmm),
+        (bl, "ell_transpose_reduce", bl.ell_transpose_reduce)]
+
+    def clone(v):
+        return v.detach().clone() if hasattr(v, "detach") else v
+
+    def wrap(name, fn):
+        def recorded(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append(dict(name=name, args=[clone(v) for v in a],
+                              kw=dict(kw), out=clone(out)))
+            return out
+        return recorded
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_sample_call(c) -> dict:
+    """Run a recorded sampling primitive's kernel and its plain version on
+    the card on the recorded inputs: they must equal each other (and the
+    recorded output) bit for bit."""
+    import torch
+    from repro_torch.kernels import sample as ks
+    a, kw = c["args"], c["kw"]
+    if c["name"] == "segment_sample":
+        opts = dict(width=kw["width"], seed=kw["seed"], hop=kw["hop"],
+                    replace=kw["replace"])
+        run = (lambda: ks.segment_sample_cuda(a[0], a[1], a[2], **opts),
+               lambda: ks.segment_sample_plain(a[0], a[1], a[2], **opts))
+    elif c["name"] == "expand_indptr":
+        run = (lambda: ks.expand_indptr_cuda(a[0], a[1], a[2], **kw),
+               lambda: ks.expand_indptr_plain(a[0], a[1], a[2], **kw))
+    else:
+        run = (lambda: ks.flat_gather_cuda(a[0], a[1]),
+               lambda: ks.flat_gather_plain(a[0], a[1]))
+    got, want = run[0](), run[1]()
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got, c["out"])):
+        shapes = [tuple(t.shape) for t in a if hasattr(t, "shape")]
+        raise AssertionError(f"{c['name']}: kernel and plain version differ "
+                             f"on the step's inputs {shapes}")
+    return dict(run=run, out=got)
+
+
+def segment_sample_ops(deg, *, width: int, replace: bool) -> int:
+    """Integer operations ``segment_sample`` (``src/repro_torch/csrc/
+    sample.cu``) does on these degrees, counted from its code: 9 per hash
+    (3 shifts, 3 xors and 2 multiplies in the avalanche, the xor that
+    feeds it), four hashes for a row's prefix, one hash and 8 operations
+    per draw (convert, scale, subtract, floor, convert, clamp, add), and
+    without replacement 3 table writes per step and 2 compares per
+    override slot scanned (step j scans j slots). Rows with ``deg <=
+    width`` (without replacement) write identity ranks: one operation a
+    slot."""
+    import torch
+    n = int(deg.numel())
+    per_hash, per_draw = 9, 9 + 8
+    row_prefix = 4 * per_hash
+    if replace:
+        return n * (row_prefix + width * per_draw)
+    n_fy = int((deg.to(torch.int64) > width).sum())
+    fy_row = row_prefix + width * (per_draw + 3) + width * (width - 1)
+    return n_fy * fy_row + (n - n_fy) * width
+
+
+def sample_case(c, hop: int) -> dict:
+    """Time one recorded sampling primitive (kernel, plain, library where
+    one call computes it) and its bound from this call's inputs."""
+    import torch
+    from repro_torch.core.autotune import H100
+    run = check_sample_call(c)["run"]
+    a = c["args"]
+    name = c["name"]
+    library_ms = None
+    if name == "segment_sample":
+        deg, width = a[0], c["kw"]["width"]
+        f = deg.shape[0]
+        nbytes = f * 8 + f * width * 4
+        ops = segment_sample_ops(deg, width=width,
+                                 replace=c["kw"]["replace"])
+    elif name == "expand_indptr":
+        f, width = a[1].shape
+        nbytes = f * 4 + f * width * (4 + 1 + 4)
+        ops = 2 * f * width
+    else:
+        arr, pos = a
+        f, width = pos.shape
+        n_read = int(torch.unique(pos).numel())
+        nbytes = f * width * 8 + n_read * 4
+        ops = f * width
+        library_ms = cuda_ms(lambda: torch.take(arr, pos.long()))
+    t_bytes, t_ops = H100.mem_time(nbytes), ops / INT32_OPS
+    reps = 20
+    dev_us = sum(us for key, us in device_us(run[0], reps).items()
+                 if f"{name}_kernel" in key)
+    return dict(name=name, hop=hop, f=f, width=width,
+                dtype=str(a[0].dtype) if name == "flat_gather" else "int32",
+                max_abs_err=0.0, ms=cuda_ms(run[0]),
+                device_ms=dev_us / reps / 1e3 if dev_us else None,
+                plain_ms=cuda_ms(run[1], reps=5, warmup=1),
+                library_ms=library_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, int_ops=ops)
+
+
+def check_block_backward(c) -> dict:
+    """The block backward (``dh = Aᵀ dout`` by ``index_add_``) on the card
+    against the same function on the CPU, on the step's own inputs: each
+    element within 2 d eps sum|terms|, d its real slots."""
+    import torch
+    from repro_torch.core import sparse as sp
+    from repro_torch.kernels.ref import ell_transpose_reduce
+    a, dout = c["args"]
+    got = c["out"]
+    cpu_a = sp.to_device(a, "cpu")
+    want = ell_transpose_reduce(cpu_a, dout.cpu())
+    mag = ell_transpose_reduce(dataclasses.replace(cpu_a, val=cpu_a.val.abs()),
+                               dout.abs().cpu())
+    idx = cpu_a.idx.long().reshape(-1)
+    d = torch.bincount(idx[idx < a.ncols], minlength=a.ncols)
+    err = (got.cpu() - want).abs()
+    bound = 2 * EPS32 * d.to(torch.float32)[:, None] * mag + 1e-30
+    if not bool((err <= bound).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"block backward disagrees with the CPU: max "
+                             f"err {float(err.max())}, worst ratio "
+                             f"{float((err / bound).max())}")
+    return dict(k=dout.shape[1], rows=a.nrows, width=a.max_deg,
+                max_abs_err=float(err.max()),
+                max_err_over_bound=float((err / bound).max()))
+
+
+def sparse_csr(row, col, val, shape):
+    """A CSR tensor on the card (``torch.sparse.mm``'s operand, a
+    yardstick the port never calls) from COO triplets in any order."""
+    import torch
+    order = torch.argsort(row.long() * shape[1] + col.long())
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=row.device)
+    crow[1:] = torch.cumsum(torch.bincount(row.long(), minlength=shape[0]), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # "sparse CSR is in beta"
+        return torch.sparse_csr_tensor(crow, col.long()[order],
+                                       val.float()[order], size=shape)
+
+
+def block_cases(a, h, dout=None) -> list:
+    """Time the ELL forward (``a @ h``) and, given ``dout``, the block
+    backward (``aᵀ @ dout``, ``index_add_``) of a minibatch step's block
+    beside the plain version, the bound (each real slot's index and value,
+    each distinct row read, each output row) and ``torch.sparse.mm``."""
+    import torch
+    from repro_torch.core.autotune import H100
+    from repro_torch.kernels.ref import ell_transpose_reduce
+    kernel, plain = kernel_fns("ell_spmm")
+    real = a.idx < a.ncols
+    row = torch.arange(a.nrows, device=a.idx.device)[:, None].expand(
+        a.idx.shape)[real]
+    col, val = a.idx[real], a.val[real]
+    n = int(col.numel())
+    n_src = int(torch.unique(col).numel())
+    fwd_lib = sparse_csr(row, col, val, (a.nrows, a.ncols))
+    ways = [("fwd", h.shape[1], (lambda: kernel(a, h), lambda: plain(a, h)),
+             lambda: torch.sparse.mm(fwd_lib, h), n_src, a.nrows)]
+    if dout is not None:
+        bwd_lib = sparse_csr(col, row, val, (a.ncols, a.nrows))
+        ways.append(("bwd", dout.shape[1],
+                     (lambda: ell_transpose_reduce(a, dout), None),
+                     lambda: torch.sparse.mm(bwd_lib, dout), a.nrows, n_src))
+    cases = []
+    for way, k, fns, lib, rows_in, rows_out in ways:
+        nbytes = n * 8 + rows_in * k * 4 + rows_out * k * 4
+        t_bytes, t_ops = H100.mem_time(nbytes), H100.vpu_time(2.0 * n * k)
+        # the forward's kernel alone; everything the backward launches
+        dev_us = sum(us for key, us in device_us(fns[0], 20).items()
+                     if way == "bwd" or "ell_spmm_kernel" in key)
+        cases.append(dict(
+            way=way, k=k, rows=a.nrows, width=a.max_deg, nnz=n,
+            ms=cuda_ms(fns[0]),
+            device_ms=dev_us / 20 / 1e3 if dev_us else None,
+            plain_ms=cuda_ms(fns[1], reps=5, warmup=1) if fns[1] else None,
+            library_ms=cuda_ms(lib), bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations"))
+    return cases
+
+
+@contextlib.contextmanager
+def trainer_hooks():
+    """Hooks into ``train_gnn_minibatch``'s own device-sampled steps that
+    launch nothing themselves: the first step runs under
+    :func:`record_sampling` (its sampler, step function, arguments and
+    recorded primitives are kept for the checks), the next
+    ``MB_SYNC_STEPS`` steps under ``set_sync_debug_mode("error")``, and
+    each step's launches are read from the counters around it."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.train import gnn_minibatch as mb
+    hooks: dict = dict(first=None, per_step=[])
+    make = mb.make_device_minibatch_step
+
+    def make_hooked(apply_blocks, opt, dev_sampler, **kw):
+        step = make(apply_blocks, opt, dev_sampler, **kw)
+
+        def hooked(*args):
+            i = len(hooks["per_step"])
+            before = kops.kernel_launches()
+            if i == 0:
+                with record_sampling() as calls:
+                    res = step(*args)
+                hooks["first"] = dict(sampler=dev_sampler, step=step,
+                                      args=args, calls=calls)
+            elif i <= MB_SYNC_STEPS:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    res = step(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                res = step(*args)
+            after = kops.kernel_launches()
+            hooks["per_step"].append({k: after[k] - before[k] for k in after})
+            return res
+        return hooked
+
+    mb.make_device_minibatch_step = make_hooked
+    try:
+        yield hooks
+    finally:
+        mb.make_device_minibatch_step = make
+
+
+@contextlib.contextmanager
+def record_inference_sell():
+    """Keep, by reference, every SELL launch of layer-wise inference: the
+    packed operand, the kernel's output, and the full-layer matrix and
+    source ids its dense operand was gathered from (keeping every gathered
+    operand would hold tens of GB; the check gathers each again). Launches
+    nothing of its own."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.train import gnn_minibatch as mb
+    calls: list = []
+    block: dict = {}
+    glob, sell = mb.block_spmm_global, kops.sell_spmm
+
+    def block_spmm_global(pb, h_full, *a, **kw):
+        block.update(src_ids=pb.src_ids, h_full=h_full)
+        try:
+            return glob(pb, h_full, *a, **kw)
+        finally:
+            block.clear()
+
+    def sell_spmm(a, h):
+        out = sell(a, h)
+        if block:
+            calls.append(dict(a=a, out=out, **block))
+        return out
+
+    mb.block_spmm_global, kops.sell_spmm = block_spmm_global, sell_spmm
+    try:
+        yield calls
+    finally:
+        mb.block_spmm_global, kops.sell_spmm = glob, sell
+
+
+def check_inference_sell(calls) -> dict:
+    """Hold the output of every recorded SELL launch of layer-wise
+    inference, as the main path produced it, against the plain version on
+    the same operands (``check_kernel``'s per-row bound)."""
+    from repro_torch.sampling import gather_rows
+    st: dict = dict(operands=0, max_abs_err=0.0, max_err_over_bound=0.0,
+                    k=[], max_width=0)
+    for i, c in enumerate(calls):
+        h = gather_rows(c["h_full"], c["src_ids"])
+        err, width, ratio = check_kernel("sell_spmm", c["a"], h,
+                                         f"inference launch {i}",
+                                         out=c["out"])
+        st["operands"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["max_err_over_bound"] = max(st["max_err_over_bound"], ratio)
+        st["max_width"] = max(st["max_width"], width)
+        if h.shape[1] not in st["k"]:
+            st["k"].append(h.shape[1])
+    return st
+
+
+def minibatch_phase(ds) -> dict:
+    """Phase 8: device-sampled minibatch training at full width. The main
+    path runs first, with hooks that record its own first step and its
+    inference's SELL launches; every check then holds what it recorded.
+    Raises on the first failed check."""
+    import copy
+
+    import torch
+    from repro_torch.core import sparse as sp
+    from repro_torch.kernels import ops as kops
+    from repro_torch.sampling import (BlockPlanCache, NeighborSampler,
+                                      device_graph_from_csr, pack_block,
+                                      plan_buckets, seed_batches)
+    from repro_torch.train import gnn_minibatch as mb
+    out: dict = dict(arch=ARCH, hidden=HIDDEN, fanouts=FANOUTS,
+                     batch_size=MB_BATCH, epochs=MB_EPOCHS, lr=TRAIN_LR,
+                     weight_decay=TRAIN_WD, sampler="device")
+    init, _, _, dims = mb.make_block_model(
+        ARCH, ds.num_features, HIDDEN, ds.num_classes, len(FANOUTS))
+    params = init(torch.Generator().manual_seed(0), device=DEVICE)
+
+    # (a) the main path: train_gnn_minibatch, counts zeroed and read
+    # around it
+    with trainer_hooks() as hooks, record_inference_sell() as sell_calls:
+        kops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        res = mb.train_gnn_minibatch(
+            ARCH, ds, fanouts=FANOUTS, batch_size=MB_BATCH, hidden=HIDDEN,
+            epochs=MB_EPOCHS, lr=TRAIN_LR, weight_decay=TRAIN_WD,
+            sampler="device", params=params, infer_batch=MB_INFER_BATCH,
+            device=DEVICE)
+        launches = kops.kernel_launches()
+        wall = time.perf_counter() - t0
+    for name in SAMPLE_KERNELS + ("ell_spmm", "sell_spmm"):
+        if launches[name] == 0:
+            raise AssertionError(f"minibatch: {name} was not launched on the "
+                                 f"main path ({launches})")
+    if len(res.losses) != MB_EPOCHS or not np.isfinite(res.losses).all() or \
+            not 0.0 <= res.test_acc <= 1.0:
+        raise AssertionError(f"minibatch: losses {res.losses}, test "
+                             f"accuracy {res.test_acc}")
+    per_step = hooks["per_step"]
+    n_steps = res.steps_per_epoch * MB_EPOCHS
+    if len(per_step) != n_steps or any(
+            s[name] == 0 for s in per_step for name in SAMPLE_KERNELS):
+        raise AssertionError(f"minibatch: {len(per_step)} hooked steps of "
+                             f"{n_steps}, or a step launched no sampling "
+                             f"kernel")
+    per_step_mean = {k: sum(s[k] for s in per_step) / n_steps
+                     for k in per_step[0]}
+    out.update(launches=launches, launches_per_step=per_step_mean,
+               steps=n_steps, wall_s=wall,
+               sync_free_steps=min(MB_SYNC_STEPS, n_steps - 1),
+               result={k: v for k, v in dataclasses.asdict(res).items()
+                       if k != "final_params"})
+    log(f"minibatch: train_gnn_minibatch {MB_EPOCHS} epochs of "
+        f"{res.steps_per_epoch} steps: epoch 2 {res.epoch_time_s * 1e3:.1f} "
+        f"ms ({res.epoch_time_s / res.steps_per_epoch * 1e3:.2f} ms a step), "
+        f"epoch 1 {res.first_epoch_s * 1e3:.1f} ms; losses "
+        f"{[round(v, 5) for v in res.losses]}; test accuracy "
+        f"{res.test_acc:.4f} (train {res.train_acc:.4f}); layer-wise "
+        f"inference {res.infer_time_s:.1f} s; sample stage of an epoch "
+        f"{res.sample_time_s * 1e3:.1f} ms")
+    log(f"minibatch: capacities probed {list(res.probed_caps)}, final "
+        f"{list(res.src_caps)}; overflow edges {res.overflow_edges}, "
+        f"escalations {res.capacity_escalations}, skipped steps "
+        f"{res.skipped_steps}; plans {res.plan_kinds}; launches {launches} "
+        f"({per_step_mean} a step over its {n_steps} steps); {wall:.1f} s in "
+        "all")
+    log(f"minibatch: steps 2-{out['sync_free_steps'] + 1} of the run passed "
+        "under set_sync_debug_mode('error'): no host sync inside a step")
+
+    first = hooks["first"]
+    dev = first["sampler"]
+    p0, s0, seeds0, n_real0, rnd0, x, y, _ = first["args"]
+    out["signature"] = [list(e) for e in dev.signature]
+
+    # (b) the trainer's first batch sampled on the card equals the same
+    # sampler's plain run on the CPU
+    t0 = time.perf_counter()
+    cpu = copy.copy(dev)
+    cpu.graph = device_graph_from_csr(sp.csr_from_coo(ds.coo), device="cpu")
+    masked = torch.where(torch.arange(MB_BATCH, device=DEVICE) < n_real0,
+                         seeds0, ds.num_nodes)
+    with torch.no_grad():
+        got_b, got_ovf = dev.sample_blocks_stats(masked, rnd0)
+        want_b, want_ovf = cpu.sample_blocks_stats(masked.cpu(), rnd0)
+    fields = ("src_ids", "dst_pos", "row", "col", "val", "degrees")
+    for layer, (g, w) in enumerate(zip(got_b, want_b)):
+        pairs = [(f, getattr(g, f), getattr(w, f)) for f in fields]
+        pairs.append(("n_dst_real", g.n_dst_real, w.n_dst_real))
+        if w.ell is not None:
+            pairs += [("ell.idx", g.ell.idx, w.ell.idx),
+                      ("ell.val", g.ell.val, w.ell.val)]
+        for f, a, b in pairs:
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                raise AssertionError(f"minibatch: layer {layer} {f} sampled "
+                                     "on the card differs from the CPU")
+    if int(got_ovf) != int(want_ovf):
+        raise AssertionError(f"minibatch: overflow {int(got_ovf)} on the "
+                             f"card, {int(want_ovf)} on the CPU")
+    out["cross_device"] = dict(
+        blocks=len(got_b), overflow=int(got_ovf),
+        n_src=[b.n_src for b in got_b],
+        edges=[int((b.col < b.n_src).sum()) for b in got_b],
+        seconds=time.perf_counter() - t0)
+    log(f"minibatch: the trainer's batch 0 sampled on the card equals the "
+        f"CPU run bit for bit (every field of {len(got_b)} blocks, overflow "
+        f"{int(got_ovf)}; real edges {out['cross_device']['edges']}; "
+        f"buckets {dev.signature})")
+    del cpu, got_b, want_b
+
+    # (c) the trainer's first step, recorded: each kernel against its
+    # plain version on that step's own inputs
+    by_name: dict = {}
+    for c in first["calls"]:
+        by_name.setdefault(c["name"], []).append(c)
+    n_hops = len(FANOUTS)
+    # hops run innermost first: calls of hop 1 (the outer, larger
+    # frontier) come second
+    cases = []
+    for name in SAMPLE_KERNELS:
+        per_hop = n_hops if name != "flat_gather" else 2 * n_hops
+        if len(by_name.get(name, [])) != per_hop:
+            raise AssertionError(f"minibatch: {name} ran "
+                                 f"{len(by_name.get(name, []))} times in a "
+                                 f"step, expected {per_hop}")
+        for i, c in enumerate(by_name[name]):
+            hop = i if name != "flat_gather" else i // 2
+            cases.append(sample_case(c, hop))
+    ell_checks = []
+    for c in by_name.get("ell_spmm", []):
+        a, h = c["args"]
+        err, width, ratio = check_kernel("ell_spmm", a, h,
+                                         f"minibatch k{h.shape[1]}")
+        ell_checks.append(dict(k=h.shape[1], rows=a.nrows, width=width,
+                               max_abs_err=err, max_err_over_bound=ratio))
+    back_checks = [check_block_backward(c)
+                   for c in by_name.get("ell_transpose_reduce", [])]
+    if len(ell_checks) != n_hops or len(back_checks) != 1:
+        raise AssertionError(f"minibatch: {len(ell_checks)} ELL forwards, "
+                             f"{len(back_checks)} block backwards in a step")
+    # the layer with a backward (the seeds' block, layer 1) and layer 0
+    back = by_name["ell_transpose_reduce"][0]["args"]
+    layer0 = by_name["ell_spmm"][0]["args"]
+    timed = block_cases(back[0], by_name["ell_spmm"][1]["args"][1],
+                        back[1]) + block_cases(layer0[0], layer0[1])
+    del by_name
+    hooks["first"]["calls"] = None
+    out.update(kernel_cases=cases, ell_checks=ell_checks,
+               backward_checks=back_checks, block_cases=timed)
+    for c in timed:
+        # the backward is plain PyTorch itself: it has no other version
+        plain = "-" if c["plain_ms"] is None else f"{c['plain_ms']:.4f}"
+        log(f"  block {c['way']} k {c['k']} ({c['rows']} x {c['width']}, "
+            f"{c['nnz']} real slots): ms {c['ms']:.4f} device "
+            f"{fmt_ms(c['device_ms'])} plain {plain} bound "
+            f"{c['bound_ms']:.5f} ({c['bound_by']}) sparse.mm "
+            f"{c['library_ms']:.4f}")
+    for c in cases:
+        lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+        log(f"  {c['name']:14s} hop {c['hop']} ({c['f']} x {c['width']}, "
+            f"{c['dtype']}): bitwise equal; ms {c['ms']:.4f} device "
+            f"{fmt_ms(c['device_ms'])} plain "
+            f"{c['plain_ms']:.4f} bound {c['bound_ms']:.5f} "
+            f"({c['bound_by']}) library {lib}")
+    log("minibatch: ELL forward (k, rows, width) "
+        f"{[(e['k'], e['rows'], e['width']) for e in ell_checks]} within the "
+        "per-row bound (worst "
+        f"{max(e['max_err_over_bound'] for e in ell_checks):.3f}); block "
+        f"backward (k, rows) {[(b['k'], b['rows']) for b in back_checks]} "
+        f"within it (worst "
+        f"{max(b['max_err_over_bound'] for b in back_checks):.3f})")
+
+    # (d) every SELL launch of the run's layer-wise inference, as launched
+    if len(sell_calls) != launches["sell_spmm"]:
+        raise AssertionError(f"minibatch: {len(sell_calls)} SELL launches "
+                             f"recorded in inference, {launches['sell_spmm']} "
+                             "counted")
+    t0 = time.perf_counter()
+    out["inference_sell_checks"] = sell = check_inference_sell(sell_calls)
+    del sell_calls
+    torch.cuda.empty_cache()
+    log(f"minibatch: all {sell['operands']} SELL launches of layer-wise "
+        f"inference (k {sell['k']}, up to {sell['max_width']} real slots a "
+        f"row) within the per-row bound of the plain version (worst "
+        f"{sell['max_err_over_bound']:.3f}, max err "
+        f"{sell['max_abs_err']:.3g}), checked in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (e) the yardstick: host sample + pack against the trainer's device
+    # sampler, on epoch 0's first 8 seed batches
+    train_ids = np.nonzero(ds.train_mask.numpy())[0]
+    batches = list(seed_batches(train_ids, MB_BATCH, seed=0, epoch=0))[:8]
+    seeds = torch.from_numpy(np.stack([b[0] for b in batches])
+                             .astype(np.int32)).to(DEVICE)
+    ar = torch.arange(MB_BATCH, device=DEVICE)
+    with torch.no_grad():
+        dev.sample_blocks(torch.where(ar < batches[0][1], seeds[0],
+                                      ds.num_nodes), 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for bi, (_, nr) in enumerate(batches):
+            dev.sample_blocks(torch.where(ar < nr, seeds[bi], ds.num_nodes),
+                              bi)
+        torch.cuda.synchronize()
+        dev_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    host = NeighborSampler(sp.csr_from_coo(ds.coo), FANOUTS, seed=0)
+    cache = BlockPlanCache(semiring="mean", tune=True)
+    t0 = time.perf_counter()
+    for bi, (sids, nr) in enumerate(batches):
+        blocks = host.sample(sids[:nr], round=bi)
+        for blk, bk, k in zip(blocks, plan_buckets(
+                blocks, batch_size=MB_BATCH, fanouts=FANOUTS), dims):
+            plan = cache.plan_for(blk, n_dst=bk.n_dst, n_src=bk.n_src,
+                                  nnz=bk.nnz, k_hint=k)
+            pack_block(blk, n_dst=bk.n_dst, n_src=bk.n_src, nnz=bk.nnz,
+                       plan=plan, ell_width=bk.ell_width,
+                       sell_steps=bk.sell_steps)
+    host_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    out["yardstick"] = dict(batches=len(batches), device_sample_ms=dev_ms,
+                            host_sample_pack_ms=host_ms)
+    log(f"minibatch: sampling a batch of {MB_BATCH} seeds, "
+        f"{len(batches)} batches: {dev_ms:.3f} ms on the card "
+        f"(sample_blocks), {host_ms:.1f} ms on the host "
+        f"(NeighborSampler.sample + pack_block)")
+
+    # (f) one traced step of the trainer's own step function
+    from repro_torch.core.patch import patched
+    st = mb.init_step_stats(DEVICE)
+    with patched(True):
+        prof = step_profile(lambda: first["step"](
+            p0, s0, seeds[1], batches[1][1], 1, x, y, st))
+    out["step_profile"] = prof
+    log(f"minibatch: one traced step, device busy {prof['busy_share']:.3f} "
+        f"({prof['device_s'] * 1e3:.2f} ms of device time in "
+        f"{prof['wall_s'] * 1e3:.2f} ms; top {prof['top'][:4]})")
+    del hooks, first, dev, p0, s0, x, y, seeds
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -711,15 +1294,27 @@ def main() -> int:
     srv = Recording(params, ds, mode="sampled", cache_capacity=CACHE_ROWS,
                     **on_card)
     try:
-        kops.reset_kernel_launches()
-        closed_loop(srv, reqs, CLIENTS)                      # warm-up volley
-        warm = kops.kernel_launches()
-        log(f"warm-up volley: plans {srv.plan_cache.kinds()}, "
-            f"launches {warm}")
-        missing = [n for n in SERVE_KERNELS if warm[n] == 0]
-        if missing:
-            # the tuner left a kernel unlaunched: pin layer 1 to it
-            assert len(missing) == 1, warm
+        for attempt in range(2):
+            kops.reset_kernel_launches()
+            closed_loop(srv, reqs, CLIENTS)                  # warm-up volley
+            log(f"warm-up volley: plans {srv.plan_cache.kinds()}, "
+                f"launches {kops.kernel_launches()}")
+            with srv._lock:
+                srv.latencies_s.clear()
+                srv.queue_waits_s.clear()
+                srv.flush_sizes.clear()
+            srv.records.clear()
+            kops.reset_kernel_launches()
+            with obs.profiled(ops=False) as tracer:
+                wall = closed_loop(srv, reqs, CLIENTS)       # the main path
+            launches = kops.kernel_launches()
+            missing = [n for n in SERVE_KERNELS if launches[n] == 0]
+            if not missing or attempt:
+                break
+            # the tuner left a kernel unlaunched in this volley (the flush
+            # sizes, so the buckets and their plans, follow the clients'
+            # timing): pin layer 1 to it and serve both volleys again
+            assert len(missing) == 1, launches
             kind_pin = "ell" if missing[0] == "ell_spmm" else "sell"
             pinned[missing[0]] = True
             srv.stop()
@@ -728,18 +1323,8 @@ def main() -> int:
             srv = Recording(params, ds, mode="sampled",
                             cache_capacity=CACHE_ROWS, tuning_db=db,
                             **on_card)
-            closed_loop(srv, reqs, CLIENTS)
-            log(f"pinned layer 1 to {kind_pin}: plans "
-                f"{srv.plan_cache.kinds()}")
-        with srv._lock:
-            srv.latencies_s.clear()
-            srv.queue_waits_s.clear()
-            srv.flush_sizes.clear()
-        srv.records.clear()
-        kops.reset_kernel_launches()
-        with obs.profiled(ops=False) as tracer:
-            wall = closed_loop(srv, reqs, CLIENTS)           # the main path
-        launches = kops.kernel_launches()
+            log(f"measured volley launched {launches}: pinned layer 1 to "
+                f"{kind_pin}")
         st = srv.latency_stats()
         sampled_records = list(srv.records)
         spans = span_breakdown(tracer.snapshot(), len(sampled_records))
@@ -916,6 +1501,15 @@ def main() -> int:
     del bundle, g, a, coo
     torch.cuda.empty_cache()
 
+    # -- phase 8: device-sampled minibatch training on reddit ----------------
+    t0 = time.perf_counter()
+    minibatch = minibatch_phase(ds)
+    minibatch["seconds"] = time.perf_counter() - t0
+    log(f"minibatch phase: {minibatch['seconds']:.1f} s")
+    report["train_minibatch"] = minibatch
+    del ds
+    torch.cuda.empty_cache()
+
     # -- phase 7: full-graph training on ogbn-proteins, BSR pinned -----------
     t0 = time.perf_counter()
     pds = make_dataset("ogbn-proteins", scale=PROTEINS_SCALE)
@@ -957,7 +1551,18 @@ def main() -> int:
 
     # -- phase 5: the kernels line ------------------------------------------
     kernels = []
-    for name in KERNELS:
+    for name in SAMPLE_KERNELS:
+        rep = max((c for c in minibatch["kernel_cases"] if c["name"] == name),
+                  key=lambda c: c["f"] * c["width"])
+        kernels.append(dict(
+            name=name, route="cuda", **KERNEL_META[name],
+            launches=minibatch["launches"][name], max_abs_err=0.0,
+            ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+            library_ms=rep["library_ms"],
+            shape=f"hop{rep['hop']}/{rep['f']}x{rep['width']}/{rep['dtype']}",
+            launches_per_step=minibatch["launches_per_step"][name]))
+    for name in ("ell_spmm", "sell_spmm", "bsr_spmm"):
         if name == "bsr_spmm":
             rep = proteins["cases"][0]
             kernels.append(dict(
@@ -988,10 +1593,20 @@ def main() -> int:
             library_ms=rep["library_ms"], shape=rep["tag"],
             launches_full=full_launches[name], pinned=pinned[name])
         if name == "sell_spmm":
+            entry["launches_minibatch"] = minibatch["launches"][name]
+        if name == "ell_spmm":
+            entry["max_abs_err"] = max(
+                [entry["max_abs_err"]] +
+                [e["max_abs_err"] for e in minibatch["ell_checks"]])
+            entry.update(launches_minibatch=minibatch["launches"][name],
+                         launches_minibatch_per_step=minibatch[
+                             "launches_per_step"][name])
+        if name == "sell_spmm":
             entry["max_abs_err"] = max(
                 [entry["max_abs_err"]] +
                 [c["max_abs_err"] for c in reddit["cases"]] +
-                [o["max_abs_err"] for o in reddit["operand_checks"]])
+                [o["max_abs_err"] for o in reddit["operand_checks"]] +
+                [minibatch["inference_sell_checks"]["max_abs_err"]])
             entry.update(launches_train=reddit["launches"],
                          launches_train_fwd=reddit["launches_fwd"],
                          launches_train_bwd=reddit["launches_bwd"])

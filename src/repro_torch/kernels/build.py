@@ -27,18 +27,25 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "build_kernels", "load_kernel",
            "build_log", "build_dir"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("ell_spmm", "sell_spmm", "bsr_spmm")
+KERNELS = ("ell_spmm", "sell_spmm", "bsr_spmm", "sample")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C signatures: one pointer per array and the stream as c_void_p, sizes
-# as c_int; every function returns cudaGetLastError() as an int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of each library's entry points: one pointer per array and
+# the stream as c_void_p, sizes as c_int (c_longlong where they may pass
+# 2^31), hash words as c_uint; every function returns cudaGetLastError()
+# as an int.
+_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_uint
 _SIGNATURES = {
-    "ell_spmm": ("ell_spmm_f32", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "sell_spmm": ("sell_spmm_f32",
-                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "bsr_spmm": ("bsr_spmm_f32", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "ell_spmm": {"ell_spmm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "sell_spmm": {"sell_spmm_f32":
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "bsr_spmm": {"bsr_spmm_f32":
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "sample": {"segment_sample_i32": [_P, _P, _P, _I, _I, _U, _U, _U, _I, _P],
+               "expand_indptr_i32": [_P, _P, _P, _P, _I, _I, _I, _P],
+               "flat_gather_b32": [_P, _L, _P, _P, _L, _P]},
 }
 
 _LOCK = threading.Lock()
@@ -127,7 +134,7 @@ def build_log(name: str) -> str:
 
 def load_kernel(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it first if needed;
-    its C function has its argument and return types declared."""
+    its C functions have their argument and return types declared."""
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
@@ -136,9 +143,9 @@ def load_kernel(name: str) -> ctypes.CDLL:
         lib = _LOADED.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_lib_path(name)))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LOADED[name] = lib
     return lib

@@ -6,6 +6,14 @@ hand-written kernel (which raises if it cannot build or launch), a CPU
 tensor runs the plain PyTorch version, any other device raises. There is
 no fallback between the two.
 
+``gathered_ell_spmm`` is ``ell_spmm`` over a block whose source rows are
+picked out of a full feature matrix: the block's ``src_ids`` are composed
+into its neighbour table, and the ELL kernel reads the full matrix in
+place (the reference composes the two gathers in XLA, not in Pallas).
+
+The sampling primitives' kernels (``kernels/sample.py``) count their
+launches here too.
+
 ``slot_gather`` / ``table_insert`` are the serving feature cache's device
 primitives. The reference writes them as plain array ops, so plain tensor
 indexing is their port.
@@ -22,15 +30,20 @@ from repro_torch.core.sparse import BSR, ELL, SELL
 from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, bsr_spmm_plain
 from repro_torch.kernels.build import build_kernels, load_kernel
 from repro_torch.kernels.ell_spmm import ell_spmm_cuda, ell_spmm_plain
+from repro_torch.kernels.sample import (expand_indptr_cuda, flat_gather_cuda,
+                                        segment_sample_cuda)
 from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
 from repro_torch.obs import op_record, op_t0
 
-__all__ = ["bsr_spmm", "ell_spmm", "sell_spmm", "slot_gather",
-           "table_insert", "build_kernels", "load_kernel", "kernel_launches",
-           "reset_kernel_launches"]
+__all__ = ["bsr_spmm", "ell_spmm", "sell_spmm", "gathered_ell_spmm",
+           "slot_gather", "table_insert", "build_kernels", "load_kernel",
+           "kernel_launches", "reset_kernel_launches"]
 
 _CUDA_WRAPPERS = {"ell_spmm": ell_spmm_cuda, "sell_spmm": sell_spmm_cuda,
-                  "bsr_spmm": bsr_spmm_cuda}
+                  "bsr_spmm": bsr_spmm_cuda,
+                  "segment_sample": segment_sample_cuda,
+                  "expand_indptr": expand_indptr_cuda,
+                  "flat_gather": flat_gather_cuda}
 
 
 def _backend(h: torch.Tensor) -> str:
@@ -71,6 +84,25 @@ def sell_spmm(a: SELL, h: torch.Tensor) -> torch.Tensor:
     backend = _backend(h)
     out = sell_spmm_cuda(a, h) if backend == "cuda" else sell_spmm_plain(a, h)
     op_record("sell_spmm", out, a.idx, h, t0_ns=t0, backend=backend)
+    return out
+
+
+def gathered_ell_spmm(a: ELL, h_full: torch.Tensor,
+                      src_ids: torch.Tensor) -> torch.Tensor:
+    """``ell_spmm(a, h_full[src_ids])`` without copying the block's source
+    rows: the local neighbour ids are composed with ``src_ids`` into
+    global ids, and the ELL kernel gathers from ``h_full`` directly.
+    Local sentinels, and ``src_ids`` pads (``num_nodes``), compose to the
+    ``h_full.shape[0]`` sentinel, which the kernel skips and the plain
+    version reads as a zero row. Sum semiring."""
+    t0 = op_t0()
+    n, n_src = h_full.shape[0], src_ids.shape[0]
+    idx = a.idx.long()
+    gid = src_ids[idx.clamp(0, max(n_src - 1, 0))].to(torch.int32)
+    gid = torch.where((idx < n_src) & (gid < n), gid, n)
+    glob = ELL(idx=gid, val=a.val, nrows=a.nrows, ncols=n, nse=a.nse)
+    out = ell_spmm(glob, h_full)
+    op_record("gathered_ell_spmm", out, a.idx, h_full, src_ids, t0_ns=t0)
     return out
 
 

@@ -21,7 +21,8 @@ if TYPE_CHECKING:  # annotation-only
     from repro_torch.core.sparse import BSR, COO, ELL, SELL
 
 __all__ = ["coo_reduce", "spmm_coo_ref", "spmm_ell_ref", "spmm_sell_ref",
-           "spmm_bsr_ref", "sell_packed_reduce", "take_rows"]
+           "spmm_bsr_ref", "sell_packed_reduce", "take_rows",
+           "ell_transpose_reduce", "sell_transpose_reduce"]
 
 # gathered elements per chunk (fp32: 256 MiB of messages at a time)
 _CHUNK_ELEMS = 1 << 26
@@ -109,6 +110,41 @@ def spmm_sell_ref(a: "SELL", h: torch.Tensor) -> torch.Tensor:
     """Sum-semiring SELL-C-σ SpMM in fp32, rows in original order."""
     return sell_packed_reduce(a.idx, a.val, a.slice_of, a.nslices,
                               a.inv_perm, h)
+
+
+def ell_transpose_reduce(a: "ELL", dout: torch.Tensor) -> torch.Tensor:
+    """``Aᵀ @ dout`` for an ELL operand (the gradient of the sum-semiring
+    ELL SpMM in ``h``): ``dh[idx[r, d]] += val[r, d] * dout[r]``, with
+    ``index_add_`` in chunks of rows; sentinel slots land on a spare row
+    that is dropped."""
+    k = dout.shape[1]
+    dh = dout.new_zeros((a.ncols + 1, k), dtype=torch.float32)
+    step = _rows_per_chunk(a.max_deg, k)
+    for lo in range(0, a.nrows, step):
+        idx = a.idx[lo: lo + step].long().clamp(0, a.ncols)
+        msg = a.val[lo: lo + step, :, None].float() * \
+            dout[lo: lo + step, None, :].float()
+        dh.index_add_(0, idx.reshape(-1), msg.reshape(-1, k))
+    return dh[: a.ncols]
+
+
+def sell_transpose_reduce(a: "SELL", dout: torch.Tensor) -> torch.Tensor:
+    """``Aᵀ @ dout`` for a SELL operand: ``dout`` (original row order) is
+    moved to the packed positions, then every packed step scatters
+    ``val * dout_packed[slice, lane]`` into ``dh[idx]`` in chunks of
+    steps; sentinel slots land on a spare row that is dropped."""
+    k = dout.shape[1]
+    packed = dout.new_zeros((a.nslices * a.c, k), dtype=torch.float32)
+    packed[a.inv_perm.long()] = dout.float()
+    packed = packed.view(a.nslices, a.c, k)
+    dh = dout.new_zeros((a.ncols + 1, k), dtype=torch.float32)
+    step = _rows_per_chunk(a.c, k)
+    for lo in range(0, a.n_steps, step):
+        g = packed[a.slice_of[lo: lo + step].long()] * \
+            a.val[lo: lo + step, :, None].float()
+        idx = a.idx[lo: lo + step].long().clamp(0, a.ncols)
+        dh.index_add_(0, idx.reshape(-1), g.reshape(-1, k))
+    return dh[: a.ncols]
 
 
 def spmm_bsr_ref(a: "BSR", h: torch.Tensor) -> torch.Tensor:

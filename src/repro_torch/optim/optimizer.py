@@ -13,7 +13,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple
 
-import numpy as np
 import torch
 
 __all__ = ["Optimizer", "AdamWState", "adamw", "apply_updates", "tree_map"]
@@ -26,7 +25,7 @@ class Optimizer:
 
 
 class AdamWState(NamedTuple):
-    step: int
+    step: torch.Tensor      # () int32 on the params' device, as the reference
     mu: Any
     nu: Any
 
@@ -46,17 +45,25 @@ def apply_updates(params, updates):
 def adamw(lr: float, *, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
     def init(params) -> AdamWState:
-        return AdamWState(step=0, mu=tree_map(torch.zeros_like, params),
-                          nu=tree_map(torch.zeros_like, params))
+        leaves: list = []
+        tree_map(leaves.append, params)
+        return AdamWState(
+            step=torch.zeros((), dtype=torch.int32, device=leaves[0].device),
+            mu=tree_map(torch.zeros_like, params),
+            nu=tree_map(torch.zeros_like, params))
 
     @torch.no_grad()
     def update(grads, state: AdamWState, params):
-        step = state.step + 1
-        # bias corrections in fp32, as the reference computes them (c2 at
+        # the step count and the bias corrections live on the device, so a
+        # caller can hold the step with ``torch.where`` without a host sync;
+        # the corrections are fp32, as the reference computes them (c2 at
         # step 1 is 1 - fp32(0.999): 1.3e-5 off the exact 0.001)
-        t = np.float32(step)
-        c1 = float(np.float32(1.0) - np.float32(b1) ** t)
-        c2 = float(np.float32(1.0) - np.float32(b2) ** t)
+        step = state.step + 1
+        t = step.to(torch.float32)
+        base = lambda b: torch.full((), b, dtype=torch.float32,   # noqa: E731
+                                    device=t.device)
+        c1 = 1.0 - torch.pow(base(b1), t)
+        c2 = 1.0 - torch.pow(base(b2), t)
         mu = tree_map(lambda g, m: b1 * m + (1 - b1) * g, grads, state.mu)
         nu = tree_map(lambda g, v: b2 * v + (1 - b2) * torch.square(g), grads,
                   state.nu)

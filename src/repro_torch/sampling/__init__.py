@@ -1,11 +1,14 @@
-"""repro_torch.sampling — neighbor-sampled blocks for serving.
+"""repro_torch.sampling — neighbor-sampled blocks for training and serving.
 
-    k-hop sampler      repro_torch.sampling.sampler  fused, seeded, numpy
+    seed loader        repro_torch.sampling.loader        shuffled padded
+        │                                                  batches, prefetch
+    k-hop sampler      repro_torch.sampling.sampler       host, numpy
+                       repro_torch.sampling.device_graph  device, hand kernels
         │
-    bucket ladder      repro_torch.sampling.buckets  log-many shapes
+    bucket ladder      repro_torch.sampling.buckets       log-many shapes
         │
-    plan-aware pack    repro_torch.sampling.blocks   ELL/SELL per autotuned
-                                                     bucket plan
+    plan-aware pack    repro_torch.sampling.blocks        ELL/SELL per autotuned
+                                                          bucket plan
 
 The block aggregation is registered as the ``block_spmm`` op of the patch
 registry: patched -> plan-routed hand kernels, un-patched -> the trusted
@@ -15,9 +18,14 @@ from repro_torch.core.patch import register_baseline, register_tuned
 from repro_torch.sampling.sampler import Block, NeighborSampler
 from repro_torch.sampling.blocks import (BlockPlanCache, PackedBlock,
                                          block_spmm, block_spmm_baseline,
-                                         gather_rows, pack_block)
+                                         block_spmm_global, gather_rows,
+                                         pack_block)
 from repro_torch.sampling.buckets import (LayerBucket, merge_buckets,
                                           plan_buckets, round_bucket)
+from repro_torch.sampling.device_graph import (DeviceGraph, DeviceSampler,
+                                               device_graph_from_csr)
+from repro_torch.sampling.loader import (num_seed_batches, prefetch,
+                                         seed_batches)
 
 register_tuned("block_spmm", block_spmm)
 register_baseline("block_spmm", block_spmm_baseline)
@@ -30,9 +38,16 @@ __all__ = [
     "pack_block",
     "block_spmm",
     "block_spmm_baseline",
+    "block_spmm_global",
     "gather_rows",
     "LayerBucket",
     "plan_buckets",
     "merge_buckets",
     "round_bucket",
+    "DeviceGraph",
+    "DeviceSampler",
+    "device_graph_from_csr",
+    "num_seed_batches",
+    "seed_batches",
+    "prefetch",
 ]

@@ -14,9 +14,18 @@ the adjacency in the format the autotuner picked for that bucket:
 
 Packing is host-side and yields CPU tensors;
 :func:`repro_torch.core.sparse.to_device` moves a packed block to the
-device that runs the model. Plans are chosen once per bucket by
-:class:`BlockPlanCache` (consulting/persisting ``TuningDB`` rows under a
-``block...`` string key).
+device that runs the model (the device sampler,
+``sampling/device_graph.py``, builds its blocks on the device instead).
+Plans are chosen once per bucket by :class:`BlockPlanCache`
+(consulting/persisting ``TuningDB`` rows under a ``block...`` string
+key).
+
+:func:`block_spmm` is differentiable in ``h`` on every plan: the ELL and
+SELL kernels sit in a ``torch.autograd.Function`` whose backward is the
+transpose scatter ``dh[col] += val * dout[row]``
+(``kernels/ref.ell_transpose_reduce`` / ``sell_transpose_reduce``,
+``index_add_`` in chunks), the trusted path by plain autograd. The
+reference gets this gradient from plain AD of its XLA path.
 """
 from __future__ import annotations
 
@@ -29,14 +38,16 @@ import torch
 from repro_torch import obs
 from repro_torch.core import sparse as sp
 from repro_torch.core.autotune import KernelPlan, TuningDB, autotune
+from repro_torch.core.patch import is_patched
 from repro_torch.core.semiring import Semiring, get_semiring
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import coo_reduce, take_rows
+from repro_torch.kernels.ref import (coo_reduce, ell_transpose_reduce,
+                                     sell_transpose_reduce, take_rows)
 from repro_torch.sampling.buckets import round_bucket
 from repro_torch.sampling.sampler import Block
 
 __all__ = ["PackedBlock", "pack_block", "BlockPlanCache", "block_spmm",
-           "block_spmm_baseline", "gather_rows"]
+           "block_spmm_baseline", "block_spmm_global", "gather_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +57,9 @@ class PackedBlock:
     Padding conventions: ``src_ids`` pads with ``num_nodes`` (out of range
     -> zero row on gather); ``col`` pads with ``n_src``; ``row`` pads with
     ``n_dst - 1`` and ``val`` with 0 (inert under sum); ``dst_pos`` pads
-    with ``n_src`` (zero row on the self-term gather).
+    with ``n_src`` (zero row on the self-term gather). A block of the
+    device sampler keeps ``n_dst_real`` as a device scalar (reading it
+    would wait for the device) and ``nnz_real`` at its capacity.
     """
 
     src_ids: torch.Tensor     # (n_src,) int32 global ids of source rows
@@ -57,7 +70,7 @@ class PackedBlock:
     degrees: torch.Tensor     # (n_dst,) float32 sampled in-degrees
     ell: Optional[sp.ELL]
     sell: Optional[sp.SELL]
-    n_dst_real: int           # real destination count
+    n_dst_real: int | torch.Tensor    # real destination count
     nnz_real: int             # real edge count
     n_dst: int
     n_src: int
@@ -181,14 +194,17 @@ class BlockPlanCache:
         return f"block{n_dst}x{n_src}nse{nnz}k{k}sr{semiring}"
 
     def plan_for(self, block: Block, *, n_dst: int, n_src: int, nnz: int,
-                 k_hint: int) -> KernelPlan:
+                 k_hint: int, sell_ok: bool = True) -> KernelPlan:
         """The plan of ``block``'s bucket: cached, else from the DB, else
-        swept (``tune``) or trusted."""
-        ck = (n_dst, n_src, nnz, k_hint, self.semiring)
+        swept (``tune``) or trusted. ``sell_ok=False`` restricts the sweep
+        to ELL/trusted, for the device sampler, whose packing cannot build
+        the degree-sorted SELL layout; such plans cache and persist under
+        their own key."""
+        ck = (n_dst, n_src, nnz, k_hint, self.semiring, sell_ok)
         plan = self._plans.get(ck)
         if plan is not None:
             return plan
-        skey = self.key(*ck)
+        skey = self.key(*ck[:5]) + ("" if sell_ok else "nosell")
         source = None
         if self.db is not None:
             plan = self.db.get_key(skey)
@@ -200,7 +216,8 @@ class BlockPlanCache:
                              val=np.asarray(block.val), nrows=n_dst,
                              ncols=n_src, nse=block.nnz)
                 plan = autotune(rep, k_hint, semiring_reduce=self.semiring,
-                                tile_candidates=())
+                                tile_candidates=(),
+                                sell_candidates=None if sell_ok else ())
                 source = "sweep"
             else:
                 plan = KernelPlan.trusted(k_hint)
@@ -216,7 +233,7 @@ class BlockPlanCache:
 
     def plans(self) -> dict:
         """The plans chosen so far, keyed ``(n_dst, n_src, nnz, k_hint,
-        semiring)``."""
+        semiring, sell_ok)``."""
         return dict(self._plans)
 
     def kinds(self) -> tuple:
@@ -236,19 +253,39 @@ def _trusted_reduce(pb: PackedBlock, h: torch.Tensor,
                       pb.degrees)
 
 
+class _PackedSpMM(torch.autograd.Function):
+    """Sum-semiring SpMM over a packed ELL or SELL block through its hand
+    kernel; the backward is the transpose scatter into ``dh`` (nothing
+    when ``h`` needs no gradient)."""
+
+    @staticmethod
+    def forward(ctx, h, a, kind):
+        ctx.a, ctx.kind = a, kind
+        return kops.ell_spmm(a, h) if kind == "ell" else kops.sell_spmm(a, h)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        back = ell_transpose_reduce if ctx.kind == "ell" else \
+            sell_transpose_reduce
+        return back(ctx.a, dout.contiguous()), None, None
+
+
 def block_spmm(pb: PackedBlock, h: torch.Tensor, reduce: str = "mean",
                combine: str = "mul") -> torch.Tensor:
     """out[i,:] = ⊕_{j in sampled N(i)} (A_ij ⊗ h[j,:]) over one block.
 
     The tuned path: the bucket's plan routes sum/mean through the packed
     ELL/SELL kernels (``kernels/ops``), mean dividing by the sampled
-    degree; anything else takes the trusted segment path."""
+    degree; anything else takes the trusted segment path. Differentiable
+    in ``h`` on every plan."""
     sr = get_semiring(reduce, combine)
     t0 = obs.op_t0()
     if pb.plan_kind == "ell" and pb.ell is not None and sr.mxu_eligible:
-        out = kops.ell_spmm(pb.ell, h)
+        out = _PackedSpMM.apply(h, pb.ell, "ell")
     elif pb.plan_kind == "sell" and pb.sell is not None and sr.mxu_eligible:
-        out = kops.sell_spmm(pb.sell, h)
+        out = _PackedSpMM.apply(h, pb.sell, "sell")
     else:
         out = _trusted_reduce(pb, h, sr).to(h.dtype)
         obs.op_record("block_spmm", out, h, t0_ns=t0, plan="trusted",
@@ -273,3 +310,23 @@ def block_spmm_baseline(pb: PackedBlock, h: torch.Tensor,
 def gather_rows(h_full: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Zero-filled row gather (out-of-range ids -> 0 rows)."""
     return take_rows(h_full, ids)
+
+
+def block_spmm_global(pb: PackedBlock, h_full: torch.Tensor,
+                      reduce: str = "mean",
+                      combine: str = "mul") -> torch.Tensor:
+    """Block SpMM whose dense operand is the *full* node-feature matrix
+    (layer-wise inference): patched ELL plans compose the block's source
+    ids into the neighbour table (``kernels/ops.gathered_ell_spmm``), so
+    the block's source rows are never copied out; other plans gather then
+    dispatch; un-patched, the trusted path."""
+    sr = get_semiring(reduce, combine)
+    if (is_patched() and pb.plan_kind == "ell" and pb.ell is not None
+            and sr.mxu_eligible):
+        out = kops.gathered_ell_spmm(pb.ell, h_full, pb.src_ids)
+        if sr.reduce == "mean":
+            out = out * (1.0 / torch.clamp(pb.degrees, min=1.0))[:, None]
+        return out.to(h_full.dtype)
+    h_src = gather_rows(h_full, pb.src_ids)
+    fn = block_spmm if is_patched() else block_spmm_baseline
+    return fn(pb, h_src, reduce, combine)

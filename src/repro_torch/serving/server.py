@@ -16,13 +16,19 @@ synchronous ``predict(seeds) -> logits`` service on one device:
 * features come from the device-resident LRU
   :class:`~.feature_cache.FeatureCache`.
 
+``mode="historical"`` serves one full-neighbour hop over cached
+layer-(L-1) embeddings plus the final layer; the embedding matrix comes
+from the exact offline sweep
+(:func:`~repro_torch.train.gnn_minibatch.layerwise_inference` with
+``upto=L-1``), and :meth:`GNNServer.refresh_embeddings` recomputes it and
+bumps the cache epoch, so stale entries read as misses and refill.
+:meth:`GNNServer.offline_logits` is the exact offline answer for every
+node through the same plan cache.
+
 The serve step is the training forward of the reference
 (``make_block_model``'s ``apply_blocks``), called directly: PyTorch runs
 eagerly, so where the reference jit-compiles the apply once per bucket,
-here the bucket ladder only bounds the shapes. ``mode="historical"``,
-:meth:`GNNServer.offline_logits` and :meth:`GNNServer.refresh_embeddings`
-need layer-wise inference and come with the next slice (ROADMAP.md
-queue 1, item 1).
+here the bucket ladder only bounds the shapes.
 
 Threading: one daemon serve loop owns all device work; callers only
 enqueue tickets and block on them. ``start=False`` skips the thread —
@@ -45,13 +51,13 @@ from repro_torch.sampling import (BlockPlanCache, NeighborSampler, pack_block,
                                   plan_buckets)
 from repro_torch.serving.batcher import Flush, MicroBatcher, Ticket
 from repro_torch.serving.feature_cache import FeatureCache
-from repro_torch.train.gnn_minibatch import _block_arch, make_block_model
+from repro_torch.train.gnn_minibatch import (_block_arch,
+                                             layerwise_inference,
+                                             make_block_model)
 
 __all__ = ["GNNServer", "SERVE_MODES"]
 
 SERVE_MODES = ("full", "sampled", "historical")
-_NOT_PORTED = ("needs layer-wise inference, which is not ported yet: "
-               "ROADMAP.md queue 1, item 1")
 
 
 def _infer_dims(params) -> list[int]:
@@ -85,9 +91,12 @@ class GNNServer:
     ``dataset`` is a ``repro_torch.data.GraphDataset``; ``params`` the
     layer-keyed weights (moved to ``device``). ``mode``: ``"full"`` (every
     hop takes the full in-neighborhood) or ``"sampled"`` (``fanouts``
-    neighbors per hop, outermost first). ``cache_capacity`` feature rows
-    stay on the device. ``tune=False`` pins every block plan to the
-    trusted segment reduce. ``device`` defaults to the card.
+    neighbors per hop, outermost first) or ``"historical"`` (one
+    full-neighbour hop over the cached layer-(L-1) embeddings and the
+    final layer; :meth:`refresh_embeddings` after weight or feature
+    updates). ``cache_capacity`` rows of features (or historical
+    embeddings) stay on the device. ``tune=False`` pins every block plan
+    to the trusted segment reduce. ``device`` defaults to the card.
     """
 
     def __init__(self, params, dataset, *, arch: str = "sage-sum",
@@ -101,8 +110,6 @@ class GNNServer:
         if mode not in SERVE_MODES:
             raise ValueError(f"mode must be one of {SERVE_MODES}, "
                              f"got {mode!r}")
-        if mode == "historical":
-            raise NotImplementedError(f"mode='historical' {_NOT_PORTED}")
         self.device = resolve_device(device)
         self.arch = arch
         self.mode = mode
@@ -119,14 +126,17 @@ class GNNServer:
 
         csr = sp.csr_from_coo(dataset.coo)
         self.num_nodes = int(csr.nrows)
+        self.x = dataset.x
         self.sampler = NeighborSampler(csr, self.fanouts, seed=sample_seed)
         self.plan_cache = BlockPlanCache(semiring=semiring, tune=tune,
                                          db=tuning_db)
         _, _, self._apply_blocks, _ = make_block_model(
             arch, self.dims[0], self.dims[1] if self.n_layers > 1
             else self.dims[-1], self.dims[-1], self.n_layers)
-        self.cache = FeatureCache(dataset.x, cache_capacity,
-                                  device=self.device)
+        # raw features, or (historical) the layer-(L-1) embedding matrix
+        self.cache = FeatureCache(
+            self._hidden_matrix() if mode == "historical" else dataset.x,
+            cache_capacity, device=self.device)
 
         self.batcher = MicroBatcher(max_batch, max_delay_s,
                                     bucket_base=seed_bucket_base)
@@ -221,12 +231,18 @@ class GNNServer:
 
     # -- flush execution ---------------------------------------------------
     def sample_blocks(self, uniq: np.ndarray, flush_index: int):
-        """(blocks, fanouts-for-bucketing) for one flush's unique seeds."""
+        """(blocks, fanouts-for-bucketing, params-view) for one flush's
+        unique seeds."""
+        if self.mode == "historical":
+            # one full-neighbour hop over the historical matrix + last layer
+            return ([self.sampler.full_block(uniq)], (None,),
+                    {"l0": self.params[f"l{self.n_layers - 1}"]})
         if self.mode == "full":
             fo = (None,) * self.n_layers
             return self.sampler.sample(uniq, round=flush_index,
-                                       fanouts=fo), fo
-        return self.sampler.sample(uniq, round=flush_index), self.fanouts
+                                       fanouts=fo), fo, self.params
+        return (self.sampler.sample(uniq, round=flush_index), self.fanouts,
+                self.params)
 
     def _execute(self, flush: Flush) -> None:
         t_exec = time.monotonic()
@@ -280,7 +296,9 @@ class GNNServer:
                                base=self.bucket_base)
         # per-layer operand widths: the cache's row width feeds the
         # outermost block; deeper blocks see the hidden dims
-        ks = [self.cache.k] + [self.dims[i] for i in range(1, len(blocks))]
+        first = self.n_layers - len(blocks)       # historical: the last
+        ks = [self.cache.k] + [self.dims[first + i]
+                               for i in range(1, len(blocks))]
         pbs = []
         for blk, bk, k in zip(blocks, buckets, ks):
             plan = self.plan_cache.plan_for(blk, n_dst=bk.n_dst,
@@ -304,7 +322,7 @@ class GNNServer:
     def _run_model(self, flush: Flush) -> np.ndarray:
         with obs.span("serve.sample", n_seeds=int(flush.seeds.size)):
             uniq, inverse = np.unique(flush.seeds, return_inverse=True)
-            blocks, fo = self.sample_blocks(uniq, flush.index)
+            blocks, fo, params = self.sample_blocks(uniq, flush.index)
         with obs.span("serve.pack"):
             pbs, buckets = self.pack_flush(blocks, fo, flush.bucket)
         # the outermost block's padded source ids, with the cache's
@@ -314,16 +332,35 @@ class GNNServer:
             src[: blocks[0].n_src] = blocks[0].src_ids
             h = self.cache.gather(src)
         with obs.span("serve.apply"):
-            out = self._apply_blocks(self.params, pbs, h)
+            out = self._apply_blocks(params, pbs, h)
             out = out.cpu().numpy()    # device sync: the span ends honest
         return out[: len(uniq)][inverse]
 
-    # -- not ported yet -----------------------------------------------------
-    def offline_logits(self) -> np.ndarray:
-        raise NotImplementedError(f"offline_logits {_NOT_PORTED}")
+    # -- historical embeddings and the offline answer ----------------------
+    def _layerwise(self, upto=None) -> torch.Tensor:
+        with patched(self.use_isplib):
+            return layerwise_inference(
+                self.params, self.sampler, self.x.to(self.device),
+                arch=self.arch, dims=self.dims, plan_cache=self.plan_cache,
+                bucket_base=self.bucket_base, upto=upto)
+
+    def _hidden_matrix(self) -> np.ndarray:
+        """The offline sweep up to the penultimate layer: the historical
+        matrix (``x`` itself for a 1-layer model)."""
+        return self._layerwise(upto=self.n_layers - 1).cpu().numpy()
 
     def refresh_embeddings(self) -> None:
-        raise NotImplementedError(f"refresh_embeddings {_NOT_PORTED}")
+        """Recompute the historical layer-(L-1) matrix offline and publish
+        it under a bumped cache epoch: stale entries turn into misses and
+        refill from the new matrix."""
+        assert self.mode == "historical", self.mode
+        self.cache.set_epoch(self.cache.epoch + 1,
+                             fallback=self._hidden_matrix())
+
+    def offline_logits(self) -> np.ndarray:
+        """The exact offline answer for every node: the layer-wise
+        full-neighbour sweep through the same plan cache."""
+        return self._layerwise().cpu().numpy()
 
     # -- telemetry -----------------------------------------------------------
     def latency_stats(self) -> dict:

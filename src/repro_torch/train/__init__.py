@@ -1,2 +1,10 @@
 """repro_torch.train — the full-graph trainer (``gnn.train_gnn``) and the
-block model forward that serving runs (``gnn_minibatch``)."""
+minibatch trainer with host or device sampling and exact layer-wise
+inference (``gnn_minibatch``)."""
+from repro_torch.train.gnn import GNNTrainResult, train_gnn
+from repro_torch.train.gnn_minibatch import (MinibatchTrainResult,
+                                             layerwise_inference,
+                                             train_gnn_minibatch)
+
+__all__ = ["train_gnn", "GNNTrainResult", "train_gnn_minibatch",
+           "MinibatchTrainResult", "layerwise_inference"]

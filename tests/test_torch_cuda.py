@@ -9,7 +9,8 @@ Tolerance: fp32, atol 1e-5 / rtol 1e-5 — the kernel sums a row's slots
 in slot order with fma, the plain version with ``sum(dim=1)`` /
 ``index_add_`` (for BSR: ``bmm`` with TF32 off, then ``index_add_``); at
 most ~30 terms of magnitude ~1 per output here. Wider sums state their
-own tolerance."""
+own tolerance. The sampling kernels are integer work (or a word copy)
+and must equal their plain versions bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -97,16 +98,16 @@ def test_dispatch_counts_launches_and_rejects_bad_operands(card):
     tops.ell_spmm(ell, h)
     tops.sell_spmm(sell, h)
     tops.sell_spmm(sell, h)
-    assert tops.kernel_launches() == {"ell_spmm": 1, "sell_spmm": 2,
-                                      "bsr_spmm": 0}
+    assert {k: v for k, v in tops.kernel_launches().items() if v} == {
+        "ell_spmm": 1, "sell_spmm": 2}
     with pytest.raises(ValueError, match="contiguous fp32"):
         tops.ell_spmm(ell, h.t().contiguous().t())
     with pytest.raises(ValueError, match="rows"):
         tops.ell_spmm(ell, h[:10])
     with pytest.raises(ValueError, match="contiguous fp32"):
         tops.sell_spmm(sell, h.double())
-    assert tops.kernel_launches() == {"ell_spmm": 1, "sell_spmm": 2,
-                                      "bsr_spmm": 0}
+    assert {k: v for k, v in tops.kernel_launches().items() if v} == {
+        "ell_spmm": 1, "sell_spmm": 2}
 
 
 def test_runs_on_the_current_stream(card):
@@ -247,3 +248,117 @@ def test_patched_training_step_matches_unpatched(card, arch, plan):
                                    atol=1e-4 * float(b.abs().max()) + 1e-12,
                                    rtol=0)
     tree_map(close, g_t, g_b)
+
+
+# --------------------------------------------------------------------------
+# the sampling kernels (csrc/sample.cu), bitwise
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("replace", [False, True])
+@pytest.mark.parametrize("width", [1, 10, 25, 32, 33, 64, 200])
+@pytest.mark.parametrize("rnd", [0, -1])
+def test_segment_sample_kernel_matches_plain(card, replace, width, rnd):
+    """width > 32 without replacement takes the shared-memory table."""
+    from repro_torch.kernels import sample as ks
+    rng = np.random.default_rng(width)
+    f = 3000
+    deg = rng.integers(0, 6 * width + 2, f).astype(np.int32)
+    deg[:4] = [0, width, width + 1, 100_000]
+    gid = rng.integers(0, 1 << 30, f).astype(np.int32)
+    gid[-3:] = 1 << 30          # sentinel rows
+    deg[-3:] = 0
+    d, g = torch.from_numpy(deg), torch.from_numpy(gid)
+    kw = dict(width=width, seed=5, hop=1, replace=replace)
+    tops.reset_kernel_launches()
+    got = ks.segment_sample(d.to(card), g.to(card), rnd, fanout=width, **kw)
+    torch.cuda.synchronize()
+    assert tops.kernel_launches()["segment_sample"] == 1
+    assert torch.equal(got.cpu(), ks.segment_sample_plain(d, g, rnd, **kw))
+    # the plain version gives the same bits on the card
+    assert torch.equal(got, ks.segment_sample_plain(d.to(card), g.to(card),
+                                                    rnd, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_expand_indptr_and_flat_gather_kernels_match_plain(card, dtype):
+    from repro_torch.kernels import sample as ks
+    rng = np.random.default_rng(2)
+    f, width, nse = 5000, 25, 200_000
+    start = torch.from_numpy(rng.integers(0, nse - width, f).astype(np.int32))
+    ranks = torch.from_numpy(rng.integers(0, width, (f, width))
+                             .astype(np.int32))
+    valid = torch.from_numpy(rng.random((f, width)) < 0.6)
+    tops.reset_kernel_launches()
+    pos = ks.expand_indptr(start.to(card), ranks.to(card), valid.to(card),
+                           sentinel=nse)
+    want = ks.expand_indptr_plain(start, ranks, valid, sentinel=nse)
+    assert torch.equal(pos.cpu(), want)
+    arr = torch.from_numpy((rng.standard_normal(nse + 1) * 1000)
+                           .astype(np.float32)).to(dtype)
+    out = ks.flat_gather(arr.to(card), pos)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(
+        out.cpu(), ks.flat_gather_plain(arr, want))
+    # out-of-range positions clip
+    odd = torch.tensor([[-5, 0, nse, nse + 7]], dtype=torch.int32)
+    assert torch.equal(ks.flat_gather(arr.to(card), odd.to(card)).cpu(),
+                       ks.flat_gather_plain(arr, odd))
+    assert tops.kernel_launches()["expand_indptr"] == 1
+    assert tops.kernel_launches()["flat_gather"] == 2
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.flat_gather(arr.double().to(card), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.expand_indptr_cuda(start.to(card), ranks.to(card),
+                              valid.int().to(card), sentinel=nse)
+
+
+def test_device_sampled_step_matches_cpu(card):
+    """One device-sampled training step on the card against the same step
+    on the CPU, from the same weights: the sampled blocks are equal bit
+    for bit, the loss within rtol 1e-5 and each gradient within 1e-5 of
+    its largest element (fp32, another summation order)."""
+    from repro_torch.core import sparse as sp
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.core.patch import patched
+    from repro_torch.data import make_dataset
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.sampling import DeviceSampler, device_graph_from_csr
+    from repro_torch.train import gnn_minibatch as mb
+
+    ds = make_dataset("reddit", scale=1 / 64, seed=1)
+    csr = sp.csr_from_coo(ds.coo)
+    init, _, apply_blocks, _ = mb.make_block_model(
+        "sage-mean", ds.num_features, 64, ds.num_classes, 2)
+    params = init(torch.Generator().manual_seed(0), device="cpu")
+    seeds = torch.from_numpy(np.random.default_rng(0).permutation(
+        ds.num_nodes)[:256].astype(np.int32))
+    out = {}
+    for dev in ("cpu", card):
+        samp = DeviceSampler(device_graph_from_csr(csr, device=dev), (10, 25),
+                             batch_size=256, seed=0, base=128)
+        samp.set_plans([KernelPlan(kind="ell")] * 2)
+        opt = adamw(1e-2, weight_decay=5e-4)
+        p = tree_map(lambda t: t.to(dev), params)
+        step = mb.make_device_minibatch_step(apply_blocks, opt, samp,
+                                             batch_size=256)
+        tops.reset_kernel_launches()
+        with patched(True):
+            res = step(p, opt.init(p), seeds.to(dev), 250, 3, ds.x.to(dev),
+                       ds.y.to(dev), mb.init_step_stats(dev))
+            blocks = samp.sample_blocks(torch.where(
+                torch.arange(256) < 250, seeds, ds.num_nodes).to(dev), 3)
+        out[str(dev)] = (res, blocks, tops.kernel_launches())
+    (rc, bc, lc), (rg, bg, lg) = out["cpu"], out[str(card)]
+    assert not any(lc.values())
+    for name in ("segment_sample", "expand_indptr", "flat_gather",
+                 "ell_spmm"):
+        assert lg[name] > 0, lg
+    for a, b in zip(bc, bg):
+        for f in ("src_ids", "dst_pos", "col", "val", "degrees"):
+            assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+    np.testing.assert_allclose(float(rg[2]), float(rc[2]), rtol=1e-5)
+    tree_map(lambda g, want: np.testing.assert_allclose(
+        g.cpu().numpy(), want.numpy(), rtol=0,
+        atol=1e-5 * float(want.abs().max()) + 1e-12), rg[3], rc[3])
+    assert rg[4].drain() == rc[4].drain()

@@ -147,8 +147,9 @@ def test_cpu_dispatch_uses_plain_and_counts_nothing(rng):
     b = tops.sell_spmm(tsp.sell_from_coo(got, c=8), h)
     np.testing.assert_allclose(a.numpy(), dense @ h.numpy(), atol=1e-5)
     np.testing.assert_allclose(b.numpy(), dense @ h.numpy(), atol=1e-5)
-    assert tops.kernel_launches() == {"ell_spmm": 0, "sell_spmm": 0,
-                                      "bsr_spmm": 0}
+    launches = tops.kernel_launches()
+    assert {"ell_spmm", "sell_spmm", "bsr_spmm"} <= set(launches)
+    assert not any(launches.values())
 
 
 def test_dispatch_refuses_other_devices(rng):
