@@ -64,9 +64,28 @@ failure:
    the plan pinned to BSR 128 x 128 through ``build_bundle(plan=...)``
    (the tuner's own pick is logged): BSR on Â at K = 256 and 112 forward
    and on the cached Â^T backward;
+9. (run after phase 7 has freed its bundle) full-graph dot-product GAT
+   training on ogbn-proteins, cut to scale 1/4 for device memory (the
+   gat bundle's BSR A and A^T take 4.05 GB each there, and the unpatched
+   baseline's plain autograd keeps ~31 GB of per-edge tensors; both
+   double at scale 1/2), hidden 256, lr 1e-2, weight decay 5e-4, A
+   pinned to BSR 128 x 128 (the tuner's pick is logged). The first step
+   patched against unpatched with phase 6's tolerances, its fused launch
+   (layer 1, K = 256; layer 2, K = 112, takes the trusted composition)
+   held against ``fusedmm_bsr_plain`` on its own inputs (atol 1e-4 x
+   max|h|); ``train_gnn`` patched and unpatched for 5 epochs, counts
+   zeroed just before and read just after each (the unpatched run must
+   launch nothing), peak memory logged; then ``ops.sddmm_bsr`` on A with
+   layer 1's q and k (scale_by_a True and False, its own counted path),
+   checked in chunks of tiles within 2 (D + 1) eps sum|x_d y_d|; both
+   kernels timed at D = K = 256 (fusedmm for softmax, sigmoid and none)
+   beside their dense-tile bound, the per-edge bound of the same
+   function, the plain versions and a library yardstick the port never
+   calls (``torch.sparse.sampled_addmm``; for softmax
+   ``F.scaled_dot_product_attention`` with the dense boolean mask);
 5. last, the kernels line (one JSON object: the sampling kernels as timed
    in phase 8, the serving kernels as timed in phase 4, BSR as timed in
-   phase 7), the card line, and
+   phase 7, SDDMM and FusedMM as timed in phase 9), the card line, and
    ``{"ok": true, "device": {...}}``.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
@@ -76,6 +95,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -108,12 +128,18 @@ KERNEL_META = {
                           replaces="src/repro/kernels/sample.py:218"),
     "flat_gather": dict(source="src/repro_torch/csrc/sample.cu",
                         replaces="src/repro/kernels/sample.py:263"),
+    "sddmm_bsr": dict(source="src/repro_torch/csrc/sddmm.cu",
+                      replaces="src/repro/kernels/sddmm.py:35"),
+    "fusedmm_bsr": dict(source="src/repro_torch/csrc/fusedmm.cu",
+                        replaces="src/repro/kernels/fusedmm.py:78"),
 }
 SERVE_KERNELS = ("ell_spmm", "sell_spmm")   # what serving launches
 TRAIN_EPOCHS, TRAIN_LR, TRAIN_WD = 5, 1e-2, 5e-4
 LOSS_RTOL = 1e-5        # patched vs unpatched first-step loss, fp32
 GRAD_TOL = 1e-4         # max |diff| / max |unpatched| of each gradient
 PROTEINS_SCALE = 1 / 2  # device memory: two ~15 GB BSR operands
+GAT_SCALE = 1 / 4       # device memory: BSR A, A^T and the baseline's edges
+FUSED_TOL = 1e-4        # fusedmm atol over max|h| (softmax) or max|plain|
 TF32_FLOPS = 495e12     # H100 SXM dense TF32 tensor-core peak
 # H100 SXM int32 rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost, one
 # operation a lane a clock (the Hopper white paper's SM: 64 INT32 units)
@@ -125,6 +151,17 @@ MB_INFER_BATCH = 4096           # layer-wise inference dst rows per block
 
 def log(*args):
     print(*args, flush=True)
+
+
+def ptxas_function(line: str) -> str:
+    """The kernel and template arguments a ptxas "Function properties
+    for <mangled name>" line names, as ``fusedmm_kernel<4,2>``."""
+    m = re.search(r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)I?((?:Li-?\d+E)*)",
+                  line.split()[-1])
+    if not m:
+        return line.split()[-1][:60]
+    args = re.findall(r"Li(-?\d+)E", m.group(2))
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def card_line() -> str:
@@ -509,7 +546,10 @@ def time_full(name, a, coo, k, tag, gen) -> dict:
     ``torch.sparse.mm`` on ``coo`` (the same matrix) in CSR. The bound
     counts each input byte once: the stored tiles (BSR) or real edges'
     (index, value) pairs, each h row the operand reads, each output row;
-    operations are 2 K per edge (gather) or per tile entry (BSR)."""
+    and the operations the product needs on this data, 2 K per real edge
+    in every format. For BSR, ``bound_tile_ms`` / ``bound_tc_ms`` count
+    the dense tile work the kernel does (2 K per tile entry) at the fp32
+    CUDA-core / TF32 tensor-core rate."""
     import torch
     from repro_torch.core.autotune import H100
     kernel, plain = kernel_fns(name)
@@ -526,11 +566,10 @@ def time_full(name, a, coo, k, tag, gen) -> dict:
     if name == "bsr_spmm":
         src_rows = min(int(torch.unique(a.blk_col).numel()) * a.bc, coo.ncols)
         nbytes = a.nblocks * (a.br * a.bc * 4 + 8)
-        flops = 2.0 * a.nblocks * a.br * a.bc * k
     else:
         src_rows = int(torch.unique(coo.col[: coo.nse]).numel())
         nbytes = coo.nse * 8
-        flops = 2.0 * coo.nse * k
+    flops = 2.0 * coo.nse * k
     nbytes += src_rows * k * 4 + n_rows_out * k * 4
     t_bytes, t_ops = H100.mem_time(nbytes), H100.vpu_time(flops)
     case = dict(
@@ -545,8 +584,11 @@ def time_full(name, a, coo, k, tag, gen) -> dict:
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=nbytes, flops=flops)
     if name == "bsr_spmm":
+        tile_flops = 2.0 * a.nblocks * a.br * a.bc * k
         case.update(tiles=a.nblocks, tile=f"{a.br}x{a.bc}",
-                    bound_tc_ms=max(t_bytes, flops / TF32_FLOPS) * 1e3)
+                    tile_flops=tile_flops,
+                    bound_tile_ms=max(t_bytes, H100.vpu_time(tile_flops)) * 1e3,
+                    bound_tc_ms=max(t_bytes, tile_flops / TF32_FLOPS) * 1e3)
     del csr
     return case
 
@@ -562,32 +604,13 @@ def step_profile(fn) -> dict:
                 device_ms={key[:90]: us / 1e3 for key, us in ranked})
 
 
-def train_phase(tag, ds, arch, bundle, kernel) -> dict:
-    """Phases 6 and 7 on a device ``bundle``: the first step patched
-    against unpatched from the same weights, every operand that step
-    launched against the plain version, then ``train_gnn`` patched (the
-    main path, launch counts zeroed just before and read just after) and
-    unpatched. Raises on any disagreement."""
+def compare_first_step(tag, loss_t, g_t, loss_b, g_b) -> dict:
+    """Raise unless one step patched (``loss_t``, gradients ``g_t``) and
+    one unpatched agree: loss within ``LOSS_RTOL``, every gradient within
+    ``GRAD_TOL`` of its largest element. Returns each gradient's error
+    over its max."""
     import torch
-    from repro_torch.core.patch import patched
-    from repro_torch.kernels import ops as kops
-    from repro_torch.models.gnn import make_gnn
     from repro_torch.optim.optimizer import tree_map
-    from repro_torch.train.gnn import loss_and_grads, train_gnn
-
-    g = bundle.graph(arch)
-    fmt = "bsr" if kernel == "bsr_spmm" else "sell"
-    way = {operand_ptr(getattr(g, fmt)): "fwd", operand_ptr(
-        getattr(g, fmt + "_t")): "bwd"}
-    init, apply = make_gnn(arch, ds.num_features, HIDDEN, ds.num_classes)
-    params = init(torch.Generator().manual_seed(0), device=DEVICE)
-    x, y, m = (t.to(DEVICE) for t in (ds.x, ds.y, ds.train_mask))
-
-    # (a) one step from the same weights, patched against unpatched
-    with record_spmm(keep_inputs=True) as calls, patched(True):
-        loss_t, g_t = loss_and_grads(apply, params, bundle, x, y, m)
-    with patched(False):
-        loss_b, g_b = loss_and_grads(apply, params, bundle, x, y, m)
     torch.cuda.synchronize()
     if abs(float(loss_t) - float(loss_b)) > LOSS_RTOL * abs(float(loss_b)):
         raise AssertionError(f"{tag}: first-step loss {float(loss_t)} "
@@ -607,6 +630,35 @@ def train_phase(tag, ds, arch, bundle, kernel) -> dict:
     log(f"{tag}: first step loss {float(loss_t):.6f} patched, "
         f"{float(loss_b):.6f} unpatched; gradients agree to "
         f"{max(grad_err.values()):.2e} of their max (tolerance {GRAD_TOL})")
+    return grad_err
+
+
+def train_phase(tag, ds, arch, bundle, kernel) -> dict:
+    """Phases 6 and 7 on a device ``bundle``: the first step patched
+    against unpatched from the same weights, every operand that step
+    launched against the plain version, then ``train_gnn`` patched (the
+    main path, launch counts zeroed just before and read just after) and
+    unpatched. Raises on any disagreement."""
+    import torch
+    from repro_torch.core.patch import patched
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.gnn import make_gnn
+    from repro_torch.train.gnn import loss_and_grads, train_gnn
+
+    g = bundle.graph(arch)
+    fmt = "bsr" if kernel == "bsr_spmm" else "sell"
+    way = {operand_ptr(getattr(g, fmt)): "fwd", operand_ptr(
+        getattr(g, fmt + "_t")): "bwd"}
+    init, apply = make_gnn(arch, ds.num_features, HIDDEN, ds.num_classes)
+    params = init(torch.Generator().manual_seed(0), device=DEVICE)
+    x, y, m = (t.to(DEVICE) for t in (ds.x, ds.y, ds.train_mask))
+
+    # (a) one step from the same weights, patched against unpatched
+    with record_spmm(keep_inputs=True) as calls, patched(True):
+        loss_t, g_t = loss_and_grads(apply, params, bundle, x, y, m)
+    with patched(False):
+        loss_b, g_b = loss_and_grads(apply, params, bundle, x, y, m)
+    grad_err = compare_first_step(tag, loss_t, g_t, loss_b, g_b)
 
     # (b) every operand that step launched, on its own inputs
     operand_checks = []
@@ -685,6 +737,350 @@ def train_phase(tag, ds, arch, bundle, kernel) -> dict:
                           dataclasses.asdict(res_b).items()},
                 speedup=res_b.epoch_time_s / res_t.epoch_time_s,
                 step_profile=dict(tuned=prof_t, baseline=prof_b))
+
+
+# -- full-graph GAT training through FusedMM (phase 9) ---------------------
+
+@contextlib.contextmanager
+def record_fusedmm():
+    """Record every ``fusedmm_bsr`` dispatch (operand, copies of x, y, h,
+    the edge op and of the output it returned); the dispatcher and its
+    launch count are unchanged."""
+    from repro_torch.kernels import ops as kops
+    calls: list = []
+    real = kops.fusedmm_bsr
+
+    def recorded(a, x, y, h, *, edge_op="softmax"):
+        out = real(a, x, y, h, edge_op=edge_op)
+        calls.append(dict(a=a, x=x.detach().clone(), y=y.detach().clone(),
+                          h=h.detach().clone(), edge_op=edge_op,
+                          out=out.detach().clone()))
+        return out
+    kops.fusedmm_bsr = recorded
+    try:
+        yield calls
+    finally:
+        kops.fusedmm_bsr = real
+
+
+def check_fused(a, x, y, h, edge_op, tag, out=None) -> dict:
+    """The fused kernel (or ``out``, what it already gave on these
+    operands) against ``fusedmm_bsr_plain`` on the same card tensors.
+    Tolerance: softmax rows are convex combinations of h rows, so atol
+    ``FUSED_TOL`` x max|h|; sigmoid and none sum up to max-degree
+    weighted rows, so atol ``FUSED_TOL`` x max|plain|."""
+    import torch
+    from repro_torch.kernels.fusedmm import fusedmm_bsr_cuda, fusedmm_bsr_plain
+    if out is None:
+        out = fusedmm_bsr_cuda(a, x, y, h, edge_op=edge_op)
+    want = fusedmm_bsr_plain(a, x, y, h, edge_op=edge_op)
+    scale = (h if edge_op == "softmax" else want).abs().max()
+    atol = FUSED_TOL * float(scale) + 1e-30
+    err = float((out - want).abs().max())
+    if not err <= atol or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"fusedmm_bsr {tag}: kernel disagrees with "
+                             f"plain, max err {err}, atol {atol}")
+    return dict(edge_op=edge_op, max_abs_err=err, atol=atol,
+                max_err_over_atol=err / atol)
+
+
+def check_sddmm(a, x, y, out, scale_by_a, tag) -> dict:
+    """The SDDMM kernel's ``out`` against the plain tile products, in
+    chunks of tiles (the output alone is gigabytes). Each element must
+    agree within 2 (D + 1) eps sum_d |x_i,d y_j,d| (|a_ij|): two fp32
+    sums of the same D products in different orders, and the product
+    with A."""
+    import torch
+    from repro_torch.kernels.ref import bsr_tile_chunks
+    d = x.shape[1]
+    worst, ratio = 0.0, 0.0
+    for (lo, hi, s), (_, _, mag) in zip(
+            bsr_tile_chunks(a, x, y, d),
+            bsr_tile_chunks(a, x.abs(), y.abs(), d)):
+        if scale_by_a:
+            s = s * a.blocks[lo:hi]
+            mag = mag * a.blocks[lo:hi].abs()
+        err = (out[lo:hi] - s).abs()
+        bound = 2 * (d + 1) * EPS32 * mag + 1e-30
+        if not bool((err <= bound).all()) or \
+                not bool(torch.isfinite(out[lo:hi]).all()):
+            raise AssertionError(f"sddmm_bsr {tag}: kernel disagrees with "
+                                 f"plain in tiles {lo}..{hi}, max err "
+                                 f"{float(err.max())}, worst ratio "
+                                 f"{float((err / bound).max())}")
+        worst = max(worst, float(err.max()))
+        ratio = max(ratio, float((err / bound).max()))
+    return dict(scale_by_a=scale_by_a, max_abs_err=worst,
+                max_err_over_bound=ratio)
+
+
+def edge_case_times(name, kernel, plain, library, nbytes, flops,
+                    tile_flops, edge_bytes, edge_flops) -> dict:
+    """CUDA-event ms of the kernel, its plain version and the library
+    call, the kernel's device ms from a profiler trace, and its bounds:
+    ``bound_ms`` of the function on this run's data (``nbytes``, each
+    input read and each output written once; ``flops``, the operations
+    its output needs), ``bound_tile_ms`` / ``bound_tc_ms`` of the dense
+    tile work the kernel does (``tile_flops``) at the fp32 / TF32 rate,
+    and ``bound_edge_ms`` of the per-edge product read from an edge list
+    (``edge_bytes``, ``edge_flops``), what a gather design would move."""
+    from repro_torch.core.autotune import H100
+    t_bytes, t_ops = H100.mem_time(nbytes), H100.vpu_time(flops)
+    reps = 10
+    by_kernel = device_us(kernel, reps=reps)
+    kernel_us = sum(us for key, us in by_kernel.items()
+                    if f"{name}_kernel" in key)
+    return dict(
+        ms=cuda_ms(kernel, reps=reps),
+        device_ms=kernel_us / reps / 1e3 if kernel_us else None,
+        plain_ms=cuda_ms(plain, reps=3, warmup=1),
+        library_ms=None if library is None else cuda_ms(library, reps=reps),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_tile_ms=max(t_bytes, H100.vpu_time(tile_flops)) * 1e3,
+        bound_tc_ms=max(t_bytes, tile_flops / TF32_FLOPS) * 1e3,
+        bound_edge_ms=max(H100.mem_time(edge_bytes),
+                          H100.vpu_time(edge_flops)) * 1e3,
+        bytes=nbytes, flops=flops, tile_flops=tile_flops,
+        edge_bytes=edge_bytes, edge_flops=edge_flops)
+
+
+def dense_mask(coo):
+    """A's nonzero pattern as a dense (n, n) bool matrix on the card, for
+    ``scaled_dot_product_attention`` (a yardstick the port never
+    calls)."""
+    import torch
+    n = coo.nse
+    mask = torch.zeros((coo.nrows, coo.ncols), dtype=torch.bool,
+                       device=coo.row.device)
+    mask[coo.row[:n].long(), coo.col[:n].long()] = coo.val[:n] != 0
+    return mask
+
+
+def gat_phase() -> dict:
+    """Phase 9: full-graph GAT training on ogbn-proteins at GAT_SCALE with
+    A pinned to BSR 128 x 128: the first step patched against unpatched
+    (every fused launch held against the plain version on its own
+    inputs), ``train_gnn`` patched (launch counts zeroed just before and
+    read just after) and unpatched, then the SDDMM op on A's tiles (its
+    own path, counted the same way), and both kernels checked and timed
+    at D = K = HIDDEN on layer 1's own q, k, v."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.autotune import KernelPlan, autotune
+    from repro_torch.core.patch import patched
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.fusedmm import fusedmm_bsr_cuda, fusedmm_bsr_plain
+    from repro_torch.kernels.ref import edge_dots
+    from repro_torch.kernels.sddmm import sddmm_bsr_cuda, sddmm_bsr_plain
+    from repro_torch.models.gnn import build_bundle, make_gnn
+    from repro_torch.train.gnn import loss_and_grads, train_gnn
+
+    t0 = time.perf_counter()
+    ds = make_dataset("ogbn-proteins", scale=GAT_SCALE)
+    cut = (f"ogbn-proteins at scale 1/{round(1 / GAT_SCALE)} "
+           f"({ds.num_nodes} nodes, {ds.coo.nse} edges): at scale 1/2 the "
+           f"gat bundle's two 128x128 BSR operands (A, A^T) take 29.4 GB "
+           f"and the unpatched baseline's plain autograd keeps ~3 (E, 256) "
+           f"and ~3 (E, 112) fp32 edge tensors, ~66 GB: more than the "
+           f"card's 80 GB together; at 1/4 ~8 + ~31 GB")
+    log(f"cut: {cut}")
+    would = autotune(ds.coo, HIDDEN)
+    log(f"gat: the tuner would pick {would.kind} (br={would.br}, "
+        f"bc={would.bc}, C={would.sell_c}) for A at K={HIDDEN}; pinned to "
+        f"bsr 128x128")
+    plan = KernelPlan(kind="bsr", br=128, bc=128, fk=64, k_hint=HIDDEN)
+    bundle = build_bundle(ds, k_hint=HIDDEN, plan=plan,
+                          arch="gat").to(DEVICE)
+    g = bundle.graph("gat")
+    a = g.bsr
+    log(f"gat: {ds.num_nodes} nodes, {ds.coo.nse} edges, "
+        f"{ds.num_features} features, {ds.num_classes} classes, max degree "
+        f"{int(g.degrees.max())}; A has {a.nblocks} tiles of 128x128 "
+        f"({a.density:.4f} of all, {a.blocks.numel() * 4 / 1e9:.2f} GB, "
+        f"fill {ds.coo.nse / a.blocks.numel():.5f}), built and moved in "
+        f"{time.perf_counter() - t0:.1f} s")
+    init, apply = make_gnn("gat", ds.num_features, HIDDEN, ds.num_classes)
+    params = init(torch.Generator().manual_seed(0), device=DEVICE)
+    x, y, m = (t.to(DEVICE) for t in (ds.x, ds.y, ds.train_mask))
+
+    # (1) the first step, patched against unpatched, every fused launch
+    # against the plain version on its own inputs
+    with record_fusedmm() as calls, patched(True):
+        loss_t, g_t = loss_and_grads(apply, params, bundle, x, y, m)
+    with patched(False):
+        loss_b, g_b = loss_and_grads(apply, params, bundle, x, y, m)
+    grad_err = compare_first_step("gat", loss_t, g_t, loss_b, g_b)
+    if [c["h"].shape[1] for c in calls] != [HIDDEN]:
+        raise AssertionError(f"gat: the patched step dispatched fusedmm at "
+                             f"K = {[c['h'].shape[1] for c in calls]}, "
+                             f"expected layer 1 only (K = {HIDDEN})")
+    step_checks = [check_fused(c["a"], c["x"], c["y"], c["h"], c["edge_op"],
+                               f"first step k{c['h'].shape[1]}", out=c["out"])
+                   for c in calls]
+    del calls
+    log(f"gat: {len(step_checks)} fused launch(es) of the first step held "
+        f"against the plain version: {step_checks}")
+    with patched(True):
+        prof_t = step_profile(lambda: loss_and_grads(apply, params, bundle,
+                                                     x, y, m))
+    with patched(False):
+        prof_b = step_profile(lambda: loss_and_grads(apply, params, bundle,
+                                                     x, y, m))
+
+    # (2) the main path: train_gnn patched, counts read around it
+    runs = {}
+    for use in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_kernel_launches()
+        res = train_gnn("gat", ds, hidden=HIDDEN, epochs=TRAIN_EPOCHS,
+                        lr=TRAIN_LR, weight_decay=TRAIN_WD, bundle=bundle,
+                        params=params, use_isplib=use, device=DEVICE)
+        runs[use] = (res, kops.kernel_launches(),
+                     torch.cuda.max_memory_allocated() / 1e9)
+        if len(res.losses) != TRAIN_EPOCHS or \
+                not np.isfinite(res.losses).all():
+            raise AssertionError(f"gat: losses {res.losses}")
+    (res_t, launches, peak_t), (res_b, launches_b, peak_b) = \
+        runs[True], runs[False]
+    if launches["fusedmm_bsr"] == 0 or any(launches_b.values()):
+        raise AssertionError(f"gat: launches {launches} patched, "
+                             f"{launches_b} unpatched")
+    log(f"gat: epoch {res_t.epoch_time_s * 1e3:.2f} ms tuned vs "
+        f"{res_b.epoch_time_s * 1e3:.2f} ms baseline "
+        f"({res_b.epoch_time_s / res_t.epoch_time_s:.2f}x); first epoch "
+        f"{res_t.first_epoch_s:.2f} / {res_b.first_epoch_s:.2f} s; peak "
+        f"device memory {peak_t:.2f} / {peak_b:.2f} GB")
+    log(f"gat: losses tuned {[round(v, 5) for v in res_t.losses]}, "
+        f"baseline {[round(v, 5) for v in res_b.losses]}; accuracy train "
+        f"{res_t.train_acc:.4f} / {res_b.train_acc:.4f}, test "
+        f"{res_t.test_acc:.4f} / {res_b.test_acc:.4f} (tuned / baseline)")
+    log(f"gat: fusedmm_bsr launches {launches['fusedmm_bsr']} over "
+        f"{TRAIN_EPOCHS} epochs + eval (layer 1, K = {HIDDEN}); "
+        f"unpatched {launches_b}")
+    own_ms = sum(ms for key, ms in prof_t["device_ms"].items()
+                 if "fusedmm_kernel" in key)
+    log(f"gat: one step, device busy {prof_t['busy_share']:.3f} tuned "
+        f"({prof_t['device_s'] * 1e3:.2f} ms of device time in "
+        f"{prof_t['wall_s'] * 1e3:.2f} ms, {own_ms:.2f} ms of it in "
+        f"fusedmm; top {prof_t['top'][:4]}), {prof_b['busy_share']:.3f} "
+        f"baseline ({prof_b['device_s'] * 1e3:.2f} ms in "
+        f"{prof_b['wall_s'] * 1e3:.2f} ms; top {prof_b['top'][:4]})")
+
+    # layer 1's own operands at D = K = HIDDEN (as dot_gat_conv builds them)
+    with torch.no_grad():
+        p1 = params["l1"]
+        hid = x @ params["proj"]
+        q = (hid @ p1["wq"]) * (1.0 / HIDDEN ** 0.5)
+        k, v = hid @ p1["wk"], hid @ p1["wv"]
+
+    # (3) the SDDMM op on A's tiles: layer 1's attention logits, its own
+    # path, counts read around it
+    kops.reset_kernel_launches()
+    s_out = {sc: kops.sddmm_bsr(a, q, k, scale_by_a=sc) for sc in (True, False)}
+    sddmm_launches = kops.kernel_launches()["sddmm_bsr"]
+    if sddmm_launches != 2:
+        raise AssertionError(f"gat: sddmm_bsr launches {sddmm_launches}")
+    sddmm_checks = [check_sddmm(a, q, k, s_out[sc], sc, f"A scale_by_a={sc}")
+                    for sc in (True, False)]
+    del s_out
+    log(f"gat: sddmm_bsr on A (D = {HIDDEN}), {sddmm_launches} launches, "
+        f"held against the plain tile products: {sddmm_checks}")
+
+    # (4) both kernels timed at D = K = HIDDEN beside their bounds, plain
+    # versions and one library call each (timed only)
+    n_real = ds.num_nodes
+    nb, tile = a.nblocks, a.br * a.bc
+    used = min(int(torch.unique(a.blk_col).numel()) * a.bc, ds.num_nodes)
+    e = ds.coo.nse
+    row, col = g.coo.row[:e], g.coo.col[:e]
+    csr, kt = device_csr(g.coo), k.t().contiguous()
+    cases = []
+    for sc in (True, False):
+        # scaled by A, a position with A_ij = 0 stores 0: the output needs
+        # one dot product per edge; unscaled, every tile position's
+        nbytes = nb * tile * 4 * (2 if sc else 1) + nb * 8 + \
+            (n_real + used) * HIDDEN * 4
+        tile_flops = 2.0 * nb * tile * HIDDEN + (nb * tile if sc else 0)
+        edge_bytes = e * 8 * (2 if sc else 1) + (n_real + used) * HIDDEN * 4
+        lib_err = float((torch.sparse.sampled_addmm(
+            csr, q, kt, beta=0.0).values() -
+            edge_dots(q, k, row, col)).abs().max())
+        case = dict(name="sddmm_bsr", tag=f"A/d{HIDDEN}/scale_by_a={sc}",
+                    **edge_case_times(
+                        "sddmm", lambda: sddmm_bsr_cuda(a, q, k, scale_by_a=sc),
+                        lambda: sddmm_bsr_plain(a, q, k, scale_by_a=sc),
+                        lambda: torch.sparse.sampled_addmm(csr, q, kt,
+                                                           beta=0.0),
+                        nbytes, (2.0 * HIDDEN + 1) * e if sc else tile_flops,
+                        tile_flops, edge_bytes, 2.0 * e * HIDDEN),
+                    library="torch.sparse.sampled_addmm (CSR, edges only, "
+                            "unscaled)", library_max_abs_diff=lib_err,
+                    **next(c for c in sddmm_checks if c["scale_by_a"] == sc))
+        cases.append(case)
+    del csr, kt
+    mask = dense_mask(g.coo)
+    has = mask.any(dim=1)
+    for op in ("softmax", "sigmoid", "none"):
+        chk = check_fused(a, q, k, v, op, f"A/d{HIDDEN}/k{HIDDEN}")
+        library = lib_err = lib_note = None
+        if op == "softmax":
+            def library():
+                return F.scaled_dot_product_attention(
+                    q[None, None], k[None, None], v[None, None],
+                    attn_mask=mask, scale=1.0)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    got = library()[0, 0]
+                lib_err = float((got[has] - fusedmm_bsr_plain(
+                    a, q, k, v)[: n_real][has]).abs().max())
+                del got
+            except RuntimeError as err:        # no SDPA kernel for it
+                lib_note, library = f"{type(err).__name__}: {err}"[:200], None
+        nbytes = nb * tile * 4 + nb * 8 + (n_real + 2 * used) * HIDDEN * 4 \
+            + a.nrows * HIDDEN * 4
+        edge_bytes = e * 8 + (n_real + 2 * used) * HIDDEN * 4 + \
+            n_real * HIDDEN * 4
+        case = dict(name="fusedmm_bsr", tag=f"A/d{HIDDEN}/k{HIDDEN}/{op}",
+                    **edge_case_times(
+                        "fusedmm",
+                        lambda: fusedmm_bsr_cuda(a, q, k, v, edge_op=op),
+                        lambda: fusedmm_bsr_plain(a, q, k, v, edge_op=op),
+                        library, nbytes, 2.0 * e * (2 * HIDDEN),
+                        2.0 * nb * tile * (2 * HIDDEN), edge_bytes,
+                        2.0 * e * (2 * HIDDEN)),
+                    library=("F.scaled_dot_product_attention (dense "
+                             f"{ds.num_nodes}^2 bool mask)"
+                             if op == "softmax" else None),
+                    library_max_abs_diff=lib_err, library_note=lib_note,
+                    **chk)
+        cases.append(case)
+    del mask
+    for c in cases:
+        log(f"  {c['name']:11s} {c['tag']:30s} ms {c['ms']:.4f} device "
+            f"{fmt_ms(c['device_ms'])} plain {c['plain_ms']:.4f} bound "
+            f"{c['bound_ms']:.4f} ({c['bound_by']}; dense tiles "
+            f"{c['bound_tile_ms']:.4f}, TF32 {c['bound_tc_ms']:.4f}; edge "
+            f"list {c['bound_edge_ms']:.4f}) "
+            f"library {fmt_ms(c['library_ms'])} err {c['max_abs_err']:.2e}")
+    return dict(arch="gat", hidden=HIDDEN, epochs=TRAIN_EPOCHS, lr=TRAIN_LR,
+                weight_decay=TRAIN_WD, cut=cut, pinned=True,
+                tuner_pick=would.to_json(), plan=g.plan.to_json(), tiles=nb,
+                nodes=ds.num_nodes, edges=e,
+                first_step=dict(loss_patched=float(loss_t),
+                                loss_unpatched=float(loss_b),
+                                grad_err_over_max=grad_err),
+                step_checks=step_checks, sddmm_checks=sddmm_checks,
+                launches=launches["fusedmm_bsr"],
+                sddmm_launches=sddmm_launches,
+                tuned=dataclasses.asdict(res_t),
+                baseline=dataclasses.asdict(res_b),
+                speedup=res_b.epoch_time_s / res_t.epoch_time_s,
+                peak_gb=dict(tuned=peak_t, baseline=peak_b),
+                step_profile=dict(tuned=prof_t, baseline=prof_b),
+                cases=cases)
 
 
 # -- device-sampled minibatch training (phase 8) ---------------------------
@@ -1266,9 +1662,12 @@ def main() -> int:
         f"({', '.join(f'{n} {s:.1f} s' for n, s in per_kernel.items())})")
     for name in KERNELS:
         kops.load_kernel(name)
+        fn = ""
         for line in build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = ptxas_function(line)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {fn}: {line.strip()}")
     report["card"] = card
 
     # -- phase 2: sampled serving at full width ------------------------------
@@ -1543,10 +1942,19 @@ def main() -> int:
         proteins["cases"].append(time_full("bsr_spmm", a, coo, k,
                                            f"proteins/{tag}/k{k}", gen))
         log_case(proteins["cases"][-1])
-        log(f"    tensor-core (TF32) bound "
-            f"{proteins['cases'][-1]['bound_tc_ms']:.4f} ms")
+        last = proteins["cases"][-1]
+        log(f"    dense tile work bound {last['bound_tile_ms']:.4f} ms fp32, "
+            f"{last['bound_tc_ms']:.4f} ms TF32")
     report["train_proteins"] = proteins
-    del bundle, g, a, coo
+    del bundle, g, a, coo, pds
+    torch.cuda.empty_cache()
+
+    # -- phase 9: full-graph GAT training through FusedMM --------------------
+    t0 = time.perf_counter()
+    gat = gat_phase()
+    gat["seconds"] = time.perf_counter() - t0
+    log(f"gat phase: {gat['seconds']:.1f} s")
+    report["train_gat"] = gat
     torch.cuda.empty_cache()
 
     # -- phase 5: the kernels line ------------------------------------------
@@ -1574,7 +1982,8 @@ def main() -> int:
                                  for o in proteins["operand_checks"]]),
                 ms=rep["ms"], device_ms=rep["device_ms"],
                 plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-                bound_by=rep["bound_by"], bound_tc_ms=rep["bound_tc_ms"],
+                bound_by=rep["bound_by"], bound_tile_ms=rep["bound_tile_ms"],
+                bound_tc_ms=rep["bound_tc_ms"],
                 library_ms=rep["library_ms"], shape=rep["tag"],
                 launches_fwd=proteins["launches_fwd"],
                 launches_bwd=proteins["launches_bwd"], pinned=True))
@@ -1610,6 +2019,22 @@ def main() -> int:
             entry.update(launches_train=reddit["launches"],
                          launches_train_fwd=reddit["launches_fwd"],
                          launches_train_bwd=reddit["launches_bwd"])
+        kernels.append(entry)
+    for name in ("sddmm_bsr", "fusedmm_bsr"):
+        own = [c for c in gat["cases"] if c["name"] == name]
+        rep = own[0]
+        entry = dict(
+            name=name, route="cuda", **KERNEL_META[name],
+            launches=gat["launches" if name == "fusedmm_bsr"
+                         else "sddmm_launches"],
+            max_abs_err=max([c["max_abs_err"] for c in own] +
+                            ([c["max_abs_err"] for c in gat["step_checks"]]
+                             if name == "fusedmm_bsr" else [])),
+            ms=rep["ms"], device_ms=rep["device_ms"],
+            plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+            bound_by=rep["bound_by"], bound_tile_ms=rep["bound_tile_ms"],
+            bound_tc_ms=rep["bound_tc_ms"], bound_edge_ms=rep["bound_edge_ms"],
+            library_ms=rep["library_ms"], shape=rep["tag"], pinned=True)
         kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

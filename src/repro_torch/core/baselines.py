@@ -13,6 +13,9 @@ is measured against a same-framework opponent:
   csr2csc does when nothing is cached.
 * ``gcn_norm_in_step``        — D^-1/2 (A+I) D^-1/2 recomputed per forward
   (the uncached normalization §3.3 removes).
+* ``fusedmm_uncached``        — SDDMM, edge op and SpMM unfused under plain
+  autograd, which keeps the gathered per-edge operands of every chunk
+  (the edge tensors FusedMM avoids).
 
 They take the same COO the tuned path's CachedGraph wraps.
 """
@@ -24,9 +27,10 @@ import torch
 
 from repro_torch.core import sparse as sp
 from repro_torch.core.semiring import get_semiring
-from repro_torch.kernels.ref import coo_reduce
+from repro_torch.kernels.ref import coo_reduce, fusedmm_coo_ref
 
-__all__ = ["spmm_uncached", "spmm_uncached_transpose", "gcn_norm_in_step"]
+__all__ = ["spmm_uncached", "spmm_uncached_transpose", "gcn_norm_in_step",
+           "fusedmm_uncached"]
 
 
 def _as_coo(a) -> sp.COO:
@@ -92,3 +96,10 @@ def gcn_norm_in_step(a) -> sp.COO:
     col = torch.clamp(coo.col.long(), max=coo.nrows - 1)
     new_val = dinv[coo.row.long()] * val * dinv[col]
     return dataclasses.replace(coo, val=new_val)
+
+
+def fusedmm_uncached(a, x: torch.Tensor, y: torch.Tensor, h: torch.Tensor,
+                     *, edge_op: str = "softmax") -> torch.Tensor:
+    """Unfused composition (per-edge products materialized), plain
+    autograd."""
+    return fusedmm_coo_ref(_as_coo(a), x, y, h, edge_op=edge_op)

@@ -5,9 +5,12 @@ binds every registered op to its tuned implementation (plan-routed hand
 kernels), ``unpatch()`` to its baseline (the trusted reduce), and
 ``patched()`` is the context-manager form. Registered ops: ``spmm``
 (tuned = :func:`repro_torch.core.spmm.spmm` over a CachedGraph, baseline
-= :func:`repro_torch.core.baselines.spmm_uncached`; registered at the
-first ``resolve``) and ``block_spmm`` (by :mod:`repro_torch.sampling`).
-``fusedmm`` comes with the ``gat`` architecture (ROADMAP.md queue 1).
+= :func:`repro_torch.core.baselines.spmm_uncached`), ``fusedmm``
+(tuned = :func:`repro_torch.core.fusedmm.fusedmm`, the fused BSR kernel
+where the plan allows, baseline =
+:func:`repro_torch.core.baselines.fusedmm_uncached`), both registered at
+the first ``resolve``, and ``block_spmm`` (by
+:mod:`repro_torch.sampling`).
 
 Profile mode (``repro_torch.obs``): with op profiling on, ``resolve``
 hands back a recording wrapper that logs the op, operand shapes and
@@ -102,6 +105,13 @@ def _register_defaults() -> None:
 
     register_tuned("spmm", tuned_spmm)
     register_baseline("spmm", baselines.spmm_uncached)
+    register_tuned("fusedmm", _import_tuned_fusedmm)
+    register_baseline("fusedmm", baselines.fusedmm_uncached)
+
+
+def _import_tuned_fusedmm(g, x, y, h, **kw):
+    from repro_torch.core.fusedmm import fusedmm
+    return fusedmm(g, x, y, h, **kw)
 
 
 # deferred: core.spmm imports the kernels, which import core

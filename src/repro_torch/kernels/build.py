@@ -27,7 +27,8 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "build_kernels", "load_kernel",
            "build_log", "build_dir"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("ell_spmm", "sell_spmm", "bsr_spmm", "sample")
+KERNELS = ("ell_spmm", "sell_spmm", "bsr_spmm", "sample", "sddmm",
+           "fusedmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +47,8 @@ _SIGNATURES = {
     "sample": {"segment_sample_i32": [_P, _P, _P, _I, _I, _U, _U, _U, _I, _P],
                "expand_indptr_i32": [_P, _P, _P, _P, _I, _I, _I, _P],
                "flat_gather_b32": [_P, _L, _P, _P, _L, _P]},
+    "sddmm": {"sddmm_f32": [_P] * 6 + [_I] * 7 + [_P]},
+    "fusedmm": {"fusedmm_f32": [_P] * 7 + [_I] * 7 + [_L, _I, _L, _I, _P]},
 }
 
 _LOCK = threading.Lock()

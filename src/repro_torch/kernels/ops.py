@@ -1,7 +1,8 @@
 """Device dispatch over the port's kernels.
 
-``bsr_spmm`` / ``ell_spmm`` / ``sell_spmm`` choose by the device of the
-dense operand and by nothing else: a CUDA tensor launches the
+``bsr_spmm`` / ``ell_spmm`` / ``sell_spmm`` / ``sddmm_bsr`` /
+``fusedmm_bsr`` choose by the device of the dense operand and by nothing
+else: a CUDA tensor launches the
 hand-written kernel (which raises if it cannot build or launch), a CPU
 tensor runs the plain PyTorch version, any other device raises. There is
 no fallback between the two.
@@ -30,12 +31,15 @@ from repro_torch.core.sparse import BSR, ELL, SELL
 from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, bsr_spmm_plain
 from repro_torch.kernels.build import build_kernels, load_kernel
 from repro_torch.kernels.ell_spmm import ell_spmm_cuda, ell_spmm_plain
+from repro_torch.kernels.fusedmm import fusedmm_bsr_cuda, fusedmm_bsr_plain
 from repro_torch.kernels.sample import (expand_indptr_cuda, flat_gather_cuda,
                                         segment_sample_cuda)
+from repro_torch.kernels.sddmm import sddmm_bsr_cuda, sddmm_bsr_plain
 from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
 from repro_torch.obs import op_record, op_t0
 
 __all__ = ["bsr_spmm", "ell_spmm", "sell_spmm", "gathered_ell_spmm",
+           "sddmm_bsr", "fusedmm_bsr",
            "slot_gather", "table_insert", "build_kernels", "load_kernel",
            "kernel_launches", "reset_kernel_launches"]
 
@@ -43,7 +47,9 @@ _CUDA_WRAPPERS = {"ell_spmm": ell_spmm_cuda, "sell_spmm": sell_spmm_cuda,
                   "bsr_spmm": bsr_spmm_cuda,
                   "segment_sample": segment_sample_cuda,
                   "expand_indptr": expand_indptr_cuda,
-                  "flat_gather": flat_gather_cuda}
+                  "flat_gather": flat_gather_cuda,
+                  "sddmm_bsr": sddmm_bsr_cuda,
+                  "fusedmm_bsr": fusedmm_bsr_cuda}
 
 
 def _backend(h: torch.Tensor) -> str:
@@ -84,6 +90,37 @@ def sell_spmm(a: SELL, h: torch.Tensor) -> torch.Tensor:
     backend = _backend(h)
     out = sell_spmm_cuda(a, h) if backend == "cuda" else sell_spmm_plain(a, h)
     op_record("sell_spmm", out, a.idx, h, t0_ns=t0, backend=backend)
+    return out
+
+
+def sddmm_bsr(a: BSR, x: torch.Tensor, y: torch.Tensor, *,
+              scale_by_a: bool = True) -> torch.Tensor:
+    """Sampled dense-dense matmul over A's block pattern: ``(nblocks, br,
+    bc)`` fp32 per-tile scores ``x_i · y_j`` at every position of every
+    stored tile, times A's stored values when ``scale_by_a``. ``x`` and
+    ``y`` may have fewer than ``a.nrows`` / ``a.ncols`` rows (the rest
+    read as zero)."""
+    t0 = op_t0()
+    backend = _backend(x)
+    fn = sddmm_bsr_cuda if backend == "cuda" else sddmm_bsr_plain
+    out = fn(a, x, y, scale_by_a=scale_by_a)
+    op_record("sddmm", out, a.blocks, x, y, t0_ns=t0, backend=backend)
+    return out
+
+
+def fusedmm_bsr(a: BSR, x: torch.Tensor, y: torch.Tensor, h: torch.Tensor,
+                *, edge_op: str = "softmax") -> torch.Tensor:
+    """Fused SDDMM -> edge op -> SpMM over BSR tiles: ``out[i] = Σ_j
+    f(x_i · y_j) h_j`` over A's nonzero tile entries without the edge
+    tensor ever reaching device memory (paper §3.4 / FusedMM).
+    ``edge_op``: softmax | sigmoid | none. ``(a.nrows, K)`` fp32 (padded
+    rows: the caller crops)."""
+    t0 = op_t0()
+    backend = _backend(h)
+    fn = fusedmm_bsr_cuda if backend == "cuda" else fusedmm_bsr_plain
+    out = fn(a, x, y, h, edge_op=edge_op)
+    op_record("fusedmm", out, a.blocks, x, y, h, t0_ns=t0, edge_op=edge_op,
+              backend=backend)
     return out
 
 

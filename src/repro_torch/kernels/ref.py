@@ -1,4 +1,5 @@
-"""Plain PyTorch references for the SpMM kernels of this package.
+"""Plain PyTorch references for the SpMM, SDDMM and FusedMM kernels of
+this package.
 
 These are the ground truth of the tests, the trusted path for any
 (semiring, plan) point the hand kernels do not cover, and what the
@@ -8,7 +9,9 @@ Every gather is zero-filled for the ``idx == ncols`` sentinel.
 The gathered message tensors are built in chunks (of edges, ELL rows,
 SELL steps or BSR blocks) so that a full-neighbor block around a hub, or
 a whole graph's tiles, never needs the whole ``(edges, K)`` or
-``(nblocks, br, K)`` tensor at once.
+``(nblocks, br, K)`` tensor at once. The edge-score paths (SDDMM and
+FusedMM) chunk the same way: only per-edge scalars, ``(edges,)``, exist
+whole.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ if TYPE_CHECKING:  # annotation-only
 
 __all__ = ["coo_reduce", "spmm_coo_ref", "spmm_ell_ref", "spmm_sell_ref",
            "spmm_bsr_ref", "sell_packed_reduce", "take_rows",
-           "ell_transpose_reduce", "sell_transpose_reduce"]
+           "ell_transpose_reduce", "sell_transpose_reduce", "edge_dots",
+           "edge_weights", "sddmm_coo_ref", "sddmm_bsr_ref",
+           "fusedmm_coo_ref", "fusedmm_softmax_ref", "bsr_tile_chunks"]
 
 # gathered elements per chunk (fp32: 256 MiB of messages at a time)
 _CHUNK_ELEMS = 1 << 26
@@ -164,4 +169,142 @@ def spmm_bsr_ref(a: "BSR", h: torch.Tensor) -> torch.Tensor:
         contrib = torch.bmm(a.blocks[lo: lo + step].float(),
                             hb[a.blk_col[lo: lo + step].long()])
         out.index_add_(0, a.blk_row[lo: lo + step].long(), contrib)
+    return out.reshape(a.nrows, k)
+
+
+# --------------------------------------------------------------------------
+# SDDMM:  S_ij = (x_i · y_j) * A_ij   for (i,j) in sparsity(A)
+# --------------------------------------------------------------------------
+
+def edge_dots(x: torch.Tensor, y: torch.Tensor, row: torch.Tensor,
+              col: torch.Tensor) -> torch.Tensor:
+    """``sum(x[row] * y[col], -1)`` per edge, in chunks of edges (ids out
+    of range read zero rows). Differentiable in ``x`` and ``y``."""
+    step = _rows_per_chunk(1, x.shape[1])
+    parts = [(take_rows(x, row[lo: lo + step]) *
+              take_rows(y, col[lo: lo + step])).sum(-1)
+             for lo in range(0, row.shape[0], step)]
+    if not parts:
+        return x.new_zeros((0,), dtype=torch.promote_types(x.dtype, y.dtype))
+    return torch.cat(parts)
+
+
+def sddmm_coo_ref(a: "COO", x: torch.Tensor, y: torch.Tensor,
+                  scale_by_a: bool = True) -> torch.Tensor:
+    """Per-edge scores ``(nnz_padded,)``, zero on padding entries.
+    x: (N, D), y: (M, D)."""
+    n = a.nse
+    s = edge_dots(x, y, a.row[:n], a.col[:n])
+    if scale_by_a:
+        s = s * a.val[:n]
+    return torch.cat([s, s.new_zeros((a.nnz_padded - n,))])
+
+
+def _block_rows(t: torch.Tensor, n: int, b: int) -> torch.Tensor:
+    """``t`` (at most ``n`` rows) as ``(n // b, b, width)`` fp32 blocks,
+    the missing rows zero."""
+    t = t.float()
+    if t.shape[0] < n:
+        t = torch.cat([t, t.new_zeros((n - t.shape[0], t.shape[1]))])
+    return t.reshape(n // b, b, t.shape[1])
+
+
+def bsr_tile_chunks(a: "BSR", x: torch.Tensor, y: torch.Tensor,
+                    width: int):
+    """Yield ``(lo, hi, s)`` over chunks of A's stored tiles: ``s`` is
+    the ``(hi - lo, br, bc)`` fp32 score tiles ``X[row blk] @ Y[col
+    blk]^T`` of tiles ``lo .. hi``. ``x`` and ``y`` may have fewer rows
+    than ``a.nrows`` / ``a.ncols`` (the rest read zero); a chunk's
+    gathers hold at most ~2^26 elements of rows ``width`` wide."""
+    xb = _block_rows(x, a.nrows, a.br)
+    yb = _block_rows(y, a.ncols, a.bc)
+    step = _rows_per_chunk(max(a.br, a.bc), max(width, x.shape[1], 1))
+    for lo in range(0, a.nblocks, step):
+        hi = min(lo + step, a.nblocks)
+        s = torch.bmm(xb[a.blk_row[lo:hi].long()],
+                      yb[a.blk_col[lo:hi].long()].transpose(1, 2))
+        yield lo, hi, s
+
+
+def sddmm_bsr_ref(a: "BSR", x: torch.Tensor, y: torch.Tensor,
+                  scale_by_a: bool = True) -> torch.Tensor:
+    """Block scores ``(nblocks, br, bc)`` at every position of every
+    stored tile, times the tile when ``scale_by_a``."""
+    out = torch.empty((a.nblocks, a.br, a.bc), dtype=torch.float32,
+                      device=x.device)
+    for lo, hi, s in bsr_tile_chunks(a, x, y, x.shape[1]):
+        out[lo:hi] = s * a.blocks[lo:hi] if scale_by_a else s
+    return out
+
+
+# --------------------------------------------------------------------------
+# FusedMM: SDDMM -> edge nonlinearity -> SpMM
+# --------------------------------------------------------------------------
+
+def edge_weights(s: torch.Tensor, row_ids: torch.Tensor, nrows: int,
+                 valid, edge_op: str) -> torch.Tensor:
+    """Per-edge weights f(s) for a FusedMM edge op, zero on invalid
+    entries (``valid`` None: every entry is real). Softmax normalizes
+    over each row's neighborhood with segment ops; its max is detached —
+    softmax is shift-invariant, so the derivative is exact without it."""
+    if edge_op == "softmax":
+        sm = s if valid is None else torch.where(valid, s, -torch.inf)
+        ids = row_ids.long()
+        m = torch.full((nrows,), -torch.inf, dtype=s.dtype, device=s.device)
+        m = m.scatter_reduce(0, ids, sm.detach(), "amax")
+        m = torch.where(torch.isinf(m), 0.0, m)
+        e = torch.exp(sm - m[ids])
+        if valid is not None:
+            e = torch.where(valid, e, 0.0)
+        z = torch.zeros((nrows,), dtype=s.dtype, device=s.device)
+        z = z.index_add(0, ids, e)
+        return e / torch.clamp(z, min=1e-30)[ids]
+    if edge_op == "sigmoid":
+        w = torch.sigmoid(s)
+    elif edge_op == "none":
+        w = s
+    else:
+        raise ValueError(edge_op)
+    return w if valid is None else torch.where(valid, w, 0.0)
+
+
+def fusedmm_coo_ref(a: "COO", x: torch.Tensor, y: torch.Tensor,
+                    h: torch.Tensor, edge_op: str = "softmax"
+                    ) -> torch.Tensor:
+    """out[i] = Σ_j f(x_i·y_j) h_j over sparsity(A); f per ``edge_op``
+    (softmax normalizes over each row's neighborhood). The per-edge
+    scores and weights are ``(edges,)``; the ``(edges, D)`` and
+    ``(edges, K)`` products are built in chunks. Differentiable."""
+    from repro_torch.core.semiring import get_semiring
+    n = a.nse
+    row, col = a.row[:n], a.col[:n]
+    w = edge_weights(edge_dots(x, y, row, col), row, a.nrows, None, edge_op)
+    return coo_reduce(row, col, w, n, a.nrows, h, get_semiring("sum"))
+
+
+def fusedmm_softmax_ref(a: "BSR", x: torch.Tensor, y: torch.Tensor,
+                        h: torch.Tensor) -> torch.Tensor:
+    """Block-sparse graph attention over A's tiles (mask: the tile entry
+    is nonzero; padding tiles are all zero and mask out): the row max over
+    a whole block row first, then the exponentials, denominators and
+    ``e @ h`` tile products. Two passes over the tiles in chunks, the
+    scores recomputed in the second. ``(a.nrows, K)`` fp32; a row with no
+    unmasked entry is 0."""
+    k = h.shape[1]
+    hb = _block_rows(h, a.ncols, a.bc)
+    m = torch.full((a.n_block_rows, a.br), -torch.inf, device=h.device)
+    for lo, hi, s in bsr_tile_chunks(a, x, y, k):
+        s = torch.where(a.blocks[lo:hi] != 0, s, -torch.inf)
+        ids = a.blk_row[lo:hi].long()[:, None].expand(-1, a.br)
+        m.scatter_reduce_(0, ids, s.amax(dim=2), "amax")
+    m = torch.where(torch.isinf(m), 0.0, m)
+    z = torch.zeros((a.n_block_rows, a.br), device=h.device)
+    num = torch.zeros((a.n_block_rows, a.br, k), device=h.device)
+    for lo, hi, s in bsr_tile_chunks(a, x, y, k):
+        ids = a.blk_row[lo:hi].long()
+        e = torch.where(a.blocks[lo:hi] != 0,
+                        torch.exp(s - m[ids][:, :, None]), 0.0)
+        z.index_add_(0, ids, e.sum(dim=2))
+        num.index_add_(0, ids, torch.bmm(e, hb[a.blk_col[lo:hi].long()]))
+    out = num / torch.clamp(z, min=1e-30)[:, :, None]
     return out.reshape(a.nrows, k)

@@ -1,5 +1,5 @@
-"""GNN layers (GCN / GraphSAGE / GIN), full-graph and over sampled
-blocks, patch-aware.
+"""GNN layers (GCN / GraphSAGE / GIN full-graph and over sampled blocks,
+dot-product graph attention full-graph), patch-aware.
 
 Functional, like the reference: ``init_*(generator, ...) -> params`` (a
 dict of tensors), ``*_conv(params, bundle, h) -> h'`` over a whole graph
@@ -11,9 +11,11 @@ so :func:`params_from_jax` hands weights across unchanged.
 The aggregation resolves through the patch registry: ``spmm`` for a
 whole graph (tuned = the CachedGraph's planned kernel with cached
 normalization and transpose, baseline = the uncached trusted path with
-GCN normalization in the step) and ``block_spmm`` for a block (tuned =
-the bucket plan's packed ELL/SELL kernel, baseline = the trusted segment
-reduce).
+GCN normalization in the step), ``fusedmm`` for attention (tuned = the
+fused BSR kernel where the plan allows, with a recompute backward,
+baseline = the unfused composition under plain autograd) and
+``block_spmm`` for a block (tuned = the bucket plan's packed ELL/SELL
+kernel, baseline = the trusted segment reduce).
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ from repro_torch.core.patch import is_patched, resolve
 from repro_torch.kernels.ref import take_rows
 
 __all__ = ["init_gcn", "gcn_conv", "init_sage", "sage_conv", "init_gin",
-           "gin_conv", "sage_conv_block", "gin_conv_block",
-           "params_from_jax"]
+           "gin_conv", "sage_conv_block", "gin_conv_block", "init_gat",
+           "dot_gat_conv", "params_from_jax"]
 
 
 def _glorot(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -62,14 +64,16 @@ def init_gin(generator: torch.Generator, in_dim: int, out_dim: int,
 
 
 def params_from_jax(params: dict, device="cuda") -> dict:
-    """The reference's layer-keyed params (``{'l0': {'w_self': ...}}``,
-    leaves handed over as numpy arrays or anything ``np.asarray`` takes)
-    as the port's: the same keys, fp32 tensors on ``device``."""
-    return {layer: {name: torch.from_numpy(
-                        np.array(leaf, dtype=np.float32, copy=True)
-                    ).to(device)
-                    for name, leaf in p.items()}
-            for layer, p in params.items()}
+    """The reference's params (layer dicts such as ``{'l1': {'w_self':
+    ...}}`` beside top-level arrays such as gat's ``'proj'``; leaves
+    handed over as numpy arrays or anything ``np.asarray`` takes) as the
+    port's: the same keys, fp32 tensors on ``device``."""
+    def leaf(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32, copy=True)
+                                ).to(device)
+    return {key: {name: leaf(x) for name, x in p.items()}
+            if hasattr(p, "items") else leaf(p)
+            for key, p in params.items()}
 
 
 # --------------------------------------------------------------------------
@@ -104,6 +108,27 @@ def gin_conv(params: dict, bundle, h: torch.Tensor) -> torch.Tensor:
     z = (1.0 + params["eps"]) * h + s
     z = torch.relu(z @ params["w1"] + params["b1"])
     return z @ params["w2"] + params["b2"]
+
+
+def init_gat(generator: torch.Generator, in_dim: int, out_dim: int,
+             device="cuda") -> dict:
+    return {"wq": _glorot(generator, (in_dim, out_dim), device),
+            "wk": _glorot(generator, (in_dim, out_dim), device),
+            "wv": _glorot(generator, (in_dim, out_dim), device)}
+
+
+def dot_gat_conv(params: dict, bundle, h: torch.Tensor) -> torch.Tensor:
+    """Dot-product graph attention: ``out_i = Σ_{j in N(i)} softmax_j(q_i
+    · k_j / sqrt(out_dim)) v_j`` with ``q, k, v = h W_q, h W_k, h W_v``.
+    Both bindings take the raw adjacency's cached graph; the tuned one
+    runs FusedMM (scores never reach device memory on the fused route),
+    the baseline the unfused composition."""
+    q = h @ params["wq"]
+    k = h @ params["wk"]
+    v = h @ params["wv"]
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    return resolve("fusedmm")(bundle.graph("gat"), q * scale, k, v,
+                              edge_op="softmax")
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,10 @@
-"""Two-layer GNN models — the paper's §4 benchmark set.
+"""Two-layer GNN models — the paper's §4 benchmark set (+ dot-GAT extra).
 
 ``make_gnn(arch, ...)`` returns ``(init, apply)``: ``init(generator,
 device="cuda")`` draws the params from a ``torch.Generator`` (layer keys
-``l1``, ``l2``, as the reference), ``apply(params, bundle, x) -> logits``.
-Architectures: gcn | sage-sum | sage-mean | sage-max | gin. ``gat`` needs
-the FusedMM kernel and is not ported yet.
+``l1``, ``l2``, and gat's input projection ``proj``, as the reference),
+``apply(params, bundle, x) -> logits``. Architectures:
+gcn | sage-sum | sage-mean | sage-max | gin | gat.
 """
 from __future__ import annotations
 
@@ -24,9 +24,19 @@ def make_gnn(arch: str, in_dim: int, hidden: int, out_dim: int
     if arch not in GNN_ARCHS:
         raise ValueError(f"unknown GNN arch {arch!r}; choose from {GNN_ARCHS}")
     if arch == "gat":
-        raise NotImplementedError(
-            "gat is not ported yet: it needs SDDMM/FusedMM and the "
-            "fusedmm_bsr kernel (ROADMAP.md queue 1, item 3)")
+        def init(generator: torch.Generator, device="cuda") -> dict:
+            return {"proj": L._glorot(generator, (in_dim, hidden), device),
+                    "l1": L.init_gat(generator, hidden, hidden,
+                                     device=device),
+                    "l2": L.init_gat(generator, hidden, out_dim,
+                                     device=device)}
+
+        def apply(params, bundle, x: torch.Tensor) -> torch.Tensor:
+            h = x @ params["proj"]
+            h = torch.relu(L.dot_gat_conv(params["l1"], bundle, h))
+            return L.dot_gat_conv(params["l2"], bundle, h)
+
+        return init, apply
 
     if arch == "gcn":
         init_one, conv = L.init_gcn, L.gcn_conv

@@ -362,3 +362,192 @@ def test_device_sampled_step_matches_cpu(card):
         g.cpu().numpy(), want.numpy(), rtol=0,
         atol=1e-5 * float(want.abs().max()) + 1e-12), rg[3], rc[3])
     assert rg[4].drain() == rc[4].drain()
+
+
+# --------------------------------------------------------------------------
+# the edge-score kernels (csrc/sddmm.cu, csrc/fusedmm.cu)
+# --------------------------------------------------------------------------
+
+def _score_inputs(rng, d, k=None, n=300, m=280):
+    """x (n, d) / sqrt(d) and y (m, d), so that scores are ~N(0, 1), and
+    h (m, k); fewer rows than the padded BSR (the rest read zero)."""
+    x = _h(rng, n, d) / float(d) ** 0.5
+    y = _h(rng, m, d)
+    return (x, y) if k is None else (x, y, _h(rng, m, k))
+
+
+def _close(got, want):
+    """fp32 tolerance of the edge-score kernels: rtol 1e-4 and atol
+    1e-4 x max|want| (D-term dot products summed in another order, then
+    up to 128 weighted h rows per tile; softmax weights sum to 1)."""
+    want = want.cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(want).max()) + 1e-6)
+
+
+@pytest.mark.parametrize("br,bc", [(32, 128), (128, 128), (128, 256)])
+@pytest.mark.parametrize("d", [16, 130, 256])
+@pytest.mark.parametrize("scale_by_a", [True, False])
+def test_sddmm_kernel_matches_plain(card, br, bc, d, scale_by_a):
+    from repro_torch.kernels.sddmm import sddmm_bsr_cuda, sddmm_bsr_plain
+    rng = np.random.default_rng(br + d)
+    bsr = _bsr_case(rng, br, bc, pad_blocks=3)
+    x, y = _score_inputs(rng, d)
+    dbsr = tsp.to_device(bsr, card)
+    out = sddmm_bsr_cuda(dbsr, x.to(card), y.to(card), scale_by_a=scale_by_a)
+    torch.cuda.synchronize()
+    assert out.shape == (bsr.nblocks, br, bc)
+    _close(out, sddmm_bsr_plain(bsr, x, y, scale_by_a=scale_by_a))
+
+
+@pytest.mark.parametrize("br,bc", [(32, 128), (128, 128), (128, 256)])
+@pytest.mark.parametrize("d", [16, 130, 256])
+@pytest.mark.parametrize("k", [64, 256, 384])
+@pytest.mark.parametrize("edge_op", ["softmax", "sigmoid", "none"])
+def test_fusedmm_kernel_matches_plain(card, br, bc, d, k, edge_op):
+    """Rows 128..255 have no entry (at br = 32 whole block rows own only
+    their zero tile) and three padding blocks replicate the last block
+    row: those rows, and the padded rows past 300, store 0."""
+    from repro_torch.kernels.fusedmm import (fusedmm_bsr_cuda,
+                                             fusedmm_bsr_plain)
+    rng = np.random.default_rng(br + d + k)
+    bsr = _bsr_case(rng, br, bc, pad_blocks=3)
+    x, y, h = _score_inputs(rng, d, k)
+    out = fusedmm_bsr_cuda(tsp.to_device(bsr, card), x.to(card), y.to(card),
+                           h.to(card), edge_op=edge_op)
+    torch.cuda.synchronize()
+    assert out.shape == (bsr.nrows, k)
+    _close(out, fusedmm_bsr_plain(bsr, x, y, h, edge_op=edge_op))
+    assert (out[128:256] == 0).all() and (out[300:] == 0).all()
+
+
+def test_fusedmm_kernel_wide_h_launches_per_512_columns(card):
+    from repro_torch.kernels.fusedmm import fusedmm_bsr_plain
+    rng = np.random.default_rng(7)
+    bsr = _bsr_case(rng, 64, 128, pad_blocks=1)
+    x, y, h = _score_inputs(rng, 32, 602)
+    tops.reset_kernel_launches()
+    out = tops.fusedmm_bsr(tsp.to_device(bsr, card), x.to(card), y.to(card),
+                           h.to(card))
+    torch.cuda.synchronize()
+    assert tops.kernel_launches()["fusedmm_bsr"] == 2
+    _close(out, fusedmm_bsr_plain(bsr, x, y, h))
+
+
+def _big_bsr(card, d):
+    """132,096 tiles of 128 x 128 (the tile array passes 2^31 elements,
+    8.7 GB): only the last block row's tiles, all past the 2^31 offset,
+    hold entries (a random 1 % of positions)."""
+    n_brows, per_row, t = 1024, 129, 128
+    blk_row = torch.arange(n_brows, dtype=torch.int32,
+                           device=card).repeat_interleave(per_row)
+    blk_col = torch.arange(per_row, dtype=torch.int32,
+                           device=card).repeat(n_brows)
+    blocks = torch.zeros((n_brows * per_row, t, t), device=card)
+    assert blocks.numel() > 2 ** 31
+    gen = torch.Generator(device=card).manual_seed(0)
+    blocks[-per_row:] = (torch.rand((per_row, t, t), generator=gen,
+                                    device=card) < 0.01).float()
+    bsr = tsp.BSR(blk_row=blk_row, blk_col=blk_col, blocks=blocks,
+                  nrows=n_brows * t, ncols=per_row * t, br=t, bc=t,
+                  n_real_blocks=n_brows * per_row)
+    x = torch.randn((n_brows * t, d), generator=gen, device=card) / d ** 0.5
+    y = torch.randn((per_row * t, d), generator=gen, device=card)
+    return bsr, x, y, gen
+
+
+def test_fusedmm_kernel_64bit_offsets(card):
+    from repro_torch.kernels.fusedmm import (fusedmm_bsr_cuda,
+                                             fusedmm_bsr_plain)
+    bsr, x, y, gen = _big_bsr(card, 16)
+    h = torch.randn((y.shape[0], 128), generator=gen, device=card)
+    for edge_op in ("softmax", "none"):
+        out = fusedmm_bsr_cuda(bsr, x, y, h, edge_op=edge_op)
+        torch.cuda.synchronize()
+        assert (out[:-128] == 0).all()
+        _close(out[-128:], fusedmm_bsr_plain(bsr, x, y, h,
+                                             edge_op=edge_op)[-128:])
+        del out
+
+
+def test_sddmm_kernel_64bit_offsets(card):
+    from repro_torch.kernels.sddmm import sddmm_bsr_cuda, sddmm_bsr_plain
+    bsr, x, y, _ = _big_bsr(card, 16)
+    out = sddmm_bsr_cuda(bsr, x, y, scale_by_a=False)
+    torch.cuda.synchronize()
+    last = tsp.BSR(blk_row=bsr.blk_row[-129:] - 1023,
+                   blk_col=bsr.blk_col[-129:], blocks=bsr.blocks[-129:],
+                   nrows=128, ncols=bsr.ncols, br=128, bc=128,
+                   n_real_blocks=129)
+    _close(out[-129:], sddmm_bsr_plain(last, x[-128:], y, scale_by_a=False))
+    _close(out[:129], sddmm_bsr_plain(
+        tsp.BSR(blk_row=bsr.blk_row[:129], blk_col=bsr.blk_col[:129],
+                blocks=bsr.blocks[:129], nrows=128, ncols=bsr.ncols, br=128,
+                bc=128, n_real_blocks=129), x[:128], y, scale_by_a=False))
+
+
+def test_edge_score_dispatch_counts_and_rejects(card):
+    import dataclasses
+    rng = np.random.default_rng(4)
+    bsr = tsp.to_device(_bsr_case(rng, 128, 128, pad_blocks=0), card)
+    x, y, h = (t.to(card) for t in _score_inputs(rng, 32, 64))
+    tops.reset_kernel_launches()
+    tops.sddmm_bsr(bsr, x, y)
+    tops.fusedmm_bsr(bsr, x, y, h, edge_op="sigmoid")
+    assert {k: v for k, v in tops.kernel_launches().items() if v} == {
+        "sddmm_bsr": 1, "fusedmm_bsr": 1}
+    with pytest.raises(ValueError, match="not built"):
+        tops.fusedmm_bsr(dataclasses.replace(bsr, br=48), x, y, h)
+    with pytest.raises(ValueError, match="not built"):
+        tops.sddmm_bsr(dataclasses.replace(bsr, bc=96), x, y)
+    with pytest.raises(ValueError, match="not built"):
+        tops.fusedmm_bsr(dataclasses.replace(bsr, bc=64), x, y, h)
+    with pytest.raises(ValueError, match="widths differ"):
+        tops.sddmm_bsr(bsr, x, y[:, :16].contiguous())
+    with pytest.raises(ValueError, match="rows"):
+        tops.fusedmm_bsr(bsr, x, y, _h(rng, 400, 64).to(card))
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        tops.fusedmm_bsr(bsr, x, y, h.double())
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros((300, 4096), device=card)
+        tops.sddmm_bsr(bsr, big, big[:280])
+    with pytest.raises(ValueError, match="CUDA tensors on one device"):
+        tops.fusedmm_bsr(bsr, x, y.cpu(), h)
+    assert {k: v for k, v in tops.kernel_launches().items() if v} == {
+        "sddmm_bsr": 1, "fusedmm_bsr": 1}
+
+
+def test_patched_gat_step_matches_unpatched(card):
+    """One gat training step on the card, patched (the fused kernel on
+    layer 1 at K = 128, the trusted composition on layer 2, the recompute
+    backward) against unpatched (unfused, plain autograd), from the same
+    weights. Loss within rtol 1e-5, each gradient within 1e-4 of its
+    largest element (fp32, another summation order)."""
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.core.patch import patched
+    from repro_torch.data import make_dataset
+    from repro_torch.models.gnn import build_bundle, make_gnn
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train.gnn import loss_and_grads
+
+    ds = make_dataset("reddit", scale=1 / 512, seed=1)
+    bundle = build_bundle(ds, k_hint=128, arch="gat", plan=KernelPlan(
+        kind="bsr", br=128, bc=128, fk=64)).to(card)
+    init, apply = make_gnn("gat", ds.num_features, 128, ds.num_classes)
+    params = init(torch.Generator().manual_seed(0), device=card)
+    x, y, m = (t.to(card) for t in (ds.x, ds.y, ds.train_mask))
+    tops.reset_kernel_launches()
+    with patched(True):
+        loss_t, g_t = loss_and_grads(apply, params, bundle, x, y, m)
+    launches = tops.kernel_launches()
+    with patched(False):
+        loss_b, g_b = loss_and_grads(apply, params, bundle, x, y, m)
+    torch.cuda.synchronize()
+    assert launches["fusedmm_bsr"] == 1
+    np.testing.assert_allclose(float(loss_t), float(loss_b), rtol=1e-5)
+
+    def close(a, b):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-4 * float(b.abs().max()) + 1e-12,
+                                   rtol=0)
+    tree_map(close, g_t, g_b)

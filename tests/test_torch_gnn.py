@@ -27,7 +27,7 @@ from repro.optim import apply_updates as jax_apply_updates
 from repro.train import train_gnn as jax_train_gnn
 
 from repro_torch import obs
-from repro_torch.core.autotune import KernelPlan
+from repro_torch.core.autotune import KernelPlan, autotune
 from repro_torch.core.patch import patched
 from repro_torch.data import make_dataset
 from repro_torch.models.gnn import build_bundle, make_gnn, params_from_jax
@@ -160,9 +160,10 @@ def test_train_gnn_profile_records_spans(datasets):
     assert dataclasses.asdict(res)["plan_kind"] == res.plan_kind
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(datasets):
+    _, ds = datasets
     with pytest.raises(NotImplementedError, match="queue 1"):
-        make_gnn("gat", 8, 8, 2)
+        autotune(ds.coo, 32, measure=True)
 
 
 @pytest.mark.parametrize("arch", ["gcn", "sage-mean"])
