@@ -83,9 +83,27 @@ failure:
    function, the plain versions and a library yardstick the port never
    calls (``torch.sparse.sampled_addmm``; for softmax
    ``F.scaled_dot_product_attention`` with the dense boolean mask);
+10. (run last) LM serving of phi3.5-moe-42b-a6.6b at full width
+   (d_model 4096, 32 / 8 heads of 128, 16 experts top-2 of d_ff 6400,
+   bf16), cut to 4 of 32 layers (the 84 GB of bf16 weights exceed the
+   card), random weights from a seeded generator on the card: 4 prompts
+   of 2,048 tokens from ``data/tokens``, ``prefill`` into a 2,088-slot
+   cache, then 32 greedy ``decode_step``s. Launch counts are zeroed just
+   before and read just after the prefill (4 flash attention + 12 ragged
+   GEMM), the first decode step (12 ragged) and the other 31; every
+   launch of the prefill and of the first decode step is held against
+   its plain version on its own inputs (max |diff| within 2^-7 x
+   max|plain|); logits finite. Then prefill and decode times, peak
+   memory and the device busy share, both kernels timed at the main
+   path's shapes beside their bounds, plain versions and a library
+   yardstick the port never calls (``torch.bmm`` over the (E, C, D)
+   buffer, ``scaled_dot_product_attention``), and the smoke config in
+   fp32 on the card (the kernels' fp32 instances) against the port's CPU
+   run, prefill + 4 decode steps within atol 1e-4;
 5. last, the kernels line (one JSON object: the sampling kernels as timed
    in phase 8, the serving kernels as timed in phase 4, BSR as timed in
-   phase 7, SDDMM and FusedMM as timed in phase 9), the card line, and
+   phase 7, SDDMM and FusedMM as timed in phase 9, the ragged GEMM and
+   flash attention as timed in phase 10), the card line, and
    ``{"ok": true, "device": {...}}``.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
@@ -132,6 +150,10 @@ KERNEL_META = {
                       replaces="src/repro/kernels/sddmm.py:35"),
     "fusedmm_bsr": dict(source="src/repro_torch/csrc/fusedmm.cu",
                         replaces="src/repro/kernels/fusedmm.py:78"),
+    "ragged_gemm": dict(source="src/repro_torch/csrc/ragged_gemm.cu",
+                        replaces="src/repro/kernels/ragged_gemm.py:29"),
+    "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention.py:78"),
 }
 SERVE_KERNELS = ("ell_spmm", "sell_spmm")   # what serving launches
 TRAIN_EPOCHS, TRAIN_LR, TRAIN_WD = 5, 1e-2, 5e-4
@@ -1629,6 +1651,399 @@ def minibatch_phase(ds) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: LM serving (prefill + decode) of phi3.5-moe at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "phi3.5-moe-42b-a6.6b"
+LM_LAYERS = 4           # of 32: 84 GB of bf16 weights exceed one 80 GB card
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
+LM_CAPACITY = LM_PROMPT + LM_DECODE + 8
+LM_TOL = 2.0 ** -7      # max|kernel - plain| / max|plain|: two bf16 ulps,
+                        # and per output row against the fp32 oracle
+LM_SMOKE_ATOL = 1e-4    # fp32 smoke config, card (kernels) vs CPU (plain)
+LM_SMOKE_DECODE = 4
+LM_KERNELS = ("ragged_gemm", "flash_attention")
+
+
+@contextlib.contextmanager
+def record_lm_kernels(check: bool):
+    """While on, every ``ragged_gemm`` / ``flash_attention`` dispatch is
+    recorded with its inputs; with ``check`` its output is held right away
+    (1) against the plain version on the same card tensors, max |diff|
+    within ``LM_TOL`` x max|plain| over the whole output, and (2) row by
+    row against the same function of the same inputs widened to fp32:
+    each output row's max |diff| within ``LM_TOL`` x that row's max
+    |oracle| (plus a floor of 2^-24 x the output's max, for rows near
+    zero). (2) sees a fault confined to rows of small magnitude, such as
+    the late query rows of a long causal prefill, which average over
+    thousands of keys. The dispatchers and their launch counts are
+    unchanged; the plain versions and the oracles launch no kernel."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_plain
+    import torch
+    calls: list = []
+    real = {"ragged_gemm": kops.ragged_gemm,
+            "flash_attention": kops.flash_attention}
+
+    def checked(entry, out, want, oracle):
+        err = float((out.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        ratio = err / max(scale, 1e-30)
+        width = out.shape[-1]
+        row_err = (out.float() - oracle).abs().reshape(-1, width).amax(-1)
+        row_max = oracle.abs().reshape(-1, width).amax(-1)
+        floor = 2.0 ** -24 * float(row_max.max())
+        row_ratio = float((row_err / row_max.clamp(min=max(floor, 1e-30)))
+                          .max())
+        entry.update(max_abs_err=err, max_plain=scale, err_over_max=ratio,
+                     median_plain=float(want.float().abs().median()),
+                     median_row_max=float(row_max.median()),
+                     row_err_over_row_max=row_ratio)
+        if not ratio <= LM_TOL or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{entry['name']} {entry['shape']}: kernel "
+                                 f"disagrees with plain, max err {err} of "
+                                 f"max|plain| {scale} (ratio {ratio:.3e} > "
+                                 f"{LM_TOL})")
+        if not row_ratio <= LM_TOL:
+            raise AssertionError(f"{entry['name']} {entry['shape']}: a row "
+                                 f"of the kernel's output disagrees with "
+                                 f"the fp32 oracle: max|diff| / max|row| "
+                                 f"{row_ratio:.3e} > {LM_TOL}")
+
+    def ragged_oracle(x, w, tile_expert, tm):
+        """The ragged GEMM in fp32, one expert's tiles at a time."""
+        xt = x.view(-1, tm, x.shape[1])
+        out = torch.empty((xt.shape[0], tm, w.shape[2]),
+                          dtype=torch.float32, device=x.device)
+        te = tile_expert.cpu()
+        for e in te.unique().tolist():
+            idx = (te == e).nonzero()[:, 0].to(x.device)
+            out[idx] = (xt[idx].float() @ w[e].float())
+        return out.view(x.shape[0], w.shape[2])
+
+    def ragged(x, w, tile_expert, *, tm=128):
+        out = real["ragged_gemm"](x, w, tile_expert, tm=tm)
+        entry = dict(name="ragged_gemm",
+                     shape=f"{x.shape[0]}x{x.shape[1]}x{w.shape[2]}",
+                     inputs=(x, w, tile_expert))
+        if check:
+            checked(entry, out, ragged_gemm_plain(x, w, tile_expert, tm=tm),
+                    ragged_oracle(x, w, tile_expert, tm))
+        calls.append(entry)
+        return out
+
+    def flash(q, k, v, *, causal=True, window=None):
+        out = real["flash_attention"](q, k, v, causal=causal, window=window)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        entry = dict(name="flash_attention",
+                     shape=f"{tuple(q.shape)}/{tuple(k.shape)}",
+                     inputs=(q, k, v), causal=causal, window=window)
+        if check:
+            checked(entry, out, flash_attention_plain(
+                q, k, v, causal=causal, window=window),
+                flash_attention_plain(q.float(), k.float(), v.float(),
+                                      causal=causal, window=window))
+        calls.append(entry)
+        return out
+
+    kops.ragged_gemm, kops.flash_attention = ragged, flash
+    try:
+        yield calls
+    finally:
+        kops.ragged_gemm = real["ragged_gemm"]
+        kops.flash_attention = real["flash_attention"]
+
+
+def attention_pairs(s: int, t: int, causal: bool, window) -> int:
+    """Kept (query, key) pairs of one head: the work the masks leave."""
+    qpos = np.arange(s, dtype=np.int64) + (t - s)
+    hi = np.minimum(qpos, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def lm_kernel_case(call, device_ms) -> dict:
+    """One recorded launch of the main path, timed: the kernel (CUDA
+    events), its plain version, a library yardstick the port never calls
+    (``torch.bmm`` over the (E, C, D) buffer for the ragged GEMM,
+    ``scaled_dot_product_attention`` for flash), and the bound of the
+    function on these inputs: the larger of one read of each input and
+    one write of the output at 3.35 TB/s and its operations at 989
+    TFLOP/s (bf16 tensor cores). ``device_ms`` comes from the caller's
+    trace of the whole prefill or decode step: a trace of these lone
+    launches after phases 2–9 records no device work on the H100 machine
+    (the same calls in a fresh process do)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.autotune import H100
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
+                                                 ragged_gemm_plain)
+    name = call["name"]
+    if name == "ragged_gemm":
+        x, w, te = call["inputs"]
+        t, d = x.shape
+        e, f = w.shape[0], w.shape[2]
+        used = int(torch.unique(te).numel())
+        flops = 2 * t * d * f
+        nbytes = (t * d + used * d * f + t * f) * x.element_size()
+
+        def kernel():
+            return ragged_gemm_cuda(x, w, te)
+
+        def plain():
+            return ragged_gemm_plain(x, w, te)
+
+        xb = x.view(e, t // e, d)         # experts in order, C rows each
+
+        def library():
+            return torch.bmm(xb, w)
+    else:
+        q, k, v = call["inputs"]
+        b, hq, s, d = q.shape
+        t = k.shape[2]
+        kw = dict(causal=call["causal"], window=call["window"])
+        flops = 4 * d * attention_pairs(s, t, **kw) * b * hq
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+
+        def kernel():
+            return flash_attention_cuda(q, k, v, **kw)
+
+        def plain():
+            return flash_attention_plain(q, k, v, **kw)
+
+        library = None
+        if kw["window"] is None and kw["causal"] and s == t:
+            def library():
+                try:
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True)
+                except TypeError:         # a torch without enable_gqa
+                    rep = hq // k.shape[1]
+                    return F.scaled_dot_product_attention(
+                        q, k.repeat_interleave(rep, 1),
+                        v.repeat_interleave(rep, 1), is_causal=True)
+    t_bytes, t_ops = H100.mem_time(nbytes), flops / H100.peak_flops
+    reps = 10
+    return dict(
+        name=name, shape=call["shape"],
+        ms=cuda_ms(kernel, reps=reps), device_ms=device_ms,
+        plain_ms=cuda_ms(plain, reps=3, warmup=1),
+        library_ms=None if library is None else cuda_ms(library, reps=reps),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, flops=flops)
+
+
+def tree_to(tree: dict, device) -> dict:
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def lm_smoke_check() -> list:
+    """phi3.5-moe's smoke config in fp32 (the kernels' fp32 instances):
+    prefill + LM_SMOKE_DECODE decode steps on the card against the port's
+    CPU run (plain versions) from the same weights and tokens. Returns
+    the max |logit diff| of each call; raises past LM_SMOKE_ATOL."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models import lm
+    cfg = get_smoke_config(LM_ARCH)
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    p_card = tree_to(p_cpu, DEVICE)
+    toks = torch.from_numpy(synthetic_lm_batch(2, 64, cfg.vocab, step=1)[0])
+    nxt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, LM_SMOKE_DECODE)).astype(np.int32))
+    cap = 64 + LM_SMOKE_DECODE
+    c_card, l_card = lm.prefill(cfg, p_card, {"tokens": toks.to(DEVICE)}, cap)
+    c_cpu, l_cpu = lm.prefill(cfg, p_cpu, {"tokens": toks}, cap)
+    errs = [float((l_card.cpu() - l_cpu).abs().max())]
+    for i in range(LM_SMOKE_DECODE):
+        l_card, c_card = lm.decode_step(cfg, p_card, c_card,
+                                        nxt[:, i:i + 1].to(DEVICE))
+        l_cpu, c_cpu = lm.decode_step(cfg, p_cpu, c_cpu, nxt[:, i:i + 1])
+        errs.append(float((l_card.cpu() - l_cpu).abs().max()))
+    if not max(errs) <= LM_SMOKE_ATOL:
+        raise AssertionError(f"fp32 smoke logits, card vs CPU: {errs} "
+                             f"(atol {LM_SMOKE_ATOL})")
+    return errs
+
+
+def lm_phase() -> dict:
+    """Phase 10: phi3.5-moe at full width cut to LM_LAYERS layers, bf16,
+    random weights from a seeded generator on the card; 4 prompts of
+    2,048 tokens from ``data/tokens``, ``prefill`` into a 2,088-slot
+    cache, then 32 greedy ``decode_step``s. Launch counts are zeroed just
+    before and read just after the prefill, the first decode step and the
+    other 31; every kernel launch of the prefill and of the first decode
+    step is held against its plain version on its own inputs. Then the
+    serving times, the kernels at the main path's shapes, and the smoke
+    config in fp32 on the card against the port's CPU run."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+
+    full = get_config(LM_ARCH)
+    cfg = dc.replace(full, n_layers=LM_LAYERS)
+    cut = (f"{LM_ARCH} at full width, {LM_LAYERS} of {full.n_layers} "
+           f"layers: {full.param_count() / 1e9:.2f} B parameters take "
+           f"{full.param_count() * 2 / 1e9:.1f} GB in bf16, more than the "
+           f"card's 80 GB; {LM_LAYERS} layers take "
+           f"{cfg.param_count() * 2 / 1e9:.2f} GB")
+    log(f"cut: {cut}")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"lm: {cfg.param_count() / 1e9:.3f} B parameters drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    toks, _ = synthetic_lm_batch(LM_BATCH, LM_PROMPT, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(DEVICE)}
+
+    def launches():
+        return {n: kops.kernel_launches()[n] for n in LM_KERNELS}
+
+    # -- the main path: prefill, then greedy decode --------------------------
+    counts = {}
+    kops.reset_kernel_launches()
+    with record_lm_kernels(check=True) as pre_calls:
+        cache, logits = lm.prefill(cfg, params, batch, LM_CAPACITY)
+        torch.cuda.synchronize()
+    counts["prefill"] = launches()
+    if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_padded) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits malformed: "
+                             f"{tuple(logits.shape)}")
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    generated = [tok]
+    kops.reset_kernel_launches()
+    with record_lm_kernels(check=True) as dec_calls:
+        logits, cache = lm.decode_step(cfg, params, cache, tok)
+        torch.cuda.synchronize()
+    counts["decode_1"] = launches()
+    kops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE - 1):
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        generated.append(tok)
+        logits, cache = lm.decode_step(cfg, params, cache, tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts["decode_rest"] = launches()
+    want = {"prefill": {"ragged_gemm": 3 * LM_LAYERS,
+                        "flash_attention": LM_LAYERS},
+            "decode_1": {"ragged_gemm": 3 * LM_LAYERS, "flash_attention": 0},
+            "decode_rest": {"ragged_gemm": 3 * LM_LAYERS * (LM_DECODE - 1),
+                            "flash_attention": 0}}
+    if counts != want:
+        raise AssertionError(f"lm launch counts {counts}, want {want}")
+    if not bool(torch.isfinite(logits).all()) or \
+            int(cache["pos"][0]) != LM_PROMPT + LM_DECODE:
+        raise AssertionError("decode ended malformed")
+    checks = [{k: v for k, v in c.items() if k != "inputs"}
+              for c in pre_calls + dec_calls]
+    worst = {n: max(c["err_over_max"] for c in checks if c["name"] == n)
+             for n in LM_KERNELS}
+    worst_abs = {n: max(c["max_abs_err"] for c in checks if c["name"] == n)
+                 for n in LM_KERNELS}
+    worst_row = {n: max(c["row_err_over_row_max"] for c in checks
+                        if c["name"] == n) for n in LM_KERNELS}
+    medians = {n: (min(c["median_plain"] for c in checks if c["name"] == n),
+                   max(c["max_plain"] for c in checks if c["name"] == n))
+               for n in LM_KERNELS}
+    log(f"lm launches: prefill {counts['prefill']}, first decode step "
+        f"{counts['decode_1']}, steps 2..{LM_DECODE} "
+        f"{counts['decode_rest']}")
+    log(f"lm: {len(checks)} launches of the prefill and the first decode "
+        f"step held against the plain versions; worst max|diff| / "
+        f"max|plain| {worst} (tolerance {LM_TOL}); worst row max|diff| / "
+        f"row max|fp32 oracle| {worst_row} (tolerance {LM_TOL}); "
+        f"(least median |plain|, largest max|plain|) {medians}")
+    gen_toks = torch.cat(generated, dim=1).cpu().numpy()
+    log(f"lm: generated {gen_toks.shape[1]} tokens a request, request 0 "
+        f"starts {gen_toks[0, :8].tolist()}")
+
+    # -- serving times (peak memory: the timed prefills, the decode cache
+    # live; the checked runs above hold the plain versions and oracles) ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = cuda_ms(lambda: lm.prefill(cfg, params, batch, LM_CAPACITY),
+                         reps=2, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = decode_s / (LM_DECODE - 1) * 1e3
+    pre_prof = step_profile(
+        lambda: lm.prefill(cfg, params, batch, LM_CAPACITY))
+    dec_prof = step_profile(lambda: lm.decode_step(cfg, params, cache, tok))
+    serve = dict(
+        prefill_ms=prefill_ms,
+        prefill_tokens_s=LM_BATCH * LM_PROMPT / prefill_ms * 1e3,
+        decode_ms_per_step=step_ms,
+        decode_tokens_s=LM_BATCH / step_ms * 1e3,
+        peak_gb=peak_gb, prefill_profile=pre_prof, decode_profile=dec_prof)
+    log(f"lm serving: prefill {prefill_ms:.2f} ms "
+        f"({serve['prefill_tokens_s']:.0f} tokens/s), decode "
+        f"{step_ms:.3f} ms a step ({serve['decode_tokens_s']:.1f} tokens/s "
+        f"at batch {LM_BATCH}), peak {peak_gb:.2f} GB; device busy "
+        f"{pre_prof['busy_share']:.3f} in a prefill, "
+        f"{dec_prof['busy_share']:.3f} in a decode step")
+    log(f"  top prefill kernels (ms) {pre_prof['top']}")
+    log(f"  top decode kernels (ms) {dec_prof['top']}")
+
+    # -- the kernels at the main path's shapes -------------------------------
+    ragged_pre = [c for c in pre_calls if c["name"] == "ragged_gemm"]
+    picks = {
+        "prefill gate D->F": ragged_pre[0],
+        "prefill down F->D": next(c for c in ragged_pre
+                                  if c["inputs"][0].shape[1] == cfg.d_ff),
+        "decode gate D->F": next(c for c in dec_calls
+                                 if c["name"] == "ragged_gemm"),
+        "prefill attention": next(c for c in pre_calls
+                                  if c["name"] == "flash_attention")}
+
+    def launch_ms(prof, name, launches):
+        """Device ms a launch of ``name`` in a traced prefill or decode
+        step: the mean over its ``launches`` there (the ragged GEMM's
+        gate, up and down products alike)."""
+        ms = sum(t for key, t in prof["device_ms"].items()
+                 if f"{name}_" in key and "kernel" in key)
+        return ms / launches if ms else None
+
+    traced = {"prefill gate D->F": (pre_prof, "ragged_gemm", 3 * LM_LAYERS),
+              "prefill down F->D": (pre_prof, "ragged_gemm", 3 * LM_LAYERS),
+              "decode gate D->F": (dec_prof, "ragged_gemm", 3 * LM_LAYERS),
+              "prefill attention": (pre_prof, "flash_attention", LM_LAYERS)}
+    cases = {}
+    for tag, call in picks.items():
+        case = lm_kernel_case(call, launch_ms(*traced[tag]))
+        case["tag"] = tag
+        cases[tag] = case
+        log(f"  {case['name']:15s} {tag:18s} {case['shape']:30s} ms "
+            f"{case['ms']:.4f} device {fmt_ms(case['device_ms'])} plain "
+            f"{case['plain_ms']:.4f} bound {case['bound_ms']:.4f} "
+            f"({case['bound_by']}) library {fmt_ms(case['library_ms'])}")
+    del pre_calls, dec_calls, picks, cache, params, batch
+    torch.cuda.empty_cache()
+
+    # -- the smoke config in fp32: card (kernels) vs CPU (plain) -------------
+    smoke = lm_smoke_check()
+    log(f"lm smoke config fp32, prefill + {LM_SMOKE_DECODE} decode steps: "
+        f"card vs CPU max |logit diff| {max(smoke):.3e} "
+        f"(atol {LM_SMOKE_ATOL})")
+    return dict(cut=cut, layers=LM_LAYERS, batch=LM_BATCH, prompt=LM_PROMPT,
+                decode_steps=LM_DECODE, launches=counts, checks=checks,
+                worst_err_over_max=worst, worst_abs_err=worst_abs,
+                worst_row_err_over_row_max=worst_row,
+                serve=serve, cases=cases, smoke_fp32_max_abs_diff=smoke)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1957,6 +2372,14 @@ def main() -> int:
     report["train_gat"] = gat
     torch.cuda.empty_cache()
 
+    # -- phase 10: LM serving of phi3.5-moe at full width --------------------
+    t0 = time.perf_counter()
+    lmr = lm_phase()
+    lmr["seconds"] = time.perf_counter() - t0
+    log(f"lm phase: {lmr['seconds']:.1f} s")
+    report["serve_lm"] = lmr
+    torch.cuda.empty_cache()
+
     # -- phase 5: the kernels line ------------------------------------------
     kernels = []
     for name in SAMPLE_KERNELS:
@@ -2036,6 +2459,21 @@ def main() -> int:
             bound_tc_ms=rep["bound_tc_ms"], bound_edge_ms=rep["bound_edge_ms"],
             library_ms=rep["library_ms"], shape=rep["tag"], pinned=True)
         kernels.append(entry)
+    for name in LM_KERNELS:
+        rep = lmr["cases"]["prefill gate D->F" if name == "ragged_gemm"
+                           else "prefill attention"]
+        kernels.append(dict(
+            name=name, route="cuda", **KERNEL_META[name],
+            launches=sum(c[name] for c in lmr["launches"].values()),
+            max_abs_err=lmr["worst_abs_err"][name],
+            err_over_max_plain=lmr["worst_err_over_max"][name],
+            row_err_over_row_max=lmr["worst_row_err_over_row_max"][name],
+            ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+            library_ms=rep["library_ms"], shape=f"{rep['tag']} {rep['shape']}",
+            launches_prefill=lmr["launches"]["prefill"][name],
+            launches_decode=lmr["launches"]["decode_1"][name]
+            + lmr["launches"]["decode_rest"][name]))
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1,

@@ -28,16 +28,16 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "build_kernels", "load_kernel",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 KERNELS = ("ell_spmm", "sell_spmm", "bsr_spmm", "sample", "sddmm",
-           "fusedmm")
+           "fusedmm", "ragged_gemm", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures of each library's entry points: one pointer per array and
 # the stream as c_void_p, sizes as c_int (c_longlong where they may pass
-# 2^31), hash words as c_uint; every function returns cudaGetLastError()
-# as an int.
-_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_uint
+# 2^31), hash words as c_uint, scales as c_float; every function returns
+# cudaGetLastError() as an int.
+_P, _I, _L, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     "ell_spmm": {"ell_spmm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "sell_spmm": {"sell_spmm_f32":
@@ -49,6 +49,11 @@ _SIGNATURES = {
                "flat_gather_b32": [_P, _L, _P, _P, _L, _P]},
     "sddmm": {"sddmm_f32": [_P] * 6 + [_I] * 7 + [_P]},
     "fusedmm": {"fusedmm_f32": [_P] * 7 + [_I] * 7 + [_L, _I, _L, _I, _P]},
+    "ragged_gemm": {f"ragged_gemm_{t}": [_P] * 4 + [_L] + [_I] * 4 + [_P]
+                    for t in ("bf16", "f32")},
+    "flash_attention": {f"flash_attention_{t}":
+                        [_P] * 4 + [_I] * 8 + [_L, _F, _P]
+                        for t in ("bf16", "f32")},
 }
 
 _LOCK = threading.Lock()

@@ -1,8 +1,8 @@
 """Device dispatch over the port's kernels.
 
 ``bsr_spmm`` / ``ell_spmm`` / ``sell_spmm`` / ``sddmm_bsr`` /
-``fusedmm_bsr`` choose by the device of the dense operand and by nothing
-else: a CUDA tensor launches the
+``fusedmm_bsr`` and the LM side's ``ragged_gemm`` / ``flash_attention``
+choose by the device of the dense operand and by nothing else: a CUDA tensor launches the
 hand-written kernel (which raises if it cannot build or launch), a CPU
 tensor runs the plain PyTorch version, any other device raises. There is
 no fallback between the two.
@@ -31,7 +31,11 @@ from repro_torch.core.sparse import BSR, ELL, SELL
 from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, bsr_spmm_plain
 from repro_torch.kernels.build import build_kernels, load_kernel
 from repro_torch.kernels.ell_spmm import ell_spmm_cuda, ell_spmm_plain
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.fusedmm import fusedmm_bsr_cuda, fusedmm_bsr_plain
+from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
+                                             ragged_gemm_plain)
 from repro_torch.kernels.sample import (expand_indptr_cuda, flat_gather_cuda,
                                         segment_sample_cuda)
 from repro_torch.kernels.sddmm import sddmm_bsr_cuda, sddmm_bsr_plain
@@ -39,7 +43,7 @@ from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
 from repro_torch.obs import op_record, op_t0
 
 __all__ = ["bsr_spmm", "ell_spmm", "sell_spmm", "gathered_ell_spmm",
-           "sddmm_bsr", "fusedmm_bsr",
+           "sddmm_bsr", "fusedmm_bsr", "ragged_gemm", "flash_attention",
            "slot_gather", "table_insert", "build_kernels", "load_kernel",
            "kernel_launches", "reset_kernel_launches"]
 
@@ -49,15 +53,17 @@ _CUDA_WRAPPERS = {"ell_spmm": ell_spmm_cuda, "sell_spmm": sell_spmm_cuda,
                   "expand_indptr": expand_indptr_cuda,
                   "flat_gather": flat_gather_cuda,
                   "sddmm_bsr": sddmm_bsr_cuda,
-                  "fusedmm_bsr": fusedmm_bsr_cuda}
+                  "fusedmm_bsr": fusedmm_bsr_cuda,
+                  "ragged_gemm": ragged_gemm_cuda,
+                  "flash_attention": flash_attention_cuda}
 
 
-def _backend(h: torch.Tensor) -> str:
+def _backend(h: torch.Tensor, op: str = "SpMM") -> str:
     if h.device.type == "cuda":
         return "cuda"
     if h.device.type == "cpu":
         return "plain"
-    raise ValueError(f"no SpMM implementation for device {h.device}")
+    raise ValueError(f"no {op} implementation for device {h.device}")
 
 
 def bsr_spmm(a: BSR, h: torch.Tensor) -> torch.Tensor:
@@ -121,6 +127,42 @@ def fusedmm_bsr(a: BSR, x: torch.Tensor, y: torch.Tensor, h: torch.Tensor,
     out = fn(a, x, y, h, edge_op=edge_op)
     op_record("fusedmm", out, a.blocks, x, y, h, t0_ns=t0, edge_op=edge_op,
               backend=backend)
+    return out
+
+
+def ragged_gemm(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
+                *, tm: int = 128) -> torch.Tensor:
+    """MoE grouped GEMM over tile-aligned groups: x (T, D) tokens sorted by
+    expert with T % tm == 0, w (E, D, F), tile_expert (T // tm,) int32
+    expert id per token tile. Returns (T, F) = x @ w[expert(token)] in x's
+    dtype, fp32 accumulation. A misaligned T or a tile_expert of the
+    wrong length raises (nothing is padded)."""
+    t0 = op_t0()
+    backend = _backend(x, "ragged GEMM")
+    fn = ragged_gemm_cuda if backend == "cuda" else ragged_gemm_plain
+    out = fn(x, w, tile_expert, tm=tm)
+    op_record("ragged_gemm", out, x, w, tile_expert, t0_ns=t0,
+              backend=backend)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None
+                    ) -> torch.Tensor:
+    """Tiled online-softmax attention for LM prefill: q (B, Hq, S, D), k /
+    v (B, Hkv, T, D), queries aligned to the end of the KV axis; ``window``
+    enables sliding-window masking. The kernel takes contiguous operands,
+    so strided views (the model's head transposes) are copied first."""
+    t0 = op_t0()
+    backend = _backend(q, "attention")
+    if backend == "cuda":
+        out = flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window)
+    else:
+        out = flash_attention_plain(q, k, v, causal=causal, window=window)
+    op_record("flash_attention", out, q, k, v, t0_ns=t0, causal=causal,
+              window=window, backend=backend)
     return out
 
 

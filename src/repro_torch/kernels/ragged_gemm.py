@@ -1,0 +1,112 @@
+"""Ragged (grouped) GEMM for MoE experts: the hand-written CUDA kernel and
+its plain PyTorch version.
+
+``ragged_gemm_cuda`` launches ``csrc/ragged_gemm.cu``, the Hopper
+replacement of the TPU kernel ``ragged_gemm_pallas``
+(``src/repro/kernels/ragged_gemm.py``): ``out[m-tile] = x[m-tile] @
+w[tile_expert[m]]`` over tm-row token tiles, each tile one expert's (the
+dispatch pads every expert's rows to a multiple of tm). One CTA owns one
+output tile (128 x 128 in bf16, on the tensor cores from a cp.async ring
+of D slices; 64 x 64 in fp32, on the CUDA cores) and walks D itself, fp32
+accumulation rounded to the output type once. The
+kernel is bound by operations at prefill shapes and by the bytes of the
+expert weights at decode shapes; the source's header says what its design
+does about that. ``ragged_gemm_plain`` is the reference's XLA route (a
+gathered weight per tile and one batched product); the CPU dispatch and
+the tests use it.
+
+Neither pads: ``T % tm`` or a ``tile_expert`` of the wrong length raises.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ragged_gemm_cuda", "ragged_gemm_plain", "check_ragged_shapes"]
+
+_ROW_TILE = 128                # the CUDA kernel's rows per CTA; tm % it == 0
+_GRID_Y = 65_535
+_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def check_ragged_shapes(x: torch.Tensor, w: torch.Tensor,
+                        tile_expert: torch.Tensor, tm: int) -> None:
+    """Raise unless x is (T, D) with T % tm == 0, w is (E, D, F) and
+    tile_expert holds one expert id per tm-row tile."""
+    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
+        raise ValueError(f"ragged_gemm: x (T, D) and w (E, D, F) expected, "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    if tm <= 0 or x.shape[0] % tm:
+        raise ValueError(f"ragged_gemm: T = {x.shape[0]} is not a multiple "
+                         f"of tm = {tm} (the dispatch pads each expert's "
+                         f"rows to tm; nothing is padded here)")
+    if tuple(tile_expert.shape) != (x.shape[0] // tm,):
+        raise ValueError(f"ragged_gemm: tile_expert has shape "
+                         f"{tuple(tile_expert.shape)}, want "
+                         f"({x.shape[0] // tm},): one expert per {tm}-row "
+                         f"tile")
+
+
+def ragged_gemm_plain(x: torch.Tensor, w: torch.Tensor,
+                      tile_expert: torch.Tensor, *, tm: int = 128
+                      ) -> torch.Tensor:
+    """Plain PyTorch ragged GEMM, the reference's XLA route: the (T // tm,
+    D, F) gathered expert weights and one batched product. (T, F) in x's
+    dtype."""
+    check_ragged_shapes(x, w, tile_expert, tm)
+    xt = x.reshape(-1, tm, x.shape[1])
+    wt = w[tile_expert.long()]
+    return torch.bmm(xt, wt).reshape(x.shape[0], w.shape[2])
+
+
+def ragged_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
+                     tile_expert: torch.Tensor, *, tm: int = 128
+                     ) -> torch.Tensor:
+    """(T, F) = x @ w[expert(token)] on the card through the hand kernel.
+    x (T, D) and w (E, D, F) contiguous, both bf16 or both fp32;
+    tile_expert (T // tm,) int32 with ids in [0, E) (not checked on the
+    device: a host read would stall the stream). Counts its launches in
+    ``ragged_gemm_cuda.launches``."""
+    from repro_torch.kernels.build import load_kernel
+
+    check_ragged_shapes(x, w, tile_expert, tm)
+    if x.device.type != "cuda":
+        raise ValueError(f"ragged_gemm: x must be a CUDA tensor, got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"ragged_gemm: x and w must both be bf16 or fp32, "
+                         f"got {x.dtype} and {w.dtype}")
+    for name, arr in (("x", x), ("w", w), ("tile_expert", tile_expert)):
+        if arr.device != x.device or not arr.is_contiguous():
+            raise ValueError(f"ragged_gemm: {name} must be contiguous on "
+                             f"{x.device}")
+    if tile_expert.dtype != torch.int32:
+        raise ValueError(f"ragged_gemm: tile_expert must be int32, got "
+                         f"{tile_expert.dtype}")
+    if tm % _ROW_TILE:
+        raise ValueError(f"ragged_gemm: tm = {tm} is not a multiple of the "
+                         f"kernel's {_ROW_TILE}-row tile")
+    t, d = x.shape
+    f = w.shape[2]
+    if t // 64 > _GRID_Y or d >= 2 ** 31 or f >= 2 ** 31:
+        raise ValueError(f"ragged_gemm: shape {t} x {d} x {f} exceeds the "
+                         f"launch grid")
+    out = torch.empty((t, f), dtype=x.dtype, device=x.device)
+    if t == 0 or f == 0:
+        return out
+    if d == 0:
+        return out.zero_()
+    vec = int(d % 8 == 0 and f % 8 == 0 and x.data_ptr() % 16 == 0
+              and w.data_ptr() % 16 == 0)
+    lib = load_kernel("ragged_gemm")
+    fn = getattr(lib, f"ragged_gemm_{_DTYPES[x.dtype]}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),
+                out.data_ptr(), t, d, f, tm, vec, stream)
+    if rc != 0:
+        raise RuntimeError(f"ragged_gemm launch failed: CUDA error {rc}")
+    ragged_gemm_cuda.launches += 1
+    return out
+
+
+ragged_gemm_cuda.launches = 0

@@ -1,5 +1,6 @@
 """Plain PyTorch references for the SpMM, SDDMM and FusedMM kernels of
-this package.
+this package, and the dense attention oracle of the LM side
+(:func:`flash_attention_ref`).
 
 These are the ground truth of the tests, the trusted path for any
 (semiring, plan) point the hand kernels do not cover, and what the
@@ -27,7 +28,8 @@ __all__ = ["coo_reduce", "spmm_coo_ref", "spmm_ell_ref", "spmm_sell_ref",
            "spmm_bsr_ref", "sell_packed_reduce", "take_rows",
            "ell_transpose_reduce", "sell_transpose_reduce", "edge_dots",
            "edge_weights", "sddmm_coo_ref", "sddmm_bsr_ref",
-           "fusedmm_coo_ref", "fusedmm_softmax_ref", "bsr_tile_chunks"]
+           "fusedmm_coo_ref", "fusedmm_softmax_ref", "bsr_tile_chunks",
+           "flash_attention_ref"]
 
 # gathered elements per chunk (fp32: 256 MiB of messages at a time)
 _CHUNK_ELEMS = 1 << 26
@@ -308,3 +310,33 @@ def fusedmm_softmax_ref(a: "BSR", x: torch.Tensor, y: torch.Tensor,
         num.index_add_(0, ids, torch.bmm(e, hb[a.blk_col[lo:hi].long()]))
     out = num / torch.clamp(z, min=1e-30)[:, :, None]
     return out.reshape(a.nrows, k)
+
+
+# --------------------------------------------------------------------------
+# Dense flash-attention oracle (LM side; causal / sliding-window)
+# --------------------------------------------------------------------------
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """q: (B, Hq, S, D), k/v: (B, Hkv, T, D); query positions end-aligned
+    to the KV axis. GQA by head repetition, the whole (S, T) score matrix
+    at once, softmax in fp32: the oracle, never a kernel's plain version."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if hq != hkv:
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+    scale = scale if scale is not None else \
+        1.0 / torch.sqrt(torch.tensor(float(d), dtype=q.dtype))
+    logits = torch.einsum("bhsd,bhtd->bhst", q, k) * scale
+    qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, -torch.inf)
+    w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bhtd->bhsd", w, v)

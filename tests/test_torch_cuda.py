@@ -551,3 +551,160 @@ def test_patched_gat_step_matches_unpatched(card):
                                    atol=1e-4 * float(b.abs().max()) + 1e-12,
                                    rtol=0)
     tree_map(close, g_t, g_b)
+
+
+# --------------------------------------------------------------------------
+# LM kernels: ragged GEMM and flash attention
+#
+# fp32: the kernels against their plain versions within 1e-5 x the largest
+# plain value (fp32 sums of up to 6,400 terms in another order: the
+# difference grows like sqrt(D) eps max|term|, ~1e-7 of the largest value
+# here). bf16: within 2^-7 x the largest plain value, two bf16 ulps at the
+# largest magnitude: both round an fp32 result to bf16 once, the flash
+# kernel scales the fp32 product where the plain version scales q in bf16.
+# --------------------------------------------------------------------------
+
+def _lm_tol(dtype, want):
+    scale = float(want.float().abs().max())
+    return (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
+
+
+def _close_lm(got, want, dtype):
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _lm_tol(dtype, want), (err, _lm_tol(dtype, want))
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,t,d,f,order", [
+    (16, 2048, 4096, 6400, "arange"),      # phi3.5-moe gate / up, decode
+    (16, 2048, 6400, 4096, "arange"),      # down
+    (4, 512, 100, 72, "mixed"),            # D, F not multiples of 8
+    (3, 640, 256, 200, "mixed")])          # ragged last column tile
+def test_ragged_gemm_kernel_matches_plain(card, dtype, e, t, d, f, order):
+    from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
+                                                 ragged_gemm_plain)
+    rng = np.random.default_rng(t + d + f)
+    x = _randn(rng, (t, d), dtype, card)
+    w = _randn(rng, (e, d, f), dtype, card)
+    n = t // 128
+    te = (np.arange(n) * e // n if order == "arange"
+          else rng.permutation(np.arange(n) % e))      # non-monotone
+    te = torch.from_numpy(te.astype(np.int32)).to(card)
+    got = ragged_gemm_cuda(x, w, te)
+    want = ragged_gemm_plain(x, w, te)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (t, f)
+    _close_lm(got, want, dtype)
+
+
+def test_ragged_gemm_dispatch_counts_and_rejects(card):
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (256, 64), torch.bfloat16, card)
+    w = _randn(rng, (2, 64, 32), torch.bfloat16, card)
+    te = torch.tensor([1, 0], dtype=torch.int32, device=card)
+    tops.reset_kernel_launches()
+    tops.ragged_gemm(x, w, te)
+    assert {k: v for k, v in tops.kernel_launches().items() if v} == {
+        "ragged_gemm": 1}
+    with pytest.raises(ValueError, match="not a multiple of tm"):
+        tops.ragged_gemm(x[:200], w, te[:1])
+    with pytest.raises(ValueError, match="one expert per 128-row tile"):
+        tops.ragged_gemm(x, w, te[:1])
+    with pytest.raises(ValueError, match="both be bf16 or fp32"):
+        tops.ragged_gemm(x, w.float(), te)
+    with pytest.raises(ValueError, match="int32"):
+        tops.ragged_gemm(x, w, te.long())
+    with pytest.raises(ValueError, match="multiple of the kernel's"):
+        tops.ragged_gemm(x, w, te.repeat_interleave(2), tm=64)
+    assert tops.kernel_launches()["ragged_gemm"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal,window", [
+    (1, 32, 8, 1024, 1024, 128, True, None),    # phi3.5-moe heads
+    (2, 4, 1, 200, 333, 64, True, 100),         # ragged S < T, window
+    (1, 4, 2, 77, 256, 32, True, None),         # S < T, ragged q tile
+    (1, 4, 4, 130, 130, 32, False, None),       # not causal
+    (1, 8, 2, 300, 300, 128, False, 64),        # window, not causal
+    (1, 8, 8, 300, 300, 128, True, 64)])        # sliding window
+def test_flash_attention_kernel_matches_plain(card, dtype, b, hq, hkv, s, t,
+                                              d, causal, window):
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    rng = np.random.default_rng(s + t + d)
+    q = _randn(rng, (b, hq, s, d), dtype, card)
+    k = _randn(rng, (b, hkv, t, d), dtype, card)
+    v = _randn(rng, (b, hkv, t, d), dtype, card)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    _close_lm(got, want, dtype)
+
+
+def test_flash_attention_dispatch_counts_and_rejects(card):
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (1, 4, 64, 32), torch.bfloat16, card)
+    k = _randn(rng, (1, 2, 96, 32), torch.bfloat16, card)
+    tops.reset_kernel_launches()
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)  # the model's
+    out = tops.flash_attention(strided, k, k, window=16)
+    assert out.shape == q.shape
+    assert {n: c for n, c in tops.kernel_launches().items() if c} == {
+        "flash_attention": 1}
+    with pytest.raises(ValueError, match="exceed"):
+        tops.flash_attention(k.repeat(1, 2, 1, 1), q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="not built"):
+        tops.flash_attention(q[..., :16], k[..., :16], k[..., :16])
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        tops.flash_attention(q[:, :3], k, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.flash_attention(q.float(), k, k)
+    assert tops.kernel_launches()["flash_attention"] == 1
+
+
+def test_lm_serving_on_card_matches_cpu(card):
+    """phi3.5-moe's smoke config in fp32: prefill + 4 decode steps on the
+    card (both kernels) against the port's CPU run (plain versions), from
+    the same weights and tokens; logits and caches within atol 1e-4 (the
+    residual stream reaches ~10^2, where fp32 sums in another order move
+    the last digits)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    cfg = get_smoke_config("phi3.5-moe-42b-a6.6b")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    on_card = _tree_to(params, card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32))
+    nxt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 4)).astype(np.int32))
+    tops.reset_kernel_launches()
+    cache_c, logits_c = lm.prefill(cfg, on_card, {"tokens": toks.to(card)},
+                                   48)
+    assert {n: c for n, c in tops.kernel_launches().items() if c} == {
+        "flash_attention": 2, "ragged_gemm": 6}
+    cache, logits = lm.prefill(cfg, params, {"tokens": toks}, 48)
+    for i in range(5):
+        np.testing.assert_allclose(logits_c.cpu().numpy(), logits.numpy(),
+                                   atol=1e-4, rtol=0)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(cache_c[key].cpu().numpy(),
+                                       cache[key].numpy(), atol=1e-4, rtol=0)
+        if i == 4:
+            break
+        step = nxt[:, i:i + 1]
+        logits_c, cache_c = lm.decode_step(cfg, on_card, cache_c,
+                                           step.to(card))
+        logits, cache = lm.decode_step(cfg, params, cache, step)
+    assert tops.kernel_launches()["ragged_gemm"] == 6 + 4 * 6
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
