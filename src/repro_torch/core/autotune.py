@@ -16,9 +16,10 @@ hardware model:
 * The BSR kernel of the target is described by the model too: on the TPU
   model the Pallas kernel (double-buffered VMEM tiles at ``fk`` = K
   rounded to lanes, tile products on the matrix unit, as the reference);
-  on Hopper ``csrc/bsr_spmm.cu`` (a fixed K tile, which is also the
-  plan's ``fk``, the shared memory it stages, ``HardwareModel.bsr_smem``,
-  and fp32 tile products on CUDA cores at ``bsr_flops``).
+  on Hopper ``csrc/bsr_spmm.cu`` (its widest K tile, which is also the
+  plan's ``fk``, the ring of shared memory it stages,
+  ``HardwareModel.bsr_smem``, and split-TF32 tile products on the tensor
+  cores at ``bsr_flops``).
 * ``measure=True`` raises ``NotImplementedError`` until candidates are
   timed with CUDA events.
 
@@ -81,9 +82,10 @@ class HardwareModel:
     ici_bw: float = 50e9               # bytes/s per link
     # the target's BSR kernel. bsr_k_tile = 0 is the reference's Pallas
     # kernel: K tile = K rounded to lanes, double-buffered tiles in VMEM.
-    # Otherwise a kernel with that fixed K tile, built for the tile heights
-    # bsr_rows and for bc a multiple of bsr_depth, whose accumulator lives
-    # in registers. bsr_flops = 0: its tile products run at peak_flops.
+    # Otherwise a kernel whose widest K tile is bsr_k_tile, built for the
+    # tile heights bsr_rows and for bc a multiple of bsr_depth, whose
+    # accumulator lives in registers. bsr_flops = 0: its tile products run
+    # at peak_flops.
     bsr_k_tile: int = 0
     bsr_depth: int = 1
     bsr_rows: tuple = ()
@@ -103,25 +105,31 @@ class HardwareModel:
 
     def bsr_smem(self, br: int) -> int:
         """Shared memory a fixed-K-tile BSR kernel holds for tiles of ``br``
-        rows: a transposed (bsr_depth, br + 4) slice of the A tile (rows
-        padded to 16 bytes) and a (bsr_depth, bsr_k_tile) slice of h,
-        fp32, single-buffered."""
-        return 4 * self.bsr_depth * ((br + 4) + self.bsr_k_tile)
+        rows: a ring of stages, each an fp32 (min(br, 128), bsr_depth) box
+        of the tile and a (bsr_k_tile, bsr_depth) box of hᵀ, as many as fit
+        (at most 4) beside two more hᵀ boxes (the TF32 lo parts of two
+        steps), 1 KB to align them and one pair of 8-byte barriers a
+        stage."""
+        lo = 2 * 4 * self.bsr_depth * self.bsr_k_tile
+        stage = 4 * self.bsr_depth * (min(br, 128) + self.bsr_k_tile)
+        stages = min(4, (self.vmem_bytes - 1024 - 64 - lo) // stage)
+        return stages * stage + lo + 1024 + 16 * stages
 
 
 TPU_V5E = HardwareModel()
 
 # NVIDIA H100 SXM data sheet: 80 GB at 3.35 TB/s, 132 SMs, 227 KB of
-# shared memory a block, 989 TFLOP/s dense bf16 tensor cores, 67 TFLOP/s
-# fp32 outside them, NVLink 450 GB/s each way. The BSR fields are the
-# tiling of csrc/bsr_spmm.cu (kFk, kDepth, its templates), whose fp32 tile
-# products run on CUDA cores, not tensor cores.
+# shared memory a block, 989 TFLOP/s dense bf16 tensor cores (495 TF32),
+# 67 TFLOP/s fp32 outside them, NVLink 450 GB/s each way. The BSR fields
+# are csrc/bsr_spmm.cu's: K tiles up to 128 columns, 32 tile columns a
+# stage, its row templates, and tile products in split TF32 (three TF32
+# passes a product, so a third of the TF32 rate).
 H100 = HardwareModel(
     name="h100-sxm", mxu_dim=64, lane=1, sublane=1,
     vmem_bytes=232_448, hbm_bytes=80 * 10 ** 9,
     peak_flops=989e12, vpu_flops=67e12, hbm_bw=3.35e12, ici_bw=450e9,
-    bsr_k_tile=64, bsr_depth=32, bsr_rows=(32, 64, 128, 256),
-    bsr_flops=67e12)
+    bsr_k_tile=128, bsr_depth=32, bsr_rows=(32, 64, 128, 256),
+    bsr_flops=495e12 / 3)
 
 
 def probe_hardware() -> HardwareModel:

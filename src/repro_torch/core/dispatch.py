@@ -2,9 +2,9 @@
 
 As in the reference, the token → expert-slot assignment is a sparse
 (one-hot-valued) matrix P of shape (E·C, T): dispatch is P @ X and combine
-is Pᵀ(gates) @ Y. Shapes are static (capacity-padded) and every expert's
-capacity is a multiple of ``tm``, so each ``tm``-row tile of the (E·C, D)
-buffer belongs to one expert and the ragged GEMM kernel
+is Pᵀ(gates) @ Y. Shapes are static (capacity-padded) and ``moe_mlp``
+pads every expert's rows to a multiple of ``tm``, so each ``tm``-row tile
+of the (E·C, D) buffer belongs to one expert and the ragged GEMM kernel
 (``kernels/ops.ragged_gemm``) runs dense tiles.
 
 ``as_coo_matrices`` exposes the literal sparse matrices, on the port's
@@ -83,7 +83,8 @@ def expand_replicas(r: RouteInfo, reps: int) -> RouteInfo:
     rep·E + e, rep round-robin over tokens), the reference's layout of
     (E·R, D, F) weights. The capacity per slot is rounded to 8, as the
     reference rounds it: with ``tm`` = 128 that capacity is not always
-    tile-aligned, and ``moe_mlp`` then raises."""
+    tile-aligned, and ``moe_mlp`` then pads each expert's rows to whole
+    tiles."""
     if reps <= 1:
         return r
     t, k = r.expert_idx.shape
@@ -133,27 +134,27 @@ def moe_mlp(x: torch.Tensor, r: RouteInfo, w_gate: torch.Tensor,
     x: (T, D); w_gate/w_up: (E, D, F); w_down: (E, F, D). Returns (T, D).
     The three grouped products go through ``kernels.ops.ragged_gemm``
     (the hand kernel on the card, its plain version, a batched product,
-    on the CPU): the reference's kernel route; its einsum route computes
-    the same function. Needs a capacity that is a multiple of ``tm`` and
-    raises otherwise.
+    on the CPU), which needs ``tm``-row tiles of one expert each. A
+    capacity C that is not a multiple of ``tm`` (``expand_replicas``
+    rounds a replica's capacity to 8) gets each expert's rows padded with
+    zero rows up to ``ceil(C / tm) * tm``. ``keep`` (``pos < C``) is
+    untouched, so the padding rows are never kept nor combined and the
+    drop set is the reference's: the function equals the reference's
+    einsum route.
     """
     from repro_torch.kernels import ops as kops
     buf = dispatch(x, r)                                # (E, C, D)
     e, c, d = buf.shape
-    if c % tm:
-        raise ValueError(
-            f"moe_mlp: expert capacity {c} is not a multiple of tm = "
-            f"{tm}, so a {tm}-row tile would mix experts; "
-            f"expand_replicas rounds the per-replica capacity to 8, "
-            f"not to tm (the reference's tile_expert then has "
-            f"{e * (c // tm)} entries for {e * c / tm:g} tiles)")
-    flat = buf.reshape(e * c, d)
-    tile_expert = torch.arange(e * (c // tm), dtype=torch.int32,
-                               device=x.device) // (c // tm)
+    c_pad = -(-c // tm) * tm
+    if c_pad != c:
+        buf = F.pad(buf, (0, 0, 0, c_pad - c))
+    flat = buf.reshape(e * c_pad, d)
+    tile_expert = torch.arange(e * (c_pad // tm), dtype=torch.int32,
+                               device=x.device) // (c_pad // tm)
     g = kops.ragged_gemm(flat, w_gate, tile_expert, tm=tm)
     u = kops.ragged_gemm(flat, w_up, tile_expert, tm=tm)
     y = kops.ragged_gemm(act(g) * u, w_down, tile_expert, tm=tm)
-    return combine(y.reshape(e, c, -1).to(x.dtype), r)
+    return combine(y.reshape(e, c_pad, -1)[:, :c].to(x.dtype), r)
 
 
 def as_coo_matrices(r: RouteInfo, t: int):

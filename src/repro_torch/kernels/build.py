@@ -42,8 +42,8 @@ _SIGNATURES = {
     "ell_spmm": {"ell_spmm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "sell_spmm": {"sell_spmm_f32":
                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
-    "bsr_spmm": {"bsr_spmm_f32":
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "bsr_spmm": {"bsr_spmm_f32": [_P] * 7 + [_I] * 9 + [_P],
+                 "bsr_transpose_h_f32": [_P] * 2 + [_I] * 3 + [_P]},
     "sample": {"segment_sample_i32": [_P, _P, _P, _I, _I, _U, _U, _U, _I, _P],
                "expand_indptr_i32": [_P, _P, _P, _P, _I, _I, _I, _P],
                "flat_gather_b32": [_P, _L, _P, _P, _L, _P]},

@@ -6,11 +6,15 @@ replacement of the TPU kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention.py``): queries aligned to the end of
 the KV axis, online softmax in fp32, KV heads shared by ``Hq / Hkv``
 query heads without repetition in memory, fully masked KV tiles skipped.
-One CTA owns one (batch x query head, 64-query tile) pair and walks only
-the KV tiles its masks keep. The kernel scales the fp32 product, as the
-Pallas kernel does; ``flash_attention_plain`` is the port of
-``chunked_attention``, the reference's route off the TPU, which scales q
-in q's dtype first. In bf16 the two differ by that rounding.
+In bf16 one CTA owns one (batch x query head, 128-query tile) pair: a
+producer warp stages Q, K and V with TMA into a ring of shared memory,
+two warpgroups of 64 queries run both products on ``wgmma`` and keep the
+accumulator and the softmax state in registers across the KV tiles it
+keeps. The fp32 instance keeps a CUDA-core design (64 queries a CTA).
+The kernel scales the fp32 product, as the Pallas kernel does;
+``flash_attention_plain`` is the port of ``chunked_attention``, the
+reference's route off the TPU, which scales q in q's dtype first. In
+bf16 the two differ by that rounding.
 """
 from __future__ import annotations
 

@@ -194,6 +194,62 @@ def test_bsr_kernel_64bit_offsets(card):
                                rtol=1e-4)
 
 
+def _split_tf32_ratio(bsr, h, out):
+    """Largest |kernel - plain| over ``split_tf32_bound`` (the bound
+    chip_smoke.py holds every BSR launch to: split TF32 products and
+    fp32 accumulation of the row's d real terms)."""
+    import dataclasses
+    from repro_torch.kernels.bsr_spmm import split_tf32_bound
+    want = bsr_spmm_plain(bsr, h)
+    mag = bsr_spmm_plain(dataclasses.replace(bsr, blocks=bsr.blocks.abs()),
+                         h.abs())
+    nz = (bsr.blocks != 0).sum(dim=2, dtype=torch.int32)
+    per = torch.zeros((bsr.n_block_rows, bsr.br), dtype=torch.int32,
+                      device=nz.device)
+    per.index_add_(0, bsr.blk_row.long(), nz)
+    bound = split_tf32_bound(per.reshape(-1).float()[:, None], mag) + 1e-30
+    return float(((out - want).abs() / bound).max())
+
+
+@pytest.mark.parametrize("br,bc", [(32, 128), (64, 128), (128, 128),
+                                   (256, 128), (128, 256)])
+@pytest.mark.parametrize("k", [1, 112, 256, 300])
+def test_bsr_kernel_within_split_tf32_bound(card, br, bc, k):
+    """Zero block rows (rows 128..255 hold no edge), padding blocks, every
+    K tile width and a ragged last one (K = 300): every element within the
+    split-TF32 bound of the plain version, zero rows exactly zero."""
+    rng = np.random.default_rng(7 * br + bc + k)
+    bsr = tsp.to_device(_bsr_case(rng, br, bc, pad_blocks=3), card)
+    h = _h(rng, 280, k).to(card)
+    out = bsr_spmm_cuda(bsr, h)
+    torch.cuda.synchronize()
+    assert _split_tf32_ratio(bsr, h, out) <= 1.0
+    assert (out[128:256] == 0).all() and torch.isfinite(out).all()
+
+
+def test_bsr_kernel_is_deterministic(card):
+    """No atomics: rows whose tiles are cut into chunks are summed in
+    chunk order, so two launches on the same operands agree bit for bit
+    (here 4,096 tiles over 32 block rows, several chunks a row)."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    n_brows, per_row, t = 32, 128, 128
+    blk_row = torch.arange(n_brows, dtype=torch.int32,
+                           device=card).repeat_interleave(per_row)
+    blk_col = torch.randint(0, 64, (n_brows * per_row,), generator=gen,
+                            device=card, dtype=torch.int32)
+    blocks = torch.randn((n_brows * per_row, t, t), generator=gen,
+                         device=card)
+    bsr = tsp.BSR(blk_row=blk_row, blk_col=blk_col, blocks=blocks,
+                  nrows=n_brows * t, ncols=64 * t, br=t, bc=t,
+                  n_real_blocks=n_brows * per_row)
+    h = torch.randn((64 * t, 256), generator=gen, device=card)
+    first = bsr_spmm_cuda(bsr, h)
+    second = bsr_spmm_cuda(bsr, h)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _split_tf32_ratio(bsr, h, first) <= 1.0
+
+
 def test_bsr_dispatch_counts_and_rejects(card):
     rng = np.random.default_rng(3)
     bsr = tsp.to_device(_bsr_case(rng, 128, 128, pad_blocks=0), card)
@@ -631,7 +687,11 @@ def test_ragged_gemm_dispatch_counts_and_rejects(card):
     (1, 4, 2, 77, 256, 32, True, None),         # S < T, ragged q tile
     (1, 4, 4, 130, 130, 32, False, None),       # not causal
     (1, 8, 2, 300, 300, 128, False, 64),        # window, not causal
-    (1, 8, 8, 300, 300, 128, True, 64)])        # sliding window
+    (1, 8, 8, 300, 300, 128, True, 64),         # sliding window
+    (2, 4, 1, 200, 200, 32, True, None),        # S % 128 != 0, rep 4
+    (1, 4, 4, 333, 400, 64, True, None),        # S % 128 != 0, rep 1
+    (1, 8, 2, 129, 129, 64, False, None),       # one row past a q tile
+    (2, 2, 2, 70, 150, 32, True, 50)])          # rep 1, window
 def test_flash_attention_kernel_matches_plain(card, dtype, b, hq, hkv, s, t,
                                               d, causal, window):
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,

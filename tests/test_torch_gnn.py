@@ -108,7 +108,7 @@ def test_port_tunes_for_the_h100(bundles):
     shared memory now fit) where the v5e model gates K = 32 to trusted."""
     ref_bundle, bundle = bundles
     assert ref_bundle.tuned.plan.kind == "trusted"
-    assert bundle.tuned.plan.kind == "bsr" and bundle.tuned.plan.fk == 64
+    assert bundle.tuned.plan.kind == "bsr" and bundle.tuned.plan.fk == 128
 
 
 @pytest.mark.parametrize("arch", ["gcn", "sage-mean"])

@@ -234,43 +234,59 @@ def test_dispatch_is_literal_spmm(rng):
 def test_replica_capacity_fault_raises_like_the_reference(rng):
     """``expand_replicas`` rounds the per-replica capacity to 8, not to tm:
     T = 2048, E = 8, 2 replicas gives capacity 320, which no 128-row tile
-    divides. The reference's kernel route fails inside its einsum; the
-    port raises a ValueError naming the cause (and never falls back to
-    a batched product, as the reference's einsum route would take it)."""
+    divides. The port pads each expert's rows to 384 with zero rows that
+    are never kept nor combined, so its ``moe_mlp`` equals the
+    reference's einsum route (the route its model path takes), drop set
+    included: expert 0's logits are raised so that it overflows."""
     t, e, d, f = 2048, 8, 8, 8
     logits, x = _rand(rng, t, e), _rand(rng, t, d)
-    w1, w2 = _rand(rng, 2 * e, d, f), _rand(rng, 2 * e, f, d)
+    logits[:, 0] += 1.5
+    wg, wu = _rand(rng, 2 * e, d, f), _rand(rng, 2 * e, d, f)
+    wd = _rand(rng, 2 * e, f, d)
     jr = JD.expand_replicas(JD.route_topk(jnp.asarray(logits), 2), 2)
     tr = TD.expand_replicas(TD.route_topk(_t(logits), 2), 2)
     assert tr.capacity == jr.capacity == 320
-    with pytest.raises(ValueError):
-        JD.moe_mlp(jnp.asarray(x), jr, jnp.asarray(w1), jnp.asarray(w1),
-                   jnp.asarray(w2), use_kernel=True)
-    with pytest.raises(ValueError, match="capacity 320 is not a multiple"):
-        TD.moe_mlp(_t(x), tr, _t(w1), _t(w1), _t(w2))
+    np.testing.assert_array_equal(_n(tr.keep), np.asarray(jr.keep))
+    assert not bool(tr.keep.all())             # the drop set is not empty
+    want = JD.moe_mlp(jnp.asarray(x), jr, *map(jnp.asarray, (wg, wu, wd)),
+                      use_kernel=False)
+    got = TD.moe_mlp(_t(x), tr, _t(wg), _t(wu), _t(wd))
+    np.testing.assert_allclose(_n(got), np.asarray(want), rtol=1e-4,
+                               atol=1e-4 * float(np.abs(want).max()))
 
 
 def test_mixtral_published_replicas_cannot_decode():
     """mixtral-8x7b's published routing (8 experts, top-2, 2 replicas)
     at decode: any batch up to 409 tokens gets capacity 128, 64 a
-    replica, which no 128-row tile divides, so every decode step raises
-    (ROADMAP queue 3). The reference serves it: its model path takes the
-    einsum route."""
-    from repro_torch.configs import get_config
-    full = get_config("mixtral-8x7b")
-    cfg = dataclasses.replace(
-        get_smoke_config("mixtral-8x7b"), n_experts=full.n_experts,
-        top_k=full.top_k, n_expert_replicas=full.n_expert_replicas,
-        capacity_factor=full.capacity_factor)
+    replica, which no 128-row tile divides. The port pads the replica
+    slots to whole tiles, and ``decode_step`` matches the reference's
+    (which takes its einsum route) at batches 1, 4 and 409: logits and
+    every cache field, from the reference's params."""
+    from repro.configs import get_config as jax_get_config
+    full = jax_get_config("mixtral-8x7b")
+    routing = dict(n_experts=full.n_experts, top_k=full.top_k,
+                   n_expert_replicas=full.n_expert_replicas,
+                   capacity_factor=full.capacity_factor)
     assert full.n_expert_replicas == 2
-    params = TLM.init_params(cfg, torch.Generator().manual_seed(0),
-                             device="cpu")
+    jcfg = dataclasses.replace(jax_smoke_config("mixtral-8x7b"), **routing)
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"), **routing)
+    jparams = JT.init_params(jcfg, jax.random.PRNGKey(2))
+    params = TLM.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                                 device="cpu")
+    jdec = jax.jit(lambda p, c, t: JT.decode_step(jcfg, p, c, t))
     for b in (1, 4, 409):
-        cache = TLM.init_cache(cfg, b, 8, device="cpu")
-        with pytest.raises(ValueError,
-                           match="capacity 64 is not a multiple"):
-            TLM.decode_step(cfg, params, cache,
-                            torch.zeros((b, 1), dtype=torch.int32))
+        toks = np.random.default_rng(b).integers(
+            0, cfg.vocab, (b, 1)).astype(np.int32)
+        jlogits, jcache = jdec(jparams, JT.init_cache(jcfg, b, 8),
+                               jnp.asarray(toks))
+        logits, cache = TLM.decode_step(
+            cfg, params, TLM.init_cache(cfg, b, 8, device="cpu"),
+            torch.from_numpy(toks))
+        _close(logits, jlogits, f"mixtral 2 replicas, batch {b}, logits")
+        assert set(cache) == set(jcache)
+        for key in jcache:
+            _close(cache[key], jcache[key],
+                   f"mixtral 2 replicas, batch {b}, cache[{key}]")
 
 
 # --------------------------------------------------------------------------

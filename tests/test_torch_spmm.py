@@ -238,10 +238,11 @@ def test_gcn_norm_in_step_matches_reference_and_cache(rng):
 # --------------------------------------------------------------------------
 
 def test_h100_tuner_evaluates_and_picks_bsr_on_dense_tiles():
-    """A graph whose 32 x 128 tiles are all dense: the H100 model now
-    charges the hand kernel's shared memory at its own K tile, evaluates
-    every BSR candidate, and picks one (before the repair, a double-
-    buffered 256-wide K slice was charged and every candidate skipped)."""
+    """A graph whose 32 x 128 tiles are all dense: the H100 model charges
+    the hand kernel's ring of shared memory at its widest K tile,
+    evaluates every BSR candidate, and picks one (before an earlier repair,
+    a double-buffered 256-wide K slice was charged and every candidate
+    skipped)."""
     n, m = 64, 256
     dst, src = np.divmod(np.arange(n * m), m)
     coo = tsp.coo_from_edges(src, dst, np.ones(n * m, np.float32), n, m)
@@ -251,33 +252,41 @@ def test_h100_tuner_evaluates_and_picks_bsr_on_dense_tiles():
     names = [c[0] for c in sweep.attrs["candidates"]]
     assert {"bsr32x128", "bsr64x128", "bsr128x128", "bsr128x256"} <= \
         set(names)
-    assert plan.kind == "bsr" and plan.fk == kbsr.K_TILE == 64
-    assert kbsr.smem_bytes(plan.br) == 4 * 32 * (plan.br + 4 + 64)
-    assert kbsr.smem_bytes(256) <= 48 * 1024 <= H100.vmem_bytes
+    assert plan.kind == "bsr" and plan.fk == kbsr.K_TILE == 128
+    # the ring: 4 stages of a (min(br, 128) x 32) tile box and a (128 x 32)
+    # box of h^T, two lo boxes, 1 KB of alignment slack and a pair of
+    # barriers a stage (csrc/bsr_spmm.cu's Cfg)
+    for br in (32, 64, 128, 256):
+        stage = 4 * 32 * (min(br, 128) + 128)
+        assert kbsr.smem_bytes(br) == \
+            4 * stage + 2 * 4 * 32 * 128 + 1024 + 16 * 4
+        assert kbsr.smem_bytes(br) <= H100.vmem_bytes
     # the TPU model keeps the reference's rule: fk = K rounded to lanes
     tpu = autotune(coo, 128, hw=TPU_V5E)
     assert tpu.kind != "bsr" or tpu.fk == 128
 
 
 def test_h100_tuner_costs_bsr_at_the_kernels_fp32_rate():
-    """The hand BSR kernel runs fp32 on CUDA cores (67 TFLOP/s), and the
-    H100 model charges its tile products at that rate, not at the tensor
-    cores' peak. On 128 x 128 tiles 1.6 % full (every tile stored) the
-    tile products then cost more than a gather kernel's (ELL here: every
-    row has the same degree); at the tensor-core rate BSR would have
-    won."""
+    """The hand BSR kernel delivers fp32-accurate tile products in split
+    TF32, three TF32 tensor-core passes a product, and the H100 model
+    charges them at that rate (495 / 3 TFLOP/s), not at the bf16 peak
+    nor at the CUDA cores' 67 TFLOP/s of the earlier kernel. On 128 x 128
+    tiles 1.6 % full (every tile stored) the split-TF32 tile products are
+    cheaper than a gather kernel's reads (ELL here: every row has the
+    same degree); at the CUDA-core rate they were not."""
     n, deg, k = 4096, 64, 256
     rng = np.random.default_rng(0)
     dst = np.repeat(np.arange(n), deg)
     src = (dst + rng.integers(1, n, dst.size)) % n
     coo = tsp.coo_from_edges(src, dst, np.ones(dst.size, np.float32), n, n)
     stats = graph_stats(coo)
-    bsr = KernelPlan(kind="bsr", br=128, bc=128, fk=64, k_hint=k)
+    bsr = KernelPlan(kind="bsr", br=128, bc=128, fk=128, k_hint=k)
     nt = stats.n_tiles(128, 128)
     flops = 2.0 * nt * 128 * 128 * k
     nbytes = nt * (128 * 128 * 4 + 128 * k * 4) + n * k * 4
+    assert H100.bsr_flops == 495e12 / 3
     assert estimate_plan_time(stats, k, bsr, H100) == \
-        max(flops / 67e12, nbytes / 3.35e12)
-    assert autotune(coo, k, hw=H100, stats=stats).kind == "ell"
-    tensor_cores = dataclasses.replace(H100, bsr_flops=0.0)
-    assert autotune(coo, k, hw=tensor_cores, stats=stats).kind == "bsr"
+        max(flops / (495e12 / 3), nbytes / 3.35e12)
+    assert autotune(coo, k, hw=H100, stats=stats).kind == "bsr"
+    cuda_cores = dataclasses.replace(H100, bsr_flops=67e12)
+    assert autotune(coo, k, hw=cuda_cores, stats=stats).kind == "ell"
