@@ -8,7 +8,9 @@ failure:
 
 1. card and build — the card's name and power limit, then the hand
    kernels compiled from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, in parallel);
+   source, in parallel), ptxas's registers and spills of every kernel,
+   and of the ragged GEMM's ``wgmma`` kernel and the scaled SDDMM's
+   per-nonzero kernel on a line of their own;
 2. sampled serving at full width — reddit at scale 1 (232,965 nodes,
    602 features, 41 classes), GraphSAGE-mean, 2 layers, hidden 256,
    fanouts (10, 25) outermost first, a 65,536-row feature cache, fp32,
@@ -79,8 +81,10 @@ failure:
    max|h|); ``train_gnn`` patched and unpatched for 5 epochs, counts
    zeroed just before and read just after each (the unpatched run must
    launch nothing), peak memory logged; then ``ops.sddmm_bsr`` on A with
-   layer 1's q and k (scale_by_a True and False, its own counted path),
-   checked in chunks of tiles within 2 (D + 1) eps sum|x_d y_d|; both
+   layer 1's q and k (scale_by_a True and False, its own counted path:
+   the scaled call must run the per-nonzero instance, the unscaled one
+   the tile instance), checked in chunks of tiles within 2 (D + 1) eps
+   sum|x_d y_d| (|a|); both
    kernels timed at D = K = 256 (fusedmm for softmax, sigmoid and none)
    beside their dense-tile bound, the per-edge bound of the same
    function, the plain versions and a library yardstick the port never
@@ -93,16 +97,18 @@ failure:
    of 2,048 tokens from ``data/tokens``, ``prefill`` into a 2,088-slot
    cache, then 32 greedy ``decode_step``s. Launch counts are zeroed just
    before and read just after the prefill (4 flash attention + 12 ragged
-   GEMM), the first decode step (12 ragged) and the other 31; every
-   launch of the prefill and of the first decode step is held against
-   its plain version on its own inputs (max |diff| within 2^-7 x
-   max|plain|); logits finite. Then prefill and decode times, peak
-   memory and the device busy share, both kernels timed at the main
-   path's shapes beside their bounds, plain versions and a library
-   yardstick the port never calls (``torch.bmm`` over the (E, C, D)
-   buffer, ``scaled_dot_product_attention``), and the smoke config in
-   fp32 on the card (the kernels' fp32 instances) against the port's CPU
-   run, prefill + 4 decode steps within atol 1e-4;
+   GEMM), the first decode step (12 ragged) and the other 31, and every
+   ragged launch must have run the ``wgmma`` instance; every launch of
+   the prefill and of the first decode step is held against its plain
+   version on its own inputs (max |diff| within 2^-7 x max|plain|) and,
+   row by row, against an fp32 oracle (2^-7 x the row's max); logits
+   finite. Then prefill and decode times, peak memory and the device
+   busy share, both kernels timed at the main path's shapes beside their
+   bounds, plain versions, the host µs a call takes to enqueue, and a
+   library yardstick the port never calls (``torch.bmm`` over the
+   (E, C, D) buffer, ``scaled_dot_product_attention``), and the smoke
+   config in fp32 on the card (the kernels' fp32 instances) against the
+   port's CPU run, prefill + 4 decode steps within atol 1e-4;
 5. last, the kernels line (one JSON object: the sampling kernels as timed
    in phase 8, the serving kernels as timed in phase 4, BSR as timed in
    phase 7, SDDMM and FusedMM as timed in phase 9, the ragged GEMM and
@@ -180,13 +186,51 @@ def log(*args):
 
 def ptxas_function(line: str) -> str:
     """The kernel and template arguments a ptxas "Function properties
-    for <mangled name>" line names, as ``fusedmm_kernel<4,2>``."""
-    m = re.search(r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)I?((?:Li-?\d+E)*)",
-                  line.split()[-1])
-    if not m:
-        return line.split()[-1][:60]
-    args = re.findall(r"Li(-?\d+)E", m.group(2))
-    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+    for <mangled name>" line names, as ``fusedmm_kernel<4,2>``: of the
+    mangled name's ``<length><identifier>`` parts that name a kernel, the
+    shortest (the enclosing namespaces' names are longer)."""
+    name = line.split()[-1]
+    found = []
+    for m in re.finditer(r"\d+", name):
+        digits = m.group()
+        for k in range(len(digits)):            # the length may follow
+            n = int(digits[k:])                 # other digits
+            ident = name[m.end():m.end() + n]
+            if n and len(ident) == n and \
+                    re.fullmatch(r"[A-Za-z]\w*_kernel(_[A-Za-z]+)*", ident):
+                found.append((n, m.end()))
+    if not found:
+        return name[:60]
+    n, at = min(found)
+    args = re.match(r"I((?:Li-?\d+E)*)E", name[at + n:])
+    vals = re.findall(r"Li(-?\d+)E", args.group(1)) if args else []
+    return name[at:at + n] + (f"<{','.join(vals)}>" if vals else "")
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads}} of every function
+    in nvcc's ``-Xptxas -v`` output, and ptxas's warnings under
+    ``"warnings"`` (C7512 there means serialised wgmmas)."""
+    out: dict = {"warnings": []}
+    fn = ""
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            fn = ptxas_function(line)
+            out.setdefault(fn, {})
+        elif "spill stores" in line and fn:
+            nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
+            out[fn].update(spill_stores=nums[1], spill_loads=nums[2])
+        elif "Used" in line and "registers" in line and fn:
+            out[fn]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 line).group(1))
+        elif "warning" in line.lower():
+            out["warnings"].append(line.strip()[:200])
+    return out
+
+
+# the kernels this slice redesigned: phase 1 logs their registers and
+# spills on a line of their own
+NEW_KERNELS = ("ragged_gemm_wgmma_kernel", "sddmm_nnz_kernel")
 
 
 def card_line() -> str:
@@ -319,6 +363,10 @@ def profiled(fn, reps: int = 1):
 
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def fmt_us(us) -> str:
+    return "none" if us is None else f"{us:.1f}"
 
 
 def device_us(fn, reps: int):
@@ -868,7 +916,7 @@ def edge_case_times(name, kernel, plain, library, nbytes, flops,
     reps = 10
     by_kernel = device_us(kernel, reps=reps)
     kernel_us = sum(us for key, us in by_kernel.items()
-                    if f"{name}_kernel" in key)
+                    if f"{name}_" in key and "kernel" in key)
     return dict(
         ms=cuda_ms(kernel, reps=reps),
         device_ms=kernel_us / reps / 1e3 if kernel_us else None,
@@ -1019,13 +1067,18 @@ def gat_phase() -> dict:
     kops.reset_kernel_launches()
     s_out = {sc: kops.sddmm_bsr(a, q, k, scale_by_a=sc) for sc in (True, False)}
     sddmm_launches = kops.kernel_launches()["sddmm_bsr"]
-    if sddmm_launches != 2:
-        raise AssertionError(f"gat: sddmm_bsr launches {sddmm_launches}")
+    sddmm_instances = dict(sddmm_bsr_cuda.launches_by_instance)
+    if sddmm_launches != 2 or sddmm_instances != {"nnz": 1, "tile": 1}:
+        raise AssertionError(f"gat: sddmm_bsr launches {sddmm_launches}, "
+                             f"by instance {sddmm_instances}: the scaled "
+                             f"call must run the per-nonzero kernel, the "
+                             f"unscaled one the tile kernel")
     sddmm_checks = [check_sddmm(a, q, k, s_out[sc], sc, f"A scale_by_a={sc}")
                     for sc in (True, False)]
     del s_out
-    log(f"gat: sddmm_bsr on A (D = {HIDDEN}), {sddmm_launches} launches, "
-        f"held against the plain tile products: {sddmm_checks}")
+    log(f"gat: sddmm_bsr on A (D = {HIDDEN}), {sddmm_launches} launches "
+        f"{sddmm_instances}, held against the plain tile products: "
+        f"{sddmm_checks}")
 
     # (4) both kernels timed at D = K = HIDDEN beside their bounds, plain
     # versions and one library call each (timed only)
@@ -1047,6 +1100,7 @@ def gat_phase() -> dict:
             csr, q, kt, beta=0.0).values() -
             edge_dots(q, k, row, col)).abs().max())
         case = dict(name="sddmm_bsr", tag=f"A/d{HIDDEN}/scale_by_a={sc}",
+                    instance="nnz" if sc else "tile",
                     **edge_case_times(
                         "sddmm", lambda: sddmm_bsr_cuda(a, q, k, scale_by_a=sc),
                         lambda: sddmm_bsr_plain(a, q, k, scale_by_a=sc),
@@ -1114,6 +1168,7 @@ def gat_phase() -> dict:
                 step_checks=step_checks, sddmm_checks=sddmm_checks,
                 launches=launches["fusedmm_bsr"],
                 sddmm_launches=sddmm_launches,
+                sddmm_instances=sddmm_instances,
                 tuned=dataclasses.asdict(res_t),
                 baseline=dataclasses.asdict(res_b),
                 speedup=res_b.epoch_time_s / res_t.epoch_time_s,
@@ -1848,11 +1903,27 @@ def lm_kernel_case(call, device_ms) -> dict:
     return dict(
         name=name, shape=call["shape"],
         ms=cuda_ms(kernel, reps=reps), device_ms=device_ms,
+        host_us=host_us(kernel),
+        library_host_us=None if library is None else host_us(library),
         plain_ms=cuda_ms(plain, reps=3, warmup=1),
         library_ms=None if library is None else cuda_ms(library, reps=reps),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=nbytes, flops=flops)
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host µs a call of ``fn`` takes to enqueue its work (no sync in the
+    loop; the device runs behind)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def tree_to(tree: dict, device) -> dict:
@@ -1906,6 +1977,7 @@ def lm_phase() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_lm_batch
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
     from repro_torch.models import lm
 
     full = get_config(LM_ARCH)
@@ -1928,13 +2000,17 @@ def lm_phase() -> dict:
     def launches():
         return {n: kops.kernel_launches()[n] for n in LM_KERNELS}
 
+    def ragged_instances():
+        return dict(ragged_gemm_cuda.launches_by_instance)
+
     # -- the main path: prefill, then greedy decode --------------------------
-    counts = {}
+    counts, instances = {}, {}
     kops.reset_kernel_launches()
     with record_lm_kernels(check=True) as pre_calls:
         cache, logits = lm.prefill(cfg, params, batch, LM_CAPACITY)
         torch.cuda.synchronize()
     counts["prefill"] = launches()
+    instances["prefill"] = ragged_instances()
     if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_padded) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits malformed: "
@@ -1946,6 +2022,7 @@ def lm_phase() -> dict:
         logits, cache = lm.decode_step(cfg, params, cache, tok)
         torch.cuda.synchronize()
     counts["decode_1"] = launches()
+    instances["decode_1"] = ragged_instances()
     kops.reset_kernel_launches()
     t0 = time.perf_counter()
     for _ in range(LM_DECODE - 1):
@@ -1955,6 +2032,7 @@ def lm_phase() -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     counts["decode_rest"] = launches()
+    instances["decode_rest"] = ragged_instances()
     want = {"prefill": {"ragged_gemm": 3 * LM_LAYERS,
                         "flash_attention": LM_LAYERS},
             "decode_1": {"ragged_gemm": 3 * LM_LAYERS, "flash_attention": 0},
@@ -1962,6 +2040,11 @@ def lm_phase() -> dict:
                             "flash_attention": 0}}
     if counts != want:
         raise AssertionError(f"lm launch counts {counts}, want {want}")
+    for run, by in instances.items():
+        if by != {"wgmma": want[run]["ragged_gemm"], "wmma": 0, "f32": 0}:
+            raise AssertionError(f"lm {run}: ragged GEMM launches by "
+                                 f"instance {by}: every one must run the "
+                                 f"wgmma kernel")
     if not bool(torch.isfinite(logits).all()) or \
             int(cache["pos"][0]) != LM_PROMPT + LM_DECODE:
         raise AssertionError("decode ended malformed")
@@ -1978,7 +2061,7 @@ def lm_phase() -> dict:
                for n in LM_KERNELS}
     log(f"lm launches: prefill {counts['prefill']}, first decode step "
         f"{counts['decode_1']}, steps 2..{LM_DECODE} "
-        f"{counts['decode_rest']}")
+        f"{counts['decode_rest']}; ragged GEMM by instance {instances}")
     log(f"lm: {len(checks)} launches of the prefill and the first decode "
         f"step held against the plain versions; worst max|diff| / "
         f"max|plain| {worst} (tolerance {LM_TOL}); worst row max|diff| / "
@@ -2045,7 +2128,9 @@ def lm_phase() -> dict:
         log(f"  {case['name']:15s} {tag:18s} {case['shape']:30s} ms "
             f"{case['ms']:.4f} device {fmt_ms(case['device_ms'])} plain "
             f"{case['plain_ms']:.4f} bound {case['bound_ms']:.4f} "
-            f"({case['bound_by']}) library {fmt_ms(case['library_ms'])}")
+            f"({case['bound_by']}) library {fmt_ms(case['library_ms'])}; "
+            f"host µs a call {case['host_us']:.1f} (library "
+            f"{fmt_us(case['library_host_us'])})")
     del pre_calls, dec_calls, picks, cache, params, batch
     torch.cuda.empty_cache()
 
@@ -2055,7 +2140,8 @@ def lm_phase() -> dict:
         f"card vs CPU max |logit diff| {max(smoke):.3e} "
         f"(atol {LM_SMOKE_ATOL})")
     return dict(cut=cut, layers=LM_LAYERS, batch=LM_BATCH, prompt=LM_PROMPT,
-                decode_steps=LM_DECODE, launches=counts, checks=checks,
+                decode_steps=LM_DECODE, launches=counts,
+                ragged_instances=instances, checks=checks,
                 worst_err_over_max=worst, worst_abs_err=worst_abs,
                 worst_row_err_over_row_max=worst_row,
                 serve=serve, cases=cases, smoke_fp32_max_abs_diff=smoke)
@@ -2092,15 +2178,20 @@ def main() -> int:
     per_kernel = build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{n} {s:.1f} s' for n, s in per_kernel.items())})")
+    ptxas = {}
     for name in KERNELS:
         kops.load_kernel(name)
-        fn = ""
-        for line in build_log(name).splitlines():
-            if "Function properties for" in line:
-                fn = ptxas_function(line)
-            elif "registers" in line or "spill" in line:
-                log(f"  ptxas {name} {fn}: {line.strip()}")
+        ptxas[name] = ptxas_report(build_log(name))
+        log(f"  ptxas {name}: {ptxas[name]}")
+    new_fns = {fn: v for rep in ptxas.values() for fn, v in rep.items()
+               if fn.startswith(NEW_KERNELS)}
+    if not all(any(fn.startswith(k) for fn in new_fns) for k in NEW_KERNELS):
+        raise AssertionError(f"ptxas reported no function of {NEW_KERNELS}: "
+                             f"{sorted(new_fns)}")
+    log(f"ptxas, this slice's kernels: {new_fns}; warnings "
+        f"{[w for rep in ptxas.values() for w in rep['warnings']]}")
     report["card"] = card
+    report["ptxas"] = ptxas
 
     # -- phase 2: sampled serving at full width ------------------------------
     t0 = time.perf_counter()
@@ -2496,11 +2587,13 @@ def main() -> int:
             bound_by=rep["bound_by"], bound_tile_ms=rep["bound_tile_ms"],
             bound_tc_ms=rep["bound_tc_ms"], bound_edge_ms=rep["bound_edge_ms"],
             library_ms=rep["library_ms"], shape=rep["tag"], pinned=True)
+        if name == "sddmm_bsr":
+            entry["instance"] = rep["instance"]
         kernels.append(entry)
     for name in LM_KERNELS:
         rep = lmr["cases"]["prefill gate D->F" if name == "ragged_gemm"
                            else "prefill attention"]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", **KERNEL_META[name],
             launches=sum(c[name] for c in lmr["launches"].values()),
             max_abs_err=lmr["worst_abs_err"][name],
@@ -2511,7 +2604,11 @@ def main() -> int:
             library_ms=rep["library_ms"], shape=f"{rep['tag']} {rep['shape']}",
             launches_prefill=lmr["launches"]["prefill"][name],
             launches_decode=lmr["launches"]["decode_1"][name]
-            + lmr["launches"]["decode_rest"][name]))
+            + lmr["launches"]["decode_rest"][name], host_us=rep["host_us"])
+        if name == "ragged_gemm":
+            entry["instance"] = "/".join(
+                k for k, v in lmr["ragged_instances"]["prefill"].items() if v)
+        kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1,

@@ -47,10 +47,10 @@ _SIGNATURES = {
     "sample": {"segment_sample_i32": [_P, _P, _P, _I, _I, _U, _U, _U, _I, _P],
                "expand_indptr_i32": [_P, _P, _P, _P, _I, _I, _I, _P],
                "flat_gather_b32": [_P, _L, _P, _P, _L, _P]},
-    "sddmm": {"sddmm_f32": [_P] * 6 + [_I] * 7 + [_P]},
+    "sddmm": {"sddmm_f32": [_P] * 7 + [_I] * 8 + [_P]},
     "fusedmm": {"fusedmm_f32": [_P] * 7 + [_I] * 7 + [_L, _I, _L, _I, _P]},
     "ragged_gemm": {f"ragged_gemm_{t}": [_P] * 4 + [_L] + [_I] * 4 + [_P]
-                    for t in ("bf16", "f32")},
+                    for t in ("bf16_wgmma", "bf16", "f32")},
     "flash_attention": {f"flash_attention_{t}":
                         [_P] * 4 + [_I] * 8 + [_L, _F, _P]
                         for t in ("bf16", "f32")},

@@ -191,8 +191,13 @@ def kernel_launches() -> dict[str, int]:
 
 
 def reset_kernel_launches() -> None:
+    """Zero every wrapper's launch count, and its per-instance counts where
+    it has several kernel instances (``launches_by_instance``)."""
     for fn in _CUDA_WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_instance"):
+            fn.launches_by_instance = dict.fromkeys(fn.launches_by_instance,
+                                                    0)
 
 
 def slot_gather(table: torch.Tensor, slots: torch.Tensor,

@@ -6,14 +6,17 @@ replacement of the TPU kernel ``ragged_gemm_pallas``
 (``src/repro/kernels/ragged_gemm.py``): ``out[m-tile] = x[m-tile] @
 w[tile_expert[m]]`` over tm-row token tiles, each tile one expert's (the
 dispatch pads every expert's rows to a multiple of tm). One CTA owns one
-output tile (128 x 128 in bf16, on the tensor cores from a cp.async ring
-of D slices; 64 x 64 in fp32, on the CUDA cores) and walks D itself, fp32
-accumulation rounded to the output type once. The
-kernel is bound by operations at prefill shapes and by the bytes of the
-expert weights at decode shapes; the source's header says what its design
-does about that. ``ragged_gemm_plain`` is the reference's XLA route (a
-gathered weight per tile and one batched product); the CPU dispatch and
-the tests use it.
+output tile and walks D itself, fp32 accumulation rounded to the output
+type once. :func:`ragged_instance` picks the instance from dtype, shape
+and alignment alone: ``wgmma`` (bf16 with D and F multiples of 8 and
+16-byte aligned operands, the main path: TMA ring, ``wgmma`` m64n256k16,
+128 x 256 tiles), ``wmma`` (other bf16 shapes: ``mma.sync`` on masked
+shared-memory slices) or ``f32`` (the CUDA cores). The kernel is bound by
+operations at prefill shapes and by the bytes of the expert weights at
+decode shapes; the source's header says what each design does about
+that. ``ragged_gemm_plain`` is the reference's XLA route (a gathered
+weight per tile and one batched product); the CPU dispatch and the tests
+use it.
 
 Neither pads: ``T % tm`` or a ``tile_expert`` of the wrong length raises.
 """
@@ -21,11 +24,30 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ragged_gemm_cuda", "ragged_gemm_plain", "check_ragged_shapes"]
+__all__ = ["ragged_gemm_cuda", "ragged_gemm_plain", "check_ragged_shapes",
+           "ragged_instance", "INSTANCES"]
 
-_ROW_TILE = 128                # the CUDA kernel's rows per CTA; tm % it == 0
-_GRID_Y = 65_535
-_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_ROW_TILE = 128                # the kernels' rows per CTA; tm % it == 0
+_GRID_Y = 65_535               # the wmma / f32 instances' grid rows
+# instance -> C entry point of csrc/ragged_gemm.cu
+INSTANCES = {"wgmma": "ragged_gemm_bf16_wgmma", "wmma": "ragged_gemm_bf16",
+             "f32": "ragged_gemm_f32"}
+
+
+def ragged_instance(dtype: torch.dtype, d: int, f: int, x_ptr: int,
+                    w_ptr: int) -> str:
+    """The kernel instance for these operands, from dtype, shape and
+    alignment alone: ``wgmma`` where TMA can stride both operands (bf16,
+    D and F multiples of 8, x and w 16-byte aligned), ``wmma`` for any
+    other bf16 operands, ``f32`` for fp32. Raises for any other dtype."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"ragged_gemm: x and w must both be bf16 or fp32, "
+                         f"got {dtype}")
+    if d % 8 == 0 and f % 8 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0:
+        return "wgmma"
+    return "wmma"
 
 
 def check_ragged_shapes(x: torch.Tensor, w: torch.Tensor,
@@ -65,14 +87,16 @@ def ragged_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     x (T, D) and w (E, D, F) contiguous, both bf16 or both fp32;
     tile_expert (T // tm,) int32 with ids in [0, E) (not checked on the
     device: a host read would stall the stream). Counts its launches in
-    ``ragged_gemm_cuda.launches``."""
+    ``ragged_gemm_cuda.launches`` and, by :func:`ragged_instance`, in
+    ``ragged_gemm_cuda.launches_by_instance``. A build or launch failure
+    raises; no other instance is tried."""
     from repro_torch.kernels.build import load_kernel
 
     check_ragged_shapes(x, w, tile_expert, tm)
     if x.device.type != "cuda":
         raise ValueError(f"ragged_gemm: x must be a CUDA tensor, got "
                          f"{x.device}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype:
         raise ValueError(f"ragged_gemm: x and w must both be bf16 or fp32, "
                          f"got {x.dtype} and {w.dtype}")
     for name, arr in (("x", x), ("w", w), ("tile_expert", tile_expert)):
@@ -86,8 +110,10 @@ def ragged_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"ragged_gemm: tm = {tm} is not a multiple of the "
                          f"kernel's {_ROW_TILE}-row tile")
     t, d = x.shape
-    f = w.shape[2]
-    if t // 64 > _GRID_Y or d >= 2 ** 31 or f >= 2 ** 31:
+    e, _, f = w.shape
+    inst = ragged_instance(x.dtype, d, f, x.data_ptr(), w.data_ptr())
+    if (inst != "wgmma" and t // 64 > _GRID_Y) or d >= 2 ** 31 or \
+            f >= 2 ** 31:
         raise ValueError(f"ragged_gemm: shape {t} x {d} x {f} exceeds the "
                          f"launch grid")
     out = torch.empty((t, f), dtype=x.dtype, device=x.device)
@@ -95,18 +121,18 @@ def ragged_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
         return out
     if d == 0:
         return out.zero_()
-    vec = int(d % 8 == 0 and f % 8 == 0 and x.data_ptr() % 16 == 0
-              and w.data_ptr() % 16 == 0)
-    lib = load_kernel("ragged_gemm")
-    fn = getattr(lib, f"ragged_gemm_{_DTYPES[x.dtype]}")
+    fn = getattr(load_kernel("ragged_gemm"), INSTANCES[inst])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),
-                out.data_ptr(), t, d, f, tm, vec, stream)
+                out.data_ptr(), t, d, f, tm, e, stream)
     if rc != 0:
-        raise RuntimeError(f"ragged_gemm launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ragged_gemm launch failed ({inst}): CUDA error "
+                           f"{rc}")
     ragged_gemm_cuda.launches += 1
+    ragged_gemm_cuda.launches_by_instance[inst] += 1
     return out
 
 
 ragged_gemm_cuda.launches = 0
+ragged_gemm_cuda.launches_by_instance = dict.fromkeys(INSTANCES, 0)

@@ -768,3 +768,186 @@ def test_lm_serving_on_card_matches_cpu(card):
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------
+# the redesigned kernels: the ragged GEMM's instances (wgmma for bf16
+# operands TMA can stride, wmma for other bf16 shapes) and the scaled
+# SDDMM's per-nonzero kernel
+# --------------------------------------------------------------------------
+
+def _ragged_inputs(rng, e, t, d, f, order, dtype=torch.bfloat16, card="cuda",
+                   offset=0):
+    """x (t, d) starting ``offset`` elements into its storage (offset 1:
+    2-byte aligned), w (e, d, f), tile_expert in expert order or a
+    permutation (non-monotone)."""
+    x = _randn(rng, (t * d + offset,), dtype, card)[offset:].view(t, d)
+    w = _randn(rng, (e, d, f), dtype, card)
+    n = t // 128
+    te = (np.arange(n) * e // n if order == "arange"
+          else rng.permutation(np.arange(n) % e))
+    return x, w, torch.from_numpy(te.astype(np.int32)).to(card)
+
+
+def _ragged_oracle_rows(got, x, w, te):
+    """Row by row against the same product in fp32, one expert's tiles at
+    a time: each output row's max |diff| within 2^-7 x that row's max
+    |oracle| (a fault in rows of small magnitude shows here)."""
+    t, d = x.shape
+    xt = x.view(-1, 128, d)
+    oracle = torch.empty((t // 128, 128, w.shape[2]), device=x.device)
+    tec = te.cpu()
+    for e in tec.unique().tolist():
+        idx = (tec == e).nonzero()[:, 0].to(x.device)
+        oracle[idx] = xt[idx].float() @ w[e].float()
+    oracle = oracle.view(t, -1)
+    row_err = (got.float() - oracle).abs().amax(-1)
+    row_max = oracle.abs().amax(-1).clamp(min=1e-30)
+    assert float((row_err / row_max).max()) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("e,t,d,f,order,offset,instance", [
+    (16, 20480, 4096, 6400, "arange", 0, "wgmma"),   # prefill gate / up
+    (16, 20480, 6400, 4096, "arange", 0, "wgmma"),   # prefill down
+    (8, 2048, 512, 1024, "mixed", 0, "wgmma"),       # non-monotone experts
+    (5, 1280, 512, 6408, "mixed", 0, "wgmma"),       # F = 6,400 + 8
+    (3, 640, 256, 200, "mixed", 0, "wgmma"),         # one ragged F tile
+    (4, 512, 100, 72, "mixed", 0, "wmma"),           # D % 8 != 0
+    (3, 640, 256, 200, "mixed", 1, "wmma")])         # x 2-byte aligned
+def test_ragged_gemm_instances_match_plain_and_oracle(
+        card, e, t, d, f, order, offset, instance):
+    from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
+                                                 ragged_gemm_plain)
+    rng = np.random.default_rng(t + d + f + offset)
+    x, w, te = _ragged_inputs(rng, e, t, d, f, order, card=card,
+                              offset=offset)
+    tops.reset_kernel_launches()
+    got = ragged_gemm_cuda(x, w, te)
+    assert ragged_gemm_cuda.launches_by_instance == {
+        "wgmma": 0, "wmma": 0, "f32": 0, instance: 1}
+    want = ragged_gemm_plain(x, w, te)
+    torch.cuda.synchronize()
+    assert got.shape == (t, f) and bool(torch.isfinite(got).all())
+    _close_lm(got, want, torch.bfloat16)
+    _ragged_oracle_rows(got, x, w, te)
+
+
+def test_ragged_gemm_wgmma_is_bitwise_repeatable(card):
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
+    rng = np.random.default_rng(11)
+    x, w, te = _ragged_inputs(rng, 16, 2048, 4096, 6400, "arange", card=card)
+    first = ragged_gemm_cuda(x, w, te)
+    assert torch.equal(first, ragged_gemm_cuda(x, w, te))
+
+
+def _sddmm_bound_ratio(out, bsr, x, y):
+    """max |kernel - plain| / (2 (D + 1) eps sum_d |x_d y_d| |a|) over
+    all positions: two fp32 sums of the same D products in other orders,
+    and the product with A."""
+    import dataclasses
+    from repro_torch.kernels.sddmm import sddmm_bsr_plain
+    d = x.shape[1]
+    want = sddmm_bsr_plain(bsr, x, y)
+    mag = sddmm_bsr_plain(dataclasses.replace(bsr, blocks=bsr.blocks.abs()),
+                          x.abs(), y.abs())
+    bound = 2 * (d + 1) * 2.0 ** -24 * mag + 1e-30
+    return float(((out - want).abs() / bound).max())
+
+
+@pytest.mark.parametrize("br,bc", [(32, 128), (128, 128), (128, 256)])
+@pytest.mark.parametrize("d", [16, 130, 256])
+def test_sddmm_scaled_kernel_within_bound(card, br, bc, d):
+    """Empty block rows (rows 128..255 have no entry), three padding
+    blocks, x and y shorter than nrows and ncols: within the bound, zero
+    wherever A is zero, the per-nonzero instance counted."""
+    from repro_torch.kernels.sddmm import sddmm_bsr_cuda
+    rng = np.random.default_rng(br + bc + d)
+    bsr = tsp.to_device(_bsr_case(rng, br, bc, pad_blocks=3), card)
+    x, y = (t.to(card) for t in _score_inputs(rng, d))
+    tops.reset_kernel_launches()
+    out = sddmm_bsr_cuda(bsr, x, y, scale_by_a=True)
+    torch.cuda.synchronize()
+    assert sddmm_bsr_cuda.launches_by_instance == {"nnz": 1, "tile": 0}
+    assert _sddmm_bound_ratio(out, bsr, x, y) <= 1.0
+    assert bool((out[bsr.blocks == 0] == 0).all())
+
+
+def _fill_bsr(card, fills, bc, seed):
+    """One block row of 128-row tiles, tile b at fill fills[b] (the
+    per-nonzero route below 1 / DENSE_DIV of a slice, the dense tile
+    products above)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    n = len(fills)
+    blocks = torch.randn((n, 128, bc), generator=gen, device=card)
+    keep = torch.rand((n, 128, bc), generator=gen, device=card)
+    blocks *= keep < torch.tensor(fills, device=card)[:, None, None]
+    return tsp.BSR(blk_row=torch.zeros(n, dtype=torch.int32, device=card),
+                   blk_col=torch.arange(n, dtype=torch.int32, device=card),
+                   blocks=blocks, nrows=128, ncols=n * bc, br=128, bc=bc,
+                   n_real_blocks=n)
+
+
+@pytest.mark.parametrize("bc", [128, 256])
+def test_sddmm_scaled_kernel_dense_and_sparse_tiles(card, bc):
+    """Tiles at 0.7 %, 5 %, 50 % and 100 % fill in one block row: both
+    routes within the bound, zero where A is zero, and bitwise equal
+    across two launches."""
+    from repro_torch.kernels.sddmm import sddmm_bsr_cuda
+    bsr = _fill_bsr(card, (0.007, 0.05, 0.5, 1.0), bc, seed=bc)
+    gen = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn((100, 256), generator=gen, device=card) / 16
+    y = torch.randn((bsr.ncols - 3, 256), generator=gen, device=card)
+    out = sddmm_bsr_cuda(bsr, x, y)
+    torch.cuda.synchronize()
+    assert _sddmm_bound_ratio(out, bsr, x, y) <= 1.0
+    assert bool((out[bsr.blocks == 0] == 0).all())
+    assert torch.equal(out, sddmm_bsr_cuda(bsr, x, y))
+
+
+def test_sddmm_scaled_kernel_is_bitwise_repeatable(card):
+    from repro_torch.kernels.sddmm import sddmm_bsr_cuda
+    rng = np.random.default_rng(12)
+    bsr = tsp.to_device(_bsr_case(rng, 128, 128, pad_blocks=3), card)
+    x, y = (t.to(card) for t in _score_inputs(rng, 256))
+    first = sddmm_bsr_cuda(bsr, x, y)
+    assert torch.equal(first, sddmm_bsr_cuda(bsr, x, y))
+
+
+def test_sddmm_scaled_kernel_64bit_offsets(card):
+    """The 8.7 GB tile array past 2^31 elements, scaled: the last block
+    row's tiles (all past the 2^31 offset, 1 % filled) within the bound,
+    every other tile zero."""
+    from repro_torch.kernels.sddmm import sddmm_bsr_cuda
+    bsr, x, y, _ = _big_bsr(card, 16)
+    out = sddmm_bsr_cuda(bsr, x, y, scale_by_a=True)
+    torch.cuda.synchronize()
+    assert bool((out[:-129] == 0).all())
+    last = tsp.BSR(blk_row=bsr.blk_row[-129:] - 1023,
+                   blk_col=bsr.blk_col[-129:], blocks=bsr.blocks[-129:],
+                   nrows=128, ncols=bsr.ncols, br=128, bc=128,
+                   n_real_blocks=129)
+    assert _sddmm_bound_ratio(out[-129:], last, x[-128:], y) <= 1.0
+
+
+def test_sddmm_scaled_kernel_writes_zero_where_a_is_zero(card):
+    """The stated difference from the plain version: where A is 0 and
+    x_i . y_j is not finite the kernel writes 0, the plain version
+    s * 0 = NaN; where A is not 0 both are non-finite, and everywhere
+    else they agree within the bound."""
+    from repro_torch.kernels.sddmm import sddmm_bsr_cuda, sddmm_bsr_plain
+    for fill in (0.01, 0.5):                 # both routes
+        bsr = _fill_bsr(card, (fill,), 128, seed=3)
+        bsr.blocks[0, 7, 5] = 2.0
+        bsr.blocks[0, 9, 5] = 0.0
+        x = torch.ones((128, 8), device=card)
+        y = torch.ones((128, 8), device=card)
+        y[5] = torch.inf
+        out = sddmm_bsr_cuda(bsr, x, y)
+        plain = sddmm_bsr_plain(bsr, x, y)
+        torch.cuda.synchronize()
+        zero = bsr.blocks[0, :, 5] == 0
+        assert bool(torch.isnan(plain[0, :, 5][zero]).all())
+        assert bool((out[0, :, 5][zero] == 0).all())
+        assert bool(torch.isinf(out[0, :, 5][~zero]).all())
+        finite = torch.isfinite(plain)
+        assert torch.equal(out[finite], plain[finite])

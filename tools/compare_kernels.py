@@ -1,27 +1,44 @@
-"""Hold the BSR SpMM and bf16 flash attention kernels against their plain
-versions at small shapes, then time them at the main path's sizes beside
-the same kernels of another checkout, in turns (other, this, this,
-other). Needs one CUDA card and ``nvcc``.
+"""Hold the BSR SpMM, bf16 flash attention, bf16 ragged GEMM and scaled
+block SDDMM kernels against their plain versions at small shapes, then
+time them at the main path's sizes beside the same kernels of another
+checkout, in turns (other, this, this, other). Needs one CUDA card and
+``nvcc``.
 
     python tools/compare_kernels.py [--other DIR] [--variants]
+                                    [--kernels bsr,flash,ragged,sddmm]
 
 ``--other DIR``: the root of a second checkout (e.g. the parent commit
 unpacked with ``git archive``); its kernels build into
-``DIR/build/kernels``. ``--variants``: also time source variants of
-``csrc/bsr_spmm.cu`` with one part of the work taken out (the wgmma
-products, two of the three split passes, the B split, the TMA loads, the
-A split), each compiled into ``build/variants/`` and loaded in place of
-the kernel: what each costs on the critical path. The variants' results
-are wrong by construction; only their times mean anything.
+``DIR/build/kernels``. ``--variants``: also time source variants with one
+part of the work taken out or one route forced, each compiled into
+``build/variants/`` and loaded in place of the kernel: of
+``csrc/bsr_spmm.cu`` the wgmma products, two of the three split passes,
+the B split, the TMA loads, the A split (what each costs on the critical
+path; their results are wrong by construction, only their times mean
+anything); of ``csrc/sddmm.cu`` the scaled kernel with its dense-slice
+route taken out (every slice per nonzero, exact, as at any fill below
+the threshold) and with its per-nonzero y reads taken out (D % 4 == 0,
+wrong by construction), timed over the fill sweep. ``--kernels``: check
+and time only these (default all four).
 
-Timings: a synthetic 518 x 518 grid of 230,000 dense 128 x 128 tiles
-(5 % of entries nonzero) at K = 256, the tile count and shape of
-ogbn-proteins at scale 1/2 in ``chip_smoke.py`` phase 7, once with the
-tiles skewed over the block rows and once spread evenly; flash attention
-at B 4, 32 / 8 heads, S = T = 2,048, D 128, causal, bf16 (phase 10's
-prefill), beside ``scaled_dot_product_attention``. CUDA events, the mean
-of 5 (BSR) or 20 (flash) calls after 2 warm-up calls. Prints one JSON
-line per timing run.
+Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
+- BSR: a synthetic 518 x 518 grid of 230,000 dense 128 x 128 tiles (5 %
+  of entries nonzero) at K = 256, the tile count and shape of
+  ogbn-proteins at scale 1/2 in ``chip_smoke.py`` phase 7, once with the
+  tiles skewed over the block rows and once spread evenly;
+- flash attention at B 4, 32 / 8 heads, S = T = 2,048, D 128, causal,
+  bf16 (phase 10's prefill), beside ``scaled_dot_product_attention``;
+- the ragged GEMM at phase 10's shapes, 16 experts in order: the prefill
+  gate 20,480 x 4,096 x 6,400 and down 20,480 x 6,400 x 4,096, the decode
+  gate 2,048 x 4,096 x 6,400, bf16, beside ``torch.bmm`` over the
+  (E, C, D) buffer;
+- the SDDMM scaled by A at D = 256 on a synthetic 259 x 259 grid of 239
+  tiles of 128 x 128 a block row (61,901 tiles, ogbn-proteins at scale
+  1/4 in phase 9), x and y of 33,152 rows, at 0.7 % fill (phase 9's) and
+  50 % beside ``torch.sparse.sampled_addmm`` on the same pattern in CSR,
+  the unscaled kernel at 0.7 %, and the scaled kernel over a fill sweep
+  (0.7, 2, 4, 8, 16, 50 %).
+Prints one JSON line per timing run.
 """
 from __future__ import annotations
 
@@ -41,7 +58,7 @@ VARIANT_DIR = ROOT / "build" / "variants"
 # (source text, replacement) edits of csrc/bsr_spmm.cu
 _MMA = ["        hopper::WgmmaTf32RS<FK>::mma(acc, a_lo[p][ks], dh, 1);\n",
         "        hopper::WgmmaTf32RS<FK>::mma(acc, a_hi[p][ks], dl, 1);\n"]
-VARIANTS = {
+_BSR_VARIANTS = {
     "one_pass": [(m, "") for m in _MMA],
     "no_mma": [(m, "") for m in _MMA] + [
         ("        hopper::WgmmaTf32RS<FK>::mma(acc, a_hi[p][ks], dh, 1);\n",
@@ -61,6 +78,17 @@ VARIANTS = {
               hopper::tf32_rna(x - __uint_as_float(a_hi[p][ks][q]));""",
                     "          a_lo[p][ks][q] = 0;")],
 }
+# variant name -> (kernel library it replaces, [(source text, replacement)])
+VARIANTS = {name: ("bsr_spmm", edits)
+            for name, edits in _BSR_VARIANTS.items()}
+VARIANTS["sddmm_no_dense_route"] = ("sddmm", [
+    ("    if (total * kDenseDiv > kRows * BC) {", "    if (false) {"),
+    ("static constexpr int kCap = kRows * BC / kDenseDiv;",
+     "static constexpr int kCap = kRows * BC;")])
+VARIANTS["sddmm_no_y_reads"] = ("sddmm", [
+    ("yr && c < d ? __ldg(reinterpret_cast<const float4*>(yr + c))",
+     "yr && c < d ? make_float4(1.f, 1.f, 1.f, 1.f)")])
+SDDMM_FILLS = (0.007, 0.02, 0.04, 0.08, 0.16, 0.5)
 
 
 def log(*args):
@@ -101,16 +129,13 @@ def synth_bsr(n_brows, n_bcols, nblocks, br, bc, seed, skew):
                    n_real_blocks=nblocks)
 
 
-def check():
-    """Both kernels against their plain versions: BSR within
-    ``split_tf32_bound`` and bitwise across two launches, flash within
-    2^-7 x max|plain|."""
+def check_bsr():
+    """BSR against its plain version within ``split_tf32_bound`` and
+    bitwise across two launches."""
     import dataclasses
     import torch
     from repro_torch.kernels.bsr_spmm import (bsr_spmm_cuda, bsr_spmm_plain,
                                               split_tf32_bound)
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
     worst = 0.0
     for br, bc in ((32, 128), (64, 128), (128, 128), (256, 128), (128, 256),
                    (64, 64), (128, 32)):
@@ -131,6 +156,13 @@ def check():
             assert ratio <= 1.0, (br, bc, k, ratio)
             assert torch.equal(out, bsr_spmm_cuda(a, h)), "not deterministic"
     log(f"bsr: worst |diff| / bound {worst:.4f}")
+
+
+def check_flash():
+    """bf16 flash attention within 2^-7 x max|plain|."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
     for b, hq, hkv, s, t, d, causal, window in [
@@ -152,51 +184,218 @@ def check():
     log(f"flash: worst |diff| / max|plain| {worst:.5f}")
 
 
-def time_run(tag: str, variant: str | None) -> dict:
+def check_ragged():
+    """bf16 ragged GEMM against its plain version within 2^-7 x
+    max|plain|, on the wgmma instance (D, F multiples of 8) and the wmma
+    one, bitwise across two launches."""
     import torch
+    from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
+                                                 ragged_gemm_plain)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    worst = 0.0
+    for e, t, d, f in ((3, 640, 256, 200), (16, 2048, 4096, 6400),
+                       (5, 1280, 512, 6408), (4, 512, 100, 72)):
+        x = torch.randn((t, d), generator=g, device="cuda").bfloat16()
+        w = torch.randn((e, d, f), generator=g, device="cuda").bfloat16()
+        te = torch.randint(0, e, (t // 128,), generator=g, device="cuda",
+                           dtype=torch.int32)
+        out = ragged_gemm_cuda(x, w, te)
+        want = ragged_gemm_plain(x, w, te)
+        ratio = float((out.float() - want.float()).abs().max()
+                      / want.float().abs().max())
+        worst = max(worst, ratio)
+        assert ratio <= 2.0 ** -7, (e, t, d, f, ratio)
+        assert torch.equal(out, ragged_gemm_cuda(x, w, te)), \
+            "not deterministic"
+    log(f"ragged: worst |diff| / max|plain| {worst:.5f}, instances "
+        f"{ragged_gemm_cuda.launches_by_instance}")
+
+
+def check_sddmm():
+    """Scaled SDDMM against the plain tile products within 2 (D + 1) eps
+    sum|x y| |a| at fills on both sides of the dense-slice threshold,
+    bitwise across two launches."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.sddmm import sddmm_bsr_cuda, sddmm_bsr_plain
+    worst = 0.0
+    for bc in (128, 256):
+        for fill in (0.007, 0.05, 0.5, 1.0):
+            for d in (16, 130, 256):
+                a = synth_grid(4, 5, 3, 128, bc, fill, seed=bc + d)
+                x = torch.randn((a.nrows - 5, d), device="cuda") / d ** 0.5
+                y = torch.randn((a.ncols - 3, d), device="cuda")
+                out = sddmm_bsr_cuda(a, x, y)
+                want = sddmm_bsr_plain(a, x, y)
+                mag = sddmm_bsr_plain(dataclasses.replace(
+                    a, blocks=a.blocks.abs()), x.abs(), y.abs())
+                ratio = float(((out - want).abs()
+                               / (2 * (d + 1) * 2.0 ** -24 * mag + 1e-30))
+                              .max())
+                worst = max(worst, ratio)
+                assert ratio <= 1.0, (bc, fill, d, ratio)
+                assert bool((out[a.blocks == 0] == 0).all())
+                assert torch.equal(out, sddmm_bsr_cuda(a, x, y)), \
+                    "not deterministic"
+    log(f"sddmm scaled: worst |diff| / bound {worst:.4f}")
+
+
+def synth_grid(n_brows, n_bcols, per_row, br, bc, fill, seed):
+    """``per_row`` tiles in every block row at distinct, sorted block
+    columns, random values at a ``fill`` fraction of positions."""
+    import torch
+    from repro_torch.core import sparse as tsp
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    keys = torch.rand((n_brows, n_bcols), generator=g, device="cuda")
+    cols = keys.argsort(dim=1)[:, :per_row].sort(dim=1).values
+    rows = torch.arange(n_brows, device="cuda").repeat_interleave(per_row)
+    nb = rows.numel()
+    blocks = torch.randn((nb, br, bc), generator=g, device="cuda")
+    blocks *= torch.rand((nb, br, bc), generator=g, device="cuda") < fill
+    return tsp.BSR(blk_row=rows.to(torch.int32),
+                   blk_col=cols.reshape(-1).to(torch.int32), blocks=blocks,
+                   nrows=n_brows * br, ncols=n_bcols * bc, br=br, bc=bc,
+                   n_real_blocks=nb)
+
+
+def grid_csr(a):
+    """A's pattern and values in CSR (int32 indices), rows sorted, for
+    ``torch.sparse.sampled_addmm``; built a few block rows at a time."""
+    import torch
+    per_row = a.nblocks // a.n_block_rows
+    tiles = a.blocks.view(a.n_block_rows, per_row, a.br, a.bc)
+    cols_of = a.blk_col.view(a.n_block_rows, per_row).long()
+    crow = [torch.zeros(1, dtype=torch.int64, device="cuda")]
+    col, val = [], []
+    for r0 in range(0, a.n_block_rows, 16):
+        t = tiles[r0:r0 + 16].permute(0, 2, 1, 3)       # (r, i, tile, j)
+        nz = (t != 0).reshape(-1, per_row * a.bc)
+        idx = nz.nonzero()
+        rows_of = torch.arange(r0, r0 + t.shape[0], device="cuda")
+        tile_col = cols_of[rows_of].repeat_interleave(a.br, 0)
+        col.append((tile_col[idx[:, 0], idx[:, 1] // a.bc] * a.bc +
+                    idx[:, 1] % a.bc).to(torch.int32))
+        val.append(t.reshape(nz.shape)[nz])
+        crow.append(crow[-1][-1] + nz.sum(1).cumsum(0))
+    crow = torch.cat(crow).to(torch.int32)
+    return torch.sparse_csr_tensor(crow, torch.cat(col), torch.cat(val),
+                                   (a.nrows, a.ncols))
+
+
+def time_run(tag: str, variant: str | None, kernels) -> dict:
     import repro_torch.kernels.ops  # noqa: F401  (package import order)
+    res = dict(tag=tag)
     if variant:
         import repro_torch.kernels.build as kb
+        lib_name = VARIANTS[variant][0]
         lib = ctypes.CDLL(str(VARIANT_DIR / f"lib{variant}.so"))
-        for fn_name, argtypes in kb._SIGNATURES["bsr_spmm"].items():
+        for fn_name, argtypes in kb._SIGNATURES[lib_name].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        kb._LOADED["bsr_spmm"] = lib
+        kb._LOADED[lib_name] = lib
+        return (time_sddmm(res, sweep_only=True) if lib_name == "sddmm"
+                else time_bsr(res))
+    for name in kernels:
+        TIMERS[name](res)
+    return res
+
+
+def time_bsr(res: dict) -> dict:
+    import torch
     from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda
-    res = dict(tag=tag)
     for skew in (True, False):
         a = synth_bsr(518, 518, 230_000, 128, 128, seed=1, skew=skew)
         h = torch.randn((a.ncols - 50, 256), device="cuda")
         res["bsr_ms" if skew else "bsr_even_ms"] = cuda_ms(
             lambda: bsr_spmm_cuda(a, h), reps=5)
         del a
-    if variant:
-        return res
+    return res
+
+
+def time_flash(res: dict) -> dict:
+    import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     g = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn((4, 32, 2048, 128), generator=g, device="cuda").bfloat16()
     k = torch.randn((4, 8, 2048, 128), generator=g, device="cuda").bfloat16()
     v = torch.randn((4, 8, 2048, 128), generator=g, device="cuda").bfloat16()
     res["flash_ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v), reps=20)
-    import torch.nn.functional as F
     res["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps=20)
     return res
 
 
-def build_variants():
+def time_ragged(res: dict) -> dict:
+    import torch
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
+    g = torch.Generator(device="cuda").manual_seed(0)
+    e = 16
+    for key, (t, d, f) in (("prefill_gate", (20480, 4096, 6400)),
+                           ("prefill_down", (20480, 6400, 4096)),
+                           ("decode_gate", (2048, 4096, 6400))):
+        x = torch.randn((t, d), generator=g, device="cuda").bfloat16()
+        w = torch.randn((e, d, f), generator=g, device="cuda").bfloat16()
+        te = (torch.arange(t // 128, device="cuda") * e // (t // 128)).to(
+            torch.int32)
+        xb = x.view(e, t // e, d)
+        res[f"ragged_{key}_ms"] = cuda_ms(lambda: ragged_gemm_cuda(x, w, te),
+                                          reps=20)
+        res[f"bmm_{key}_ms"] = cuda_ms(lambda: torch.bmm(xb, w), reps=20)
+        del x, w, xb
+    return res
+
+
+def time_sddmm(res: dict, sweep_only: bool = False) -> dict:
+    import torch
+    from repro_torch.kernels.sddmm import sddmm_bsr_cuda
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((259 * 128, 256), generator=g, device="cuda") / 16
+    y = torch.randn((259 * 128, 256), generator=g, device="cuda")
+    for fill in SDDMM_FILLS:
+        a = synth_grid(259, 259, 239, 128, 128, fill, seed=1)
+        res[f"sddmm_scaled_fill{fill}_ms"] = cuda_ms(
+            lambda: sddmm_bsr_cuda(a, x, y), reps=5)
+        if not sweep_only and fill in (0.007, 0.5):
+            if fill == 0.007:
+                res["sddmm_unscaled_fill0.007_ms"] = cuda_ms(
+                    lambda: sddmm_bsr_cuda(a, x, y, scale_by_a=False),
+                    reps=3)
+            try:
+                csr, yt = grid_csr(a), y.t().contiguous()
+                res[f"sampled_addmm_fill{fill}_ms"] = cuda_ms(
+                    lambda: torch.sparse.sampled_addmm(csr, x, yt, beta=0.0),
+                    reps=3)
+                del csr, yt
+            except RuntimeError as err:       # a yardstick only
+                res[f"sampled_addmm_fill{fill}_error"] = str(err)[:200]
+        del a
+        torch.cuda.empty_cache()
+    return res
+
+
+CHECKS = {"bsr": check_bsr, "flash": check_flash, "ragged": check_ragged,
+          "sddmm": check_sddmm}
+TIMERS = {"bsr": time_bsr, "flash": time_flash, "ragged": time_ragged,
+          "sddmm": time_sddmm}
+LIBS = {"bsr": "bsr_spmm", "flash": "flash_attention",
+        "ragged": "ragged_gemm", "sddmm": "sddmm"}
+
+
+def build_variants(kernels):
     from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
-    src = (CSRC / "bsr_spmm.cu").read_text()
     procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
+    for name, (kernel, edits) in VARIANTS.items():
+        if kernel not in {LIBS[k] for k in kernels}:
+            continue
+        text = (CSRC / f"{kernel}.cu").read_text()
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f"variant {name}: source text not found")
             text = text.replace(old, new)
-        path = VARIANT_DIR / f"bsr_{name}.cu"
+        path = VARIANT_DIR / f"{kernel}_{name}.cu"
         path.write_text(text)
         procs[name] = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
@@ -212,11 +411,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, default=None)
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--kernels", default=",".join(CHECKS),
+                    help="comma-separated subset of " + ", ".join(CHECKS))
     ap.add_argument("--time", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--variant", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    kernels = [k for k in args.kernels.split(",") if k]
+    if not set(kernels) <= set(CHECKS):
+        ap.error(f"--kernels: choose from {', '.join(CHECKS)}")
     if args.time:                      # one timing run, in its own process
-        print(json.dumps(time_run(args.time, args.variant)), flush=True)
+        print(json.dumps(time_run(args.time, args.variant, kernels)),
+              flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -229,17 +434,19 @@ def main() -> int:
     import repro_torch.kernels.ops  # noqa: F401  (package import order)
     from repro_torch.kernels.build import build_kernels
     t0 = time.perf_counter()
-    build_kernels(["bsr_spmm", "flash_attention"])
+    build_kernels([LIBS[k] for k in kernels])
     if args.variants:
-        build_variants()
+        build_variants(kernels)
     log(f"build {time.perf_counter() - t0:.1f} s")
-    check()
+    for name in kernels:
+        CHECKS[name]()
 
     def run(tag, root=ROOT, variant=None):
         env = dict(os.environ, PYTHONPATH=str(root / "src"))
         if root != ROOT:
             env["REPRO_TORCH_BUILD_DIR"] = str(root / "build" / "kernels")
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--time", tag]
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--time", tag,
+               "--kernels", ",".join(kernels)]
         if variant:
             cmd += ["--variant", variant]
         r = subprocess.run(cmd, env=env, capture_output=True, text=True)
@@ -251,7 +458,9 @@ def main() -> int:
     for tag in order:
         run(tag, args.other if tag == "other" else ROOT)
     if args.variants:
-        for name in list(VARIANTS) + list(VARIANTS)[::-1]:
+        names = [n for n, (lib, _) in VARIANTS.items()
+                 if lib in {LIBS[k] for k in kernels}]
+        for name in names + names[::-1]:
             run(f"variant {name}", variant=name)
     return 0
 
