@@ -9,8 +9,8 @@ failure:
 1. card and build — the card's name and power limit, then the hand
    kernels compiled from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel), ptxas's registers and spills of every kernel,
-   and of the ragged GEMM's ``wgmma`` kernel and the scaled SDDMM's
-   per-nonzero kernel on a line of their own;
+   and of the SELL kernels (``sell_spmm_kernel``, its split route's
+   reduction) and the per-edge FusedMM kernel on a line of their own;
 2. sampled serving at full width — reddit at scale 1 (232,965 nodes,
    602 features, 41 classes), GraphSAGE-mean, 2 layers, hidden 256,
    fanouts (10, 25) outermost first, a 65,536-row feature cache, fp32,
@@ -44,7 +44,10 @@ failure:
    4's per-row bound. Then ``train_gnn`` runs patched and unpatched for a
    few epochs each, launch counts zeroed just before the patched run and
    read just after it (split into forward on A and backward on A^T); the
-   unpatched run must launch no kernel;
+   unpatched run must launch no kernel. Every SELL launch of the patched
+   run must have taken the split route (reddit's hub slices are cut into
+   chunks across warps); the split chunks of A and A^T and the largest
+   workspace are logged;
 8. (run after phase 6) device-sampled minibatch training on the same
    graph — GraphSAGE-mean, hidden 256, fanouts (10, 25), batches of 1024
    seeds, lr 1e-2, weight decay 5e-4, the trainer's probed capacities
@@ -78,14 +81,16 @@ failure:
    patched against unpatched with phase 6's tolerances, its fused launch
    (layer 1, K = 256; layer 2, K = 112, takes the trusted composition)
    held against ``fusedmm_bsr_plain`` on its own inputs (atol 1e-4 x
-   max|h|); ``train_gnn`` patched and unpatched for 5 epochs, counts
-   zeroed just before and read just after each (the unpatched run must
-   launch nothing), peak memory logged; then ``ops.sddmm_bsr`` on A with
-   layer 1's q and k (scale_by_a True and False, its own counted path:
-   the scaled call must run the per-nonzero instance, the unscaled one
-   the tile instance), checked in chunks of tiles within 2 (D + 1) eps
-   sum|x_d y_d| (|a|); both
-   kernels timed at D = K = 256 (fusedmm for softmax, sigmoid and none)
+   max|h|) and required to have taken the per-edge route on some tiles
+   (the kernel counts tiles by route); ``train_gnn`` patched and
+   unpatched for 5 epochs, counts zeroed just before and read just after
+   each (the unpatched run must launch nothing, the patched run's fused
+   launches must have taken the per-edge route), peak memory logged;
+   then ``ops.sddmm_bsr`` on A with layer 1's q and k (scale_by_a True
+   and False, its own counted path: the scaled call must run the
+   per-nonzero instance, the unscaled one the tile instance), checked in
+   chunks of tiles within 2 (D + 1) eps sum|x_d y_d| (|a|); both kernels
+   timed at D = K = 256 (fusedmm for softmax, sigmoid and none)
    beside their dense-tile bound, the per-edge bound of the same
    function, the plain versions and a library yardstick the port never
    calls (``torch.sparse.sampled_addmm``; for softmax
@@ -230,7 +235,7 @@ def ptxas_report(text: str) -> dict:
 
 # the kernels this slice redesigned: phase 1 logs their registers and
 # spills on a line of their own
-NEW_KERNELS = ("ragged_gemm_wgmma_kernel", "sddmm_nnz_kernel")
+NEW_KERNELS = ("sell_spmm_kernel", "fusedmm_edge_kernel")
 
 
 def card_line() -> str:
@@ -774,6 +779,9 @@ def train_phase(tag, ds, arch, bundle, kernel) -> dict:
                           lr=TRAIN_LR, weight_decay=TRAIN_WD, bundle=bundle,
                           params=params, use_isplib=True, device=DEVICE)
     launches = kops.kernel_launches()
+    wrapper = kops._CUDA_WRAPPERS[kernel]
+    by_route = dict(getattr(wrapper, "launches_by_instance", {}))
+    workspace = getattr(wrapper, "workspace_bytes", 0)
     split = {w: sum(1 for c in calls if c["name"] == kernel
                     and way.get(c["ptr"]) == w) for w in ("fwd", "bwd")}
     if launches[kernel] == 0 or split["fwd"] == 0 or split["bwd"] == 0 or \
@@ -819,6 +827,7 @@ def train_phase(tag, ds, arch, bundle, kernel) -> dict:
                                 grad_err_over_max=grad_err),
                 operand_checks=operand_checks, launches=launches[kernel],
                 launches_fwd=split["fwd"], launches_bwd=split["bwd"],
+                launches_by_route=by_route, workspace_bytes=workspace,
                 tuned={k: v for k, v in dataclasses.asdict(res_t).items()},
                 baseline={k: v for k, v in
                           dataclasses.asdict(res_b).items()},
@@ -958,7 +967,9 @@ def gat_phase() -> dict:
     from repro_torch.core.patch import patched
     from repro_torch.data import make_dataset
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.fusedmm import fusedmm_bsr_cuda, fusedmm_bsr_plain
+    from repro_torch.kernels.fusedmm import (fusedmm_bsr_cuda,
+                                             fusedmm_bsr_plain,
+                                             tiles_by_route)
     from repro_torch.kernels.ref import edge_dots
     from repro_torch.kernels.sddmm import sddmm_bsr_cuda, sddmm_bsr_plain
     from repro_torch.models.gnn import build_bundle, make_gnn
@@ -994,8 +1005,13 @@ def gat_phase() -> dict:
 
     # (1) the first step, patched against unpatched, every fused launch
     # against the plain version on its own inputs
+    kops.reset_kernel_launches()
     with record_fusedmm() as calls, patched(True):
         loss_t, g_t = loss_and_grads(apply, params, bundle, x, y, m)
+    step_routes = tiles_by_route()
+    if not step_routes["edge"]:
+        raise AssertionError(f"gat: the first step's fused launch took the "
+                             f"per-edge route on no tile: {step_routes}")
     with patched(False):
         loss_b, g_b = loss_and_grads(apply, params, bundle, x, y, m)
     grad_err = compare_first_step("gat", loss_t, g_t, loss_b, g_b)
@@ -1008,7 +1024,8 @@ def gat_phase() -> dict:
                    for c in calls]
     del calls
     log(f"gat: {len(step_checks)} fused launch(es) of the first step held "
-        f"against the plain version: {step_checks}")
+        f"against the plain version: {step_checks}; tiles by route "
+        f"{step_routes} (32-row slices)")
     with patched(True):
         prof_t = step_profile(lambda: loss_and_grads(apply, params, bundle,
                                                      x, y, m))
@@ -1026,14 +1043,22 @@ def gat_phase() -> dict:
                         params=params, use_isplib=use, device=DEVICE)
         runs[use] = (res, kops.kernel_launches(),
                      torch.cuda.max_memory_allocated() / 1e9)
+        if use:
+            main_routes = tiles_by_route()
+            main_instances = dict(getattr(
+                kops._CUDA_WRAPPERS["fusedmm_bsr"], "launches_by_instance",
+                {}))
         if len(res.losses) != TRAIN_EPOCHS or \
                 not np.isfinite(res.losses).all():
             raise AssertionError(f"gat: losses {res.losses}")
     (res_t, launches, peak_t), (res_b, launches_b, peak_b) = \
         runs[True], runs[False]
-    if launches["fusedmm_bsr"] == 0 or any(launches_b.values()):
-        raise AssertionError(f"gat: launches {launches} patched, "
-                             f"{launches_b} unpatched")
+    if launches["fusedmm_bsr"] == 0 or any(launches_b.values()) or \
+            main_instances != {"edge": launches["fusedmm_bsr"]} or \
+            not main_routes["edge"]:
+        raise AssertionError(f"gat: launches {launches} patched "
+                             f"({main_instances}, tiles by route "
+                             f"{main_routes}), {launches_b} unpatched")
     log(f"gat: epoch {res_t.epoch_time_s * 1e3:.2f} ms tuned vs "
         f"{res_b.epoch_time_s * 1e3:.2f} ms baseline "
         f"({res_b.epoch_time_s / res_t.epoch_time_s:.2f}x); first epoch "
@@ -1044,10 +1069,11 @@ def gat_phase() -> dict:
         f"{res_t.train_acc:.4f} / {res_b.train_acc:.4f}, test "
         f"{res_t.test_acc:.4f} / {res_b.test_acc:.4f} (tuned / baseline)")
     log(f"gat: fusedmm_bsr launches {launches['fusedmm_bsr']} over "
-        f"{TRAIN_EPOCHS} epochs + eval (layer 1, K = {HIDDEN}); "
-        f"unpatched {launches_b}")
+        f"{TRAIN_EPOCHS} epochs + eval (layer 1, K = {HIDDEN}), all of the "
+        f"per-edge kernel, tiles by route {main_routes}; unpatched "
+        f"{launches_b}")
     own_ms = sum(ms for key, ms in prof_t["device_ms"].items()
-                 if "fusedmm_kernel" in key)
+                 if "fusedmm_" in key and "kernel" in key)
     log(f"gat: one step, device busy {prof_t['busy_share']:.3f} tuned "
         f"({prof_t['device_s'] * 1e3:.2f} ms of device time in "
         f"{prof_t['wall_s'] * 1e3:.2f} ms, {own_ms:.2f} ms of it in "
@@ -1116,7 +1142,9 @@ def gat_phase() -> dict:
     mask = dense_mask(g.coo)
     has = mask.any(dim=1)
     for op in ("softmax", "sigmoid", "none"):
+        kops.reset_kernel_launches()
         chk = check_fused(a, q, k, v, op, f"A/d{HIDDEN}/k{HIDDEN}")
+        chk["tiles_by_route"] = tiles_by_route()
         library = lib_err = lib_note = None
         if op == "softmax":
             def library():
@@ -1167,6 +1195,9 @@ def gat_phase() -> dict:
                                 grad_err_over_max=grad_err),
                 step_checks=step_checks, sddmm_checks=sddmm_checks,
                 launches=launches["fusedmm_bsr"],
+                launches_by_instance=main_instances,
+                tiles_by_route=dict(first_step=step_routes,
+                                    main_path=main_routes),
                 sddmm_launches=sddmm_launches,
                 sddmm_instances=sddmm_instances,
                 tuned=dataclasses.asdict(res_t),
@@ -2230,6 +2261,8 @@ def main() -> int:
             with obs.profiled(ops=False) as tracer:
                 wall = closed_loop(srv, reqs, CLIENTS)       # the main path
             launches = kops.kernel_launches()
+            sell_routes = dict(getattr(kops._CUDA_WRAPPERS["sell_spmm"],
+                                       "launches_by_instance", {}))
             missing = [n for n in SERVE_KERNELS if launches[n] == 0]
             if not missing or attempt:
                 break
@@ -2260,11 +2293,13 @@ def main() -> int:
                    flushes=len(sampled_records),
                    mean_flush_size=st["mean_flush_size"],
                    plans=list(srv.plan_cache.kinds()), launches=launches,
-                   spans_ms_per_flush=spans, device=busy)
+                   sell_routes=sell_routes, spans_ms_per_flush=spans,
+                   device=busy)
     log(f"sampled serving: p50 {st['p50_ms']:.3f} ms, p99 "
         f"{st['p99_ms']:.3f} ms, {sampled['qps']:.1f} QPS, cache hit rate "
         f"{st['cache_hit_rate']:.4f}, {len(sampled_records)} flushes of "
-        f"{st['mean_flush_size']:.1f} seeds, launches {launches}")
+        f"{st['mean_flush_size']:.1f} seeds, launches {launches}, SELL by "
+        f"route {sell_routes}")
     log("  per flush (ms, obs spans): " + ", ".join(
         f"{k} {v:.3f}" for k, v in spans.items()))
     log(f"  device busy share {busy['busy_share']:.4f} over a "
@@ -2414,6 +2449,21 @@ def main() -> int:
     reddit["pinned"] = train_pinned
     reddit["cases"] = []
     g = bundle.tuned
+    from repro_torch.kernels.sell_spmm import CHUNK_STEPS, split_chunks
+    chunks = {"A": split_chunks(g.sell), "A^T": split_chunks(g.sell_t)}
+    if reddit["launches_by_route"] != {"row": 0,
+                                       "split": reddit["launches"]} or \
+            not all(chunks.values()):
+        raise AssertionError(f"reddit: SELL launches by route "
+                             f"{reddit['launches_by_route']} of "
+                             f"{reddit['launches']}, split chunks {chunks}: "
+                             f"every launch must cut the hub slices")
+    reddit.update(split_chunks=chunks, chunk_steps=CHUNK_STEPS)
+    log(f"reddit: every SELL launch took the split route "
+        f"{reddit['launches_by_route']}; slices longer than {CHUNK_STEPS} "
+        f"steps cut into {chunks['A']} chunks in A ({g.sell.n_steps} steps, "
+        f"{g.sell.nslices} slices), {chunks['A^T']} in A^T; largest "
+        f"workspace {reddit['workspace_bytes'] / 1e6:.1f} MB")
     for a, coo, k, tag in ((g.sell, g.coo, ds.num_features, "A"),
                            (g.sell, g.coo, HIDDEN, "A"),
                            (g.sell_t, g.coo_t, HIDDEN, "A^T")):
@@ -2568,9 +2618,21 @@ def main() -> int:
                 [c["max_abs_err"] for c in reddit["cases"]] +
                 [o["max_abs_err"] for o in reddit["operand_checks"]] +
                 [minibatch["inference_sell_checks"]["max_abs_err"]])
+            routes = {r: sampled["sell_routes"].get(r, 0)
+                      + reddit["launches_by_route"].get(r, 0)
+                      for r in ("row", "split")}
             entry.update(launches_train=reddit["launches"],
                          launches_train_fwd=reddit["launches_fwd"],
-                         launches_train_bwd=reddit["launches_bwd"])
+                         launches_train_bwd=reddit["launches_bwd"],
+                         instance="/".join(r for r, v in routes.items() if v),
+                         launches_by_route=dict(
+                             serving=sampled["sell_routes"],
+                             train=reddit["launches_by_route"]),
+                         split_chunks=reddit["split_chunks"],
+                         workspace_bytes=reddit["workspace_bytes"],
+                         train_ms=reddit["cases"][0]["ms"],
+                         train_bound_ms=reddit["cases"][0]["bound_ms"],
+                         train_library_ms=reddit["cases"][0]["library_ms"])
         kernels.append(entry)
     for name in ("sddmm_bsr", "fusedmm_bsr"):
         own = [c for c in gat["cases"] if c["name"] == name]
@@ -2589,6 +2651,9 @@ def main() -> int:
             library_ms=rep["library_ms"], shape=rep["tag"], pinned=True)
         if name == "sddmm_bsr":
             entry["instance"] = rep["instance"]
+        else:
+            entry.update(instance="edge",
+                         tiles_by_route=gat["tiles_by_route"]["main_path"])
         kernels.append(entry)
     for name in LM_KERNELS:
         rep = lmr["cases"]["prefill gate D->F" if name == "ragged_gemm"

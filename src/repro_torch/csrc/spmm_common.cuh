@@ -7,7 +7,10 @@
 // the row's slots in order, 32 at a time: each lane loads one slot's
 // (index, weight) pair, a ballot marks the real (non-sentinel) ones, and
 // __shfl_sync broadcasts them, so the slot table is read once per warp
-// and coalesced where the layout allows.
+// and coalesced where the layout allows. With U > 1 a lane issues the
+// loads of U live slots' h vectors before their fma's (U gathered rows in
+// flight instead of one); the fma's still run in slot order, so the sum
+// is the same for every U.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,8 +44,10 @@ __device__ __forceinline__ void store_vec(typename Vec<V>::T* dst,
 // s in [0, n_slots) into acc[CH * V], in slot order: acc[q*V + i] holds
 // column (vbase + q*32 + lane) * V + i. Slots whose index is outside
 // [0, ncols) (the sentinel) are skipped; the ballot makes the skip
-// warp-uniform.
-template <int V, int CH>
+// warp-uniform. U live slots are taken at a time: their (index, weight)
+// pairs are broadcast, every lane issues all U x CH vector loads, then
+// adds them in slot order.
+template <int V, int CH, int U = 1>
 __device__ __forceinline__ void gather_row(
     const int* __restrict__ slot_idx, const float* __restrict__ slot_val,
     long long stride, int n_slots, const float* __restrict__ h, int ncols,
@@ -60,15 +65,32 @@ __device__ __forceinline__ void gather_row(
     // never visited, so bucket padding costs a load, not a loop trip
     unsigned live = __ballot_sync(0xffffffffu, my_c >= 0 && my_c < ncols);
     while (live) {
-      const int j = __ffs(live) - 1;
-      live &= live - 1;
-      const int c = __shfl_sync(0xffffffffu, my_c, j);
-      const float w = __shfl_sync(0xffffffffu, my_w, j);
-      const VT* hrow = reinterpret_cast<const VT*>(h + (long long)c * k);
+      int c[U];
+      float w[U];
 #pragma unroll
-      for (int q = 0; q < CH; ++q) {
-        const int v = vbase + q * 32 + lane;
-        if (v < nvec) fma_vec<V>(acc + q * V, __ldg(hrow + v), w);
+      for (int u = 0; u < U; ++u) {    // the next U live slots, in order
+        const int j = live ? __ffs(live) - 1 : 0;
+        c[u] = live ? __shfl_sync(0xffffffffu, my_c, j) : -1;
+        w[u] = __shfl_sync(0xffffffffu, my_w, j);
+        live &= live - 1;
+      }
+      VT hv[U][CH];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const VT* hrow = reinterpret_cast<const VT*>(h + (long long)c[u] * k);
+#pragma unroll
+        for (int q = 0; q < CH; ++q) {
+          const int v = vbase + q * 32 + lane;
+          if (c[u] >= 0 && v < nvec) hv[u][q] = __ldg(hrow + v);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int q = 0; q < CH; ++q) {
+          const int v = vbase + q * 32 + lane;
+          if (c[u] >= 0 && v < nvec) fma_vec<V>(acc + q * V, hv[u][q], w[u]);
+        }
       }
     }
   }

@@ -40,15 +40,14 @@ _P, _I, _L, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     "ell_spmm": {"ell_spmm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
-    "sell_spmm": {"sell_spmm_f32":
-                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "sell_spmm": {"sell_spmm_f32": [_P] * 8 + [_I] * 9 + [_P]},
     "bsr_spmm": {"bsr_spmm_f32": [_P] * 7 + [_I] * 9 + [_P],
                  "bsr_transpose_h_f32": [_P] * 2 + [_I] * 3 + [_P]},
     "sample": {"segment_sample_i32": [_P, _P, _P, _I, _I, _U, _U, _U, _I, _P],
                "expand_indptr_i32": [_P, _P, _P, _P, _I, _I, _I, _P],
                "flat_gather_b32": [_P, _L, _P, _P, _L, _P]},
     "sddmm": {"sddmm_f32": [_P] * 7 + [_I] * 8 + [_P]},
-    "fusedmm": {"fusedmm_f32": [_P] * 7 + [_I] * 7 + [_L, _I, _L, _I, _P]},
+    "fusedmm": {"fusedmm_f32": [_P] * 8 + [_I] * 7 + [_L, _I, _L, _I, _P]},
     "ragged_gemm": {f"ragged_gemm_{t}": [_P] * 4 + [_L] + [_I] * 4 + [_P]
                     for t in ("bf16_wgmma", "bf16", "f32")},
     "flash_attention": {f"flash_attention_{t}":

@@ -191,13 +191,19 @@ def kernel_launches() -> dict[str, int]:
 
 
 def reset_kernel_launches() -> None:
-    """Zero every wrapper's launch count, and its per-instance counts where
-    it has several kernel instances (``launches_by_instance``)."""
+    """Zero every wrapper's launch count, its per-instance or per-route
+    counts where it keeps them (``launches_by_instance``, the fused
+    kernel's tiles by route ``route_tiles``) and SELL's largest
+    workspace (``workspace_bytes``)."""
     for fn in _CUDA_WRAPPERS.values():
         fn.launches = 0
         if hasattr(fn, "launches_by_instance"):
             fn.launches_by_instance = dict.fromkeys(fn.launches_by_instance,
                                                     0)
+        if hasattr(fn, "route_tiles"):
+            fn.route_tiles = None
+        if hasattr(fn, "workspace_bytes"):
+            fn.workspace_bytes = 0
 
 
 def slot_gather(table: torch.Tensor, slots: torch.Tensor,

@@ -951,3 +951,205 @@ def test_sddmm_scaled_kernel_writes_zero_where_a_is_zero(card):
         assert bool(torch.isinf(out[0, :, 5][~zero]).all())
         finite = torch.isfinite(plain)
         assert torch.equal(out[finite], plain[finite])
+
+
+# --------------------------------------------------------------------------
+# SELL on skewed rows (csrc/sell_spmm.cu: long slices split across warps)
+#
+# Held against the plain version within the per-row bound chip_smoke.py
+# holds every SELL launch to: 2 d eps sum|terms|, d the row's real slots
+# (two fp32 sums of the same d terms in other orders).
+# --------------------------------------------------------------------------
+
+def _sell_bound_ratio(sell, h, out):
+    import dataclasses
+    want = sell_spmm_plain(sell, h)
+    mag = sell_spmm_plain(dataclasses.replace(sell, val=sell.val.abs()),
+                          h.abs())
+    real = (sell.idx < sell.ncols).to(torch.int32)
+    per = torch.zeros((sell.nslices, sell.c), dtype=torch.int32,
+                      device=h.device)
+    per.index_add_(0, sell.slice_of.long(), real)
+    d = per.reshape(-1)[sell.inv_perm.long()].float()[:, None]
+    return float(((out - want).abs() / (2 * 2.0 ** -24 * d * mag + 1e-30))
+                 .max())
+
+
+def _hub_sell(c, chunk, seed, pad=0):
+    """Groups of 32 rows (so every C <= 32 packs them into slices of their
+    own): a hub of 4 S + 500 entries beside 31 rows of 3 S, then 32 rows
+    of exactly 2 S, 32 of S + 1, 32 of S, 200 short rows and 30 empty
+    ones; ``pad`` sentinel steps appended to the last slice. Returns the
+    operand, its column count and its empty rows."""
+    from repro_torch.sampling.blocks import _pad_sell_steps
+    rng = np.random.default_rng(seed)
+    m = 4 * chunk + 600
+    deg = np.concatenate([[4 * chunk + 500], np.full(31, 3 * chunk),
+                          np.full(32, 2 * chunk), np.full(32, chunk + 1),
+                          np.full(32, chunk), rng.integers(1, 40, 200),
+                          np.zeros(30, np.int64)])
+    perm = rng.permutation(deg.size)
+    rows = np.repeat(perm, deg)
+    cols = np.concatenate([rng.choice(m, d, replace=False) for d in deg])
+    coo = tsp.coo_from_edges(cols, rows, rng.standard_normal(rows.size)
+                             .astype(np.float32), deg.size, m)
+    sell = tsp.sell_from_coo(coo, c=c)
+    return (_pad_sell_steps(sell, sell.n_steps + pad), m,
+            torch.from_numpy(perm[deg == 0]))
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+@pytest.mark.parametrize("k", [602, 256])
+def test_sell_split_route_on_hub_rows(card, c, k):
+    """At the wrapper's own S: the hub row past 4 S, slices of exactly 2 S
+    and S + 1 steps, padded steps and degree-0 rows; the split route
+    counted, the workspace logged, two launches bitwise equal."""
+    from repro_torch.kernels.sell_spmm import (CHUNK_STEPS,
+                                               sell_workspace_bytes,
+                                               split_chunks)
+    sell, m, empty = _hub_sell(c, CHUNK_STEPS, seed=c + k, pad=333)
+    a = tsp.to_device(sell, card)
+    h = _h(np.random.default_rng(k), m, k).to(card)
+    tops.reset_kernel_launches()
+    out = tops.sell_spmm(a, h)
+    torch.cuda.synchronize()
+    assert sell_spmm_cuda.launches_by_instance == {"row": 0, "split": 1}
+    assert sell_spmm_cuda.workspace_bytes == sell_workspace_bytes(
+        a.n_steps, c, k)
+    assert split_chunks(a) >= 5 + 2 + 2
+    assert _sell_bound_ratio(a, h, out) <= 1.0
+    assert bool((out[empty.to(card)] == 0).all())
+    assert torch.equal(out, sell_spmm_cuda(a, h))
+
+
+@pytest.mark.parametrize("c", [8, 16, 32, 48])
+@pytest.mark.parametrize("chunk", [1, 64, 96, 128])
+@pytest.mark.parametrize("k", [602, 256, 7])
+def test_sell_split_route_small_chunks(card, c, chunk, k):
+    """Small S, so that most slices split, including exact multiples of S
+    and S + 1; C = 48 spans two CTAs a slice."""
+    from repro_torch.kernels.sell_spmm import sell_route
+    sell, m, empty = _hub_sell(c, 64, seed=chunk + c, pad=chunk + 5)
+    a = tsp.to_device(sell, card)
+    h = _h(np.random.default_rng(chunk), m, k).to(card)
+    out = sell_spmm_cuda(a, h, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sell_route(a.n_steps, chunk) == "split"
+    assert _sell_bound_ratio(a, h, out) <= 1.0
+    assert bool((out[empty.to(card)] == 0).all())
+    assert torch.equal(out, sell_spmm_cuda(a, h, chunk=chunk))
+
+
+def test_sell_row_route_when_no_slice_can_split(card):
+    """An operand of at most S steps takes the row route (one kernel,
+    no workspace) and agrees with the split route of a small S bitwise
+    where no slice is split, within the bound where one is."""
+    rng = np.random.default_rng(9)
+    sell = tsp.sell_from_coo(_coo(rng, 90, 60, 500), c=8)
+    a = tsp.to_device(sell, card)
+    h = _h(rng, 60, 256).to(card)
+    tops.reset_kernel_launches()
+    out = sell_spmm_cuda(a, h)
+    assert sell_spmm_cuda.launches_by_instance == {"row": 1, "split": 0}
+    assert sell_spmm_cuda.workspace_bytes == 0
+    same = sell_spmm_cuda(a, h, chunk=a.n_steps - 1)
+    torch.cuda.synchronize()
+    assert sell_spmm_cuda.launches_by_instance == {"row": 1, "split": 1}
+    assert torch.equal(out, same)
+    assert _sell_bound_ratio(a, h, sell_spmm_cuda(a, h, chunk=2)) <= 1.0
+
+
+# --------------------------------------------------------------------------
+# FusedMM per edge (csrc/fusedmm.cu: the edge route over streamed tiles,
+# dense slices through the tile products), at check_fused's tolerance:
+# atol 1e-4 x max|h| for softmax, 1e-4 x max|plain| for sigmoid and none
+# --------------------------------------------------------------------------
+
+def _fused_err_ratio(out, want, h, edge_op):
+    scale = (h if edge_op == "softmax" else want).abs().max()
+    return float((out - want).abs().max() / (1e-4 * scale + 1e-30))
+
+
+def _fused_fill_case(card, bc, fills, seed, rows_empty=True):
+    """Two block rows of 128-row tiles: block row 0 holds one tile a fill
+    in ``fills``, block row 1 is empty (its one zero tile) when
+    ``rows_empty``; two padding blocks after it."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    n = len(fills)
+    blocks = torch.randn((n + 3, 128, bc), generator=gen, device=card)
+    keep = torch.rand((n + 3, 128, bc), generator=gen, device=card)
+    cut = torch.tensor(list(fills) + [0.0, 0.0, 0.0], device=card)
+    blocks *= keep < cut[:, None, None]
+    blk_row = torch.tensor([0] * n + [1, 1, 1], dtype=torch.int32,
+                           device=card)
+    blk_col = torch.tensor(list(range(n)) + [0, 0, 0], dtype=torch.int32,
+                           device=card)
+    return tsp.BSR(blk_row=blk_row, blk_col=blk_col, blocks=blocks,
+                   nrows=256, ncols=n * bc, br=128, bc=bc, n_real_blocks=n + 1)
+
+
+@pytest.mark.parametrize("bc", [128, 256])
+@pytest.mark.parametrize("k", [256, 512])
+@pytest.mark.parametrize("edge_op", ["softmax", "sigmoid", "none"])
+def test_fusedmm_edge_and_tile_routes(card, bc, k, edge_op):
+    """Tiles at 0.7 %, 5 %, 50 % and 100 % fill in one block row (the
+    first two on the edge route, the others on the tile route), an empty
+    block row (it stores 0) and padding blocks, x and y short of the
+    operand; tiles counted by route; two launches bitwise equal."""
+    from repro_torch.kernels.fusedmm import (fusedmm_bsr_cuda,
+                                             fusedmm_bsr_plain,
+                                             tiles_by_route)
+    a = _fused_fill_case(card, bc, (0.007, 0.05, 0.5, 1.0), seed=bc + k)
+    gen = torch.Generator(device=card).manual_seed(k)
+    d = 256
+    x = torch.randn((200, d), generator=gen, device=card) / 16
+    y = torch.randn((a.ncols - 5, d), generator=gen, device=card)
+    h = torch.randn((a.ncols - 5, k), generator=gen, device=card)
+    tops.reset_kernel_launches()
+    out = fusedmm_bsr_cuda(a, x, y, h, edge_op=edge_op)
+    torch.cuda.synchronize()
+    assert fusedmm_bsr_cuda.launches_by_instance == {"edge": 1}
+    # 4 slices of each of the 4 tiles, 4 of the empty row's zero tile and
+    # of the padding blocks
+    assert tiles_by_route() == {"edge": 8 + 12, "tile": 8}
+    want = fusedmm_bsr_plain(a, x, y, h, edge_op=edge_op)
+    assert _fused_err_ratio(out, want, h, edge_op) <= 1.0
+    assert bool((out[128:] == 0).all())
+    assert torch.equal(out, fusedmm_bsr_cuda(a, x, y, h, edge_op=edge_op))
+
+
+def test_fusedmm_softmax_row_without_entries_stores_zero(card):
+    """A row whose every tile entry is 0 (and a row with one entry, where
+    the softmax weight is 1) on the edge route."""
+    from repro_torch.kernels.fusedmm import (fusedmm_bsr_cuda,
+                                             fusedmm_bsr_plain,
+                                             tiles_by_route)
+    a = _fused_fill_case(card, 128, (0.01, 0.01), seed=4)
+    a.blocks[:, 5] = 0.0
+    a.blocks[:, 6] = 0.0
+    a.blocks[1, 6, 17] = 3.0
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn((256, 64), generator=gen, device=card)
+    y = torch.randn((256, 64), generator=gen, device=card)
+    h = torch.randn((256, 130), generator=gen, device=card)
+    tops.reset_kernel_launches()
+    out = fusedmm_bsr_cuda(a, x, y, h)
+    torch.cuda.synchronize()
+    assert tiles_by_route()["tile"] == 0
+    assert bool((out[5] == 0).all())
+    torch.testing.assert_close(out[6], h[128 + 17], rtol=1e-6, atol=1e-6)
+    want = fusedmm_bsr_plain(a, x, y, h)
+    assert _fused_err_ratio(out, want, h, "softmax") <= 1.0
+
+
+@pytest.mark.parametrize("edge_op", ["softmax", "none"])
+def test_fusedmm_edge_route_is_bitwise_repeatable(card, edge_op):
+    from repro_torch.kernels.fusedmm import fusedmm_bsr_cuda, tiles_by_route
+    rng = np.random.default_rng(12)
+    bsr = tsp.to_device(_bsr_case(rng, 128, 128, pad_blocks=3), card)
+    x, y, h = (t.to(card) for t in _score_inputs(rng, 256, 256))
+    tops.reset_kernel_launches()
+    first = fusedmm_bsr_cuda(bsr, x, y, h, edge_op=edge_op)
+    assert torch.equal(first, fusedmm_bsr_cuda(bsr, x, y, h,
+                                               edge_op=edge_op))
+    assert tiles_by_route()["edge"] > 0

@@ -1,11 +1,11 @@
-"""Hold the BSR SpMM, bf16 flash attention, bf16 ragged GEMM and scaled
-block SDDMM kernels against their plain versions at small shapes, then
-time them at the main path's sizes beside the same kernels of another
-checkout, in turns (other, this, this, other). Needs one CUDA card and
-``nvcc``.
+"""Hold the BSR SpMM, bf16 flash attention, bf16 ragged GEMM, scaled
+block SDDMM, SELL SpMM and FusedMM kernels against their plain versions
+at small shapes, then time them at the main path's sizes beside the same
+kernels of another checkout, in turns (other, this, this, other). Needs
+one CUDA card and ``nvcc``.
 
     python tools/compare_kernels.py [--other DIR] [--variants]
-                                    [--kernels bsr,flash,ragged,sddmm]
+        [--kernels bsr,flash,ragged,sddmm,sell,fusedmm]
 
 ``--other DIR``: the root of a second checkout (e.g. the parent commit
 unpacked with ``git archive``); its kernels build into
@@ -18,8 +18,14 @@ path; their results are wrong by construction, only their times mean
 anything); of ``csrc/sddmm.cu`` the scaled kernel with its dense-slice
 route taken out (every slice per nonzero, exact, as at any fill below
 the threshold) and with its per-nonzero y reads taken out (D % 4 == 0,
-wrong by construction), timed over the fill sweep. ``--kernels``: check
-and time only these (default all four).
+wrong by construction), timed over the fill sweep; of
+``csrc/sell_spmm.cu`` one and eight gathered rows in flight a lane
+(exact); of ``csrc/fusedmm.cu`` every tile on the edge route, every tile
+on the tile route (both exact), the edge route without its per-tile
+barrier (exact where no tile is dense), and batches of 2 and 8 edges
+(the latter also with one CTA an SM's registers), timed over the fill
+sweep and on the proteins graph.
+``--kernels``: check and time only these (default all six).
 
 Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
 - BSR: a synthetic 518 x 518 grid of 230,000 dense 128 x 128 tiles (5 %
@@ -37,7 +43,18 @@ Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
   1/4 in phase 9), x and y of 33,152 rows, at 0.7 % fill (phase 9's) and
   50 % beside ``torch.sparse.sampled_addmm`` on the same pattern in CSR,
   the unscaled kernel at 0.7 %, and the scaled kernel over a fill sweep
-  (0.7, 2, 4, 8, 16, 50 %).
+  (0.7, 2, 4, 8, 16, 50 %);
+- SELL (C = 8) on a synthetic reddit-shaped matrix (232,965 rows: one of
+  30,614 entries, seven of 14,300, the rest 22 sqrt(n / (i + 1)) for the
+  i-th, ~10 M entries; columns drawn with density falling as
+  1 / sqrt(column)) at K = 602 and 256, beside ``torch.sparse.mm`` on the
+  same matrix in CSR, and, where the wrapper takes ``chunk``, at K = 602
+  over the chunk sweep ``SELL_CHUNKS``;
+- FusedMM at D = K = 256 (softmax) on A of ogbn-proteins at scale 1/4
+  (phase 9's graph, hub rows included) and on the SDDMM's synthetic grid
+  (no hub rows) over the same fill sweep, sigmoid and none at 0.7 %,
+  beside ``scaled_dot_product_attention`` with the dense boolean mask at
+  0.7 %.
 Prints one JSON line per timing run.
 """
 from __future__ import annotations
@@ -88,7 +105,27 @@ VARIANTS["sddmm_no_dense_route"] = ("sddmm", [
 VARIANTS["sddmm_no_y_reads"] = ("sddmm", [
     ("yr && c < d ? __ldg(reinterpret_cast<const float4*>(yr + c))",
      "yr && c < d ? make_float4(1.f, 1.f, 1.f, 1.f)")])
+VARIANTS["sell_in_flight_1"] = ("sell_spmm", [
+    ("constexpr int kInFlight = 4;", "constexpr int kInFlight = 1;")])
+VARIANTS["sell_in_flight_8"] = ("sell_spmm", [
+    ("constexpr int kInFlight = 4;", "constexpr int kInFlight = 8;")])
+_FUSED_ROUTE = "    if (total * kDenseDiv > kRows * BC) {"
+VARIANTS["fusedmm_edge_only"] = ("fusedmm", [(_FUSED_ROUTE, "    if (false) {")])
+VARIANTS["fusedmm_tile_only"] = ("fusedmm", [(_FUSED_ROUTE, "    if (true) {")])
+_FUSED_BATCH = "constexpr int batch() { return NQ <= 2 ? 4 : 2; }"
+VARIANTS["fusedmm_batch_2"] = ("fusedmm", [
+    (_FUSED_BATCH, "constexpr int batch() { return 2; }")])
+VARIANTS["fusedmm_batch_8"] = ("fusedmm", [
+    (_FUSED_BATCH, "constexpr int batch() { return NQ <= 2 ? 8 : 2; }")])
+VARIANTS["fusedmm_batch_8_one_cta"] = ("fusedmm", [
+    (_FUSED_BATCH, "constexpr int batch() { return NQ <= 2 ? 8 : 2; }"),
+    ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)")])
+VARIANTS["fusedmm_no_tile_barrier"] = ("fusedmm", [
+    (_FUSED_ROUTE, "    if (false) {"),
+    ("    __syncthreads();\n    int total = 0;", "    int total = 0;")])
 SDDMM_FILLS = (0.007, 0.02, 0.04, 0.08, 0.16, 0.5)
+SELL_CHUNKS = (256, 512, 2048)     # beside the wrapper's CHUNK_STEPS
+CACHE_DIR = ROOT / "build" / "compare_cache"
 
 
 def log(*args):
@@ -282,6 +319,234 @@ def grid_csr(a):
                                    (a.nrows, a.ncols))
 
 
+def sell_bound_ratio(a, h, out):
+    """max |kernel - plain| / (2 d eps sum|terms|) over every element, d
+    the row's real slots (chip_smoke.py's per-row bound)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.sell_spmm import sell_spmm_plain
+    want = sell_spmm_plain(a, h)
+    mag = sell_spmm_plain(dataclasses.replace(a, val=a.val.abs()), h.abs())
+    real = (a.idx < a.ncols).to(torch.int32)
+    per = torch.zeros((a.nslices, a.c), dtype=torch.int32, device=h.device)
+    per.index_add_(0, a.slice_of.long(), real)
+    d = per.reshape(-1)[a.inv_perm.long()].float()[:, None]
+    return float(((out - want).abs() / (2 * 2.0 ** -24 * d * mag + 1e-30))
+                 .max())
+
+
+def skewed_sell(n, m, hub, rest, c, seed, pad=0):
+    """A SELL operand with one hub row of ``hub`` entries among rows of up
+    to ``rest`` entries, some rows empty, and ``pad`` sentinel steps
+    appended to the last slice."""
+    import numpy as np
+    from repro_torch.core import sparse as tsp
+    from repro_torch.sampling.blocks import _pad_sell_steps
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, rest + 1, n)
+    deg[rng.integers(0, n)] = hub
+    rows = np.repeat(np.arange(n), deg)
+    cols = np.concatenate([rng.choice(m, d, replace=d > m) for d in deg])
+    key = np.unique(rows * m + cols)
+    coo = tsp.coo_from_edges(key % m, key // m, rng.standard_normal(
+        key.size).astype(np.float32), n, m)
+    sell = tsp.sell_from_coo(coo, c=c)
+    return _pad_sell_steps(sell, sell.n_steps + pad)
+
+
+def check_sell():
+    """SELL against its plain version within the per-row bound on hub
+    rows past 4 chunks, slices of exactly a multiple of the chunk and one
+    step more, padded steps, C 8 / 16 / 32 / 48, K 602 / 256 / 7; both
+    routes; bitwise across two launches."""
+    import torch
+    from repro_torch.core import sparse as tsp
+    from repro_torch.kernels.sell_spmm import sell_spmm_cuda
+    worst = 0.0
+    for c in (8, 16, 32, 48):
+        for k in (602, 256, 7):
+            for chunk in (64, 96, 4096):
+                a = tsp.to_device(skewed_sell(120, 400, 300, 40, c,
+                                              seed=c + k, pad=37), "cuda")
+                h = torch.randn((400, k), device="cuda")
+                out = sell_spmm_cuda(a, h, chunk=chunk)
+                ratio = sell_bound_ratio(a, h, out)
+                worst = max(worst, ratio)
+                assert ratio <= 1.0, (c, k, chunk, ratio)
+                assert torch.equal(out, sell_spmm_cuda(a, h, chunk=chunk)), \
+                    "not deterministic"
+    log(f"sell: worst |diff| / bound {worst:.4f}, routes "
+        f"{sell_spmm_cuda.launches_by_instance}")
+
+
+def synth_reddit():
+    """The synthetic reddit-shaped SELL (C = 8) and the same matrix in CSR
+    on the card, built once and cached under build/compare_cache."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sparse as tsp
+    path = CACHE_DIR / "sell_reddit.pt"
+    if not path.exists():
+        rng = np.random.default_rng(0)
+        n = 232_965
+        deg = (22 * np.sqrt(n / np.arange(1, n + 1))).astype(np.int64)
+        deg[0], deg[1:8] = 30_614, 14_300
+        rows = np.repeat(rng.permutation(n), deg)
+        head = int(deg[:8].sum())
+        cols = np.concatenate([
+            np.concatenate([rng.choice(n, d, replace=False) for d in deg[:8]]),
+            (n * rng.random(rows.size - head) ** 2).astype(np.int64)])
+        key = np.unique(rows * n + cols)
+        coo = tsp.coo_from_edges(key % n, key // n, rng.standard_normal(
+            key.size).astype(np.float32), n, n)
+        sell = tsp.sell_from_coo(coo, c=8)
+        crow = np.zeros(n + 1, np.int64)
+        crow[1:] = np.cumsum(np.bincount(key // n, minlength=n))
+        CACHE_DIR.mkdir(parents=True, exist_ok=True)
+        torch.save(dict(sell=sell, crow=torch.from_numpy(crow),
+                        col=torch.from_numpy(key % n),
+                        val=coo.val[: coo.nse].clone()), path)
+    got = torch.load(path, weights_only=False)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # "sparse CSR is in beta"
+        csr = torch.sparse_csr_tensor(got["crow"], got["col"], got["val"],
+                                      size=(got["sell"].nrows,) * 2)
+    return tsp.to_device(got["sell"], "cuda"), csr.to("cuda")
+
+
+def check_sell_reddit():
+    import torch
+    from repro_torch.kernels.sell_spmm import (sell_spmm_cuda, split_chunks,
+                                               sell_workspace_bytes)
+    a, _ = synth_reddit()
+    h = torch.randn((a.ncols, 256), device="cuda")
+    ratio = sell_bound_ratio(a, h, sell_spmm_cuda(a, h))
+    assert ratio <= 1.0, ratio
+    log(f"sell reddit-shaped: {a.nse} entries, {a.n_steps} steps, "
+        f"{a.nslices} slices; split chunks {split_chunks(a)}, workspace "
+        f"{sell_workspace_bytes(a.n_steps, a.c, 602) / 1e6:.1f} MB at "
+        f"K = 602; |diff| / bound {ratio:.4f} at K = 256")
+
+
+def time_sell(res: dict, sweep_only: bool = False) -> dict:
+    import inspect
+    import torch
+    from repro_torch.kernels.sell_spmm import sell_spmm_cuda
+    a, csr = synth_reddit()
+    for k in (602, 256):
+        h = torch.randn((a.ncols, k), device="cuda")
+        res[f"sell_k{k}_ms"] = cuda_ms(lambda: sell_spmm_cuda(a, h), reps=5)
+        if not sweep_only:
+            res[f"sparse_mm_k{k}_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, h),
+                                                reps=5)
+        if k == 602 and "chunk" in inspect.signature(
+                sell_spmm_cuda).parameters:
+            for chunk in SELL_CHUNKS:
+                res[f"sell_k{k}_chunk{chunk}_ms"] = cuda_ms(
+                    lambda: sell_spmm_cuda(a, h, chunk=chunk), reps=5)
+        del h
+    return res
+
+
+def check_fusedmm():
+    """FusedMM against its plain version (atol 1e-4 x max|h| for softmax,
+    x max|plain| otherwise, chip_smoke.py's check_fused) at bc 128 and
+    256, br 32 and 128, D 16 / 130 / 256, K 256 / 602 (two launches),
+    tiles from 0.7 % to 100 % filled (both routes), x and y short of the
+    operand; bitwise across two launches."""
+    import torch
+    from repro_torch.kernels.fusedmm import (fusedmm_bsr_cuda,
+                                             fusedmm_bsr_plain,
+                                             tiles_by_route)
+    worst = 0.0
+    for bc in (128, 256):
+        for br in (32, 128):
+            for d, k in ((16, 256), (130, 602), (256, 256)):
+                for op in ("softmax", "sigmoid", "none"):
+                    a = synth_grid(3, 4, 3, br, bc, 0.01, seed=br + bc + d)
+                    a.blocks[1] = torch.randn_like(a.blocks[1]) * (
+                        torch.rand_like(a.blocks[1]) < 0.5)
+                    a.blocks[4] = torch.randn_like(a.blocks[4])
+                    x = torch.randn((a.nrows - 5, d), device="cuda") / d ** .5
+                    y = torch.randn((a.ncols - 3, d), device="cuda")
+                    h = torch.randn((a.ncols - 3, k), device="cuda")
+                    out = fusedmm_bsr_cuda(a, x, y, h, edge_op=op)
+                    want = fusedmm_bsr_plain(a, x, y, h, edge_op=op)
+                    scale = (h if op == "softmax" else want).abs().max()
+                    ratio = float((out - want).abs().max() / (1e-4 * scale))
+                    worst = max(worst, ratio)
+                    assert ratio <= 1.0, (bc, br, d, k, op, ratio)
+                    assert torch.equal(out, fusedmm_bsr_cuda(
+                        a, x, y, h, edge_op=op)), "not deterministic"
+    log(f"fusedmm: worst |diff| / atol {worst:.4f}, tiles by route "
+        f"{tiles_by_route()}")
+
+
+def proteins_bsr():
+    """A of ogbn-proteins at scale 1/4 (the gat graph of chip_smoke.py
+    phase 9, its R-MAT hub rows included) as 128 x 128 BSR on the card;
+    the edges are generated once and cached under build/compare_cache."""
+    import numpy as np
+    from repro_torch.core import sparse as tsp
+    path = CACHE_DIR / "proteins_quarter.npz"
+    if not path.exists():
+        from repro_torch.data import make_dataset
+        ds = make_dataset("ogbn-proteins", scale=1 / 4)
+        n = ds.coo.nse
+        CACHE_DIR.mkdir(parents=True, exist_ok=True)
+        np.savez(path, row=ds.coo.row[:n].numpy(), col=ds.coo.col[:n].numpy(),
+                 n=ds.coo.nrows)
+    got = np.load(path)
+    coo = tsp.coo_from_edges(got["col"], got["row"], None, int(got["n"]),
+                             int(got["n"]))
+    return tsp.to_device(tsp.bsr_from_coo(coo, br=128, bc=128), "cuda")
+
+
+def time_fusedmm(res: dict, sweep_only: bool = False) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fusedmm import fusedmm_bsr_cuda
+    a = proteins_bsr()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn((a.nrows, 256), generator=g, device="cuda") / s
+               for s in (16, 1, 1))
+    res["fusedmm_softmax_proteins_ms"] = cuda_ms(
+        lambda: fusedmm_bsr_cuda(a, q, k, v), reps=3)
+    del a, q, k, v
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n = 259 * 128
+    x = torch.randn((n, 256), generator=g, device="cuda") / 16
+    y = torch.randn((n, 256), generator=g, device="cuda")
+    h = torch.randn((n, 256), generator=g, device="cuda")
+    for fill in SDDMM_FILLS:
+        a = synth_grid(259, 259, 239, 128, 128, fill, seed=1)
+        ops = ("softmax",) if sweep_only or fill != 0.007 else \
+            ("softmax", "sigmoid", "none")
+        for op in ops:
+            res[f"fusedmm_{op}_fill{fill}_ms"] = cuda_ms(
+                lambda: fusedmm_bsr_cuda(a, x, y, h, edge_op=op), reps=3)
+        if not sweep_only and fill == 0.007:
+            tile = a.blocks != 0
+            mask = torch.zeros((n, n), dtype=torch.bool, device="cuda")
+            b, i, j = tile.nonzero(as_tuple=True)
+            mask[a.blk_row[b].long() * 128 + i, a.blk_col[b].long() * 128
+                 + j] = True
+            del tile, b, i, j
+            try:
+                res["sdpa_dense_mask_fill0.007_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        x[None, None], y[None, None], h[None, None],
+                        attn_mask=mask, scale=1.0), reps=3)
+            except RuntimeError as err:       # a yardstick only
+                res["sdpa_error"] = str(err)[:200]
+            del mask
+        del a
+        torch.cuda.empty_cache()
+    return res
+
+
 def time_run(tag: str, variant: str | None, kernels) -> dict:
     import repro_torch.kernels.ops  # noqa: F401  (package import order)
     res = dict(tag=tag)
@@ -294,8 +559,9 @@ def time_run(tag: str, variant: str | None, kernels) -> dict:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         kb._LOADED[lib_name] = lib
-        return (time_sddmm(res, sweep_only=True) if lib_name == "sddmm"
-                else time_bsr(res))
+        timer = {"sddmm": time_sddmm, "sell_spmm": time_sell,
+                 "fusedmm": time_fusedmm}.get(lib_name)
+        return timer(res, sweep_only=True) if timer else time_bsr(res)
     for name in kernels:
         TIMERS[name](res)
     return res
@@ -375,12 +641,19 @@ def time_sddmm(res: dict, sweep_only: bool = False) -> dict:
     return res
 
 
+def check_sell_all():
+    check_sell()
+    check_sell_reddit()
+
+
 CHECKS = {"bsr": check_bsr, "flash": check_flash, "ragged": check_ragged,
-          "sddmm": check_sddmm}
+          "sddmm": check_sddmm, "sell": check_sell_all,
+          "fusedmm": check_fusedmm}
 TIMERS = {"bsr": time_bsr, "flash": time_flash, "ragged": time_ragged,
-          "sddmm": time_sddmm}
+          "sddmm": time_sddmm, "sell": time_sell, "fusedmm": time_fusedmm}
 LIBS = {"bsr": "bsr_spmm", "flash": "flash_attention",
-        "ragged": "ragged_gemm", "sddmm": "sddmm"}
+        "ragged": "ragged_gemm", "sddmm": "sddmm", "sell": "sell_spmm",
+        "fusedmm": "fusedmm"}
 
 
 def build_variants(kernels):
