@@ -9,8 +9,9 @@ failure:
 1. card and build — the card's name and power limit, then the hand
    kernels compiled from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel), ptxas's registers and spills of every kernel,
-   and of the SELL kernels (``sell_spmm_kernel``, its split route's
-   reduction) and the per-edge FusedMM kernel on a line of their own;
+   and of the fused sampling hop (``sample_hop_kernel``), the
+   warp-per-row ``segment_sample_kernel`` and the ordered segment sum
+   (``segment_sum_kernel*``) on a line of their own;
 2. sampled serving at full width — reddit at scale 1 (232,965 nodes,
    602 features, 41 classes), GraphSAGE-mean, 2 layers, hidden 256,
    fanouts (10, 25) outermost first, a 65,536-row feature cache, fp32,
@@ -51,18 +52,24 @@ failure:
 8. (run after phase 6) device-sampled minibatch training on the same
    graph — GraphSAGE-mean, hidden 256, fanouts (10, 25), batches of 1024
    seeds, lr 1e-2, weight decay 5e-4, the trainer's probed capacities
-   and plans. Batch 0 sampled on the card must equal the plain CPU run
-   bit for bit (every block field and the overflow count); the first
-   step is recorded and each sampling kernel (``segment_sample``,
-   ``expand_indptr``, ``flat_gather``) must equal its plain version on
-   the card on that step's own hop inputs bit for bit, the ELL forward and
-   the block backward stay within the per-row bound; eight more steps run
-   under ``torch.cuda.set_sync_debug_mode("error")`` (any host sync
-   raises); one step is traced for the device busy share; host sampling +
-   packing of 8 batches is timed beside ``sample_blocks`` on the card.
-   Then ``train_gnn_minibatch(sampler="device")`` runs 2 epochs and the
-   layer-wise evaluation, launch counts zeroed just before and read just
-   after;
+   and plans. ``train_gnn_minibatch(sampler="device")`` runs 2 epochs and
+   the layer-wise evaluation first, launch counts zeroed just before and
+   read just after (and around each step): every hop is one
+   ``sample_hop`` launch (``n_hops`` a step, the standalone
+   ``segment_sample`` / ``expand_indptr`` / ``flat_gather`` none) and
+   the block backward launches the ordered ``segment_sum``. Batch 0
+   sampled on the card must equal the plain CPU run bit for bit (every
+   block field and the overflow count); the first step is recorded and
+   each ``sample_hop`` launch must equal ``sample_hop_plain`` and the
+   recorded output bit for bit, and on that hop's plain intermediates
+   each standalone kernel its plain version; the ELL forward and the
+   block backward stay within the per-row bound; the first step run twice
+   more from the same weights, state, seeds and round gives the same
+   loss, gradients and parameters bit for bit; eight steps of the run
+   passed under ``torch.cuda.set_sync_debug_mode("error")`` (any host
+   sync raises); one step is traced for the device busy share; host
+   sampling + packing of 8 batches is timed beside ``sample_blocks`` on
+   the card; the sampling wrappers' host µs a call are logged;
 7. the same on ogbn-proteins, cut to scale 1/2 for device memory (the
    GCN bundle's two 128 x 128 BSR operands, Â and Â^T, take ~15 GB each
    there and would take ~51 GB each at scale 1), GCN, hidden 256, with
@@ -85,7 +92,10 @@ failure:
    (the kernel counts tiles by route); ``train_gnn`` patched and
    unpatched for 5 epochs, counts zeroed just before and read just after
    each (the unpatched run must launch nothing, the patched run's fused
-   launches must have taken the per-edge route), peak memory logged;
+   launches must have taken the per-edge route and its backward the
+   ordered ``segment_sum``), peak memory logged; the patched first step
+   run twice from the same weights (gat, and GraphSAGE-max on the same
+   graph: the max subgradient) gives the same gradients bit for bit;
    then ``ops.sddmm_bsr`` on A with layer 1's q and k (scale_by_a True
    and False, its own counted path: the scaled call must run the
    per-nonzero instance, the unscaled one the tile instance), checked in
@@ -94,7 +104,11 @@ failure:
    beside their dense-tile bound, the per-edge bound of the same
    function, the plain versions and a library yardstick the port never
    calls (``torch.sparse.sampled_addmm``; for softmax
-   ``F.scaled_dot_product_attention`` with the dense boolean mask);
+   ``F.scaled_dot_product_attention`` with the dense boolean mask); the
+   ordered segment sum as layer 1's backward runs it for dh, checked
+   against its plain version (2 d eps sum|terms|), launched twice for
+   bitwise repeats and timed beside its bound and ``torch.sparse.mm`` on
+   the same CSR;
 10. (run last) LM serving of phi3.5-moe-42b-a6.6b at full width
    (d_model 4096, 32 / 8 heads of 128, 16 experts top-2 of d_ff 6400,
    bf16), cut to 4 of 32 layers (the 84 GB of bf16 weights exceed the
@@ -114,8 +128,9 @@ failure:
    (E, C, D) buffer, ``scaled_dot_product_attention``), and the smoke
    config in fp32 on the card (the kernels' fp32 instances) against the
    port's CPU run, prefill + 4 decode steps within atol 1e-4;
-5. last, the kernels line (one JSON object: the sampling kernels as timed
-   in phase 8, the serving kernels as timed in phase 4, BSR as timed in
+5. last, the kernels line (one JSON object: the sampling kernels and the
+   fused hop as timed in phase 8, the ordered segment sum as timed in
+   phase 9, the serving kernels as timed in phase 4, BSR as timed in
    phase 7, SDDMM and FusedMM as timed in phase 9, the ragged GEMM and
    flash attention as timed in phase 10), the card line, and
    ``{"ok": true, "device": {...}}``.
@@ -160,6 +175,14 @@ KERNEL_META = {
                           replaces="src/repro/kernels/sample.py:218"),
     "flat_gather": dict(source="src/repro_torch/csrc/sample.cu",
                         replaces="src/repro/kernels/sample.py:263"),
+    # one launch for the hop of the three kernels above (lines 158, 218
+    # and 263 there)
+    "sample_hop": dict(source="src/repro_torch/csrc/sample.cu",
+                       replaces="src/repro/kernels/sample.py:158"),
+    # no Pallas kernel: the reference's backwards sum in XLA
+    # (jax.ops.segment_sum, as its trusted reduce does)
+    "segment_sum": dict(source="src/repro_torch/csrc/segment_sum.cu",
+                        replaces="src/repro/core/semiring.py:68"),
     "sddmm_bsr": dict(source="src/repro_torch/csrc/sddmm.cu",
                       replaces="src/repro/kernels/sddmm.py:35"),
     "fusedmm_bsr": dict(source="src/repro_torch/csrc/fusedmm.cu",
@@ -233,9 +256,10 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
-# the kernels this slice redesigned: phase 1 logs their registers and
-# spills on a line of their own
-NEW_KERNELS = ("sell_spmm_kernel", "fusedmm_edge_kernel")
+# the kernels this slice added or redesigned: phase 1 logs their
+# registers and spills on a line of their own
+NEW_KERNELS = ("sample_hop_kernel", "segment_sample_kernel",
+               "segment_sum_kernel")
 
 
 def card_line() -> str:
@@ -953,6 +977,126 @@ def dense_mask(coo):
     return mask
 
 
+def repeat_step_bitwise(tag, apply, params, bundle, x, y, m, loss, grads
+                        ) -> dict:
+    """The patched first step once more from the same weights: the loss
+    and every gradient must equal the first run's bit for bit."""
+    import torch
+    from repro_torch.core.patch import patched
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train.gnn import loss_and_grads
+    with patched(True):
+        loss2, grads2 = loss_and_grads(apply, params, bundle, x, y, m)
+    same: list = []
+    tree_map(lambda a, b: same.append(torch.equal(a, b)), grads, grads2)
+    if not torch.equal(loss, loss2) or not same or not all(same):
+        raise AssertionError(f"{tag}: the first step run twice from the "
+                             f"same weights differs (loss {float(loss)} / "
+                             f"{float(loss2)}, {same.count(False)} of "
+                             f"{len(same)} gradients)")
+    log(f"{tag}: the first step run twice from the same weights: loss and "
+        f"all {len(same)} gradients equal bit for bit")
+    return dict(gradients=len(same), loss=float(loss))
+
+
+def sage_max_repeat(ds) -> dict:
+    """GraphSAGE-max on the same graph (hidden 256, untuned: the max
+    semiring takes the trusted path whatever the plan, its backward the
+    subgradient's ordered sum): the patched first step twice from the
+    same weights, bitwise."""
+    import torch
+    from repro_torch.core.patch import patched
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.gnn import build_bundle, make_gnn
+    from repro_torch.train.gnn import loss_and_grads
+    bundle = build_bundle(ds, k_hint=HIDDEN, tune=False,
+                          arch="sage-max").to(DEVICE)
+    init, apply = make_gnn("sage-max", ds.num_features, HIDDEN,
+                           ds.num_classes)
+    params = init(torch.Generator().manual_seed(0), device=DEVICE)
+    x, y, m = (t.to(DEVICE) for t in (ds.x, ds.y, ds.train_mask))
+    kops.reset_kernel_launches()
+    with patched(True):
+        loss, grads = loss_and_grads(apply, params, bundle, x, y, m)
+    launched = kops.kernel_launches()["segment_sum"]
+    if launched == 0:
+        raise AssertionError("sage-max: the patched step launched no "
+                             "segment_sum (the subgradient's scatter)")
+    out = repeat_step_bitwise("sage-max", apply, params, bundle, x, y, m,
+                              loss, grads)
+    out["segment_sum_launches"] = launched
+    del bundle
+    torch.cuda.empty_cache()
+    return out
+
+
+def segment_sum_case(g, x, y, h) -> dict:
+    """The ordered segment sum as layer 1's backward runs it for dh (K =
+    HIDDEN): A's edges in the cached column order, gathering h[row],
+    scaled by the softmax weights of x, y: checked against the plain
+    version (2 d eps sum|terms| a target of d slots), launched twice for
+    bitwise repeats, timed beside its bound and ``torch.sparse.mm`` on
+    the same CSR (timed only)."""
+    import torch
+    from repro_torch.core.autotune import H100
+    from repro_torch.kernels.ref import edge_dots, edge_weights
+    from repro_torch.kernels.segment_sum import (segment_sum_sorted_cuda,
+                                                 segment_sum_sorted_plain)
+    coo, order = g.coo, g.col_order
+    n = coo.nse
+    with torch.no_grad():
+        w = edge_weights(edge_dots(x, y, coo.row[:n], coo.col[:n]),
+                         coo.row[:n], coo.nrows, None, "softmax",
+                         order=g.row_order)
+    perm = order.perm
+    index = coo.row[:n].index_select(0, perm).contiguous()
+    weight = w.index_select(0, perm).float().contiguous()
+    src, offsets = h.float().contiguous(), order.offsets
+    run = (lambda: segment_sum_sorted_cuda(src, offsets, index=index,
+                                           weight=weight),
+           lambda: segment_sum_sorted_plain(src, offsets, index=index,
+                                            weight=weight))
+    got, again = run[0](), run[0]()
+    want = run[1]()
+    mag = segment_sum_sorted_plain(src.abs(), offsets, index=index,
+                                   weight=weight.abs())
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("segment_sum: two launches on the same inputs "
+                             "differ")
+    d = torch.diff(offsets).to(torch.float32)[:, None]
+    err = (got - want).abs()
+    bound = 2 * EPS32 * d * mag + 1e-30
+    if not bool((err <= bound).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"segment_sum: max err {float(err.max())}, "
+                             f"worst ratio {float((err / bound).max())}")
+    del want, mag
+    t, k = offsets.shape[0] - 1, src.shape[1]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # "sparse CSR is in beta"
+        csr = torch.sparse_csr_tensor(offsets, index.long(), weight,
+                                      size=(t, src.shape[0]))
+    rows_read = int(torch.unique(index).numel())
+    nbytes = n * 8 + (t + 1) * 8 + rows_read * k * 4 + t * k * 4
+    t_bytes, t_ops = H100.mem_time(nbytes), H100.vpu_time(2.0 * n * k)
+    reps = 10
+    dev_us = sum(us for key, us in device_us(run[0], reps).items()
+                 if "segment_sum_kernel" in key)
+    out = dict(tag=f"gat dh, A^T by column/{t}x{k}/{n} slots",
+               max_abs_err=float(err.max()),
+               max_err_over_bound=float((err / bound).max()),
+               ms=cuda_ms(run[0], reps=reps),
+               device_ms=dev_us / reps / 1e3 if dev_us else None,
+               plain_ms=cuda_ms(run[1], reps=3, warmup=1),
+               library_ms=cuda_ms(lambda: torch.sparse.mm(csr, src),
+                                  reps=reps),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, max_slots=int(d.max()))
+    del csr, index, weight
+    return out
+
+
 def gat_phase() -> dict:
     """Phase 9: full-graph GAT training on ogbn-proteins at GAT_SCALE with
     A pinned to BSR 128 x 128: the first step patched against unpatched
@@ -1015,6 +1159,8 @@ def gat_phase() -> dict:
     with patched(False):
         loss_b, g_b = loss_and_grads(apply, params, bundle, x, y, m)
     grad_err = compare_first_step("gat", loss_t, g_t, loss_b, g_b)
+    repeat = repeat_step_bitwise("gat", apply, params, bundle, x, y, m,
+                                 loss_t, g_t)
     if [c["h"].shape[1] for c in calls] != [HIDDEN]:
         raise AssertionError(f"gat: the patched step dispatched fusedmm at "
                              f"K = {[c['h'].shape[1] for c in calls]}, "
@@ -1055,7 +1201,7 @@ def gat_phase() -> dict:
         runs[True], runs[False]
     if launches["fusedmm_bsr"] == 0 or any(launches_b.values()) or \
             main_instances != {"edge": launches["fusedmm_bsr"]} or \
-            not main_routes["edge"]:
+            not main_routes["edge"] or launches["segment_sum"] == 0:
         raise AssertionError(f"gat: launches {launches} patched "
                              f"({main_instances}, tiles by route "
                              f"{main_routes}), {launches_b} unpatched")
@@ -1070,8 +1216,9 @@ def gat_phase() -> dict:
         f"{res_t.test_acc:.4f} / {res_b.test_acc:.4f} (tuned / baseline)")
     log(f"gat: fusedmm_bsr launches {launches['fusedmm_bsr']} over "
         f"{TRAIN_EPOCHS} epochs + eval (layer 1, K = {HIDDEN}), all of the "
-        f"per-edge kernel, tiles by route {main_routes}; unpatched "
-        f"{launches_b}")
+        f"per-edge kernel, tiles by route {main_routes}; segment_sum "
+        f"launches {launches['segment_sum']} (the ordered sums of the "
+        f"backward and of layer 2); unpatched {launches_b}")
     own_ms = sum(ms for key, ms in prof_t["device_ms"].items()
                  if "fusedmm_" in key and "kernel" in key)
     log(f"gat: one step, device busy {prof_t['busy_share']:.3f} tuned "
@@ -1179,6 +1326,13 @@ def gat_phase() -> dict:
                     **chk)
         cases.append(case)
     del mask
+    seg_case = segment_sum_case(g, q, k, v)
+    log(f"  segment_sum {seg_case['tag']}: ms {seg_case['ms']:.4f} device "
+        f"{fmt_ms(seg_case['device_ms'])} plain {seg_case['plain_ms']:.4f} "
+        f"bound {seg_case['bound_ms']:.4f} ({seg_case['bound_by']}) "
+        f"sparse.mm {fmt_ms(seg_case['library_ms'])}; err/bound "
+        f"{seg_case['max_err_over_bound']:.3f}; bitwise repeatable")
+    sage_max = sage_max_repeat(ds)
     for c in cases:
         log(f"  {c['name']:11s} {c['tag']:30s} ms {c['ms']:.4f} device "
             f"{fmt_ms(c['device_ms'])} plain {c['plain_ms']:.4f} bound "
@@ -1192,7 +1346,10 @@ def gat_phase() -> dict:
                 nodes=ds.num_nodes, edges=e,
                 first_step=dict(loss_patched=float(loss_t),
                                 loss_unpatched=float(loss_b),
-                                grad_err_over_max=grad_err),
+                                grad_err_over_max=grad_err,
+                                repeat_bitwise=repeat),
+                sage_max_repeat=sage_max, segment_sum_case=seg_case,
+                segment_sum_launches=launches["segment_sum"],
                 step_checks=step_checks, sddmm_checks=sddmm_checks,
                 launches=launches["fusedmm_bsr"],
                 launches_by_instance=main_instances,
@@ -1211,23 +1368,27 @@ def gat_phase() -> dict:
 # -- device-sampled minibatch training (phase 8) ---------------------------
 
 SAMPLE_KERNELS = ("segment_sample", "expand_indptr", "flat_gather")
+HOP_KERNEL = "sample_hop"        # the three fused: one launch a hop
 
 
 @contextlib.contextmanager
 def record_sampling():
-    """Record the inputs and output of every sampling primitive, ELL
+    """Record the inputs and output of every fused sampling hop, ELL
     forward and block backward the device sampler and the block SpMM
-    dispatch (copies, so later steps cannot touch them). The dispatchers
-    and their launch counts are unchanged."""
+    dispatch run (copies, so later steps cannot touch them), and of any
+    standalone sampling primitive (the main path runs none). The
+    dispatchers and their launch counts are unchanged."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import sample as ks
     from repro_torch.sampling import blocks as bl
     calls: list = []
-    saved = [(ks, n, getattr(ks, n)) for n in SAMPLE_KERNELS] + [
-        (kops, "ell_spmm", kops.ell_spmm),
-        (bl, "ell_transpose_reduce", bl.ell_transpose_reduce)]
+    saved = [(ks, n, getattr(ks, n)) for n in SAMPLE_KERNELS + (HOP_KERNEL,)
+             ] + [(kops, "ell_spmm", kops.ell_spmm),
+                  (bl, "ell_transpose_reduce", bl.ell_transpose_reduce)]
 
     def clone(v):
+        if isinstance(v, tuple):
+            return tuple(clone(t) for t in v)
         return v.detach().clone() if hasattr(v, "detach") else v
 
     def wrap(name, fn):
@@ -1249,11 +1410,14 @@ def record_sampling():
 def check_sample_call(c) -> dict:
     """Run a recorded sampling primitive's kernel and its plain version on
     the card on the recorded inputs: they must equal each other (and the
-    recorded output) bit for bit."""
+    recorded output, where there is one) bit for bit."""
     import torch
     from repro_torch.kernels import sample as ks
     a, kw = c["args"], c["kw"]
-    if c["name"] == "segment_sample":
+    if c["name"] == HOP_KERNEL:
+        run = (lambda: ks.sample_hop_cuda(*a, **kw),
+               lambda: ks.sample_hop_plain(*a, **kw))
+    elif c["name"] == "segment_sample":
         opts = dict(width=kw["width"], seed=kw["seed"], hop=kw["hop"],
                     replace=kw["replace"])
         run = (lambda: ks.segment_sample_cuda(a[0], a[1], a[2], **opts),
@@ -1266,16 +1430,78 @@ def check_sample_call(c) -> dict:
                lambda: ks.flat_gather_plain(a[0], a[1]))
     got, want = run[0](), run[1]()
     torch.cuda.synchronize()
-    if not (torch.equal(got, want) and torch.equal(got, c["out"])):
+    gots = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    pairs = list(zip(gots, wants))
+    if c.get("out") is not None:
+        outs = c["out"] if isinstance(c["out"], tuple) else (c["out"],)
+        pairs += list(zip(gots, outs))
+    if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in pairs):
         shapes = [tuple(t.shape) for t in a if hasattr(t, "shape")]
         raise AssertionError(f"{c['name']}: kernel and plain version differ "
                              f"on the step's inputs {shapes}")
     return dict(run=run, out=got)
 
 
+def hop_primitive_calls(c) -> list:
+    """The three standalone primitives' calls on one recorded hop's plain
+    intermediates (degrees and ids; start, ranks and the mask; the two
+    arrays and the positions), built on the card the way the plain hop
+    builds them; each has no recorded output (its plain version is the
+    reference)."""
+    import torch
+    from repro_torch.kernels import sample as ks
+    indptr, indices, val, frontier, rnd = c["args"]
+    kw = c["kw"]
+    n, nse = indptr.shape[0] - 1, indices.shape[0] - 1
+    start = indptr[frontier.clamp(0, n).long()].contiguous()
+    deg = (indptr[(frontier + 1).clamp(0, n).long()] - start).contiguous()
+    ranks = ks.segment_sample_plain(deg, frontier, rnd, width=kw["width"],
+                                    seed=kw["seed"], hop=kw["hop"],
+                                    replace=kw["replace"])
+    valid = ks.sample_valid_mask(deg, width=kw["width"], fanout=kw["fanout"],
+                                 replace=kw["replace"]).contiguous()
+    pos = ks.expand_indptr_plain(start, ranks, valid, sentinel=nse)
+    sample_kw = dict(width=kw["width"], fanout=kw["fanout"], seed=kw["seed"],
+                     hop=kw["hop"], replace=kw["replace"])
+    return [dict(name="segment_sample", args=[deg, frontier, rnd],
+                 kw=sample_kw, out=None),
+            dict(name="expand_indptr", args=[start, ranks, valid],
+                 kw=dict(sentinel=nse), out=None),
+            dict(name="flat_gather", args=[indices, pos], kw={}, out=None),
+            dict(name="flat_gather", args=[val, pos], kw={}, out=None)]
+
+
+def old_hop(c):
+    """The hop as the device sampler ran it before the fused kernel: two
+    indptr gathers and a subtraction, ``segment_sample``, the mask,
+    ``expand_indptr`` and two ``flat_gather`` launches (a yardstick: the
+    port no longer calls it this way)."""
+    from repro_torch.kernels import sample as ks
+    indptr, indices, val, frontier, rnd = c["args"]
+    kw = c["kw"]
+    n, nse = indptr.shape[0] - 1, indices.shape[0] - 1
+
+    def run():
+        start = indptr[frontier.clamp(0, n).long()]
+        deg = indptr[(frontier + 1).clamp(0, n).long()] - start
+        ranks = ks.segment_sample(deg, frontier, rnd, width=kw["width"],
+                                  fanout=kw["fanout"], seed=kw["seed"],
+                                  hop=kw["hop"], replace=kw["replace"])
+        valid = ks.sample_valid_mask(deg, width=kw["width"],
+                                     fanout=kw["fanout"],
+                                     replace=kw["replace"])
+        pos = ks.expand_indptr(start, ranks, valid, sentinel=nse)
+        return ks.flat_gather(indices, pos), ks.flat_gather(val, pos), valid
+    return run
+
+
 def segment_sample_ops(deg, *, width: int, replace: bool) -> int:
-    """Integer operations ``segment_sample`` (``src/repro_torch/csrc/
-    sample.cu``) does on these degrees, counted from its code: 9 per hash
+    """Integer operations the draws need on these degrees, counted from
+    a per-thread design of ``segment_sample``, one thread scanning its
+    row's override table (the warp design of
+    ``src/repro_torch/csrc/sample.cu`` spreads the same compares across
+    lanes, so it issues more): 9 per hash
     (3 shifts, 3 xors and 2 multiplies in the avalanche, the xor that
     feeds it), four hashes for a row's prefix, one hash and 8 operations
     per draw (convert, scale, subtract, floor, convert, clamp, add), and
@@ -1295,24 +1521,42 @@ def segment_sample_ops(deg, *, width: int, replace: bool) -> int:
 
 
 def sample_case(c, hop: int) -> dict:
-    """Time one recorded sampling primitive (kernel, plain, library where
-    one call computes it) and its bound from this call's inputs."""
+    """Time one recorded sampling primitive or fused hop (kernel, plain,
+    library where one call computes it; the fused hop beside the
+    unfused hop it replaced) and its bound from this call's inputs, and
+    the host µs its wrapper takes to enqueue a launch."""
     import torch
     from repro_torch.core.autotune import H100
     run = check_sample_call(c)["run"]
     a = c["args"]
     name = c["name"]
-    library_ms = None
-    if name == "segment_sample":
+    library_ms = old_ms = None
+    if name == HOP_KERNEL:
+        indptr, indices, val, frontier, _ = a
+        f, width = frontier.shape[0], c["kw"]["width"]
+        n = indptr.shape[0] - 1
+        start = indptr[frontier.clamp(0, n).long()]
+        deg = indptr[(frontier + 1).clamp(0, n).long()] - start
+        real = int(torch.clamp(deg, max=width).sum())
+        # the frontier, two indptr reads a row, each output once, each
+        # real slot's index and value gathered once
+        nbytes = f * 12 + f * width * 9 + real * 8
+        ops = segment_sample_ops(deg, width=width,
+                                 replace=c["kw"]["replace"]) + 2 * f * width
+        old_ms = cuda_ms(old_hop(c))
+        dtype = "int32/fp32/bool"
+    elif name == "segment_sample":
         deg, width = a[0], c["kw"]["width"]
         f = deg.shape[0]
         nbytes = f * 8 + f * width * 4
         ops = segment_sample_ops(deg, width=width,
                                  replace=c["kw"]["replace"])
+        dtype = "int32"
     elif name == "expand_indptr":
         f, width = a[1].shape
         nbytes = f * 4 + f * width * (4 + 1 + 4)
         ops = 2 * f * width
+        dtype = "int32"
     else:
         arr, pos = a
         f, width = pos.shape
@@ -1320,16 +1564,19 @@ def sample_case(c, hop: int) -> dict:
         nbytes = f * width * 8 + n_read * 4
         ops = f * width
         library_ms = cuda_ms(lambda: torch.take(arr, pos.long()))
+        dtype = str(arr.dtype)
     t_bytes, t_ops = H100.mem_time(nbytes), ops / INT32_OPS
     reps = 20
+    kernel_key = f"{name}_kernel"
     dev_us = sum(us for key, us in device_us(run[0], reps).items()
-                 if f"{name}_kernel" in key)
-    return dict(name=name, hop=hop, f=f, width=width,
-                dtype=str(a[0].dtype) if name == "flat_gather" else "int32",
+                 if kernel_key in key)
+    return dict(name=name, hop=hop, f=f, width=width, dtype=dtype,
                 max_abs_err=0.0, ms=cuda_ms(run[0]),
                 device_ms=dev_us / reps / 1e3 if dev_us else None,
                 plain_ms=cuda_ms(run[1], reps=5, warmup=1),
-                library_ms=library_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                library_ms=library_ms, unfused_hop_ms=old_ms,
+                host_us=host_us(run[0]),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, int_ops=ops)
 
@@ -1545,21 +1792,28 @@ def minibatch_phase(ds) -> dict:
             device=DEVICE)
         launches = kops.kernel_launches()
         wall = time.perf_counter() - t0
-    for name in SAMPLE_KERNELS + ("ell_spmm", "sell_spmm"):
+    for name in (HOP_KERNEL, "segment_sum", "ell_spmm", "sell_spmm"):
         if launches[name] == 0:
             raise AssertionError(f"minibatch: {name} was not launched on the "
                                  f"main path ({launches})")
+    if any(launches[name] for name in SAMPLE_KERNELS):
+        raise AssertionError(f"minibatch: a standalone sampling kernel ran "
+                             f"on the main path, where each hop is one "
+                             f"{HOP_KERNEL} launch ({launches})")
     if len(res.losses) != MB_EPOCHS or not np.isfinite(res.losses).all() or \
             not 0.0 <= res.test_acc <= 1.0:
         raise AssertionError(f"minibatch: losses {res.losses}, test "
                              f"accuracy {res.test_acc}")
     per_step = hooks["per_step"]
     n_steps = res.steps_per_epoch * MB_EPOCHS
+    n_hops = len(FANOUTS)
     if len(per_step) != n_steps or any(
-            s[name] == 0 for s in per_step for name in SAMPLE_KERNELS):
+            s[HOP_KERNEL] != n_hops or any(s[name] for name in SAMPLE_KERNELS)
+            for s in per_step):
         raise AssertionError(f"minibatch: {len(per_step)} hooked steps of "
-                             f"{n_steps}, or a step launched no sampling "
-                             f"kernel")
+                             f"{n_steps}, or a step did not launch "
+                             f"{HOP_KERNEL} once a hop ({n_hops}) and no "
+                             f"standalone sampling kernel")
     per_step_mean = {k: sum(s[k] for s in per_step) / n_steps
                      for k in per_step[0]}
     out.update(launches=launches, launches_per_step=per_step_mean,
@@ -1624,24 +1878,22 @@ def minibatch_phase(ds) -> dict:
         f"buckets {dev.signature})")
     del cpu, got_b, want_b
 
-    # (c) the trainer's first step, recorded: each kernel against its
-    # plain version on that step's own inputs
+    # (c) the trainer's first step, recorded: each fused hop against its
+    # plain version (and the recorded output) on that step's own inputs,
+    # and each standalone primitive on that hop's plain intermediates
     by_name: dict = {}
     for c in first["calls"]:
         by_name.setdefault(c["name"], []).append(c)
-    n_hops = len(FANOUTS)
-    # hops run innermost first: calls of hop 1 (the outer, larger
-    # frontier) come second
+    # hops run innermost first: hop 1 (the outer, larger frontier) second
+    hops = by_name.get(HOP_KERNEL, [])
+    if len(hops) != n_hops or any(by_name.get(n) for n in SAMPLE_KERNELS):
+        raise AssertionError(f"minibatch: {len(hops)} {HOP_KERNEL} calls in "
+                             f"a step, expected {n_hops}, and no standalone "
+                             f"primitive ({sorted(by_name)})")
     cases = []
-    for name in SAMPLE_KERNELS:
-        per_hop = n_hops if name != "flat_gather" else 2 * n_hops
-        if len(by_name.get(name, [])) != per_hop:
-            raise AssertionError(f"minibatch: {name} ran "
-                                 f"{len(by_name.get(name, []))} times in a "
-                                 f"step, expected {per_hop}")
-        for i, c in enumerate(by_name[name]):
-            hop = i if name != "flat_gather" else i // 2
-            cases.append(sample_case(c, hop))
+    for hop, c in enumerate(hops):
+        cases.append(sample_case(c, hop))
+        cases += [sample_case(p, hop) for p in hop_primitive_calls(c)]
     ell_checks = []
     for c in by_name.get("ell_spmm", []):
         a, h = c["args"]
@@ -1673,11 +1925,40 @@ def minibatch_phase(ds) -> dict:
             f"{c['library_ms']:.4f}")
     for c in cases:
         lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+        unfused = "" if c["unfused_hop_ms"] is None else \
+            f" unfused hop {c['unfused_hop_ms']:.4f}"
         log(f"  {c['name']:14s} hop {c['hop']} ({c['f']} x {c['width']}, "
             f"{c['dtype']}): bitwise equal; ms {c['ms']:.4f} device "
             f"{fmt_ms(c['device_ms'])} plain "
             f"{c['plain_ms']:.4f} bound {c['bound_ms']:.5f} "
-            f"({c['bound_by']}) library {lib}")
+            f"({c['bound_by']}) library {lib}{unfused}; host "
+            f"{c['host_us']:.1f} us a call")
+
+    # (c2) the trainer's first step twice more from the same weights,
+    # state, seeds and round: loss, gradients and updated parameters bit
+    # for bit (the block backward is the ordered segment sum)
+    from repro_torch.core.patch import patched
+    from repro_torch.optim.optimizer import tree_map
+    with patched(True):
+        reps = [first["step"](p0, s0, seeds0, n_real0, rnd0, x, y,
+                              mb.init_step_stats(DEVICE)) for _ in range(2)]
+    torch.cuda.synchronize()
+    same: list = []
+    for i in range(4):          # params, opt state, loss, grads
+        tree_map(lambda a, b: same.append(torch.equal(a, b)),
+                 reps[0][i] if i != 1 else reps[0][i]._asdict(),
+                 reps[1][i] if i != 1 else reps[1][i]._asdict())
+    if not same or not all(same):
+        raise AssertionError(f"minibatch: the first step run twice from the "
+                             f"same weights differs ({same.count(False)} of "
+                             f"{len(same)} tensors)")
+    out["repeat_bitwise"] = dict(tensors=len(same),
+                                 loss=float(reps[0][2]))
+    log(f"minibatch: the trainer's first step run twice from the same "
+        f"weights, state, seeds and round: loss, gradients, parameters and "
+        f"optimizer state equal bit for bit ({len(same)} tensors; loss "
+        f"{float(reps[0][2]):.7f})")
+    del reps
     log("minibatch: ELL forward (k, rows, width) "
         f"{[(e['k'], e['rows'], e['width']) for e in ell_checks]} within the "
         "per-row bound (worst "
@@ -1740,7 +2021,6 @@ def minibatch_phase(ds) -> dict:
         f"(NeighborSampler.sample + pack_block)")
 
     # (f) one traced step of the trainer's own step function
-    from repro_torch.core.patch import patched
     st = mb.init_step_stats(DEVICE)
     with patched(True):
         prof = step_profile(lambda: first["step"](
@@ -2555,17 +2835,37 @@ def main() -> int:
 
     # -- phase 5: the kernels line ------------------------------------------
     kernels = []
-    for name in SAMPLE_KERNELS:
+    for name in SAMPLE_KERNELS + (HOP_KERNEL,):
         rep = max((c for c in minibatch["kernel_cases"] if c["name"] == name),
                   key=lambda c: c["f"] * c["width"])
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", **KERNEL_META[name],
             launches=minibatch["launches"][name], max_abs_err=0.0,
             ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-            library_ms=rep["library_ms"],
+            library_ms=rep["library_ms"], host_us=rep["host_us"],
             shape=f"hop{rep['hop']}/{rep['f']}x{rep['width']}/{rep['dtype']}",
-            launches_per_step=minibatch["launches_per_step"][name]))
+            launches_per_step=minibatch["launches_per_step"][name])
+        if name == HOP_KERNEL:
+            entry["unfused_hop_ms"] = rep["unfused_hop_ms"]
+        else:
+            # the main path runs each hop as one sample_hop launch; this
+            # kernel is checked and timed on that hop's plain intermediates
+            entry["main_path_via"] = HOP_KERNEL
+        kernels.append(entry)
+    seg = gat["segment_sum_case"]
+    kernels.append(dict(
+        name="segment_sum", route="cuda", **KERNEL_META["segment_sum"],
+        launches=minibatch["launches"]["segment_sum"]
+        + gat["segment_sum_launches"],
+        launches_minibatch=minibatch["launches"]["segment_sum"],
+        launches_gat=gat["segment_sum_launches"],
+        max_abs_err=max(seg["max_abs_err"], max(
+            b["max_abs_err"] for b in minibatch["backward_checks"])),
+        max_err_over_bound=seg["max_err_over_bound"], ms=seg["ms"],
+        device_ms=seg["device_ms"], plain_ms=seg["plain_ms"],
+        bound_ms=seg["bound_ms"], bound_by=seg["bound_by"],
+        library_ms=seg["library_ms"], shape=seg["tag"]))
     for name in ("ell_spmm", "sell_spmm", "bsr_spmm"):
         if name == "bsr_spmm":
             rep = proteins["cases"][0]

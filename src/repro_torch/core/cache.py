@@ -8,6 +8,9 @@ ONCE and reusing them every step:
   * the GCN-normalized adjacency — built by
     :func:`repro_torch.core.sparse.gcn_normalize` before caching;
   * row degrees and inverse degrees (mean semiring);
+  * the edges' stable sorts by row and by column (``row_order``,
+    ``col_order``): the segment offsets the ordered sums of the
+    backwards take on the card, so no step sorts a graph-static vector;
   * the format conversion and the kernel plan (autotuner output).
 
 Built on the host (numpy packing, CPU tensors); :meth:`CachedGraph.to`
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.core import sparse as sp
 from repro_torch.core.autotune import KernelPlan, autotune
+from repro_torch.kernels.segment_sum import SegmentOrder, segment_order
 
 __all__ = ["CachedGraph", "build_cached_graph"]
 
@@ -41,6 +45,8 @@ class CachedGraph:
     inv_deg: torch.Tensor         # 1/max(deg, 1)  (mean semiring, cached)
     inv_deg_t: torch.Tensor
     plan: KernelPlan              # the autotuner's decision
+    row_order: SegmentOrder       # coo's real edges sorted by row
+    col_order: SegmentOrder       # ... by column (the transpose's order)
 
     @property
     def shape(self):
@@ -106,4 +112,6 @@ def build_cached_graph(a: sp.COO, *, k_hint: int = 128,
         inv_deg=1.0 / torch.clamp(deg, min=1.0),
         inv_deg_t=1.0 / torch.clamp(deg_t, min=1.0),
         plan=plan,
+        row_order=segment_order(a.row[: a.nse], a.nrows),
+        col_order=segment_order(a.col[: a.nse], a.ncols),
     )

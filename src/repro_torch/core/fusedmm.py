@@ -19,10 +19,17 @@ from repro_torch.core.cache import CachedGraph
 from repro_torch.core.semiring import get_semiring
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fusedmm import EDGE_OPS
-from repro_torch.kernels.ref import (coo_reduce, edge_dots, edge_weights,
-                                     fusedmm_coo_ref)
+from repro_torch.kernels.ref import coo_reduce, edge_dots, edge_weights
+from repro_torch.kernels import segment_sum as kseg
+from repro_torch.kernels.segment_sum import SegmentOrder
 
 __all__ = ["fusedmm", "edge_weights"]
+
+
+def _order(order: SegmentOrder, t: torch.Tensor):
+    """The cached order when its targets are ``t``'s rows (else None: the
+    sum is ``index_add_``)."""
+    return order if order.num_targets == t.shape[0] else None
 
 
 def _use_fused_kernel(g: CachedGraph, k: int) -> bool:
@@ -40,17 +47,24 @@ class _FusedMM(torch.autograd.Function):
                                    y.float().contiguous(),
                                    h.float().contiguous(), edge_op=edge_op)
             return out[: g.coo.nrows].to(h.dtype)
-        return fusedmm_coo_ref(g.coo, x, y, h, edge_op=edge_op)
+        coo, n = g.coo, g.coo.nse
+        w = edge_weights(edge_dots(x, y, coo.row[:n], coo.col[:n]),
+                         coo.row[:n], coo.nrows, None, edge_op,
+                         order=g.row_order)
+        return coo_reduce(coo.row, coo.col, w, n, coo.nrows, h,
+                          get_semiring("sum"), order=g.row_order)
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
         x, y, h = ctx.saved_tensors
-        coo, n = ctx.graph.coo, ctx.graph.coo.nse
+        g = ctx.graph
+        coo, n = g.coo, g.coo.nse
         row, col = coo.row[:n], coo.col[:n]
         add = get_semiring("sum")
         w = edge_weights(edge_dots(x, y, row, col), row, coo.nrows, None,
-                         ctx.edge_op)                       # recompute
-        dh = coo_reduce(col, row, w, n, h.shape[0], dout, add) \
+                         ctx.edge_op, order=g.row_order)   # recompute
+        dh = coo_reduce(col, row, w, n, h.shape[0], dout, add,
+                        order=_order(g.col_order, h)) \
             if ctx.needs_input_grad[3] else None
         dx = dy = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
@@ -58,18 +72,18 @@ class _FusedMM(torch.autograd.Function):
             dw = edge_dots(dout, h, row, col)
             if ctx.edge_op == "softmax":
                 wd = w * dw
-                srow = torch.zeros((coo.nrows,), dtype=wd.dtype,
-                                   device=wd.device)
-                srow.index_add_(0, row.long(), wd)
+                srow = kseg.scatter_sum(wd, row, coo.nrows, g.row_order)
                 ds = wd - w * srow[row.long()]
             elif ctx.edge_op == "sigmoid":
                 ds = dw * w * (1.0 - w)
             else:
                 ds = dw
             if ctx.needs_input_grad[1]:
-                dx = coo_reduce(row, col, ds, n, x.shape[0], y, add)
+                dx = coo_reduce(row, col, ds, n, x.shape[0], y, add,
+                                order=_order(g.row_order, x))
             if ctx.needs_input_grad[2]:
-                dy = coo_reduce(col, row, ds, n, y.shape[0], x, add)
+                dy = coo_reduce(col, row, ds, n, y.shape[0], x, add,
+                                order=_order(g.col_order, y))
         return None, dx, dy, dh, None
 
 

@@ -14,7 +14,9 @@ The paper's ``matmul`` (§3.5) with its two speed mechanisms:
   transpose, sort or normalization happens in a training step. The
   backward of a sum/mean SpMM is the SAME forward kernel on the cached
   transpose (mean pre-scales ``dy`` by the inverse degree); max/min keep a
-  recompute subgradient on the trusted path.
+  recompute subgradient on the trusted path. On the card every float
+  scatter of a backward is an ordered segment sum over the graph's cached
+  edge orders, so a step repeats bit for bit.
 
 Only the dense operand is differentiated: the adjacency is static in
 every GNN the paper targets. When ``h`` needs no gradient (a model's input
@@ -30,6 +32,7 @@ from repro_torch.core.cache import CachedGraph, build_cached_graph
 from repro_torch.core.semiring import Semiring, get_semiring
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import _rows_per_chunk, coo_reduce, take_rows
+from repro_torch.kernels import segment_sum as kseg
 
 __all__ = ["spmm", "matmul"]
 
@@ -73,12 +76,25 @@ def _forward(g: CachedGraph, h: torch.Tensor, sr: Semiring,
         out = kops.ell_spmm(g.ell_t if transposed else g.ell,
                             h.float().contiguous())
     else:
-        deg = g.degrees_t if transposed else g.degrees
-        return coo_reduce(coo.row, coo.col, coo.val, coo.nse, coo.nrows, h,
-                          sr, deg)
+        return _trusted(g, h, sr, transposed)
     if sr.reduce == "mean":
         out = out * (g.inv_deg_t if transposed else g.inv_deg)[:, None]
     return out.to(h.dtype)
+
+
+def _trusted(g: CachedGraph, h: torch.Tensor, sr: Semiring,
+             transposed: bool, val=None) -> torch.Tensor:
+    """The trusted segment path over A (or A^T: A's edges grouped by
+    column, which is the cached transpose's order), ``val`` replacing A's
+    values when given; on the card the graph's cached edge orders give
+    the ordered sums their segments."""
+    c = g.coo
+    val = c.val if val is None else val
+    if transposed:
+        return coo_reduce(c.col, c.row, val, c.nse, c.ncols, h, sr,
+                          g.degrees_t, order=g.col_order)
+    return coo_reduce(c.row, c.col, val, c.nse, c.nrows, h, sr, g.degrees,
+                      order=g.row_order)
 
 
 def _backward_linear(g: CachedGraph, dy: torch.Tensor,
@@ -88,9 +104,7 @@ def _backward_linear(g: CachedGraph, dy: torch.Tensor,
     sum_sr = get_semiring("sum")
     if sr.combine == "mul":
         return _forward(g, dy, sum_sr, transposed=True)
-    t = g.coo_t
-    return coo_reduce(t.row, t.col, torch.ones_like(t.val), t.nse, t.nrows,
-                      dy, sum_sr)
+    return _trusted(g, dy, sum_sr, True, val=torch.ones_like(g.coo.val))
 
 
 def _backward_maxmin(g: CachedGraph, h: torch.Tensor, out: torch.Tensor,
@@ -113,6 +127,8 @@ def _backward_maxmin(g: CachedGraph, h: torch.Tensor, out: torch.Tensor,
         eid = torch.arange(lo, hi, device=h.device)[:, None]
         cand = torch.where(msgs == out[row], eid, _BIG)
         winner.scatter_reduce_(0, row[:, None].expand_as(cand), cand, "amin")
+    if kseg.on_card(dy):
+        return _subgradient_ordered(g, winner, dy, sr, step)
     dh = torch.zeros((coo.ncols, k), dtype=dy.dtype, device=dy.device)
     for lo in range(0, n, step):
         hi = min(lo + step, n)
@@ -123,6 +139,25 @@ def _backward_maxmin(g: CachedGraph, h: torch.Tensor, out: torch.Tensor,
             contrib = contrib * coo.val[lo:hi, None]
         dh.index_add_(0, coo.col[lo:hi].long(), contrib.to(dh.dtype))
     return dh
+
+
+def _subgradient_ordered(g: CachedGraph, winner: torch.Tensor,
+                         dy: torch.Tensor, sr: Semiring,
+                         step: int) -> torch.Tensor:
+    """The subgradient's scatter on the card: the edges in the cached
+    column order, chunk by chunk, each column's routed rows summed in
+    edge order by the ordered segment sum."""
+    coo = g.coo
+
+    def routed(eid):
+        row = coo.row[eid].long()
+        contrib = torch.where(winner[row] == eid[:, None], dy[row], 0.0)
+        if sr.combine == "mul":
+            contrib = contrib * coo.val[eid, None]
+        return contrib
+
+    return kseg.chunked_sum(g.col_order, coo.nse, dy.shape[1], routed,
+                            step).to(dy.dtype)
 
 
 class _SpMM(torch.autograd.Function):

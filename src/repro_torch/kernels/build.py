@@ -28,7 +28,7 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "build_kernels", "load_kernel",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 KERNELS = ("ell_spmm", "sell_spmm", "bsr_spmm", "sample", "sddmm",
-           "fusedmm", "ragged_gemm", "flash_attention")
+           "fusedmm", "ragged_gemm", "flash_attention", "segment_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,7 +45,9 @@ _SIGNATURES = {
                  "bsr_transpose_h_f32": [_P] * 2 + [_I] * 3 + [_P]},
     "sample": {"segment_sample_i32": [_P, _P, _P, _I, _I, _U, _U, _U, _I, _P],
                "expand_indptr_i32": [_P, _P, _P, _P, _I, _I, _I, _P],
-               "flat_gather_b32": [_P, _L, _P, _P, _L, _P]},
+               "flat_gather_b32": [_P, _L, _P, _P, _L, _P],
+               "sample_hop_i32": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _U,
+                                  _U, _U, _I, _P, _P, _P, _P]},
     "sddmm": {"sddmm_f32": [_P] * 7 + [_I] * 8 + [_P]},
     "fusedmm": {"fusedmm_f32": [_P] * 8 + [_I] * 7 + [_L, _I, _L, _I, _P]},
     "ragged_gemm": {f"ragged_gemm_{t}": [_P] * 4 + [_L] + [_I] * 4 + [_P]
@@ -53,6 +55,8 @@ _SIGNATURES = {
     "flash_attention": {f"flash_attention_{t}":
                         [_P] * 4 + [_I] * 8 + [_L, _F, _P]
                         for t in ("bf16", "f32")},
+    "segment_sum": {"segment_sum_f32": [_P, _L, _P, _P, _P, _P, _P, _I, _I,
+                                        _L, _I, _I, _P]},
 }
 
 _LOCK = threading.Lock()

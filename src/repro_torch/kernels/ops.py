@@ -12,8 +12,9 @@ picked out of a full feature matrix: the block's ``src_ids`` are composed
 into its neighbour table, and the ELL kernel reads the full matrix in
 place (the reference composes the two gathers in XLA, not in Pallas).
 
-The sampling primitives' kernels (``kernels/sample.py``) count their
-launches here too.
+The sampling primitives' kernels (``kernels/sample.py``, the fused hop
+among them) and the ordered segment sum of the backwards
+(``kernels/segment_sum.py``) count their launches here too.
 
 ``slot_gather`` / ``table_insert`` are the serving feature cache's device
 primitives. The reference writes them as plain array ops, so plain tensor
@@ -37,7 +38,8 @@ from repro_torch.kernels.fusedmm import fusedmm_bsr_cuda, fusedmm_bsr_plain
 from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
                                              ragged_gemm_plain)
 from repro_torch.kernels.sample import (expand_indptr_cuda, flat_gather_cuda,
-                                        segment_sample_cuda)
+                                        sample_hop_cuda, segment_sample_cuda)
+from repro_torch.kernels.segment_sum import segment_sum_sorted_cuda
 from repro_torch.kernels.sddmm import sddmm_bsr_cuda, sddmm_bsr_plain
 from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
 from repro_torch.obs import op_record, op_t0
@@ -52,6 +54,8 @@ _CUDA_WRAPPERS = {"ell_spmm": ell_spmm_cuda, "sell_spmm": sell_spmm_cuda,
                   "segment_sample": segment_sample_cuda,
                   "expand_indptr": expand_indptr_cuda,
                   "flat_gather": flat_gather_cuda,
+                  "sample_hop": sample_hop_cuda,
+                  "segment_sum": segment_sum_sorted_cuda,
                   "sddmm_bsr": sddmm_bsr_cuda,
                   "fusedmm_bsr": fusedmm_bsr_cuda,
                   "ragged_gemm": ragged_gemm_cuda,

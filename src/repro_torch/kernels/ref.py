@@ -7,6 +7,13 @@ These are the ground truth of the tests, the trusted path for any
 dispatchers in :mod:`repro_torch.kernels.ops` run for tensors on the CPU.
 Every gather is zero-filled for the ``idx == ncols`` sentinel.
 
+The float scatters of the trusted reduce and of the transposes
+(``coo_reduce`` over sum/mean, ``edge_weights``' softmax denominator,
+``ell_transpose_reduce`` / ``sell_transpose_reduce``) take
+``index_add_`` on the CPU, which is sequential, and on the card the
+ordered segment sum of ``kernels/segment_sum`` (slots sorted stably by
+target, no atomics), so that a card run repeats bit for bit.
+
 The gathered message tensors are built in chunks (of edges, ELL rows,
 SELL steps or BSR blocks) so that a full-neighbor block around a hub, or
 a whole graph's tiles, never needs the whole ``(edges, K)`` or
@@ -20,13 +27,17 @@ from typing import TYPE_CHECKING
 
 import torch
 
+from repro_torch.kernels import segment_sum as kseg
+from repro_torch.kernels.segment_sum import SegmentOrder
+
 if TYPE_CHECKING:  # annotation-only
     from repro_torch.core.semiring import Semiring
     from repro_torch.core.sparse import BSR, COO, ELL, SELL
 
 __all__ = ["coo_reduce", "spmm_coo_ref", "spmm_ell_ref", "spmm_sell_ref",
            "spmm_bsr_ref", "sell_packed_reduce", "take_rows",
-           "ell_transpose_reduce", "sell_transpose_reduce", "edge_dots",
+           "ell_transpose_reduce", "sell_transpose_reduce",
+           "ell_transpose_ordered", "sell_transpose_ordered", "edge_dots",
            "edge_weights", "sddmm_coo_ref", "sddmm_bsr_ref",
            "fusedmm_coo_ref", "fusedmm_softmax_ref", "bsr_tile_chunks",
            "flash_attention_ref"]
@@ -54,10 +65,20 @@ def _rows_per_chunk(width: int, k: int) -> int:
 
 def coo_reduce(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
                n_valid: int, nrows: int, h: torch.Tensor, sr: "Semiring",
-               degrees=None) -> torch.Tensor:
+               degrees=None, order: SegmentOrder | None = None
+               ) -> torch.Tensor:
     """out[i] = ⊕_{e < n_valid, row[e] = i} val[e] ⊗ h[col[e]] — the
     trusted segment path over triplets, in chunks of edges (entries from
-    ``n_valid`` on are padding and take no part)."""
+    ``n_valid`` on are padding and take no part). Given ``order``, the
+    stable sort of ``row[:n_valid]`` (a graph's cached one), a sum or mean
+    on the card outside autograd takes the ordered segment sum: each row's
+    edges in edge order, the same bits on every run. Otherwise (the
+    unpatched baselines) the sum is ``index_add_``."""
+    if order is not None and sr.reduce in ("sum", "mean") and \
+            kseg.on_card(h) and not (torch.is_grad_enabled() and (
+                h.requires_grad or val.requires_grad)):
+        return sr.finalize(_ordered_sum(col, val, n_valid, h, sr, order),
+                           degrees)
     k = h.shape[1]
     out = torch.full((nrows, k), sr.identity,
                      dtype=torch.promote_types(val.dtype, h.dtype),
@@ -68,6 +89,23 @@ def coo_reduce(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
         msgs = sr.apply_combine(val[lo:hi, None], take_rows(h, col[lo:hi]))
         out = sr.reduce_into(out, msgs.to(out.dtype), row[lo:hi])
     return sr.finalize(out, degrees)
+
+
+def _ordered_sum(col, val, n_valid, h, sr, order):
+    """The sum of :func:`coo_reduce` on the card, each row's edges added
+    in edge order: for combine ``mul`` / ``second`` one gather-scale-sum
+    over the sorted edges (no message tensor), for ``add`` the messages
+    chunk by chunk of the sorted edges."""
+    dtype = torch.promote_types(val.dtype, h.dtype)
+    if sr.combine == "add":
+        out = kseg.chunked_sum(
+            order, n_valid, h.shape[1],
+            lambda e: sr.apply_combine(val[e, None], take_rows(h, col[e])),
+            _rows_per_chunk(1, h.shape[1]))
+    else:
+        w = val[:n_valid] if sr.combine == "mul" else None
+        out = kseg.gather_scale_sum(h, order, col[:n_valid], w)
+    return out.to(dtype)
 
 
 def spmm_coo_ref(a: "COO", h: torch.Tensor, sr: "Semiring",
@@ -123,7 +161,9 @@ def ell_transpose_reduce(a: "ELL", dout: torch.Tensor) -> torch.Tensor:
     """``Aᵀ @ dout`` for an ELL operand (the gradient of the sum-semiring
     ELL SpMM in ``h``): ``dh[idx[r, d]] += val[r, d] * dout[r]``, with
     ``index_add_`` in chunks of rows; sentinel slots land on a spare row
-    that is dropped."""
+    that is dropped. On the card, :func:`ell_transpose_ordered`."""
+    if kseg.on_card(dout):
+        return ell_transpose_ordered(a, dout)
     k = dout.shape[1]
     dh = dout.new_zeros((a.ncols + 1, k), dtype=torch.float32)
     step = _rows_per_chunk(a.max_deg, k)
@@ -135,15 +175,37 @@ def ell_transpose_reduce(a: "ELL", dout: torch.Tensor) -> torch.Tensor:
     return dh[: a.ncols]
 
 
+def ell_transpose_ordered(a: "ELL", dout: torch.Tensor) -> torch.Tensor:
+    """:func:`ell_transpose_reduce` as an ordered segment sum: the slots
+    sorted stably by column on the device (static shapes), each column's
+    slots summed in slot order, the same order as the sequential
+    ``index_add_``."""
+    order = kseg.segment_order(a.idx.reshape(-1), a.ncols)
+    perm = order.perm
+    return kseg.segment_sum_sorted(
+        dout.float().contiguous(), order.offsets,
+        index=torch.div(perm, a.idx.shape[1], rounding_mode="floor"),
+        weight=a.val.reshape(-1).float().index_select(0, perm))
+
+
+def _packed_dout(a: "SELL", dout: torch.Tensor) -> torch.Tensor:
+    """``dout`` (original row order) moved to the packed rows."""
+    packed = dout.new_zeros((a.nslices * a.c, dout.shape[1]),
+                            dtype=torch.float32)
+    packed[a.inv_perm.long()] = dout.float()
+    return packed
+
+
 def sell_transpose_reduce(a: "SELL", dout: torch.Tensor) -> torch.Tensor:
     """``Aᵀ @ dout`` for a SELL operand: ``dout`` (original row order) is
     moved to the packed positions, then every packed step scatters
     ``val * dout_packed[slice, lane]`` into ``dh[idx]`` in chunks of
-    steps; sentinel slots land on a spare row that is dropped."""
+    steps; sentinel slots land on a spare row that is dropped. On the
+    card, :func:`sell_transpose_ordered`."""
+    if kseg.on_card(dout):
+        return sell_transpose_ordered(a, dout)
     k = dout.shape[1]
-    packed = dout.new_zeros((a.nslices * a.c, k), dtype=torch.float32)
-    packed[a.inv_perm.long()] = dout.float()
-    packed = packed.view(a.nslices, a.c, k)
+    packed = _packed_dout(a, dout).view(a.nslices, a.c, k)
     dh = dout.new_zeros((a.ncols + 1, k), dtype=torch.float32)
     step = _rows_per_chunk(a.c, k)
     for lo in range(0, a.n_steps, step):
@@ -152,6 +214,18 @@ def sell_transpose_reduce(a: "SELL", dout: torch.Tensor) -> torch.Tensor:
         idx = a.idx[lo: lo + step].long().clamp(0, a.ncols)
         dh.index_add_(0, idx.reshape(-1), g.reshape(-1, k))
     return dh[: a.ncols]
+
+
+def sell_transpose_ordered(a: "SELL", dout: torch.Tensor) -> torch.Tensor:
+    """:func:`sell_transpose_reduce` as an ordered segment sum over the
+    packed slots sorted stably by column."""
+    order = kseg.segment_order(a.idx.reshape(-1), a.ncols)
+    perm = order.perm
+    step = torch.div(perm, a.c, rounding_mode="floor")
+    src_row = a.slice_of.index_select(0, step) * a.c + perm % a.c
+    return kseg.segment_sum_sorted(
+        _packed_dout(a, dout), order.offsets, index=src_row.to(torch.int32),
+        weight=a.val.reshape(-1).float().index_select(0, perm))
 
 
 def spmm_bsr_ref(a: "BSR", h: torch.Tensor) -> torch.Tensor:
@@ -244,11 +318,14 @@ def sddmm_bsr_ref(a: "BSR", x: torch.Tensor, y: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def edge_weights(s: torch.Tensor, row_ids: torch.Tensor, nrows: int,
-                 valid, edge_op: str) -> torch.Tensor:
+                 valid, edge_op: str, order: SegmentOrder | None = None
+                 ) -> torch.Tensor:
     """Per-edge weights f(s) for a FusedMM edge op, zero on invalid
     entries (``valid`` None: every entry is real). Softmax normalizes
     over each row's neighborhood with segment ops; its max is detached —
-    softmax is shift-invariant, so the derivative is exact without it."""
+    softmax is shift-invariant, so the derivative is exact without it.
+    The denominators are a :func:`scatter_sum`: ordered on the card when
+    ``order``, the stable sort of ``row_ids``, is given."""
     if edge_op == "softmax":
         sm = s if valid is None else torch.where(valid, s, -torch.inf)
         ids = row_ids.long()
@@ -258,8 +335,7 @@ def edge_weights(s: torch.Tensor, row_ids: torch.Tensor, nrows: int,
         e = torch.exp(sm - m[ids])
         if valid is not None:
             e = torch.where(valid, e, 0.0)
-        z = torch.zeros((nrows,), dtype=s.dtype, device=s.device)
-        z = z.index_add(0, ids, e)
+        z = kseg.scatter_sum(e, row_ids, nrows, order)
         return e / torch.clamp(z, min=1e-30)[ids]
     if edge_op == "sigmoid":
         w = torch.sigmoid(s)

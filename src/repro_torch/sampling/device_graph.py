@@ -9,10 +9,11 @@ on the device:
   with one sentinel entry appended to ``indices``/``val`` so invalid
   sample slots route to an inert edge (id ``num_nodes``, value 0).
 * :class:`DeviceSampler` — ``sample_blocks(seeds, rnd)`` runs every hop on
-  the device: ``kernels/sample``'s ``segment_sample`` → ``expand_indptr``
-  → ``flat_gather`` (hand kernels on the card), a static-size sorted
-  unique relabel, and a :class:`~repro_torch.sampling.blocks.PackedBlock`
-  of fixed shape per ``(batch_size, fanouts, capacities)``.
+  the device: ``kernels/sample``'s ``sample_hop`` (``segment_sample`` →
+  ``expand_indptr`` → ``flat_gather`` fused into one hand kernel on the
+  card), a static-size sorted unique relabel, and a
+  :class:`~repro_torch.sampling.blocks.PackedBlock` of fixed shape per
+  ``(batch_size, fanouts, capacities)``.
 
 Nothing in :meth:`DeviceSampler.sample_blocks` waits for the device: no
 ``torch.unique`` (its output size is data-dependent), no boolean-mask
@@ -202,20 +203,13 @@ class DeviceSampler:
         plan = self._plans[len(self.fanouts) - 1 - hop]
         dev = frontier.device
 
-        # degrees via clipped indptr lookups: sentinel frontier entries
-        # (id == num_nodes) read indptr[N] twice -> degree 0
-        start = g.indptr[frontier.clamp(0, g.num_nodes).long()]
-        end = g.indptr[(frontier + 1).clamp(0, g.num_nodes).long()]
-        deg = end - start
-
-        ranks = ksample.segment_sample(
-            deg, frontier, rnd, width=width, fanout=fanout, seed=self.seed,
-            hop=hop, replace=self.replace)
-        valid = ksample.sample_valid_mask(deg, width=width, fanout=fanout,
-                                          replace=self.replace)
-        pos = ksample.expand_indptr(start, ranks, valid, sentinel=g.nse)
-        nbr = ksample.flat_gather(g.indices, pos)
-        evals = ksample.flat_gather(g.val, pos)
+        # the whole hop in one launch on the card: degrees from clipped
+        # indptr lookups (a sentinel frontier entry, id == num_nodes, has
+        # degree 0), the draws, the valid mask, the positions (the inert
+        # sentinel edge where invalid) and the two gathers
+        nbr, evals, valid = ksample.sample_hop(
+            g.indptr, g.indices, g.val, frontier, rnd, width=width,
+            fanout=fanout, seed=self.seed, hop=hop, replace=self.replace)
 
         src_ids, col2d, ok = _device_relabel(frontier, nbr, valid,
                                              n_src=n_src,

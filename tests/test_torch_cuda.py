@@ -22,6 +22,7 @@ from repro_torch.kernels.ell_spmm import ell_spmm_cuda, ell_spmm_plain
 from repro_torch.kernels.sell_spmm import sell_spmm_cuda, sell_spmm_plain
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+EPS32 = 2.0 ** -24
 
 pytestmark = pytest.mark.cuda
 
@@ -407,9 +408,10 @@ def test_device_sampled_step_matches_cpu(card):
         out[str(dev)] = (res, blocks, tops.kernel_launches())
     (rc, bc, lc), (rg, bg, lg) = out["cpu"], out[str(card)]
     assert not any(lc.values())
-    for name in ("segment_sample", "expand_indptr", "flat_gather",
-                 "ell_spmm"):
-        assert lg[name] > 0, lg
+    # one fused launch a hop; the standalone sampling kernels stay idle
+    assert lg["sample_hop"] == 2 * 2 and lg["ell_spmm"] > 0, lg
+    for name in ("segment_sample", "expand_indptr", "flat_gather"):
+        assert lg[name] == 0, lg
     for a, b in zip(bc, bg):
         for f in ("src_ids", "dst_pos", "col", "val", "degrees"):
             assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
@@ -1153,3 +1155,227 @@ def test_fusedmm_edge_route_is_bitwise_repeatable(card, edge_op):
     assert torch.equal(first, fusedmm_bsr_cuda(bsr, x, y, h,
                                                edge_op=edge_op))
     assert tiles_by_route()["edge"] > 0
+
+
+# --------------------------------------------------------------------------
+# the fused sampling hop and the warp-per-row draw (csrc/sample.cu),
+# bitwise; the ordered segment sum (csrc/segment_sum.cu); bitwise
+# repeatable training steps
+# --------------------------------------------------------------------------
+
+def _hop_graph(rng, width, n=400, hub=None):
+    """A sentinel-extended CSR with rows of degree 0, 1, width, width + 1,
+    larger ones and optionally a hub row (row 7)."""
+    deg = rng.integers(0, 3 * width + 4, n).astype(np.int64)
+    deg[:8] = [0, 1, width, width + 1, 3 * width + 2, 700, 0,
+               hub if hub is not None else 5]
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nse = int(indptr[-1])
+    indices = np.concatenate([rng.integers(0, n, nse), [n]]).astype(np.int32)
+    val = np.concatenate([rng.standard_normal(nse), [0.0]]).astype(np.float32)
+    frontier = np.concatenate([np.arange(8), rng.integers(0, n, 2990),
+                               [n, n]]).astype(np.int32)
+    return [torch.from_numpy(a) for a in (indptr, indices, val, frontier)]
+
+
+@pytest.mark.parametrize("replace", [False, True])
+@pytest.mark.parametrize("width", [1, 10, 25, 32, 33, 64])
+@pytest.mark.parametrize("rnd", [0, -1])
+def test_sample_hop_kernel_matches_plain(card, replace, width, rnd):
+    from repro_torch.kernels import sample as ks
+    rng = np.random.default_rng(width + 7 * int(replace))
+    args = _hop_graph(rng, width, hub=18_045)
+    kw = dict(width=width, fanout=width, seed=5, hop=1, replace=replace)
+    tops.reset_kernel_launches()
+    got = ks.sample_hop(*(a.to(card) for a in args), rnd, **kw)
+    torch.cuda.synchronize()
+    assert tops.kernel_launches()["sample_hop"] == 1
+    assert sum(tops.kernel_launches().values()) == 1
+    want = ks.sample_hop_plain(*args, rnd, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_sample_hop_kernel_full_neighbourhood_and_empty_frontier(card):
+    from repro_torch.kernels import sample as ks
+    rng = np.random.default_rng(3)
+    args = _hop_graph(rng, 4, n=300, hub=18_045)
+    width = int(torch.diff(args[0]).max())
+    kw = dict(width=width, fanout=None, seed=0, hop=0, replace=False)
+    got = ks.sample_hop(*(a.to(card) for a in args), 9, **kw)
+    want = ks.sample_hop_plain(*args, 9, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    tops.reset_kernel_launches()
+    empty = ks.sample_hop(*(a.to(card) for a in args[:3]),
+                          torch.zeros(0, dtype=torch.int32, device=card), 9,
+                          width=10, fanout=10, seed=0, hop=0)
+    assert [tuple(t.shape) for t in empty] == [(0, 10)] * 3
+    assert tops.kernel_launches()["sample_hop"] == 0
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.sample_hop_cuda(args[0].to(card), args[1].to(card),
+                           args[2].double().to(card), args[3].to(card), 0,
+                           width=10, fanout=10, seed=0, hop=0, replace=False)
+
+
+@pytest.mark.parametrize("replace", [False, True])
+@pytest.mark.parametrize("width", [10, 25, 32, 33, 300])
+def test_segment_sample_warp_kernel_matches_plain(card, replace, width):
+    """The standalone kernel draws through the same warp routine as the
+    fused hop: a row's keys drawn at once, vals chained by ballots."""
+    from repro_torch.kernels import sample as ks
+    rng = np.random.default_rng(11 * width + int(replace))
+    f = 2000
+    deg = rng.integers(0, 4 * width + 2, f).astype(np.int32)
+    deg[:4] = [0, width, width + 1, 18_045]
+    gid = rng.integers(0, 1 << 30, f).astype(np.int32)
+    d, g = torch.from_numpy(deg), torch.from_numpy(gid)
+    kw = dict(width=width, seed=1, hop=0, replace=replace)
+    got = ks.segment_sample_cuda(d.to(card), g.to(card), 77, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ks.segment_sample_plain(d, g, 77, **kw))
+
+
+def _sum_case(rng, n_t=500, n_src=300, k=16, hub=20_000):
+    """Sorted targets with a hub (many pieces) and empty targets."""
+    t = np.sort(np.concatenate([rng.integers(0, n_t, 6000),
+                                np.full(hub, 17)]))
+    t = t[(t < 40) | (t > 60)]                        # targets without slots
+    offsets = torch.from_numpy(np.searchsorted(t, np.arange(n_t + 1))
+                               .astype(np.int64))
+    n = t.shape[0]
+    index = torch.from_numpy(rng.integers(-1, n_src + 1, n).astype(np.int32))
+    weight = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    src = torch.from_numpy(rng.standard_normal((n_src, k)).astype(np.float32))
+    return src, offsets, index, weight, torch.from_numpy(t)
+
+
+@pytest.mark.parametrize("k", [1, 7, 16, 256, 602])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_segment_sum_kernel_matches_plain_and_repeats_bitwise(
+        card, k, weighted, accumulate):
+    from repro_torch.kernels.segment_sum import (segment_sum_sorted,
+                                                 segment_sum_sorted_plain)
+    rng = np.random.default_rng(k + 3 * weighted + 7 * accumulate)
+    src, offsets, index, weight, tgt = _sum_case(rng, k=k)
+    weight = weight if weighted else None
+    out0 = torch.from_numpy(rng.standard_normal((500, k)).astype(np.float32))
+    dev = [t.to(card) if t is not None else None
+           for t in (src, offsets, index, weight)]
+    runs = []
+    tops.reset_kernel_launches()
+    for _ in range(2):
+        out = out0.to(card) if accumulate else None
+        runs.append(segment_sum_sorted(dev[0], dev[1], index=dev[2],
+                                       weight=dev[3], out=out))
+    torch.cuda.synchronize()
+    assert tops.kernel_launches()["segment_sum"] == 2
+    assert torch.equal(runs[0], runs[1])
+    want = segment_sum_sorted_plain(src, offsets, index=index, weight=weight,
+                                    out=out0.clone() if accumulate else None)
+    ok = (index >= 0) & (index < src.shape[0])
+    w = weight if weighted else torch.ones(index.shape[0])
+    mag = out0.abs() if accumulate else torch.zeros((500, k))
+    mag.index_add_(0, tgt[ok].long(),
+                   (w[ok][:, None] * src[index[ok].long()]).abs())
+    d = torch.bincount(tgt[ok].long(), minlength=500).float()[:, None] + 1
+    err = (runs[0].cpu() - want).abs()
+    assert (err <= 2 * EPS32 * d * mag + 1e-30).all(), float(err.max())
+    # targets without slots: 0, or their row untouched when accumulating
+    empty = (torch.diff(offsets) == 0)
+    assert torch.equal(runs[0].cpu()[empty],
+                       out0[empty] if accumulate else
+                       torch.zeros_like(out0[empty]))
+
+
+def test_segment_sum_dispatch_counts_and_rejects(card):
+    from repro_torch.kernels.segment_sum import (segment_sum_sorted,
+                                                 segment_sum_sorted_cuda)
+    src = torch.ones((4, 8), device=card)
+    offsets = torch.tensor([0, 2, 4], device=card)
+    index = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=card)
+    tops.reset_kernel_launches()
+    out = segment_sum_sorted(src, offsets, index=index)
+    assert torch.equal(out.cpu(), torch.full((2, 8), 2.0))
+    assert tops.kernel_launches()["segment_sum"] == 1
+    with pytest.raises(ValueError, match="fp32"):
+        segment_sum_sorted_cuda(src.double(), offsets, index=index)
+    with pytest.raises(ValueError, match="int32"):
+        segment_sum_sorted_cuda(src, offsets, index=index.long())
+    with pytest.raises(ValueError, match="int64"):
+        segment_sum_sorted_cuda(src, offsets.int(), index=index)
+    with pytest.raises(ValueError, match="on cuda"):
+        segment_sum_sorted_cuda(src, offsets, index=index.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_sum_sorted_cuda(src.cpu(), offsets.cpu())
+    with pytest.raises(ValueError, match="match"):
+        segment_sum_sorted_cuda(src, offsets, index=index,
+                                weight=torch.ones(3, device=card))
+    with pytest.raises(ValueError, match=r"\(2, 8\)"):
+        segment_sum_sorted_cuda(src, offsets, index=index,
+                                out=torch.zeros((3, 8), device=card))
+    assert tops.kernel_launches()["segment_sum"] == 1
+
+
+def test_minibatch_training_is_bitwise_repeatable(card):
+    """``train_gnn_minibatch`` with the device sampler, 3 steps, twice
+    from the same weights: the same losses and parameters bit for bit
+    (the block backward is the ordered segment sum, no atomics)."""
+    from repro_torch.data import make_dataset
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import gnn_minibatch as mb
+
+    ds = make_dataset("reddit", scale=1 / 64, seed=1)
+    n_train = int(ds.train_mask.sum())
+    batch = -(-n_train // 3)
+    init, _, _, _ = mb.make_block_model("sage-mean", ds.num_features, 64,
+                                        ds.num_classes, 2)
+    params = init(torch.Generator().manual_seed(0), device=card)
+    runs = []
+    for _ in range(2):
+        tops.reset_kernel_launches()
+        res = mb.train_gnn_minibatch(
+            "sage-mean", ds, fanouts=(10, 25), batch_size=batch, hidden=64,
+            epochs=1, sampler="device", params=params, device=card)
+        runs.append((res, tops.kernel_launches()))
+    (a, la), (b, lb) = runs
+    assert a.steps_per_epoch == 3 and la == lb
+    assert la["segment_sum"] >= 3 and la["sample_hop"] >= 6, la
+    assert a.losses == b.losses
+    same = []
+    tree_map(lambda x, y: same.append(torch.equal(x, y)), a.final_params,
+             b.final_params)
+    assert same and all(same)
+
+
+@pytest.mark.parametrize("arch", ["gat", "sage-max"])
+def test_full_graph_step_gradients_are_bitwise_repeatable(card, arch):
+    """One patched full-graph step twice from the same weights: every
+    gradient bit for bit (gat: the FusedMM recompute backward and the
+    trusted layer 2; sage-max: the max subgradient)."""
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.core.patch import patched
+    from repro_torch.data import make_dataset
+    from repro_torch.models.gnn import build_bundle, make_gnn
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train.gnn import loss_and_grads
+
+    ds = make_dataset("reddit", scale=1 / 128, seed=1)
+    plan = KernelPlan(kind="bsr", br=128, bc=128, fk=64) \
+        if arch == "gat" else None
+    bundle = build_bundle(ds, k_hint=128, arch=arch, plan=plan).to(card)
+    init, apply = make_gnn(arch, ds.num_features, 128, ds.num_classes)
+    params = init(torch.Generator().manual_seed(0), device=card)
+    x, y, m = (t.to(card) for t in (ds.x, ds.y, ds.train_mask))
+    runs = []
+    for _ in range(2):
+        tops.reset_kernel_launches()
+        with patched(True):
+            runs.append(loss_and_grads(apply, params, bundle, x, y, m))
+        assert tops.kernel_launches()["segment_sum"] > 0
+    (la, ga), (lb, gb) = runs
+    assert torch.equal(la, lb)
+    same = []
+    tree_map(lambda p, q: same.append(torch.equal(p, q)), ga, gb)
+    assert same and all(same)

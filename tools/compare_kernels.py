@@ -1,11 +1,11 @@
 """Hold the BSR SpMM, bf16 flash attention, bf16 ragged GEMM, scaled
-block SDDMM, SELL SpMM and FusedMM kernels against their plain versions
-at small shapes, then time them at the main path's sizes beside the same
-kernels of another checkout, in turns (other, this, this, other). Needs
-one CUDA card and ``nvcc``.
+block SDDMM, SELL SpMM, FusedMM, sampling-hop and ordered segment-sum
+kernels against their plain versions at small shapes, then time them at
+the main path's sizes beside the same kernels of another checkout, in
+turns (other, this, this, other). Needs one CUDA card and ``nvcc``.
 
     python tools/compare_kernels.py [--other DIR] [--variants]
-        [--kernels bsr,flash,ragged,sddmm,sell,fusedmm]
+        [--kernels bsr,flash,ragged,sddmm,sell,fusedmm,sample,segsum]
 
 ``--other DIR``: the root of a second checkout (e.g. the parent commit
 unpacked with ``git archive``); its kernels build into
@@ -25,7 +25,7 @@ on the tile route (both exact), the edge route without its per-tile
 barrier (exact where no tile is dense), and batches of 2 and 8 edges
 (the latter also with one CTA an SM's registers), timed over the fill
 sweep and on the proteins graph.
-``--kernels``: check and time only these (default all six).
+``--kernels``: check and time only these (default all eight).
 
 Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
 - BSR: a synthetic 518 x 518 grid of 230,000 dense 128 x 128 tiles (5 %
@@ -54,7 +54,19 @@ Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
   (phase 9's graph, hub rows included) and on the SDDMM's synthetic grid
   (no hub rows) over the same fill sweep, sigmoid and none at 0.7 %,
   beside ``scaled_dot_product_attention`` with the dense boolean mask at
-  0.7 %.
+  0.7 %;
+- the sampling hop on a synthetic reddit-sized graph (232,965 nodes,
+  ~10 M edges) at phase 8's two hop shapes (20,992 x 10 and 1,024 x 25):
+  the fused ``sample_hop`` (where the checkout has it) beside the hop as
+  separate calls, the standalone ``segment_sample`` / ``expand_indptr`` /
+  ``flat_gather`` and ``torch.take`` (ms and host µs a call),
+  ``DeviceSampler.sample_blocks`` a batch of 1,024 seeds and one
+  device-sampled GraphSAGE-mean training step over it (hidden 256, 602
+  random features);
+- a patched gat training step (loss and gradients) on ogbn-proteins at
+  scale 1/4, A pinned to BSR 128 x 128 (phase 9's step), whose
+  backward's scatters are the ordered segment sum here and
+  ``index_add_`` in a checkout without it.
 Prints one JSON line per timing run.
 """
 from __future__ import annotations
@@ -641,6 +653,247 @@ def time_sddmm(res: dict, sweep_only: bool = False) -> dict:
     return res
 
 
+def synth_sampling_graph():
+    """A reddit-sized sentinel-extended CSR for the sampling hop (232,965
+    nodes, Pareto(1.5) degrees of median ~19 and mean ~45 capped at
+    30,000, ~10 M edges, random neighbours), the same in every checkout."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sparse as sp
+    rng = np.random.default_rng(0)
+    n = 232_965
+    deg = np.minimum((rng.pareto(1.5, n) + 1.0) * 15.0, 30_000).astype(
+        np.int64)
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    nse = int(indptr[-1])
+    indices = rng.integers(0, n, nse).astype(np.int32)
+    val = rng.random(nse).astype(np.float32)
+    row_ids = np.repeat(np.arange(n, dtype=np.int32), deg)
+    return sp.CSR(indptr=torch.from_numpy(indptr.astype(np.int32)),
+                  indices=torch.from_numpy(indices),
+                  val=torch.from_numpy(val),
+                  row_ids=torch.from_numpy(row_ids), nrows=n, ncols=n,
+                  nse=nse)
+
+
+def sampling_hop_inputs(g, f, width, seed):
+    """A frontier of ``f`` distinct ids (the last 64 the num_nodes
+    sentinel, as a padded batch has) over the device graph ``g``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(g.num_nodes, f, replace=False).astype(np.int32)
+    ids[-64:] = g.num_nodes
+    return torch.from_numpy(np.sort(ids)).cuda()
+
+
+def unfused_hop(g, frontier, rnd, width, hop):
+    """The hop as separate calls: indptr gathers, ``segment_sample``, the
+    mask, ``expand_indptr`` and two ``flat_gather`` launches (the device
+    sampler's hop before the fused kernel)."""
+    from repro_torch.kernels import sample as ks
+    start = g.indptr[frontier.clamp(0, g.num_nodes).long()]
+    deg = g.indptr[(frontier + 1).clamp(0, g.num_nodes).long()] - start
+    ranks = ks.segment_sample(deg, frontier, rnd, width=width, fanout=width,
+                              seed=0, hop=hop)
+    valid = ks.sample_valid_mask(deg, width=width, fanout=width)
+    pos = ks.expand_indptr(start, ranks, valid, sentinel=g.nse)
+    return ks.flat_gather(g.indices, pos), ks.flat_gather(g.val, pos), valid
+
+
+def check_sample():
+    """The fused hop against its plain version and the unfused hop,
+    bitwise, at both of phase 8's hop shapes on the synthetic graph."""
+    import torch
+    from repro_torch.kernels import sample as ks
+    from repro_torch.sampling import device_graph_from_csr
+    g = device_graph_from_csr(synth_sampling_graph(), device="cuda")
+    for f, width, hop in ((20_992, 10, 1), (1024, 25, 0)):
+        frontier = sampling_hop_inputs(g, f, width, hop)
+        args = (g.indptr, g.indices, g.val, frontier, 7)
+        kw = dict(width=width, fanout=width, seed=0, hop=hop, replace=False)
+        got = ks.sample_hop(*args, **kw)
+        want = ks.sample_hop_plain(*args, **kw)
+        old = unfused_hop(g, frontier, 7, width, hop)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, old):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError(f"sample_hop at {f} x {width} differs "
+                                     "from its plain version or the "
+                                     "unfused hop")
+    log(f"sample_hop: bitwise equal to its plain version and to the "
+        f"unfused hop at 20,992 x 10 and 1,024 x 25 ({g.nse} edges)")
+
+
+def host_us(fn, reps=200):
+    """Host µs a call takes to enqueue its work (no sync in the loop)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def time_sample(res: dict) -> dict:
+    """Both hop shapes: the fused hop (where this checkout has it) and
+    the unfused one; the standalone wrappers and ``torch.take`` (ms a
+    call and host µs a call); ``sample_blocks`` a batch of 1,024 seeds."""
+    import numpy as np
+    import torch
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.kernels import sample as ks
+    from repro_torch.sampling import DeviceSampler, device_graph_from_csr
+    g = device_graph_from_csr(synth_sampling_graph(), device="cuda")
+    for f, width, hop in ((20_992, 10, 1), (1024, 25, 0)):
+        tag = f"hop{hop}_{f}x{width}"
+        frontier = sampling_hop_inputs(g, f, width, hop)
+        if hasattr(ks, "sample_hop"):
+            fused = (lambda: ks.sample_hop(g.indptr, g.indices, g.val,
+                                           frontier, 7, width=width,
+                                           fanout=width, seed=0, hop=hop))
+            res[f"sample_hop_{tag}_ms"] = cuda_ms(fused, reps=50)
+            res[f"sample_hop_{tag}_host_us"] = host_us(fused)
+        res[f"unfused_hop_{tag}_ms"] = cuda_ms(
+            lambda: unfused_hop(g, frontier, 7, width, hop), reps=50)
+        start = g.indptr[frontier.clamp(0, g.num_nodes).long()]
+        deg = (g.indptr[(frontier + 1).clamp(0, g.num_nodes).long()]
+               - start).contiguous()
+        ranks = ks.segment_sample_plain(deg, frontier, 7, width=width,
+                                        seed=0, hop=hop, replace=False)
+        valid = ks.sample_valid_mask(deg, width=width,
+                                     fanout=width).contiguous()
+        pos = ks.expand_indptr_plain(start, ranks, valid, sentinel=g.nse)
+        calls = {
+            "segment_sample": lambda: ks.segment_sample_cuda(
+                deg, frontier, 7, width=width, seed=0, hop=hop,
+                replace=False),
+            "expand_indptr": lambda: ks.expand_indptr_cuda(
+                start, ranks, valid, sentinel=g.nse),
+            "flat_gather": lambda: ks.flat_gather_cuda(g.indices, pos),
+            "torch_take": lambda: torch.take(g.indices, pos.long())}
+        for name, fn in calls.items():
+            res[f"{name}_{tag}_ms"] = cuda_ms(fn, reps=50)
+            res[f"{name}_{tag}_host_us"] = host_us(fn)
+    samp = DeviceSampler(g, (10, 25), batch_size=1024, seed=0,
+                         src_caps=(20_992, 180_000))
+    samp.set_plans([KernelPlan(kind="ell")] * 2)
+    rng = np.random.default_rng(5)
+    seeds = [torch.from_numpy(rng.choice(g.num_nodes, 1024, replace=False)
+                              .astype(np.int32)).cuda() for _ in range(8)]
+    with torch.no_grad():
+        samp.sample_blocks(seeds[0], 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, sd in enumerate(seeds):
+            samp.sample_blocks(sd, i)
+        torch.cuda.synchronize()
+    res["sample_blocks_ms"] = (time.perf_counter() - t0) / len(seeds) * 1e3
+    res["minibatch_step_ms"] = minibatch_step_ms(samp, seeds)
+    return res
+
+
+def minibatch_step_ms(samp, seeds, reps=20):
+    """One device-sampled GraphSAGE-mean training step (hidden 256, 602
+    random features, 41 classes, AdamW) over ``samp``'s graph, patched:
+    host ms a step over ``reps`` steps after 3 warm-up steps."""
+    import torch
+    from repro_torch.core.patch import patched
+    from repro_torch.optim import adamw
+    from repro_torch.train import gnn_minibatch as mb
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((samp.graph.num_nodes, 602), generator=g, device="cuda")
+    y = torch.randint(0, 41, (samp.graph.num_nodes,), generator=g,
+                      device="cuda")
+    init, _, apply_blocks, _ = mb.make_block_model("sage-mean", 602, 256,
+                                                   41, 2)
+    p = init(torch.Generator().manual_seed(0), device="cuda")
+    opt = adamw(1e-2, weight_decay=5e-4)
+    s = opt.init(p)
+    step = mb.make_device_minibatch_step(apply_blocks, opt, samp,
+                                         batch_size=1024)
+    stats = mb.init_step_stats("cuda")
+    with patched(True):
+        for i in range(3 + reps):
+            if i == 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            p, s, _, _, stats = step(p, s, seeds[i % len(seeds)], 1024, i, x,
+                                     y, stats)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def gat_inputs():
+    """ogbn-proteins at scale 1/4 (phase 9's graph, 7.0 M edges) with the
+    gat bundle pinned to BSR 128 x 128, hidden 256, weights from a seed."""
+    import torch
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.data import make_dataset
+    from repro_torch.models.gnn import build_bundle, make_gnn
+    ds = make_dataset("ogbn-proteins", scale=1 / 4)
+    bundle = build_bundle(ds, k_hint=256, arch="gat", plan=KernelPlan(
+        kind="bsr", br=128, bc=128, fk=64, k_hint=256)).to("cuda")
+    init, apply = make_gnn("gat", ds.num_features, 256, ds.num_classes)
+    params = init(torch.Generator().manual_seed(0), device="cuda")
+    xym = tuple(t.to("cuda") for t in (ds.x, ds.y, ds.train_mask))
+    return bundle, apply, params, xym
+
+
+def check_segsum():
+    """The ordered segment sum against its plain version (2 d eps
+    sum|terms|) with a hub target and empty targets, twice bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.segment_sum import (segment_sum_sorted_cuda,
+                                                 segment_sum_sorted_plain)
+    rng = np.random.default_rng(0)
+    t = np.sort(np.concatenate([rng.integers(0, 500, 6000),
+                                np.full(20_000, 17)]))
+    offsets = torch.from_numpy(np.searchsorted(t, np.arange(501))
+                               .astype(np.int64))
+    index = torch.from_numpy(rng.integers(0, 300, t.shape[0])
+                             .astype(np.int32))
+    weight = torch.from_numpy(rng.standard_normal(t.shape[0])
+                              .astype(np.float32))
+    src = torch.from_numpy(rng.standard_normal((300, 256)).astype(np.float32))
+    args = [a.cuda() for a in (src, offsets, index, weight)]
+    got = segment_sum_sorted_cuda(args[0], args[1], index=args[2],
+                                  weight=args[3])
+    again = segment_sum_sorted_cuda(args[0], args[1], index=args[2],
+                                    weight=args[3])
+    want = segment_sum_sorted_plain(src, offsets, index=index, weight=weight)
+    mag = segment_sum_sorted_plain(src.abs(), offsets, index=index,
+                                   weight=weight.abs())
+    d = torch.diff(offsets).float()[:, None]
+    if not torch.equal(got, again) or not bool(
+            ((got.cpu() - want).abs() <= 2 * 2.0 ** -24 * d * mag
+             + 1e-30).all()):
+        raise AssertionError("segment_sum differs from its plain version "
+                             "or between two launches")
+    log("segment_sum: within 2 d eps sum|terms| of its plain version and "
+        "bitwise repeatable (a 20,000-slot hub target, empty targets)")
+
+
+def time_segsum(res: dict) -> dict:
+    """A patched gat training step (loss and gradients) on phase 9's
+    graph: the recompute backward's scatters are index_add_ in a checkout
+    without the ordered segment sum."""
+    import torch
+    from repro_torch.core.patch import patched
+    from repro_torch.train.gnn import loss_and_grads
+    bundle, apply, params, (x, y, m) = gat_inputs()
+    with patched(True):
+        res["gat_step_ms"] = cuda_ms(
+            lambda: loss_and_grads(apply, params, bundle, x, y, m), reps=5)
+    del bundle
+    torch.cuda.empty_cache()
+    return res
+
+
 def check_sell_all():
     check_sell()
     check_sell_reddit()
@@ -648,12 +901,14 @@ def check_sell_all():
 
 CHECKS = {"bsr": check_bsr, "flash": check_flash, "ragged": check_ragged,
           "sddmm": check_sddmm, "sell": check_sell_all,
-          "fusedmm": check_fusedmm}
+          "fusedmm": check_fusedmm, "sample": check_sample,
+          "segsum": check_segsum}
 TIMERS = {"bsr": time_bsr, "flash": time_flash, "ragged": time_ragged,
-          "sddmm": time_sddmm, "sell": time_sell, "fusedmm": time_fusedmm}
+          "sddmm": time_sddmm, "sell": time_sell, "fusedmm": time_fusedmm,
+          "sample": time_sample, "segsum": time_segsum}
 LIBS = {"bsr": "bsr_spmm", "flash": "flash_attention",
         "ragged": "ragged_gemm", "sddmm": "sddmm", "sell": "sell_spmm",
-        "fusedmm": "fusedmm"}
+        "fusedmm": "fusedmm", "sample": "sample", "segsum": "segment_sum"}
 
 
 def build_variants(kernels):
