@@ -128,6 +128,25 @@ failure:
    (E, C, D) buffer, ``scaled_dot_product_attention``), and the smoke
    config in fp32 on the card (the kernels' fp32 instances) against the
    port's CPU run, prefill + 4 decode steps within atol 1e-4;
+11. measured tuning (``autotune(measure=True)``: CUDA events around the
+   hand kernels, on the card by default): (a, run after phase 8) on
+   reddit at scale 1, sage-mean's A and gcn's Â at K = 256 through
+   ``build_cached_graph(measure=True)`` into a fresh ``TuningDB``, each
+   candidate's measured ms logged beside its H100-model estimate and the
+   measured pick beside the analytic one; a second build of A served by
+   the DB with no launch; ``train_gnn(measure_tuning=True)`` for 3
+   epochs on that DB, the kernel it runs held against its plain version
+   on A at K = 256 (phase 4's per-row bound); (e) ``patch_fn`` on the
+   card: a decorated forward equals ``patched(True)`` bit for bit and
+   restores the patch state; (b) the measured ``tuning_curve`` on reddit
+   over K = 16..1024 beside the analytic one, each with its
+   ``suggest_embedding_size``; (d) one epoch of
+   ``train_gnn_minibatch(sampler="device", measure_tuning=True)``,
+   every bucket's measured pick logged, then again from the filled DB,
+   measuring nothing; (c, run in phase 7 before its bundle) the measured
+   pass on ogbn-proteins' Â at K = 256, logged against phase 7's pinned
+   BSR and the analytic pick. The launches inside the timed passes join
+   the kernels line;
 5. last, the kernels line (one JSON object: the sampling kernels and the
    fused hop as timed in phase 8, the ordered segment sum as timed in
    phase 9, the serving kernels as timed in phase 4, BSR as timed in
@@ -2035,6 +2054,280 @@ def minibatch_phase(ds) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: measured tuning on the card
+# ---------------------------------------------------------------------------
+
+TUNE_K = 256                                  # the training paths' width
+CURVE_KS = (16, 32, 64, 128, 256, 512, 1024)  # the reference's tuning curve
+
+
+@contextlib.contextmanager
+def measured_launches():
+    """Count the hand kernels launched inside the tuner's timed callables
+    (``core.autotune._time_callable``: the untimed first call and the
+    timed ones) by kernel name, into the yielded dict."""
+    import importlib
+    from repro_torch.kernels import ops as kops
+    tat = importlib.import_module("repro_torch.core.autotune")
+    counts: dict = {}
+    real = tat._time_callable
+
+    def counted(fn, *args, **kw):
+        before = kops.kernel_launches()
+        try:
+            return real(fn, *args, **kw)
+        finally:
+            for name, n in kops.kernel_launches().items():
+                if n - before[name]:
+                    counts[name] = counts.get(name, 0) + n - before[name]
+    tat._time_callable = counted
+    try:
+        yield counts
+    finally:
+        tat._time_callable = real
+
+
+def traced(fn):
+    """``fn()`` in a trace: (its result, the ``tuning.measure`` and
+    ``tuning.plan`` instants it emitted, seconds)."""
+    from repro_torch import obs
+    t0 = time.perf_counter()
+    with obs.profiled(ops=False) as tracer:
+        out = fn()
+    spans = tracer.snapshot()
+    return (out, [s.attrs for s in spans if s.name == "tuning.measure"],
+            [s.attrs for s in spans if s.name == "tuning.plan"],
+            time.perf_counter() - t0)
+
+
+def measure_record(tag, rec) -> dict:
+    """One measured pass as logged: every candidate's measured ms beside
+    its analytic estimate (H100 model), the measured and analytic picks."""
+    est = dict(rec["estimated"])
+    cands = [dict(name=n, ms=t * 1e3, est_ms=est[n] * 1e3)
+             for n, t in rec["candidates"]]
+    if not all(np.isfinite(c["ms"]) and c["ms"] > 0 for c in cands) or \
+            rec["device"] != DEVICE:
+        raise AssertionError(f"{tag}: measured pass malformed: {rec}")
+    log(f"  {tag} K={rec['k']} ({rec['semiring']}): measured pick "
+        f"{rec['winner']}, analytic pick {rec['analytic']}; " + ", ".join(
+            f"{c['name']} {c['ms']:.4f} ms (est {c['est_ms']:.4f})"
+            for c in cands))
+    return dict(tag=tag, graph=rec["graph"], k=rec["k"],
+                semiring=rec["semiring"], measured_pick=rec["winner"],
+                analytic_pick=rec["analytic"], candidates=cands)
+
+
+def plan_operand(g):
+    """(kernel name, operand) a cached graph's plan runs A through, or
+    (None, None) for trusted."""
+    p = g.plan
+    if p.wants_bsr:
+        return "bsr_spmm", g.bsr
+    if p.wants_sell:
+        return "sell_spmm", g.sell
+    if p.wants_ell:
+        return "ell_spmm", g.ell
+    return None, None
+
+
+def tuning_phase(ds, gen) -> dict:
+    """Phase 11 on reddit (a, b, d, e; (c) runs in phase 7): measured
+    picks for sage-mean's A and gcn's Â at K = 256 into a fresh
+    ``TuningDB``, a second build served by it with no launch,
+    ``train_gnn(measure_tuning=True)`` on it and its kernel held to its
+    plain version, the measured and analytic tuning curves, one epoch of
+    device-sampled minibatch training measured per bucket and again from
+    the filled DB, and ``patch_fn`` on the card."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import sparse as sp
+    from repro_torch.core.autotune import (TuningDB, suggest_embedding_size,
+                                           tuning_curve)
+    from repro_torch.core.cache import build_cached_graph
+    from repro_torch.core.patch import is_patched, patch_fn, patched
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.gnn import GraphBundle, make_gnn
+    from repro_torch.train import gnn_minibatch as mb
+    from repro_torch.train.gnn import train_gnn
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    db_path = ROOT / "build" / "chip_smoke_measured.json"
+    db_path.unlink(missing_ok=True)
+    a_norm = sp.gcn_normalize(ds.coo, add_self_loops=True)
+
+    # (a) measured picks on A (sage-mean) and Â (gcn), the DB, train_gnn
+    picks, graphs = [], {}
+    with measured_launches() as counts_a:
+        for tag, a in (("reddit/A", ds.coo), ("reddit/Â", a_norm)):
+            g, recs, plans, secs = traced(lambda: build_cached_graph(
+                a, k_hint=TUNE_K, measure=True, db=TuningDB(str(db_path)),
+                device=DEVICE))
+            if len(recs) != 1 or plans[-1]["source"] != "measure":
+                raise AssertionError(f"{tag}: {len(recs)} measured passes, "
+                                     f"plan source {plans[-1]['source']}")
+            picks.append(dict(measure_record(tag, recs[0]), build_s=secs))
+            graphs[tag] = g
+    kops.reset_kernel_launches()
+    again, recs, plans, secs = traced(lambda: build_cached_graph(
+        ds.coo, k_hint=TUNE_K, measure=True, db=TuningDB(str(db_path)),
+        device=DEVICE))
+    hit_launches = sum(kops.kernel_launches().values())
+    if recs or plans[-1]["source"] != "db" or hit_launches or \
+            again.plan != graphs["reddit/A"].plan:
+        raise AssertionError(f"second build: {len(recs)} measured passes, "
+                             f"source {plans[-1]['source']}, "
+                             f"{hit_launches} launches")
+    log(f"  reddit/A again with the filled DB: served from it "
+        f"({again.plan.kind}), {hit_launches} launches ({secs:.1f} s)")
+    del again
+    res, recs, plans, secs = traced(lambda: train_gnn(
+        ARCH, ds, hidden=TUNE_K, epochs=3, measure_tuning=True,
+        tuning_db=TuningDB(str(db_path)), device=DEVICE))
+    if recs or not np.isfinite(res.losses).all():
+        raise AssertionError(f"train_gnn(measure_tuning=True): "
+                             f"{len(recs)} passes, losses {res.losses}")
+    g = graphs["reddit/A"]
+    name, a_op = plan_operand(g)
+    trained = dict(plan=res.plan_kind, losses=res.losses,
+                   epoch_ms=res.epoch_time_s * 1e3,
+                   plan_source=plans[-1]["source"] if plans else None)
+    if name is None:
+        log("  train_gnn(measure_tuning=True): trusted won on A; no hand "
+            "SpMM kernel to hold (the trusted path's ordered segment sum "
+            "is held in phase 9)")
+    else:
+        h = random_h(g.ncols, TUNE_K, gen)
+        err, width, ratio = check_kernel(
+            name, sp.to_device(a_op, DEVICE), h, "reddit/A/measured")
+        trained.update(kernel=name, max_abs_err=err, max_err_over_bound=ratio)
+        del h
+    log(f"  train_gnn({ARCH}, hidden {TUNE_K}, measure_tuning=True): plan "
+        f"{res.plan_kind} from the {trained['plan_source']}, epoch "
+        f"{trained['epoch_ms']:.2f} ms, losses "
+        f"{[round(x, 4) for x in res.losses]}" + (
+            f"; {name} on A at K={TUNE_K} against its plain version: max "
+            f"|diff| {trained['max_abs_err']:.2e} (/bound "
+            f"{trained['max_err_over_bound']:.3f})" if name else ""))
+    out.update(picks=picks, db_hit_launches=hit_launches, train=trained)
+    torch.cuda.empty_cache()
+
+    # (e) patch_fn on the card: a decorated forward, bit for bit
+    g_dev = graphs["reddit/A"].to(DEVICE)
+    bundle = GraphBundle(tuned=g_dev, tuned_norm=None,
+                         raw=sp.to_device(ds.coo, DEVICE),
+                         raw_sl=sp.to_device(ds.coo_sl, DEVICE))
+    init, apply = make_gnn(ARCH, ds.num_features, TUNE_K, ds.num_classes)
+    params = init(torch.Generator().manual_seed(0), device=DEVICE)
+    x = ds.x.to(DEVICE)
+
+    @patch_fn
+    def forward():
+        return apply(params, bundle, x), is_patched()
+    with torch.no_grad():
+        with patched(False):
+            dec, inside = forward()
+            after = is_patched()
+        with patched(True):
+            want = apply(params, bundle, x)
+    if not (inside and not after and torch.equal(dec, want)):
+        raise AssertionError(f"patch_fn: patched inside {inside}, after "
+                             f"{after}, max |diff| "
+                             f"{float((dec - want).abs().max())}")
+    log(f"  patch_fn: the decorated forward equals patched(True) bit for "
+        f"bit ({tuple(dec.shape)}), patch state restored")
+    out["patch_fn"] = dict(bitwise=True, restored=True)
+    del bundle, g_dev, params, x, dec, want, graphs, g, a_op
+    torch.cuda.empty_cache()
+
+    # (b) the tuning curve, measured on the card beside the analytic one
+    t0 = time.perf_counter()
+    with measured_launches() as counts_b:
+        measured, recs, _, _ = traced(lambda: tuning_curve(
+            ds.coo, CURVE_KS, measure=True, device=DEVICE))
+    analytic = tuning_curve(ds.coo, CURVE_KS)
+    curve = dict(ks=list(CURVE_KS), measured=measured, analytic=analytic,
+                 suggested_measured=suggest_embedding_size(measured),
+                 suggested_analytic=suggest_embedding_size(analytic),
+                 passes=[measure_record(f"curve/K={r['k']}", r)
+                         for r in recs],
+                 seconds=time.perf_counter() - t0)
+    log(f"  tuning curve on reddit/A ({curve['seconds']:.1f} s): "
+        + "; ".join(f"K={m['k']} measured {m['kind']} {m['speedup']:.3f}x, "
+                    f"analytic {a['kind']} {a['speedup']:.3f}x"
+                    for m, a in zip(measured, analytic))
+        + f"; suggested K: measured {curve['suggested_measured']}, "
+          f"analytic {curve['suggested_analytic']}")
+    out["curve"] = curve
+
+    # (d) one epoch of device-sampled minibatch training, measured per
+    # bucket, then again from the filled DB
+    kw = dict(fanouts=FANOUTS, batch_size=MB_BATCH, hidden=HIDDEN, epochs=1,
+              lr=TRAIN_LR, weight_decay=TRAIN_WD, sampler="device",
+              infer_batch=MB_INFER_BATCH, measure_tuning=True,
+              device=DEVICE)
+    mb_db = ROOT / "build" / "chip_smoke_measured_mb.json"
+    mb_db.unlink(missing_ok=True)
+    with measured_launches() as counts_d:
+        res, recs, plans, secs = traced(lambda: mb.train_gnn_minibatch(
+            ARCH, ds, tuning_db=TuningDB(str(mb_db)), **kw))
+    buckets = [dict(key=p["key"], source=p["source"], kind=p["kind"])
+               for p in plans if p.get("site") == "block_plan_cache"]
+    passes = [measure_record(f"minibatch/{r['graph']}", r) for r in recs]
+    if not recs or len(recs) != sum(b["source"] == "measure"
+                                    for b in buckets):
+        raise AssertionError(f"minibatch: {len(recs)} measured passes for "
+                             f"buckets {buckets}")
+    log(f"  minibatch (device sampler, 1 epoch, {secs:.1f} s): "
+        f"{len(buckets)} bucket plans, "
+        f"{sum(b['source'] == 'measure' for b in buckets)} measured; "
+        f"plans {res.plan_kinds}; loss {res.losses}")
+    for b in buckets:
+        log(f"    {b['key']}: {b['kind']} ({b['source']})")
+    before = obs.metrics().counter("tuning.measured").value
+    res2, recs2, plans2, secs2 = traced(lambda: mb.train_gnn_minibatch(
+        ARCH, ds, tuning_db=TuningDB(str(mb_db)), **kw))
+    measured_again = obs.metrics().counter("tuning.measured").value - before
+    if recs2 or measured_again or any(
+            p["source"] != "db" for p in plans2
+            if p.get("site") == "block_plan_cache"):
+        raise AssertionError(f"minibatch from the filled DB measured "
+                             f"{measured_again} times")
+    log(f"  minibatch again from the filled DB: nothing measured "
+        f"({secs2:.1f} s), plans {res2.plan_kinds}")
+    out["minibatch"] = dict(buckets=buckets, passes=passes,
+                            plans=list(res.plan_kinds), seconds=secs,
+                            seconds_from_db=secs2)
+    launches: dict = {}
+    for c in (counts_a, counts_b, counts_d):
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return out
+
+
+def proteins_tuning(a_norm, stats, tuning: dict) -> dict:
+    """Phase 11 (c), run in phase 7 before its pinned bundle exists: the
+    measured pass on ogbn-proteins' Â at K = 256."""
+    import torch
+    from repro_torch.core.autotune import autotune
+    t0 = time.perf_counter()
+    with measured_launches() as counts:
+        plan, recs, _, _ = traced(lambda: autotune(
+            a_norm, TUNE_K, stats=stats, measure=True, device=DEVICE))
+    rec = measure_record("proteins/Â", recs[0])
+    rec.update(seconds=time.perf_counter() - t0, plan=plan.to_json())
+    for k, v in counts.items():
+        tuning["launches"][k] = tuning["launches"].get(k, 0) + v
+    tuning["seconds"] += rec["seconds"]
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: LM serving (prefill + decode) of phi3.5-moe at full width
 # ---------------------------------------------------------------------------
 
@@ -2760,6 +3053,12 @@ def main() -> int:
     minibatch["seconds"] = time.perf_counter() - t0
     log(f"minibatch phase: {minibatch['seconds']:.1f} s")
     report["train_minibatch"] = minibatch
+
+    # -- phase 11 (a, b, d, e): measured tuning on reddit ------------------
+    log("phase 11: measured tuning (CUDA events over the hand kernels; "
+        "estimates from the H100 model)")
+    tuning = tuning_phase(ds, gen)
+    log(f"phase 11 on reddit: {tuning['seconds']:.1f} s")
     del ds
     torch.cuda.empty_cache()
 
@@ -2777,6 +3076,8 @@ def main() -> int:
     a_norm = sp.gcn_normalize(pds.coo)
     stats = graph_stats(a_norm)
     would = autotune(a_norm, HIDDEN, stats=stats)
+    # phase 11 (c): the measured pass on Â, before the pinned bundle
+    tuning["proteins"] = proteins_tuning(a_norm, stats, tuning)
     del a_norm
     est_would = estimate_plan_time(stats, HIDDEN, would, H100)
     est_bsr = estimate_plan_time(stats, HIDDEN, bsr_plan, H100)
@@ -2814,6 +3115,19 @@ def main() -> int:
             f"{last['prepass_ms']:.4f} ms; err/bound "
             f"{last['max_err_over_bound']:.4f}")
     report["train_proteins"] = proteins
+    mp = tuning["proteins"]
+    timed = {c["name"]: c for c in mp["candidates"]}
+    log(f"phase 11 (c) proteins Â K={HIDDEN}: measured pick "
+        f"{mp['measured_pick']} {timed[mp['measured_pick']]['ms']:.4f} ms; "
+        f"phase 7's pinned bsr128x128 {proteins['cases'][0]['ms']:.4f} ms; "
+        f"analytic pick {mp['analytic_pick']} estimated "
+        f"{timed[mp['analytic_pick']]['est_ms']:.4f} ms, measured "
+        f"{timed[mp['analytic_pick']]['ms']:.4f} ms "
+        f"({mp['seconds']:.1f} s)")
+    tuning["proteins"]["pinned_bsr_ms"] = proteins["cases"][0]["ms"]
+    log(f"phase 11: {tuning['seconds']:.1f} s in all; launches in the "
+        f"measured passes {tuning['launches']}")
+    report["measured_tuning"] = tuning
     del bundle, g, a, coo, pds
     torch.cuda.empty_cache()
 
@@ -2974,6 +3288,9 @@ def main() -> int:
             entry["instance"] = "/".join(
                 k for k, v in lmr["ragged_instances"]["prefill"].items() if v)
         kernels.append(entry)
+    for entry in kernels:       # phase 11: launches inside the timed passes
+        entry["launches_measured_tuning"] = tuning["launches"].get(
+            entry["name"], 0)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1,

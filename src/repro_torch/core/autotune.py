@@ -20,8 +20,12 @@ hardware model:
   plan's ``fk``, the ring of shared memory it stages,
   ``HardwareModel.bsr_smem``, and split-TF32 tile products on the tensor
   cores at ``bsr_flops``).
-* ``measure=True`` raises ``NotImplementedError`` until candidates are
-  timed with CUDA events.
+* ``measure=True`` times the candidates where they will run: on the
+  card (``device="cuda"``, the default) the hand kernels with CUDA
+  events, on the host (``device="cpu"``, asked for by name) their plain
+  versions with the host clock. The candidates, their order and their
+  gates are the reference's; what each callable runs is what
+  ``core/spmm._forward`` runs for that plan on that device.
 
 Module map
 ----------
@@ -29,16 +33,19 @@ Module map
 ``GraphStats``/``graph_stats``        host-side sparsity fingerprint
 ``KernelPlan``                        the tuner's hashable decision
 ``estimate_plan_time``                analytic roofline cost per plan
-``autotune``                          the analytic sweep
-``TuningDB``                          persisted decisions (JSON, schema 2)
+``autotune``/``_measure_override``    analytic sweep + measured override
+``tuning_curve``                      Fig. 2 sweep over K
+``TuningDB``                          persisted decisions (JSON, schema 2;
+                                      measured rows keyed per device kind)
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import time
 import warnings
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -52,6 +59,9 @@ __all__ = [
     "graph_stats",
     "estimate_plan_time",
     "autotune",
+    "tuning_curve",
+    "suggest_embedding_size",
+    "device_tag",
     "TuningDB",
     "sell_sigma_candidates",
     "sell_candidates_from_degrees",
@@ -133,8 +143,9 @@ H100 = HardwareModel(
 
 
 def probe_hardware() -> HardwareModel:
-    """The H100 model, the port's only target (the tuner is analytic, so
-    the model is all it needs). A card of another kind gets a warning."""
+    """The H100 model, the port's only target: the analytic sweep needs
+    only the model, and the measured pass (``autotune(measure=True)``)
+    times the card itself. A card of another kind gets a warning."""
     import torch
     if torch.cuda.is_available():
         name = torch.cuda.get_device_name()
@@ -359,15 +370,16 @@ def autotune(a, k_hint: int = 128, *, hw: HardwareModel | None = None,
              measure: bool = False, semiring_reduce: str = "sum",
              tile_candidates: Sequence[tuple] = _DEFAULT_TILES,
              sell_candidates: Sequence[tuple] | None = None,
-             stats: GraphStats | None = None) -> KernelPlan:
+             stats: GraphStats | None = None,
+             device="cuda") -> KernelPlan:
     """Pick the kernel variant + tile shape for (graph ``a``, width
     ``k_hint``) by the analytic roofline sweep. Generated kernels serve
     only K that is a multiple of ``hw.lane`` and the sum/mean semiring;
-    every other point takes the trusted kernel."""
-    if measure:
-        raise NotImplementedError(
-            "measured tuning is not ported yet: it needs candidates timed "
-            "with CUDA events (ROADMAP.md queue 1)")
+    every other point takes the trusted kernel.
+
+    ``measure=True`` then times candidates on ``device`` and keeps the
+    fastest (:func:`_measure_override`): on the card unless the caller
+    asks for ``"cpu"``; with no card it raises."""
     hw = hw or probe_hardware()
     stats = stats or graph_stats(a, tile_candidates, sell_candidates)
 
@@ -382,6 +394,10 @@ def autotune(a, k_hint: int = 128, *, hw: HardwareModel | None = None,
                                    est_generated_s=float("inf"))
         _log_sweep(stats, k_hint, semiring_reduce, evaluated, plan,
                    gated="lane" if not lane_aligned else "semiring")
+        if measure:     # a measured trusted row for this semiring
+            plan = _measure_override(a, k_hint, plan, stats, hw=hw,
+                                     semiring=semiring_reduce,
+                                     device=device)
         return plan
 
     best: KernelPlan = dataclasses.replace(
@@ -421,6 +437,9 @@ def autotune(a, k_hint: int = 128, *, hw: HardwareModel | None = None,
                                        est_trusted_s=t_trusted)
 
     _log_sweep(stats, k_hint, semiring_reduce, evaluated, best)
+    if measure:
+        best = _measure_override(a, k_hint, best, stats, hw=hw,
+                                 semiring=semiring_reduce, device=device)
     return best
 
 
@@ -450,8 +469,268 @@ def _log_sweep(stats: GraphStats, k: int, semiring: str, evaluated: list,
 
 
 # --------------------------------------------------------------------------
+# The measured pass
+# --------------------------------------------------------------------------
+
+def _measure_device(device):
+    """``device`` as a ``torch.device`` that a measured pass may time on.
+    The card is the default and there is no fallback: asking for it with
+    no card present raises; the host is timed only when named."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "measured tuning times the hand kernels on the card and no "
+                "CUDA device is present; pass device='cpu' to time the "
+                "plain versions on the host")
+    elif dev.type != "cpu":
+        raise ValueError(f"no measured tuning on device {dev}")
+    return dev
+
+
+def _time_callable(fn: Callable, *args, reps: int = 3) -> float:
+    """Seconds a call of ``fn(*args)``, the mean of ``reps`` calls after
+    one untimed call (which also builds the kernel on the card: the
+    build never lands in the timed window). On the card: CUDA events
+    around the ``reps`` calls on the current stream, the device
+    synchronised before and after; on the host: the host clock."""
+    import torch
+    dev = next((x.device for x in args if isinstance(x, torch.Tensor)),
+               torch.device("cpu"))
+    with torch.no_grad():
+        fn(*args)
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(*args)
+            return (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn(*args)
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / 1e3 / reps
+
+
+def _pack(a, plan: KernelPlan, packs: dict | None):
+    """The host-packed operand of ``plan`` over ``a`` (BSR, ELL at its
+    full max degree, or SELL), from ``packs`` when the caller keeps one
+    packing a plan across calls."""
+    from repro_torch.core import sparse as sp
+    key = (plan.kind, plan.br, plan.bc, plan.sell_c, plan.sell_sigma)
+    if packs is not None and key in packs:
+        return packs[key]
+    if plan.kind == "bsr":
+        packed = sp.bsr_from_coo(a, br=plan.br, bc=plan.bc)
+    elif plan.kind == "ell":
+        packed = sp.ell_from_coo(a)
+    elif plan.kind == "sell":
+        packed = sp.sell_from_coo(a, c=plan.sell_c, sigma=plan.sell_sigma)
+    else:
+        raise ValueError(plan.kind)
+    if packs is not None:
+        packs[key] = packed
+    return packed
+
+
+def _measure_plan(a, plan: KernelPlan, h, sr, inv_deg,
+                  packs: dict | None = None) -> float:
+    """Time one generated candidate as ``core/spmm._forward`` runs it on
+    ``h``'s device: ``kops.bsr_spmm`` / ``ell_spmm`` / ``sell_spmm``
+    (the hand kernels on the card, the plain versions on the host), with
+    the mean post-scale inside the timed callable. The operand is moved
+    to the device for this candidate alone and freed after it.
+
+    The reference times its ELL candidate through ``spmm_ell_ref`` (its
+    XLA gather); the port times its ELL kernel, which is what the port's
+    production path launches."""
+    import torch
+    from repro_torch.core import sparse as sp
+    from repro_torch.kernels import ops as kops
+
+    kernel = {"bsr": kops.bsr_spmm, "ell": kops.ell_spmm,
+              "sell": kops.sell_spmm}[plan.kind]
+    op = sp.to_device(_pack(a, plan, packs), h.device)
+    nrows = a.nrows
+
+    def run(hh):
+        out = kernel(op, hh)[:nrows]
+        return out * inv_deg[:, None] if sr.reduce == "mean" else out
+    try:
+        return _time_callable(run, h)
+    finally:
+        del op, run
+        if h.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _measure_trusted(a, h, sr, degrees) -> float:
+    """Time the trusted path as ``core/spmm`` runs it: the segment reduce
+    over A's edges, through the ordered segment sum on the card for sum /
+    mean (the edges' stable sort by row computed before timing, as a
+    ``CachedGraph`` caches it)."""
+    import torch
+    from repro_torch.core import sparse as sp
+    from repro_torch.kernels.ref import coo_reduce
+    from repro_torch.kernels.segment_sum import segment_order
+
+    coo = sp.to_device(a, h.device)
+    order = segment_order(coo.row[: coo.nse], coo.nrows)
+
+    def run(hh):
+        return coo_reduce(coo.row, coo.col, coo.val, coo.nse, coo.nrows, hh,
+                          sr, degrees, order=order)
+    try:
+        return _time_callable(run, h)
+    finally:
+        del coo, order, run
+        if h.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _measure_override(a, k: int, plan: KernelPlan, stats: GraphStats, *,
+                      hw: HardwareModel | None = None,
+                      semiring: str = "sum", device="cuda",
+                      packs: dict | None = None) -> KernelPlan:
+    """Time trusted against one candidate per generated family (the
+    analytic pick, the best SELL by estimate, ELL where degrees are
+    bounded) on ``device`` and keep the fastest, its ``est_*`` fields
+    holding measured seconds, as the reference does.
+
+    ``semiring`` is the reduction the caller runs: the trusted path is
+    timed with that semiring, and generated candidates include the mean
+    post-scale. Max / min and K that is not a multiple of ``hw.lane``
+    admit no generated candidate: their row is the trusted time alone.
+    The probe input is the reference's (``default_rng(0)`` normals).
+    ``a`` may hold tensors or numpy arrays (a sampled block's COO); its
+    real entries are timed as int32 triplets, as ``coo_from_edges``
+    builds them. ``packs`` keeps one host packing a plan across calls
+    over ``a``."""
+    import torch
+    from repro_torch.core import sparse as sp
+    from repro_torch.core.semiring import get_semiring
+
+    dev = _measure_device(device)
+    hw = hw or probe_hardware()
+    a = sp.COO(row=torch.from_numpy(_np(a.row)[: a.nse].astype(np.int32)),
+               col=torch.from_numpy(_np(a.col)[: a.nse].astype(np.int32)),
+               val=torch.from_numpy(np.ascontiguousarray(_np(a.val)[: a.nse])),
+               nrows=a.nrows, ncols=a.ncols, nse=a.nse)
+    h = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (a.ncols, k)).astype(np.float32)).to(dev)
+    sr = get_semiring(semiring)
+    degrees = sp.row_degrees(a).to(dev)
+    inv_deg = 1.0 / torch.clamp(degrees, min=1.0)
+
+    t_trusted = _measure_trusted(a, h, sr, degrees)
+
+    candidates: list[KernelPlan] = []
+    if sr.mxu_eligible and k % hw.lane == 0:
+        if plan.kind != "trusted":
+            candidates.append(plan)
+        if not any(p.kind == "sell" for p in candidates) and \
+                stats.sell_counts:
+            candidates.append(min(
+                (KernelPlan(kind="sell", sell_c=c, sell_sigma=s, k_hint=k)
+                 for c, s, _ in stats.sell_counts),
+                key=lambda p: estimate_plan_time(stats, k, p, hw)))
+        ell_bounded = stats.max_deg <= max(4 * stats.avg_deg, 8)
+        if ell_bounded and not any(p.kind == "ell" for p in candidates):
+            candidates.append(KernelPlan(kind="ell", k_hint=k))
+
+    timed: list = [("trusted", t_trusted)]
+    best, best_t = None, float("inf")
+    for cand in candidates:
+        t = _measure_plan(a, cand, h, sr, inv_deg, packs)
+        timed.append((_plan_label(cand), t))
+        if t < best_t:
+            best, best_t = cand, t
+
+    if best is not None and best_t <= t_trusted:
+        winner = dataclasses.replace(best, est_generated_s=best_t,
+                                     est_trusted_s=t_trusted)
+    else:
+        winner = KernelPlan(kind="trusted", k_hint=k,
+                            est_generated_s=best_t, est_trusted_s=t_trusted)
+    estimated = [[_plan_label(p), estimate_plan_time(stats, k, p, hw)]
+                 for p in [KernelPlan.trusted(k)] + candidates]
+    _log_measured(stats, k, semiring, timed, winner, estimated=estimated,
+                  analytic=_plan_label(plan), device=dev.type)
+    return winner
+
+
+def _log_measured(stats: GraphStats, k: int, semiring: str, timed: list,
+                  winner: KernelPlan, **extra) -> None:
+    """One ``tuning.measure`` instant (each timed candidate's measured
+    seconds and the pick, beside ``extra``: the candidates' analytic
+    estimates, the analytic pick and the device) when tracing is on;
+    always bumps the ``tuning.measured`` counter."""
+    from repro_torch import obs
+    obs.metrics().counter("tuning.measured").inc()
+    if not obs.enabled():
+        return
+    obs.instant(
+        "tuning.measure",
+        graph=f"{stats.nrows}x{stats.ncols}nse{stats.nse}", k=k,
+        semiring=semiring, winner=_plan_label(winner),
+        candidates=[[name, float(t)] for name, t in timed], **extra)
+
+
+# --------------------------------------------------------------------------
+# Tuning curve — the Fig. 2 reproduction
+# --------------------------------------------------------------------------
+
+def tuning_curve(a, ks: Sequence[int] = (16, 32, 64, 128, 256, 512, 1024),
+                 *, hw: HardwareModel | None = None, measure: bool = False,
+                 device="cuda") -> list[dict]:
+    """Sweep embedding sizes; report generated-vs-trusted speedup per K
+    (analytic, or measured on ``device``). The peak of this curve is the
+    tuner's "ideal embedding size" (§3.2, Fig. 2). A measured curve packs
+    each candidate plan once on the host and reuses the packing across
+    Ks, which changes no result."""
+    hw = hw or probe_hardware()
+    stats = graph_stats(a)
+    packs: dict = {}
+    rows = []
+    for k in ks:
+        plan = autotune(a, k, hw=hw, stats=stats)
+        if measure:
+            plan = _measure_override(a, k, plan, stats, hw=hw,
+                                     device=device, packs=packs)
+        if measure and plan.est_generated_s != float("inf"):
+            speedup = plan.est_trusted_s / plan.est_generated_s
+        else:
+            t_tr = estimate_plan_time(stats, k, KernelPlan.trusted(k), hw)
+            gen = plan if plan.kind != "trusted" else None
+            speedup = (t_tr / estimate_plan_time(stats, k, gen, hw)
+                       if gen is not None else 1.0)
+        rows.append(dict(k=k, kind=plan.kind, br=plan.br, bc=plan.bc,
+                         speedup=float(speedup)))
+    return rows
+
+
+def suggest_embedding_size(curve: list[dict]) -> int:
+    """The K with the best generated-vs-trusted speedup on a
+    :func:`tuning_curve` sweep — the paper's "ideal embedding size"."""
+    return max(curve, key=lambda r: r["speedup"])["k"]
+
+
+# --------------------------------------------------------------------------
 # Tuning DB — persisted tuner decisions
 # --------------------------------------------------------------------------
+
+def device_tag(device) -> str:
+    """The device kind a measured plan holds for: ``cpu``, or the card's
+    name (``torch.cuda.get_device_name``). Raises where ``device`` is the
+    card and none is present."""
+    import torch
+    dev = _measure_device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
 
 class TuningDB:
     """JSON-file store of tuner decisions so repeated runs skip the sweep.
@@ -459,7 +738,16 @@ class TuningDB:
     On-disk format (schema 2): ``{"schema": 2, "plans": {...}}``; legacy
     flat dicts still load. A corrupt or incompatible-schema file is
     quarantined to ``<path>.corrupt`` with a warning. The caller names the
-    file: the port reads and writes nothing it was not pointed at."""
+    file: the port reads and writes nothing it was not pointed at.
+
+    Device rule: a measured plan holds only for the kind of device it was
+    timed on, so a measured row is stored and looked up under its key
+    plus ``@`` and :func:`device_tag` (``...k256@cpu``, ``...k256@NVIDIA
+    H100 80GB HBM3``); a request that measures on one device kind never
+    reads another's row. Rows without the suffix are analytic decisions,
+    pinned plans or rows the reference wrote; only requests that measure
+    nothing read them. :meth:`key` is the reference's, byte for byte, and
+    each file loads in the other package."""
 
     _SCHEMA_VERSION = 2
 
@@ -515,18 +803,31 @@ class TuningDB:
         sfx = "" if semiring == "sum" else f"sr{semiring}"
         return f"{a.nrows}x{a.ncols}nse{a.nse}fp{fp:08x}k{k}{sfx}"
 
-    def get(self, a, k: int, semiring: str = "sum") -> KernelPlan | None:
-        return self.get_key(self.key(a, k, semiring))
+    @staticmethod
+    def measured_key(key: str, device) -> str:
+        """The row of ``key`` measured on ``device``'s kind."""
+        return f"{key}@{device_tag(device)}"
 
-    def put(self, a, k: int, plan: KernelPlan,
-            semiring: str = "sum") -> None:
-        self.put_key(self.key(a, k, semiring), plan)
+    def get(self, a, k: int, semiring: str = "sum", *,
+            device=None) -> KernelPlan | None:
+        """The row for (graph ``a``, ``k``, ``semiring``): measured on
+        ``device``'s kind when ``device`` is given, else the unsuffixed
+        row."""
+        return self.get_key(self.key(a, k, semiring), device=device)
 
-    def get_key(self, key: str) -> KernelPlan | None:
+    def put(self, a, k: int, plan: KernelPlan, semiring: str = "sum", *,
+            device=None) -> None:
+        self.put_key(self.key(a, k, semiring), plan, device=device)
+
+    def get_key(self, key: str, *, device=None) -> KernelPlan | None:
+        if device is not None:
+            key = self.measured_key(key, device)
         d = self._db.get(key)
         return KernelPlan.from_json(d) if d else None
 
-    def put_key(self, key: str, plan: KernelPlan) -> None:
+    def put_key(self, key: str, plan: KernelPlan, *, device=None) -> None:
+        if device is not None:
+            key = self.measured_key(key, device)
         self._db[key] = plan.to_json()
 
     def save(self) -> None:

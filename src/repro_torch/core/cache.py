@@ -11,7 +11,10 @@ ONCE and reusing them every step:
   * the edges' stable sorts by row and by column (``row_order``,
     ``col_order``): the segment offsets the ordered sums of the
     backwards take on the card, so no step sorts a graph-static vector;
-  * the format conversion and the kernel plan (autotuner output).
+  * the format conversion and the kernel plan (autotuner output);
+  * the tuner's decision itself, across processes: a
+    :class:`~repro_torch.core.autotune.TuningDB` passed as ``db=`` serves
+    plans tuned before and records new ones (§3.2's tune-once).
 
 Built on the host (numpy packing, CPU tensors); :meth:`CachedGraph.to`
 moves every operand to the device that runs the kernels.
@@ -24,7 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import sparse as sp
-from repro_torch.core.autotune import KernelPlan, autotune
+from repro_torch.core.autotune import KernelPlan, TuningDB, autotune
 from repro_torch.kernels.segment_sum import SegmentOrder, segment_order
 
 __all__ = ["CachedGraph", "build_cached_graph"]
@@ -68,10 +71,19 @@ class CachedGraph:
 def build_cached_graph(a: sp.COO, *, k_hint: int = 128,
                        plan: KernelPlan | None = None,
                        tune: bool = True,
-                       semiring_reduce: str = "sum") -> CachedGraph:
+                       measure: bool = False,
+                       semiring_reduce: str = "sum",
+                       db: Optional[TuningDB] = None,
+                       device="cuda") -> CachedGraph:
     """Host-side one-time preprocessing: transpose, degrees, BSR/SELL/ELL
     packing, kernel plan. ``k_hint`` is the embedding width the tuner
-    optimizes for; a ``plan`` pins the decision."""
+    optimizes for; a ``plan`` pins the decision.
+
+    ``measure=True`` times the candidates on ``device`` (the card unless
+    the caller asks for ``"cpu"``) and keeps the fastest. A ``db``
+    serves a plan tuned before (the measured row of ``device``'s kind
+    when measuring, else the analytic row) and records a fresh one;
+    ``semiring_reduce`` keys the row and is the semiring timed."""
     a_t = sp.coo_transpose(a)
     deg = sp.row_degrees(a)
     deg_t = sp.row_degrees(a_t)
@@ -79,12 +91,26 @@ def build_cached_graph(a: sp.COO, *, k_hint: int = 128,
     from repro_torch import obs
     source = "caller"
     if plan is None:
-        if tune:
-            plan = autotune(a, k_hint, semiring_reduce=semiring_reduce)
-            source = "sweep"
-        else:
-            plan = KernelPlan.trusted()
-            source = "untuned"
+        row_device = device if measure else None
+        if db is not None:      # one fingerprint (a sort of the edges)
+            key = db.key(a, k_hint, semiring_reduce)
+            plan = db.get_key(key, device=row_device)
+            source = "db"
+            obs.metrics().counter(
+                "tuning.db.hit" if plan is not None
+                else "tuning.db.miss").inc()
+        if plan is None:
+            if tune:
+                plan = autotune(a, k_hint, measure=measure,
+                                semiring_reduce=semiring_reduce,
+                                device=device)
+                source = "measure" if measure else "sweep"
+                if db is not None:
+                    db.put_key(key, plan, device=row_device)
+                    db.save()
+            else:
+                plan = KernelPlan.trusted()
+                source = "untuned"
     if obs.enabled():
         obs.instant("tuning.plan", site="build_cached_graph", source=source,
                     kind=plan.kind, k=k_hint, semiring=semiring_reduce,

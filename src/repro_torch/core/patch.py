@@ -3,7 +3,8 @@
 Model code routes its aggregation through ``resolve(name)``; ``patch()``
 binds every registered op to its tuned implementation (plan-routed hand
 kernels), ``unpatch()`` to its baseline (the trusted reduce), and
-``patched()`` is the context-manager form. Registered ops: ``spmm``
+``patched()`` is the context-manager form and ``@patch_fn`` the paper's
+single-function decorator. Registered ops: ``spmm``
 (tuned = :func:`repro_torch.core.spmm.spmm` over a CachedGraph, baseline
 = :func:`repro_torch.core.baselines.spmm_uncached`), ``fusedmm``
 (tuned = :func:`repro_torch.core.fusedmm.fusedmm`, the fused BSR kernel
@@ -22,8 +23,8 @@ import contextlib
 import functools
 from typing import Callable
 
-__all__ = ["patch", "unpatch", "patched", "resolve", "register_baseline",
-           "register_tuned", "is_patched"]
+__all__ = ["patch", "unpatch", "patched", "patch_fn", "resolve",
+           "register_baseline", "register_tuned", "is_patched"]
 
 _BASELINE: dict[str, Callable] = {}
 _TUNED: dict[str, Callable] = {}
@@ -61,6 +62,17 @@ def patched(enable: bool = True):
         yield
     finally:
         (patch if prev else unpatch)()
+
+
+def patch_fn(fn: Callable) -> Callable:
+    """Decorator form (the paper's "decorator for patching a single
+    function"): the wrapped function runs with the tuned bindings active,
+    and the patch state before the call is restored after it."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with patched(True):
+            return fn(*args, **kwargs)
+    return wrapper
 
 
 def resolve(name: str) -> Callable:

@@ -19,7 +19,7 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core import sparse as sp
-from repro_torch.core.autotune import KernelPlan
+from repro_torch.core.autotune import KernelPlan, TuningDB
 from repro_torch.core.cache import CachedGraph, build_cached_graph
 
 __all__ = ["GraphBundle", "build_bundle"]
@@ -50,14 +50,21 @@ class GraphBundle:
 
 
 def build_bundle(dataset, *, k_hint: int = 128, tune: bool = True,
+                 measure: bool = False,
                  plan: Optional[KernelPlan] = None,
-                 arch: Optional[str] = None) -> GraphBundle:
+                 db: Optional[TuningDB] = None,
+                 arch: Optional[str] = None, device="cuda") -> GraphBundle:
     """One-time host-side preprocessing for a GraphDataset. ``plan`` pins
     the cached graphs' kernel plan; ``arch`` builds only the cached graph
     that arch aggregates over (Â for ``gcn``, A otherwise) and leaves the
-    other None."""
+    other None, so only that graph is tuned. ``measure`` times the
+    candidates on ``device`` (see :func:`build_cached_graph`); ``db``
+    persists the decisions across runs — §3.2's one-time tuning on the
+    training path."""
     def cached(a):
-        return build_cached_graph(a, k_hint=k_hint, tune=tune, plan=plan)
+        return build_cached_graph(a, k_hint=k_hint, tune=tune,
+                                  measure=measure, plan=plan, db=db,
+                                  device=device)
     tuned = tuned_norm = None
     if arch != "gcn":
         tuned = cached(dataset.coo)

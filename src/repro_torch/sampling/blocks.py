@@ -18,7 +18,7 @@ device that runs the model (the device sampler,
 ``sampling/device_graph.py``, builds its blocks on the device instead).
 Plans are chosen once per bucket by :class:`BlockPlanCache`
 (consulting/persisting ``TuningDB`` rows under a ``block...`` string
-key).
+key; measured on the card with ``measure=True``).
 
 :func:`block_spmm` is differentiable in ``h`` on every plan: the ELL and
 SELL kernels sit in a ``torch.autograd.Function`` whose backward is the
@@ -180,26 +180,48 @@ class BlockPlanCache:
     excluded from the sweep (``tile_candidates=()``): a sampled bipartite
     block has no dense tiles and ``PackedBlock`` does not carry the
     format. A plan found in ``db`` is used as it is, which is how a caller
-    pins a plan."""
+    pins a plan.
+
+    ``measure=True`` times each bucket's candidates on ``device`` (the
+    card unless the caller asks for ``"cpu"``) over the bucket's first
+    block; its rows persist under the key plus the device kind
+    (``TuningDB.measured_key``)."""
 
     def __init__(self, *, semiring: str = "sum", tune: bool = True,
-                 db: Optional[TuningDB] = None):
+                 measure: bool = False, db: Optional[TuningDB] = None,
+                 device="cuda"):
         self.semiring = semiring
         self.tune = tune
+        self.measure = measure
         self.db = db
+        self.device = device
         self._plans: dict[tuple, KernelPlan] = {}
 
     @staticmethod
     def key(n_dst: int, n_src: int, nnz: int, k: int, semiring: str) -> str:
         return f"block{n_dst}x{n_src}nse{nnz}k{k}sr{semiring}"
 
+    def _row_device(self):
+        return self.device if self.measure else None
+
+    def will_measure(self, *, n_dst: int, n_src: int, nnz: int,
+                     k_hint: int, sell_ok: bool = True) -> bool:
+        """True iff :meth:`plan_for` on this bucket would time kernels:
+        measuring, tuning, and the plan neither cached nor in the DB."""
+        ck = (n_dst, n_src, nnz, k_hint, self.semiring, sell_ok)
+        if not (self.measure and self.tune) or ck in self._plans:
+            return False
+        skey = self.key(*ck[:5]) + ("" if sell_ok else "nosell")
+        return self.db is None or \
+            self.db.get_key(skey, device=self._row_device()) is None
+
     def plan_for(self, block: Block, *, n_dst: int, n_src: int, nnz: int,
                  k_hint: int, sell_ok: bool = True) -> KernelPlan:
         """The plan of ``block``'s bucket: cached, else from the DB, else
-        swept (``tune``) or trusted. ``sell_ok=False`` restricts the sweep
-        to ELL/trusted, for the device sampler, whose packing cannot build
-        the degree-sorted SELL layout; such plans cache and persist under
-        their own key."""
+        swept (``tune``; measured over ``block`` when ``measure``) or
+        trusted. ``sell_ok=False`` restricts the sweep to ELL/trusted, for
+        the device sampler, whose packing cannot build the degree-sorted
+        SELL layout; such plans cache and persist under their own key."""
         ck = (n_dst, n_src, nnz, k_hint, self.semiring, sell_ok)
         plan = self._plans.get(ck)
         if plan is not None:
@@ -207,7 +229,7 @@ class BlockPlanCache:
         skey = self.key(*ck[:5]) + ("" if sell_ok else "nosell")
         source = None
         if self.db is not None:
-            plan = self.db.get_key(skey)
+            plan = self.db.get_key(skey, device=self._row_device())
             source = "db" if plan is not None else None
         if plan is None:
             if self.tune and block.nnz:
@@ -215,15 +237,17 @@ class BlockPlanCache:
                              col=np.asarray(block.col, np.int64),
                              val=np.asarray(block.val), nrows=n_dst,
                              ncols=n_src, nse=block.nnz)
-                plan = autotune(rep, k_hint, semiring_reduce=self.semiring,
+                plan = autotune(rep, k_hint, measure=self.measure,
+                                semiring_reduce=self.semiring,
                                 tile_candidates=(),
-                                sell_candidates=None if sell_ok else ())
-                source = "sweep"
+                                sell_candidates=None if sell_ok else (),
+                                device=self.device)
+                source = "measure" if self.measure else "sweep"
             else:
                 plan = KernelPlan.trusted(k_hint)
                 source = "untuned"
             if self.db is not None:
-                self.db.put_key(skey, plan)
+                self.db.put_key(skey, plan, device=self._row_device())
                 self.db.save()
         self._plans[ck] = plan
         if obs.enabled():

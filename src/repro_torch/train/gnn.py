@@ -78,13 +78,19 @@ def loss_and_grads(apply, params: dict, bundle, x: torch.Tensor,
 
 def train_gnn(arch: str, dataset, *, hidden: int = 128, epochs: int = 30,
               lr: float = 1e-2, weight_decay: float = 5e-4,
-              use_isplib: bool = True, tune: bool = True, seed: int = 0,
-              bundle=None, profile: bool = False,
+              use_isplib: bool = True, tune: bool = True,
+              measure_tuning: bool = False, seed: int = 0,
+              bundle=None, tuning_db=None, profile: bool = False,
               params: dict | None = None,
               device="cuda") -> GNNTrainResult:
     """Train a 2-layer GNN on ``dataset`` (a ``data.graphs.GraphDataset``)
     on ``device``. ``bundle`` (host or device) skips the build, which
     otherwise packs only the cached graph ``arch`` uses.
+
+    ``measure_tuning=True`` times that graph's candidate kernels on the
+    run's own ``device`` before training; ``tuning_db`` (a
+    ``core.autotune.TuningDB``) serves plans this device kind has
+    measured before and records new ones.
 
     ``profile=True`` turns the ``repro_torch.obs`` tracer on for the run
     (if it is off) and records ``train.build`` / ``train.init`` /
@@ -99,7 +105,9 @@ def train_gnn(arch: str, dataset, *, hidden: int = 128, epochs: int = 30,
         if bundle is None:
             with obs.span("train.build"):
                 bundle = build_bundle(dataset, k_hint=hidden, tune=tune,
-                                      arch=arch)
+                                      measure=measure_tuning,
+                                      db=tuning_db, arch=arch,
+                                      device=device)
         with obs.span("train.init"):
             bundle = bundle.to(device)
             init, apply = make_gnn(arch, dataset.num_features, hidden,

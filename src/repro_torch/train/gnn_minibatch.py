@@ -32,13 +32,23 @@ counters read once per epoch. The AdamW step count is a device tensor
 held by the same select, so a skipped step leaves the bias corrections
 where they were, as in the reference.
 
-Data parallelism, checkpoint/resume, fault injection, the straggler
-watchdog and measured tuning come with later slices (ROADMAP.md).
+Measured tuning (``measure_tuning=True``) times each bucket's candidate
+kernels on the run's device over the bucket's first block, and never
+while a step runs on the same card: the device sampler plans on its
+probe blocks before the first step; with the host sampler, a batch
+whose buckets are not all planned is handed to the consumer (the
+training loop's thread) unpacked, and the prefetch thread waits until
+the consumer has planned and packed it, so no step and no transfer of
+the pipeline overlaps a timed window.
+
+Data parallelism, checkpoint/resume, fault injection and the straggler
+watchdog come with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 import warnings
 from typing import Any, Optional
@@ -302,7 +312,8 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                         batch_size: int = 256, hidden: int = 128,
                         epochs: int = 5, lr: float = 1e-2,
                         weight_decay: float = 5e-4, use_isplib: bool = True,
-                        tune: bool = True, seed: int = 0,
+                        tune: bool = True, measure_tuning: bool = False,
+                        seed: int = 0, tuning_db=None,
                         bucket_base: int = 128, infer_batch: int = 1024,
                         sampler: str = "host", skip_nonfinite: bool = True,
                         device_caps=None, max_escalations: int = 2,
@@ -326,6 +337,11 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
     Edges dropped to capacity overflow are counted on the device; at an
     epoch boundary with new drops the capacities double and the sampler is
     rebuilt, at most ``max_escalations`` times.
+
+    ``measure_tuning=True`` times each bucket's candidates on ``device``
+    (see the module docstring for when); ``tuning_db`` (a
+    ``core.autotune.TuningDB``) serves per-bucket plans this device kind
+    has measured before and records new ones.
 
     ``profile=True`` turns the ``repro_torch.obs`` tracer on for the run
     (if it is off): ``train.epoch`` / ``train.step`` / ``train.infer`` and,
@@ -363,7 +379,9 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                               .clone(), params)
         opt = adamw(lr, weight_decay=weight_decay)
         opt_state = opt.init(params)
-        plan_cache = BlockPlanCache(semiring=semiring, tune=tune)
+        plan_cache = BlockPlanCache(semiring=semiring, tune=tune,
+                                    measure=measure_tuning, db=tuning_db,
+                                    device=device)
         train_ids = np.nonzero(dataset.train_mask.numpy())[0]
         x = dataset.x.to(device)
         y = dataset.y.to(device)
@@ -417,9 +435,22 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                     sell_steps=bk.sell_steps))
             return pbs
 
-        def batch_stream(epoch: int):
+        def stage(blocks, buckets, seed_ids, bi):
+            """Plan, pack and move one sampled batch."""
+            with obs.span("loader.pack", batch=bi):
+                pbs = pack_all(blocks, buckets)
+            sig = tuple(pb.bucket_signature for pb in pbs)
+            with obs.span("loader.h2d", batch=bi):
+                pbs = [sp.to_device(pb, device) for pb in pbs]
+                sids = torch.from_numpy(seed_ids).to(device)
+            return pbs, sids, sig
+
+        def batch_stream(epoch: int, planned: threading.Event):
             """Host half of the pipeline (the prefetch thread): sample,
-            bucket, pack and move one batch per step."""
+            bucket, pack and move one batch per step. A batch with a
+            bucket still to measure goes to the consumer unpacked
+            (``(None, ...)``), and this thread waits on ``planned`` until
+            the consumer has planned and packed it."""
             for bi, (seed_ids, n_real) in enumerate(epoch_batches(epoch)):
                 with obs.span("loader.sample", batch=bi):
                     blocks = host_sampler.sample(
@@ -428,25 +459,37 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                     buckets = plan_buckets(blocks, batch_size=batch_size,
                                            fanouts=fanouts,
                                            base=bucket_base)
-                    pbs = pack_all(blocks, buckets)
-                sig = tuple(pb.bucket_signature for pb in pbs)
-                with obs.span("loader.h2d", batch=bi):
-                    pbs = [sp.to_device(pb, device) for pb in pbs]
-                    sids = torch.from_numpy(seed_ids).to(device)
-                yield pbs, sids, n_real, sig
+                if any(plan_cache.will_measure(
+                        n_dst=bk.n_dst, n_src=bk.n_src, nnz=bk.nnz,
+                        k_hint=k) for bk, k in zip(buckets, dims)):
+                    yield None, (blocks, buckets, seed_ids, bi), n_real
+                    planned.wait()
+                    planned.clear()
+                    continue
+                pbs, sids, sig = stage(blocks, buckets, seed_ids, bi)
+                yield (pbs, sids, sig), None, n_real
 
         def run_epoch(epoch: int):
             nonlocal params, opt_state, stats
             last = None
-            for bi, (pbs, sids, n_real, sig) in enumerate(
-                    prefetch(batch_stream(epoch))):
-                signatures.add(sig)
-                with obs.span("train.step",
-                              step=epoch * steps_per_epoch + bi):
-                    params, opt_state, last, _, stats = step(
-                        params, opt_state, pbs, sids, n_real, x, y, stats)
-                    if profile:   # the span times execution, not enqueue
-                        sync()
+            planned = threading.Event()
+            try:
+                for bi, (ready, raw, n_real) in enumerate(
+                        prefetch(batch_stream(epoch, planned))):
+                    if ready is None:       # measured here, between steps
+                        ready = stage(*raw)
+                        planned.set()
+                    pbs, sids, sig = ready
+                    signatures.add(sig)
+                    with obs.span("train.step",
+                                  step=epoch * steps_per_epoch + bi):
+                        params, opt_state, last, _, stats = step(
+                            params, opt_state, pbs, sids, n_real, x, y,
+                            stats)
+                        if profile:   # the span times execution, not enqueue
+                            sync()
+            finally:
+                planned.set()           # never leave the producer waiting
             return last
 
         def run_epoch_device(epoch: int):

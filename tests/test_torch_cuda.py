@@ -1379,3 +1379,103 @@ def test_full_graph_step_gradients_are_bitwise_repeatable(card, arch):
     same = []
     tree_map(lambda p, q: same.append(torch.equal(p, q)), ga, gb)
     assert same and all(same)
+
+
+# --------------------------------------------------------------------------
+# measured tuning on the card
+# --------------------------------------------------------------------------
+
+def test_measured_timer_leaves_the_first_call_out_of_its_window(card):
+    """The untimed first call of ``_time_callable`` (the one that builds
+    a kernel) never lands in the CUDA-event window: a callable whose
+    first call takes 0.5 s reads as the fast calls after it."""
+    import importlib
+    import time
+    tat = importlib.import_module("repro_torch.core.autotune")
+    calls = []
+    h = torch.zeros(1024, device=card)
+
+    def fn(x):
+        calls.append(1)
+        if len(calls) == 1:
+            time.sleep(0.5)
+        return x + 1
+    t = tat._time_callable(fn, h)
+    assert len(calls) == 4 and 0 < t < 0.05
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_measured_pass_times_the_hand_kernels_on_the_card(card, reduce):
+    """``autotune(measure=True)`` with no ``device`` times on the card:
+    each timed generated candidate launches its kernel once untimed and
+    three times timed, the trusted candidate runs the ordered segment
+    sum, and the winner's ``est_*`` are the measured seconds."""
+    from repro_torch import obs
+    from repro_torch.core.autotune import autotune
+    rng = np.random.default_rng(0)
+    coo = _coo(rng, 4096, 4096, 60_000)
+    tops.reset_kernel_launches()
+    with obs.profiled() as tracer:
+        plan = autotune(coo, 128, measure=True, semiring_reduce=reduce)
+    launches = tops.kernel_launches()
+    rec = [s.attrs for s in tracer.snapshot() if s.name == "tuning.measure"]
+    assert len(rec) == 1 and rec[0]["device"] == "cuda"
+    timed = dict(rec[0]["candidates"])
+    assert set(timed) > {"trusted"}
+    for label in timed:
+        kind = next((k for k in ("bsr", "sell", "ell")
+                     if label.startswith(k)), None)
+        if kind is not None:
+            assert launches[f"{kind}_spmm"] == 4, launches
+    assert launches["segment_sum"] >= 4, launches
+    assert plan.est_trusted_s == timed["trusted"]
+    assert all(0 < t < 1 for t in timed.values())
+
+
+def test_measured_pass_raises_where_no_card_is_visible(card):
+    """With the card hidden, a measured pass that names no device raises
+    (it never times the host in the card's place)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    code = ("import numpy as np\n"
+            "from repro_torch.core import sparse as sp\n"
+            "from repro_torch.core.autotune import autotune\n"
+            "a = sp.coo_from_edges(np.arange(8), np.arange(8), "
+            "np.ones(8, np.float32), 8, 8)\n"
+            "autotune(a, 16, measure=True)\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_cpu_row_is_never_served_on_the_card(card, tmp_path):
+    """A plan measured on the host is not served to a build that measures
+    on the card: the card measures afresh (kernels launch) and keeps its
+    own row, which serves the next card build with no launch."""
+    import json
+    from repro_torch.core.autotune import TuningDB
+    from repro_torch.core.cache import build_cached_graph
+    rng = np.random.default_rng(1)
+    coo = _coo(rng, 2048, 2048, 30_000)
+    path = str(tmp_path / "db.json")
+    build_cached_graph(coo, k_hint=64, measure=True, device="cpu",
+                       db=TuningDB(path))
+    tops.reset_kernel_launches()
+    on_card = build_cached_graph(coo, k_hint=64, measure=True,
+                                 db=TuningDB(path))
+    assert sum(tops.kernel_launches().values()) > 0
+    key = TuningDB.key(coo, 64)
+    rows = json.loads(open(path).read())["plans"]
+    assert sorted(rows) == sorted(
+        [f"{key}@cpu", f"{key}@{torch.cuda.get_device_name(0)}"])
+    tops.reset_kernel_launches()
+    again = build_cached_graph(coo, k_hint=64, measure=True,
+                               db=TuningDB(path))
+    assert sum(tops.kernel_launches().values()) == 0
+    assert again.plan == on_card.plan

@@ -160,10 +160,25 @@ def test_train_gnn_profile_records_spans(datasets):
     assert dataclasses.asdict(res)["plan_kind"] == res.plan_kind
 
 
-def test_unported_paths_raise(datasets):
+def test_measured_tuning_on_the_training_path(datasets, monkeypatch):
+    """``train_gnn(measure_tuning=True)`` times the graph its arch uses on
+    the run's own device: on the host when asked for, and with no card
+    present a run on the card raises before training (it never times the
+    host in its place)."""
     _, ds = datasets
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with obs.profiled() as tracer:
+        res = train_gnn("sage-mean", ds, hidden=HIDDEN, epochs=2,
+                        device="cpu", measure_tuning=True)
+    measured = [s.attrs for s in tracer.snapshot()
+                if s.name == "tuning.measure"]
+    assert len(measured) == 1 and measured[0]["device"] == "cpu"
+    assert measured[0]["winner"].startswith(res.plan_kind)
+    assert np.isfinite(res.losses).all()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         autotune(ds.coo, 32, measure=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_gnn("gcn", ds, hidden=HIDDEN, epochs=2, measure_tuning=True)
 
 
 @pytest.mark.parametrize("arch", ["gcn", "sage-mean"])

@@ -89,10 +89,24 @@ def test_h100_model_reaches_kernels_at_k602(tiny_dataset):
     assert probe_hardware() is H100
 
 
-def test_measured_tuning_not_ported(rng):
+def test_measured_tuning_times_a_served_block_on_the_host(rng):
+    """The tuner call a served bucket makes (``tile_candidates=()``, as in
+    ``BlockPlanCache``) with ``measure=True`` times the candidates on the
+    device it was given (here the host): finite measured seconds, a
+    ``tuning.measure`` instant, and a plan whose ``est_*`` fields are
+    those measured seconds."""
     ref, _ = random_coo(rng, 20, 20, 50)
-    with pytest.raises(NotImplementedError, match="CUDA events"):
-        autotune(_port_coo(ref), 16, measure=True)
+    coo = _port_coo(ref)
+    with obs.profiled() as tracer:
+        plan = autotune(coo, 16, measure=True, device="cpu",
+                        tile_candidates=())
+    rec = [s.attrs for s in tracer.snapshot() if s.name == "tuning.measure"]
+    assert len(rec) == 1 and rec[0]["device"] == "cpu"
+    timed = dict(rec[0]["candidates"])
+    assert plan.est_trusted_s == timed["trusted"] > 0
+    assert all(np.isfinite(t) for t in timed.values())
+    if plan.kind != "trusted":
+        assert plan.est_generated_s == min(timed.values())
 
 
 def test_tuning_db_round_trip_and_reference_format(tmp_path, rng):
