@@ -9,9 +9,8 @@ failure:
 1. card and build — the card's name and power limit, then the hand
    kernels compiled from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel), ptxas's registers and spills of every kernel,
-   and of the fused sampling hop (``sample_hop_kernel``), the
-   warp-per-row ``segment_sample_kernel`` and the ordered segment sum
-   (``segment_sum_kernel*``) on a line of their own;
+   and of the per-edge SDDMM (``edge_dots_kernel``) and the redesigned
+   ordered segment sum (``segment_sum_kernel*``) on a line of their own;
 2. sampled serving at full width — reddit at scale 1 (232,965 nodes,
    602 features, 41 classes), GraphSAGE-mean, 2 layers, hidden 256,
    fanouts (10, 25) outermost first, a 65,536-row feature cache, fp32,
@@ -67,7 +66,11 @@ failure:
    more from the same weights, state, seeds and round gives the same
    loss, gradients and parameters bit for bit; eight steps of the run
    passed under ``torch.cuda.set_sync_debug_mode("error")`` (any host
-   sync raises); one step is traced for the device busy share; host
+   sync raises); step 0's buckets packed with the trusted plan
+   (``BlockPlanCache(tune=False)``), GraphSAGE-mean and -max: the step
+   twice from the same weights bit for bit, through the ordered
+   ``segment_sum``, and within phase 6's tolerances of the CPU; one step
+   is traced for the device busy share; host
    sampling + packing of 8 batches is timed beside ``sample_blocks`` on
    the card; the sampling wrappers' host µs a call are logged;
 7. the same on ogbn-proteins, cut to scale 1/2 for device memory (the
@@ -89,11 +92,16 @@ failure:
    (layer 1, K = 256; layer 2, K = 112, takes the trusted composition)
    held against ``fusedmm_bsr_plain`` on its own inputs (atol 1e-4 x
    max|h|) and required to have taken the per-edge route on some tiles
-   (the kernel counts tiles by route); ``train_gnn`` patched and
-   unpatched for 5 epochs, counts zeroed just before and read just after
-   each (the unpatched run must launch nothing, the patched run's fused
-   launches must have taken the per-edge route and its backward the
-   ordered ``segment_sum``), peak memory logged; the patched first step
+   (the kernel counts tiles by route), its three per-edge SDDMM
+   launches (``edge_dots``: layer 2's forward scores and one dual launch
+   in each layer's backward) each held against the plain version on its
+   own inputs within 2 (D + 1) eps sum_d |x_d y_d| a score, and no plain
+   ``edge_dots`` run on a card tensor inside the step; ``train_gnn``
+   patched and unpatched for 5 epochs, counts zeroed just before and
+   read just after each (the unpatched run must launch nothing, the
+   patched run's fused launches must have taken the per-edge route, and
+   it must have launched ``edge_dots`` and the ordered ``segment_sum``),
+   peak memory logged; the patched first step
    run twice from the same weights (gat, and GraphSAGE-max on the same
    graph: the max subgradient) gives the same gradients bit for bit;
    then ``ops.sddmm_bsr`` on A with layer 1's q and k (scale_by_a True
@@ -105,10 +113,12 @@ failure:
    function, the plain versions and a library yardstick the port never
    calls (``torch.sparse.sampled_addmm``; for softmax
    ``F.scaled_dot_product_attention`` with the dense boolean mask); the
-   ordered segment sum as layer 1's backward runs it for dh, checked
-   against its plain version (2 d eps sum|terms|), launched twice for
-   bitwise repeats and timed beside its bound and ``torch.sparse.mm`` on
-   the same CSR;
+   ordered segment sum as layer 1's backward runs it for dh (at K = 256
+   and 112), checked against its plain version (2 d eps sum|terms|),
+   launched twice for bitwise repeats and timed beside its bound and
+   ``torch.sparse.mm`` on the same CSR; the per-edge SDDMM on A at D = 256, single and dual, checked, repeated
+   bitwise and timed beside its bound, the plain version and
+   ``torch.sparse.sampled_addmm``;
 10. (run last) LM serving of phi3.5-moe-42b-a6.6b at full width
    (d_model 4096, 32 / 8 heads of 128, 16 experts top-2 of d_ff 6400,
    bf16), cut to 4 of 32 layers (the 84 GB of bf16 weights exceed the
@@ -148,8 +158,8 @@ failure:
    BSR and the analytic pick. The launches inside the timed passes join
    the kernels line;
 5. last, the kernels line (one JSON object: the sampling kernels and the
-   fused hop as timed in phase 8, the ordered segment sum as timed in
-   phase 9, the serving kernels as timed in phase 4, BSR as timed in
+   fused hop as timed in phase 8, the ordered segment sum and the
+   per-edge SDDMM as timed in phase 9, the serving kernels as timed in phase 4, BSR as timed in
    phase 7, SDDMM and FusedMM as timed in phase 9, the ragged GEMM and
    flash attention as timed in phase 10), the card line, and
    ``{"ok": true, "device": {...}}``.
@@ -202,6 +212,10 @@ KERNEL_META = {
     # (jax.ops.segment_sum, as its trusted reduce does)
     "segment_sum": dict(source="src/repro_torch/csrc/segment_sum.cu",
                         replaces="src/repro/core/semiring.py:68"),
+    # no Pallas kernel: the reference's per-edge dot products are XLA
+    # (the FusedMM backward's recompute, and sddmm_coo_ref)
+    "edge_dots": dict(source="src/repro_torch/csrc/edge_dots.cu",
+                      replaces="src/repro/core/fusedmm.py:80"),
     "sddmm_bsr": dict(source="src/repro_torch/csrc/sddmm.cu",
                       replaces="src/repro/kernels/sddmm.py:35"),
     "fusedmm_bsr": dict(source="src/repro_torch/csrc/fusedmm.cu",
@@ -277,8 +291,7 @@ def ptxas_report(text: str) -> dict:
 
 # the kernels this slice added or redesigned: phase 1 logs their
 # registers and spills on a line of their own
-NEW_KERNELS = ("sample_hop_kernel", "segment_sample_kernel",
-               "segment_sum_kernel")
+NEW_KERNELS = ("edge_dots_kernel", "segment_sum_kernel")
 
 
 def card_line() -> str:
@@ -421,6 +434,18 @@ def device_us(fn, reps: int):
     """Device time (µs) of the kernels ``reps`` calls of ``fn`` run, by
     kernel name."""
     return profiled(fn, reps)[0]
+
+
+def traced_ms(fn, reps: int, name: str, tries: int = 3):
+    """Device ms a call of the kernels whose names contain ``name``, from
+    :func:`device_us` over ``reps`` calls; a trace that records none of
+    them (a late trace in a long process sometimes records no kernel) is
+    taken again, at most ``tries`` traces in all; None if none did."""
+    for _ in range(tries):
+        us = sum(v for key, v in device_us(fn, reps).items() if name in key)
+        if us:
+            return us / reps / 1e3
+    return None
 
 
 def kernel_times(events) -> dict:
@@ -733,10 +758,13 @@ def step_profile(fn) -> dict:
     ``fn`` (a training step) from a ``torch.profiler`` trace."""
     times, wall = profiled(fn)
     ranked = sorted(times.items(), key=lambda kv: -kv[1])
+    by_name: dict = {}      # names cut to 90 characters may coincide: sum
+    for key, us in ranked:
+        by_name[key[:90]] = by_name.get(key[:90], 0.0) + us / 1e3
     return dict(wall_s=wall, device_s=sum(times.values()) / 1e6,
                 busy_share=sum(times.values()) / 1e6 / wall,
                 top=[[key[:60], round(us / 1e3, 3)] for key, us in ranked[:6]],
-                device_ms={key[:90]: us / 1e3 for key, us in ranked})
+                device_ms=by_name)
 
 
 def compare_first_step(tag, loss_t, g_t, loss_b, g_b) -> dict:
@@ -902,6 +930,148 @@ def record_fusedmm():
         kops.fusedmm_bsr = real
 
 
+def _holders(fn) -> list:
+    """(module, name) of every loaded module of the port that holds ``fn``
+    under a name (a function imported by name is patched there too)."""
+    return [(m, name) for key, m in list(sys.modules.items())
+            if key.startswith("repro_torch") and m is not None
+            for name, v in list(vars(m).items()) if v is fn]
+
+
+@contextlib.contextmanager
+def record_edge_dots():
+    """Record every per-edge SDDMM dispatch on ``DEVICE`` (copies of
+    its operands and outputs; the edge ids are the graph's own): the
+    dispatcher is wrapped wherever a module holds it, and it and the
+    kernel's launch count are unchanged."""
+    from repro_torch.kernels import edge_dots as ked
+    calls: list = []
+    real = ked.edge_dots
+
+    def recorded(x, y, row, col, x2=None, y2=None):
+        out = real(x, y, row, col, x2, y2)
+        if x.device.type == DEVICE:
+            outs = out if x2 is not None else (out,)
+            calls.append(dict(
+                args=tuple(None if t is None else
+                           t.detach().float().contiguous().clone()
+                           for t in (x, y, x2, y2)),
+                row=row, col=col, out=tuple(o.clone() for o in outs)))
+        return out
+    holders = _holders(real)
+    for m, name in holders:
+        setattr(m, name, recorded)
+    try:
+        yield calls
+    finally:
+        for m, name in holders:
+            setattr(m, name, real)
+
+
+@contextlib.contextmanager
+def count_plain_edge_dots():
+    """Record the shapes of every call of the plain per-edge dot products
+    (``kernels.ref.edge_dots``, under each name a loaded module of the
+    port holds it by) on CUDA tensors."""
+    from repro_torch.kernels import ref
+    real = ref.edge_dots
+    calls: list = []
+
+    def counted(x, y, row, col):
+        if x.is_cuda:
+            calls.append(tuple(x.shape))
+        return real(x, y, row, col)
+    holders = _holders(real)
+    for m, name in holders:
+        setattr(m, name, counted)
+    try:
+        yield calls
+    finally:
+        for m, name in holders:
+            setattr(m, name, real)
+
+
+def check_edge_dots(c, tag) -> dict:
+    """One recorded per-edge SDDMM launch against ``edge_dots_plain`` on
+    the same card tensors: each score within 2 (D + 1) eps sum_d |x_d
+    y_d| (two fp32 sums of the same D products in other orders)."""
+    import torch
+    from repro_torch.kernels.ref import edge_dots
+    x, y, x2, y2 = c["args"]
+    worst = ratio = 0.0
+    for (a, b), got in zip(((x, y), (x2, y2)), c["out"]):
+        want = edge_dots(a, b, c["row"], c["col"])
+        mag = edge_dots(a.abs(), b.abs(), c["row"], c["col"])
+        err = (got - want).abs()
+        bound = 2 * (a.shape[1] + 1) * EPS32 * mag + 1e-30
+        if not bool((err <= bound).all()) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"edge_dots {tag}: kernel disagrees with "
+                                 f"plain, max err {float(err.max())}, worst "
+                                 f"ratio {float((err / bound).max())}")
+        worst = max(worst, float(err.max()))
+        ratio = max(ratio, float((err / bound).max()))
+    return dict(tag=tag, d=x.shape[1], k=None if x2 is None else x2.shape[1],
+                edges=int(c["row"].shape[0]), dual=x2 is not None,
+                max_abs_err=worst, max_err_over_bound=ratio)
+
+
+def edge_dots_case(g, q, k, v) -> dict:
+    """The per-edge SDDMM on A's edges at layer 1's widths (D = K =
+    HIDDEN): single (the scores, as the forward and ``sddmm`` launch it)
+    and dual (the backward's scores and dw_e = dout_row . h_col, ``q``
+    standing in for dout): checked against the plain version, launched
+    twice for bitwise repeats, timed beside the bound (each used row of
+    the operands read once, 8 bytes of ids and 4 of output an edge; 2 D
+    operations an edge and product), the plain version and
+    ``torch.sparse.sampled_addmm`` on the same CSR for the same work
+    (one call single, two dual; timed only)."""
+    import torch
+    from repro_torch.core.autotune import H100
+    from repro_torch.kernels.edge_dots import edge_dots_cuda, edge_dots_plain
+    coo = g.coo
+    n = coo.nse
+    row, col = coo.row[:n], coo.col[:n]
+    rows_used = int(torch.unique(row).numel())
+    cols_used = int(torch.unique(col).numel())
+    csr, kt, vt = device_csr(coo), k.t().contiguous(), v.t().contiguous()
+    out: dict = dict(edges=n, d=HIDDEN)
+    for way, args in (("single", (q, k)), ("dual", (q, k, q, v))):
+        run = lambda: edge_dots_cuda(q, k, row, col, *args[2:])  # noqa: E731
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        got = got if way == "dual" else (got,)
+        again = again if way == "dual" else (again,)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"edge_dots {way}: two launches on the same "
+                                 "inputs differ")
+        chk = check_edge_dots(dict(args=tuple(args) + (None,) * (4 - len(
+            args)), row=row, col=col, out=got), f"A/{way}/d{HIDDEN}")
+        del got, again
+        prods = len(args) // 2
+        nbytes = n * 8 + prods * (n * 4 + (rows_used + cols_used) * HIDDEN
+                                  * 4)
+        t_bytes = H100.mem_time(nbytes)
+        t_ops = H100.vpu_time(2.0 * HIDDEN * n * prods)
+        reps = 10
+        libs = [(csr, q, kt)] if way == "single" else \
+            [(csr, q, kt), (csr, q, vt)]
+        out[way] = dict(
+            ms=cuda_ms(run, reps=reps),
+            device_ms=traced_ms(run, reps, "edge_dots_kernel"),
+            plain_ms=cuda_ms(lambda: edge_dots_plain(q, k, row, col,
+                                                     *args[2:]),
+                             reps=3, warmup=1),
+            library_ms=cuda_ms(lambda: [torch.sparse.sampled_addmm(
+                *a, beta=0.0) for a in libs], reps=reps),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, **{key: chk[key] for key in
+                             ("max_abs_err", "max_err_over_bound")})
+    del csr, kt, vt
+    return out
+
+
 def check_fused(a, x, y, h, edge_op, tag, out=None) -> dict:
     """The fused kernel (or ``out``, what it already gave on these
     operands) against ``fusedmm_bsr_plain`` on the same card tensors.
@@ -1051,14 +1221,16 @@ def sage_max_repeat(ds) -> dict:
 
 def segment_sum_case(g, x, y, h) -> dict:
     """The ordered segment sum as layer 1's backward runs it for dh (K =
-    HIDDEN): A's edges in the cached column order, gathering h[row],
-    scaled by the softmax weights of x, y: checked against the plain
-    version (2 d eps sum|terms| a target of d slots), launched twice for
-    bitwise repeats, timed beside its bound and ``torch.sparse.mm`` on
-    the same CSR (timed only)."""
+    HIDDEN): A's edges in the cached column order, gathering h[row] by
+    the order's cached index, the softmax weights of x, y read through
+    its ``perm``: checked against the plain version (2 d eps sum|terms|
+    a target of d slots), launched twice for bitwise repeats, timed
+    beside its bound and ``torch.sparse.mm`` on the same CSR (timed only),
+    also at K = 112 (layer 2's width)."""
     import torch
     from repro_torch.core.autotune import H100
-    from repro_torch.kernels.ref import edge_dots, edge_weights
+    from repro_torch.kernels.edge_dots import edge_dots
+    from repro_torch.kernels.ref import edge_weights
     from repro_torch.kernels.segment_sum import (segment_sum_sorted_cuda,
                                                  segment_sum_sorted_plain)
     coo, order = g.coo, g.col_order
@@ -1066,52 +1238,58 @@ def segment_sum_case(g, x, y, h) -> dict:
     with torch.no_grad():
         w = edge_weights(edge_dots(x, y, coo.row[:n], coo.col[:n]),
                          coo.row[:n], coo.nrows, None, "softmax",
-                         order=g.row_order)
-    perm = order.perm
-    index = coo.row[:n].index_select(0, perm).contiguous()
-    weight = w.index_select(0, perm).float().contiguous()
-    src, offsets = h.float().contiguous(), order.offsets
-    run = (lambda: segment_sum_sorted_cuda(src, offsets, index=index,
-                                           weight=weight),
-           lambda: segment_sum_sorted_plain(src, offsets, index=index,
-                                            weight=weight))
-    got, again = run[0](), run[0]()
-    want = run[1]()
-    mag = segment_sum_sorted_plain(src.abs(), offsets, index=index,
-                                   weight=weight.abs())
-    torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise AssertionError("segment_sum: two launches on the same inputs "
-                             "differ")
-    d = torch.diff(offsets).to(torch.float32)[:, None]
-    err = (got - want).abs()
-    bound = 2 * EPS32 * d * mag + 1e-30
-    if not bool((err <= bound).all()) or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"segment_sum: max err {float(err.max())}, "
-                             f"worst ratio {float((err / bound).max())}")
-    del want, mag
-    t, k = offsets.shape[0] - 1, src.shape[1]
+                         order=g.row_order).float().contiguous()
+    perm, index, offsets = order.perm, order.src, order.offsets
+    t = offsets.shape[0] - 1
+    weight = w.index_select(0, perm)
+    rows_read = int(torch.unique(index).numel())
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")       # "sparse CSR is in beta"
         csr = torch.sparse_csr_tensor(offsets, index.long(), weight,
-                                      size=(t, src.shape[0]))
-    rows_read = int(torch.unique(index).numel())
-    nbytes = n * 8 + (t + 1) * 8 + rows_read * k * 4 + t * k * 4
-    t_bytes, t_ops = H100.mem_time(nbytes), H100.vpu_time(2.0 * n * k)
+                                      size=(t, h.shape[0]))
     reps = 10
-    dev_us = sum(us for key, us in device_us(run[0], reps).items()
-                 if "segment_sum_kernel" in key)
-    out = dict(tag=f"gat dh, A^T by column/{t}x{k}/{n} slots",
-               max_abs_err=float(err.max()),
-               max_err_over_bound=float((err / bound).max()),
-               ms=cuda_ms(run[0], reps=reps),
-               device_ms=dev_us / reps / 1e3 if dev_us else None,
-               plain_ms=cuda_ms(run[1], reps=3, warmup=1),
-               library_ms=cuda_ms(lambda: torch.sparse.mm(csr, src),
-                                  reps=reps),
-               bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes=nbytes, max_slots=int(d.max()))
+    out: dict = {}
+    for k in (HIDDEN, 112):
+        src = h[:, :k].float().contiguous()
+        run = (lambda: segment_sum_sorted_cuda(src, offsets, index=index,
+                                               weight=w, weight_index=perm),
+               lambda: segment_sum_sorted_plain(src, offsets, index=index,
+                                                weight=weight))
+        got, again = run[0](), run[0]()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("segment_sum: two launches on the same "
+                                 "inputs differ")
+        want = run[1]()
+        mag = segment_sum_sorted_plain(src.abs(), offsets, index=index,
+                                       weight=weight.abs())
+        d = torch.diff(offsets).to(torch.float32)[:, None]
+        err = (got - want).abs()
+        bound = 2 * EPS32 * d * mag + 1e-30
+        if not bool((err <= bound).all()) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"segment_sum k{k}: max err "
+                                 f"{float(err.max())}, worst ratio "
+                                 f"{float((err / bound).max())}")
+        del want, mag
+        nbytes = n * 8 + (t + 1) * 8 + rows_read * k * 4 + t * k * 4
+        t_bytes, t_ops = H100.mem_time(nbytes), H100.vpu_time(2.0 * n * k)
+        case = dict(tag=f"gat dh, A^T by column/{t}x{k}/{n} slots",
+                    max_abs_err=float(err.max()),
+                    max_err_over_bound=float((err / bound).max()),
+                    ms=cuda_ms(run[0], reps=reps),
+                    device_ms=traced_ms(run[0], reps, "segment_sum_kernel"),
+                    plain_ms=cuda_ms(run[1], reps=3, warmup=1),
+                    library_ms=cuda_ms(lambda: torch.sparse.mm(csr, src),
+                                       reps=reps),
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=nbytes, max_slots=int(d.max()))
+        if k == HIDDEN:
+            out.update(case)
+        else:
+            out["k112"] = case
+        del got, again, src
     del csr, index, weight
     return out
 
@@ -1166,11 +1344,32 @@ def gat_phase() -> dict:
     params = init(torch.Generator().manual_seed(0), device=DEVICE)
     x, y, m = (t.to(DEVICE) for t in (ds.x, ds.y, ds.train_mask))
 
-    # (1) the first step, patched against unpatched, every fused launch
-    # against the plain version on its own inputs
+    # (1) the first step, patched against unpatched, every fused and
+    # per-edge SDDMM launch against the plain version on its own inputs,
+    # and no plain per-edge dot product on a card tensor
     kops.reset_kernel_launches()
-    with record_fusedmm() as calls, patched(True):
+    with record_fusedmm() as calls, record_edge_dots() as e_calls, \
+            count_plain_edge_dots() as plain_dots, patched(True):
         loss_t, g_t = loss_and_grads(apply, params, bundle, x, y, m)
+    step_launches = kops.kernel_launches()
+    if plain_dots:
+        raise AssertionError(f"gat: the patched step ran the plain "
+                             f"edge_dots on card tensors {plain_dots}")
+    if sorted(len(c["out"]) for c in e_calls) != [1, 2, 2] or \
+            step_launches["edge_dots"] != len(e_calls):
+        raise AssertionError(
+            f"gat: the patched step launched edge_dots "
+            f"{step_launches['edge_dots']} times, recorded "
+            f"{[(len(c['out']), c['args'][0].shape[1]) for c in e_calls]}: "
+            f"expected layer 2's forward scores and one dual launch in "
+            f"each layer's backward")
+    e_checks = [check_edge_dots(c, f"first step {i} d{c['args'][0].shape[1]}"
+                                f"{' dual' if len(c['out']) == 2 else ''}")
+                for i, c in enumerate(e_calls)]
+    del e_calls
+    log(f"gat: {len(e_checks)} edge_dots launches of the first step held "
+        f"against the plain version: {e_checks}; plain edge_dots on card "
+        f"tensors in the step: none")
     step_routes = tiles_by_route()
     if not step_routes["edge"]:
         raise AssertionError(f"gat: the first step's fused launch took the "
@@ -1220,7 +1419,8 @@ def gat_phase() -> dict:
         runs[True], runs[False]
     if launches["fusedmm_bsr"] == 0 or any(launches_b.values()) or \
             main_instances != {"edge": launches["fusedmm_bsr"]} or \
-            not main_routes["edge"] or launches["segment_sum"] == 0:
+            not main_routes["edge"] or launches["segment_sum"] == 0 or \
+            launches["edge_dots"] == 0:
         raise AssertionError(f"gat: launches {launches} patched "
                              f"({main_instances}, tiles by route "
                              f"{main_routes}), {launches_b} unpatched")
@@ -1237,7 +1437,9 @@ def gat_phase() -> dict:
         f"{TRAIN_EPOCHS} epochs + eval (layer 1, K = {HIDDEN}), all of the "
         f"per-edge kernel, tiles by route {main_routes}; segment_sum "
         f"launches {launches['segment_sum']} (the ordered sums of the "
-        f"backward and of layer 2); unpatched {launches_b}")
+        f"backward and of layer 2); edge_dots launches "
+        f"{launches['edge_dots']} (layer 2's scores, both backwards); "
+        f"unpatched {launches_b}")
     own_ms = sum(ms for key, ms in prof_t["device_ms"].items()
                  if "fusedmm_" in key and "kernel" in key)
     log(f"gat: one step, device busy {prof_t['busy_share']:.3f} tuned "
@@ -1346,11 +1548,20 @@ def gat_phase() -> dict:
         cases.append(case)
     del mask
     seg_case = segment_sum_case(g, q, k, v)
-    log(f"  segment_sum {seg_case['tag']}: ms {seg_case['ms']:.4f} device "
-        f"{fmt_ms(seg_case['device_ms'])} plain {seg_case['plain_ms']:.4f} "
-        f"bound {seg_case['bound_ms']:.4f} ({seg_case['bound_by']}) "
-        f"sparse.mm {fmt_ms(seg_case['library_ms'])}; err/bound "
-        f"{seg_case['max_err_over_bound']:.3f}; bitwise repeatable")
+    for c in (seg_case, seg_case["k112"]):
+        log(f"  segment_sum {c['tag']}: ms {c['ms']:.4f} device "
+            f"{fmt_ms(c['device_ms'])} plain {c['plain_ms']:.4f} bound "
+            f"{c['bound_ms']:.4f} ({c['bound_by']}) sparse.mm "
+            f"{fmt_ms(c['library_ms'])}; err/bound "
+            f"{c['max_err_over_bound']:.3f}; bitwise repeatable")
+    e_case = edge_dots_case(g, q, k, v)
+    for way in ("single", "dual"):
+        c = e_case[way]
+        log(f"  edge_dots A/{way}/d{HIDDEN} ({e_case['edges']} edges): ms "
+            f"{c['ms']:.4f} device {fmt_ms(c['device_ms'])} plain "
+            f"{c['plain_ms']:.4f} bound {c['bound_ms']:.4f} "
+            f"({c['bound_by']}) sampled_addmm {fmt_ms(c['library_ms'])}; "
+            f"err/bound {c['max_err_over_bound']:.3f}; bitwise repeatable")
     sage_max = sage_max_repeat(ds)
     for c in cases:
         log(f"  {c['name']:11s} {c['tag']:30s} ms {c['ms']:.4f} device "
@@ -1369,6 +1580,9 @@ def gat_phase() -> dict:
                                 repeat_bitwise=repeat),
                 sage_max_repeat=sage_max, segment_sum_case=seg_case,
                 segment_sum_launches=launches["segment_sum"],
+                edge_dots_case=e_case, edge_dots_checks=e_checks,
+                edge_dots_launches=launches["edge_dots"],
+                edge_dots_step_launches=step_launches["edge_dots"],
                 step_checks=step_checks, sddmm_checks=sddmm_checks,
                 launches=launches["fusedmm_bsr"],
                 launches_by_instance=main_instances,
@@ -1576,6 +1790,9 @@ def sample_case(c, hop: int) -> dict:
         nbytes = f * 4 + f * width * (4 + 1 + 4)
         ops = 2 * f * width
         dtype = "int32"
+        # the yardstick: each row's start expanded to its slots
+        library_ms = cuda_ms(lambda: torch.repeat_interleave(
+            a[0], width, output_size=f * width))
     else:
         arr, pos = a
         f, width = pos.shape
@@ -1677,6 +1894,98 @@ def block_cases(a, h, dout=None) -> list:
             library_ms=cuda_ms(lib), bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations"))
     return cases
+
+
+def trusted_step(arch, ds, params, device) -> tuple:
+    """Seed batch 0 of epoch 0 (``MB_BATCH`` seeds), host-sampled, each
+    block packed with the plan ``BlockPlanCache(tune=False)`` gives (the
+    trusted one), and one patched minibatch step over it on ``device``:
+    ((params, opt state, loss, grads), launch counts, the plan kinds)."""
+    import torch
+    from repro_torch.core import sparse as sp
+    from repro_torch.core.patch import patched
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.sampling import (BlockPlanCache, NeighborSampler,
+                                      pack_block, plan_buckets, seed_batches)
+    from repro_torch.train import gnn_minibatch as mb
+    seed_ids, n_real = next(iter(seed_batches(
+        np.nonzero(ds.train_mask.numpy())[0], MB_BATCH, seed=0, epoch=0)))
+    blocks = NeighborSampler(sp.csr_from_coo(ds.coo), FANOUTS,
+                             seed=0).sample(seed_ids[:n_real], round=0)
+    _, _, apply_blocks, dims = mb.make_block_model(
+        arch, ds.num_features, HIDDEN, ds.num_classes, len(FANOUTS))
+    cache = BlockPlanCache(semiring=arch.split("-")[1], tune=False)
+    pbs, kinds = [], []
+    for blk, bk, k in zip(blocks, plan_buckets(
+            blocks, batch_size=MB_BATCH, fanouts=FANOUTS), dims):
+        plan = cache.plan_for(blk, n_dst=bk.n_dst, n_src=bk.n_src,
+                              nnz=bk.nnz, k_hint=k)
+        kinds.append(plan.kind)
+        pbs.append(sp.to_device(pack_block(
+            blk, n_dst=bk.n_dst, n_src=bk.n_src, nnz=bk.nnz, plan=plan,
+            ell_width=bk.ell_width, sell_steps=bk.sell_steps), device))
+    opt = adamw(TRAIN_LR, weight_decay=TRAIN_WD)
+    step = mb.make_minibatch_step(apply_blocks, opt, batch_size=MB_BATCH)
+    params = {l: {k: v.to(device) for k, v in p.items()}
+              for l, p in params.items()}
+    kops.reset_kernel_launches()
+    with patched(True):
+        p, st, loss, grads, _ = step(
+            params, opt.init(params), pbs,
+            torch.from_numpy(seed_ids).to(device), n_real, ds.x.to(device),
+            ds.y.to(device), mb.init_step_stats(device))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return (p, st._asdict(), loss, grads), kops.kernel_launches(), kinds
+
+
+def trusted_bucket_check(ds) -> dict:
+    """Phase 8 (c3): step 0's buckets with the trusted plan, GraphSAGE-mean
+    and -max at full width: the step run twice from the same weights
+    gives the same loss, gradients, parameters and optimizer state bit
+    for bit, launches the ordered ``segment_sum`` (and no ELL / SELL),
+    and agrees with the same step on the CPU (loss within ``LOSS_RTOL``,
+    every gradient within ``GRAD_TOL`` of its largest element)."""
+    import torch
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import gnn_minibatch as mb
+    out = {}
+    for arch in ("sage-mean", "sage-max"):
+        init, _, _, _ = mb.make_block_model(
+            arch, ds.num_features, HIDDEN, ds.num_classes, len(FANOUTS))
+        params = init(torch.Generator().manual_seed(0), device="cpu")
+        (a, launched, kinds), (b, again, _) = (
+            trusted_step(arch, ds, params, DEVICE) for _ in range(2))
+        same: list = []
+        for x, y in zip(a, b):      # params, opt state, loss, grads
+            tree_map(lambda p, q: same.append(torch.equal(p, q)), x, y)
+        if set(kinds) != {"trusted"} or launched != again or \
+                not launched["segment_sum"] or launched["ell_spmm"] or \
+                launched["sell_spmm"] or not same or not all(same):
+            raise AssertionError(
+                f"minibatch {arch}, trusted plans {kinds}: launches "
+                f"{launched} / {again}, {same.count(False)} of {len(same)} "
+                f"tensors differ between two runs of the first step")
+        (cp, _, closs, cgrads), _, _ = trusted_step(arch, ds, params, "cpu")
+        loss_err = abs(float(a[2]) - float(closs)) / abs(float(closs))
+        worst: list = []
+        tree_map(lambda g, c: worst.append(float(
+            (g.cpu() - c).abs().max() / max(float(c.abs().max()), 1e-30))),
+            a[3], cgrads)
+        if not loss_err <= LOSS_RTOL or not max(worst) <= GRAD_TOL:
+            raise AssertionError(f"minibatch {arch} trusted step: card "
+                                 f"against CPU, loss rel err {loss_err}, "
+                                 f"gradients {max(worst)}")
+        out[arch] = dict(plans=kinds, segment_sum_launches=launched[
+            "segment_sum"], tensors=len(same), loss=float(a[2]),
+            loss_rel_err_vs_cpu=loss_err, grad_err_over_max=max(worst))
+        log(f"minibatch {arch}: step 0's buckets with trusted plans {kinds}: "
+            f"the step run twice from the same weights equal bit for bit "
+            f"({len(same)} tensors, {launched['segment_sum']} segment_sum "
+            f"launches a step); against the CPU loss rel err "
+            f"{loss_err:.2e}, gradients {max(worst):.2e} of their max")
+    return out
 
 
 @contextlib.contextmanager
@@ -1978,6 +2287,8 @@ def minibatch_phase(ds) -> dict:
         f"optimizer state equal bit for bit ({len(same)} tensors; loss "
         f"{float(reps[0][2]):.7f})")
     del reps
+    # (c3) step 0's buckets with the trusted plan, sage-mean and sage-max
+    out["trusted_buckets"] = trusted_bucket_check(ds)
     log("minibatch: ELL forward (k, rows, width) "
         f"{[(e['k'], e['rows'], e['width']) for e in ell_checks]} within the "
         "per-row bound (worst "
@@ -3179,7 +3490,28 @@ def main() -> int:
         max_err_over_bound=seg["max_err_over_bound"], ms=seg["ms"],
         device_ms=seg["device_ms"], plain_ms=seg["plain_ms"],
         bound_ms=seg["bound_ms"], bound_by=seg["bound_by"],
-        library_ms=seg["library_ms"], shape=seg["tag"]))
+        library_ms=seg["library_ms"], shape=seg["tag"],
+        k112_ms=seg["k112"]["ms"],
+        k112_library_ms=seg["k112"]["library_ms"],
+        k112_bound_ms=seg["k112"]["bound_ms"]))
+    ec = gat["edge_dots_case"]
+    kernels.append(dict(
+        name="edge_dots", route="cuda", **KERNEL_META["edge_dots"],
+        launches=gat["edge_dots_launches"],
+        launches_first_step=gat["edge_dots_step_launches"],
+        max_abs_err=max([ec[w]["max_abs_err"] for w in ("single", "dual")]
+                        + [c["max_abs_err"] for c in gat["edge_dots_checks"]]),
+        max_err_over_bound=max(
+            [ec[w]["max_err_over_bound"] for w in ("single", "dual")] +
+            [c["max_err_over_bound"] for c in gat["edge_dots_checks"]]),
+        ms=ec["dual"]["ms"], device_ms=ec["dual"]["device_ms"],
+        plain_ms=ec["dual"]["plain_ms"], bound_ms=ec["dual"]["bound_ms"],
+        bound_by=ec["dual"]["bound_by"], library_ms=ec["dual"]["library_ms"],
+        single_ms=ec["single"]["ms"], single_bound_ms=ec["single"]["bound_ms"],
+        single_plain_ms=ec["single"]["plain_ms"],
+        single_library_ms=ec["single"]["library_ms"],
+        shape=f"gat A/{ec['edges']} edges/d{ec['d']} dual (library: two "
+              f"sampled_addmm)"))
     for name in ("ell_spmm", "sell_spmm", "bsr_spmm"):
         if name == "bsr_spmm":
             rep = proteins["cases"][0]

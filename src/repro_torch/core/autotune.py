@@ -571,15 +571,16 @@ def _measure_plan(a, plan: KernelPlan, h, sr, inv_deg,
 def _measure_trusted(a, h, sr, degrees) -> float:
     """Time the trusted path as ``core/spmm`` runs it: the segment reduce
     over A's edges, through the ordered segment sum on the card for sum /
-    mean (the edges' stable sort by row computed before timing, as a
-    ``CachedGraph`` caches it)."""
+    mean (the edges' stable sort by row and its sorted column ids computed
+    before timing, as a ``CachedGraph`` caches them)."""
     import torch
     from repro_torch.core import sparse as sp
     from repro_torch.kernels.ref import coo_reduce
     from repro_torch.kernels.segment_sum import segment_order
 
     coo = sp.to_device(a, h.device)
-    order = segment_order(coo.row[: coo.nse], coo.nrows)
+    order = segment_order(coo.row[: coo.nse], coo.nrows,
+                          sources=coo.col[: coo.nse])
 
     def run(hh):
         return coo_reduce(coo.row, coo.col, coo.val, coo.nse, coo.nrows, hh,

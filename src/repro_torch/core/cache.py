@@ -9,8 +9,10 @@ ONCE and reusing them every step:
     :func:`repro_torch.core.sparse.gcn_normalize` before caching;
   * row degrees and inverse degrees (mean semiring);
   * the edges' stable sorts by row and by column (``row_order``,
-    ``col_order``): the segment offsets the ordered sums of the
-    backwards take on the card, so no step sorts a graph-static vector;
+    ``col_order``), each with its slots' gather index (the column ids in
+    row order, the row ids in column order): the segments and indices
+    the ordered sums take on the card, so no step sorts or permutes a
+    graph-static vector;
   * the format conversion and the kernel plan (autotuner output);
   * the tuner's decision itself, across processes: a
     :class:`~repro_torch.core.autotune.TuningDB` passed as ``db=`` serves
@@ -50,6 +52,12 @@ class CachedGraph:
     plan: KernelPlan              # the autotuner's decision
     row_order: SegmentOrder       # coo's real edges sorted by row
     col_order: SegmentOrder       # ... by column (the transpose's order)
+
+    @staticmethod
+    def order_for(order: SegmentOrder, t: torch.Tensor):
+        """``order`` when its targets are ``t``'s rows, else None (the
+        sum is then ``index_add_``)."""
+        return order if order.num_targets == t.shape[0] else None
 
     @property
     def shape(self):
@@ -138,6 +146,8 @@ def build_cached_graph(a: sp.COO, *, k_hint: int = 128,
         inv_deg=1.0 / torch.clamp(deg, min=1.0),
         inv_deg_t=1.0 / torch.clamp(deg_t, min=1.0),
         plan=plan,
-        row_order=segment_order(a.row[: a.nse], a.nrows),
-        col_order=segment_order(a.col[: a.nse], a.ncols),
+        row_order=segment_order(a.row[: a.nse], a.nrows,
+                                sources=a.col[: a.nse]),
+        col_order=segment_order(a.col[: a.nse], a.ncols,
+                                sources=a.row[: a.nse]),
     )

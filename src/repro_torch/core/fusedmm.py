@@ -4,12 +4,19 @@ IPDPS'21).
 
 The forward runs the fused BSR kernel when the plan has BSR tiles and K
 is a multiple of 128 (the reference's routing, kept so that the same
-layers take the kernel in both packages), else the trusted composition.
-The backward is recompute-based (flash-attention style): only (x, y, h)
-are kept, and the edge scores and weights are rebuilt per edge in the
-backward, in chunks of edges, as plain PyTorch (the reference has no
-backward kernel here). Only ``(edges,)`` scalars exist whole; the
-gradient scatters are ``index_add_``.
+layers take the kernel in both packages), else the trusted composition:
+the per-edge scores, the edge op, and a segment sum. The backward is
+recompute-based (flash-attention style): only (x, y, h) are kept, and the
+edge scores and weights are rebuilt per edge (the reference has no
+backward kernel here). Only ``(edges,)`` scalars exist whole.
+
+On the card the per-edge dot products are the per-edge SDDMM kernel
+(``kernels/edge_dots``; the backward's recomputed scores and its
+``dw_e = dout_row · h_col`` are one launch over the edge list), and the
+gradient scatters are ordered segment sums over the graph's cached edge
+orders (``kernels/segment_sum``), so a step repeats bit for bit. On the
+CPU the plain versions run and the scatters are sequential
+``index_add_``.
 """
 from __future__ import annotations
 
@@ -18,18 +25,12 @@ import torch
 from repro_torch.core.cache import CachedGraph
 from repro_torch.core.semiring import get_semiring
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.edge_dots import edge_dots
 from repro_torch.kernels.fusedmm import EDGE_OPS
-from repro_torch.kernels.ref import coo_reduce, edge_dots, edge_weights
+from repro_torch.kernels.ref import coo_reduce, edge_weights
 from repro_torch.kernels import segment_sum as kseg
-from repro_torch.kernels.segment_sum import SegmentOrder
 
 __all__ = ["fusedmm", "edge_weights"]
-
-
-def _order(order: SegmentOrder, t: torch.Tensor):
-    """The cached order when its targets are ``t``'s rows (else None: the
-    sum is ``index_add_``)."""
-    return order if order.num_targets == t.shape[0] else None
 
 
 def _use_fused_kernel(g: CachedGraph, k: int) -> bool:
@@ -61,15 +62,18 @@ class _FusedMM(torch.autograd.Function):
         coo, n = g.coo, g.coo.nse
         row, col = coo.row[:n], coo.col[:n]
         add = get_semiring("sum")
-        w = edge_weights(edge_dots(x, y, row, col), row, coo.nrows, None,
-                         ctx.edge_op, order=g.row_order)   # recompute
-        dh = coo_reduce(col, row, w, n, h.shape[0], dout, add,
-                        order=_order(g.col_order, h)) \
-            if ctx.needs_input_grad[3] else None
-        dx = dy = None
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            # dL/dw_e = dout[row_e] · h[col_e]; then the edge op's jacobian
-            dw = edge_dots(dout, h, row, col)
+        need_dh = ctx.needs_input_grad[3]
+        need_dx, need_dy = ctx.needs_input_grad[1], ctx.needs_input_grad[2]
+        if need_dx or need_dy:
+            # the recomputed scores and dL/dw_e = dout[row_e] · h[col_e]
+            s, dw = edge_dots(x, y, row, col, dout, h)
+        else:
+            s, dw = edge_dots(x, y, row, col), None
+        w = edge_weights(s, row, coo.nrows, None, ctx.edge_op,
+                         order=g.row_order)
+        dh = dx = dy = None
+        if need_dx or need_dy:
+            # the edge op's jacobian
             if ctx.edge_op == "softmax":
                 wd = w * dw
                 srow = kseg.scatter_sum(wd, row, coo.nrows, g.row_order)
@@ -78,12 +82,15 @@ class _FusedMM(torch.autograd.Function):
                 ds = dw * w * (1.0 - w)
             else:
                 ds = dw
-            if ctx.needs_input_grad[1]:
+            if need_dx:
                 dx = coo_reduce(row, col, ds, n, x.shape[0], y, add,
-                                order=_order(g.row_order, x))
-            if ctx.needs_input_grad[2]:
+                                order=CachedGraph.order_for(g.row_order, x))
+            if need_dy:
                 dy = coo_reduce(col, row, ds, n, y.shape[0], x, add,
-                                order=_order(g.col_order, y))
+                                order=CachedGraph.order_for(g.col_order, y))
+        if need_dh:
+            dh = coo_reduce(col, row, w, n, h.shape[0], dout, add,
+                            order=CachedGraph.order_for(g.col_order, h))
         return None, dx, dy, dh, None
 
 

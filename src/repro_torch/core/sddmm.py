@@ -3,10 +3,12 @@
 ``sddmm(g, x, y)`` returns per-edge scores s_e = x[row_e] · y[col_e]
 (optionally scaled by A's values). Differentiable in x and y; the
 backward is two segment sums over the CachedGraph's edges (no transpose
-at step time — the same §3.3 discipline as spmm). The forward is the
-trusted per-edge path, as in the reference: the BSR SDDMM kernel returns
-tile scores, not edge scores, and is reached through
-``kernels.ops.sddmm_bsr``.
+at step time — the same §3.3 discipline as spmm), ordered on the card
+over the graph's cached row and column orders, so they repeat bit for
+bit. The forward is the per-edge path, as in the reference: on the card
+the per-edge SDDMM kernel (``kernels/edge_dots``), on the CPU its plain
+version. The BSR SDDMM kernel returns tile scores, not edge scores, and
+is reached through ``kernels.ops.sddmm_bsr``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 
 from repro_torch.core.cache import CachedGraph
 from repro_torch.core.semiring import get_semiring
-from repro_torch.kernels.ref import coo_reduce, sddmm_coo_ref
+from repro_torch.kernels.edge_dots import edge_dots
+from repro_torch.kernels.ref import coo_reduce
 
 __all__ = ["sddmm", "masked_edge_scores"]
 
@@ -39,18 +42,25 @@ class _SDDMM(torch.autograd.Function):
                 scale_by_a: bool):
         ctx.graph, ctx.scale_by_a = g, scale_by_a
         ctx.save_for_backward(x, y)
-        return sddmm_coo_ref(g.coo, x, y, scale_by_a=scale_by_a)
+        coo, n = g.coo, g.coo.nse
+        s = edge_dots(x, y, coo.row[:n], coo.col[:n])
+        if scale_by_a:
+            s = s * coo.val[:n]
+        return torch.cat([s, s.new_zeros((coo.nnz_padded - n,))])
 
     @staticmethod
     def backward(ctx, ds: torch.Tensor):
         x, y = ctx.saved_tensors
-        coo, n = ctx.graph.coo, ctx.graph.coo.nse
+        g = ctx.graph
+        coo, n = g.coo, g.coo.nse
         row, col = coo.row[:n], coo.col[:n]
         w = ds[:n] * coo.val[:n] if ctx.scale_by_a else ds[:n]
         add = get_semiring("sum")
-        dx = coo_reduce(row, col, w, n, x.shape[0], y, add) \
+        dx = coo_reduce(row, col, w, n, x.shape[0], y, add,
+                        order=CachedGraph.order_for(g.row_order, x)) \
             if ctx.needs_input_grad[1] else None
-        dy = coo_reduce(col, row, w, n, y.shape[0], x, add) \
+        dy = coo_reduce(col, row, w, n, y.shape[0], x, add,
+                        order=CachedGraph.order_for(g.col_order, y)) \
             if ctx.needs_input_grad[2] else None
         return None, dx, dy, None
 

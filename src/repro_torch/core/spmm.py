@@ -107,13 +107,16 @@ def _backward_linear(g: CachedGraph, dy: torch.Tensor,
     return _trusted(g, dy, sum_sr, True, val=torch.ones_like(g.coo.val))
 
 
-def _backward_maxmin(g: CachedGraph, h: torch.Tensor, out: torch.Tensor,
-                     dy: torch.Tensor, sr: Semiring) -> torch.Tensor:
+def _backward_maxmin(coo: sp.COO, col_order: kseg.SegmentOrder,
+                     h: torch.Tensor, out: torch.Tensor, dy: torch.Tensor,
+                     sr: Semiring) -> torch.Tensor:
     """Subgradient: route dy[i, k] to the first edge attaining the
     extremum, by recompute (no (edges, K) residual is stored), in chunks
-    of edges. ``out`` is the finalized forward; it equals the raw
-    extremum on every row that has an edge, and only such rows are read."""
-    coo = g.coo
+    of edges. ``out`` is the forward (finalized or raw); it equals the raw
+    extremum on every row that has an edge, and only such rows are read.
+    ``coo``'s real edges (the first ``nse``) are summed into ``dh``'s
+    ``ncols`` rows; on the card in ``col_order``, their stable sort by
+    column (a graph's cached one, or a block's sorted on the device)."""
     k = h.shape[1]
     n = coo.nse
     step = _rows_per_chunk(1, k)
@@ -128,7 +131,7 @@ def _backward_maxmin(g: CachedGraph, h: torch.Tensor, out: torch.Tensor,
         cand = torch.where(msgs == out[row], eid, _BIG)
         winner.scatter_reduce_(0, row[:, None].expand_as(cand), cand, "amin")
     if kseg.on_card(dy):
-        return _subgradient_ordered(g, winner, dy, sr, step)
+        return _subgradient_ordered(coo, col_order, winner, dy, sr, step)
     dh = torch.zeros((coo.ncols, k), dtype=dy.dtype, device=dy.device)
     for lo in range(0, n, step):
         hi = min(lo + step, n)
@@ -141,13 +144,12 @@ def _backward_maxmin(g: CachedGraph, h: torch.Tensor, out: torch.Tensor,
     return dh
 
 
-def _subgradient_ordered(g: CachedGraph, winner: torch.Tensor,
-                         dy: torch.Tensor, sr: Semiring,
-                         step: int) -> torch.Tensor:
-    """The subgradient's scatter on the card: the edges in the cached
-    column order, chunk by chunk, each column's routed rows summed in
-    edge order by the ordered segment sum."""
-    coo = g.coo
+def _subgradient_ordered(coo: sp.COO, col_order: kseg.SegmentOrder,
+                         winner: torch.Tensor, dy: torch.Tensor,
+                         sr: Semiring, step: int) -> torch.Tensor:
+    """The subgradient's scatter on the card: the edges in the column
+    order, chunk by chunk, each column's routed rows summed in edge order
+    by the ordered segment sum."""
 
     def routed(eid):
         row = coo.row[eid].long()
@@ -156,7 +158,7 @@ def _subgradient_ordered(g: CachedGraph, winner: torch.Tensor,
             contrib = contrib * coo.val[eid, None]
         return contrib
 
-    return kseg.chunked_sum(g.col_order, coo.nse, dy.shape[1], routed,
+    return kseg.chunked_sum(col_order, coo.nse, dy.shape[1], routed,
                             step).to(dy.dtype)
 
 
@@ -184,7 +186,7 @@ class _SpMM(torch.autograd.Function):
             dh = _backward_linear(g, dy * g.inv_deg[:, None], sr)
         else:
             h, out = ctx.saved_tensors
-            dh = _backward_maxmin(g, h, out, dy, sr)
+            dh = _backward_maxmin(g.coo, g.col_order, h, out, dy, sr)
         return None, dh, None
 
 

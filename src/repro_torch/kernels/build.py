@@ -28,7 +28,8 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "build_kernels", "load_kernel",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 KERNELS = ("ell_spmm", "sell_spmm", "bsr_spmm", "sample", "sddmm",
-           "fusedmm", "ragged_gemm", "flash_attention", "segment_sum")
+           "fusedmm", "ragged_gemm", "flash_attention", "segment_sum",
+           "edge_dots")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,8 +56,10 @@ _SIGNATURES = {
     "flash_attention": {f"flash_attention_{t}":
                         [_P] * 4 + [_I] * 8 + [_L, _F, _P]
                         for t in ("bf16", "f32")},
-    "segment_sum": {"segment_sum_f32": [_P, _L, _P, _P, _P, _P, _P, _I, _I,
-                                        _L, _I, _I, _P]},
+    "segment_sum": {"segment_sum_f32": [_P, _L] + [_P] * 6 + [_I, _I, _L,
+                                                            _I, _I, _I, _P]},
+    "edge_dots": {"edge_dots_f32": [_P, _L, _P, _L, _I, _P, _L, _P, _L, _I,
+                                    _P, _P, _L, _P, _P, _I, _I, _P]},
 }
 
 _LOCK = threading.Lock()

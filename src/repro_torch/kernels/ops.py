@@ -13,8 +13,10 @@ into its neighbour table, and the ELL kernel reads the full matrix in
 place (the reference composes the two gathers in XLA, not in Pallas).
 
 The sampling primitives' kernels (``kernels/sample.py``, the fused hop
-among them) and the ordered segment sum of the backwards
-(``kernels/segment_sum.py``) count their launches here too.
+among them), the ordered segment sum of the backwards
+(``kernels/segment_sum.py``) and the per-edge SDDMM of the FusedMM and
+SDDMM autograd paths (``kernels/edge_dots.py``) dispatch in their own
+modules and count their launches here too.
 
 ``slot_gather`` / ``table_insert`` are the serving feature cache's device
 primitives. The reference writes them as plain array ops, so plain tensor
@@ -31,6 +33,7 @@ import torch
 from repro_torch.core.sparse import BSR, ELL, SELL
 from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, bsr_spmm_plain
 from repro_torch.kernels.build import build_kernels, load_kernel
+from repro_torch.kernels.edge_dots import edge_dots_cuda
 from repro_torch.kernels.ell_spmm import ell_spmm_cuda, ell_spmm_plain
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
@@ -56,6 +59,7 @@ _CUDA_WRAPPERS = {"ell_spmm": ell_spmm_cuda, "sell_spmm": sell_spmm_cuda,
                   "flat_gather": flat_gather_cuda,
                   "sample_hop": sample_hop_cuda,
                   "segment_sum": segment_sum_sorted_cuda,
+                  "edge_dots": edge_dots_cuda,
                   "sddmm_bsr": sddmm_bsr_cuda,
                   "fusedmm_bsr": fusedmm_bsr_cuda,
                   "ragged_gemm": ragged_gemm_cuda,

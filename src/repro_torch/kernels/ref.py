@@ -70,7 +70,9 @@ def coo_reduce(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     """out[i] = ⊕_{e < n_valid, row[e] = i} val[e] ⊗ h[col[e]] — the
     trusted segment path over triplets, in chunks of edges (entries from
     ``n_valid`` on are padding and take no part). Given ``order``, the
-    stable sort of ``row[:n_valid]`` (a graph's cached one), a sum or mean
+    stable sort of ``row[:n_valid]`` with ``col[:n_valid]`` as its
+    sources (``segment_order(..., sources=)``, as a graph caches it; the
+    sum gathers through its sorted copy), a sum or mean
     on the card outside autograd takes the ordered segment sum: each row's
     edges in edge order, the same bits on every run. Otherwise (the
     unpatched baselines) the sum is ``index_add_``."""
@@ -104,7 +106,7 @@ def _ordered_sum(col, val, n_valid, h, sr, order):
             _rows_per_chunk(1, h.shape[1]))
     else:
         w = val[:n_valid] if sr.combine == "mul" else None
-        out = kseg.gather_scale_sum(h, order, col[:n_valid], w)
+        out = kseg.gather_scale_sum(h, order, w)
     return out.to(dtype)
 
 

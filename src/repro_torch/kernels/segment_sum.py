@@ -13,17 +13,21 @@ Pallas kernel to port).
 
 * :class:`SegmentOrder` / :func:`segment_order` — the stable sort of a
   target vector: ``perm`` (slot ``p`` of the sorted order is entry
-  ``perm[p]``) and the ``offsets`` of each target's run, by
+  ``perm[p]``), the ``offsets`` of each target's run, by
   ``torch.searchsorted`` over the sorted ids (static sizes, no host
-  sync). Graph-static orders are built once per
-  :class:`~repro_torch.core.cache.CachedGraph`.
+  sync), and, given the entries' sources, ``src``: each sorted slot's
+  gather index. Graph-static orders are built once per
+  :class:`~repro_torch.core.cache.CachedGraph`, so no step gathers an
+  index by ``perm``.
 * :func:`segment_sum_sorted` — the primitive (dispatcher, plain version,
-  hand kernel).
+  hand kernel). It reads per-entry weights through a weight index
+  (``perm``), so no step permutes a weight vector either.
 * Built on it, each target's entries in entry order: :func:`scatter_sum`
   (``Σ data[e]``), :func:`gather_scale_sum` (``Σ weight[e] ·
-  src[index[e]]``: SpMM over the sorted slots, with no ``(edges, K)``
-  message tensor) and :func:`chunked_sum` (messages built chunk by chunk
-  of the sorted entries).
+  src[index[e]]`` over an order that carries ``index`` sorted: SpMM over
+  the sorted slots, with no ``(edges, K)`` message tensor) and
+  :func:`chunked_sum` (messages built chunk by chunk of the sorted
+  entries).
 
 The ordered route runs outside autograd: the port's backwards call it
 from inside their ``autograd.Function`` classes.
@@ -47,6 +51,7 @@ __all__ = ["SegmentOrder", "segment_order", "segment_sum_sorted", "on_card",
            "scatter_sum", "gather_scale_sum", "chunked_sum", "CHUNK"]
 
 CHUNK = 256          # slots a work item of the kernel sums (csrc kChunk)
+ROW_REUSE = 4        # slots a source row below which rows stream whole
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -56,49 +61,61 @@ class SegmentOrder:
     ``p`` is entry ``perm[p]`` (int32) and target ``t`` owns sorted slots
     ``offsets[t] .. offsets[t+1]`` (int64, ``num_targets + 1`` entries).
     Entries whose target is outside ``[0, num_targets)`` sort outside
-    every run."""
+    every run. ``src`` (int32, or None): the sorted slots' gather index,
+    ``sources[perm]`` of the entries' sources when the order was built
+    with them."""
 
     perm: torch.Tensor
     offsets: torch.Tensor
+    src: Optional[torch.Tensor] = None
 
     @property
     def num_targets(self) -> int:
         return self.offsets.shape[0] - 1
 
 
-def segment_order(targets: torch.Tensor, num_targets: int) -> SegmentOrder:
+def segment_order(targets: torch.Tensor, num_targets: int,
+                  sources: Optional[torch.Tensor] = None) -> SegmentOrder:
     """The stable sort of ``targets`` (any integer dtype) on its device,
-    static shapes, no host sync."""
+    static shapes, no host sync; given the entries' ``sources`` (their
+    gather index), their sorted copy too."""
     t = targets.to(torch.int32)
     if t.shape[0] > _INT_MAX:
         raise ValueError("segment_order: more entries than int32 indexes")
     ids = torch.arange(num_targets + 1, dtype=torch.int32, device=t.device)
     srt, perm = torch.sort(t, stable=True)
+    src = None if sources is None else \
+        sources.index_select(0, perm).to(torch.int32)
     return SegmentOrder(perm=perm.to(torch.int32),
-                        offsets=torch.searchsorted(srt, ids))
+                        offsets=torch.searchsorted(srt, ids), src=src)
 
 
 # --------------------------------------------------------------------------
 # The primitive
 # --------------------------------------------------------------------------
 
-def _n_slots(src, index, weight) -> int:
+def _n_slots(src, index, weight, weight_index) -> int:
     if index is not None:
         return index.shape[0]
+    if weight_index is not None:
+        return weight_index.shape[0]
     return weight.shape[0] if weight is not None else src.shape[0]
 
 
 def segment_sum_sorted_plain(src: torch.Tensor, offsets: torch.Tensor, *,
                              index: Optional[torch.Tensor] = None,
                              weight: Optional[torch.Tensor] = None,
+                             weight_index: Optional[torch.Tensor] = None,
                              out: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """Plain version: each slot's product, then ``index_add_`` into its
     target (slots of no target, and slots with an out-of-range index,
     land on a spare row that is dropped). ``out`` given: added to it in
     place and returned."""
+    if weight is not None and weight_index is not None:
+        weight = weight.index_select(0, weight_index.long())
     n_t, k = offsets.shape[0] - 1, src.shape[1]
-    n = _n_slots(src, index, weight)
+    n = _n_slots(src, index, weight, None)
     pos = torch.arange(n, device=src.device)
     tgt = torch.searchsorted(offsets, pos, right=True) - 1
     lo, hi = offsets[:1].clamp(0, n), offsets[-1:].clamp(0, n)
@@ -124,13 +141,17 @@ def segment_sum_sorted_plain(src: torch.Tensor, offsets: torch.Tensor, *,
 def segment_sum_sorted_cuda(src: torch.Tensor, offsets: torch.Tensor, *,
                             index: Optional[torch.Tensor] = None,
                             weight: Optional[torch.Tensor] = None,
+                            weight_index: Optional[torch.Tensor] = None,
                             out: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """The hand kernel: one warp a piece of at most 256 of a target's
-    slots, pieces of long targets summed in order by a second kernel.
-    ``src`` (S, K) fp32, ``offsets`` (T + 1,) int64, ``index`` (P,) int32,
-    ``weight`` (P,) fp32 (contiguous, on one card); ``out`` (T, K) fp32 is
-    added to in place. Counts its launches in
+    slots in one K slice of 32 vectors (or over all of K where the slots
+    are fewer than ``ROW_REUSE`` a source row: rows that few slots gather
+    stream from HBM and are best read whole), pieces of long targets
+    summed in order by a second kernel. ``src`` (S, K) fp32, ``offsets`` (T +
+    1,) int64, ``index`` (P,) int32, ``weight`` fp32 (per slot, or per entry
+    and read at ``weight_index`` (P,) int32), all contiguous on one card;
+    ``out`` (T, K) fp32 is added to in place. Counts its launches in
     ``segment_sum_sorted_cuda.launches``."""
     from repro_torch.kernels.build import load_kernel
     from repro_torch.kernels.ell_spmm import vec_width
@@ -143,8 +164,9 @@ def segment_sum_sorted_cuda(src: torch.Tensor, offsets: torch.Tensor, *,
         raise ValueError(f"segment_sum: src must be a contiguous fp32 "
                          f"matrix, got {src.dtype} {tuple(src.shape)}")
     arrays = (("offsets", offsets, torch.int64),
-              ("index", index, torch.int32), ("weight", weight,
-                                              torch.float32))
+              ("index", index, torch.int32),
+              ("weight", weight, torch.float32),
+              ("weight_index", weight_index, torch.int32))
     for key, t, dtype in arrays:
         if t is None:
             continue
@@ -154,9 +176,11 @@ def segment_sum_sorted_cuda(src: torch.Tensor, offsets: torch.Tensor, *,
                              f"{dtype} vector on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     n_t, k = offsets.shape[0] - 1, src.shape[1]
-    n = _n_slots(src, index, weight)
-    if n_t < 0 or (index is not None and weight is not None
-                   and weight.shape[0] != n):
+    n = _n_slots(src, index, weight, weight_index)
+    if n_t < 0 or any(t is not None and t.shape[0] != n
+                      for t in (index, weight_index)) or \
+            (weight_index is None and weight is not None and
+             weight.shape[0] != n):
         raise ValueError(f"segment_sum: offsets {tuple(offsets.shape)}, "
                          f"index / weight lengths do not match")
     if n_t > _INT_MAX or k > _INT_MAX or k < 1:
@@ -182,8 +206,10 @@ def segment_sum_sorted_cuda(src: torch.Tensor, offsets: torch.Tensor, *,
     with torch.cuda.device(dev):
         rc = lib.segment_sum_f32(
             src.data_ptr(), src.shape[0], ptr(index), ptr(weight),
-            offsets.data_ptr(), res.data_ptr(), ptr(ws), n_t, k, n, vec,
-            int(out is not None), torch.cuda.current_stream(dev).cuda_stream)
+            ptr(weight_index), offsets.data_ptr(), res.data_ptr(), ptr(ws),
+            n_t, k, n, vec, int(out is not None),
+            int(n < ROW_REUSE * src.shape[0]),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {rc}")
     segment_sum_sorted_cuda.launches += 1
@@ -206,17 +232,19 @@ def on_card(t: torch.Tensor) -> bool:
 def segment_sum_sorted(src: torch.Tensor, offsets: torch.Tensor, *,
                        index: Optional[torch.Tensor] = None,
                        weight: Optional[torch.Tensor] = None,
+                       weight_index: Optional[torch.Tensor] = None,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[t] (+)= Σ_{p ∈ [offsets[t], offsets[t+1])} weight[p] ·
     src[index[p]]`` in slot order (fp32). ``index`` None: slot ``p``
-    reads row ``p``; ``weight`` None: weight 1; ``out`` given: added to in
-    place (targets without slots keep their row), else a new (T, K)
-    tensor (0 where a target has no slot)."""
-    if on_card(src):
-        return segment_sum_sorted_cuda(src, offsets, index=index,
-                                       weight=weight, out=out)
-    return segment_sum_sorted_plain(src, offsets, index=index, weight=weight,
-                                    out=out)
+    reads row ``p``; ``weight`` None: weight 1; ``weight_index`` given:
+    slot ``p`` takes ``weight[weight_index[p]]`` (per-entry weights read
+    in slot order); ``out`` given: added to in place (targets without
+    slots keep their row), else a new (T, K) tensor (0 where a target has
+    no slot)."""
+    fn = segment_sum_sorted_cuda if on_card(src) else \
+        segment_sum_sorted_plain
+    return fn(src, offsets, index=index, weight=weight,
+              weight_index=weight_index, out=out)
 
 
 # --------------------------------------------------------------------------
@@ -224,18 +252,22 @@ def segment_sum_sorted(src: torch.Tensor, offsets: torch.Tensor, *,
 # --------------------------------------------------------------------------
 
 def gather_scale_sum(src: torch.Tensor, order: SegmentOrder,
-                     index: torch.Tensor,
                      weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[t] = Σ_{e: target[e] = t} weight[e] · src[index[e]]`` with
     the entries of each target in entry order, ``order`` the stable sort
-    of the (unseen) target vector: a sparse-dense product over sorted
-    slots, with no per-entry message tensor. ``index``/``weight`` are per
-    entry (in entry order); ``src`` rows out of range add nothing."""
-    if weight is not None:
-        weight = weight.float().index_select(0, order.perm)
+    of the (unseen) target vector built with the entries' gather index
+    (``segment_order(..., sources=index)``, as a graph caches it): a
+    sparse-dense product over sorted slots, with no per-entry message
+    tensor. ``weight`` is per entry (in entry order) and read through
+    ``perm`` in the sum itself; ``src`` rows out of range add nothing."""
+    if order.src is None:
+        raise ValueError("gather_scale_sum: the order carries no sorted "
+                         "index (build it with segment_order(..., "
+                         "sources=))")
     return segment_sum_sorted(
-        src.float().contiguous(), order.offsets,
-        index=index.index_select(0, order.perm).to(torch.int32), weight=weight)
+        src.float().contiguous(), order.offsets, index=order.src,
+        weight=None if weight is None else weight.float().contiguous(),
+        weight_index=None if weight is None else order.perm)
 
 
 def chunked_sum(order: SegmentOrder, n: int, k: int, messages,

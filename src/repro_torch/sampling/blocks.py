@@ -23,9 +23,17 @@ key; measured on the card with ``measure=True``).
 :func:`block_spmm` is differentiable in ``h`` on every plan: the ELL and
 SELL kernels sit in a ``torch.autograd.Function`` whose backward is the
 transpose scatter ``dh[col] += val * dout[row]``
-(``kernels/ref.ell_transpose_reduce`` / ``sell_transpose_reduce``,
-``index_add_`` in chunks), the trusted path by plain autograd. The
-reference gets this gradient from plain AD of its XLA path.
+(``kernels/ref.ell_transpose_reduce`` / ``sell_transpose_reduce``). On
+the card the trusted path is a ``torch.autograd.Function`` too: its sum
+and mean are the ordered segment sum over the block's rows, its backward
+the ordered sum over the block's columns (both sorted on the device,
+static shapes, no host sync), and max / min route the gradient to the
+first edge attaining the extremum, summed in the same column order. So
+every plan's backward on the card is an ordered segment sum
+(``kernels/segment_sum``, no atomics) and a step repeats bit for bit. On
+the CPU the transposes and the trusted path (plain autograd) are
+sequential ``index_add_``. The reference gets this gradient from plain
+AD of its XLA path.
 """
 from __future__ import annotations
 
@@ -40,7 +48,9 @@ from repro_torch.core import sparse as sp
 from repro_torch.core.autotune import KernelPlan, TuningDB, autotune
 from repro_torch.core.patch import is_patched
 from repro_torch.core.semiring import Semiring, get_semiring
+from repro_torch.core.spmm import _backward_maxmin
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import segment_sum as kseg
 from repro_torch.kernels.ref import (coo_reduce, ell_transpose_reduce,
                                      sell_transpose_reduce, take_rows)
 from repro_torch.sampling.buckets import round_bucket
@@ -277,6 +287,49 @@ def _trusted_reduce(pb: PackedBlock, h: torch.Tensor,
                       pb.degrees)
 
 
+class _TrustedSpMM(torch.autograd.Function):
+    """The trusted path over a packed block on the card, before
+    :meth:`Semiring.finalize`. Sum / mean: the ordered segment sum over
+    the block's real edges sorted by row (each row's edges in edge
+    order); the backward ``dh[col] = Σ val · dout[row]`` (``val`` left
+    out unless combine is ``mul``) the ordered sum over them sorted by
+    column. Max / min: ``scatter_reduce`` (order-free) forward, the
+    first-edge subgradient backward, its scatter ordered by column. The
+    sorts run on the device (static shapes, no host sync)."""
+
+    @staticmethod
+    def forward(ctx, h, pb, sr):
+        n = pb.nnz_real
+        ctx.pb, ctx.sr, ctx.n_h = pb, sr, h.shape[0]
+        if sr.reduce in ("sum", "mean"):
+            order = kseg.segment_order(pb.row[:n], pb.n_dst,
+                                       sources=pb.col[:n])
+            return coo_reduce(pb.row, pb.col, pb.val, n, pb.n_dst, h,
+                              get_semiring("sum", sr.combine), order=order)
+        out = coo_reduce(pb.row, pb.col, pb.val, n, pb.n_dst, h, sr)
+        ctx.save_for_backward(h, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        pb, sr, n = ctx.pb, ctx.sr, ctx.pb.nnz_real
+        order = kseg.segment_order(pb.col[:n], ctx.n_h, sources=pb.row[:n])
+        dout = dout.contiguous()
+        if sr.reduce in ("sum", "mean"):
+            back = get_semiring("sum", "mul" if sr.combine == "mul"
+                                else "second")
+            dh = coo_reduce(pb.col, pb.row, pb.val, n, ctx.n_h, dout, back,
+                            order=order)
+        else:
+            h, out = ctx.saved_tensors
+            local = sp.COO(row=pb.row, col=pb.col, val=pb.val,
+                           nrows=pb.n_dst, ncols=ctx.n_h, nse=n)
+            dh = _backward_maxmin(local, order, h, out, dout, sr)
+        return dh.to(dout.dtype), None, None
+
+
 class _PackedSpMM(torch.autograd.Function):
     """Sum-semiring SpMM over a packed ELL or SELL block through its hand
     kernel; the backward is the transpose scatter into ``dh`` (nothing
@@ -302,8 +355,9 @@ def block_spmm(pb: PackedBlock, h: torch.Tensor, reduce: str = "mean",
 
     The tuned path: the bucket's plan routes sum/mean through the packed
     ELL/SELL kernels (``kernels/ops``), mean dividing by the sampled
-    degree; anything else takes the trusted segment path. Differentiable
-    in ``h`` on every plan."""
+    degree; anything else takes the trusted segment path (on the card,
+    ordered segment sums forward and backward). Differentiable in ``h``
+    on every plan."""
     sr = get_semiring(reduce, combine)
     t0 = obs.op_t0()
     if pb.plan_kind == "ell" and pb.ell is not None and sr.mxu_eligible:
@@ -311,7 +365,9 @@ def block_spmm(pb: PackedBlock, h: torch.Tensor, reduce: str = "mean",
     elif pb.plan_kind == "sell" and pb.sell is not None and sr.mxu_eligible:
         out = _PackedSpMM.apply(h, pb.sell, "sell")
     else:
-        out = _trusted_reduce(pb, h, sr).to(h.dtype)
+        out = sr.finalize(_TrustedSpMM.apply(h, pb, sr), pb.degrees) \
+            if kseg.on_card(h) else _trusted_reduce(pb, h, sr)
+        out = out.to(h.dtype)
         obs.op_record("block_spmm", out, h, t0_ns=t0, plan="trusted",
                       reduce=reduce)
         return out
@@ -326,7 +382,9 @@ def block_spmm(pb: PackedBlock, h: torch.Tensor, reduce: str = "mean",
 def block_spmm_baseline(pb: PackedBlock, h: torch.Tensor,
                         reduce: str = "mean",
                         combine: str = "mul") -> torch.Tensor:
-    """The un-patched path: always the trusted segment ops."""
+    """The un-patched path: always the trusted segment ops under plain
+    autograd (``index_add_`` on the card too: the yardstick launches no
+    kernel)."""
     sr = get_semiring(reduce, combine)
     return _trusted_reduce(pb, h, sr).to(h.dtype)
 

@@ -1479,3 +1479,257 @@ def test_cpu_row_is_never_served_on_the_card(card, tmp_path):
                                db=TuningDB(path))
     assert sum(tops.kernel_launches().values()) == 0
     assert again.plan == on_card.plan
+
+
+# --------------------------------------------------------------------------
+# the per-edge SDDMM, the redesigned segment sum and the trusted block
+# path on the card
+# --------------------------------------------------------------------------
+
+def _edge_list(rng, n=3000, m=2800, nnz=60_000, hub=18_045):
+    """Row-sorted edges with an R-MAT-sized hub row and a few ids out of
+    range (they read zero rows)."""
+    row = np.concatenate([rng.integers(0, n, nnz), np.full(hub, 11)])
+    col = rng.integers(0, m, row.shape[0])
+    row[rng.integers(0, row.shape[0], 7)] = n
+    col[rng.integers(0, row.shape[0], 7)] = -1
+    order = np.lexsort((col, row))
+    return (torch.from_numpy(row[order].astype(np.int32)),
+            torch.from_numpy(col[order].astype(np.int32)))
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous tensor whose data starts 4 bytes
+    past a 16-byte boundary (the kernel then reads scalars)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("d,k", [(256, 256), (112, 112), (7, None),
+                                 (130, 24), (256, None)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_edge_dots_kernel_matches_plain_and_repeats_bitwise(card, d, k,
+                                                            aligned):
+    """Kernel E against its plain version within 2 (D + 1) eps sum|x y|
+    per edge (two fp32 sums of the same products in other orders), with
+    an 18,045-entry hub row, widths not a multiple of 4 and operands off
+    16-byte alignment; two launches give the same bits."""
+    from repro_torch.kernels.edge_dots import edge_dots, edge_dots_plain
+    from repro_torch.kernels.ref import edge_dots as plain1
+    rng = np.random.default_rng(d + (k or 0) + aligned)
+    row, col = _edge_list(rng)
+    mats = [_h(rng, 3000, d), _h(rng, 2800, d)]
+    if k is not None:
+        mats += [_h(rng, 3000, k), _h(rng, 2800, k)]
+    dev = [t.to(card) if aligned else _misaligned(t.to(card)) for t in mats]
+    r, c = row.to(card), col.to(card)
+    tops.reset_kernel_launches()
+    runs = [edge_dots(*dev[:2], r, c, *dev[2:]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tops.kernel_launches()["edge_dots"] == 2
+    if k is None:
+        runs = [(s,) for s in runs]
+    want = edge_dots_plain(*mats[:2], row, col, *mats[2:])
+    want = want if k is not None else (want,)
+    for j, (got, again, w) in enumerate(zip(runs[0], runs[1], want)):
+        assert torch.equal(got, again)
+        a, b = mats[2 * j], mats[2 * j + 1]
+        width = a.shape[1]
+        mag = plain1(a.abs(), b.abs(), row, col)
+        err = (got.cpu() - w).abs()
+        assert (err <= 2 * (width + 1) * EPS32 * mag + 1e-30).all(), \
+            float(err.max())
+        assert (got.cpu()[(row >= 3000) | (col < 0)] == 0).all()
+
+
+def test_edge_dots_dispatch_counts_and_rejects(card):
+    from repro_torch.kernels.edge_dots import edge_dots, edge_dots_cuda
+    x = torch.ones((4, 8), device=card)
+    row = torch.tensor([0, 1, 3], dtype=torch.int32, device=card)
+    col = torch.tensor([1, 2, 0], dtype=torch.int32, device=card)
+    tops.reset_kernel_launches()
+    assert torch.equal(edge_dots(x, x, row, col).cpu(), torch.full((3,), 8.0))
+    s, s2 = edge_dots(x, x, row.long(), col, 2 * x[:, :5].contiguous(),
+                      x[:, :5].contiguous())
+    assert torch.equal(s2.cpu(), torch.full((3,), 10.0))
+    assert tops.kernel_launches()["edge_dots"] == 2
+    with pytest.raises(ValueError, match="float32"):
+        edge_dots_cuda(x.double(), x, row, col)
+    with pytest.raises(ValueError, match="int32"):
+        edge_dots_cuda(x, x, row.long(), col)
+    with pytest.raises(ValueError, match="do not match"):
+        edge_dots_cuda(x, x[:, :4].contiguous(), row, col)
+    with pytest.raises(ValueError, match="together"):
+        edge_dots_cuda(x, x, row, col, x2=x)
+    with pytest.raises(ValueError, match="on cuda"):
+        edge_dots_cuda(x, x, row.cpu(), col)
+    assert tops.kernel_launches()["edge_dots"] == 2
+    assert edge_dots(x, x, row[:0], col[:0]).shape == (0,)
+
+
+@pytest.mark.parametrize("k", [1, 7, 112, 256, 602])
+def test_segment_sum_bitwise_where_targets_fit_a_piece(card, k):
+    """The redesigned kernel equals its plain version bit for bit where
+    every target has at most 256 slots, with per-entry weights read
+    through the weight index and with weights permuted beforehand; a hub
+    target (many pieces) repeats bitwise across launches."""
+    from repro_torch.kernels.segment_sum import (segment_order,
+                                                 segment_sum_sorted,
+                                                 segment_sum_sorted_plain)
+    rng = np.random.default_rng(k)
+    tgt = torch.from_numpy(rng.integers(0, 400, 30_000).astype(np.int32))
+    src_ids = torch.from_numpy(rng.integers(-2, 302, 30_000)
+                               .astype(np.int32))
+    order = segment_order(tgt, 400, sources=src_ids)
+    assert int(torch.diff(order.offsets).max()) <= 256
+    a = _h(rng, 300, k)
+    w = torch.from_numpy(rng.standard_normal(30_000).astype(np.float32))
+    want = segment_sum_sorted_plain(a, order.offsets, index=order.src,
+                                    weight=w, weight_index=order.perm)
+    o = [t.to(card) for t in (order.offsets, order.src, order.perm, a, w)]
+    tops.reset_kernel_launches()
+    through = segment_sum_sorted(o[3], o[0], index=o[1], weight=o[4],
+                                 weight_index=o[2])
+    permuted = segment_sum_sorted(o[3], o[0], index=o[1],
+                                  weight=o[4].index_select(0, o[2].long()))
+    torch.cuda.synchronize()
+    assert tops.kernel_launches()["segment_sum"] == 2
+    assert torch.equal(through.cpu(), want)
+    assert torch.equal(permuted.cpu(), want)
+    # a hub target of 20,000 slots: repeated bit for bit
+    hub = torch.cat([tgt.to(card), torch.full((20_000,), 17, device=card,
+                                              dtype=torch.int32)])
+    ids = torch.cat([src_ids.to(card), o[1][:20_000]])
+    horder = segment_order(hub, 400, sources=ids)
+    wh = torch.cat([o[4], o[4][:20_000]])
+    runs = [segment_sum_sorted(o[3], horder.offsets, index=horder.src,
+                               weight=wh, weight_index=horder.perm)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("k", [7, 256, 602])
+def test_segment_sum_routes_give_the_same_bits(card, monkeypatch, k):
+    """Slots that gather rows few times (fewer than ``ROW_REUSE`` a source
+    row) take the whole-row route, the rest the K-sliced one: the two sum
+    in the same order, so they give the same bits, equal to the plain
+    version where every target fits one piece, with a hub target too."""
+    from repro_torch.kernels import segment_sum as kseg
+    rng = np.random.default_rng(100 + k)
+    n_src = 20_000
+    tgt = np.concatenate([rng.integers(0, 3_000, 20_000),
+                          np.full(1_000, 9)]).astype(np.int32)
+    src_ids = rng.integers(-1, n_src + 1, tgt.shape[0]).astype(np.int32)
+    order = kseg.segment_order(torch.from_numpy(tgt), 3_000,
+                               sources=torch.from_numpy(src_ids))
+    a = _h(rng, n_src, k)
+    w = torch.from_numpy(rng.standard_normal(tgt.shape[0])
+                         .astype(np.float32))
+    o = [t.to(card) for t in (order.offsets, order.src, order.perm, a, w)]
+
+    def run():
+        return kseg.segment_sum_sorted(o[3], o[0], index=o[1], weight=o[4],
+                                       weight_index=o[2])
+    assert tgt.shape[0] < kseg.ROW_REUSE * n_src
+    rows = [run() for _ in range(2)]
+    monkeypatch.setattr(kseg, "ROW_REUSE", 0)
+    sliced = run()
+    torch.cuda.synchronize()
+    assert torch.equal(rows[0], rows[1])
+    assert torch.equal(rows[0], sliced)
+    want = kseg.segment_sum_sorted_plain(a, order.offsets, index=order.src,
+                                         weight=w, weight_index=order.perm)
+    fits = (torch.diff(order.offsets) <= kseg.CHUNK).numpy()
+    assert not fits.all()
+    assert torch.equal(sliced.cpu()[fits], want[fits])
+
+
+def _trusted_first_step(card, arch, ds, params):
+    """Seed batch 0's blocks, host-sampled and packed with the plan
+    ``BlockPlanCache(tune=False)`` gives (trusted), and one patched
+    minibatch step over them: (params, opt state, loss, grads) and the
+    launch counts."""
+    from repro_torch.core.patch import patched
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.sampling import (BlockPlanCache, NeighborSampler,
+                                      pack_block, plan_buckets, seed_batches)
+    from repro_torch.train import gnn_minibatch as mb
+    fanouts, batch = (10, 25), 256
+    seed_ids, n_real = next(iter(seed_batches(
+        np.nonzero(ds.train_mask.numpy())[0], batch, seed=0, epoch=0)))
+    blocks = NeighborSampler(tsp.csr_from_coo(ds.coo), fanouts,
+                             seed=0).sample(seed_ids[:n_real], round=0)
+    _, _, apply_blocks, dims = mb.make_block_model(
+        arch, ds.num_features, 64, ds.num_classes, 2)
+    cache = BlockPlanCache(semiring=arch.split("-")[1], tune=False)
+    pbs = []
+    for blk, bk, k in zip(blocks, plan_buckets(blocks, batch_size=batch,
+                                               fanouts=fanouts), dims):
+        plan = cache.plan_for(blk, n_dst=bk.n_dst, n_src=bk.n_src,
+                              nnz=bk.nnz, k_hint=k)
+        assert plan.kind == "trusted"
+        pbs.append(tsp.to_device(pack_block(
+            blk, n_dst=bk.n_dst, n_src=bk.n_src, nnz=bk.nnz, plan=plan,
+            ell_width=bk.ell_width, sell_steps=bk.sell_steps), card))
+    opt = adamw(1e-2, weight_decay=5e-4)
+    step = mb.make_minibatch_step(apply_blocks, opt, batch_size=batch)
+    tops.reset_kernel_launches()
+    with patched(True):
+        out = step(params, opt.init(params), pbs,
+                   torch.from_numpy(seed_ids).to(card), n_real,
+                   ds.x.to(card), ds.y.to(card), mb.init_step_stats(card))
+    torch.cuda.synchronize()
+    p, s, loss, grads, _ = out
+    return (p, s._asdict(), loss, grads), tops.kernel_launches()
+
+
+@pytest.mark.parametrize("arch", ["sage-mean", "sage-max"])
+def test_trusted_block_first_step_is_bitwise_repeatable(card, arch):
+    """A minibatch bucket with a trusted plan: its first step twice from
+    the same state gives the same loss, gradients, parameters and
+    optimizer state bit for bit (the trusted block path's forward and
+    backward are ordered segment sums on the card)."""
+    from repro_torch.data import make_dataset
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import gnn_minibatch as mb
+    ds = make_dataset("reddit", scale=1 / 64, seed=1)
+    init, _, _, _ = mb.make_block_model(arch, ds.num_features, 64,
+                                        ds.num_classes, 2)
+    params = init(torch.Generator().manual_seed(0), device=card)
+    (a, la), (b, lb) = (_trusted_first_step(card, arch, ds, params)
+                        for _ in range(2))
+    assert la == lb and la["segment_sum"] > 0, la
+    assert not la["ell_spmm"] and not la["sell_spmm"]
+    same = []
+    for x, y in zip(a, b):          # params, opt state, loss, grads
+        tree_map(lambda p, q: same.append(torch.equal(p, q)), x, y)
+    assert same and all(same)
+
+
+def test_sddmm_gradients_are_ordered_and_bitwise_repeatable(card):
+    """The public ``sddmm`` on the card: the forward is the per-edge
+    kernel, the backward's two scatters the ordered segment sum, and two
+    runs give the same bits."""
+    from repro_torch.core.cache import build_cached_graph
+    from repro_torch.core.sddmm import sddmm
+    from repro_torch.data import make_dataset
+    ds = make_dataset("reddit", scale=1 / 128, seed=1)
+    g = build_cached_graph(ds.coo, tune=False).to(card)
+    rng = np.random.default_rng(3)
+    x, y = _h(rng, ds.num_nodes, 64).to(card), _h(rng, ds.num_nodes,
+                                                   64).to(card)
+    c = torch.from_numpy(rng.standard_normal(g.coo.nnz_padded)
+                         .astype(np.float32)).to(card)
+    runs = []
+    for _ in range(2):
+        tops.reset_kernel_launches()
+        tx, ty = x.clone().requires_grad_(True), y.clone().requires_grad_(
+            True)
+        s = sddmm(g, tx, ty)
+        runs.append((s,) + torch.autograd.grad((s * c).sum(), (tx, ty)))
+        launched = tops.kernel_launches()
+        assert launched["edge_dots"] == 1 and launched["segment_sum"] == 2
+    assert all(torch.equal(p, q) for p, q in zip(*runs))

@@ -455,7 +455,7 @@ def test_ordered_subgradient_equals_index_add_bitwise(reduce, combine):
     dy = torch.from_numpy(rng.standard_normal((c.nrows, 6)).astype(
         np.float32))
     out = tref.coo_reduce(c.row, c.col, c.val, c.nse, c.nrows, h, sr)
-    want = _backward_maxmin(g, h, out, dy, sr)
+    want = _backward_maxmin(c, g.col_order, h, out, dy, sr)
     # the card's route, from the same winners
     k, n = h.shape[1], c.nse
     winner = torch.full((c.nrows, k), torch.iinfo(torch.int64).max)
@@ -465,7 +465,7 @@ def test_ordered_subgradient_equals_index_add_bitwise(reduce, combine):
     winner.scatter_reduce_(0, c.row[:n].long()[:, None].expand_as(cand),
                            cand, "amin")
     for step in (n, 97):          # one chunk, and many
-        got = _subgradient_ordered(g, winner, dy, sr, step)
+        got = _subgradient_ordered(c, g.col_order, winner, dy, sr, step)
         assert torch.equal(got, want)
 
 

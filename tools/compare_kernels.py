@@ -5,7 +5,7 @@ the main path's sizes beside the same kernels of another checkout, in
 turns (other, this, this, other). Needs one CUDA card and ``nvcc``.
 
     python tools/compare_kernels.py [--other DIR] [--variants]
-        [--kernels bsr,flash,ragged,sddmm,sell,fusedmm,sample,segsum]
+        [--kernels bsr,flash,ragged,sddmm,sell,fusedmm,sample,segsum,edgedots]
 
 ``--other DIR``: the root of a second checkout (e.g. the parent commit
 unpacked with ``git archive``); its kernels build into
@@ -24,8 +24,10 @@ wrong by construction), timed over the fill sweep; of
 on the tile route (both exact), the edge route without its per-tile
 barrier (exact where no tile is dense), and batches of 2 and 8 edges
 (the latter also with one CTA an SM's registers), timed over the fill
-sweep and on the proteins graph.
-``--kernels``: check and time only these (default all eight).
+sweep and on the proteins graph; of ``csrc/segment_sum.cu`` one, four and
+eight gathered rows in flight a lane in place of two on its sliced route
+(all exact), timed at the segment-sum sizes below.
+``--kernels``: check and time only these (default all nine).
 
 Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
 - BSR: a synthetic 518 x 518 grid of 230,000 dense 128 x 128 tiles (5 %
@@ -63,10 +65,22 @@ Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
   ``DeviceSampler.sample_blocks`` a batch of 1,024 seeds and one
   device-sampled GraphSAGE-mean training step over it (hidden 256, 602
   random features);
-- a patched gat training step (loss and gradients) on ogbn-proteins at
-  scale 1/4, A pinned to BSR 128 x 128 (phase 9's step), whose
-  backward's scatters are the ordered segment sum here and
-  ``index_add_`` in a checkout without it.
+- the ordered segment sum (``segsum``) as each checkout runs it: gat's
+  dh on ogbn-proteins at scale 1/4 (phase 9's graph, 7.0 M edges in the
+  cached column order) at K = 256 and 112 through ``gather_scale_sum``
+  and as the bare kernel, reddit's trusted candidate
+  at K = 256 (the synthetic reddit-shaped matrix above, 10.3 M slots),
+  the minibatch block's trusted forward at K = 602 and ELL backward at
+  K = 256 (synthetic blocks of phase 8's shapes), each beside
+  ``torch.sparse.mm``; each size also as the bare kernel on operands
+  sorted beforehand (the device sort of a block's backward outside the
+  timed window; 20 calls under CUDA events, and in a profiler trace);
+  and a patched gat training step (loss and gradients) on the same graph
+  with A pinned to BSR 128 x 128;
+- the per-edge SDDMM (``edgedots``) on the same graph at D = K = 256:
+  the gat backward's two dot products as one dual launch where the
+  checkout has the kernel, else the two plain calls it ran on the card,
+  the single launch, and ``torch.sparse.sampled_addmm``.
 Prints one JSON line per timing run.
 """
 from __future__ import annotations
@@ -117,6 +131,10 @@ VARIANTS["sddmm_no_dense_route"] = ("sddmm", [
 VARIANTS["sddmm_no_y_reads"] = ("sddmm", [
     ("yr && c < d ? __ldg(reinterpret_cast<const float4*>(yr + c))",
      "yr && c < d ? make_float4(1.f, 1.f, 1.f, 1.f)")])
+_SEG_LOADS = "constexpr int kLoads = 2;"
+for _n in (1, 4, 8):
+    VARIANTS[f"segsum_loads_{_n}"] = ("segment_sum", [
+        (_SEG_LOADS, f"constexpr int kLoads = {_n};")])
 VARIANTS["sell_in_flight_1"] = ("sell_spmm", [
     ("constexpr int kInFlight = 4;", "constexpr int kInFlight = 1;")])
 VARIANTS["sell_in_flight_8"] = ("sell_spmm", [
@@ -157,6 +175,32 @@ def cuda_ms(fn, reps=10, warmup=2):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, name: str, reps: int = 10):
+    """Device ms a call of the kernels whose names contain ``name``, from
+    a ``torch.profiler`` trace of ``reps`` calls (a traced warm-up call
+    discarded, then a quarter second with nothing launched, as
+    ``chip_smoke.profiled`` does); None where the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    got = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: got.setdefault(
+                     "events", p.key_averages())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.25)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0))
+             for e in got["events"] if name in e.key)
+    return us / reps / 1e3 if us else None
 
 
 def synth_bsr(n_brows, n_bcols, nblocks, br, bc, seed, skew):
@@ -572,7 +616,8 @@ def time_run(tag: str, variant: str | None, kernels) -> dict:
             fn.restype = ctypes.c_int
         kb._LOADED[lib_name] = lib
         timer = {"sddmm": time_sddmm, "sell_spmm": time_sell,
-                 "fusedmm": time_fusedmm}.get(lib_name)
+                 "fusedmm": time_fusedmm,
+                 "segment_sum": time_segsum}.get(lib_name)
         return timer(res, sweep_only=True) if timer else time_bsr(res)
     for name in kernels:
         TIMERS[name](res)
@@ -640,6 +685,8 @@ def time_sddmm(res: dict, sweep_only: bool = False) -> dict:
                 res["sddmm_unscaled_fill0.007_ms"] = cuda_ms(
                     lambda: sddmm_bsr_cuda(a, x, y, scale_by_a=False),
                     reps=3)
+                res["sddmm_scaled_fill0.007_device_ms"] = device_ms(
+                    lambda: sddmm_bsr_cuda(a, x, y), "sddmm_nnz_kernel")
             try:
                 csr, yt = grid_csr(a), y.t().contiguous()
                 res[f"sampled_addmm_fill{fill}_ms"] = cuda_ms(
@@ -845,7 +892,8 @@ def gat_inputs():
 
 def check_segsum():
     """The ordered segment sum against its plain version (2 d eps
-    sum|terms|) with a hub target and empty targets, twice bitwise."""
+    sum|terms|) with a hub target and empty targets, twice bitwise, at K
+    = 256, 602 and 7 (vectors of 4, 2 and 1 floats)."""
     import numpy as np
     import torch
     from repro_torch.kernels.segment_sum import (segment_sum_sorted_cuda,
@@ -859,37 +907,289 @@ def check_segsum():
                              .astype(np.int32))
     weight = torch.from_numpy(rng.standard_normal(t.shape[0])
                               .astype(np.float32))
-    src = torch.from_numpy(rng.standard_normal((300, 256)).astype(np.float32))
-    args = [a.cuda() for a in (src, offsets, index, weight)]
-    got = segment_sum_sorted_cuda(args[0], args[1], index=args[2],
-                                  weight=args[3])
-    again = segment_sum_sorted_cuda(args[0], args[1], index=args[2],
-                                    weight=args[3])
-    want = segment_sum_sorted_plain(src, offsets, index=index, weight=weight)
-    mag = segment_sum_sorted_plain(src.abs(), offsets, index=index,
-                                   weight=weight.abs())
     d = torch.diff(offsets).float()[:, None]
-    if not torch.equal(got, again) or not bool(
-            ((got.cpu() - want).abs() <= 2 * 2.0 ** -24 * d * mag
-             + 1e-30).all()):
-        raise AssertionError("segment_sum differs from its plain version "
-                             "or between two launches")
+    for k in (256, 602, 7):
+        src = torch.from_numpy(rng.standard_normal((300, k))
+                               .astype(np.float32))
+        args = [a.cuda() for a in (src, offsets, index, weight)]
+        got = segment_sum_sorted_cuda(args[0], args[1], index=args[2],
+                                      weight=args[3])
+        again = segment_sum_sorted_cuda(args[0], args[1], index=args[2],
+                                        weight=args[3])
+        want = segment_sum_sorted_plain(src, offsets, index=index,
+                                        weight=weight)
+        mag = segment_sum_sorted_plain(src.abs(), offsets, index=index,
+                                       weight=weight.abs())
+        if not torch.equal(got, again) or not bool(
+                ((got.cpu() - want).abs() <= 2 * 2.0 ** -24 * d * mag
+                 + 1e-30).all()):
+            raise AssertionError(f"segment_sum k{k} differs from its plain "
+                                 "version or between two launches")
     log("segment_sum: within 2 d eps sum|terms| of its plain version and "
-        "bitwise repeatable (a 20,000-slot hub target, empty targets)")
+        "bitwise repeatable (a 20,000-slot hub target, empty targets; K = "
+        "256, 602, 7)")
 
 
-def time_segsum(res: dict) -> dict:
-    """A patched gat training step (loss and gradients) on phase 9's
-    graph: the recompute backward's scatters are index_add_ in a checkout
-    without the ordered segment sum."""
+def gat_graph():
+    """Phase 9's graph (ogbn-proteins at scale 1/4, 7.0 M edges) as a
+    trusted ``CachedGraph`` on the card (its cached edge orders are what
+    the gat backward's sums walk), and random x, y, h of 256 columns."""
     import torch
+    from repro_torch.data import make_dataset
+    from repro_torch.core.cache import build_cached_graph
+    ds = make_dataset("ogbn-proteins", scale=1 / 4)
+    g = build_cached_graph(ds.coo, tune=False).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, y, h = (torch.randn((ds.num_nodes, 256), generator=gen,
+                           device="cuda") for _ in range(3))
+    return g, x, y, h
+
+
+def _synth_block(n_dst, width, n_src, seed):
+    """A synthetic sampled block: ``width`` slots a destination row, the
+    sources uniform over ``n_src`` rows, values 1 / width; (row, col,
+    val) on the card."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    row = torch.arange(n_dst, device="cuda", dtype=torch.int32) \
+        .repeat_interleave(width)
+    col = torch.randint(0, n_src, (n_dst * width,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    return row, col, torch.full((n_dst * width,), 1.0 / width,
+                                device="cuda")
+
+
+def _order(targets, n, sources):
+    """``segment_order`` with the sorted sources where the checkout's
+    orders carry them (as a ``CachedGraph`` caches them), else without."""
+    import inspect
+    from repro_torch.kernels.segment_sum import segment_order
+    if "sources" in inspect.signature(segment_order).parameters:
+        return segment_order(targets, n, sources=sources)
+    return segment_order(targets, n)
+
+
+def _scale_sum(kseg, src, order, index, weight):
+    """``gather_scale_sum`` as the checkout defines it: the parent's takes
+    the entries' gather index, this checkout's reads it from the order."""
+    import inspect
+    if "index" in inspect.signature(kseg.gather_scale_sum).parameters:
+        return kseg.gather_scale_sum(src, order, index, weight)
+    return kseg.gather_scale_sum(src, order, weight)
+
+
+def _segsum_kernel(res: dict, name: str, src, offsets, idx, ws) -> None:
+    """The bare kernel on operands sorted beforehand (no sort, no index
+    or weight gather in the timed window): 20 calls under CUDA events,
+    and its device time from a profiler trace of 20 calls (at the block
+    sizes a call's host dispatch outlasts the kernel)."""
+    from repro_torch.kernels import segment_sum as kseg
+
+    def run():
+        return kseg.segment_sum_sorted_cuda(src, offsets, index=idx,
+                                            weight=ws)
+    res[f"{name}_kernel_ms"] = cuda_ms(run, reps=20)
+    res[f"{name}_kernel_device_ms"] = device_ms(run, "segment_sum_kernel",
+                                                reps=20)
+
+
+def time_segsum(res: dict, sweep_only: bool = False) -> dict:
+    """The ordered segment sum at the main path's sizes, as each checkout
+    runs it: gat's dh (phase 9's graph, A's edges in the cached column
+    order) at K = 256 and 112 through ``gather_scale_sum`` (the call the
+    backward makes) and as the bare kernel on pre-sorted operands,
+    reddit's trusted candidate at K = 256 (the synthetic
+    reddit-shaped matrix, 10.3 M slots, ``coo_reduce`` over its row
+    order), the minibatch block's trusted forward at K = 602 (a
+    synthetic 20,992 x 10 block over 150,000 source rows) and its ELL
+    backward at K = 256 (a 1,024 x 25 block over 20,992 rows, the column
+    sort included), and the trusted forward of that 1,024 x 25 block at K
+    = 256 (the measured tuner's candidate), each beside
+    ``torch.sparse.mm`` on the same CSR; and, unless ``sweep_only`` (a
+    source variant's run), a patched gat training step (loss and
+    gradients)."""
+    import warnings
+    import torch
+    from repro_torch.core import sparse as tsp
     from repro_torch.core.patch import patched
+    from repro_torch.core.semiring import get_semiring
+    from repro_torch.kernels import segment_sum as kseg
+    from repro_torch.kernels.ref import coo_reduce, ell_transpose_reduce
     from repro_torch.train.gnn import loss_and_grads
-    bundle, apply, params, (x, y, m) = gat_inputs()
+    add = get_semiring("sum")
+
+    def csr_of(offsets, index, weight, n_cols):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # "sparse CSR is in beta"
+            return torch.sparse_csr_tensor(offsets, index.long(), weight,
+                                           size=(offsets.shape[0] - 1,
+                                                 n_cols))
+
+    g, x, y, h = gat_graph()
+    n = g.coo.nse
+    row = g.coo.row[:n]
+    order = g.col_order
+    w = torch.rand(n, device="cuda")
+    idx = row.index_select(0, order.perm.long()).to(torch.int32)
+    ws = w.index_select(0, order.perm.long())
+    for k in (256, 112):
+        src = h[:, :k].contiguous()
+        res[f"gat_dh_k{k}_ms"] = cuda_ms(
+            lambda: _scale_sum(kseg, src, order, row, w))
+        _segsum_kernel(res, f"gat_dh_k{k}", src, order.offsets, idx, ws)
+        csr = csr_of(order.offsets, idx, ws, src.shape[0])
+        res[f"gat_dh_k{k}_sparse_mm_ms"] = cuda_ms(
+            lambda: torch.sparse.mm(csr, src))
+        del csr, src
+    del g, x, y, h, idx, ws, w
+    torch.cuda.empty_cache()
+
+    _, rcsr = synth_reddit()
+    crow = rcsr.crow_indices()
+    rn = crow.shape[0] - 1
+    rrow = torch.arange(rn, device="cuda", dtype=torch.int32) \
+        .repeat_interleave(torch.diff(crow))
+    rcol = rcsr.col_indices().to(torch.int32)
+    rval = rcsr.values().float()
+    rorder = _order(rrow, rn, rcol)
+    hr = torch.randn((rn, 256), device="cuda")
+    res["reddit_trusted_k256_ms"] = cuda_ms(
+        lambda: coo_reduce(rrow, rcol, rval, rrow.shape[0], rn, hr, add,
+                           order=rorder))
+    res["reddit_trusted_k256_sparse_mm_ms"] = cuda_ms(
+        lambda: torch.sparse.mm(rcsr, hr))
+    _segsum_kernel(res, "reddit_trusted_k256", hr, rorder.offsets,
+                   rcol.index_select(0, rorder.perm.long()),
+                   rval.index_select(0, rorder.perm.long()))
+    res["reddit_trusted_slots"] = int(rrow.shape[0])
+    del rcsr, rrow, rcol, rval, rorder, hr
+    torch.cuda.empty_cache()
+
+    brow, bcol, bval = _synth_block(20_992, 10, 150_000, 1)
+    border = _order(brow, 20_992, bcol)
+    hb = torch.randn((150_000, 602), device="cuda")
+    res["block_fwd_k602_ms"] = cuda_ms(
+        lambda: coo_reduce(brow, bcol, bval, brow.shape[0], 20_992, hb, add,
+                           order=border))
+    bcsr = csr_of(border.offsets, bcol.index_select(
+        0, border.perm.long()), bval, 150_000)
+    res["block_fwd_k602_sparse_mm_ms"] = cuda_ms(
+        lambda: torch.sparse.mm(bcsr, hb))
+    _segsum_kernel(res, "block_fwd_k602", hb, border.offsets,
+                   bcol.index_select(0, border.perm.long()),
+                   bval.index_select(0, border.perm.long()))
+    del brow, bcol, bval, border, hb, bcsr
+    lrow, lcol, lval = _synth_block(1_024, 25, 20_992, 2)
+    ell = tsp.ELL(idx=lcol.view(1_024, 25), val=lval.view(1_024, 25),
+                  nrows=1_024, ncols=20_992, nse=lrow.shape[0])
+    dout = torch.randn((1_024, 256), device="cuda")
+    res["block_bwd_k256_ms"] = cuda_ms(lambda: ell_transpose_reduce(ell,
+                                                                    dout))
+    eorder = _order(lcol, 20_992, None)        # ell_transpose_ordered's
+    _segsum_kernel(res, "block_bwd_k256", dout, eorder.offsets,
+                   torch.div(eorder.perm, 25, rounding_mode="floor")
+                   .to(torch.int32),
+                   lval.index_select(0, eorder.perm.long()))
+    lorder = _order(lcol, 20_992, lrow)
+    lcsr = csr_of(lorder.offsets, lrow.index_select(
+        0, lorder.perm.long()), lval, 1_024)
+    res["block_bwd_k256_sparse_mm_ms"] = cuda_ms(
+        lambda: torch.sparse.mm(lcsr, dout))
+    forder = _order(lrow, 1_024, lcol)
+    hs = torch.randn((20_992, 256), device="cuda")
+    res["block_fwd_k256_ms"] = cuda_ms(
+        lambda: coo_reduce(lrow, lcol, lval, lrow.shape[0], 1_024, hs, add,
+                           order=forder))
+    _segsum_kernel(res, "block_fwd_k256", hs, forder.offsets,
+                   lcol.index_select(0, forder.perm.long()),
+                   lval.index_select(0, forder.perm.long()))
+    del ell, dout, lcsr, forder, hs
+    torch.cuda.empty_cache()
+    if sweep_only:
+        return res
+
+    bundle, apply, params, (xg, yg, m) = gat_inputs()
     with patched(True):
         res["gat_step_ms"] = cuda_ms(
-            lambda: loss_and_grads(apply, params, bundle, x, y, m), reps=5)
+            lambda: loss_and_grads(apply, params, bundle, xg, yg, m), reps=5)
     del bundle
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_edgedots():
+    """The per-edge SDDMM against its plain version (2 (D + 1) eps
+    sum_d |x_d y_d| an edge) with a hub row, at D = 256, 112 and 7 (off
+    16-byte alignment), one product and two, twice bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.edge_dots import edge_dots_cuda, edge_dots_plain
+    from repro_torch.kernels.ref import edge_dots as plain1
+    rng = np.random.default_rng(0)
+    row = np.sort(np.concatenate([rng.integers(0, 3000, 60_000),
+                                  np.full(18_045, 5)]))
+    row = torch.from_numpy(row.astype(np.int32)).cuda()
+    col = torch.from_numpy(rng.integers(0, 2800, row.shape[0])
+                           .astype(np.int32)).cuda()
+    for d, off in ((256, 0), (112, 0), (7, 1)):
+        mats = [torch.randn(n * d + off, device="cuda")[off:].view(n, d)
+                for n in (3000, 2800, 3000, 2800)]
+        got = edge_dots_cuda(*mats[:2], row, col, *mats[2:])
+        again = edge_dots_cuda(*mats[:2], row, col, *mats[2:])
+        want = edge_dots_plain(*mats[:2], row, col, *mats[2:])
+        for j in range(2):
+            mag = plain1(mats[2 * j].abs(), mats[2 * j + 1].abs(), row, col)
+            if not torch.equal(got[j], again[j]) or not bool(
+                    ((got[j] - want[j]).abs() <= 2 * (d + 1) * 2.0 ** -24
+                     * mag + 1e-30).all()):
+                raise AssertionError(f"edge_dots d{d}: differs from its plain "
+                                     "version or between two launches")
+    log("edge_dots: within 2 (D + 1) eps sum|x y| of its plain version and "
+        "bitwise repeatable (D = 256, 112, 7 misaligned; an 18,045-edge "
+        "hub row; single and dual)")
+
+
+def time_edgedots(res: dict) -> dict:
+    """The gat backward's per-edge dot products on phase 9's graph at D =
+    K = 256 as each checkout runs them on the card: the dual kernel
+    launch (s and dw) where the checkout has ``kernels/edge_dots``, else
+    the two plain ``ref.edge_dots`` calls; the single launch (the
+    forward's scores), and ``torch.sparse.sampled_addmm`` on the same
+    CSR beside it."""
+    import warnings
+    import torch
+    from repro_torch.kernels.ref import edge_dots as plain1
+    g, x, y, h = gat_graph()
+    n = g.coo.nse
+    row, col = g.coo.row[:n], g.coo.col[:n]
+    try:
+        from repro_torch.kernels.edge_dots import edge_dots_cuda
+    except ImportError:
+        edge_dots_cuda = None
+    if edge_dots_cuda is not None:
+        res["edge_dots_dual_ms"] = cuda_ms(
+            lambda: edge_dots_cuda(x, y, row, col, x, h))
+        res["edge_dots_single_ms"] = cuda_ms(
+            lambda: edge_dots_cuda(x, y, row, col))
+        res["edge_dots_dual_device_ms"] = device_ms(
+            lambda: edge_dots_cuda(x, y, row, col, x, h), "edge_dots_kernel")
+        res["edge_dots_single_device_ms"] = device_ms(
+            lambda: edge_dots_cuda(x, y, row, col), "edge_dots_kernel")
+    res["edge_dots_plain_pair_ms"] = cuda_ms(
+        lambda: (plain1(x, y, row, col), plain1(x, h, row, col)), reps=3)
+    res["edge_dots_plain_ms"] = cuda_ms(lambda: plain1(x, y, row, col),
+                                        reps=3)
+    crow = g.row_order.offsets
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # "sparse CSR is in beta"
+        csr = torch.sparse_csr_tensor(crow, col.long(),
+                                      torch.ones(n, device="cuda"),
+                                      size=(x.shape[0], y.shape[0]))
+    yt = y.t().contiguous()
+    res["edge_dots_sampled_addmm_ms"] = cuda_ms(
+        lambda: torch.sparse.sampled_addmm(csr, x, yt, beta=0.0))
+    res["edge_dots_edges"] = n
+    del g, x, y, h, csr, yt
     torch.cuda.empty_cache()
     return res
 
@@ -902,13 +1202,15 @@ def check_sell_all():
 CHECKS = {"bsr": check_bsr, "flash": check_flash, "ragged": check_ragged,
           "sddmm": check_sddmm, "sell": check_sell_all,
           "fusedmm": check_fusedmm, "sample": check_sample,
-          "segsum": check_segsum}
+          "segsum": check_segsum, "edgedots": check_edgedots}
 TIMERS = {"bsr": time_bsr, "flash": time_flash, "ragged": time_ragged,
           "sddmm": time_sddmm, "sell": time_sell, "fusedmm": time_fusedmm,
-          "sample": time_sample, "segsum": time_segsum}
+          "sample": time_sample, "segsum": time_segsum,
+          "edgedots": time_edgedots}
 LIBS = {"bsr": "bsr_spmm", "flash": "flash_attention",
         "ragged": "ragged_gemm", "sddmm": "sddmm", "sell": "sell_spmm",
-        "fusedmm": "fusedmm", "sample": "sample", "segsum": "segment_sum"}
+        "fusedmm": "fusedmm", "sample": "sample", "segsum": "segment_sum",
+        "edgedots": "edge_dots"}
 
 
 def build_variants(kernels):
