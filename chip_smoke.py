@@ -9,8 +9,9 @@ failure:
 1. card and build — the card's name and power limit, then the hand
    kernels compiled from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel), ptxas's registers and spills of every kernel,
-   and of the per-edge SDDMM (``edge_dots_kernel``) and the redesigned
-   ordered segment sum (``segment_sum_kernel*``) on a line of their own;
+   and of the flash attention backward's three kernels
+   (``flash_bwd_delta_kernel``, ``flash_bwd_dkdv_kernel``,
+   ``flash_bwd_dq_kernel``) on a line of their own;
 2. sampled serving at full width — reddit at scale 1 (232,965 nodes,
    602 features, 41 classes), GraphSAGE-mean, 2 layers, hidden 256,
    fanouts (10, 25) outermost first, a 65,536-row feature cache, fp32,
@@ -157,11 +158,34 @@ failure:
    pass on ogbn-proteins' Â at K = 256, logged against phase 7's pinned
    BSR and the analytic pick. The launches inside the timed passes join
    the kernels line;
+12. (run after phase 10 has freed its weights) LM training of
+   phi3.5-moe-42b-a6.6b at full width (as phase 10), cut to 2 of 32
+   layers (bf16 params and grads and fp32 Adam moments of 3 layers would
+   hold ~50 GB before any update or activation), remat "full" (the
+   config's own), ``make_train_step``'s defaults (AdamW lr 3e-4, weight
+   decay 0.1, clip 1.0), seeded random init on the card, 4 x 2,048
+   tokens from ``data/tokens``. Launch counts zeroed just before step 0
+   and read just after: 4 flash forwards (2 and 2 recomputed), 2 flash
+   backwards, 18 ragged GEMMs (12 forward, 6 dX), all ``wgmma``; every
+   launch of step 0 held against its plain version on its own inputs
+   and, row by row, an fp32 oracle (as phase 10), the flash LSE within
+   1e-3 of the oracle's, and no plain flash or ragged version run on a
+   card tensor inside the step; the metrics finite; step 0 run again
+   from the same state gives the same loss, gradients and updated
+   params bit for bit; 8 steps on one fixed batch with the loss at step
+   7 below step 0's; ms a step, tokens/s, the busy share of a traced
+   step, peak memory; the flash backward timed at this shape beside its
+   bound, its plain version and SDPA's backward, a dX launch with and
+   without its transpose copy beside ``torch.bmm``; the smoke config in
+   fp32 on the card for 3 steps against the port's CPU run (losses
+   rtol 1e-4, params within the CPU tests' stated tolerance);
 5. last, the kernels line (one JSON object: the sampling kernels and the
    fused hop as timed in phase 8, the ordered segment sum and the
    per-edge SDDMM as timed in phase 9, the serving kernels as timed in phase 4, BSR as timed in
    phase 7, SDDMM and FusedMM as timed in phase 9, the ragged GEMM and
-   flash attention as timed in phase 10), the card line, and
+   flash attention as timed in phase 10, with phase 12's launches and
+   dX timing, and the flash backward as timed in phase 12), the card
+   line, and
    ``{"ok": true, "device": {...}}``.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
@@ -224,6 +248,12 @@ KERNEL_META = {
                         replaces="src/repro/kernels/ragged_gemm.py:29"),
     "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:78"),
+    # no Pallas kernel: the reference differentiates chunked_attention in
+    # XLA (flash_attention_pallas has no custom_vjp)
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="none, port-only: the reference's XLA gradient of "
+                 "chunked_attention, src/repro/models/lm/attention.py:37"),
 }
 SERVE_KERNELS = ("ell_spmm", "sell_spmm")   # what serving launches
 TRAIN_EPOCHS, TRAIN_LR, TRAIN_WD = 5, 1e-2, 5e-4
@@ -276,8 +306,12 @@ def ptxas_report(text: str) -> dict:
     fn = ""
     for line in text.splitlines():
         if "Function properties for" in line:
-            fn = ptxas_function(line)
-            out.setdefault(fn, {})
+            base = fn = ptxas_function(line)
+            for i in range(2, 1000):    # instances whose template arguments
+                if fn not in out:       # are types share a name: number them
+                    break
+                fn = f"{base}#{i}"
+            out[fn] = {}
         elif "spill stores" in line and fn:
             nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
             out[fn].update(spill_stores=nums[1], spill_loads=nums[2])
@@ -291,7 +325,8 @@ def ptxas_report(text: str) -> dict:
 
 # the kernels this slice added or redesigned: phase 1 logs their
 # registers and spills on a line of their own
-NEW_KERNELS = ("edge_dots_kernel", "segment_sum_kernel")
+NEW_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+               "flash_bwd_dq_kernel")
 
 
 def card_line() -> str:
@@ -2653,19 +2688,67 @@ LM_SMOKE_DECODE = 4
 LM_KERNELS = ("ragged_gemm", "flash_attention")
 
 
+def check_lm_launch(entry, out, want, oracle, row_floor=None):
+    """Hold one LM kernel launch's output (1) against the plain version's
+    ``want``, max |diff| within ``LM_TOL`` x max|plain| over the whole
+    output, and (2) row by row against ``oracle``, the same function of
+    the same inputs widened to fp32: each output row's max |diff| within
+    ``LM_TOL`` x that row's max |oracle| (plus a floor of 2^-24 x the
+    output's max, for rows near zero), after ``row_floor`` (a per-row
+    absolute rounding floor, where the function cancels) is taken off.
+    Records the errors in ``entry``; raises past either bound or on a
+    value that is not finite."""
+    import torch
+    err = float((out.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    ratio = err / max(scale, 1e-30)
+    width = out.shape[-1]
+    row_err = (out.float() - oracle).abs().reshape(-1, width).amax(-1)
+    if row_floor is not None:
+        row_err = (row_err - row_floor).clamp(min=0.0)
+    row_max = oracle.abs().reshape(-1, width).amax(-1)
+    floor = 2.0 ** -24 * float(row_max.max())
+    row_ratio = float((row_err / row_max.clamp(min=max(floor, 1e-30)))
+                      .max())
+    entry.update(max_abs_err=err, max_plain=scale, err_over_max=ratio,
+                 median_plain=float(want.float().abs().median()),
+                 median_row_max=float(row_max.median()),
+                 row_err_over_row_max=row_ratio)
+    if not ratio <= LM_TOL or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{entry['name']} {entry['shape']}: kernel "
+                             f"disagrees with plain, max err {err} of "
+                             f"max|plain| {scale} (ratio {ratio:.3e} > "
+                             f"{LM_TOL})")
+    if not row_ratio <= LM_TOL:
+        raise AssertionError(f"{entry['name']} {entry['shape']}: a row "
+                             f"of the kernel's output disagrees with "
+                             f"the fp32 oracle: max|diff| / max|row| "
+                             f"{row_ratio:.3e} > {LM_TOL}")
+
+
+def ragged_oracle(x, w, tile_expert, tm=128):
+    """The ragged GEMM in fp32, one expert's tiles at a time."""
+    import torch
+    xt = x.view(-1, tm, x.shape[1])
+    out = torch.empty((xt.shape[0], tm, w.shape[2]),
+                      dtype=torch.float32, device=x.device)
+    te = tile_expert.cpu()
+    for e in te.unique().tolist():
+        idx = (te == e).nonzero()[:, 0].to(x.device)
+        out[idx] = (xt[idx].float() @ w[e].float())
+    return out.view(x.shape[0], w.shape[2])
+
+
 @contextlib.contextmanager
 def record_lm_kernels(check: bool):
     """While on, every ``ragged_gemm`` / ``flash_attention`` dispatch is
     recorded with its inputs; with ``check`` its output is held right away
-    (1) against the plain version on the same card tensors, max |diff|
-    within ``LM_TOL`` x max|plain| over the whole output, and (2) row by
-    row against the same function of the same inputs widened to fp32:
-    each output row's max |diff| within ``LM_TOL`` x that row's max
-    |oracle| (plus a floor of 2^-24 x the output's max, for rows near
-    zero). (2) sees a fault confined to rows of small magnitude, such as
-    the late query rows of a long causal prefill, which average over
-    thousands of keys. The dispatchers and their launch counts are
-    unchanged; the plain versions and the oracles launch no kernel."""
+    by :func:`check_lm_launch` against the plain version on the same card
+    tensors and, row by row, against the fp32 oracle. The row check sees
+    a fault confined to rows of small magnitude, such as the late query
+    rows of a long causal prefill, which average over thousands of keys.
+    The dispatchers and their launch counts are unchanged; the plain
+    versions and the oracles launch no kernel."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.ragged_gemm import ragged_gemm_plain
@@ -2674,50 +2757,16 @@ def record_lm_kernels(check: bool):
     real = {"ragged_gemm": kops.ragged_gemm,
             "flash_attention": kops.flash_attention}
 
-    def checked(entry, out, want, oracle):
-        err = float((out.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        ratio = err / max(scale, 1e-30)
-        width = out.shape[-1]
-        row_err = (out.float() - oracle).abs().reshape(-1, width).amax(-1)
-        row_max = oracle.abs().reshape(-1, width).amax(-1)
-        floor = 2.0 ** -24 * float(row_max.max())
-        row_ratio = float((row_err / row_max.clamp(min=max(floor, 1e-30)))
-                          .max())
-        entry.update(max_abs_err=err, max_plain=scale, err_over_max=ratio,
-                     median_plain=float(want.float().abs().median()),
-                     median_row_max=float(row_max.median()),
-                     row_err_over_row_max=row_ratio)
-        if not ratio <= LM_TOL or not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"{entry['name']} {entry['shape']}: kernel "
-                                 f"disagrees with plain, max err {err} of "
-                                 f"max|plain| {scale} (ratio {ratio:.3e} > "
-                                 f"{LM_TOL})")
-        if not row_ratio <= LM_TOL:
-            raise AssertionError(f"{entry['name']} {entry['shape']}: a row "
-                                 f"of the kernel's output disagrees with "
-                                 f"the fp32 oracle: max|diff| / max|row| "
-                                 f"{row_ratio:.3e} > {LM_TOL}")
-
-    def ragged_oracle(x, w, tile_expert, tm):
-        """The ragged GEMM in fp32, one expert's tiles at a time."""
-        xt = x.view(-1, tm, x.shape[1])
-        out = torch.empty((xt.shape[0], tm, w.shape[2]),
-                          dtype=torch.float32, device=x.device)
-        te = tile_expert.cpu()
-        for e in te.unique().tolist():
-            idx = (te == e).nonzero()[:, 0].to(x.device)
-            out[idx] = (xt[idx].float() @ w[e].float())
-        return out.view(x.shape[0], w.shape[2])
-
-    def ragged(x, w, tile_expert, *, tm=128):
-        out = real["ragged_gemm"](x, w, tile_expert, tm=tm)
+    def ragged(x, w, tile_expert, *, tm=128, n_groups=None):
+        out = real["ragged_gemm"](x, w, tile_expert, tm=tm,
+                                  n_groups=n_groups)
         entry = dict(name="ragged_gemm",
                      shape=f"{x.shape[0]}x{x.shape[1]}x{w.shape[2]}",
                      inputs=(x, w, tile_expert))
         if check:
-            checked(entry, out, ragged_gemm_plain(x, w, tile_expert, tm=tm),
-                    ragged_oracle(x, w, tile_expert, tm))
+            check_lm_launch(entry, out,
+                            ragged_gemm_plain(x, w, tile_expert, tm=tm),
+                            ragged_oracle(x, w, tile_expert, tm))
         calls.append(entry)
         return out
 
@@ -2728,7 +2777,7 @@ def record_lm_kernels(check: bool):
                      shape=f"{tuple(q.shape)}/{tuple(k.shape)}",
                      inputs=(q, k, v), causal=causal, window=window)
         if check:
-            checked(entry, out, flash_attention_plain(
+            check_lm_launch(entry, out, flash_attention_plain(
                 q, k, v, causal=causal, window=window),
                 flash_attention_plain(q.float(), k.float(), v.float(),
                                       causal=causal, window=window))
@@ -3060,6 +3109,522 @@ def lm_phase() -> dict:
                 worst_err_over_max=worst, worst_abs_err=worst_abs,
                 worst_row_err_over_row_max=worst_row,
                 serve=serve, cases=cases, smoke_fp32_max_abs_diff=smoke)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: LM training of phi3.5-moe at full width
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_LAYERS = 2     # of 32: bf16 params and grads and fp32 moments of
+                        # 3 layers leave too little of the 80 GB (see below)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 2048
+LM_TRAIN_STEPS = 8      # on one fixed batch: the loss must fall
+LM_TRAIN_SMOKE_STEPS = 3
+LM_TRAIN_KERNELS = ("ragged_gemm", "flash_attention", "flash_attention_bwd")
+LSE_ATOL = 1e-3         # the forward's LSE against the fp32 oracle's: fp32
+                        # sums of D products in another order, scores ~10
+
+
+def flash_bwd_row_floors(q, k, v, o, do, lse, *, causal=True,
+                         window=None, chunk=1024) -> tuple:
+    """The rounding floor of each row of (dq, dk, dv) for the row check:
+    2 D eps32 x the row's largest sum of absolute terms, with dS's
+    cancelling difference dP_ij - D_i replaced by the size of what
+    cancels, |dO_i|.|v_j| + |dO_i|.|O_i|. A row can cancel to near zero
+    in exact arithmetic (query 0 sees key 0 alone: P = 1 and dS = dO.v_0
+    - dO.O_0 = 0), and then fp32 sums in another order differ by this
+    much, not by a fraction of the row's own size."""
+    import torch
+    b, hq, s, d = q.shape
+    n_kv, t = k.shape[1], k.shape[2]
+    g = hq // n_kv
+    scale = 1.0 / d ** 0.5
+    qa = q.reshape(b, n_kv, g, s, d).float().abs()
+    doa = do.reshape(b, n_kv, g, s, d).float().abs()
+    deltaa = (doa * o.reshape(b, n_kv, g, s, d).float().abs()).sum(
+        -1, keepdim=True)
+    lseg = lse.reshape(b, n_kv, g, s, 1)
+    q_pos = (t - s) + torch.arange(s, device=q.device)
+    mag_dq = torch.zeros_like(qa)
+    mag_dk = torch.empty((b, n_kv, t, d), device=q.device)
+    mag_dv = torch.empty_like(mag_dk)
+    for lo in range(0, t, chunk):
+        hi = min(lo + chunk, t)
+        kc, vc = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
+        k_pos = torch.arange(lo, hi, device=q.device)
+        mask = torch.ones((s, hi - lo), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        sc = torch.einsum("bkgsd,bktd->bkgst",
+                          q.reshape(b, n_kv, g, s, d).float(), kc) * scale
+        p = torch.where(mask, torch.exp(sc - lseg), 0.0)
+        a = p * (torch.einsum("bkgsd,bktd->bkgst", doa, vc.abs()) + deltaa)
+        mag_dq += torch.einsum("bkgst,bktd->bkgsd", a, kc.abs())
+        mag_dk[:, :, lo:hi] = torch.einsum("bkgst,bkgsd->bktd", a, qa)
+        mag_dv[:, :, lo:hi] = torch.einsum("bkgst,bkgsd->bktd", p, doa)
+    return tuple(2 * d * EPS32 * m.reshape(-1, d).amax(-1) * f
+                 for m, f in ((mag_dq, scale), (mag_dk, scale),
+                              (mag_dv, 1.0)))
+
+
+@contextlib.contextmanager
+def record_train_kernels(check: bool):
+    """While on, every launch of the three LM training kernels (the
+    ragged GEMM forward and its dX, the flash forward with its LSE, the
+    flash backward) is recorded by wrapping the ``*_cuda`` names in
+    ``kernels.ops``; with ``check`` each is held right away against its
+    plain version on its own inputs and, row by row, against the fp32
+    oracle (:func:`check_lm_launch`), the LSE against the oracle's within
+    ``LSE_ATOL``. The plain versions that ``kernels.ops`` would run on the
+    CPU raise if they are given a card tensor meanwhile: none may run
+    inside a step on the card. The launch counts are the wrappers'
+    own."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain,
+        flash_attention_plain_lse)
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_plain
+    names = ("ragged_gemm_cuda", "flash_attention_cuda",
+             "flash_attention_bwd_cuda", "ragged_gemm_plain",
+             "flash_attention_plain", "flash_attention_plain_lse",
+             "flash_attention_bwd_plain")
+    real = {n: getattr(kops, n) for n in names}
+    calls: list = []
+
+    def ragged(x, w, tile_expert, *, tm=128, direction="forward"):
+        out = real["ragged_gemm_cuda"](x, w, tile_expert, tm=tm,
+                                       direction=direction)
+        entry = dict(name="ragged_gemm", direction=direction,
+                     shape=f"{x.shape[0]}x{x.shape[1]}x{w.shape[2]}")
+        if direction == "backward" and not any(
+                "inputs" in c for c in calls if c["name"] == "ragged_gemm"):
+            entry["inputs"] = (x, w, tile_expert)    # the dX timed later
+        if check:
+            check_lm_launch(entry, out,
+                            ragged_gemm_plain(x, w, tile_expert, tm=tm),
+                            ragged_oracle(x, w, tile_expert, tm))
+        calls.append(entry)
+        return out
+
+    def flash(q, k, v, *, causal=True, window=None, return_lse=False):
+        res = real["flash_attention_cuda"](q, k, v, causal=causal,
+                                           window=window,
+                                           return_lse=return_lse)
+        out, lse = res if return_lse else (res, None)
+        entry = dict(name="flash_attention", shape=f"{tuple(q.shape)}/"
+                     f"{tuple(k.shape)}", causal=causal, window=window)
+        if check:
+            kw = dict(causal=causal, window=window)
+            want_o, want_lse = flash_attention_plain_lse(
+                q.float(), k.float(), v.float(), **kw)
+            check_lm_launch(entry, out, flash_attention_plain(q, k, v, **kw),
+                            want_o)
+            if lse is not None:
+                err = float((lse - want_lse).abs().max())
+                entry["lse_max_abs_err"] = err
+                if not err <= LSE_ATOL:
+                    raise AssertionError(f"flash LSE off the fp32 oracle's "
+                                         f"by {err} (atol {LSE_ATOL})")
+        calls.append(entry)
+        return res
+
+    def flash_bwd(q, k, v, o, do, lse, *, causal=True, window=None):
+        out = real["flash_attention_bwd_cuda"](q, k, v, o, do, lse,
+                                               causal=causal, window=window)
+        entry = dict(name="flash_attention_bwd", shape=f"{tuple(q.shape)}/"
+                     f"{tuple(k.shape)}", causal=causal, window=window)
+        if not any("inputs" in c for c in calls
+                   if c["name"] == "flash_attention_bwd"):
+            entry["inputs"] = (q, k, v, o, do, lse)   # timed later
+        if check:
+            kw = dict(causal=causal, window=window)
+            want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+            oracle = flash_attention_bwd_plain(q.float(), k.float(),
+                                               v.float(), o.float(),
+                                               do.float(), lse, **kw)
+            floors = flash_bwd_row_floors(q, k, v, o, do, lse, **kw)
+            parts = []
+            for name, g, w, orc, fl in zip(("dq", "dk", "dv"), out, want,
+                                           oracle, floors):
+                part = dict(name=f"flash_attention_bwd {name}",
+                            shape=entry["shape"])
+                check_lm_launch(part, g, w, orc, row_floor=fl)
+                parts.append(part)
+            for key in ("max_abs_err", "err_over_max",
+                        "row_err_over_row_max"):
+                entry[key] = max(p[key] for p in parts)
+            entry["max_plain"] = max(p["max_plain"] for p in parts)
+        calls.append(entry)
+        return out
+
+    def refuse(name):
+        def plain(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.device.type == "cuda"
+                   for a in args):
+                raise AssertionError(f"{name} ran on a card tensor inside "
+                                     f"the train step")
+            return real[name](*args, **kw)
+        return plain
+
+    kops.ragged_gemm_cuda, kops.flash_attention_cuda = ragged, flash
+    kops.flash_attention_bwd_cuda = flash_bwd
+    for n in names[3:]:
+        setattr(kops, n, refuse(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(kops, n, fn)
+
+
+@contextlib.contextmanager
+def record_grads(sink):
+    """While on, ``train.lm.loss_and_grads`` (the step's gradient pass)
+    hands its (loss, metrics, grads) to ``sink`` as well."""
+    from repro_torch.train import lm as TL
+    real = TL.loss_and_grads
+
+    def recorded(cfg, params, batch):
+        res = real(cfg, params, batch)
+        sink(res)
+        return res
+
+    TL.loss_and_grads = recorded
+    try:
+        yield
+    finally:
+        TL.loss_and_grads = real
+
+
+def adam_params_close(got: dict, want: dict, lr: float, steps: int,
+                      tag: str) -> float:
+    """The port's stated tolerance of a train step's params against
+    another run of it (tests/test_torch_lm_train.py): all but 0.1 % of
+    all the elements within 1e-4 relative (of the element and of its
+    leaf's largest), every element within 3 lr a step taken (AdamW's
+    direction does not shrink with the gradient). Returns the largest
+    difference over lr."""
+    from repro_torch.optim.optimizer import tree_leaves
+    worst, off, total = 0.0, 0, 0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.float().cpu(), b.float().cpu()
+        d = (a - b).abs()
+        off += int((d > 1e-4 * (b.abs().max() + b.abs())).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()) / lr)
+    if not off <= 1e-3 * total or not worst <= 3 * steps:
+        raise AssertionError(f"{tag}: params differ beyond the stated "
+                             f"tolerance ({off} of {total} elements off, "
+                             f"max {worst:.3f} lr against 3 lr x {steps})")
+    return worst
+
+
+def lm_train_smoke_check() -> dict:
+    """phi3.5-moe's smoke config in fp32 (the kernels' fp32 instances):
+    LM_TRAIN_SMOKE_STEPS train steps on the card against the port's CPU
+    run from the same weights and batches; losses within rtol 1e-4,
+    params within the tolerance the CPU tests state."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import lm as TL
+    cfg = get_smoke_config(LM_ARCH)
+    step, opt = TL.make_train_step(cfg)
+    lr = 3e-4                                  # make_train_step's default
+    cpu = TL.make_train_state(cfg, torch.Generator().manual_seed(0), opt,
+                              device="cpu")
+    card_params = tree_map(lambda p: p.to(DEVICE, copy=True), cpu.params)
+    card = TL.TrainState(card_params, opt.init(card_params), None)
+    losses = []
+    for i in range(LM_TRAIN_SMOKE_STEPS):
+        toks, tgts = synthetic_lm_batch(2, 64, cfg.vocab, step=i)
+        b = {"tokens": torch.from_numpy(toks),
+             "targets": torch.from_numpy(tgts)}
+        card, m_card = step(card, {k: v.to(DEVICE) for k, v in b.items()})
+        cpu, m_cpu = step(cpu, b)
+        lc, lp = float(m_card["loss"]), float(m_cpu["loss"])
+        losses.append((lc, lp))
+        if not abs(lc - lp) <= 1e-4 * abs(lp):
+            raise AssertionError(f"smoke train step {i}: loss {lc} on the "
+                                 f"card, {lp} on the CPU (rtol 1e-4)")
+    worst = adam_params_close(card.params, cpu.params, lr,
+                              LM_TRAIN_SMOKE_STEPS, "smoke train card vs CPU")
+    return dict(losses=losses, param_max_diff_over_lr=worst)
+
+
+def flash_bwd_case(call, device_ms) -> dict:
+    """The flash backward at the main path's shape: the kernel (CUDA
+    events), its plain version, SDPA's backward with ``enable_gqa`` (a
+    yardstick the port never calls), and the bound: five products of 2 D
+    flops a kept pair at 989 TFLOP/s against one read of q, k, v, o, dO
+    and the LSE and one write of dq, dk, dv at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.autotune import H100
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    q, k, v, o, do, lse = call["inputs"]
+    b, hq, s, d = q.shape
+    t = k.shape[2]
+    kw = dict(causal=call["causal"], window=call["window"])
+    flops = 10 * d * attention_pairs(s, t, **kw) * b * hq
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + lse.numel() * 4
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                         enable_gqa=True)
+
+    def library():
+        return torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+    t_bytes, t_ops = H100.mem_time(nbytes), flops / H100.peak_flops
+    return dict(
+        name="flash_attention_bwd", shape=call["shape"],
+        ms=cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                    **kw), reps=10),
+        device_ms=device_ms,
+        plain_ms=cuda_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, o, do, lse, **kw), reps=2, warmup=1),
+        library_ms=cuda_ms(library, reps=10),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, flops=flops)
+
+
+def ragged_dx_case(call, device_ms) -> dict:
+    """A dX launch of the step at its shape: the kernel on Wᵀ with the
+    transpose copy the backward makes and without it (Wᵀ made once),
+    the copy alone, the plain version, ``torch.bmm`` over the (E, C, F)
+    buffer (a yardstick the port never calls) and the GEMM's bound."""
+    import torch
+    from repro_torch.core.autotune import H100
+    from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
+                                                 ragged_gemm_plain)
+    dy, wt, te = call["inputs"]
+    w = wt.transpose(1, 2).contiguous()        # the forward's (E, D, F)
+    t, f = dy.shape
+    e, d = wt.shape[0], wt.shape[2]
+    flops = 2 * t * f * d
+    nbytes = (t * f + e * f * d + t * d) * dy.element_size()
+    yb = dy.view(e, t // e, f)
+    t_bytes, t_ops = H100.mem_time(nbytes), flops / H100.peak_flops
+    return dict(
+        name="ragged_gemm dX", shape=call["shape"],
+        ms=cuda_ms(lambda: ragged_gemm_cuda(
+            dy, w.transpose(1, 2).contiguous(), te, direction="backward"),
+            reps=10),
+        ms_without_copy=cuda_ms(lambda: ragged_gemm_cuda(
+            dy, wt, te, direction="backward"), reps=10),
+        copy_ms=cuda_ms(lambda: w.transpose(1, 2).contiguous(), reps=10),
+        device_ms=device_ms,
+        plain_ms=cuda_ms(lambda: ragged_gemm_plain(dy, wt, te), reps=3,
+                         warmup=1),
+        library_ms=cuda_ms(lambda: torch.bmm(yb, wt), reps=10),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, flops=flops)
+
+
+def lm_train_phase() -> dict:
+    """Phase 12: LM training of phi3.5-moe at full width cut to
+    LM_TRAIN_LAYERS layers, bf16 params, fp32 Adam moments, remat "full",
+    ``make_train_step``'s defaults, seeded random init on the card, 4 x
+    2,048 tokens from ``data/tokens``. Step 0 with its launch counts and
+    every launch held against its plain version; step 0 again from the
+    same state, bit for bit; 8 steps on one fixed batch with a falling
+    loss; the step's time, tokens/s, busy share and peak memory; the
+    flash backward and a dX launch timed; the smoke config in fp32 on the
+    card against the CPU."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.train import lm as TL
+
+    t_phase = time.perf_counter()
+    full = get_config(LM_ARCH)
+    cfg = dc.replace(full, n_layers=LM_TRAIN_LAYERS)
+    n = cfg.param_count()
+    per_layer = n - dc.replace(full, n_layers=LM_TRAIN_LAYERS - 1
+                               ).param_count()
+    expert_leaf = cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff
+    cut = (f"{LM_ARCH} at full width, {LM_TRAIN_LAYERS} of "
+           f"{full.n_layers} layers, remat {cfg.remat!r}: "
+           f"{n / 1e6:.1f} M parameters ({per_layer / 1e6:.1f} M a layer, "
+           f"{(n - LM_TRAIN_LAYERS * per_layer) / 1e6:.1f} M of embedding "
+           f"and head); bf16 params {2 * n / 1e9:.1f} GB, bf16 grads "
+           f"{2 * n / 1e9:.1f} GB, fp32 moments {8 * n / 1e9:.1f} GB; an "
+           f"fp32 temporary of an expert leaf {4 * expert_leaf / 1e9:.1f} "
+           f"GB; 3 layers would hold "
+           f"{12 * dc.replace(full, n_layers=3).param_count() / 1e9:.1f} GB "
+           f"of the card's 80 before any activation or update")
+    log(f"cut: {cut}")
+    step_fn, opt = TL.make_train_step(cfg)
+    lr = 3e-4
+    t0 = time.perf_counter()
+    state = TL.make_train_state(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0), opt,
+        device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"lm train: {n / 1e9:.3f} B parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    toks, tgts = synthetic_lm_batch(LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(DEVICE),
+             "targets": torch.from_numpy(tgts).to(DEVICE)}
+    p0 = tree_map(torch.clone, state.params)
+
+    def counts():
+        return {name: kops.kernel_launches()[name]
+                for name in LM_TRAIN_KERNELS}
+
+    # -- step 0: counts, every launch checked, gradients kept ----------------
+    run1: list = []
+    torch.cuda.synchronize()
+    kops.reset_kernel_launches()
+    with record_train_kernels(check=True) as calls, \
+            record_grads(lambda r: run1.append(
+                (r[0].clone(), tree_map(torch.clone, r[2])))):
+        state, m0 = step_fn(state, batch)
+        torch.cuda.synchronize()
+    launched = counts()
+    directions = dict(ragged_gemm_cuda.launches_by_direction)
+    instances = dict(ragged_gemm_cuda.launches_by_instance)
+    n_ragged = 3 * LM_TRAIN_LAYERS
+    want = {"ragged_gemm": 3 * n_ragged,
+            "flash_attention": 2 * LM_TRAIN_LAYERS,
+            "flash_attention_bwd": LM_TRAIN_LAYERS}
+    if launched != want or directions != {"forward": 2 * n_ragged,
+                                          "backward": n_ragged} or \
+            instances != {"wgmma": 3 * n_ragged, "wmma": 0, "f32": 0}:
+        raise AssertionError(f"lm train step 0 launches {launched} (want "
+                             f"{want}), ragged by direction {directions}, "
+                             f"by instance {instances}: every ragged "
+                             f"launch must run wgmma")
+    metrics0 = {k: float(v) for k, v in m0.items()}
+    if not all(np.isfinite(list(metrics0.values()))):
+        raise AssertionError(f"lm train step 0 metrics {metrics0}")
+    checks = [{k: v for k, v in c.items() if k != "inputs"} for c in calls]
+    worst = {}
+    for c in checks:
+        key = c["name"] + (" dX" if c.get("direction") == "backward" else "")
+        worst[key] = max(worst.get(key, 0.0), c["err_over_max"])
+    worst_row = {}
+    for c in checks:
+        key = c["name"] + (" dX" if c.get("direction") == "backward" else "")
+        worst_row[key] = max(worst_row.get(key, 0.0),
+                             c["row_err_over_row_max"])
+    log(f"lm train step 0: launches {launched}, ragged by direction "
+        f"{directions}, by instance {instances}; metrics {metrics0}")
+    log(f"lm train step 0: {len(checks)} launches held against their "
+        f"plain versions; worst max|diff| / max|plain| {worst} (tolerance "
+        f"{LM_TOL}); worst row against the fp32 oracle {worst_row}; "
+        f"flash LSE {max(c.get('lse_max_abs_err', 0.0) for c in checks):.2e}"
+        f" (atol {LSE_ATOL})")
+    bwd_call = next(c for c in calls if c["name"] == "flash_attention_bwd"
+                    and "inputs" in c)
+    dx_call = next(c for c in calls if c["name"] == "ragged_gemm"
+                   and "inputs" in c)
+    del calls
+
+    # -- step 0 again from the same state: the same bits ---------------------
+    p1 = tree_map(torch.clone, state.params)
+    loss1, g1 = run1.pop()
+    mismatched = []
+
+    def compare(res):
+        if not torch.equal(res[0], loss1):
+            mismatched.append("loss")
+        for i, (a, b) in enumerate(zip(tree_leaves(res[2]),
+                                       tree_leaves(g1))):
+            if not torch.equal(a, b):
+                mismatched.append(f"grad {i}")
+
+    with torch.no_grad():
+        tree_map(lambda p, q: p.copy_(q), state.params, p0)
+        tree_map(torch.Tensor.zero_, state.opt_state.mu)
+        tree_map(torch.Tensor.zero_, state.opt_state.nu)
+    state = TL.TrainState(state.params, state.opt_state._replace(
+        step=torch.zeros_like(state.opt_state.step)), None)
+    with record_grads(compare):
+        state, m0b = step_fn(state, batch)
+    for i, (a, b) in enumerate(zip(tree_leaves(state.params),
+                                   tree_leaves(p1))):
+        if not torch.equal(a, b):
+            mismatched.append(f"param {i}")
+    if mismatched or float(m0b["loss"]) != metrics0["loss"]:
+        raise AssertionError(f"lm train step 0 twice from the same state: "
+                             f"not the same bits in {mismatched[:8]}")
+    n_leaves = len(tree_leaves(p1))
+    log(f"lm train step 0 twice from the same state: loss, {n_leaves} "
+        f"gradients and {n_leaves} updated params equal bit for bit")
+    del p0, p1, g1, loss1
+
+    # -- 8 steps on one fixed batch ------------------------------------------
+    losses = [metrics0["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step_metrics = []
+    for _ in range(LM_TRAIN_STEPS - 1):
+        state, m = step_fn(state, batch)
+        step_metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses += [float(m["loss"]) for m in step_metrics]
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        raise AssertionError(f"lm train: loss did not fall on a fixed "
+                             f"batch: {losses}")
+    step_ms = wall / (LM_TRAIN_STEPS - 1) * 1e3
+    tokens_s = LM_TRAIN_BATCH * LM_TRAIN_SEQ / step_ms * 1e3
+    prof = step_profile(lambda: step_fn(state, batch))
+    log(f"lm train: losses over {LM_TRAIN_STEPS} steps on one batch "
+        f"{[round(x, 4) for x in losses]}; {step_ms:.1f} ms a step "
+        f"({tokens_s:.0f} tokens/s, host clock over steps 1..7), device "
+        f"busy {prof['busy_share']:.3f} in a traced step, peak "
+        f"{peak_gb:.2f} GB")
+    log(f"  top step kernels (ms) {prof['top']}")
+
+    def traced_launch_ms(key, launches):
+        ms = sum(t for name, t in prof["device_ms"].items() if key in name)
+        return ms / launches if ms else None
+
+    # -- the kernels at the main path's shapes -------------------------------
+    bwd = flash_bwd_case(bwd_call, traced_launch_ms("flash_bwd_d",
+                                                    LM_TRAIN_LAYERS))
+    # the step's 18 ragged launches do equal work (20,480 rows, 4,096 x
+    # 6,400 either way round), so their traced mean is a dX launch's
+    dx = ragged_dx_case(dx_call, traced_launch_ms("ragged_gemm",
+                                                  3 * n_ragged))
+    for case in (bwd, dx):
+        log(f"  {case['name']:20s} {case['shape']:30s} ms {case['ms']:.4f} "
+            f"device {fmt_ms(case['device_ms'])} plain "
+            f"{case['plain_ms']:.4f} bound {case['bound_ms']:.4f} "
+            f"({case['bound_by']}) library {fmt_ms(case['library_ms'])}")
+    log(f"  dX without its transpose copy {dx['ms_without_copy']:.4f} ms, "
+        f"the copy alone {dx['copy_ms']:.4f} ms")
+    del state, batch, bwd_call, dx_call, step_metrics
+    torch.cuda.empty_cache()
+
+    smoke = lm_train_smoke_check()
+    log(f"lm train smoke config fp32, {LM_TRAIN_SMOKE_STEPS} steps card vs "
+        f"CPU: losses {smoke['losses']}; params' largest difference "
+        f"{smoke['param_max_diff_over_lr']:.3f} lr")
+    return dict(cut=cut, layers=LM_TRAIN_LAYERS, batch=LM_TRAIN_BATCH,
+                seq=LM_TRAIN_SEQ, launches=launched,
+                ragged_by_direction=directions, ragged_instances=instances,
+                metrics_step0=metrics0, checks=checks,
+                worst_err_over_max=worst, worst_row=worst_row,
+                losses=losses, step_ms=step_ms, tokens_s=tokens_s,
+                peak_gb=peak_gb, profile=prof, flash_bwd_case=bwd,
+                dx_case=dx, smoke=smoke,
+                seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -3458,6 +4023,12 @@ def main() -> int:
     report["serve_lm"] = lmr
     torch.cuda.empty_cache()
 
+    # -- phase 12: LM training of phi3.5-moe at full width -------------------
+    lmt = lm_train_phase()
+    log(f"lm train phase: {lmt['seconds']:.1f} s")
+    report["train_lm"] = lmt
+    torch.cuda.empty_cache()
+
     # -- phase 5: the kernels line ------------------------------------------
     kernels = []
     for name in SAMPLE_KERNELS + (HOP_KERNEL,):
@@ -3616,10 +4187,32 @@ def main() -> int:
             launches_prefill=lmr["launches"]["prefill"][name],
             launches_decode=lmr["launches"]["decode_1"][name]
             + lmr["launches"]["decode_rest"][name], host_us=rep["host_us"])
+        entry["launches"] += lmt["launches"][name]
+        entry["launches_train"] = lmt["launches"][name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], max(
+            c["max_abs_err"] for c in lmt["checks"] if c["name"] == name))
         if name == "ragged_gemm":
             entry["instance"] = "/".join(
                 k for k, v in lmr["ragged_instances"]["prefill"].items() if v)
+            dx = lmt["dx_case"]
+            entry.update(launches_train_dx=lmt["ragged_by_direction"][
+                "backward"], dx_shape=dx["shape"], dx_ms=dx["ms"],
+                dx_ms_without_copy=dx["ms_without_copy"],
+                dx_copy_ms=dx["copy_ms"], dx_device_ms=dx["device_ms"],
+                dx_plain_ms=dx["plain_ms"],
+                dx_bound_ms=dx["bound_ms"], dx_library_ms=dx["library_ms"])
         kernels.append(entry)
+    bwd = lmt["flash_bwd_case"]
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        **KERNEL_META["flash_attention_bwd"],
+        launches=lmt["launches"]["flash_attention_bwd"],
+        max_abs_err=max(c["max_abs_err"] for c in lmt["checks"]
+                        if c["name"] == "flash_attention_bwd"),
+        err_over_max_plain=lmt["worst_err_over_max"]["flash_attention_bwd"],
+        ms=bwd["ms"], device_ms=bwd["device_ms"], plain_ms=bwd["plain_ms"],
+        bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
+        library_ms=bwd["library_ms"], shape=bwd["shape"]))
     for entry in kernels:       # phase 11: launches inside the timed passes
         entry["launches_measured_tuning"] = tuning["launches"].get(
             entry["name"], 0)

@@ -21,9 +21,11 @@ Ported so far:
   kernels) and exact layer-wise inference;
 - LM serving of the dense and MoE families
   (``repro_torch.models.lm.prefill`` / ``decode_step``) through the flash
-  attention and ragged GEMM kernels.
+  attention and ragged GEMM kernels, and their training
+  (``repro_torch.train.lm.make_train_step``: AdamW, clipping,
+  accumulation, int8 error feedback) through those kernels and their
+  backwards (the flash attention backward kernel, the ragged GEMM's dX).
 
-Still to port: LM training, the ssm / hybrid families and the audio /
-vlm front ends, checkpointing and fault tolerance, distribution
-(ROADMAP queue 1).
+Still to port: the ssm / hybrid families and the audio / vlm front
+ends, checkpointing and fault tolerance, distribution (ROADMAP queue 1).
 """

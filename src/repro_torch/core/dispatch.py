@@ -141,6 +141,11 @@ def moe_mlp(x: torch.Tensor, r: RouteInfo, w_gate: torch.Tensor,
     untouched, so the padding rows are never kept nor combined and the
     drop set is the reference's: the function equals the reference's
     einsum route.
+
+    Differentiable in x, the gates (through ``combine``) and the three
+    weights: the buffer's E equal groups of ``c_pad`` rows are what the
+    ragged GEMM's weight gradient needs (``n_groups`` = E, from the
+    shapes; ``tile_expert`` is never read back to the host).
     """
     from repro_torch.kernels import ops as kops
     buf = dispatch(x, r)                                # (E, C, D)
@@ -151,9 +156,9 @@ def moe_mlp(x: torch.Tensor, r: RouteInfo, w_gate: torch.Tensor,
     flat = buf.reshape(e * c_pad, d)
     tile_expert = torch.arange(e * (c_pad // tm), dtype=torch.int32,
                                device=x.device) // (c_pad // tm)
-    g = kops.ragged_gemm(flat, w_gate, tile_expert, tm=tm)
-    u = kops.ragged_gemm(flat, w_up, tile_expert, tm=tm)
-    y = kops.ragged_gemm(act(g) * u, w_down, tile_expert, tm=tm)
+    g = kops.ragged_gemm(flat, w_gate, tile_expert, tm=tm, n_groups=e)
+    u = kops.ragged_gemm(flat, w_up, tile_expert, tm=tm, n_groups=e)
+    y = kops.ragged_gemm(act(g) * u, w_down, tile_expert, tm=tm, n_groups=e)
     return combine(y.reshape(e, c_pad, -1)[:, :c].to(x.dtype), r)
 
 

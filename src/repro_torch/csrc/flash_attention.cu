@@ -43,6 +43,11 @@
 // tiles of 64 in shared memory, scores and accumulator in fp32 registers.
 //
 // Any S <= T, causal or not, any window, D in {32, 64, 128}.
+//
+// For training, both instances also write the row log-sum-exp of the
+// scaled scores, lse = m + log z (fp32, (B, Hq, S), natural log), when the
+// caller passes an lse buffer; the backward (flash_attention_bwd.cu)
+// recomputes P from it. Serving passes none and the store is skipped.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -77,7 +82,8 @@ __global__ void __launch_bounds__(Wg<D>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
                              const __grid_constant__ CUtensorMap km,
                              const __grid_constant__ CUtensorMap vm,
-                             bf16* __restrict__ out, int hq, int hkv, int s,
+                             bf16* __restrict__ out,
+                             float* __restrict__ lse, int hq, int hkv, int s,
                              int t, int causal, int has_window,
                              long long window, float scale_log2) {
   using C = Wg<D>;
@@ -280,6 +286,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     z[h] += __shfl_xor_sync(0xffffffffu, z[h], 2);
     const int row = i0 + r0 + 8 * h;
     if (row >= s) continue;
+    if (lse != nullptr && q4 == 0)   // m is in base 2: ln 2 (m + log2 z)
+      lse[(long long)bh * s + row] =
+          (m[h] + log2f(z[h])) * 0.69314718055994531f;
     const float inv = 1.f / fmaxf(z[h], 1e-30f);
     bf16* orow = out + ((long long)bh * s + row) * D + 2 * q4;
 #pragma unroll
@@ -293,7 +302,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int bh, int hq, int hkv, int s, int t, int causal,
+                 float* lse, int bh, int hq, int hkv, int s, int t, int causal,
                  int has_window, long long window, float scale,
                  cudaStream_t stream) {
   using C = Wg<D>;
@@ -323,8 +332,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   }
   const dim3 grid((unsigned)bh, (unsigned)((s + C::kBQ - 1) / C::kBQ));
   flash_attention_wgmma_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
-      qm, km, vm, static_cast<bf16*>(out), hq, hkv, s, t, causal, has_window,
-      window, scale * 1.4426950408889634f);
+      qm, km, vm, static_cast<bf16*>(out), lse, hq, hkv, s, t, causal,
+      has_window, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -366,7 +375,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_cuda_core_kernel(const float* __restrict__ q,
                                  const float* __restrict__ k,
                                  const float* __restrict__ v,
-                                 float* __restrict__ out, int hq, int hkv,
+                                 float* __restrict__ out,
+                                 float* __restrict__ lse, int hq, int hkv,
                                  int s, int t, int causal, int has_window,
                                  long long window, float scale) {
   using L = Layout<D>;
@@ -469,6 +479,8 @@ flash_attention_cuda_core_kernel(const float* __restrict__ q,
   }
 
   if (i0 + r < s) {
+    if (lse != nullptr && half == 0)
+      lse[(long long)bh * s + i0 + r] = m + logf(z);
     const float zz = fmaxf(z, 1e-30f);
     float* orow = out + ((long long)bh * s + i0 + r) * D + half * (D / 2);
 #pragma unroll
@@ -478,8 +490,8 @@ flash_attention_cuda_core_kernel(const float* __restrict__ q,
 
 template <int D>
 int launch_cuda_core(const void* q, const void* k, const void* v, void* out,
-                     int bh, int hq, int hkv, int s, int t, int causal,
-                     int has_window, long long window, float scale,
+                     float* lse, int bh, int hq, int hkv, int s, int t,
+                     int causal, int has_window, long long window, float scale,
                      cudaStream_t stream) {
   constexpr size_t kBytes = Layout<D>::kBytes;
   static bool opted_in = false;      // dynamic shared memory above 48 KB
@@ -493,24 +505,24 @@ int launch_cuda_core(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)bh, (unsigned)((s + kBQ - 1) / kBQ));
   flash_attention_cuda_core_kernel<D><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, s, t,
-      causal, has_window, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, hq, hkv, s,
+      t, causal, has_window, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <bool kWgmma>
 int dispatch_d(const void* q, const void* k, const void* v, void* out,
-               int bh, int hq, int hkv, int s, int t, int d, int causal,
-               int has_window, long long window, float scale,
+               float* lse, int bh, int hq, int hkv, int s, int t, int d,
+               int causal, int has_window, long long window, float scale,
                cudaStream_t stream) {
 #define FLASH_CASE(DIM)                                                      \
   case DIM:                                                                  \
-    return kWgmma ? launch_wgmma<DIM>(q, k, v, out, bh, hq, hkv, s, t,       \
+    return kWgmma ? launch_wgmma<DIM>(q, k, v, out, lse, bh, hq, hkv, s, t,  \
                                       causal, has_window, window, scale,     \
                                       stream)                                \
-                  : launch_cuda_core<DIM>(q, k, v, out, bh, hq, hkv, s, t,   \
-                                          causal, has_window, window, scale, \
-                                          stream);
+                  : launch_cuda_core<DIM>(q, k, v, out, lse, bh, hq, hkv, s,  \
+                                          t, causal, has_window, window,     \
+                                          scale, stream);
   switch (d) {
     FLASH_CASE(32)
     FLASH_CASE(64)
@@ -524,23 +536,27 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // bh = B * Hq CTAs along x (the wrapper checks the limits), Hq % Hkv == 0,
-// S <= T, 16-byte aligned contiguous operands. Returns cudaGetLastError()
+// S <= T, 16-byte aligned contiguous operands; lse (fp32, B * Hq * S) may
+// be null, and then no log-sum-exp is written. Returns cudaGetLastError()
 // after the launch, or 1000 + the driver's code if a tensor map cannot be
 // encoded (bf16).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int bh, int hq,
-                                    int hkv, int s, int t, int d, int causal,
-                                    int has_window, long long window,
-                                    float scale, cudaStream_t stream) {
-  return dispatch_d<true>(q, k, v, out, bh, hq, hkv, s, t, d, causal,
-                          has_window, window, scale, stream);
+                                    const void* v, void* out, void* lse,
+                                    int bh, int hq, int hkv, int s, int t,
+                                    int d, int causal, int has_window,
+                                    long long window, float scale,
+                                    cudaStream_t stream) {
+  return dispatch_d<true>(q, k, v, out, static_cast<float*>(lse), bh, hq, hkv,
+                          s, t, d, causal, has_window, window, scale, stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* out, int bh, int hq,
-                                   int hkv, int s, int t, int d, int causal,
-                                   int has_window, long long window,
-                                   float scale, cudaStream_t stream) {
-  return dispatch_d<false>(q, k, v, out, bh, hq, hkv, s, t, d, causal,
-                           has_window, window, scale, stream);
+                                   const void* v, void* out, void* lse,
+                                   int bh, int hq, int hkv, int s, int t,
+                                   int d, int causal, int has_window,
+                                   long long window, float scale,
+                                   cudaStream_t stream) {
+  return dispatch_d<false>(q, k, v, out, static_cast<float*>(lse), bh, hq,
+                           hkv, s, t, d, causal, has_window, window, scale,
+                           stream);
 }

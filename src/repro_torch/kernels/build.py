@@ -29,7 +29,7 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "build_kernels", "load_kernel",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 KERNELS = ("ell_spmm", "sell_spmm", "bsr_spmm", "sample", "sddmm",
            "fusedmm", "ragged_gemm", "flash_attention", "segment_sum",
-           "edge_dots")
+           "edge_dots", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,8 +54,11 @@ _SIGNATURES = {
     "ragged_gemm": {f"ragged_gemm_{t}": [_P] * 4 + [_L] + [_I] * 4 + [_P]
                     for t in ("bf16_wgmma", "bf16", "f32")},
     "flash_attention": {f"flash_attention_{t}":
-                        [_P] * 4 + [_I] * 8 + [_L, _F, _P]
+                        [_P] * 5 + [_I] * 8 + [_L, _F, _P]
                         for t in ("bf16", "f32")},
+    "flash_attention_bwd": {f"flash_attention_bwd_{t}":
+                            [_P] * 10 + [_I] * 8 + [_L, _F, _P]
+                            for t in ("bf16", "f32")},
     "segment_sum": {"segment_sum_f32": [_P, _L] + [_P] * 6 + [_I, _I, _L,
                                                             _I, _I, _I, _P]},
     "edge_dots": {"edge_dots_f32": [_P, _L, _P, _L, _I, _P, _L, _P, _L, _I,

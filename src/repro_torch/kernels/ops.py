@@ -7,6 +7,16 @@ hand-written kernel (which raises if it cannot build or launch), a CPU
 tensor runs the plain PyTorch version, any other device raises. There is
 no fallback between the two.
 
+``ragged_gemm`` and ``flash_attention`` are differentiable: each is a
+``torch.autograd.Function`` whose backward launches hand kernels on the
+card (the ragged GEMM on the transposed weights for dX, with dW one
+batched product; ``flash_attention_bwd``, which recomputes the scores
+from the forward's row log-sum-exp) and runs the plain pieces on the
+CPU. A backward launch is counted like a forward one: flash's under its
+own wrapper, ``flash_attention_bwd``; the ragged GEMM's by direction in
+``ragged_gemm_cuda.launches_by_direction``. Calls that need no gradient
+(serving) launch the forward kernels alone, without the log-sum-exp.
+
 ``gathered_ell_spmm`` is ``ell_spmm`` over a block whose source rows are
 picked out of a full feature matrix: the block's ``src_ids`` are composed
 into its neighbour table, and the ELL kernel reads the full matrix in
@@ -35,10 +45,12 @@ from repro_torch.kernels.bsr_spmm import bsr_spmm_cuda, bsr_spmm_plain
 from repro_torch.kernels.build import build_kernels, load_kernel
 from repro_torch.kernels.edge_dots import edge_dots_cuda
 from repro_torch.kernels.ell_spmm import ell_spmm_cuda, ell_spmm_plain
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd_cuda, flash_attention_bwd_plain,
+    flash_attention_cuda, flash_attention_plain, flash_attention_plain_lse)
 from repro_torch.kernels.fusedmm import fusedmm_bsr_cuda, fusedmm_bsr_plain
 from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
+                                             ragged_gemm_dw,
                                              ragged_gemm_plain)
 from repro_torch.kernels.sample import (expand_indptr_cuda, flat_gather_cuda,
                                         sample_hop_cuda, segment_sample_cuda)
@@ -63,7 +75,8 @@ _CUDA_WRAPPERS = {"ell_spmm": ell_spmm_cuda, "sell_spmm": sell_spmm_cuda,
                   "sddmm_bsr": sddmm_bsr_cuda,
                   "fusedmm_bsr": fusedmm_bsr_cuda,
                   "ragged_gemm": ragged_gemm_cuda,
-                  "flash_attention": flash_attention_cuda}
+                  "flash_attention": flash_attention_cuda,
+                  "flash_attention_bwd": flash_attention_bwd_cuda}
 
 
 def _backend(h: torch.Tensor, op: str = "SpMM") -> str:
@@ -138,35 +151,104 @@ def fusedmm_bsr(a: BSR, x: torch.Tensor, y: torch.Tensor, h: torch.Tensor,
     return out
 
 
+class _RaggedGemm(torch.autograd.Function):
+    """out = x @ w[expert(token)]; dX = ragged_gemm(dY, Wᵀ) through the
+    same kernel, dW = ``ragged_gemm_dw`` over ``n_groups`` equal expert
+    groups of rows (None: no weight gradient can be formed)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile_expert, tm, n_groups):
+        ctx.save_for_backward(x, w, tile_expert)
+        ctx.tm, ctx.n_groups = tm, n_groups
+        return _ragged(x, w, tile_expert, tm, "forward")
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, tile_expert = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _ragged(dy.contiguous(), w.transpose(1, 2).contiguous(),
+                         tile_expert, ctx.tm, "backward")
+        if ctx.needs_input_grad[1]:
+            if ctx.n_groups is None:
+                raise ValueError("ragged_gemm: the weight gradient needs the "
+                                 "rows in equal expert groups (pass "
+                                 "n_groups)")
+            dw = ragged_gemm_dw(x, dy, ctx.n_groups)
+        return dx, dw, None, None, None
+
+
+def _ragged(x, w, tile_expert, tm, direction):
+    if _backend(x, "ragged GEMM") == "cuda":
+        return ragged_gemm_cuda(x, w, tile_expert, tm=tm, direction=direction)
+    return ragged_gemm_plain(x, w, tile_expert, tm=tm)
+
+
 def ragged_gemm(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
-                *, tm: int = 128) -> torch.Tensor:
+                *, tm: int = 128, n_groups: int | None = None
+                ) -> torch.Tensor:
     """MoE grouped GEMM over tile-aligned groups: x (T, D) tokens sorted by
     expert with T % tm == 0, w (E, D, F), tile_expert (T // tm,) int32
     expert id per token tile. Returns (T, F) = x @ w[expert(token)] in x's
     dtype, fp32 accumulation. A misaligned T or a tile_expert of the
-    wrong length raises (nothing is padded)."""
+    wrong length raises (nothing is padded). Differentiable in x; in w
+    where the rows form ``n_groups`` equal contiguous expert groups, in
+    expert order (``moe_mlp``'s buffer: ``n_groups`` = E, known from the
+    shapes, so ``tile_expert`` is never read back to the host)."""
     t0 = op_t0()
     backend = _backend(x, "ragged GEMM")
-    fn = ragged_gemm_cuda if backend == "cuda" else ragged_gemm_plain
-    out = fn(x, w, tile_expert, tm=tm)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        out = _RaggedGemm.apply(x, w, tile_expert, tm, n_groups)
+    else:
+        out = _ragged(x, w, tile_expert, tm, "forward")
     op_record("ragged_gemm", out, x, w, tile_expert, t0_ns=t0,
               backend=backend)
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Forward with the row log-sum-exp; backward from it (the hand
+    kernel on the card, the plain version's math on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if _backend(q, "attention") == "cuda":
+            out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+        else:
+            out, lse = flash_attention_plain_lse(q, k, v, causal=causal,
+                                                 window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        fn = flash_attention_bwd_cuda if _backend(q, "attention") == "cuda" \
+            else flash_attention_bwd_plain
+        dq, dk, dv = fn(q, k, v, out, do.contiguous(), lse,
+                        causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None
                     ) -> torch.Tensor:
-    """Tiled online-softmax attention for LM prefill: q (B, Hq, S, D), k /
-    v (B, Hkv, T, D), queries aligned to the end of the KV axis; ``window``
-    enables sliding-window masking. The kernel takes contiguous operands,
-    so strided views (the model's head transposes) are copied first."""
+    """Tiled online-softmax attention for LM prefill and training: q (B,
+    Hq, S, D), k / v (B, Hkv, T, D), queries aligned to the end of the KV
+    axis; ``window`` enables sliding-window masking. The kernel takes
+    contiguous operands, so strided views (the model's head transposes)
+    are copied first. Differentiable in q, k and v."""
     t0 = op_t0()
     backend = _backend(q, "attention")
     if backend == "cuda":
-        out = flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal,
-                                   window=window)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = _FlashAttention.apply(q, k, v, causal, window)
+    elif backend == "cuda":
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     else:
         out = flash_attention_plain(q, k, v, causal=causal, window=window)
     op_record("flash_attention", out, q, k, v, t0_ns=t0, causal=causal,
@@ -199,15 +281,15 @@ def kernel_launches() -> dict[str, int]:
 
 
 def reset_kernel_launches() -> None:
-    """Zero every wrapper's launch count, its per-instance or per-route
-    counts where it keeps them (``launches_by_instance``, the fused
-    kernel's tiles by route ``route_tiles``) and SELL's largest
-    workspace (``workspace_bytes``)."""
+    """Zero every wrapper's launch count, its per-instance, per-direction
+    or per-route counts where it keeps them (``launches_by_instance``,
+    ``launches_by_direction``, the fused kernel's tiles by route
+    ``route_tiles``) and SELL's largest workspace (``workspace_bytes``)."""
     for fn in _CUDA_WRAPPERS.values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_instance"):
-            fn.launches_by_instance = dict.fromkeys(fn.launches_by_instance,
-                                                    0)
+        for by in ("launches_by_instance", "launches_by_direction"):
+            if hasattr(fn, by):
+                setattr(fn, by, dict.fromkeys(getattr(fn, by), 0))
         if hasattr(fn, "route_tiles"):
             fn.route_tiles = None
         if hasattr(fn, "workspace_bytes"):

@@ -19,13 +19,21 @@ weight per tile and one batched product); the CPU dispatch and the tests
 use it.
 
 Neither pads: ``T % tm`` or a ``tile_expert`` of the wrong length raises.
+
+The backward (``kernels.ops.ragged_gemm`` is an ``autograd.Function``):
+dX = ``ragged_gemm(dY, Wᵀ, tile_expert)`` runs the same kernel on the
+weights transposed to (E, F, D) (a contiguous copy), counted as a
+``backward`` launch in ``ragged_gemm_cuda.launches_by_direction``; dW is
+:func:`ragged_gemm_dw`, a batched product over experts laid out in equal
+contiguous groups of rows (``moe_mlp``'s buffer). No TPU kernel computes
+dW: the reference forms it by differentiating its einsum route in XLA.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["ragged_gemm_cuda", "ragged_gemm_plain", "check_ragged_shapes",
-           "ragged_instance", "INSTANCES"]
+           "ragged_instance", "ragged_gemm_dw", "INSTANCES"]
 
 _ROW_TILE = 128                # the kernels' rows per CTA; tm % it == 0
 _GRID_Y = 65_535               # the wmma / f32 instances' grid rows
@@ -80,16 +88,34 @@ def ragged_gemm_plain(x: torch.Tensor, w: torch.Tensor,
     return torch.bmm(xt, wt).reshape(x.shape[0], w.shape[2])
 
 
+def ragged_gemm_dw(x: torch.Tensor, dy: torch.Tensor, n_experts: int
+                   ) -> torch.Tensor:
+    """The weight gradient of the ragged GEMM where the T rows of x (T, D)
+    and dy (T, F) are ``n_experts`` equal contiguous groups, expert e's
+    rows e·T/E .. (e+1)·T/E (``moe_mlp``'s padded buffer, the layout of
+    the reference's (E, C, D) einsum): dW[e] = x_eᵀ dy_e, (E, D, F) in
+    x's dtype, one ``torch.bmm``."""
+    t, d = x.shape
+    if n_experts <= 0 or t % n_experts or dy.shape[0] != t:
+        raise ValueError(f"ragged_gemm: dW needs the {t} rows in "
+                         f"{n_experts} equal expert groups")
+    c = t // n_experts
+    return torch.bmm(x.reshape(n_experts, c, d).transpose(1, 2),
+                     dy.reshape(n_experts, c, dy.shape[1]))
+
+
 def ragged_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
-                     tile_expert: torch.Tensor, *, tm: int = 128
-                     ) -> torch.Tensor:
+                     tile_expert: torch.Tensor, *, tm: int = 128,
+                     direction: str = "forward") -> torch.Tensor:
     """(T, F) = x @ w[expert(token)] on the card through the hand kernel.
     x (T, D) and w (E, D, F) contiguous, both bf16 or both fp32;
     tile_expert (T // tm,) int32 with ids in [0, E) (not checked on the
     device: a host read would stall the stream). Counts its launches in
-    ``ragged_gemm_cuda.launches`` and, by :func:`ragged_instance`, in
-    ``ragged_gemm_cuda.launches_by_instance``. A build or launch failure
-    raises; no other instance is tried."""
+    ``ragged_gemm_cuda.launches``, by :func:`ragged_instance` in
+    ``ragged_gemm_cuda.launches_by_instance`` and by ``direction``
+    (``forward``, or ``backward`` for the dX launch of the autograd
+    backward) in ``ragged_gemm_cuda.launches_by_direction``. A build or
+    launch failure raises; no other instance is tried."""
     from repro_torch.kernels.build import load_kernel
 
     check_ragged_shapes(x, w, tile_expert, tm)
@@ -106,6 +132,9 @@ def ragged_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     if tile_expert.dtype != torch.int32:
         raise ValueError(f"ragged_gemm: tile_expert must be int32, got "
                          f"{tile_expert.dtype}")
+    if direction not in ragged_gemm_cuda.launches_by_direction:
+        raise ValueError(f"ragged_gemm: direction {direction!r} is not "
+                         f"forward or backward")
     if tm % _ROW_TILE:
         raise ValueError(f"ragged_gemm: tm = {tm} is not a multiple of the "
                          f"kernel's {_ROW_TILE}-row tile")
@@ -131,8 +160,11 @@ def ragged_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
                            f"{rc}")
     ragged_gemm_cuda.launches += 1
     ragged_gemm_cuda.launches_by_instance[inst] += 1
+    ragged_gemm_cuda.launches_by_direction[direction] += 1
     return out
 
 
 ragged_gemm_cuda.launches = 0
 ragged_gemm_cuda.launches_by_instance = dict.fromkeys(INSTANCES, 0)
+ragged_gemm_cuda.launches_by_direction = dict.fromkeys(
+    ("forward", "backward"), 0)

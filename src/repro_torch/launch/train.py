@@ -1,19 +1,37 @@
-"""Training launcher CLI — the GNN mode of the reference's launcher.
+"""Training launcher CLI: the GNN and LM modes of the reference's launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode gnn \
         --arch gcn --dataset reddit --scale 0.03125 --epochs 30 \
         --isplib on [--measure-tuning] [--tuning-db PATH] [--device cpu]
 
-Trains on the card unless ``--device cpu``; ``--measure-tuning`` times
-the candidate kernels on that device before training, and
-``--tuning-db`` keeps the plans in a ``TuningDB`` file across runs.
-``--mode lm`` is not ported: LM training is ROADMAP.md queue 1, item 2,
-and the launcher exits with an error rather than run part of it.
+    PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+        --arch phi3.5-moe-42b-a6.6b --smoke --steps 20 [--batch 8] \
+        [--seq 128] [--accum 1] [--grad-compression int8] [--device cpu]
+
+Trains on the card unless ``--device cpu``. GNN: ``--measure-tuning``
+times the candidate kernels on that device before training, and
+``--tuning-db`` keeps the plans in a ``TuningDB`` file across runs. LM:
+``make_train_step`` over batches from ``data/tokens.token_stream``,
+printing the reference's step lines; with ``--steps`` >= 20 the loss
+must have decreased. The reference's checkpoint and fault flags
+(``--ckpt-dir``, ``--resume``, ``--inject-fault``) and its mesh flags
+(``--mesh-data``, ``--mesh-model``, ``--grad-sync``) are not ported
+(ROADMAP.md queue 1, items 1 and 5): given, they exit 2.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
+
+_NOT_PORTED = {
+    "ckpt_dir": "item 1 (checkpointing and fault tolerance)",
+    "resume": "item 1 (checkpointing and fault tolerance)",
+    "inject_fault": "item 1 (checkpointing and fault tolerance)",
+    "mesh_data": "item 5 (distributed)",
+    "mesh_model": "item 5 (distributed)",
+    "grad_sync": "item 5 (distributed)",
+}
 
 
 def run_gnn(args) -> int:
@@ -35,12 +53,62 @@ def run_gnn(args) -> int:
     return 0
 
 
+def run_lm(args) -> int:
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import token_stream
+    from repro_torch.train import lm as TL
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    device = torch.device(args.device)
+    print(f"[lm] {cfg.name} ({cfg.family}) on {device}")
+    compression = args.grad_compression != "none"
+    step_fn, opt = TL.make_train_step(cfg, lr=args.lr, accum=args.accum,
+                                      compression=compression)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = TL.make_train_state(cfg, gen, opt, compression=compression,
+                                device=device)
+    losses = []
+    stream = token_stream(args.batch, args.seq, cfg.vocab)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
+    sync()
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        toks, tgts = next(stream)
+        batch = {"tokens": torch.from_numpy(toks).to(device),
+                 "targets": torch.from_numpy(tgts).to(device)}
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        if step % args.log_every == 0:
+            print(f"  step {step:5d} loss {loss:.4f} "
+                  f"grad_norm {float(metrics['grad_norm']):.3f}", flush=True)
+    sync()
+    dt = time.perf_counter() - t0
+    print(f"  {args.steps} steps in {dt:.1f}s "
+          f"({dt / max(args.steps, 1) * 1e3:.1f} ms/step); "
+          f"final loss {losses[-1]:.4f}")
+    if args.steps >= 20:
+        if not losses[-1] < losses[0]:
+            print(f"  loss did not decrease: {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}", file=sys.stderr)
+            return 1
+        print("  loss decreased: OK")
+    elif len(losses) > 1:
+        print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--mode", choices=["gnn", "lm"], required=True)
     ap.add_argument("--arch", required=True)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="default: 1e-2 for gnn, 3e-4 for lm")
+    ap.add_argument("--device", default="cuda",
+                    help="where to train and measure (default: cuda)")
+    # gnn
     ap.add_argument("--dataset", default="reddit")
     ap.add_argument("--scale", type=float, default=1 / 32)
     ap.add_argument("--epochs", type=int, default=30)
@@ -49,14 +117,32 @@ def main(argv=None) -> int:
     ap.add_argument("--measure-tuning", action="store_true")
     ap.add_argument("--tuning-db", default=None, metavar="PATH",
                     help="TuningDB file that serves and records plans")
-    ap.add_argument("--device", default="cuda",
-                    help="where to train and measure (default: cuda)")
+    # lm
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--grad-compression", choices=["none", "int8"],
+                    default="none")
+    # the reference's flags that wait for later slices
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--inject-fault", type=int, default=None)
+    ap.add_argument("--mesh-data", type=int, default=None)
+    ap.add_argument("--mesh-model", type=int, default=None)
+    ap.add_argument("--grad-sync", default=None)
     args = ap.parse_args(argv)
-    if args.mode == "lm":
-        print("--mode lm: LM training is not ported yet (ROADMAP.md "
-              "queue 1, item 2)", file=sys.stderr)
+    refused = [f"--{k.replace('_', '-')}: ROADMAP.md queue 1, {item}"
+               for k, item in _NOT_PORTED.items()
+               if getattr(args, k) not in (None, False)]
+    if refused:
+        print("not ported yet: " + "; ".join(refused), file=sys.stderr)
         return 2
-    return run_gnn(args)
+    if args.lr is None:
+        args.lr = 1e-2 if args.mode == "gnn" else 3e-4
+    return run_gnn(args) if args.mode == "gnn" else run_lm(args)
 
 
 if __name__ == "__main__":

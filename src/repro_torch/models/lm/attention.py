@@ -33,10 +33,12 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int | None = None,
-                      chunk: int = 1024) -> torch.Tensor:
+                      chunk: int = 1024, return_lse: bool = False):
     """q: (B, Hq, S, D); k/v: (B, KV, T, D); q positions end-aligned to T.
-    Returns (B, Hq, S, D) in q's dtype. q is scaled by 1 / sqrt(D) in its
-    own dtype first, as the reference scales it. ``window`` None disables
+    Returns (B, Hq, S, D) in q's dtype, and with ``return_lse`` also the
+    fp32 (B, Hq, S) log-sum-exp of each row's scaled scores (-inf for a
+    row with no kept key). q is scaled by 1 / sqrt(D) in its own dtype
+    first, as the reference scales it. ``window`` None disables
     windowing. The reference's ``meta_len`` attention sinks serve hymba
     only, which is not ported."""
     b, hq, s, d = q.shape
@@ -72,7 +74,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "bkgst,bktd->bkgsd", p.to(vc.dtype).float(), vc.float())
         m = m_new
     out = acc / torch.clamp(z, min=1e-30)[..., None]
-    return out.reshape(b, hq, s, d).to(q.dtype)
+    out = out.reshape(b, hq, s, d).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(z)).reshape(b, hq, s)
+    return out
 
 
 class KVSlice(NamedTuple):

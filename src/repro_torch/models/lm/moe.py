@@ -7,9 +7,10 @@ products go through ``kernels.ops.ragged_gemm`` (``moe_mlp``): the hand
 kernel on the card, its plain version, the reference's XLA route, on
 the CPU; the reference's einsum computes the same function.
 
-Weights are stored (E·R, D, F) with R = replicas. Not ported yet: the
-manual expert-parallel path (it needs a ``torch.distributed`` mesh) and
-``tie_expert_replica_grads`` (training).
+Weights are stored (E·R, D, F) with R = replicas; the train step ties
+the replicas' gradients (:func:`tie_expert_replica_grads`) so the copies
+stay equal. Not ported yet: the manual expert-parallel path (it needs a
+``torch.distributed`` mesh, ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from repro_torch.core import dispatch as D
 from repro_torch.models.lm.layers import (act_fn, dtype_of,
                                           truncated_normal_init)
 
-__all__ = ["init_moe", "moe_layer"]
+__all__ = ["init_moe", "moe_layer", "tie_expert_replica_grads"]
 
 
 def init_moe(generator: torch.Generator, cfg, device="cuda") -> dict:
@@ -39,6 +40,31 @@ def init_moe(generator: torch.Generator, cfg, device="cuda") -> dict:
         "wd": rep(truncated_normal_init(generator, (e, f, d), 1.0, dt,
                                         device)),
     }
+
+
+def tie_expert_replica_grads(cfg, grads: dict) -> dict:
+    """Sum the gradients of each expert's R replicas, so tied copies stay
+    identical: every ``wg`` / ``wu`` / ``wd`` leaf under a ``moe`` key,
+    stacked (L, E·R, ...), gets the sum of its R slices of E experts in
+    each slice. Other leaves, and configs with one replica, pass
+    through."""
+    r, e = cfg.n_expert_replicas, cfg.n_experts
+    if r <= 1 or not e:
+        return grads
+
+    def walk(tree, under_moe):
+        out = {}
+        for key, g in tree.items():
+            if isinstance(g, dict):
+                out[key] = walk(g, under_moe or key == "moe")
+            elif under_moe and key in ("wg", "wu", "wd"):
+                parts = [g[:, i * e:(i + 1) * e] for i in range(r)]
+                tied = sum(parts[1:], parts[0])
+                out[key] = torch.cat([tied] * r, dim=1)
+            else:
+                out[key] = g
+        return out
+    return walk(grads, False)
 
 
 def _moe_einsum(cfg, p: dict, x: torch.Tensor):

@@ -1,17 +1,25 @@
-"""Config-driven LM serving: the dense and MoE families.
+"""Config-driven LM training and serving: the dense and MoE families.
 
 Params are the reference's pytree as a dict of tensors: the same keys,
 layers stacked on a leading L axis (``params["layers"]["attn"]["wq"]`` is
 (L, D, H·Dh)); a Python loop over the layers stands in for ``lax.scan``.
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
-(``init_params``, ``init_cache``; ``prefill`` and ``decode_step`` follow
-their params).
+Each forward takes the stacked tensors apart once (``unbind``), so the
+backward stacks each leaf's gradient once. Entry points run on ``cuda``
+unless the caller passes ``device="cpu"`` (``init_params``,
+``init_cache``; the others follow their params).
 
   init_params(cfg, generator)               parameter dict (stacked layers)
+  loss_fn(cfg, params, batch)               -> (loss, metrics)    [train]
   prefill(cfg, params, batch, capacity)     -> (cache, last-token logits)
   decode_step(cfg, params, cache, tokens)   -> (logits, cache)
   init_cache(cfg, batch, capacity)          empty rolling-buffer cache
   forward_hidden(cfg, params, batch)        -> (hidden, aux loss)
+
+Training recomputes each layer in the backward as ``cfg.remat`` says:
+``"full"`` (every full config) wraps the block in
+``torch.utils.checkpoint`` (non-reentrant), ``"dots"`` keeps the 2-D
+matrix products' outputs and recomputes the rest (the reference's
+``dots_with_no_batch_dims_saveable``), ``"none"`` keeps everything.
 
 The prefill block's attention goes through ``kernels.ops.flash_attention``
 (the hand kernel on the card; its plain version, ``chunked_attention``,
@@ -20,15 +28,20 @@ branches of the reference's block (``chunked_attention`` /
 ``banded_attention``) compute the same masked softmax, and the kernel
 skips the KV tiles outside the band. The MoE layers' expert products go
 through ``kernels.ops.ragged_gemm``. Decode attention stays
-``decode_attention``, as in the reference.
+``decode_attention``, as in the reference. Both kernels are
+differentiable (``kernels/ops.py``): their backwards are hand kernels on
+the card too.
 
 Not ported yet (ROADMAP queue 1): the ssm / hybrid families (mamba2,
-hymba), the audio and vlm front ends, and training (``loss_fn``).
+hymba) and the audio and vlm front ends.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import FULL_ATTN_WINDOW, ModelConfig
 from repro_torch.kernels import ops as kops
@@ -38,8 +51,9 @@ from repro_torch.models.lm.layers import (dtype_of, glu_mlp, init_glu_mlp,
                                           truncated_normal_init)
 from repro_torch.models.lm.moe import init_moe, moe_layer
 
-__all__ = ["Model", "init_params", "init_cache", "prefill", "decode_step",
-           "forward_hidden", "params_from_jax", "PORTED_FAMILIES"]
+__all__ = ["Model", "init_params", "init_cache", "loss_fn", "prefill",
+           "decode_step", "forward_hidden", "params_from_jax",
+           "PORTED_FAMILIES", "REMAT_POLICIES"]
 
 PORTED_FAMILIES = ("dense", "moe")
 
@@ -128,9 +142,16 @@ def params_from_jax(params: dict, device="cuda") -> dict:
     return walk(params)
 
 
-def _layer(tree: dict, i: int) -> dict:
-    return {key: _layer(val, i) if isinstance(val, dict) else val[i]
-            for key, val in tree.items()}
+def _unstack(tree: dict, n: int) -> list:
+    """The stacked (L, ...) layer tensors as ``n`` per-layer dicts: each
+    leaf is unbound once (views; the backward of ``unbind`` stacks the
+    per-layer gradients once)."""
+    out = [{} for _ in range(n)]
+    for key, val in tree.items():
+        parts = _unstack(val, n) if isinstance(val, dict) else val.unbind(0)
+        for i in range(n):
+            out[i][key] = parts[i]
+    return out
 
 
 # ==========================================================================
@@ -197,14 +218,43 @@ def _layer_segments(cfg: ModelConfig) -> list:
     return segs
 
 
+# ops whose outputs "dots" keeps: the 2-D matrix products (the
+# reference's dots_with_no_batch_dims_saveable); batched products (the
+# attention's, the experts' kernels) are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def _remat_block(cfg: ModelConfig):
+    """``_block`` under ``cfg.remat`` when a gradient is being recorded."""
+    if cfg.remat not in REMAT_POLICIES:
+        raise ValueError(f"{cfg.name}: remat {cfg.remat!r} is not one of "
+                         f"{REMAT_POLICIES}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return _block
+    kw = dict(use_reentrant=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(ckpt.checkpoint, _block, **kw)
+
+
 def _run_layers(cfg, params, x, positions, kv_sink=None):
     """All layers in order; ``kv_sink(i, k, v)`` receives each layer's K
     and V. Returns (x, summed aux loss)."""
     aux = torch.zeros((), device=x.device)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    block = _remat_block(cfg)
     for lo, hi, is_global in _layer_segments(cfg):
         for i in range(lo, hi):
-            x, a, (k, v) = _block(cfg, _layer(params["layers"], i), x,
-                                  positions, is_global)
+            x, a, (k, v) = block(cfg, layers[i], x, positions, is_global)
             aux = aux + a
             if kv_sink is not None:
                 kv_sink(i, k, v)
@@ -218,6 +268,38 @@ def forward_hidden(cfg: ModelConfig, params: dict, batch: dict) -> tuple:
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux = _run_layers(cfg, params, x, positions)
     return norm_apply(cfg, params["out_norm"], x), aux
+
+
+def _chunked_xent(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                  targets: torch.Tensor, prefix_len: int) -> torch.Tensor:
+    """Mean-per-token cross-entropy over B·S without the whole (B, S, V)
+    logits at once: fp32 logits a chunk of ``cfg.logit_chunk`` positions
+    at a time, the remainder chunk last, as the reference sums them.
+    ``prefix_len`` leading positions are skipped."""
+    b = h.shape[0]
+    h = h[:, prefix_len:]
+    s = h.shape[1]
+    t = targets[:, :s].long()
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    c = min(cfg.logit_chunk, s)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, s, c):
+        logits = (h[:, lo:lo + c] @ w).float()
+        picked = logits.gather(-1, t[:, lo:lo + c, None])[..., 0]
+        tot = tot + torch.sum(torch.logsumexp(logits, dim=-1) - picked)
+    return tot / (b * s)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple:
+    """-> (scalar loss, {"xent", "aux"}): the mean next-token
+    cross-entropy of ``batch["tokens"]`` against ``batch["targets"]``
+    ((B, S) ints) plus ``cfg.router_aux_weight`` x the summed MoE
+    load-balancing loss."""
+    hidden, aux = forward_hidden(cfg, params, batch)
+    xent = _chunked_xent(cfg, params, hidden, batch["targets"],
+                         cfg.n_meta_tokens)
+    loss = xent + cfg.router_aux_weight * aux
+    return loss, {"xent": xent, "aux": aux}
 
 
 # ==========================================================================
@@ -292,8 +374,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     slot_pos = cache["slot_pos"].clone()     # register the incoming token
     slot_pos[bidx, slot] = pos               # BEFORE attention
     h, dh = cfg.n_heads, cfg.head_dim
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         xn = norm_apply(cfg, lp["ln1"], x)
         q, k, v = _attn_qkv(cfg, lp["attn"], xn, pos[:, None])
         cache["k"][i][bidx, :, slot] = k[:, :, 0]
@@ -309,13 +390,16 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
 
 class Model:
-    """Thin OO facade over the functional serving API."""
+    """Thin OO facade over the functional API."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
 
     def init(self, generator: torch.Generator, device="cuda"):
         return init_params(self.cfg, generator, device)
+
+    def loss(self, params, batch):
+        return loss_fn(self.cfg, params, batch)
 
     def prefill(self, params, batch, capacity: int):
         return prefill(self.cfg, params, batch, capacity)

@@ -1733,3 +1733,163 @@ def test_sddmm_gradients_are_ordered_and_bitwise_repeatable(card):
         launched = tops.kernel_launches()
         assert launched["edge_dots"] == 1 and launched["segment_sum"] == 2
     assert all(torch.equal(p, q) for p, q in zip(*runs))
+
+
+# --------------------------------------------------------------------------
+# LM training: the flash backward kernel, the forward's log-sum-exp, the
+# ragged GEMM's dX launch, one smoke train step.
+#
+# The backward's fp32 instance within 1e-4 x the largest plain value:
+# dS = P (dP - D) subtracts two fp32 dot products of magnitude ~sqrt(D),
+# so the difference keeps ~1e-6 of their size, and dK sums G x S such
+# terms. bf16 within 2^-7 x the largest plain value (two bf16 ulps at the
+# largest magnitude): both round P and dS to bf16 as operands and the
+# output once, from fp32 values summed in another order.
+# --------------------------------------------------------------------------
+
+_BWD_CASES = [
+    (1, 8, 2, 256, 256, 128, True, None),       # causal, G = 4
+    (2, 4, 1, 200, 333, 64, True, 100),         # S < T, window, ragged
+    (1, 4, 4, 130, 130, 32, False, None),       # not causal, ragged tile
+    (1, 8, 2, 300, 300, 128, False, 64),        # window, not causal
+    (2, 2, 2, 70, 150, 32, True, 50)]           # rep 1, window
+
+
+def _bwd_inputs(rng, dtype, b, hq, hkv, s, t, d, causal, window, card):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = _randn(rng, (b, hq, s, d), dtype, card)
+    k = _randn(rng, (b, hkv, t, d), dtype, card)
+    v = _randn(rng, (b, hkv, t, d), dtype, card)
+    do = _randn(rng, (b, hq, s, d), dtype, card)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal,window", _BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(card, dtype, b, hq, hkv,
+                                                  s, t, d, causal, window):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_plain_lse)
+    rng = np.random.default_rng(s + t + d)
+    q, k, v, o, do, lse = _bwd_inputs(rng, dtype, b, hq, hkv, s, t, d,
+                                      causal, window, card)
+    _, want_lse = flash_attention_plain_lse(q.float(), k.float(), v.float(),
+                                            causal=causal, window=window)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               rtol=1e-5 if dtype == torch.float32 else 1e-2,
+                               atol=1e-4)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                   window=window)
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * float(
+            w.float().abs().max())
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_is_bitwise_repeatable(card, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    rng = np.random.default_rng(9)
+    args = _bwd_inputs(rng, dtype, 2, 8, 2, 512, 512, 128, True, None, card)
+    first = flash_attention_bwd_cuda(*args)
+    flash_attention_bwd_cuda.launches = 0
+    again = flash_attention_bwd_cuda(*args)
+    assert flash_attention_bwd_cuda.launches == 1
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_ragged_gemm_dx_launch_matches_plain(card):
+    """The autograd Function's dX is the kernel on Wᵀ (a backward launch,
+    wgmma), dW one batched product: against the plain pieces on the same
+    card tensors."""
+    from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
+                                                 ragged_gemm_plain)
+    rng = np.random.default_rng(11)
+    e, c, d, f = 4, 256, 512, 384
+    x = _randn(rng, (e * c, d), torch.bfloat16, card).requires_grad_(True)
+    w = _randn(rng, (e, d, f), torch.bfloat16, card).requires_grad_(True)
+    dy = _randn(rng, (e * c, f), torch.bfloat16, card)
+    te = (torch.arange(e * c // 128, dtype=torch.int32) // (c // 128)).to(card)
+    tops.reset_kernel_launches()
+    tops.ragged_gemm(x, w, te, n_groups=e).backward(dy)
+    torch.cuda.synchronize()
+    assert ragged_gemm_cuda.launches_by_direction == {"forward": 1,
+                                                      "backward": 1}
+    assert ragged_gemm_cuda.launches_by_instance["wgmma"] == 2
+    want_dx = ragged_gemm_plain(dy, w.detach().transpose(1, 2).contiguous(),
+                                te)
+    _close_lm(x.grad, want_dx, torch.bfloat16)
+    want_dw = torch.bmm(x.detach().float().view(e, c, d).transpose(1, 2),
+                        dy.float().view(e, c, f))
+    _close_lm(w.grad, want_dw, torch.bfloat16)
+
+
+def _lm_smoke_step(cfg, device, batch, params):
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import lm as TL
+    step, opt = TL.make_train_step(cfg, lr=3e-3)
+    p = tree_map(lambda x: x.to(device, copy=True), params)  # the step
+    state = TL.TrainState(p, opt.init(p), None)              # writes p
+    b = {key: val.to(device) for key, val in batch.items()}
+    state, metrics = step(state, b)
+    return state, {k: float(v) for k, v in metrics.items()}
+
+
+def test_lm_train_step_on_card_matches_cpu_and_repeats(card):
+    """phi3.5-moe's smoke config in fp32 with remat "full": one train step
+    on the card (both kernels forward, recomputed and backward) against
+    the port's CPU step from the same weights and batch, metrics rtol
+    1e-4 and params as tests/test_torch_lm_train.py holds the CPU step to
+    the reference (all but 0.1 % of the elements within 1e-4 relative,
+    all within 3 lr: AdamW's direction does not shrink with the
+    gradient);
+    and the card step run twice gives the same bits."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
+    cfg = dataclasses.replace(get_smoke_config("phi3.5-moe-42b-a6.6b"),
+                              remat="full")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    toks, tgts = synthetic_lm_batch(2, 64, cfg.vocab, step=1)
+    batch = {"tokens": torch.from_numpy(toks),
+             "targets": torch.from_numpy(tgts)}
+    tops.reset_kernel_launches()
+    s_card, m_card = _lm_smoke_step(cfg, card, batch, params)
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in tops.kernel_launches().items() if c}
+    assert launched == {"flash_attention": 4, "flash_attention_bwd": 2,
+                        "ragged_gemm": 18}, launched
+    assert ragged_gemm_cuda.launches_by_direction == {"forward": 12,
+                                                      "backward": 6}
+    s_cpu, m_cpu = _lm_smoke_step(cfg, "cpu", batch, params)
+    for key in m_cpu:
+        assert abs(m_card[key] - m_cpu[key]) <= 1e-4 * abs(m_cpu[key]), key
+    off = total = 0
+    for a, b in zip(tree_leaves(s_card.params), tree_leaves(s_cpu.params)):
+        d = (a.cpu() - b).abs()
+        off += int((d > 1e-4 * (b.abs().max() + b.abs())).sum())
+        total += d.numel()
+        assert float(d.max()) <= 3 * 3e-3
+    assert off <= 1e-3 * total, (off, total)
+    s_again, m_again = _lm_smoke_step(cfg, card, batch, params)
+    assert m_again == m_card
+    for tree in ("params", "opt_state"):
+        for a, b in zip(tree_leaves(getattr(s_again, tree)._asdict()
+                                    if tree == "opt_state" else
+                                    s_again.params),
+                        tree_leaves(getattr(s_card, tree)._asdict()
+                                    if tree == "opt_state" else
+                                    s_card.params)):
+            assert torch.equal(a, b)
