@@ -9,9 +9,11 @@ failure:
 1. card and build — the card's name and power limit, then the hand
    kernels compiled from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel), ptxas's registers and spills of every kernel,
-   and of the flash attention backward's three kernels
-   (``flash_bwd_delta_kernel``, ``flash_bwd_dkdv_kernel``,
-   ``flash_bwd_dq_kernel``) on a line of their own;
+   and of the kernels the last slice added or redesigned (the flash
+   backward's ``flash_bwd_dkdv_wgmma_kernel`` and
+   ``flash_bwd_dq_wgmma_kernel``, the ragged GEMM's instances with the
+   copy-free dX, the flash forward with its D = 256 instance) on a line
+   of their own;
 2. sampled serving at full width — reddit at scale 1 (232,965 nodes,
    602 features, 41 classes), GraphSAGE-mean, 2 layers, hidden 256,
    fanouts (10, 25) outermost first, a 65,536-row feature cache, fp32,
@@ -166,7 +168,8 @@ failure:
    decay 0.1, clip 1.0), seeded random init on the card, 4 x 2,048
    tokens from ``data/tokens``. Launch counts zeroed just before step 0
    and read just after: 4 flash forwards (2 and 2 recomputed), 2 flash
-   backwards, 18 ragged GEMMs (12 forward, 6 dX), all ``wgmma``; every
+   backwards (the ``wgmma`` instance), 18 ragged GEMMs (12 forward, 6 dX
+   reading W transposed in place), all ``wgmma``; every
    launch of step 0 held against its plain version on its own inputs
    and, row by row, an fp32 oracle (as phase 10), the flash LSE within
    1e-3 of the oracle's, and no plain flash or ragged version run on a
@@ -175,8 +178,12 @@ failure:
    params bit for bit; 8 steps on one fixed batch with the loss at step
    7 below step 0's; ms a step, tokens/s, the busy share of a traced
    step, peak memory; the flash backward timed at this shape beside its
-   bound, its plain version and SDPA's backward, a dX launch with and
-   without its transpose copy beside ``torch.bmm``; the smoke config in
+   five- and seven-product bounds, its plain version and SDPA's
+   backward, a dX launch as the backward makes it beside ``torch.bmm``
+   on the transposed weights; gemma-7b's attention shape (B 1, 16 / 16
+   heads of 256, S = T = 2,048, causal, bf16): the flash forward with
+   its LSE and the backward, each against its plain version and the fp32
+   oracle and timed; the smoke config in
    fp32 on the card for 3 steps against the port's CPU run (losses
    rtol 1e-4, params within the CPU tests' stated tolerance);
 5. last, the kernels line (one JSON object: the sampling kernels and the
@@ -325,8 +332,8 @@ def ptxas_report(text: str) -> dict:
 
 # the kernels this slice added or redesigned: phase 1 logs their
 # registers and spills on a line of their own
-NEW_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-               "flash_bwd_dq_kernel")
+NEW_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+               "ragged_gemm_wgmma_kernel", "flash_attention_wgmma_kernel")
 
 
 def card_line() -> str:
@@ -2726,17 +2733,20 @@ def check_lm_launch(entry, out, want, oracle, row_floor=None):
                              f"{row_ratio:.3e} > {LM_TOL}")
 
 
-def ragged_oracle(x, w, tile_expert, tm=128):
-    """The ragged GEMM in fp32, one expert's tiles at a time."""
+def ragged_oracle(x, w, tile_expert, tm=128, transpose_w=False):
+    """The ragged GEMM in fp32, one expert's tiles at a time (with
+    ``transpose_w`` x @ w[e]ᵀ, the backward's dX)."""
     import torch
     xt = x.view(-1, tm, x.shape[1])
-    out = torch.empty((xt.shape[0], tm, w.shape[2]),
+    width = w.shape[1] if transpose_w else w.shape[2]
+    out = torch.empty((xt.shape[0], tm, width),
                       dtype=torch.float32, device=x.device)
     te = tile_expert.cpu()
     for e in te.unique().tolist():
         idx = (te == e).nonzero()[:, 0].to(x.device)
-        out[idx] = (xt[idx].float() @ w[e].float())
-    return out.view(x.shape[0], w.shape[2])
+        we = w[e].float()
+        out[idx] = xt[idx].float() @ (we.T if transpose_w else we)
+    return out.view(x.shape[0], width)
 
 
 @contextlib.contextmanager
@@ -3197,15 +3207,17 @@ def record_train_kernels(check: bool):
     def ragged(x, w, tile_expert, *, tm=128, direction="forward"):
         out = real["ragged_gemm_cuda"](x, w, tile_expert, tm=tm,
                                        direction=direction)
+        trans = direction == "backward"
         entry = dict(name="ragged_gemm", direction=direction,
-                     shape=f"{x.shape[0]}x{x.shape[1]}x{w.shape[2]}")
-        if direction == "backward" and not any(
+                     shape=f"{x.shape[0]}x{x.shape[1]}x{out.shape[1]}")
+        if trans and not any(
                 "inputs" in c for c in calls if c["name"] == "ragged_gemm"):
             entry["inputs"] = (x, w, tile_expert)    # the dX timed later
         if check:
             check_lm_launch(entry, out,
-                            ragged_gemm_plain(x, w, tile_expert, tm=tm),
-                            ragged_oracle(x, w, tile_expert, tm))
+                            ragged_gemm_plain(x, w, tile_expert, tm=tm,
+                                              transpose_w=trans),
+                            ragged_oracle(x, w, tile_expert, tm, trans))
         calls.append(entry)
         return out
 
@@ -3361,7 +3373,9 @@ def flash_bwd_case(call, device_ms) -> dict:
     events), its plain version, SDPA's backward with ``enable_gqa`` (a
     yardstick the port never calls), and the bound: five products of 2 D
     flops a kept pair at 989 TFLOP/s against one read of q, k, v, o, dO
-    and the LSE and one write of dq, dk, dv at 3.35 TB/s."""
+    and the LSE and one write of dq, dk, dv at 3.35 TB/s; beside it the
+    bound of the work the kernel does, seven products (S and dP again in
+    the dQ kernel)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.autotune import H100
@@ -3391,41 +3405,131 @@ def flash_bwd_case(call, device_ms) -> dict:
         library_ms=cuda_ms(library, reps=10),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_7_ms=max(t_bytes, t_ops * 7 / 5) * 1e3,
         bytes=nbytes, flops=flops)
 
 
 def ragged_dx_case(call, device_ms) -> dict:
-    """A dX launch of the step at its shape: the kernel on Wᵀ with the
-    transpose copy the backward makes and without it (Wᵀ made once),
-    the copy alone, the plain version, ``torch.bmm`` over the (E, C, F)
-    buffer (a yardstick the port never calls) and the GEMM's bound."""
+    """A dX launch of the step at its shape, as the backward makes it
+    (the kernel reading the forward's W transposed in place), its plain
+    version, ``torch.bmm`` over the (E, C, F) buffer and the transposed
+    weights (a yardstick the port never calls) and the GEMM's bound."""
     import torch
     from repro_torch.core.autotune import H100
     from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
                                                  ragged_gemm_plain)
-    dy, wt, te = call["inputs"]
-    w = wt.transpose(1, 2).contiguous()        # the forward's (E, D, F)
+    dy, w, te = call["inputs"]                 # w: the forward's (E, D, F)
     t, f = dy.shape
-    e, d = wt.shape[0], wt.shape[2]
+    e, d = w.shape[0], w.shape[1]
     flops = 2 * t * f * d
     nbytes = (t * f + e * f * d + t * d) * dy.element_size()
     yb = dy.view(e, t // e, f)
+    wt = w.transpose(1, 2)                     # a view: cuBLAS transposes
     t_bytes, t_ops = H100.mem_time(nbytes), flops / H100.peak_flops
     return dict(
         name="ragged_gemm dX", shape=call["shape"],
-        ms=cuda_ms(lambda: ragged_gemm_cuda(
-            dy, w.transpose(1, 2).contiguous(), te, direction="backward"),
-            reps=10),
-        ms_without_copy=cuda_ms(lambda: ragged_gemm_cuda(
-            dy, wt, te, direction="backward"), reps=10),
-        copy_ms=cuda_ms(lambda: w.transpose(1, 2).contiguous(), reps=10),
+        ms=cuda_ms(lambda: ragged_gemm_cuda(dy, w, te,
+                                            direction="backward"), reps=10),
         device_ms=device_ms,
-        plain_ms=cuda_ms(lambda: ragged_gemm_plain(dy, wt, te), reps=3,
-                         warmup=1),
+        plain_ms=cuda_ms(lambda: ragged_gemm_plain(dy, w, te,
+                                                   transpose_w=True),
+                         reps=3, warmup=1),
         library_ms=cuda_ms(lambda: torch.bmm(yb, wt), reps=10),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=nbytes, flops=flops)
+
+
+GEMMA_ATTN = dict(b=1, hq=16, hkv=16, s=2048, t=2048, d=256)   # gemma-7b
+
+
+def gemma_attention_case() -> dict:
+    """gemma-7b's attention shape (``GEMMA_ATTN``, causal, bf16, its
+    head dim 256, seeded inputs): the flash forward with its LSE and the
+    backward, each held against its plain version and, row by row, the
+    fp32 oracle (:func:`check_lm_launch`; the LSE within ``LSE_ATOL``),
+    then timed beside its bound, its plain version and SDPA. A kernel
+    case, not a model run: the script's time limit has no room for
+    gemma-7b's weights."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.autotune import H100
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain,
+        flash_attention_plain_lse)
+    c = GEMMA_ATTN
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
+    q, do = randn(c["b"], c["hq"], c["s"], c["d"]), \
+        randn(c["b"], c["hq"], c["s"], c["d"])
+    k, v = randn(c["b"], c["hkv"], c["t"], c["d"]), \
+        randn(c["b"], c["hkv"], c["t"], c["d"])
+    shape = f"{tuple(q.shape)}/{tuple(k.shape)}"
+    launched = {}
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    fwd = dict(name="flash_attention", shape=shape)
+    want_o, want_lse = flash_attention_plain_lse(q.float(), k.float(),
+                                                 v.float())
+    check_lm_launch(fwd, o, flash_attention_plain(q, k, v), want_o)
+    fwd["lse_max_abs_err"] = float((lse - want_lse).abs().max())
+    if not fwd["lse_max_abs_err"] <= LSE_ATOL:
+        raise AssertionError(f"gemma flash LSE off the fp32 oracle's by "
+                             f"{fwd['lse_max_abs_err']} (atol {LSE_ATOL})")
+    del want_o, want_lse
+    by_inst = dict(flash_attention_bwd_cuda.launches_by_instance)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    launched["instance"] = {
+        n: c - by_inst[n]
+        for n, c in flash_attention_bwd_cuda.launches_by_instance.items()}
+    if launched["instance"] != {"wgmma": 0, "wmma": 1, "f32": 0}:
+        raise AssertionError(f"gemma backward ran {launched['instance']}, "
+                             f"want the wmma instance at D = 256")
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse)
+    oracle = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                       o.float(), do.float(), lse)
+    floors = flash_bwd_row_floors(q, k, v, o, do, lse)
+    bwd = dict(name="flash_attention_bwd", shape=shape)
+    for part, g_, w_, orc, fl in zip(("dq", "dk", "dv"), got, want, oracle,
+                                     floors):
+        entry = dict(name=f"flash_attention_bwd {part}", shape=shape)
+        check_lm_launch(entry, g_, w_, orc, row_floor=fl)
+        for key in ("max_abs_err", "err_over_max", "row_err_over_row_max"):
+            bwd[key] = max(bwd.get(key, 0.0), entry[key])
+    del got, want, oracle, floors
+    torch.cuda.synchronize()
+    pairs = attention_pairs(c["s"], c["t"], True, None) * c["b"] * c["hq"]
+    elem = q.element_size()
+    for case, flops, nbytes in (
+            (fwd, 4 * c["d"] * pairs, (2 * q.numel() + 2 * k.numel()) * elem),
+            (bwd, 10 * c["d"] * pairs,
+             (4 * q.numel() + 4 * k.numel()) * elem + lse.numel() * 4)):
+        t_bytes, t_ops = H100.mem_time(nbytes), flops / H100.peak_flops
+        case.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    flops=flops, bytes=nbytes)
+    fwd["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v,
+                                                     return_lse=True))
+    fwd["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v), reps=2,
+                              warmup=1)
+    bwd["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse))
+    bwd["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, do, lse), reps=2, warmup=1)
+    bwd["bound_7_ms"] = max(H100.mem_time(bwd["bytes"]),
+                            bwd["flops"] * 7 / 5 / H100.peak_flops) * 1e3
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    try:
+        fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True))
+    except RuntimeError as err:      # no SDPA backend for this head dim
+        fwd["library_ms"] = bwd["library_ms"] = None
+        fwd["library_error"] = str(err)[:200]
+    return dict(forward=fwd, backward=bwd, launches=launched)
 
 
 def lm_train_phase() -> dict:
@@ -3443,6 +3547,7 @@ def lm_train_phase() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_lm_batch
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
     from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
     from repro_torch.optim.optimizer import tree_leaves, tree_map
     from repro_torch.train import lm as TL
@@ -3495,17 +3600,20 @@ def lm_train_phase() -> dict:
     launched = counts()
     directions = dict(ragged_gemm_cuda.launches_by_direction)
     instances = dict(ragged_gemm_cuda.launches_by_instance)
+    bwd_instances = dict(flash_attention_bwd_cuda.launches_by_instance)
     n_ragged = 3 * LM_TRAIN_LAYERS
     want = {"ragged_gemm": 3 * n_ragged,
             "flash_attention": 2 * LM_TRAIN_LAYERS,
             "flash_attention_bwd": LM_TRAIN_LAYERS}
     if launched != want or directions != {"forward": 2 * n_ragged,
                                           "backward": n_ragged} or \
-            instances != {"wgmma": 3 * n_ragged, "wmma": 0, "f32": 0}:
+            instances != {"wgmma": 3 * n_ragged, "wmma": 0, "f32": 0} or \
+            bwd_instances != {"wgmma": LM_TRAIN_LAYERS, "wmma": 0, "f32": 0}:
         raise AssertionError(f"lm train step 0 launches {launched} (want "
                              f"{want}), ragged by direction {directions}, "
-                             f"by instance {instances}: every ragged "
-                             f"launch must run wgmma")
+                             f"by instance {instances}, flash backward by "
+                             f"instance {bwd_instances}: every ragged "
+                             f"launch and flash backward must run wgmma")
     metrics0 = {k: float(v) for k, v in m0.items()}
     if not all(np.isfinite(list(metrics0.values()))):
         raise AssertionError(f"lm train step 0 metrics {metrics0}")
@@ -3520,7 +3628,8 @@ def lm_train_phase() -> dict:
         worst_row[key] = max(worst_row.get(key, 0.0),
                              c["row_err_over_row_max"])
     log(f"lm train step 0: launches {launched}, ragged by direction "
-        f"{directions}, by instance {instances}; metrics {metrics0}")
+        f"{directions}, by instance {instances}, flash backward by "
+        f"instance {bwd_instances}; metrics {metrics0}")
     log(f"lm train step 0: {len(checks)} launches held against their "
         f"plain versions; worst max|diff| / max|plain| {worst} (tolerance "
         f"{LM_TOL}); worst row against the fp32 oracle {worst_row}; "
@@ -3607,9 +3716,19 @@ def lm_train_phase() -> dict:
             f"device {fmt_ms(case['device_ms'])} plain "
             f"{case['plain_ms']:.4f} bound {case['bound_ms']:.4f} "
             f"({case['bound_by']}) library {fmt_ms(case['library_ms'])}")
-    log(f"  dX without its transpose copy {dx['ms_without_copy']:.4f} ms, "
-        f"the copy alone {dx['copy_ms']:.4f} ms")
+    log(f"  flash backward's seven-product bound {bwd['bound_7_ms']:.4f} ms")
     del state, batch, bwd_call, dx_call, step_metrics
+    torch.cuda.empty_cache()
+
+    gemma = gemma_attention_case()
+    for case in (gemma["forward"], gemma["backward"]):
+        log(f"  gemma-7b {case['name']:20s} {case['shape']:30s} ms "
+            f"{case['ms']:.4f} plain {case['plain_ms']:.4f} bound "
+            f"{case['bound_ms']:.4f} ({case['bound_by']}) library "
+            f"{fmt_ms(case['library_ms'])}; max|diff| / max|plain| "
+            f"{case['err_over_max']:.2e}, row "
+            f"{case['row_err_over_row_max']:.2e} (tolerance {LM_TOL})")
+    log(f"  gemma-7b backward by instance {gemma['launches']['instance']}")
     torch.cuda.empty_cache()
 
     smoke = lm_train_smoke_check()
@@ -3619,6 +3738,7 @@ def lm_train_phase() -> dict:
     return dict(cut=cut, layers=LM_TRAIN_LAYERS, batch=LM_TRAIN_BATCH,
                 seq=LM_TRAIN_SEQ, launches=launched,
                 ragged_by_direction=directions, ragged_instances=instances,
+                flash_bwd_instances=bwd_instances, gemma_attention=gemma,
                 metrics_step0=metrics0, checks=checks,
                 worst_err_over_max=worst, worst_row=worst_row,
                 losses=losses, step_ms=step_ms, tokens_s=tokens_s,
@@ -4197,10 +4317,15 @@ def main() -> int:
             dx = lmt["dx_case"]
             entry.update(launches_train_dx=lmt["ragged_by_direction"][
                 "backward"], dx_shape=dx["shape"], dx_ms=dx["ms"],
-                dx_ms_without_copy=dx["ms_without_copy"],
-                dx_copy_ms=dx["copy_ms"], dx_device_ms=dx["device_ms"],
-                dx_plain_ms=dx["plain_ms"],
+                dx_device_ms=dx["device_ms"], dx_plain_ms=dx["plain_ms"],
                 dx_bound_ms=dx["bound_ms"], dx_library_ms=dx["library_ms"])
+        else:
+            g = lmt["gemma_attention"]["forward"]
+            entry.update(d256_shape=g["shape"], d256_ms=g["ms"],
+                         d256_plain_ms=g["plain_ms"],
+                         d256_bound_ms=g["bound_ms"],
+                         d256_library_ms=g["library_ms"],
+                         d256_err_over_max=g["err_over_max"])
         kernels.append(entry)
     bwd = lmt["flash_bwd_case"]
     kernels.append(dict(
@@ -4212,7 +4337,16 @@ def main() -> int:
         err_over_max_plain=lmt["worst_err_over_max"]["flash_attention_bwd"],
         ms=bwd["ms"], device_ms=bwd["device_ms"], plain_ms=bwd["plain_ms"],
         bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
-        library_ms=bwd["library_ms"], shape=bwd["shape"]))
+        bound_7_ms=bwd["bound_7_ms"], library_ms=bwd["library_ms"],
+        shape=bwd["shape"], instance="wgmma",
+        launches_by_instance=lmt["flash_bwd_instances"],
+        d256_shape=lmt["gemma_attention"]["backward"]["shape"],
+        d256_instance="wmma",
+        d256_ms=lmt["gemma_attention"]["backward"]["ms"],
+        d256_plain_ms=lmt["gemma_attention"]["backward"]["plain_ms"],
+        d256_bound_ms=lmt["gemma_attention"]["backward"]["bound_ms"],
+        d256_library_ms=lmt["gemma_attention"]["backward"]["library_ms"],
+        d256_err_over_max=lmt["gemma_attention"]["backward"]["err_over_max"]))
     for entry in kernels:       # phase 11: launches inside the timed passes
         entry["launches_measured_tuning"] = tuning["launches"].get(
             entry["name"], 0)

@@ -18,8 +18,9 @@
 //
 // Design of the bf16 instance (flash_attention_wgmma_kernel): blocks run
 // in no order, so one CTA owns one (batch x query head, 128-query tile)
-// pair and walks only the KV tiles of 128 keys that the causal and window
-// tests keep (the Pallas kernel's skip), from the first key inside the
+// pair and walks only the KV tiles of 128 keys (64 at D = 256, where two
+// stages of 128-key K and V tiles would not fit beside Q) that the causal
+// and window tests keep (the Pallas kernel's skip), from the first key inside the
 // window of its first query to the last key its last query sees. The KV
 // head is h / rep, read in place and never repeated in memory. A producer
 // warp loads Q once and K and V tile by tile with TMA (3-D tensor maps
@@ -31,7 +32,9 @@
 // to bf16 as the plain version rounds it and fed from registers as the A
 // operand of O += P V (wgmma m64nDk16, V MN-major through the transpose
 // bit). O, the row max and the row sum stay in registers across all KV
-// tiles. The fp32 product is scaled (as the Pallas kernel does) and the
+// tiles. At D = 256 a consumer thread holds 128 fp32 of O, 32 of S and 16
+// registers of P (a producer warpgroup hands its registers over,
+// setmaxnreg 24 / 240); shared memory is Q 64 KB and 2 x (K + V) 128 KB. The fp32 product is scaled (as the Pallas kernel does) and the
 // softmax runs in base 2 with the scale folded in; masked scores are -inf
 // and weigh exactly 0; the output is acc / max(z, 1e-30), so a row with
 // no kept key is 0. The per-element mask runs only on tiles that cross
@@ -40,9 +43,11 @@
 // The fp32 instance (flash_attention_cuda_core_kernel, used by the fp32
 // smoke config and the 1e-5 card tests) keeps the CUDA-core design: a CTA
 // owns 64 queries, four warps of 16 rows, two threads a row, Q, K and V
-// tiles of 64 in shared memory, scores and accumulator in fp32 registers.
+// tiles of 64 in shared memory, scores and accumulator in fp32 registers
+// (at D = 256, three padded 64 x 260 fp32 tiles and the weights take 212
+// KB of the 227 a block can use).
 //
-// Any S <= T, causal or not, any window, D in {32, 64, 128}.
+// Any S <= T, causal or not, any window, D in {32, 64, 128, 256}.
 //
 // For training, both instances also write the row log-sum-exp of the
 // scaled scores, lse = m + log z (fp32, (B, Hq, S), natural log), when the
@@ -64,8 +69,13 @@ using bf16 = __nv_bfloat16;
 template <int D>
 struct Wg {
   static constexpr int kBQ = 128;            // queries a CTA (2 x 64)
-  static constexpr int kBK = 128;            // keys a KV tile
-  static constexpr int kThreads = 2 * 128 + 32;
+  static constexpr int kBK = D == 256 ? 64 : 128;   // keys a KV tile
+  // a producer warp; at D = 256 a producer warpgroup, whose registers
+  // setmaxnreg hands to the consumers (ptxas budgets a wgmma kernel's
+  // threads in whole warpgroups: 168 registers a thread for either size,
+  // short of D = 256's 128 of O, 32 of S and 16 of P)
+  static constexpr bool kRegHandOff = D == 256;
+  static constexpr int kThreads = 2 * 128 + (kRegHandOff ? 128 : 32);
   static constexpr int kStages = 2;
   static constexpr int kSw = D * 2 >= 128 ? 128 : D * 2;  // swizzle bytes
   static constexpr int kBoxCols = kSw / 2;   // bf16 a swizzled row
@@ -125,9 +135,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
   }
   __syncthreads();
 
-  if (warp == 8) {
+  if (warp >= 8) {
+    if constexpr (C::kRegHandOff) hopper::setmaxnreg_dec<24>();
     // producer warp: one thread issues every load
-    if (lane == 0) {
+    if (warp == 8 && lane == 0) {
       hopper::prefetch_tensor_map(&qm);
       hopper::prefetch_tensor_map(&km);
       hopper::prefetch_tensor_map(&vm);
@@ -162,6 +173,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
 
   // consumer warpgroups: wg owns query rows 64 wg .. 64 wg + 63 of the tile;
   // this thread holds rows r0 and r0 + 8, columns 8 j + 2 (lane % 4) + c
+  if constexpr (C::kRegHandOff) hopper::setmaxnreg_inc<240>();
   const int wg = warp >> 2;
   const int q4 = lane & 3;
   const int r0 = warp * 16 + (lane >> 2);
@@ -308,19 +320,20 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   using C = Wg<D>;
   const int batch = bh / hq;
   CUtensorMap qm, km, vm;
-  const cuuint32_t box[3] = {C::kBoxCols, 128, 1};
+  const cuuint32_t qbox[3] = {C::kBoxCols, C::kBQ, 1};
+  const cuuint32_t kvbox[3] = {C::kBoxCols, C::kBK, 1};
   const cuuint64_t qdims[3] = {D, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t qstr[2] = {D * 2, (cuuint64_t)s * D * 2};
   const cuuint64_t kdims[3] = {D, (cuuint64_t)t, (cuuint64_t)batch * hkv};
   const cuuint64_t kstr[2] = {D * 2, (cuuint64_t)t * D * 2};
   int rc = hopper::make_tensor_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                                   q, qdims, qstr, box, C::kSwizzle);
+                                   q, qdims, qstr, qbox, C::kSwizzle);
   if (rc) return rc;
   rc = hopper::make_tensor_map(&km, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k,
-                               kdims, kstr, box, C::kSwizzle);
+                               kdims, kstr, kvbox, C::kSwizzle);
   if (rc) return rc;
   rc = hopper::make_tensor_map(&vm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v,
-                               kdims, kstr, box, C::kSwizzle);
+                               kdims, kstr, kvbox, C::kSwizzle);
   if (rc) return rc;
   static bool opted_in = false;      // dynamic shared memory above 48 KB
   if (!opted_in) {
@@ -527,6 +540,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out,
     FLASH_CASE(32)
     FLASH_CASE(64)
     FLASH_CASE(128)
+    FLASH_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

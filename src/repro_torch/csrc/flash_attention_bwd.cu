@@ -19,33 +19,64 @@
 //
 // What bounds it: operations. Five products of 2 D flops a kept (query,
 // key) pair (S and dP recomputed, dV, dK, dQ) against one read of q, k, v,
-// o, dO and one write of dq, dk, dv; the tensor cores for bf16.
+// o, dO and one write of dq, dk, dv; the tensor cores for bf16. The design
+// below runs seven (S and dP once more in the dQ kernel): storing dS
+// instead would write and read 2 bytes a kept pair, more time than the
+// two products at the tensor cores' rate.
 //
-// Design (simple and deterministic; wgmma, TMA and overlap are later work):
+// Three kernels, no atomics and fixed loop orders (two launches give the
+// same bits):
 //   1. flash_bwd_delta_kernel: D_i = rowsum(dO o O) in fp32, a warp a row.
-//   2. flash_bwd_dkdv_kernel: one CTA per (batch x KV head, 64-key tile).
-//      K and V stay in shared memory; the CTA walks the G query heads of
-//      its group and, in order, the 64-query tiles that can see its keys.
-//      For each it recomputes S = Q K^T and dP = dO V^T, forms P and dS on
-//      the tile, and accumulates dV += P^T dO and dK += dS^T Q in
-//      registers; it writes dK (times scale) and dV once.
-//   3. flash_bwd_dq_kernel: one CTA per (batch x query head, 64-query
-//      tile) over its visible key tiles: S, dP, dS again, dQ += dS K.
-// No atomics and fixed loop orders: two launches give the same bits.
-// The bf16 instance runs the products on the tensor cores with WMMA
-// (16 x 16 x 16, fp32 accumulation) from padded shared-memory tiles, P and
-// dS rounded to bf16 as operands (as the plain version rounds them); the
-// fp32 instance runs them on the CUDA cores (the fp32 smoke config and
-// the card tests). The scale multiplies the fp32 product, as the forward
-// kernel does. 256 threads, one CTA an SM for D = 128.
+//   2. dK and dV: one CTA per (batch x KV head, key tile); the CTA walks
+//      the G query heads of its group and, in order, the query tiles that
+//      can see its keys, recomputes S and dP, forms P and dS, accumulates
+//      dV += P^T dO and dK += dS^T Q and writes dK (times scale) and dV
+//      once.
+//   3. dQ: one CTA per (batch x query head, query tile) over its visible
+//      key tiles: S, dP, dS again, dQ += dS K.
 //
-// Any S <= T, causal or not, any window, D in {32, 64, 128}.
+// bf16, D in {64, 128}: the Hopper design (flash_bwd_dkdv_wgmma_kernel,
+// flash_bwd_dq_wgmma_kernel; the main path). Per CTA one producer warp
+// and two consumer warpgroups (setmaxnreg 24 / 240).
+//   dK / dV: 128 keys a CTA, 64 a consumer warpgroup. The producer loads
+//   the tile's K and V once by TMA, then streams Q and dO tiles of 64
+//   queries (and their LSE and D rows, by its 32 lanes) through a 2-stage
+//   ring of full / empty mbarriers. A warpgroup computes S^T = K Q^T and
+//   dP^T = V dO^T (wgmma m64n64k16, both operands K-major from shared
+//   memory), forms P^T and dS^T on the accumulator fragment (masking only
+//   tiles that cross the diagonal, the window edge or T; query rows past S
+//   carry an LSE of +inf, so their P is 0), rounds them to bf16 in
+//   registers as the plain version rounds them and feeds them as the A
+//   operand from registers of dV += P^T dO and dK += dS^T Q (m64nDk16, dO
+//   and Q MN-major through the transpose bit). A warpgroup forms P^T
+//   while its dP^T product is still in flight and dS^T while its dV
+//   product is. dK and dV stay in fp32 registers over the whole walk and
+//   are staged, as bf16, through the idle ring and K / V tiles into
+//   16-byte stores.
+//   dQ: 128 queries a CTA, 64 a warpgroup; Q and dO stay resident, K and
+//   V stream through the ring in tiles of 64 keys; S = Q K^T and dP = dO
+//   V^T (K-major; P formed while dP is in flight), dS in registers,
+//   dQ += dS K (K MN-major). A warpgroup skips a tile its own rows cannot
+//   see.
+// bf16, D in {32, 256} (flash_bwd_dkdv_kernel / flash_bwd_dq_kernel with
+// TcMath): the simple design, 64-key and 64-query tiles, WMMA 16 x 16 x 16
+// from padded shared memory with a __syncthreads between products (at
+// D = 256, 185 KB of shared memory; the Hopper design's dK and dV would
+// take 256 fp32 registers a thread there). fp32, D in {32, 64, 128}
+// (CcMath): the same design on the CUDA cores (the fp32 smoke config and
+// the card tests); at D = 256 its four padded fp32 tiles would take 260
+// KB, above the 227 KB a block can use, so the wrapper raises there.
+// The scale multiplies the fp32 product, as the forward kernel does.
+//
+// Any S <= T, causal or not, any window.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cmath>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -68,10 +99,13 @@ template <> struct Elem<bf16> {
   __device__ static float to_f(bf16 x) { return __bfloat162float(x); }
 };
 
+// ---- the simple design: WMMA (bf16) or CUDA cores (fp32) -----------------
+
 // shared memory: Q | dO | K | V (T, kB x kLdX), S | dP (fp32, kB x kLdS),
 // P | dS (T, kB x kLdP), lse * log2 e | D (fp32, kB each). Every region is
 // a multiple of 128 bytes, so every WMMA pointer is 32-byte aligned. The
-// accumulators are staged through S | dP at the end (kB x (D + 4) fp32).
+// accumulators are staged through Q | dO | K | V at the end (kB x (D + 4)
+// fp32).
 template <typename T, int D>
 struct Smem {
   static constexpr int kLdX = D + Elem<T>::kPad;
@@ -83,7 +117,8 @@ struct Smem {
                                    2 * (size_t)kB * kLdS * sizeof(float) +
                                    2 * (size_t)kB * kLdP * sizeof(T) +
                                    2 * (size_t)kB * sizeof(float);
-  static_assert(kB * kLdSt <= 2 * kB * kLdS, "staging exceeds S | dP");
+  static_assert(kB * kLdSt * sizeof(float) <= 4 * (size_t)kX * sizeof(T),
+                "staging exceeds Q | dO | K | V");
 };
 
 // ---- the tile products -----------------------------------------------------
@@ -382,14 +417,15 @@ flash_bwd_dkdv_kernel(const typename Math::T* __restrict__ q,
   }
   const int n_rows = (int)(min(k0 + kB, (long long)t) - k0);
   const long long out0 = (long long)bkv * t + k0;
+  float* st = reinterpret_cast<float*>(smem);     // over Q | dO | K | V
   __syncthreads();
-  Math::stage(Ss, adk);
+  Math::stage(st, adk);
   __syncthreads();
-  write_rows<T, D>(dk, Ss, out0, n_rows, scale);
+  write_rows<T, D>(dk, st, out0, n_rows, scale);
   __syncthreads();
-  Math::stage(Ss, adv);
+  Math::stage(st, adv);
   __syncthreads();
-  write_rows<T, D>(dv, Ss, out0, n_rows, 1.f);
+  write_rows<T, D>(dv, st, out0, n_rows, 1.f);
 }
 
 template <typename Math, int D>
@@ -454,18 +490,31 @@ flash_bwd_dq_kernel(const typename Math::T* __restrict__ q,
     __syncthreads();
     Math::acc_nn(adq, dSs, Ks);
   }
+  float* st = reinterpret_cast<float*>(smem);     // over Q | dO | K | V
   __syncthreads();
-  Math::stage(Ss, adq);
+  Math::stage(st, adq);
   __syncthreads();
-  write_rows<T, D>(dq, Ss, bh * s + i0, min(kB, s - i0), scale);
+  write_rows<T, D>(dq, st, bh * s + i0, min(kB, s - i0), scale);
+}
+
+// D_i = rowsum(dO o O) of every row
+template <typename T, int D>
+int launch_delta(const void* o, const void* dout, float* delta, int bh,
+                 int s, cudaStream_t stream) {
+  const long long rows = (long long)bh * s;
+  const unsigned blocks =
+      (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
+  flash_bwd_delta_kernel<T, D><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
+  return (int)cudaGetLastError();
 }
 
 template <typename Math, int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int bh, int hq, int hkv, int s, int t,
-           int causal, int has_window, long long window, float scale,
-           cudaStream_t stream) {
+int launch_simple(const void* q, const void* k, const void* v,
+                  const void* o, const void* dout, const float* lse,
+                  float* delta, void* dq, void* dk, void* dv, int bh, int hq,
+                  int hkv, int s, int t, int causal, int has_window,
+                  long long window, float scale, cudaStream_t stream) {
   using T = typename Math::T;
   constexpr size_t kBytes = Smem<T, D>::kBytes;
   static bool opted_in = false;      // dynamic shared memory above 48 KB
@@ -484,12 +533,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const long long rows = (long long)bh * s;
-  const unsigned delta_blocks =
-      (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
-  flash_bwd_delta_kernel<T, D><<<delta_blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(o), dot, delta, rows);
-  int rc = (int)cudaGetLastError();
+  int rc = launch_delta<T, D>(o, dout, delta, bh, s, stream);
   if (rc) return rc;
   const int batch = bh / hq;
   const dim3 grid_kv((unsigned)(batch * hkv), (unsigned)((t + kB - 1) / kB));
@@ -505,28 +549,571 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-template <template <int> class Math>
-int dispatch_d(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const void* lse, void* delta, void* dq,
-               void* dk, void* dv, int bh, int hq, int hkv, int s, int t,
-               int d, int causal, int has_window, long long window,
-               float scale, cudaStream_t stream) {
-#define BWD_CASE(DIM)                                                        \
-  case DIM:                                                                  \
-    return launch<Math<DIM>, DIM>(q, k, v, o, dout,                          \
-                                  static_cast<const float*>(lse),            \
-                                  static_cast<float*>(delta), dq, dk, dv,    \
-                                  bh, hq, hkv, s, t, causal, has_window,     \
-                                  window, scale, stream);
-  switch (d) {
-    BWD_CASE(32)
-    BWD_CASE(64)
-    BWD_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef BWD_CASE
+// ---- bf16, D in {64, 128}: wgmma, TMA ring, register accumulators --------
+
+template <int D>
+struct Bw {
+  static constexpr int kThreads = 3 * 128;  // 2 consumer + 1 producer WG
+  static constexpr int kStages = 2;
+  static constexpr int kAtoms = D / 64;     // 64 bf16 = one 128-byte row
+  static constexpr int kAtom128 = 128 * 128;          // a 128-row atom
+  static constexpr int kAtom64 = 64 * 128;            // a 64-row atom
+  static constexpr int kTile128 = kAtoms * kAtom128;  // 128 rows x D
+  static constexpr int kTile64 = kAtoms * kAtom64;    // 64 rows x D
+  static constexpr int kStage = 2 * kTile64;          // Q | dO, or K | V
+  // 128-row K | V (dK / dV) or Q | dO (dQ), then the ring
+  static constexpr int kSmem = 2 * kTile128 + kStages * kStage + 1024;
+  static constexpr int kLdSt = D + 8;       // bf16 a staged output row
+  static_assert(2 * 64 * kLdSt * 2 <= kStages * kStage, "dK staging");
+  static_assert(2 * 64 * kLdSt * 2 <= 2 * kTile128, "dV staging");
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
+
+// wgmma descriptors of the 128-byte swizzled tiles TMA writes (atoms of
+// 64 columns, rows of 128 bytes): a K-major operand's k16 step `kk`
+// (`rows` rows an atom), and an MN-major B whose K runs down the rows
+// (the k16 step 16 rows on, 8-row groups 1024 B apart, the next 64
+// columns an atom of 64 rows on)
+template <int kRows>
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int kk) {
+  return hopper::smem_desc(base + (kk >> 2) * kRows * 128 + (kk & 3) * 32,
+                           16, 1024, 128);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int kk) {
+  return hopper::smem_desc(base + kk * 16 * 128, 64 * 128, 1024, 128);
+}
+
+// P of one 64 x 64 accumulator tile (row = this thread's rows, column =
+// 8 j + 2 (lane % 4) + c), in place of the scores: p = exp2(s scale
+// log2 e - lse2), 0 where `kept` says no (lse2 of element idx)
+template <bool kMask, typename Lse, typename Kept>
+__device__ __forceinline__ void p_tile(float (&sc)[32], float scale_log2,
+                                       Lse lse2, Kept kept) {
+#pragma unroll
+  for (int idx = 0; idx < 32; ++idx) {
+    const float pv = exp2f(sc[idx] * scale_log2 - lse2(idx));
+    if constexpr (kMask)
+      sc[idx] = kept(idx) ? pv : 0.f;
+    else
+      sc[idx] = pv;
+  }
+}
+
+// a tile rounded to bf16 as wgmma A fragments (k16 chunk kk: columns
+// 16 kk ..)
+__device__ __forceinline__ void a_fragments(const float (&x)[32],
+                                            uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = hopper::pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// dS = p (dp - dl) of a tile (dl of element idx) as A fragments
+template <typename Dl>
+__device__ __forceinline__ void ds_fragments(const float (&p)[32],
+                                             const float (&dp)[32], Dl dl,
+                                             uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 8 * kk + 2 * e;
+      a[kk][e] = hopper::pack_bf16(p[i] * (dp[i] - dl(i)),
+                                   p[i + 1] * (dp[i + 1] - dl(i + 1)));
+    }
+}
+
+// accumulator element idx of a thread: row 16 (warp % 4) + lane / 4 + 8 h,
+// column 8 j + 2 (lane % 4) + c with idx = 4 j + 2 h + c
+__device__ __forceinline__ int frag_row(int idx) { return 8 * ((idx >> 1) & 1); }
+__device__ __forceinline__ int frag_col(int idx) {
+  return 8 * (idx >> 2) + (idx & 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Bw<D>::kThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
+                            const __grid_constant__ CUtensorMap dom,
+                            const __grid_constant__ CUtensorMap km,
+                            const __grid_constant__ CUtensorMap vm,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int hq, int hkv, int s, int t, int causal,
+                            int has_window, long long window, float scale) {
+  using C = Bw<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full, full[C::kStages],
+      empty[C::kStages];
+  __shared__ float lse2_s[C::kStages][64], dl_s[C::kStages][64];
+  unsigned char* ks = align1024(smem_raw);
+  unsigned char* vs = ks + C::kTile128;
+  unsigned char* ring = vs + C::kTile128;   // a stage: Q | dO, 64 queries
+
+  const int bkv = blockIdx.x;               // b * hkv + kv head
+  const int b = bkv / hkv, kvh = bkv % hkv;
+  const int groups = hq / hkv;
+  const long long k0 = (long long)blockIdx.y * 128;
+  const long long q_offset = (long long)t - s;
+  // the 64-query tiles that see a key of this tile
+  const long long kmax = min(k0 + 128, (long long)t) - 1;
+  long long ilo = 0, ihi = (long long)s - 1;
+  if (causal) ilo = max(ilo, k0 - q_offset);
+  if (has_window) ihi = min(ihi, kmax + window - 1 - q_offset);
+  const int qt0 = (int)(ilo / 64);
+  const int n_qt = ihi >= ilo ? (int)(ihi / 64) - qt0 + 1 : 0;
+  const int n_iter = groups * n_qt;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&kv_full, 1);
+    for (int i = 0; i < C::kStages; ++i) {
+      hopper::mbar_init(&full[i], 2);     // the loads and the LSE / D rows
+      hopper::mbar_init(&empty[i], 8);    // one arrival a consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer warpgroup: warp 8 feeds the ring, the rest only give their
+    // registers to the consumers
+    hopper::setmaxnreg_dec<24>();
+    if (warp == 8) {
+      if (lane == 0) {
+        hopper::prefetch_tensor_map(&qm);
+        hopper::prefetch_tensor_map(&dom);
+        hopper::prefetch_tensor_map(&km);
+        hopper::prefetch_tensor_map(&vm);
+        hopper::mbar_arrive_expect_tx(&kv_full, 2 * C::kTile128);
+#pragma unroll
+        for (int a = 0; a < C::kAtoms; ++a) {
+          hopper::tma_load_3d(ks + a * C::kAtom128, &km, &kv_full, a * 64,
+                              (int)k0, bkv);
+          hopper::tma_load_3d(vs + a * C::kAtom128, &vm, &kv_full, a * 64,
+                              (int)k0, bkv);
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < n_iter; ++it) {
+        const int g = it / n_qt;
+        const int i0 = (qt0 + it % n_qt) * 64;
+        const int bh = b * hq + kvh * groups + g;
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        if (lane == 0) {
+          unsigned char* st = ring + stage * C::kStage;
+          hopper::mbar_arrive_expect_tx(&full[stage], C::kStage);
+#pragma unroll
+          for (int a = 0; a < C::kAtoms; ++a) {
+            hopper::tma_load_3d(st + a * C::kAtom64, &qm, &full[stage],
+                                a * 64, i0, bh);
+            hopper::tma_load_3d(st + C::kTile64 + a * C::kAtom64, &dom,
+                                &full[stage], a * 64, i0, bh);
+          }
+        }
+        // rows past S: lse +inf, so P = exp2(-inf) = 0 there
+        for (int r = lane; r < 64; r += 32) {
+          const bool in = i0 + r < s;
+          const long long at = (long long)bh * s + i0 + r;
+          lse2_s[stage][r] = in ? lse[at] * kLog2e : INFINITY;
+          dl_s[stage][r] = in ? delta[at] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&full[stage]);
+        if (++stage == C::kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: wg owns keys 64 wg .. 64 wg + 63 of the tile
+  hopper::setmaxnreg_inc<240>();
+  const int wg = warp >> 2;
+  const int r0 = (warp & 3) * 16 + (lane >> 2);   // key row in the 64
+  const int c0 = 2 * (lane & 3);                  // query column offset
+  const long long kw0 = k0 + 64 * wg;
+  const long long kw1 = min(kw0 + 63, (long long)t - 1);
+  const float scale_log2 = scale * kLog2e;
+
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+
+  hopper::mbar_wait(&kv_full, 0);
+  const uint32_t k_base = hopper::smem_u32(ks) + wg * 64 * 128;
+  const uint32_t v_base = hopper::smem_u32(vs) + wg * 64 * 128;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < n_iter; ++it) {
+    const int i0 = (qt0 + it % n_qt) * 64;
+    const long long qlo = q_offset + i0;
+    const long long qhi = q_offset + min(i0 + 63, s - 1);
+    // tile-level tests on this warpgroup's keys
+    const bool skip = kw0 >= t || (causal && kw0 > qhi) ||
+                      (has_window && kw1 <= qlo - window);
+    const bool need_mask = kw0 + 63 >= t || (causal && kw0 + 63 > qlo) ||
+                           (has_window && kw0 <= qhi - window);
+    hopper::mbar_wait(&full[stage], phase);
+    if (!skip) {
+      const uint32_t q_st = hopper::smem_u32(ring + stage * C::kStage);
+      const uint32_t do_st = q_st + C::kTile64;
+      // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries, fp32)
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::WgmmaBf16SS<64>::mma(sc, desc_k<128>(k_base, kk),
+                                     desc_k<64>(q_st, kk), 1);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::WgmmaBf16SS<64>::mma(dp, desc_k<128>(v_base, kk),
+                                     desc_k<64>(do_st, kk), 1);
+      hopper::wgmma_commit();
+
+      // P^T (row key kw0 + r0 + 8 h, column query i0 + c0 + ...) while
+      // dP^T is still in the tensor cores, then dV += P^T dO (the stage's
+      // rows are the product's K)
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+      const float* l2 = lse2_s[stage];
+      const float* dl = dl_s[stage];
+      auto lse_at = [&](int idx) { return l2[c0 + frag_col(idx)]; };
+      auto dl_at = [&](int idx) { return dl[c0 + frag_col(idx)]; };
+      auto kept = [&](int idx) {
+        const long long kpos = kw0 + r0 + frag_row(idx);
+        const long long qpos = qlo + c0 + frag_col(idx);
+        return kpos < t && (!causal || kpos <= qpos) &&
+               (!has_window || kpos > qpos - window);
+      };
+      if (need_mask)
+        p_tile<true>(sc, scale_log2, lse_at, kept);
+      else
+        p_tile<false>(sc, scale_log2, lse_at, kept);
+      uint32_t pa[4][4], da[4][4];
+      a_fragments(sc, pa);
+      hopper::fence_regs(adv);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::WgmmaBf16RS<D, 1>::mma(adv, pa[kk], desc_mn(do_st, kk), 1);
+      hopper::wgmma_commit();
+
+      // dS^T while dV's product runs, then dK += dS^T Q
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(dp);
+      ds_fragments(sc, dp, dl_at, da);
+      hopper::fence_regs(adk);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::WgmmaBf16RS<D, 1>::mma(adk, da[kk], desc_mn(q_st, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(adv);
+      hopper::fence_regs(adk);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+    if (++stage == C::kStages) { stage = 0; phase ^= 1; }
+  }
+
+  // epilogue: both warpgroups are past their last wgmma and every load has
+  // landed, so the ring holds the staged dK rows and the K | V tiles dV's
+  hopper::named_barrier_sync(1, 256);
+  bf16* stk = reinterpret_cast<bf16*>(ring) + wg * 64 * C::kLdSt;
+  bf16* stv = reinterpret_cast<bf16*>(ks) + wg * 64 * C::kLdSt;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = (r0 + 8 * h) * C::kLdSt + 8 * j + c0;
+      *reinterpret_cast<uint32_t*>(stk + at) = hopper::pack_bf16(
+          adk[4 * j + 2 * h] * scale, adk[4 * j + 2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(stv + at) =
+          hopper::pack_bf16(adv[4 * j + 2 * h], adv[4 * j + 2 * h + 1]);
+    }
+  }
+  hopper::named_barrier_sync(2 + wg, 128);
+  const int n_rows = (int)max(0LL, min(64LL, (long long)t - kw0));
+  const long long out0 = (long long)bkv * t + kw0;
+  constexpr int kVecs = D / 8;
+  for (int i = threadIdx.x & 127; i < n_rows * kVecs; i += 128) {
+    const int r = i / kVecs, c = (i % kVecs) * 8;
+    *reinterpret_cast<uint4*>(dk + (out0 + r) * D + c) =
+        *reinterpret_cast<const uint4*>(stk + r * C::kLdSt + c);
+    *reinterpret_cast<uint4*>(dv + (out0 + r) * D + c) =
+        *reinterpret_cast<const uint4*>(stv + r * C::kLdSt + c);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Bw<D>::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
+                          const __grid_constant__ CUtensorMap dom,
+                          const __grid_constant__ CUtensorMap km,
+                          const __grid_constant__ CUtensorMap vm,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int hq, int hkv, int s,
+                          int t, int causal, int has_window, long long window,
+                          float scale) {
+  using C = Bw<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[C::kStages],
+      empty[C::kStages];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* dos = qs + C::kTile128;
+  unsigned char* ring = dos + C::kTile128;  // a stage: K | V, 64 keys
+
+  const int bh = blockIdx.x;
+  const int b = bh / hq;
+  const int kvh = (bh % hq) / (hq / hkv);
+  const int i0 = blockIdx.y * 128;
+  const long long q_offset = (long long)t - s;
+  // the 64-key tiles the CTA's queries see (the forward's tile tests)
+  const long long qlo = q_offset + i0;
+  const long long qhi = q_offset + min(i0 + 128, s) - 1;
+  long long klo = 0, khi = (long long)t - 1;
+  if (causal) khi = min(khi, qhi);
+  if (has_window) klo = max(klo, qlo - window + 1);
+  const int kt0 = (int)(klo / 64);
+  const int n_kt = khi >= klo ? (int)(khi / 64) - kt0 + 1 : 0;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int i = 0; i < C::kStages; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      hopper::prefetch_tensor_map(&qm);
+      hopper::prefetch_tensor_map(&dom);
+      hopper::prefetch_tensor_map(&km);
+      hopper::prefetch_tensor_map(&vm);
+      hopper::mbar_arrive_expect_tx(&q_full, 2 * C::kTile128);
+#pragma unroll
+      for (int a = 0; a < C::kAtoms; ++a) {
+        hopper::tma_load_3d(qs + a * C::kAtom128, &qm, &q_full, a * 64, i0,
+                            bh);
+        hopper::tma_load_3d(dos + a * C::kAtom128, &dom, &q_full, a * 64,
+                            i0, bh);
+      }
+      const int kv_bh = b * hkv + kvh;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < n_kt; ++it) {
+        const int kpos0 = (kt0 + it) * 64;
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = ring + stage * C::kStage;
+        hopper::mbar_arrive_expect_tx(&full[stage], C::kStage);
+#pragma unroll
+        for (int a = 0; a < C::kAtoms; ++a) {
+          hopper::tma_load_3d(st + a * C::kAtom64, &km, &full[stage], a * 64,
+                              kpos0, kv_bh);
+          hopper::tma_load_3d(st + C::kTile64 + a * C::kAtom64, &vm,
+                              &full[stage], a * 64, kpos0, kv_bh);
+        }
+        if (++stage == C::kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: wg owns queries 64 wg .. 64 wg + 63 of the tile
+  hopper::setmaxnreg_inc<240>();
+  const int wg = warp >> 2;
+  const int r0 = (warp & 3) * 16 + (lane >> 2);   // query row in the 64
+  const int c0 = 2 * (lane & 3);                  // key column offset
+  const int w0 = i0 + 64 * wg;                    // the warpgroup's rows
+  const long long wq_lo = q_offset + w0;
+  const long long wq_hi = q_offset + min(w0 + 63, s - 1);
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dl[2];                           // rows r0, r0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = w0 + r0 + 8 * h;
+    const bool in = row < s;
+    lse2[h] = in ? lse[(long long)bh * s + row] * kLog2e : INFINITY;
+    dl[h] = in ? delta[(long long)bh * s + row] : 0.f;
+  }
+
+  float adq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adq[i] = 0.f;
+
+  hopper::mbar_wait(&q_full, 0);
+  const uint32_t q_base = hopper::smem_u32(qs) + wg * 64 * 128;
+  const uint32_t do_base = hopper::smem_u32(dos) + wg * 64 * 128;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < n_kt; ++it) {
+    const long long kpos0 = (long long)(kt0 + it) * 64;
+    const long long k_last = min(kpos0 + 63, (long long)t - 1);
+    const bool skip = w0 >= s || (causal && kpos0 > wq_hi) ||
+                      (has_window && k_last <= wq_lo - window);
+    const bool need_mask = kpos0 + 63 >= t ||
+                           (causal && kpos0 + 63 > wq_lo) ||
+                           (has_window && kpos0 <= wq_hi - window);
+    hopper::mbar_wait(&full[stage], phase);
+    if (!skip) {
+      const uint32_t k_st = hopper::smem_u32(ring + stage * C::kStage);
+      const uint32_t v_st = k_st + C::kTile64;
+      // S = Q K^T and dP = dO V^T (64 queries x 64 keys, fp32)
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::WgmmaBf16SS<64>::mma(sc, desc_k<128>(q_base, kk),
+                                     desc_k<64>(k_st, kk), 1);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::WgmmaBf16SS<64>::mma(dp, desc_k<128>(do_base, kk),
+                                     desc_k<64>(v_st, kk), 1);
+      hopper::wgmma_commit();
+
+      // P while dP is still in the tensor cores, then dS
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+      auto lse_at = [&](int idx) { return lse2[(idx >> 1) & 1]; };
+      auto dl_at = [&](int idx) { return dl[(idx >> 1) & 1]; };
+      auto kept = [&](int idx) {
+        const long long qpos = wq_lo + r0 + frag_row(idx);
+        const long long kpos = kpos0 + c0 + frag_col(idx);
+        return kpos < t && (!causal || kpos <= qpos) &&
+               (!has_window || kpos > qpos - window);
+      };
+      if (need_mask)
+        p_tile<true>(sc, scale_log2, lse_at, kept);
+      else
+        p_tile<false>(sc, scale_log2, lse_at, kept);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+      uint32_t da[4][4];
+      ds_fragments(sc, dp, dl_at, da);
+
+      // dQ += dS K (the stage's key rows are the product's K)
+      hopper::fence_regs(adq);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::WgmmaBf16RS<D, 1>::mma(adq, da[kk], desc_mn(k_st, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(adq);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+    if (++stage == C::kStages) { stage = 0; phase ^= 1; }
+  }
+
+  // dQ times scale, rows below S, a bf16 pair a store
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = w0 + r0 + 8 * h;
+    if (row >= s) continue;
+    bf16* drow = dq + ((long long)bh * s + row) * D + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(drow + 8 * j) = hopper::pack_bf16(
+          adq[4 * j + 2 * h] * scale, adq[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* delta, void* dq,
+                 void* dk, void* dv, int bh, int hq, int hkv, int s, int t,
+                 int causal, int has_window, long long window, float scale,
+                 cudaStream_t stream) {
+  using C = Bw<D>;
+  const int batch = bh / hq;
+  // 3-D maps over (D, rows, batch x head), 128-byte swizzle: 64- and
+  // 128-row boxes of Q and dO (S rows), of K and V (T rows)
+  CUtensorMap q64, do64, q128, do128, k64, v64, k128, v128;
+  const cuuint64_t qdims[3] = {D, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t qstr[2] = {D * 2, (cuuint64_t)s * D * 2};
+  const cuuint64_t kdims[3] = {D, (cuuint64_t)t, (cuuint64_t)batch * hkv};
+  const cuuint64_t kstr[2] = {D * 2, (cuuint64_t)t * D * 2};
+  const cuuint32_t box64[3] = {64, 64, 1};
+  const cuuint32_t box128[3] = {64, 128, 1};
+  struct Map {
+    CUtensorMap* map;
+    const void* base;
+    const cuuint64_t* dims;
+    const cuuint64_t* strides;
+    const cuuint32_t* box;
+  } maps[8] = {{&q64, q, qdims, qstr, box64},
+               {&do64, dout, qdims, qstr, box64},
+               {&q128, q, qdims, qstr, box128},
+               {&do128, dout, qdims, qstr, box128},
+               {&k64, k, kdims, kstr, box64},
+               {&v64, v, kdims, kstr, box64},
+               {&k128, k, kdims, kstr, box128},
+               {&v128, v, kdims, kstr, box128}};
+  for (const Map& m : maps) {
+    const int rc = hopper::make_tensor_map(
+        m.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, m.base, m.dims,
+        m.strides, m.box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (rc) return rc;
+  }
+  static bool opted_in = false;      // dynamic shared memory above 48 KB
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv_wgmma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  int rc = launch_delta<bf16, D>(o, dout, delta, bh, s, stream);
+  if (rc) return rc;
+  const dim3 grid_kv((unsigned)(batch * hkv), (unsigned)((t + 127) / 128));
+  flash_bwd_dkdv_wgmma_kernel<D><<<grid_kv, C::kThreads, C::kSmem, stream>>>(
+      q64, do64, k128, v128, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), hq, hkv, s, t, causal, has_window, window,
+      scale);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const dim3 grid_q((unsigned)bh, (unsigned)((s + 127) / 128));
+  flash_bwd_dq_wgmma_kernel<D><<<grid_q, C::kThreads, C::kSmem, stream>>>(
+      q128, do128, k64, v64, lse, delta, static_cast<bf16*>(dq), hq, hkv, s,
+      t, causal, has_window, window, scale);
+  return (int)cudaGetLastError();
+}
+
+#define BWD_ARGS                                                             \
+  q, k, v, o, dout, static_cast<const float*>(lse),                          \
+      static_cast<float*>(delta), dq, dk, dv, bh, hq, hkv, s, t, causal,     \
+      has_window, window, scale, stream
 
 }  // namespace
 
@@ -534,23 +1121,39 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* o,
 // (the wrapper checks them and the grid limits); delta is fp32 scratch of
 // B * Hq * S. Three launches on `stream`: D, then dK and dV, then dQ.
 // Returns cudaGetLastError() after the first launch that fails, else after
-// the last.
-extern "C" int flash_attention_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int bh, int hq, int hkv, int s, int t, int d, int causal,
-    int has_window, long long window, float scale, cudaStream_t stream) {
-  return dispatch_d<TcMath>(q, k, v, o, dout, lse, delta, dq, dk, dv, bh, hq,
-                            hkv, s, t, d, causal, has_window, window, scale,
-                            stream);
+// the last (cudaErrorInvalidValue for a head dim the instance does not
+// take; 1000 + cuTensorMapEncodeTiled's result if a tensor map cannot be
+// encoded).
+#define BWD_PARAMS                                                           \
+  const void *q, const void *k, const void *v, const void *o,                \
+      const void *dout, const void *lse, void *delta, void *dq, void *dk,    \
+      void *dv, int bh, int hq, int hkv, int s, int t, int d, int causal,    \
+      int has_window, long long window, float scale, cudaStream_t stream
+
+// bf16, the Hopper design: D in {64, 128}
+extern "C" int flash_attention_bwd_bf16_wgmma(BWD_PARAMS) {
+  switch (d) {
+    case 64: return launch_wgmma<64>(BWD_ARGS);
+    case 128: return launch_wgmma<128>(BWD_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-extern "C" int flash_attention_bwd_f32(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int bh, int hq, int hkv, int s, int t, int d, int causal,
-    int has_window, long long window, float scale, cudaStream_t stream) {
-  return dispatch_d<CcMath>(q, k, v, o, dout, lse, delta, dq, dk, dv, bh, hq,
-                            hkv, s, t, d, causal, has_window, window, scale,
-                            stream);
+// bf16, the simple WMMA design: D in {32, 256}
+extern "C" int flash_attention_bwd_bf16(BWD_PARAMS) {
+  switch (d) {
+    case 32: return launch_simple<TcMath<32>, 32>(BWD_ARGS);
+    case 256: return launch_simple<TcMath<256>, 256>(BWD_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// fp32 on the CUDA cores: D in {32, 64, 128}
+extern "C" int flash_attention_bwd_f32(BWD_PARAMS) {
+  switch (d) {
+    case 32: return launch_simple<CcMath<32>, 32>(BWD_ARGS);
+    case 64: return launch_simple<CcMath<64>, 64>(BWD_ARGS);
+    case 128: return launch_simple<CcMath<128>, 128>(BWD_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

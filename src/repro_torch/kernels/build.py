@@ -51,14 +51,14 @@ _SIGNATURES = {
                                   _U, _U, _I, _P, _P, _P, _P]},
     "sddmm": {"sddmm_f32": [_P] * 7 + [_I] * 8 + [_P]},
     "fusedmm": {"fusedmm_f32": [_P] * 8 + [_I] * 7 + [_L, _I, _L, _I, _P]},
-    "ragged_gemm": {f"ragged_gemm_{t}": [_P] * 4 + [_L] + [_I] * 4 + [_P]
+    "ragged_gemm": {f"ragged_gemm_{t}": [_P] * 4 + [_L] + [_I] * 5 + [_P]
                     for t in ("bf16_wgmma", "bf16", "f32")},
     "flash_attention": {f"flash_attention_{t}":
                         [_P] * 5 + [_I] * 8 + [_L, _F, _P]
                         for t in ("bf16", "f32")},
     "flash_attention_bwd": {f"flash_attention_bwd_{t}":
                             [_P] * 10 + [_I] * 8 + [_L, _F, _P]
-                            for t in ("bf16", "f32")},
+                            for t in ("bf16_wgmma", "bf16", "f32")},
     "segment_sum": {"segment_sum_f32": [_P, _L] + [_P] * 6 + [_I, _I, _L,
                                                             _I, _I, _I, _P]},
     "edge_dots": {"edge_dots_f32": [_P, _L, _P, _L, _I, _P, _L, _P, _L, _I,

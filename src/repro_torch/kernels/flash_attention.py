@@ -10,7 +10,9 @@ In bf16 one CTA owns one (batch x query head, 128-query tile) pair: a
 producer warp stages Q, K and V with TMA into a ring of shared memory,
 two warpgroups of 64 queries run both products on ``wgmma`` and keep the
 accumulator and the softmax state in registers across the KV tiles it
-keeps. The fp32 instance keeps a CUDA-core design (64 queries a CTA).
+keeps (tiles of 128 keys, 64 at D = 256, where Q and two stages of K
+and V fill 192 KB of shared memory). The fp32 instance keeps a CUDA-core
+design (64 queries a CTA).
 The kernel scales the fp32 product, as the Pallas kernel does;
 ``flash_attention_plain`` is the port of ``chunked_attention``, the
 reference's route off the TPU, which scales q in q's dtype first. In
@@ -25,7 +27,12 @@ kernel, since the reference differentiates ``chunked_attention`` in XLA
 and its Pallas kernel has no ``custom_vjp``. It recomputes P from the
 LSE in fixed-order tiles, without atomics, so two launches give the same
 bits; ``flash_attention_bwd_plain`` is the same math in PyTorch over KV
-chunks.
+chunks. :func:`flash_bwd_instance` picks its instance: ``wgmma`` (bf16,
+D 64 and 128, the main path: TMA ring, ``wgmma``, dK / dV and dQ in
+registers; :func:`flash_bwd_dkdv_tiles`, :func:`flash_bwd_dq_tiles` and
+:func:`flash_bwd_tile_test` state its tile walk), ``wmma`` (bf16, D 32
+and 256) or ``f32`` (D up to 128). Head dims: :data:`HEAD_DIMS`, 256
+for gemma-7b.
 """
 from __future__ import annotations
 
@@ -33,9 +40,19 @@ import torch
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
            "flash_attention_plain_lse", "flash_attention_bwd_cuda",
-           "flash_attention_bwd_plain", "HEAD_DIMS"]
+           "flash_attention_bwd_plain", "flash_bwd_instance",
+           "flash_bwd_dkdv_tiles", "flash_bwd_dq_tiles",
+           "flash_bwd_tile_test", "HEAD_DIMS", "BWD_INSTANCES"]
 
-HEAD_DIMS = (32, 64, 128)      # the kernel's instances
+HEAD_DIMS = (32, 64, 128, 256)     # the kernels' instances
+# backward instance -> C entry point of csrc/flash_attention_bwd.cu
+BWD_INSTANCES = {"wgmma": "flash_attention_bwd_bf16_wgmma",
+                 "wmma": "flash_attention_bwd_bf16",
+                 "f32": "flash_attention_bwd_f32"}
+# the wgmma backward's tiles: (keys a CTA, queries a ring stage) of the
+# dK / dV kernel, (queries a CTA, keys a ring stage) of the dQ kernel;
+# each CTA's rows are two warpgroups of 64
+BWD_KV_TILE, BWD_Q_STEP, BWD_Q_TILE, BWD_KV_STEP = 128, 64, 128, 64
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _Q_TILE, _GRID_Y = 64, 65_535
 
@@ -136,6 +153,81 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
+def flash_bwd_instance(dtype: torch.dtype, d: int) -> str:
+    """The backward's instance for these operands, from dtype and head dim
+    alone: ``wgmma`` for bf16 at D 64 and 128, ``wmma`` for bf16 at D 32
+    and 256 (the Hopper design's dK and dV would take 256 fp32 registers
+    a thread at 256), ``f32`` for fp32 up to D 128. Raises for fp32 at D
+    256, where the CUDA-core instance's four padded 64 x 260 fp32 tiles
+    take 260 KB of shared memory, above the 227 KB a block can use."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {d} not built "
+                         f"({HEAD_DIMS})")
+    if dtype == torch.float32:
+        if d > 128:
+            raise ValueError(f"flash_attention_bwd: fp32 at head dim {d} "
+                             f"is not built: the CUDA-core instance's four "
+                             f"padded 64 x {d + 4} fp32 tiles take "
+                             f"{4 * 64 * (d + 4) * 4 // 1024} KB of shared "
+                             f"memory, above the 227 KB a block can use "
+                             f"(bf16 takes it)")
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bwd: q must be bf16 or fp32, "
+                         f"got {dtype}")
+    return "wgmma" if d in (64, 128) else "wmma"
+
+
+def flash_bwd_dkdv_tiles(s: int, t: int, k0: int, causal: bool,
+                         window: int | None, step: int = BWD_Q_STEP
+                         ) -> range:
+    """The query tiles (of ``step`` rows) the dK / dV kernel's CTA at key
+    ``k0`` walks, in its order (for each query head of the group): those
+    holding a query that sees a key of ``[k0, k0 + BWD_KV_TILE)``."""
+    q_offset = t - s
+    kmax = min(k0 + BWD_KV_TILE, t) - 1
+    ilo, ihi = 0, s - 1
+    if causal:
+        ilo = max(ilo, k0 - q_offset)
+    if window is not None:
+        ihi = min(ihi, kmax + window - 1 - q_offset)
+    return range(ilo // step, ihi // step + 1) if ihi >= ilo else range(0)
+
+
+def flash_bwd_dq_tiles(s: int, t: int, i0: int, causal: bool,
+                       window: int | None, step: int = BWD_KV_STEP
+                       ) -> range:
+    """The key tiles (of ``step`` keys) the dQ kernel's CTA at query
+    ``i0`` walks, in order: the forward's tile-level tests over its
+    ``BWD_Q_TILE`` queries."""
+    q_offset = t - s
+    qlo = q_offset + i0
+    qhi = q_offset + min(i0 + BWD_Q_TILE, s) - 1
+    klo, khi = 0, t - 1
+    if causal:
+        khi = min(khi, qhi)
+    if window is not None:
+        klo = max(klo, qlo - window + 1)
+    return range(klo // step, khi // step + 1) if khi >= klo else range(0)
+
+
+def flash_bwd_tile_test(k_lo: int, q_lo: int, q_hi: int, t: int,
+                        causal: bool, window: int | None) -> str:
+    """What a warpgroup of the wgmma backward does with its 64 keys from
+    ``k_lo`` against the queries at positions ``q_lo .. q_hi`` (the last
+    real one): ``skip`` (no pair kept), ``mask`` (a pair is masked, or a
+    key lies past T) or ``full`` (every pair kept, no mask applied). Rows
+    past S need no mask: their LSE is +inf, so P = 0."""
+    k_last = min(k_lo + 63, t - 1)
+    if k_lo >= t or (causal and k_lo > q_hi) or \
+            (window is not None and k_last <= q_lo - window):
+        return "skip"
+    if k_lo + 63 >= t or (causal and k_lo + 63 > q_lo) or \
+            (window is not None and k_lo <= q_hi - window):
+        return "mask"
+    return "full"
+
+
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               do: torch.Tensor, lse: torch.Tensor, *,
@@ -192,10 +284,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     :func:`flash_attention_cuda` takes them, o and do like q, lse the
     forward's fp32 (B, Hq, S) row log-sum-exp; all contiguous. Counts its
     calls (three launches each: the row dot products dO . O, then dK and
-    dV, then dQ) in ``flash_attention_bwd_cuda.launches``."""
+    dV, then dQ) in ``flash_attention_bwd_cuda.launches`` and by
+    :func:`flash_bwd_instance` in
+    ``flash_attention_bwd_cuda.launches_by_instance``. A build or launch
+    failure raises; no other instance is tried."""
     from repro_torch.kernels.build import load_kernel
 
     _check_operands(q, k, v)
+    inst = flash_bwd_instance(q.dtype, q.shape[3])
     for name, arr in (("o", o), ("do", do)):
         if arr.shape != q.shape or arr.dtype != q.dtype or \
                 arr.device != q.device or not arr.is_contiguous() or \
@@ -218,8 +314,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib = load_kernel("flash_attention_bwd")
-    fn = getattr(lib, f"flash_attention_bwd_{_DTYPES[q.dtype]}")
+    fn = getattr(load_kernel("flash_attention_bwd"), BWD_INSTANCES[inst])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -229,10 +324,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                 0 if window is None else int(window), 1.0 / d ** 0.5,
                 stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"flash_attention_bwd launch failed ({inst}): "
+                           f"CUDA error {rc}")
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.launches_by_instance[inst] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.launches_by_instance = dict.fromkeys(BWD_INSTANCES,
+                                                              0)

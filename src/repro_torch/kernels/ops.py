@@ -9,8 +9,8 @@ no fallback between the two.
 
 ``ragged_gemm`` and ``flash_attention`` are differentiable: each is a
 ``torch.autograd.Function`` whose backward launches hand kernels on the
-card (the ragged GEMM on the transposed weights for dX, with dW one
-batched product; ``flash_attention_bwd``, which recomputes the scores
+card (the ragged GEMM reading the weights transposed in place for dX,
+with dW one batched product; ``flash_attention_bwd``, which recomputes the scores
 from the forward's row log-sum-exp) and runs the plain pieces on the
 CPU. A backward launch is counted like a forward one: flash's under its
 own wrapper, ``flash_attention_bwd``; the ragged GEMM's by direction in
@@ -152,9 +152,10 @@ def fusedmm_bsr(a: BSR, x: torch.Tensor, y: torch.Tensor, h: torch.Tensor,
 
 
 class _RaggedGemm(torch.autograd.Function):
-    """out = x @ w[expert(token)]; dX = ragged_gemm(dY, Wᵀ) through the
-    same kernel, dW = ``ragged_gemm_dw`` over ``n_groups`` equal expert
-    groups of rows (None: no weight gradient can be formed)."""
+    """out = x @ w[expert(token)]; dX = dY · W[e]ᵀ through the same
+    kernel reading w transposed in place, dW = ``ragged_gemm_dw`` over
+    ``n_groups`` equal expert groups of rows (None: no weight gradient
+    can be formed)."""
 
     @staticmethod
     def forward(ctx, x, w, tile_expert, tm, n_groups):
@@ -167,8 +168,8 @@ class _RaggedGemm(torch.autograd.Function):
         x, w, tile_expert = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _ragged(dy.contiguous(), w.transpose(1, 2).contiguous(),
-                         tile_expert, ctx.tm, "backward")
+            dx = _ragged(dy.contiguous(), w, tile_expert, ctx.tm,
+                         "backward")
         if ctx.needs_input_grad[1]:
             if ctx.n_groups is None:
                 raise ValueError("ragged_gemm: the weight gradient needs the "
@@ -179,9 +180,11 @@ class _RaggedGemm(torch.autograd.Function):
 
 
 def _ragged(x, w, tile_expert, tm, direction):
+    """x @ w[e], or with ``direction="backward"`` x @ w[e]ᵀ (dX)."""
     if _backend(x, "ragged GEMM") == "cuda":
         return ragged_gemm_cuda(x, w, tile_expert, tm=tm, direction=direction)
-    return ragged_gemm_plain(x, w, tile_expert, tm=tm)
+    return ragged_gemm_plain(x, w, tile_expert, tm=tm,
+                             transpose_w=direction == "backward")
 
 
 def ragged_gemm(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,

@@ -21,9 +21,12 @@ use it.
 Neither pads: ``T % tm`` or a ``tile_expert`` of the wrong length raises.
 
 The backward (``kernels.ops.ragged_gemm`` is an ``autograd.Function``):
-dX = ``ragged_gemm(dY, Wᵀ, tile_expert)`` runs the same kernel on the
-weights transposed to (E, F, D) (a contiguous copy), counted as a
-``backward`` launch in ``ragged_gemm_cuda.launches_by_direction``; dW is
+dX = dY · W[e]ᵀ is ``ragged_gemm_cuda(dY, W, tile_expert,
+direction="backward")``, the same kernel reading the forward's (E, D, F)
+weights transposed in place (the ``wgmma`` instance as its K-major B
+operand: element (f, d) of Wᵀ is ``w[e][d][f]``, contiguous along the
+product's depth F), counted as a ``backward`` launch in
+``ragged_gemm_cuda.launches_by_direction``; nothing copies W. dW is
 :func:`ragged_gemm_dw`, a batched product over experts laid out in equal
 contiguous groups of rows (``moe_mlp``'s buffer). No TPU kernel computes
 dW: the reference forms it by differentiating its einsum route in XLA.
@@ -59,11 +62,15 @@ def ragged_instance(dtype: torch.dtype, d: int, f: int, x_ptr: int,
 
 
 def check_ragged_shapes(x: torch.Tensor, w: torch.Tensor,
-                        tile_expert: torch.Tensor, tm: int) -> None:
-    """Raise unless x is (T, D) with T % tm == 0, w is (E, D, F) and
-    tile_expert holds one expert id per tm-row tile."""
-    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
-        raise ValueError(f"ragged_gemm: x (T, D) and w (E, D, F) expected, "
+                        tile_expert: torch.Tensor, tm: int,
+                        transpose_w: bool = False) -> None:
+    """Raise unless x is (T, D) with T % tm == 0 (with ``transpose_w``
+    (T, F)), w is (E, D, F) and tile_expert holds one expert id per
+    tm-row tile."""
+    depth = 2 if transpose_w else 1
+    if x.dim() != 2 or w.dim() != 3 or w.shape[depth] != x.shape[1]:
+        want = "(T, F)" if transpose_w else "(T, D)"
+        raise ValueError(f"ragged_gemm: x {want} and w (E, D, F) expected, "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
     if tm <= 0 or x.shape[0] % tm:
         raise ValueError(f"ragged_gemm: T = {x.shape[0]} is not a multiple "
@@ -77,14 +84,18 @@ def check_ragged_shapes(x: torch.Tensor, w: torch.Tensor,
 
 
 def ragged_gemm_plain(x: torch.Tensor, w: torch.Tensor,
-                      tile_expert: torch.Tensor, *, tm: int = 128
-                      ) -> torch.Tensor:
+                      tile_expert: torch.Tensor, *, tm: int = 128,
+                      transpose_w: bool = False) -> torch.Tensor:
     """Plain PyTorch ragged GEMM, the reference's XLA route: the (T // tm,
     D, F) gathered expert weights and one batched product. (T, F) in x's
-    dtype."""
-    check_ragged_shapes(x, w, tile_expert, tm)
+    dtype; with ``transpose_w`` x is (T, F) and the result x @ w[e]ᵀ, (T,
+    D) (the backward's dX, w read through a transposed view)."""
+    check_ragged_shapes(x, w, tile_expert, tm, transpose_w)
     xt = x.reshape(-1, tm, x.shape[1])
     wt = w[tile_expert.long()]
+    if transpose_w:
+        return torch.bmm(xt, wt.transpose(1, 2)).reshape(x.shape[0],
+                                                         w.shape[1])
     return torch.bmm(xt, wt).reshape(x.shape[0], w.shape[2])
 
 
@@ -110,15 +121,20 @@ def ragged_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     """(T, F) = x @ w[expert(token)] on the card through the hand kernel.
     x (T, D) and w (E, D, F) contiguous, both bf16 or both fp32;
     tile_expert (T // tm,) int32 with ids in [0, E) (not checked on the
-    device: a host read would stall the stream). Counts its launches in
-    ``ragged_gemm_cuda.launches``, by :func:`ragged_instance` in
-    ``ragged_gemm_cuda.launches_by_instance`` and by ``direction``
-    (``forward``, or ``backward`` for the dX launch of the autograd
-    backward) in ``ragged_gemm_cuda.launches_by_direction``. A build or
-    launch failure raises; no other instance is tried."""
+    device: a host read would stall the stream). ``direction="backward"``
+    is the autograd backward's dX: x is dY (T, F), w the forward's (E, D,
+    F) read transposed in place, and the result dY @ w[e]ᵀ, (T, D).
+    Counts its launches in ``ragged_gemm_cuda.launches``, by
+    :func:`ragged_instance` in ``ragged_gemm_cuda.launches_by_instance``
+    and by ``direction`` in ``ragged_gemm_cuda.launches_by_direction``. A
+    build or launch failure raises; no other instance is tried."""
     from repro_torch.kernels.build import load_kernel
 
-    check_ragged_shapes(x, w, tile_expert, tm)
+    if direction not in ragged_gemm_cuda.launches_by_direction:
+        raise ValueError(f"ragged_gemm: direction {direction!r} is not "
+                         f"forward or backward")
+    trans = direction == "backward"
+    check_ragged_shapes(x, w, tile_expert, tm, trans)
     if x.device.type != "cuda":
         raise ValueError(f"ragged_gemm: x must be a CUDA tensor, got "
                          f"{x.device}")
@@ -132,29 +148,27 @@ def ragged_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     if tile_expert.dtype != torch.int32:
         raise ValueError(f"ragged_gemm: tile_expert must be int32, got "
                          f"{tile_expert.dtype}")
-    if direction not in ragged_gemm_cuda.launches_by_direction:
-        raise ValueError(f"ragged_gemm: direction {direction!r} is not "
-                         f"forward or backward")
     if tm % _ROW_TILE:
         raise ValueError(f"ragged_gemm: tm = {tm} is not a multiple of the "
                          f"kernel's {_ROW_TILE}-row tile")
-    t, d = x.shape
-    e, _, f = w.shape
+    t = x.shape[0]
+    e, d, f = w.shape
     inst = ragged_instance(x.dtype, d, f, x.data_ptr(), w.data_ptr())
     if (inst != "wgmma" and t // 64 > _GRID_Y) or d >= 2 ** 31 or \
             f >= 2 ** 31:
         raise ValueError(f"ragged_gemm: shape {t} x {d} x {f} exceeds the "
                          f"launch grid")
-    out = torch.empty((t, f), dtype=x.dtype, device=x.device)
-    if t == 0 or f == 0:
+    width = d if trans else f
+    out = torch.empty((t, width), dtype=x.dtype, device=x.device)
+    if t == 0 or width == 0:
         return out
-    if d == 0:
+    if x.shape[1] == 0:
         return out.zero_()
     fn = getattr(load_kernel("ragged_gemm"), INSTANCES[inst])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),
-                out.data_ptr(), t, d, f, tm, e, stream)
+                out.data_ptr(), t, d, f, tm, e, int(trans), stream)
     if rc != 0:
         raise RuntimeError(f"ragged_gemm launch failed ({inst}): CUDA error "
                            f"{rc}")

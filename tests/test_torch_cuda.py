@@ -693,7 +693,9 @@ def test_ragged_gemm_dispatch_counts_and_rejects(card):
     (2, 4, 1, 200, 200, 32, True, None),        # S % 128 != 0, rep 4
     (1, 4, 4, 333, 400, 64, True, None),        # S % 128 != 0, rep 1
     (1, 8, 2, 129, 129, 64, False, None),       # one row past a q tile
-    (2, 2, 2, 70, 150, 32, True, 50)])          # rep 1, window
+    (2, 2, 2, 70, 150, 32, True, 50),           # rep 1, window
+    (1, 16, 16, 512, 512, 256, True, None),     # gemma-7b's heads of 256
+    (1, 4, 2, 200, 333, 256, True, 100)])       # D 256, S < T, window
 def test_flash_attention_kernel_matches_plain(card, dtype, b, hq, hkv, s, t,
                                               d, causal, window):
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -1752,7 +1754,11 @@ _BWD_CASES = [
     (2, 4, 1, 200, 333, 64, True, 100),         # S < T, window, ragged
     (1, 4, 4, 130, 130, 32, False, None),       # not causal, ragged tile
     (1, 8, 2, 300, 300, 128, False, 64),        # window, not causal
-    (2, 2, 2, 70, 150, 32, True, 50)]           # rep 1, window
+    (2, 2, 2, 70, 150, 32, True, 50),           # rep 1, window
+    (1, 8, 2, 333, 500, 128, True, 150),        # S < T, window, ragged S
+    (1, 4, 4, 190, 190, 64, False, None),       # not causal, ragged S
+    (1, 16, 16, 256, 256, 256, True, None),     # gemma-7b's heads of 256
+    (1, 4, 1, 200, 333, 256, True, 100)]        # D 256, S < T, window
 
 
 def _bwd_inputs(rng, dtype, b, hq, hkv, s, t, d, causal, window, card):
@@ -1770,9 +1776,12 @@ def _bwd_inputs(rng, dtype, b, hq, hkv, s, t, d, causal, window, card):
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal,window", _BWD_CASES)
 def test_flash_attention_bwd_kernel_matches_plain(card, dtype, b, hq, hkv,
                                                   s, t, d, causal, window):
+    """Each instance (bf16: ``wgmma`` at D 64 and 128, ``wmma`` at 32 and
+    256; fp32 up to 128, and a named refusal at 256) against the plain
+    version, the launch counted under its instance."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain,
-        flash_attention_plain_lse)
+        flash_attention_plain_lse, flash_bwd_instance)
     rng = np.random.default_rng(s + t + d)
     q, k, v, o, do, lse = _bwd_inputs(rng, dtype, b, hq, hkv, s, t, d,
                                       causal, window, card)
@@ -1781,8 +1790,20 @@ def test_flash_attention_bwd_kernel_matches_plain(card, dtype, b, hq, hkv,
     np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
                                rtol=1e-5 if dtype == torch.float32 else 1e-2,
                                atol=1e-4)
+    tops.reset_kernel_launches()
+    if dtype == torch.float32 and d == 256:
+        with pytest.raises(ValueError, match="227 KB"):
+            flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                     window=window)
+        assert flash_attention_bwd_cuda.launches == 0
+        return
     got = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
                                    window=window)
+    inst = flash_bwd_instance(dtype, d)
+    assert inst == ("f32" if dtype == torch.float32 else
+                    "wgmma" if d in (64, 128) else "wmma")
+    assert flash_attention_bwd_cuda.launches_by_instance == {
+        n: int(n == inst) for n in ("wgmma", "wmma", "f32")}
     want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                      window=window)
     torch.cuda.synchronize()
@@ -1794,42 +1815,72 @@ def test_flash_attention_bwd_kernel_matches_plain(card, dtype, b, hq, hkv,
         assert err <= tol, (err, tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_kernel_is_bitwise_repeatable(card, dtype):
+@pytest.mark.parametrize("dtype,d,s,t,window,inst", [
+    (torch.float32, 128, 512, 512, None, "f32"),
+    (torch.bfloat16, 128, 512, 512, None, "wgmma"),
+    (torch.bfloat16, 64, 333, 500, 150, "wgmma"),    # S < T, window, ragged
+    (torch.bfloat16, 256, 300, 300, None, "wmma")])
+def test_flash_attention_bwd_kernel_is_bitwise_repeatable(card, dtype, d, s,
+                                                          t, window, inst):
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
     rng = np.random.default_rng(9)
-    args = _bwd_inputs(rng, dtype, 2, 8, 2, 512, 512, 128, True, None, card)
-    first = flash_attention_bwd_cuda(*args)
-    flash_attention_bwd_cuda.launches = 0
-    again = flash_attention_bwd_cuda(*args)
+    args = _bwd_inputs(rng, dtype, 2, 8, 2, s, t, d, True, window, card)
+    kw = dict(causal=True, window=window)
+    first = flash_attention_bwd_cuda(*args, **kw)
+    tops.reset_kernel_launches()
+    again = flash_attention_bwd_cuda(*args, **kw)
     assert flash_attention_bwd_cuda.launches == 1
+    assert flash_attention_bwd_cuda.launches_by_instance[inst] == 1
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def test_ragged_gemm_dx_launch_matches_plain(card):
-    """The autograd Function's dX is the kernel on Wᵀ (a backward launch,
-    wgmma), dW one batched product: against the plain pieces on the same
-    card tensors."""
+@pytest.mark.parametrize("dtype,e,c,d,f,inst", [
+    (torch.bfloat16, 4, 256, 512, 384, "wgmma"),
+    (torch.bfloat16, 4, 256, 100, 264, "wmma"),      # D not a multiple of 8
+    (torch.float32, 4, 256, 512, 384, "f32")])
+def test_ragged_gemm_dx_launch_matches_plain(card, dtype, e, c, d, f, inst):
+    """The autograd Function's dX is the kernel reading W transposed in
+    place (a backward launch of the same instance), dW one batched
+    product: against the plain pieces on the same card tensors. A dX
+    alone allocates its output and no copy of W."""
     from repro_torch.kernels.ragged_gemm import (ragged_gemm_cuda,
                                                  ragged_gemm_plain)
     rng = np.random.default_rng(11)
-    e, c, d, f = 4, 256, 512, 384
-    x = _randn(rng, (e * c, d), torch.bfloat16, card).requires_grad_(True)
-    w = _randn(rng, (e, d, f), torch.bfloat16, card).requires_grad_(True)
-    dy = _randn(rng, (e * c, f), torch.bfloat16, card)
+    x = _randn(rng, (e * c, d), dtype, card).requires_grad_(True)
+    w = _randn(rng, (e, d, f), dtype, card).requires_grad_(True)
+    dy = _randn(rng, (e * c, f), dtype, card)
     te = (torch.arange(e * c // 128, dtype=torch.int32) // (c // 128)).to(card)
     tops.reset_kernel_launches()
     tops.ragged_gemm(x, w, te, n_groups=e).backward(dy)
     torch.cuda.synchronize()
     assert ragged_gemm_cuda.launches_by_direction == {"forward": 1,
                                                       "backward": 1}
-    assert ragged_gemm_cuda.launches_by_instance["wgmma"] == 2
+    assert ragged_gemm_cuda.launches_by_instance[inst] == 2
     want_dx = ragged_gemm_plain(dy, w.detach().transpose(1, 2).contiguous(),
                                 te)
-    _close_lm(x.grad, want_dx, torch.bfloat16)
+    _close_lm(x.grad, want_dx, dtype)
     want_dw = torch.bmm(x.detach().float().view(e, c, d).transpose(1, 2),
                         dy.float().view(e, c, f))
-    _close_lm(w.grad, want_dw, torch.bfloat16)
+    _close_lm(w.grad, want_dw, dtype)
+    # dX alone, with W F / 128 (2x to 3x) dX's size: the backward's peak
+    # over what was allocated before it stays below W's bytes (a Wᵀ copy
+    # would not)
+    e2, c2 = 16, 128
+    x2 = _randn(rng, (e2 * c2, d), dtype, card).requires_grad_(True)
+    w2 = _randn(rng, (e2, d, f), dtype, card)
+    dy2 = _randn(rng, (e2 * c2, f), dtype, card)
+    te2 = torch.arange(e2, dtype=torch.int32, device=card)
+    out = tops.ragged_gemm(x2, w2, te2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out.backward(dy2)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    w_bytes = w2.numel() * w2.element_size()
+    assert grown < w_bytes, (grown, w_bytes)
+    _close_lm(x2.grad, ragged_gemm_plain(dy2, w2, te2, transpose_w=True),
+              dtype)
 
 
 def _lm_smoke_step(cfg, device, batch, params):

@@ -1,11 +1,13 @@
-"""Hold the BSR SpMM, bf16 flash attention, bf16 ragged GEMM, scaled
-block SDDMM, SELL SpMM, FusedMM, sampling-hop and ordered segment-sum
-kernels against their plain versions at small shapes, then time them at
+"""Hold the BSR SpMM, bf16 flash attention and its backward, bf16 ragged
+GEMM and its dX, scaled block SDDMM, SELL SpMM, FusedMM, sampling-hop and
+ordered segment-sum kernels against their plain versions at small shapes,
+then time them at
 the main path's sizes beside the same kernels of another checkout, in
 turns (other, this, this, other). Needs one CUDA card and ``nvcc``.
 
     python tools/compare_kernels.py [--other DIR] [--variants]
-        [--kernels bsr,flash,ragged,sddmm,sell,fusedmm,sample,segsum,edgedots]
+        [--kernels bsr,flash,ragged,sddmm,sell,fusedmm,sample,segsum,edgedots,
+                   flashbwd,dx]
 
 ``--other DIR``: the root of a second checkout (e.g. the parent commit
 unpacked with ``git archive``); its kernels build into
@@ -26,8 +28,9 @@ barrier (exact where no tile is dense), and batches of 2 and 8 edges
 (the latter also with one CTA an SM's registers), timed over the fill
 sweep and on the proteins graph; of ``csrc/segment_sum.cu`` one, four and
 eight gathered rows in flight a lane in place of two on its sliced route
-(all exact), timed at the segment-sum sizes below.
-``--kernels``: check and time only these (default all nine).
+(all exact), timed at the segment-sum sizes below; of
+``csrc/flash_attention_bwd.cu`` a 3-stage ring in place of 2 (exact).
+``--kernels``: check and time only these (default all eleven).
 
 Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
 - BSR: a synthetic 518 x 518 grid of 230,000 dense 128 x 128 tiles (5 %
@@ -35,7 +38,15 @@ Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
   ogbn-proteins at scale 1/2 in ``chip_smoke.py`` phase 7, once with the
   tiles skewed over the block rows and once spread evenly;
 - flash attention at B 4, 32 / 8 heads, S = T = 2,048, D 128, causal,
-  bf16 (phase 10's prefill), beside ``scaled_dot_product_attention``;
+  bf16 (phase 10's prefill), and at gemma-7b's B 1, 16 heads of 256,
+  beside ``scaled_dot_product_attention``;
+- the flash backward (``flashbwd``) at phase 12's shape (B 4, 32 / 8
+  heads, S = T = 2,048, D 128, causal, bf16), beside SDPA's backward;
+- the ragged GEMM's dX (``dx``) at phase 12's shape (dY 20,480 x 6,400,
+  W 16 x 4,096 x 6,400, bf16) as each checkout's backward calls it: the
+  kernel reading W transposed in place where the checkout's wrapper takes
+  it, else on a contiguous copy of Wᵀ made in the call, beside
+  ``torch.bmm`` on the transposed view;
 - the ragged GEMM at phase 10's shapes, 16 experts in order: the prefill
   gate 20,480 x 4,096 x 6,400 and down 20,480 x 6,400 x 4,096, the decode
   gate 2,048 x 4,096 x 6,400, bf16, beside ``torch.bmm`` over the
@@ -153,6 +164,9 @@ VARIANTS["fusedmm_batch_8_one_cta"] = ("fusedmm", [
 VARIANTS["fusedmm_no_tile_barrier"] = ("fusedmm", [
     (_FUSED_ROUTE, "    if (false) {"),
     ("    __syncthreads();\n    int total = 0;", "    int total = 0;")])
+VARIANTS["flashbwd_stages_3"] = ("flash_attention_bwd", [
+    ("  static constexpr int kStages = 2;\n  static constexpr int kAtoms",
+     "  static constexpr int kStages = 3;\n  static constexpr int kAtoms")])
 SDDMM_FILLS = (0.007, 0.02, 0.04, 0.08, 0.16, 0.5)
 SELL_CHUNKS = (256, 512, 2048)     # beside the wrapper's CHUNK_STEPS
 CACHE_DIR = ROOT / "build" / "compare_cache"
@@ -302,6 +316,80 @@ def check_ragged():
             "not deterministic"
     log(f"ragged: worst |diff| / max|plain| {worst:.5f}, instances "
         f"{ragged_gemm_cuda.launches_by_instance}")
+
+
+def _bwd_inputs(b, hq, hkv, s, t, d, causal, window, seed):
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+    q, k, v, do = rn(b, hq, s, d), rn(b, hkv, t, d), rn(b, hkv, t, d), \
+        rn(b, hq, s, d)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    return q, k, v, o, do, lse
+
+
+def check_flashbwd():
+    """bf16 flash backward within 2^-7 x max|plain|, bitwise repeatable."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    worst = 0.0
+    for b, hq, hkv, s, t, d, causal, window in (
+            (1, 8, 2, 256, 256, 128, True, None),
+            (2, 4, 1, 200, 333, 64, True, 100),
+            (1, 4, 4, 300, 300, 128, False, 64)):
+        args = _bwd_inputs(b, hq, hkv, s, t, d, causal, window, s + t)
+        kw = dict(causal=causal, window=window)
+        got = flash_attention_bwd_cuda(*args, **kw)
+        want = flash_attention_bwd_plain(*args, **kw)
+        for g_, w_ in zip(got, want):
+            err = float((g_.float() - w_.float()).abs().max()
+                        / w_.float().abs().max())
+            assert err <= 2.0 ** -7, (b, hq, s, t, d, err)
+            worst = max(worst, err)
+        again = flash_attention_bwd_cuda(*args, **kw)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+    log(f"flash backward: worst |diff| / max|plain| {worst:.5f}")
+
+
+def _dx(dy, w, te):
+    """dX as this checkout's backward makes it: W read in place where the
+    wrapper takes it, else a contiguous Wᵀ (the earlier backward)."""
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
+    try:
+        return ragged_gemm_cuda(dy, w, te, direction="backward")
+    except ValueError:
+        return ragged_gemm_cuda(dy, w.transpose(1, 2).contiguous(), te,
+                                direction="backward")
+
+
+def _dx_inputs(t, d, f, e, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn((t, f), generator=g, device="cuda").bfloat16()
+    w = torch.randn((e, d, f), generator=g, device="cuda").bfloat16()
+    te = (torch.arange(t // 128, device="cuda") * e // (t // 128)).to(
+        torch.int32)
+    return dy, w, te
+
+
+def check_dx():
+    """The ragged GEMM's dX within 2^-7 x max|plain|."""
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_plain
+    worst = 0.0
+    for t, d, f, e in ((2048, 4096, 6400, 16), (1024, 520, 200, 4)):
+        dy, w, te = _dx_inputs(t, d, f, e, t + d)
+        got = _dx(dy, w, te)
+        want = ragged_gemm_plain(dy, w.transpose(1, 2).contiguous(), te)
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        assert err <= 2.0 ** -7, (t, d, f, err)
+        worst = max(worst, err)
+    log(f"dX: worst |diff| / max|plain| {worst:.5f}")
 
 
 def check_sddmm():
@@ -617,7 +705,10 @@ def time_run(tag: str, variant: str | None, kernels) -> dict:
         kb._LOADED[lib_name] = lib
         timer = {"sddmm": time_sddmm, "sell_spmm": time_sell,
                  "fusedmm": time_fusedmm,
-                 "segment_sum": time_segsum}.get(lib_name)
+                 "segment_sum": time_segsum,
+                 "flash_attention_bwd": time_flashbwd}.get(lib_name)
+        if timer is time_flashbwd:
+            return timer(res)
         return timer(res, sweep_only=True) if timer else time_bsr(res)
     for name in kernels:
         TIMERS[name](res)
@@ -647,6 +738,45 @@ def time_flash(res: dict) -> dict:
     res["flash_ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v), reps=20)
     res["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps=20)
+    # gemma-7b's heads of 256 (a checkout without that instance: None)
+    q, k, v = (torch.randn((1, 16, 2048, 256), generator=g,
+                           device="cuda").bfloat16() for _ in range(3))
+    try:
+        res["flash_d256_ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v),
+                                       reps=20)
+    except ValueError:
+        res["flash_d256_ms"] = None
+    res["sdpa_d256_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=20)
+    return res
+
+
+def time_flashbwd(res: dict) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    args = _bwd_inputs(4, 32, 8, 2048, 2048, 128, True, None, 0)
+    res["flash_bwd_ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(*args),
+                                  reps=20)
+    for part in ("dkdv", "dq"):       # the kernels' names: flash_bwd_<part>
+        res[f"flash_bwd_{part}_device_ms"] = device_ms(
+            lambda: flash_attention_bwd_cuda(*args), f"flash_bwd_{part}")
+    q, k, v, _, do, _ = args
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                         enable_gqa=True)
+    res["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), reps=20)
+    return res
+
+
+def time_dx(res: dict) -> dict:
+    import torch
+    e = 16
+    dy, w, te = _dx_inputs(20480, 4096, 6400, e, 0)
+    res["dx_ms"] = cuda_ms(lambda: _dx(dy, w, te), reps=20)
+    yb, wt = dy.view(e, -1, dy.shape[1]), w.transpose(1, 2)
+    res["bmm_dx_ms"] = cuda_ms(lambda: torch.bmm(yb, wt), reps=20)
     return res
 
 
@@ -1202,15 +1332,18 @@ def check_sell_all():
 CHECKS = {"bsr": check_bsr, "flash": check_flash, "ragged": check_ragged,
           "sddmm": check_sddmm, "sell": check_sell_all,
           "fusedmm": check_fusedmm, "sample": check_sample,
-          "segsum": check_segsum, "edgedots": check_edgedots}
+          "segsum": check_segsum, "edgedots": check_edgedots,
+          "flashbwd": check_flashbwd, "dx": check_dx}
 TIMERS = {"bsr": time_bsr, "flash": time_flash, "ragged": time_ragged,
           "sddmm": time_sddmm, "sell": time_sell, "fusedmm": time_fusedmm,
           "sample": time_sample, "segsum": time_segsum,
-          "edgedots": time_edgedots}
+          "edgedots": time_edgedots, "flashbwd": time_flashbwd,
+          "dx": time_dx}
 LIBS = {"bsr": "bsr_spmm", "flash": "flash_attention",
         "ragged": "ragged_gemm", "sddmm": "sddmm", "sell": "sell_spmm",
         "fusedmm": "fusedmm", "sample": "sample", "segsum": "segment_sum",
-        "edgedots": "edge_dots"}
+        "edgedots": "edge_dots", "flashbwd": "flash_attention_bwd",
+        "dx": "ragged_gemm"}
 
 
 def build_variants(kernels):
