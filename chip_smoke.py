@@ -10,10 +10,8 @@ failure:
    kernels compiled from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel), ptxas's registers and spills of every kernel,
    and of the kernels the last slice added or redesigned (the flash
-   backward's ``flash_bwd_dkdv_wgmma_kernel`` and
-   ``flash_bwd_dq_wgmma_kernel``, the ragged GEMM's instances with the
-   copy-free dX, the flash forward with its D = 256 instance) on a line
-   of their own;
+   backward's D = 256 instance, ``flash_bwd_dkdv_split_kernel`` and
+   ``flash_bwd_dq_split_kernel``) on a line of their own;
 2. sampled serving at full width — reddit at scale 1 (232,965 nodes,
    602 features, 41 classes), GraphSAGE-mean, 2 layers, hidden 256,
    fanouts (10, 25) outermost first, a 65,536-row feature cache, fp32,
@@ -180,10 +178,22 @@ failure:
    step, peak memory; the flash backward timed at this shape beside its
    five- and seven-product bounds, its plain version and SDPA's
    backward, a dX launch as the backward makes it beside ``torch.bmm``
-   on the transposed weights; gemma-7b's attention shape (B 1, 16 / 16
-   heads of 256, S = T = 2,048, causal, bf16): the flash forward with
-   its LSE and the backward, each against its plain version and the fp32
-   oracle and timed; the smoke config in
+   on the transposed weights. Then gemma-7b at full width (d_model
+   3,072, 16 / 16 heads of 256, GeGLU d_ff 24,576, vocab 256,000, tied
+   embeddings, bf16), cut to 1 of 28 layers (1.06 B params), remat
+   "full", the same defaults and checks, 1 x 2,048 tokens: step 0
+   launches 2 flash forwards (1 recomputed) and 1 flash backward, on the
+   ``wgmma`` instance (the D = 256 design: the head dim split across the
+   warpgroups), no ragged GEMM; every launch held against its plain
+   version and the fp32 oracle (the backward's rows past
+   ``flash_bwd_row_floors``); step 0 twice bit for bit; 5 steps on one
+   batch with a falling loss; ms a step, tokens/s, busy share, peak
+   memory and the backward's kernels' device ms in the traced step;
+   gemma-7b's attention shape (B 1, 16 / 16 heads of 256, S = T =
+   2,048, causal, bf16) as a kernel case: the flash forward with its LSE
+   and the backward (launched twice, bitwise equal), each against its
+   plain version and the fp32 oracle and timed (CUDA events and the
+   device trace by kernel); the smoke config in
    fp32 on the card for 3 steps against the port's CPU run (losses
    rtol 1e-4, params within the CPU tests' stated tolerance);
 5. last, the kernels line (one JSON object: the sampling kernels and the
@@ -191,8 +201,8 @@ failure:
    per-edge SDDMM as timed in phase 9, the serving kernels as timed in phase 4, BSR as timed in
    phase 7, SDDMM and FusedMM as timed in phase 9, the ragged GEMM and
    flash attention as timed in phase 10, with phase 12's launches and
-   dX timing, and the flash backward as timed in phase 12), the card
-   line, and
+   dX timing, and the flash backward as timed in phase 12, its ``d256_*``
+   keys from gemma-7b's kernel case and step), the card line, and
    ``{"ok": true, "device": {...}}``.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
@@ -332,8 +342,7 @@ def ptxas_report(text: str) -> dict:
 
 # the kernels this slice added or redesigned: phase 1 logs their
 # registers and spills on a line of their own
-NEW_KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-               "ragged_gemm_wgmma_kernel", "flash_attention_wgmma_kernel")
+NEW_KERNELS = ("flash_bwd_dkdv_split_kernel", "flash_bwd_dq_split_kernel")
 
 
 def card_line() -> str:
@@ -3131,52 +3140,12 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 2048
 LM_TRAIN_STEPS = 8      # on one fixed batch: the loss must fall
 LM_TRAIN_SMOKE_STEPS = 3
 LM_TRAIN_KERNELS = ("ragged_gemm", "flash_attention", "flash_attention_bwd")
+GEMMA_ARCH = "gemma-7b"
+GEMMA_TRAIN_LAYERS = 1  # of 28 (gemma_train_phase logs why)
+GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ = 1, 2048
+GEMMA_TRAIN_STEPS = 5   # step 0 and 4 more on one batch: the loss must fall
 LSE_ATOL = 1e-3         # the forward's LSE against the fp32 oracle's: fp32
                         # sums of D products in another order, scores ~10
-
-
-def flash_bwd_row_floors(q, k, v, o, do, lse, *, causal=True,
-                         window=None, chunk=1024) -> tuple:
-    """The rounding floor of each row of (dq, dk, dv) for the row check:
-    2 D eps32 x the row's largest sum of absolute terms, with dS's
-    cancelling difference dP_ij - D_i replaced by the size of what
-    cancels, |dO_i|.|v_j| + |dO_i|.|O_i|. A row can cancel to near zero
-    in exact arithmetic (query 0 sees key 0 alone: P = 1 and dS = dO.v_0
-    - dO.O_0 = 0), and then fp32 sums in another order differ by this
-    much, not by a fraction of the row's own size."""
-    import torch
-    b, hq, s, d = q.shape
-    n_kv, t = k.shape[1], k.shape[2]
-    g = hq // n_kv
-    scale = 1.0 / d ** 0.5
-    qa = q.reshape(b, n_kv, g, s, d).float().abs()
-    doa = do.reshape(b, n_kv, g, s, d).float().abs()
-    deltaa = (doa * o.reshape(b, n_kv, g, s, d).float().abs()).sum(
-        -1, keepdim=True)
-    lseg = lse.reshape(b, n_kv, g, s, 1)
-    q_pos = (t - s) + torch.arange(s, device=q.device)
-    mag_dq = torch.zeros_like(qa)
-    mag_dk = torch.empty((b, n_kv, t, d), device=q.device)
-    mag_dv = torch.empty_like(mag_dk)
-    for lo in range(0, t, chunk):
-        hi = min(lo + chunk, t)
-        kc, vc = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
-        k_pos = torch.arange(lo, hi, device=q.device)
-        mask = torch.ones((s, hi - lo), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= k_pos[None, :] <= q_pos[:, None]
-        if window is not None:
-            mask &= k_pos[None, :] > q_pos[:, None] - window
-        sc = torch.einsum("bkgsd,bktd->bkgst",
-                          q.reshape(b, n_kv, g, s, d).float(), kc) * scale
-        p = torch.where(mask, torch.exp(sc - lseg), 0.0)
-        a = p * (torch.einsum("bkgsd,bktd->bkgst", doa, vc.abs()) + deltaa)
-        mag_dq += torch.einsum("bkgst,bktd->bkgsd", a, kc.abs())
-        mag_dk[:, :, lo:hi] = torch.einsum("bkgst,bkgsd->bktd", a, qa)
-        mag_dv[:, :, lo:hi] = torch.einsum("bkgst,bkgsd->bktd", p, doa)
-    return tuple(2 * d * EPS32 * m.reshape(-1, d).amax(-1) * f
-                 for m, f in ((mag_dq, scale), (mag_dk, scale),
-                              (mag_dv, 1.0)))
 
 
 @contextlib.contextmanager
@@ -3195,7 +3164,7 @@ def record_train_kernels(check: bool):
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain,
-        flash_attention_plain_lse)
+        flash_attention_plain_lse, flash_bwd_row_floors)
     from repro_torch.kernels.ragged_gemm import ragged_gemm_plain
     names = ("ragged_gemm_cuda", "flash_attention_cuda",
              "flash_attention_bwd_cuda", "ragged_gemm_plain",
@@ -3446,18 +3415,19 @@ GEMMA_ATTN = dict(b=1, hq=16, hkv=16, s=2048, t=2048, d=256)   # gemma-7b
 def gemma_attention_case() -> dict:
     """gemma-7b's attention shape (``GEMMA_ATTN``, causal, bf16, its
     head dim 256, seeded inputs): the flash forward with its LSE and the
-    backward, each held against its plain version and, row by row, the
-    fp32 oracle (:func:`check_lm_launch`; the LSE within ``LSE_ATOL``),
-    then timed beside its bound, its plain version and SDPA. A kernel
-    case, not a model run: the script's time limit has no room for
-    gemma-7b's weights."""
+    backward (the ``wgmma`` instance, the head dim split across the
+    warpgroups), each held against its plain version and, row by row, the
+    fp32 oracle (:func:`check_lm_launch`; the LSE within ``LSE_ATOL``;
+    the backward's rows past ``flash_bwd_row_floors``), the backward
+    launched twice for the same bits, then each timed (CUDA events and a
+    device trace) beside its bound, its plain version and SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.autotune import H100
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_cuda, flash_attention_plain,
-        flash_attention_plain_lse)
+        flash_attention_plain_lse, flash_bwd_row_floors)
     c = GEMMA_ATTN
     gen = torch.Generator(device=DEVICE).manual_seed(7)
 
@@ -3481,17 +3451,22 @@ def gemma_attention_case() -> dict:
     del want_o, want_lse
     by_inst = dict(flash_attention_bwd_cuda.launches_by_instance)
     got = flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse)
     launched["instance"] = {
         n: c - by_inst[n]
         for n, c in flash_attention_bwd_cuda.launches_by_instance.items()}
-    if launched["instance"] != {"wgmma": 0, "wmma": 1, "f32": 0}:
+    if launched["instance"] != {"wgmma": 2, "wmma": 0, "f32": 0}:
         raise AssertionError(f"gemma backward ran {launched['instance']}, "
-                             f"want the wmma instance at D = 256")
+                             f"want the wgmma instance at D = 256")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("gemma backward: two launches on the same "
+                             "inputs differ")
+    del again
     want = flash_attention_bwd_plain(q, k, v, o, do, lse)
     oracle = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
                                        o.float(), do.float(), lse)
     floors = flash_bwd_row_floors(q, k, v, o, do, lse)
-    bwd = dict(name="flash_attention_bwd", shape=shape)
+    bwd = dict(name="flash_attention_bwd", shape=shape, instance="wgmma")
     for part, g_, w_, orc, fl in zip(("dq", "dk", "dv"), got, want, oracle,
                                      floors):
         entry = dict(name=f"flash_attention_bwd {part}", shape=shape)
@@ -3512,9 +3487,21 @@ def gemma_attention_case() -> dict:
                     flops=flops, bytes=nbytes)
     fwd["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v,
                                                      return_lse=True))
+    fwd["device_ms"] = traced_ms(lambda: flash_attention_cuda(
+        q, k, v, return_lse=True), 10, "flash_attention_wgmma")
     fwd["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v), reps=2,
                               warmup=1)
     bwd["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse))
+    for _ in range(3):      # a late trace may lose kernels: take it again
+        us = device_us(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse),
+                       10)
+        parts = {part: sum(t for name, t in us.items()
+                           if f"flash_bwd_{part}" in name) / 10 / 1e3 or None
+                 for part in ("delta", "dkdv_split", "dq_split")}
+        if all(parts.values()):
+            break
+    bwd["kernel_device_ms"] = parts
+    bwd["device_ms"] = sum(parts.values()) if all(parts.values()) else None
     bwd["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_plain(
         q, k, v, o, do, lse), reps=2, warmup=1)
     bwd["bound_7_ms"] = max(H100.mem_time(bwd["bytes"]),
@@ -3532,61 +3519,36 @@ def gemma_attention_case() -> dict:
     return dict(forward=fwd, backward=bwd, launches=launched)
 
 
-def lm_train_phase() -> dict:
-    """Phase 12: LM training of phi3.5-moe at full width cut to
-    LM_TRAIN_LAYERS layers, bf16 params, fp32 Adam moments, remat "full",
-    ``make_train_step``'s defaults, seeded random init on the card, 4 x
-    2,048 tokens from ``data/tokens``. Step 0 with its launch counts and
-    every launch held against its plain version; step 0 again from the
-    same state, bit for bit; 8 steps on one fixed batch with a falling
-    loss; the step's time, tokens/s, busy share and peak memory; the
-    flash backward and a dX launch timed; the smoke config in fp32 on the
-    card against the CPU."""
-    import dataclasses as dc
+def train_checks(tag: str, cfg, batch: dict, n_steps: int,
+                 want: dict) -> dict:
+    """One model's training on the card as phase 12 checks it:
+    ``make_train_step``'s defaults, seeded random init on the card. Step 0
+    with its launch counts (``want``: ``launches`` by kernel, the ragged
+    GEMM's ``ragged_directions`` and ``ragged_instances``, the flash
+    backward's ``bwd_instances``), every launch held against its plain
+    version and the fp32 oracle (:func:`record_train_kernels`); step 0
+    again from the same state, bit for bit; ``n_steps`` steps on the one
+    batch with a falling loss; ms a step and tokens/s (host clock over
+    steps 1 ..), the busy share and device ms by kernel of a traced step,
+    peak memory. ``inputs`` holds the first flash backward's and ragged
+    dX's records with their inputs, by kernel name, for timing."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.data import synthetic_lm_batch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
     from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
     from repro_torch.optim.optimizer import tree_leaves, tree_map
     from repro_torch.train import lm as TL
 
-    t_phase = time.perf_counter()
-    full = get_config(LM_ARCH)
-    cfg = dc.replace(full, n_layers=LM_TRAIN_LAYERS)
-    n = cfg.param_count()
-    per_layer = n - dc.replace(full, n_layers=LM_TRAIN_LAYERS - 1
-                               ).param_count()
-    expert_leaf = cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff
-    cut = (f"{LM_ARCH} at full width, {LM_TRAIN_LAYERS} of "
-           f"{full.n_layers} layers, remat {cfg.remat!r}: "
-           f"{n / 1e6:.1f} M parameters ({per_layer / 1e6:.1f} M a layer, "
-           f"{(n - LM_TRAIN_LAYERS * per_layer) / 1e6:.1f} M of embedding "
-           f"and head); bf16 params {2 * n / 1e9:.1f} GB, bf16 grads "
-           f"{2 * n / 1e9:.1f} GB, fp32 moments {8 * n / 1e9:.1f} GB; an "
-           f"fp32 temporary of an expert leaf {4 * expert_leaf / 1e9:.1f} "
-           f"GB; 3 layers would hold "
-           f"{12 * dc.replace(full, n_layers=3).param_count() / 1e9:.1f} GB "
-           f"of the card's 80 before any activation or update")
-    log(f"cut: {cut}")
     step_fn, opt = TL.make_train_step(cfg)
-    lr = 3e-4
+    n = cfg.param_count()
     t0 = time.perf_counter()
     state = TL.make_train_state(
         cfg, torch.Generator(device=DEVICE).manual_seed(0), opt,
         device=DEVICE)
     torch.cuda.synchronize()
-    log(f"lm train: {n / 1e9:.3f} B parameters drawn on the card in "
+    log(f"{tag} train: {n / 1e9:.3f} B parameters drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s")
-    toks, tgts = synthetic_lm_batch(LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab)
-    batch = {"tokens": torch.from_numpy(toks).to(DEVICE),
-             "targets": torch.from_numpy(tgts).to(DEVICE)}
     p0 = tree_map(torch.clone, state.params)
-
-    def counts():
-        return {name: kops.kernel_launches()[name]
-                for name in LM_TRAIN_KERNELS}
 
     # -- step 0: counts, every launch checked, gradients kept ----------------
     run1: list = []
@@ -3597,48 +3559,32 @@ def lm_train_phase() -> dict:
                 (r[0].clone(), tree_map(torch.clone, r[2])))):
         state, m0 = step_fn(state, batch)
         torch.cuda.synchronize()
-    launched = counts()
-    directions = dict(ragged_gemm_cuda.launches_by_direction)
-    instances = dict(ragged_gemm_cuda.launches_by_instance)
-    bwd_instances = dict(flash_attention_bwd_cuda.launches_by_instance)
-    n_ragged = 3 * LM_TRAIN_LAYERS
-    want = {"ragged_gemm": 3 * n_ragged,
-            "flash_attention": 2 * LM_TRAIN_LAYERS,
-            "flash_attention_bwd": LM_TRAIN_LAYERS}
-    if launched != want or directions != {"forward": 2 * n_ragged,
-                                          "backward": n_ragged} or \
-            instances != {"wgmma": 3 * n_ragged, "wmma": 0, "f32": 0} or \
-            bwd_instances != {"wgmma": LM_TRAIN_LAYERS, "wmma": 0, "f32": 0}:
-        raise AssertionError(f"lm train step 0 launches {launched} (want "
-                             f"{want}), ragged by direction {directions}, "
-                             f"by instance {instances}, flash backward by "
-                             f"instance {bwd_instances}: every ragged "
-                             f"launch and flash backward must run wgmma")
+    got = dict(launches={name: kops.kernel_launches()[name]
+                         for name in LM_TRAIN_KERNELS},
+               ragged_directions=dict(ragged_gemm_cuda.launches_by_direction),
+               ragged_instances=dict(ragged_gemm_cuda.launches_by_instance),
+               bwd_instances=dict(
+                   flash_attention_bwd_cuda.launches_by_instance))
+    if got != want:
+        raise AssertionError(f"{tag} train step 0 launched {got}, want "
+                             f"{want}")
     metrics0 = {k: float(v) for k, v in m0.items()}
     if not all(np.isfinite(list(metrics0.values()))):
-        raise AssertionError(f"lm train step 0 metrics {metrics0}")
+        raise AssertionError(f"{tag} train step 0 metrics {metrics0}")
     checks = [{k: v for k, v in c.items() if k != "inputs"} for c in calls]
-    worst = {}
+    worst, worst_row = {}, {}
     for c in checks:
         key = c["name"] + (" dX" if c.get("direction") == "backward" else "")
         worst[key] = max(worst.get(key, 0.0), c["err_over_max"])
-    worst_row = {}
-    for c in checks:
-        key = c["name"] + (" dX" if c.get("direction") == "backward" else "")
         worst_row[key] = max(worst_row.get(key, 0.0),
                              c["row_err_over_row_max"])
-    log(f"lm train step 0: launches {launched}, ragged by direction "
-        f"{directions}, by instance {instances}, flash backward by "
-        f"instance {bwd_instances}; metrics {metrics0}")
-    log(f"lm train step 0: {len(checks)} launches held against their "
+    log(f"{tag} train step 0: {got}; metrics {metrics0}")
+    log(f"{tag} train step 0: {len(checks)} launches held against their "
         f"plain versions; worst max|diff| / max|plain| {worst} (tolerance "
         f"{LM_TOL}); worst row against the fp32 oracle {worst_row}; "
         f"flash LSE {max(c.get('lse_max_abs_err', 0.0) for c in checks):.2e}"
         f" (atol {LSE_ATOL})")
-    bwd_call = next(c for c in calls if c["name"] == "flash_attention_bwd"
-                    and "inputs" in c)
-    dx_call = next(c for c in calls if c["name"] == "ragged_gemm"
-                   and "inputs" in c)
+    inputs = {c["name"]: c for c in calls if "inputs" in c}
     del calls
 
     # -- step 0 again from the same state: the same bits ---------------------
@@ -3667,20 +3613,20 @@ def lm_train_phase() -> dict:
         if not torch.equal(a, b):
             mismatched.append(f"param {i}")
     if mismatched or float(m0b["loss"]) != metrics0["loss"]:
-        raise AssertionError(f"lm train step 0 twice from the same state: "
-                             f"not the same bits in {mismatched[:8]}")
+        raise AssertionError(f"{tag} train step 0 twice from the same "
+                             f"state: not the same bits in {mismatched[:8]}")
     n_leaves = len(tree_leaves(p1))
-    log(f"lm train step 0 twice from the same state: loss, {n_leaves} "
+    log(f"{tag} train step 0 twice from the same state: loss, {n_leaves} "
         f"gradients and {n_leaves} updated params equal bit for bit")
     del p0, p1, g1, loss1
 
-    # -- 8 steps on one fixed batch ------------------------------------------
+    # -- n_steps steps on one fixed batch ------------------------------------
     losses = [metrics0["loss"]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     step_metrics = []
-    for _ in range(LM_TRAIN_STEPS - 1):
+    for _ in range(n_steps - 1):
         state, m = step_fn(state, batch)
         step_metrics.append(m)
     torch.cuda.synchronize()
@@ -3688,63 +3634,175 @@ def lm_train_phase() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses += [float(m["loss"]) for m in step_metrics]
     if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
-        raise AssertionError(f"lm train: loss did not fall on a fixed "
+        raise AssertionError(f"{tag} train: loss did not fall on a fixed "
                              f"batch: {losses}")
-    step_ms = wall / (LM_TRAIN_STEPS - 1) * 1e3
-    tokens_s = LM_TRAIN_BATCH * LM_TRAIN_SEQ / step_ms * 1e3
+    step_ms = wall / (n_steps - 1) * 1e3
+    tokens_s = batch["tokens"].numel() / step_ms * 1e3
     prof = step_profile(lambda: step_fn(state, batch))
-    log(f"lm train: losses over {LM_TRAIN_STEPS} steps on one batch "
+    log(f"{tag} train: losses over {n_steps} steps on one batch "
         f"{[round(x, 4) for x in losses]}; {step_ms:.1f} ms a step "
-        f"({tokens_s:.0f} tokens/s, host clock over steps 1..7), device "
-        f"busy {prof['busy_share']:.3f} in a traced step, peak "
+        f"({tokens_s:.0f} tokens/s, host clock over steps 1..{n_steps - 1})"
+        f", device busy {prof['busy_share']:.3f} in a traced step, peak "
         f"{peak_gb:.2f} GB")
     log(f"  top step kernels (ms) {prof['top']}")
+    return dict(launches=got["launches"],
+                ragged_by_direction=got["ragged_directions"],
+                ragged_instances=got["ragged_instances"],
+                flash_bwd_instances=got["bwd_instances"],
+                metrics_step0=metrics0, checks=checks,
+                worst_err_over_max=worst, worst_row=worst_row,
+                losses=losses, step_ms=step_ms, tokens_s=tokens_s,
+                peak_gb=peak_gb, profile=prof, inputs=inputs)
 
-    def traced_launch_ms(key, launches):
-        ms = sum(t for name, t in prof["device_ms"].items() if key in name)
-        return ms / launches if ms else None
+
+def traced_launch_ms(prof: dict, key: str, launches: int):
+    """Device ms a launch of the kernels whose names contain ``key`` in a
+    traced step (:func:`step_profile`), None where the trace has none."""
+    ms = sum(t for name, t in prof["device_ms"].items() if key in name)
+    return ms / launches if ms else None
+
+
+def gemma_train_phase() -> dict:
+    """gemma-7b at full width cut to GEMMA_TRAIN_LAYERS layers through
+    :func:`train_checks`, B GEMMA_TRAIN_BATCH x GEMMA_TRAIN_SEQ tokens
+    from ``data/tokens``: step 0 launches the flash forward twice (once
+    recomputed under remat "full"), the flash backward once on the
+    ``wgmma`` instance (head dim 256: the head dim split across the
+    warpgroups) and no ragged GEMM (the dense GeGLU MLP is ``matmul``);
+    the backward's kernels' device ms are read from the traced step."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batch
+    full = get_config(GEMMA_ARCH)
+    cfg = dc.replace(full, n_layers=GEMMA_TRAIN_LAYERS)
+    n = cfg.param_count()
+    emb = dc.replace(full, n_layers=0).param_count()
+    cut = (f"{GEMMA_ARCH} at full width (d_model {cfg.d_model}, "
+           f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, "
+           f"GeGLU d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied embeddings), "
+           f"{GEMMA_TRAIN_LAYERS} of {full.n_layers} layers, remat "
+           f"{cfg.remat!r}: {n / 1e6:.1f} M parameters ({emb / 1e6:.1f} M "
+           f"of embedding, {(n - emb) / 1e6:.1f} M a layer); bf16 params "
+           f"and grads {2 * n / 1e9:.2f} GB each, fp32 moments "
+           f"{8 * n / 1e9:.2f} GB; all {full.n_layers} layers would hold "
+           f"{12 * full.param_count() / 1e9:.1f} GB of the card's 80 before "
+           f"any activation; each further layer repeats the same launches "
+           f"and adds ~{12 * (n - emb) / 1e9:.1f} GB and its AdamW passes "
+           f"to a phase the script's time limit bounds")
+    log(f"cut: {cut}")
+    toks, tgts = synthetic_lm_batch(GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ,
+                                    cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(DEVICE),
+             "targets": torch.from_numpy(tgts).to(DEVICE)}
+    want = dict(launches={"ragged_gemm": 0,
+                          "flash_attention": 2 * GEMMA_TRAIN_LAYERS,
+                          "flash_attention_bwd": GEMMA_TRAIN_LAYERS},
+                ragged_directions={"forward": 0, "backward": 0},
+                ragged_instances={"wgmma": 0, "wmma": 0, "f32": 0},
+                bwd_instances={"wgmma": GEMMA_TRAIN_LAYERS, "wmma": 0,
+                               "f32": 0})
+    res = train_checks(GEMMA_ARCH, cfg, batch, GEMMA_TRAIN_STEPS, want)
+    del res["inputs"]
+    res["bwd_device_ms"] = {
+        part: traced_launch_ms(res["profile"], f"flash_bwd_{part}",
+                               GEMMA_TRAIN_LAYERS)
+        for part in ("delta", "dkdv_split", "dq_split")}
+    log(f"  gemma-7b step's flash backward device ms by kernel "
+        f"{res['bwd_device_ms']}")
+    res.update(cut=cut, layers=GEMMA_TRAIN_LAYERS, batch=GEMMA_TRAIN_BATCH,
+               seq=GEMMA_TRAIN_SEQ)
+    return res
+
+
+def lm_train_phase() -> dict:
+    """Phase 12: LM training of phi3.5-moe at full width cut to
+    LM_TRAIN_LAYERS layers, bf16 params, fp32 Adam moments, remat "full",
+    4 x 2,048 tokens from ``data/tokens``, through :func:`train_checks`
+    (8 steps); the flash backward and a dX launch timed at its shapes;
+    then gemma-7b at full width cut to 1 layer through the same checks
+    (its head dim 256: the split backward instance), gemma's attention
+    as a kernel case, and the smoke config in fp32 on the card against
+    the CPU."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batch
+
+    t_phase = time.perf_counter()
+    full = get_config(LM_ARCH)
+    cfg = dc.replace(full, n_layers=LM_TRAIN_LAYERS)
+    n = cfg.param_count()
+    per_layer = n - dc.replace(full, n_layers=LM_TRAIN_LAYERS - 1
+                               ).param_count()
+    expert_leaf = cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff
+    cut = (f"{LM_ARCH} at full width, {LM_TRAIN_LAYERS} of "
+           f"{full.n_layers} layers, remat {cfg.remat!r}: "
+           f"{n / 1e6:.1f} M parameters ({per_layer / 1e6:.1f} M a layer, "
+           f"{(n - LM_TRAIN_LAYERS * per_layer) / 1e6:.1f} M of embedding "
+           f"and head); bf16 params {2 * n / 1e9:.1f} GB, bf16 grads "
+           f"{2 * n / 1e9:.1f} GB, fp32 moments {8 * n / 1e9:.1f} GB; an "
+           f"fp32 temporary of an expert leaf {4 * expert_leaf / 1e9:.1f} "
+           f"GB; 3 layers would hold "
+           f"{12 * dc.replace(full, n_layers=3).param_count() / 1e9:.1f} GB "
+           f"of the card's 80 before any activation or update")
+    log(f"cut: {cut}")
+    toks, tgts = synthetic_lm_batch(LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(DEVICE),
+             "targets": torch.from_numpy(tgts).to(DEVICE)}
+    n_ragged = 3 * LM_TRAIN_LAYERS
+    want = dict(launches={"ragged_gemm": 3 * n_ragged,
+                          "flash_attention": 2 * LM_TRAIN_LAYERS,
+                          "flash_attention_bwd": LM_TRAIN_LAYERS},
+                ragged_directions={"forward": 2 * n_ragged,
+                                   "backward": n_ragged},
+                ragged_instances={"wgmma": 3 * n_ragged, "wmma": 0, "f32": 0},
+                bwd_instances={"wgmma": LM_TRAIN_LAYERS, "wmma": 0,
+                               "f32": 0})
+    phi = train_checks(LM_ARCH, cfg, batch, LM_TRAIN_STEPS, want)
+    del batch
+    inputs = phi.pop("inputs")
+    prof = phi["profile"]
 
     # -- the kernels at the main path's shapes -------------------------------
-    bwd = flash_bwd_case(bwd_call, traced_launch_ms("flash_bwd_d",
-                                                    LM_TRAIN_LAYERS))
+    bwd = flash_bwd_case(inputs["flash_attention_bwd"], traced_launch_ms(
+        prof, "flash_bwd_d", LM_TRAIN_LAYERS))
     # the step's 18 ragged launches do equal work (20,480 rows, 4,096 x
     # 6,400 either way round), so their traced mean is a dX launch's
-    dx = ragged_dx_case(dx_call, traced_launch_ms("ragged_gemm",
-                                                  3 * n_ragged))
+    dx = ragged_dx_case(inputs["ragged_gemm"], traced_launch_ms(
+        prof, "ragged_gemm", 3 * n_ragged))
     for case in (bwd, dx):
         log(f"  {case['name']:20s} {case['shape']:30s} ms {case['ms']:.4f} "
             f"device {fmt_ms(case['device_ms'])} plain "
             f"{case['plain_ms']:.4f} bound {case['bound_ms']:.4f} "
             f"({case['bound_by']}) library {fmt_ms(case['library_ms'])}")
     log(f"  flash backward's seven-product bound {bwd['bound_7_ms']:.4f} ms")
-    del state, batch, bwd_call, dx_call, step_metrics
+    del inputs
     torch.cuda.empty_cache()
 
+    gemma_train = gemma_train_phase()
+    torch.cuda.empty_cache()
     gemma = gemma_attention_case()
     for case in (gemma["forward"], gemma["backward"]):
         log(f"  gemma-7b {case['name']:20s} {case['shape']:30s} ms "
-            f"{case['ms']:.4f} plain {case['plain_ms']:.4f} bound "
-            f"{case['bound_ms']:.4f} ({case['bound_by']}) library "
-            f"{fmt_ms(case['library_ms'])}; max|diff| / max|plain| "
-            f"{case['err_over_max']:.2e}, row "
+            f"{case['ms']:.4f} device {fmt_ms(case['device_ms'])} plain "
+            f"{case['plain_ms']:.4f} bound {case['bound_ms']:.4f} "
+            f"({case['bound_by']}) library {fmt_ms(case['library_ms'])}; "
+            f"max|diff| / max|plain| {case['err_over_max']:.2e}, row "
             f"{case['row_err_over_row_max']:.2e} (tolerance {LM_TOL})")
-    log(f"  gemma-7b backward by instance {gemma['launches']['instance']}")
+    log(f"  gemma-7b backward by instance {gemma['launches']['instance']}, "
+        f"seven-product bound {gemma['backward']['bound_7_ms']:.4f} ms, "
+        f"two launches bitwise equal")
     torch.cuda.empty_cache()
 
     smoke = lm_train_smoke_check()
     log(f"lm train smoke config fp32, {LM_TRAIN_SMOKE_STEPS} steps card vs "
         f"CPU: losses {smoke['losses']}; params' largest difference "
         f"{smoke['param_max_diff_over_lr']:.3f} lr")
-    return dict(cut=cut, layers=LM_TRAIN_LAYERS, batch=LM_TRAIN_BATCH,
-                seq=LM_TRAIN_SEQ, launches=launched,
-                ragged_by_direction=directions, ragged_instances=instances,
-                flash_bwd_instances=bwd_instances, gemma_attention=gemma,
-                metrics_step0=metrics0, checks=checks,
-                worst_err_over_max=worst, worst_row=worst_row,
-                losses=losses, step_ms=step_ms, tokens_s=tokens_s,
-                peak_gb=peak_gb, profile=prof, flash_bwd_case=bwd,
-                dx_case=dx, smoke=smoke,
-                seconds=time.perf_counter() - t_phase)
+    return dict(phi, cut=cut, layers=LM_TRAIN_LAYERS, batch=LM_TRAIN_BATCH,
+                seq=LM_TRAIN_SEQ, gemma_train=gemma_train,
+                gemma_attention=gemma, flash_bwd_case=bwd, dx_case=dx,
+                smoke=smoke, seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -4143,7 +4201,7 @@ def main() -> int:
     report["serve_lm"] = lmr
     torch.cuda.empty_cache()
 
-    # -- phase 12: LM training of phi3.5-moe at full width -------------------
+    # -- phase 12: LM training of phi3.5-moe and gemma-7b at full width -------
     lmt = lm_train_phase()
     log(f"lm train phase: {lmt['seconds']:.1f} s")
     report["train_lm"] = lmt
@@ -4307,10 +4365,13 @@ def main() -> int:
             launches_prefill=lmr["launches"]["prefill"][name],
             launches_decode=lmr["launches"]["decode_1"][name]
             + lmr["launches"]["decode_rest"][name], host_us=rep["host_us"])
-        entry["launches"] += lmt["launches"][name]
-        entry["launches_train"] = lmt["launches"][name]
-        entry["max_abs_err"] = max(entry["max_abs_err"], max(
-            c["max_abs_err"] for c in lmt["checks"] if c["name"] == name))
+        gt = lmt["gemma_train"]
+        entry["launches_train"] = lmt["launches"][name] + gt["launches"][name]
+        entry["launches_train_gemma"] = gt["launches"][name]
+        entry["launches"] += entry["launches_train"]
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+            c["max_abs_err"] for c in lmt["checks"] + gt["checks"]
+            if c["name"] == name])
         if name == "ragged_gemm":
             entry["instance"] = "/".join(
                 k for k, v in lmr["ragged_instances"]["prefill"].items() if v)
@@ -4328,25 +4389,39 @@ def main() -> int:
                          d256_err_over_max=g["err_over_max"])
         kernels.append(entry)
     bwd = lmt["flash_bwd_case"]
+    gt = lmt["gemma_train"]
+    g256 = lmt["gemma_attention"]["backward"]
     kernels.append(dict(
         name="flash_attention_bwd", route="cuda",
         **KERNEL_META["flash_attention_bwd"],
-        launches=lmt["launches"]["flash_attention_bwd"],
-        max_abs_err=max(c["max_abs_err"] for c in lmt["checks"]
+        launches=lmt["launches"]["flash_attention_bwd"]
+        + gt["launches"]["flash_attention_bwd"],
+        launches_phi=lmt["launches"]["flash_attention_bwd"],
+        launches_gemma=gt["launches"]["flash_attention_bwd"],
+        max_abs_err=max(c["max_abs_err"] for c in lmt["checks"] + gt["checks"]
                         if c["name"] == "flash_attention_bwd"),
-        err_over_max_plain=lmt["worst_err_over_max"]["flash_attention_bwd"],
+        err_over_max_plain=max(
+            lmt["worst_err_over_max"]["flash_attention_bwd"],
+            gt["worst_err_over_max"]["flash_attention_bwd"]),
         ms=bwd["ms"], device_ms=bwd["device_ms"], plain_ms=bwd["plain_ms"],
         bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
         bound_7_ms=bwd["bound_7_ms"], library_ms=bwd["library_ms"],
         shape=bwd["shape"], instance="wgmma",
-        launches_by_instance=lmt["flash_bwd_instances"],
-        d256_shape=lmt["gemma_attention"]["backward"]["shape"],
-        d256_instance="wmma",
-        d256_ms=lmt["gemma_attention"]["backward"]["ms"],
-        d256_plain_ms=lmt["gemma_attention"]["backward"]["plain_ms"],
-        d256_bound_ms=lmt["gemma_attention"]["backward"]["bound_ms"],
-        d256_library_ms=lmt["gemma_attention"]["backward"]["library_ms"],
-        d256_err_over_max=lmt["gemma_attention"]["backward"]["err_over_max"]))
+        launches_by_instance={
+            k: v + gt["flash_bwd_instances"][k]
+            for k, v in lmt["flash_bwd_instances"].items()},
+        d256_shape=g256["shape"], d256_instance=g256["instance"],
+        d256_ms=g256["ms"], d256_device_ms=g256["device_ms"],
+        d256_kernel_device_ms=g256["kernel_device_ms"],
+        d256_step_kernel_device_ms=gt["bwd_device_ms"],
+        d256_plain_ms=g256["plain_ms"], d256_bound_ms=g256["bound_ms"],
+        d256_bound_7_ms=g256["bound_7_ms"],
+        d256_library_ms=g256["library_ms"],
+        d256_err_over_max=max(g256["err_over_max"], gt["worst_err_over_max"][
+            "flash_attention_bwd"]),
+        d256_row_err_over_row_max=max(
+            g256["row_err_over_row_max"],
+            gt["worst_row"]["flash_attention_bwd"])))
     for entry in kernels:       # phase 11: launches inside the timed passes
         entry["launches_measured_tuning"] = tuning["launches"].get(
             entry["name"], 0)

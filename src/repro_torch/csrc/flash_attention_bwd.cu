@@ -58,14 +58,50 @@
 //   V^T (K-major; P formed while dP is in flight), dS in registers,
 //   dQ += dS K (K MN-major). A warpgroup skips a tile its own rows cannot
 //   see.
-// bf16, D in {32, 256} (flash_bwd_dkdv_kernel / flash_bwd_dq_kernel with
+// bf16, D = 256: the Hopper design with the head dim split across the
+// two consumer warpgroups (flash_bwd_dkdv_split_kernel,
+// flash_bwd_dq_split_kernel; gemma-7b). A warpgroup owning 64 keys and
+// all of D would hold dK and dV in 256 fp32 registers a thread; here
+// each owns 128 of the 256 columns of the CTA's outputs instead.
+//   dK / dV: 64 keys a CTA. K and V stay resident (64 KB); Q | dO stream
+//   through a 2-stage ring of 64 queries (128 KB). Warpgroup wg computes
+//   S^T and dP^T for queries 32 wg .. + 31 of the stage (wgmma m64n32k16,
+//   depth 256, both operands K-major from shared memory), forms P^T and
+//   dS^T there and writes them, rounded to bf16 as the plain version
+//   rounds them, to two 64 x 64 tiles in shared memory (16 KB) in the
+//   128-byte swizzle the K-major descriptor reads. Named barriers join
+//   the two halves; then each warpgroup runs dV[:, half] += P^T dO[:,
+//   half] (issued before it forms dS^T) and dK[:, half] += dS^T Q[:,
+//   half] (m64n128k16, A from shared memory, dO and Q MN-major). dK and
+//   dV: 2 x 64 x 128 fp32 over 128 threads, 128 registers a thread of the
+//   240 setmaxnreg gives a consumer.
+//   dQ: 64 queries a CTA, the last query tiles (the most keys under a
+//   causal mask) launched first. Q and dO stay resident (64 KB); K | V
+//   stream through the ring in 64-key tiles (128 KB); S and dP are split
+//   by key halves as above, dS goes through shared memory (8 KB), and
+//   warpgroup wg runs dQ[:, half] += dS K[:, half] (64 registers).
+//   Shared memory: 64 + 128 + 16 KB and 1 KB of alignment, 209 KB of the
+//   227 a block can use (a third ring stage would not fit); the outputs
+//   are staged through the idle ring into 16-byte stores. Every tile of
+//   both walks holds a kept pair (the walks' bounds are the visibility
+//   bounds), so none is skipped, and the mask test is the CTA's (64 x
+//   64): both warpgroups take the same branches.
+//   What bounds it: at gemma-7b's shape 2.6x the 7-product time at the
+//   tensor cores' peak. Taking the S / dP products out saves 27 % of
+//   the time, the dV / dK / dQ products 15 %, the barrier before P / dS
+//   are written again 2 % (tools/compare_kernels.py --variants): the
+//   rest is each tile's chain of waits, the P / dS arithmetic and the
+//   barriers, which the two warpgroups run in step. Hiding that chain
+//   needs the next tile's scores in flight, and with two ring stages
+//   (all that fits) issuing them a tile ahead left the loads exposed:
+//   21 % slower.
+// bf16, D = 32 (flash_bwd_dkdv_kernel / flash_bwd_dq_kernel with
 // TcMath): the simple design, 64-key and 64-query tiles, WMMA 16 x 16 x 16
-// from padded shared memory with a __syncthreads between products (at
-// D = 256, 185 KB of shared memory; the Hopper design's dK and dV would
-// take 256 fp32 registers a thread there). fp32, D in {32, 64, 128}
-// (CcMath): the same design on the CUDA cores (the fp32 smoke config and
-// the card tests); at D = 256 its four padded fp32 tiles would take 260
-// KB, above the 227 KB a block can use, so the wrapper raises there.
+// from padded shared memory with a __syncthreads between products (only
+// smoke configs run it). fp32, D in {32, 64, 128} (CcMath): the same
+// design on the CUDA cores (the fp32 smoke config and the card tests); at
+// D = 256 its four padded fp32 tiles would take 260 KB, above the 227 KB
+// a block can use, so the wrapper raises there.
 // The scale multiplies the fp32 product, as the forward kernel does.
 //
 // Any S <= T, causal or not, any window.
@@ -587,14 +623,14 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t base, int kk) {
   return hopper::smem_desc(base + kk * 16 * 128, 64 * 128, 1024, 128);
 }
 
-// P of one 64 x 64 accumulator tile (row = this thread's rows, column =
-// 8 j + 2 (lane % 4) + c), in place of the scores: p = exp2(s scale
-// log2 e - lse2), 0 where `kept` says no (lse2 of element idx)
-template <bool kMask, typename Lse, typename Kept>
-__device__ __forceinline__ void p_tile(float (&sc)[32], float scale_log2,
+// P of one 64 x (N / 2) accumulator tile (row = this thread's rows,
+// column = 8 j + 2 (lane % 4) + c), in place of the scores: p = exp2(s
+// scale log2 e - lse2), 0 where `kept` says no (lse2 of element idx)
+template <bool kMask, int N, typename Lse, typename Kept>
+__device__ __forceinline__ void p_tile(float (&sc)[N], float scale_log2,
                                        Lse lse2, Kept kept) {
 #pragma unroll
-  for (int idx = 0; idx < 32; ++idx) {
+  for (int idx = 0; idx < N; ++idx) {
     const float pv = exp2f(sc[idx] * scale_log2 - lse2(idx));
     if constexpr (kMask)
       sc[idx] = kept(idx) ? pv : 0.f;
@@ -1110,6 +1146,548 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16, D = 256: the head dim split across the two warpgroups --------
+
+struct Bs {
+  static constexpr int kD = 256;
+  static constexpr int kThreads = 3 * 128;  // 2 consumer + 1 producer WG
+  static constexpr int kStages = 2;
+  static constexpr int kAtoms = kD / 64;    // 64 bf16 = one 128-byte row
+  static constexpr int kAtom = 64 * 128;    // a 64-row atom
+  static constexpr int kTile = kAtoms * kAtom;        // 64 rows x D, 32 KB
+  static constexpr int kStage = 2 * kTile;            // Q | dO, or K | V
+  static constexpr int kPTile = 64 * 128;   // a 64 x 64 bf16 tile, 8 KB
+  // the resident pair (K | V, or Q | dO), the ring, then P^T and dS^T
+  // (the dQ kernel uses the second for dS)
+  static constexpr int kSmem = 2 * kTile + kStages * kStage + 2 * kPTile +
+                               1024;
+  static constexpr int kLdSt = kD + 8;      // bf16 a staged output row
+  static_assert(2 * 64 * kLdSt * 2 <= kStages * kStage, "output staging");
+};
+
+// a bf16 pair (columns col, col + 1; col even) into a 64 x 64 bf16 tile in
+// the 128-byte swizzle TMA writes and the K-major descriptor reads: the
+// 16-byte chunk col / 8 of row `row` lies at chunk (col / 8) ^ (row % 8)
+__device__ __forceinline__ void st_swizzled(unsigned char* tile, int row,
+                                            int col, uint32_t pair) {
+  *reinterpret_cast<uint32_t*>(
+      tile + row * 128 + ((((col >> 3) ^ (row & 7))) << 4) + (col & 7) * 2) =
+      pair;
+}
+
+// rows of the staged 64 x D bf16 outputs (row stride kLdSt) to rows
+// out0 .. of dst, 16 bytes a store, by the 256 consumer threads
+__device__ __forceinline__ void store_rows(bf16* dst, const bf16* st,
+                                           long long out0, int n_rows) {
+  constexpr int kVecs = Bs::kD / 8;
+  for (int i = threadIdx.x; i < n_rows * kVecs; i += 256) {
+    const int r = i / kVecs, c = (i % kVecs) * 8;
+    *reinterpret_cast<uint4*>(dst + (out0 + r) * Bs::kD + c) =
+        *reinterpret_cast<const uint4*>(st + r * Bs::kLdSt + c);
+  }
+}
+
+// dK / dV at D = 256: one CTA a (batch x KV head, 64-key tile); warpgroup
+// wg owns head-dim columns 128 wg .. 128 wg + 127 of dK and dV, and
+// queries 32 wg .. 32 wg + 31 of each ring stage's S^T and dP^T
+__global__ void __launch_bounds__(Bs::kThreads, 1)
+flash_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap qm,
+                            const __grid_constant__ CUtensorMap dom,
+                            const __grid_constant__ CUtensorMap km,
+                            const __grid_constant__ CUtensorMap vm,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int hq, int hkv, int s, int t, int causal,
+                            int has_window, long long window, float scale) {
+  using C = Bs;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full, full[C::kStages],
+      empty[C::kStages];
+  __shared__ float lse2_s[C::kStages][64], dl_s[C::kStages][64];
+  unsigned char* ks = align1024(smem_raw);
+  unsigned char* vs = ks + C::kTile;
+  unsigned char* ring = vs + C::kTile;      // a stage: Q | dO, 64 queries
+  unsigned char* pts = ring + C::kStages * C::kStage;   // P^T
+  unsigned char* dsts = pts + C::kPTile;                // dS^T
+
+  const int bkv = blockIdx.x;               // b * hkv + kv head
+  const int b = bkv / hkv, kvh = bkv % hkv;
+  const int groups = hq / hkv;
+  const long long k0 = (long long)blockIdx.y * 64;
+  const long long q_offset = (long long)t - s;
+  // the 64-query tiles that see a key of this tile
+  const long long kmax = min(k0 + 64, (long long)t) - 1;
+  long long ilo = 0, ihi = (long long)s - 1;
+  if (causal) ilo = max(ilo, k0 - q_offset);
+  if (has_window) ihi = min(ihi, kmax + window - 1 - q_offset);
+  const int qt0 = (int)(ilo / 64);
+  const int n_qt = ihi >= ilo ? (int)(ihi / 64) - qt0 + 1 : 0;
+  const int n_iter = groups * n_qt;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&kv_full, 1);
+    for (int i = 0; i < C::kStages; ++i) {
+      hopper::mbar_init(&full[i], 2);     // the loads and the LSE / D rows
+      hopper::mbar_init(&empty[i], 8);    // one arrival a consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer warpgroup: warp 8 feeds the ring, the rest only give their
+    // registers to the consumers
+    hopper::setmaxnreg_dec<24>();
+    if (warp == 8) {
+      if (lane == 0) {
+        hopper::prefetch_tensor_map(&qm);
+        hopper::prefetch_tensor_map(&dom);
+        hopper::prefetch_tensor_map(&km);
+        hopper::prefetch_tensor_map(&vm);
+        hopper::mbar_arrive_expect_tx(&kv_full, 2 * C::kTile);
+#pragma unroll
+        for (int a = 0; a < C::kAtoms; ++a) {
+          hopper::tma_load_3d(ks + a * C::kAtom, &km, &kv_full, a * 64,
+                              (int)k0, bkv);
+          hopper::tma_load_3d(vs + a * C::kAtom, &vm, &kv_full, a * 64,
+                              (int)k0, bkv);
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < n_iter; ++it) {
+        const int g = it / n_qt;
+        const int i0 = (qt0 + it % n_qt) * 64;
+        const int bh = b * hq + kvh * groups + g;
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        if (lane == 0) {
+          unsigned char* st = ring + stage * C::kStage;
+          hopper::mbar_arrive_expect_tx(&full[stage], C::kStage);
+#pragma unroll
+          for (int a = 0; a < C::kAtoms; ++a) {
+            hopper::tma_load_3d(st + a * C::kAtom, &qm, &full[stage],
+                                a * 64, i0, bh);
+            hopper::tma_load_3d(st + C::kTile + a * C::kAtom, &dom,
+                                &full[stage], a * 64, i0, bh);
+          }
+        }
+        // rows past S: lse +inf, so P = exp2(-inf) = 0 there
+        for (int r = lane; r < 64; r += 32) {
+          const bool in = i0 + r < s;
+          const long long at = (long long)bh * s + i0 + r;
+          lse2_s[stage][r] = in ? lse[at] * kLog2e : INFINITY;
+          dl_s[stage][r] = in ? delta[at] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&full[stage]);
+        if (++stage == C::kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups
+  hopper::setmaxnreg_inc<240>();
+  const int wg = warp >> 2;
+  const int r0 = (warp & 3) * 16 + (lane >> 2);   // key row in the 64
+  const int c0 = 2 * (lane & 3);                  // query column offset
+  const int qh = 32 * wg;                         // this WG's query columns
+  const uint32_t dh = wg * 2 * C::kAtom;          // its head-dim atoms
+  const float scale_log2 = scale * kLog2e;
+
+  float adk[64], adv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) adk[i] = adv[i] = 0.f;
+
+  hopper::mbar_wait(&kv_full, 0);
+  const uint32_t k_base = hopper::smem_u32(ks);
+  const uint32_t v_base = hopper::smem_u32(vs);
+  const uint32_t pt_base = hopper::smem_u32(pts);
+  const uint32_t dst_base = hopper::smem_u32(dsts);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < n_iter; ++it) {
+    const int i0 = (qt0 + it % n_qt) * 64;
+    const long long qlo = q_offset + i0;
+    const long long qhi = q_offset + min(i0 + 63, s - 1);
+    // the tile-level mask test on the CTA's keys, the same for both
+    // warpgroups; every tile of the walk holds a kept pair (its bounds are
+    // the keys' visibility bounds), so none is skipped
+    const bool need_mask = k0 + 63 >= t || (causal && k0 + 63 > qlo) ||
+                           (has_window && k0 <= qhi - window);
+    hopper::mbar_wait(&full[stage], phase);
+    const uint32_t q_st = hopper::smem_u32(ring + stage * C::kStage);
+    const uint32_t do_st = q_st + C::kTile;
+    // S^T = K Q^T and dP^T = V dO^T on this WG's 32 queries (fp32)
+    float sc[16], dp[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.f;
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::kD / 16; ++kk)
+      hopper::WgmmaBf16SS<32>::mma(sc, desc_k<64>(k_base, kk),
+                                   desc_k<64>(q_st + qh * 128, kk), 1);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < C::kD / 16; ++kk)
+      hopper::WgmmaBf16SS<32>::mma(dp, desc_k<64>(v_base, kk),
+                                   desc_k<64>(do_st + qh * 128, kk), 1);
+    hopper::wgmma_commit();
+
+    // P^T while dP^T is still in the tensor cores, to shared memory as
+    // bf16 (the plain version's rounding of the operand)
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sc);
+    const float* l2 = lse2_s[stage];
+    const float* dl = dl_s[stage];
+    auto lse_at = [&](int idx) { return l2[qh + c0 + frag_col(idx)]; };
+    auto kept = [&](int idx) {
+      const long long kpos = k0 + r0 + frag_row(idx);
+      const long long qpos = qlo + qh + c0 + frag_col(idx);
+      return kpos < t && (!causal || kpos <= qpos) &&
+             (!has_window || kpos > qpos - window);
+    };
+    if (need_mask)
+      p_tile<true>(sc, scale_log2, lse_at, kept);
+    else
+      p_tile<false>(sc, scale_log2, lse_at, kept);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        st_swizzled(pts, r0 + 8 * h, qh + 8 * j + c0,
+                    hopper::pack_bf16(sc[4 * j + 2 * h],
+                                      sc[4 * j + 2 * h + 1]));
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(1, 256);     // P^T whole
+
+    // dV[:, half] += P^T dO[:, half] while this WG forms dS^T
+    hopper::fence_regs(adv);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::WgmmaBf16SS<128, 1>::mma(adv, desc_k<64>(pt_base, kk),
+                                       desc_mn(do_st + dh, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();                // dP^T done
+    hopper::fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        const float d0 = dl[qh + c0 + frag_col(i)];
+        const float d1 = dl[qh + c0 + frag_col(i + 1)];
+        st_swizzled(dsts, r0 + 8 * h, qh + 8 * j + c0,
+                    hopper::pack_bf16(sc[i] * (dp[i] - d0),
+                                      sc[i + 1] * (dp[i + 1] - d1)));
+      }
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(2, 256);     // dS^T whole
+
+    // dK[:, half] += dS^T Q[:, half]
+    hopper::fence_regs(adk);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::WgmmaBf16SS<128, 1>::mma(adk, desc_k<64>(dst_base, kk),
+                                       desc_mn(q_st + dh, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(adv);
+    hopper::fence_regs(adk);
+    // both WGs done reading P^T and dS^T before either writes them again
+    hopper::named_barrier_sync(3, 256);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+    if (++stage == C::kStages) { stage = 0; phase ^= 1; }
+  }
+
+  // epilogue: every load has landed and every product is done (the last
+  // barrier, or no tile at all), so the ring holds the staged dK and dV
+  // rows
+  bf16* stk = reinterpret_cast<bf16*>(ring);
+  bf16* stv = stk + 64 * C::kLdSt;
+  const int col = 128 * wg + c0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = (r0 + 8 * h) * C::kLdSt + col + 8 * j;
+      *reinterpret_cast<uint32_t*>(stk + at) = hopper::pack_bf16(
+          adk[4 * j + 2 * h] * scale, adk[4 * j + 2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(stv + at) =
+          hopper::pack_bf16(adv[4 * j + 2 * h], adv[4 * j + 2 * h + 1]);
+    }
+  }
+  hopper::named_barrier_sync(1, 256);
+  const int n_rows = (int)(kmax - k0 + 1);
+  const long long out0 = (long long)bkv * t + k0;
+  store_rows(dk, stk, out0, n_rows);
+  store_rows(dv, stv, out0, n_rows);
+}
+
+// dQ at D = 256: one CTA a (batch x query head, 64-query tile), the CTAs
+// with the most keys to see first; warpgroup wg owns head-dim columns
+// 128 wg .. 128 wg + 127 of dQ and keys 32 wg .. 32 wg + 31 of each ring
+// stage's S and dP
+__global__ void __launch_bounds__(Bs::kThreads, 1)
+flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap qm,
+                          const __grid_constant__ CUtensorMap dom,
+                          const __grid_constant__ CUtensorMap km,
+                          const __grid_constant__ CUtensorMap vm,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int hq, int hkv, int s,
+                          int t, int causal, int has_window, long long window,
+                          float scale) {
+  using C = Bs;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[C::kStages],
+      empty[C::kStages];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* dos = qs + C::kTile;
+  unsigned char* ring = dos + C::kTile;     // a stage: K | V, 64 keys
+  unsigned char* dss = ring + C::kStages * C::kStage + C::kPTile;   // dS
+
+  const int bh = blockIdx.x;
+  const int b = bh / hq;
+  const int kvh = (bh % hq) / (hq / hkv);
+  // the last query tiles see the most keys under a causal mask: first
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const long long q_offset = (long long)t - s;
+  // the 64-key tiles the CTA's queries see (the forward's tile tests)
+  const long long qlo = q_offset + i0;
+  const long long qhi = q_offset + min(i0 + 64, s) - 1;
+  long long klo = 0, khi = (long long)t - 1;
+  if (causal) khi = min(khi, qhi);
+  if (has_window) klo = max(klo, qlo - window + 1);
+  const int kt0 = (int)(klo / 64);
+  const int n_kt = khi >= klo ? (int)(khi / 64) - kt0 + 1 : 0;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int i = 0; i < C::kStages; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      hopper::prefetch_tensor_map(&qm);
+      hopper::prefetch_tensor_map(&dom);
+      hopper::prefetch_tensor_map(&km);
+      hopper::prefetch_tensor_map(&vm);
+      hopper::mbar_arrive_expect_tx(&q_full, 2 * C::kTile);
+#pragma unroll
+      for (int a = 0; a < C::kAtoms; ++a) {
+        hopper::tma_load_3d(qs + a * C::kAtom, &qm, &q_full, a * 64, i0, bh);
+        hopper::tma_load_3d(dos + a * C::kAtom, &dom, &q_full, a * 64, i0,
+                            bh);
+      }
+      const int kv_bh = b * hkv + kvh;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < n_kt; ++it) {
+        const int kpos0 = (kt0 + it) * 64;
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = ring + stage * C::kStage;
+        hopper::mbar_arrive_expect_tx(&full[stage], C::kStage);
+#pragma unroll
+        for (int a = 0; a < C::kAtoms; ++a) {
+          hopper::tma_load_3d(st + a * C::kAtom, &km, &full[stage], a * 64,
+                              kpos0, kv_bh);
+          hopper::tma_load_3d(st + C::kTile + a * C::kAtom, &vm,
+                              &full[stage], a * 64, kpos0, kv_bh);
+        }
+        if (++stage == C::kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups
+  hopper::setmaxnreg_inc<240>();
+  const int wg = warp >> 2;
+  const int r0 = (warp & 3) * 16 + (lane >> 2);   // query row in the 64
+  const int c0 = 2 * (lane & 3);                  // key column offset
+  const int kh = 32 * wg;                         // this WG's key columns
+  const uint32_t dh = wg * 2 * C::kAtom;          // its head-dim atoms
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dl[2];                           // rows r0, r0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = i0 + r0 + 8 * h;
+    const bool in = row < s;
+    lse2[h] = in ? lse[(long long)bh * s + row] * kLog2e : INFINITY;
+    dl[h] = in ? delta[(long long)bh * s + row] : 0.f;
+  }
+
+  float adq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) adq[i] = 0.f;
+
+  hopper::mbar_wait(&q_full, 0);
+  const uint32_t q_base = hopper::smem_u32(qs);
+  const uint32_t do_base = hopper::smem_u32(dos);
+  const uint32_t ds_base = hopper::smem_u32(dss);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < n_kt; ++it) {
+    const long long kpos0 = (long long)(kt0 + it) * 64;
+    // the tile-level mask test on the CTA's queries, the same for both
+    // warpgroups; every tile of the walk holds a kept pair
+    const bool need_mask = kpos0 + 63 >= t || (causal && kpos0 + 63 > qlo) ||
+                           (has_window && kpos0 <= qhi - window);
+    hopper::mbar_wait(&full[stage], phase);
+    const uint32_t k_st = hopper::smem_u32(ring + stage * C::kStage);
+    const uint32_t v_st = k_st + C::kTile;
+    // S = Q K^T and dP = dO V^T on this WG's 32 keys (fp32)
+    float sc[16], dp[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.f;
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::kD / 16; ++kk)
+      hopper::WgmmaBf16SS<32>::mma(sc, desc_k<64>(q_base, kk),
+                                   desc_k<64>(k_st + kh * 128, kk), 1);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < C::kD / 16; ++kk)
+      hopper::WgmmaBf16SS<32>::mma(dp, desc_k<64>(do_base, kk),
+                                   desc_k<64>(v_st + kh * 128, kk), 1);
+    hopper::wgmma_commit();
+
+    // P while dP is still in the tensor cores, then dS to shared memory
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sc);
+    auto lse_at = [&](int idx) { return lse2[(idx >> 1) & 1]; };
+    auto kept = [&](int idx) {
+      const long long qpos = qlo + r0 + frag_row(idx);
+      const long long kpos = kpos0 + kh + c0 + frag_col(idx);
+      return kpos < t && (!causal || kpos <= qpos) &&
+             (!has_window || kpos > qpos - window);
+    };
+    if (need_mask)
+      p_tile<true>(sc, scale_log2, lse_at, kept);
+    else
+      p_tile<false>(sc, scale_log2, lse_at, kept);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        st_swizzled(dss, r0 + 8 * h, kh + 8 * j + c0,
+                    hopper::pack_bf16(sc[i] * (dp[i] - dl[h]),
+                                      sc[i + 1] * (dp[i + 1] - dl[h])));
+      }
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(1, 256);     // dS whole
+
+    // dQ[:, half] += dS K[:, half] (the stage's key rows are the K)
+    hopper::fence_regs(adq);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::WgmmaBf16SS<128, 1>::mma(adq, desc_k<64>(ds_base, kk),
+                                       desc_mn(k_st + dh, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(adq);
+    // both WGs done reading dS before either writes it again
+    hopper::named_barrier_sync(2, 256);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+    if (++stage == C::kStages) { stage = 0; phase ^= 1; }
+  }
+
+  // epilogue: dQ times scale, staged through the idle ring as bf16
+  bf16* stq = reinterpret_cast<bf16*>(ring);
+  const int col = 128 * wg + c0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(stq + (r0 + 8 * h) * C::kLdSt + col +
+                                   8 * j) =
+          hopper::pack_bf16(adq[4 * j + 2 * h] * scale,
+                            adq[4 * j + 2 * h + 1] * scale);
+  hopper::named_barrier_sync(1, 256);
+  store_rows(dq, stq, (long long)bh * s + i0, min(64, s - i0));
+}
+
+// bf16 at D = 256: 64-row tiles in both kernels
+int launch_split(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* delta, void* dq,
+                 void* dk, void* dv, int bh, int hq, int hkv, int s, int t,
+                 int causal, int has_window, long long window, float scale,
+                 cudaStream_t stream) {
+  using C = Bs;
+  constexpr int D = C::kD;
+  const int batch = bh / hq;
+  // 3-D maps over (D, rows, batch x head), 128-byte swizzle, 64-row boxes
+  CUtensorMap qm, dom, km, vm;
+  const cuuint64_t qdims[3] = {D, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t qstr[2] = {D * 2, (cuuint64_t)s * D * 2};
+  const cuuint64_t kdims[3] = {D, (cuuint64_t)t, (cuuint64_t)batch * hkv};
+  const cuuint64_t kstr[2] = {D * 2, (cuuint64_t)t * D * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  struct Map {
+    CUtensorMap* map;
+    const void* base;
+    const cuuint64_t* dims;
+    const cuuint64_t* strides;
+  } maps[4] = {{&qm, q, qdims, qstr}, {&dom, dout, qdims, qstr},
+               {&km, k, kdims, kstr}, {&vm, v, kdims, kstr}};
+  for (const Map& m : maps) {
+    const int rc = hopper::make_tensor_map(
+        m.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, m.base, m.dims,
+        m.strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (rc) return rc;
+  }
+  static bool opted_in = false;      // dynamic shared memory above 48 KB
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv_split_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(flash_bwd_dq_split_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  int rc = launch_delta<bf16, D>(o, dout, delta, bh, s, stream);
+  if (rc) return rc;
+  const dim3 grid_kv((unsigned)(batch * hkv), (unsigned)((t + 63) / 64));
+  flash_bwd_dkdv_split_kernel<<<grid_kv, C::kThreads, C::kSmem, stream>>>(
+      qm, dom, km, vm, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), hq, hkv, s, t, causal, has_window, window,
+      scale);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const dim3 grid_q((unsigned)bh, (unsigned)((s + 63) / 64));
+  flash_bwd_dq_split_kernel<<<grid_q, C::kThreads, C::kSmem, stream>>>(
+      qm, dom, km, vm, lse, delta, static_cast<bf16*>(dq), hq, hkv, s, t,
+      causal, has_window, window, scale);
+  return (int)cudaGetLastError();
+}
+
 #define BWD_ARGS                                                             \
   q, k, v, o, dout, static_cast<const float*>(lse),                          \
       static_cast<float*>(delta), dq, dk, dv, bh, hq, hkv, s, t, causal,     \
@@ -1130,20 +1708,20 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
       void *dv, int bh, int hq, int hkv, int s, int t, int d, int causal,    \
       int has_window, long long window, float scale, cudaStream_t stream
 
-// bf16, the Hopper design: D in {64, 128}
+// bf16, the Hopper design: D in {64, 128, 256}
 extern "C" int flash_attention_bwd_bf16_wgmma(BWD_PARAMS) {
   switch (d) {
     case 64: return launch_wgmma<64>(BWD_ARGS);
     case 128: return launch_wgmma<128>(BWD_ARGS);
+    case 256: return launch_split(BWD_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// bf16, the simple WMMA design: D in {32, 256}
+// bf16, the simple WMMA design: D = 32
 extern "C" int flash_attention_bwd_bf16(BWD_PARAMS) {
   switch (d) {
     case 32: return launch_simple<TcMath<32>, 32>(BWD_ARGS);
-    case 256: return launch_simple<TcMath<256>, 256>(BWD_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 }

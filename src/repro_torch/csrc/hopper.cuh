@@ -399,6 +399,25 @@ template <int TRANS_B> struct WgmmaBf16RS<256, TRANS_B> {
 // or MN-major (TRANS_B = 1), both in shared memory.
 template <int N, int TRANS_B = 0> struct WgmmaBf16SS;
 
+template <int TRANS_B> struct WgmmaBf16SS<32, TRANS_B> {
+  __device__ __forceinline__ static void mma(float (&d)[16],
+                                             uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, %19, %20, %21, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(1), "n"(1), "n"(0),
+          "n"(TRANS_B));
+  }
+};
+
 template <int TRANS_B> struct WgmmaBf16SS<64, TRANS_B> {
   __device__ __forceinline__ static void mma(float (&d)[32],
                                              uint64_t desc_a, uint64_t desc_b,

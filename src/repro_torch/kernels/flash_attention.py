@@ -28,10 +28,13 @@ and its Pallas kernel has no ``custom_vjp``. It recomputes P from the
 LSE in fixed-order tiles, without atomics, so two launches give the same
 bits; ``flash_attention_bwd_plain`` is the same math in PyTorch over KV
 chunks. :func:`flash_bwd_instance` picks its instance: ``wgmma`` (bf16,
-D 64 and 128, the main path: TMA ring, ``wgmma``, dK / dV and dQ in
-registers; :func:`flash_bwd_dkdv_tiles`, :func:`flash_bwd_dq_tiles` and
-:func:`flash_bwd_tile_test` state its tile walk), ``wmma`` (bf16, D 32
-and 256) or ``f32`` (D up to 128). Head dims: :data:`HEAD_DIMS`, 256
+D 64, 128 and 256, the main path: TMA ring, ``wgmma``, dK / dV and dQ in
+registers; at D 256 the head dim split across the two warpgroups;
+:func:`flash_bwd_tiles`, :func:`flash_bwd_dkdv_tiles`,
+:func:`flash_bwd_dq_tiles` and :func:`flash_bwd_tile_test` state its
+tile walk), ``wmma`` (bf16, D 32) or ``f32`` (D up to 128).
+:func:`flash_bwd_row_floors` gives the rounding floor of each gradient
+row for checks against an fp32 oracle. Head dims: :data:`HEAD_DIMS`, 256
 for gemma-7b.
 """
 from __future__ import annotations
@@ -42,17 +45,19 @@ __all__ = ["flash_attention_cuda", "flash_attention_plain",
            "flash_attention_plain_lse", "flash_attention_bwd_cuda",
            "flash_attention_bwd_plain", "flash_bwd_instance",
            "flash_bwd_dkdv_tiles", "flash_bwd_dq_tiles",
-           "flash_bwd_tile_test", "HEAD_DIMS", "BWD_INSTANCES"]
+           "flash_bwd_tile_test", "flash_bwd_tiles", "flash_bwd_row_floors",
+           "HEAD_DIMS", "BWD_INSTANCES"]
 
 HEAD_DIMS = (32, 64, 128, 256)     # the kernels' instances
 # backward instance -> C entry point of csrc/flash_attention_bwd.cu
 BWD_INSTANCES = {"wgmma": "flash_attention_bwd_bf16_wgmma",
                  "wmma": "flash_attention_bwd_bf16",
                  "f32": "flash_attention_bwd_f32"}
-# the wgmma backward's tiles: (keys a CTA, queries a ring stage) of the
-# dK / dV kernel, (queries a CTA, keys a ring stage) of the dQ kernel;
-# each CTA's rows are two warpgroups of 64
+# the wgmma backward's tiles at D 64 and 128 (flash_bwd_tiles): (keys a
+# CTA, queries a ring stage) of the dK / dV kernel, (queries a CTA, keys a
+# ring stage) of the dQ kernel; each CTA's rows are two warpgroups of 64
 BWD_KV_TILE, BWD_Q_STEP, BWD_Q_TILE, BWD_KV_STEP = 128, 64, 128, 64
+EPS32 = 2.0 ** -24
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _Q_TILE, _GRID_Y = 64, 65_535
 
@@ -155,11 +160,12 @@ flash_attention_cuda.launches = 0
 
 def flash_bwd_instance(dtype: torch.dtype, d: int) -> str:
     """The backward's instance for these operands, from dtype and head dim
-    alone: ``wgmma`` for bf16 at D 64 and 128, ``wmma`` for bf16 at D 32
-    and 256 (the Hopper design's dK and dV would take 256 fp32 registers
-    a thread at 256), ``f32`` for fp32 up to D 128. Raises for fp32 at D
-    256, where the CUDA-core instance's four padded 64 x 260 fp32 tiles
-    take 260 KB of shared memory, above the 227 KB a block can use."""
+    alone: ``wgmma`` for bf16 at D 64, 128 and 256 (at 256 the two
+    consumer warpgroups split the head dim, each holding 128 columns of
+    dK and dV), ``wmma`` for bf16 at D 32 (only smoke configs use it),
+    ``f32`` for fp32 up to D 128. Raises for fp32 at D 256, where the
+    CUDA-core instance's four padded 64 x 260 fp32 tiles take 260 KB of
+    shared memory, above the 227 KB a block can use."""
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head dim {d} not built "
                          f"({HEAD_DIMS})")
@@ -175,17 +181,29 @@ def flash_bwd_instance(dtype: torch.dtype, d: int) -> str:
     if dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bwd: q must be bf16 or fp32, "
                          f"got {dtype}")
-    return "wgmma" if d in (64, 128) else "wmma"
+    return "wmma" if d == 32 else "wgmma"
+
+
+def flash_bwd_tiles(d: int) -> tuple:
+    """The ``wgmma`` backward's tiles at head dim ``d``: (keys a CTA of the
+    dK / dV kernel, queries a ring stage there, queries a CTA of the dQ
+    kernel, keys a ring stage there). A CTA's rows are warpgroups of 64
+    at D 64 and 128; at D 256 one group of 64 whose columns the two
+    warpgroups split."""
+    if d == 256:
+        return 64, 64, 64, 64
+    return BWD_KV_TILE, BWD_Q_STEP, BWD_Q_TILE, BWD_KV_STEP
 
 
 def flash_bwd_dkdv_tiles(s: int, t: int, k0: int, causal: bool,
-                         window: int | None, step: int = BWD_Q_STEP
-                         ) -> range:
-    """The query tiles (of ``step`` rows) the dK / dV kernel's CTA at key
-    ``k0`` walks, in its order (for each query head of the group): those
-    holding a query that sees a key of ``[k0, k0 + BWD_KV_TILE)``."""
+                         window: int | None, d: int = 128) -> range:
+    """The query tiles (of the ring stage's rows) the dK / dV kernel's CTA
+    at key ``k0`` walks at head dim ``d``, in its order (for each query
+    head of the group): those holding a query that sees a key of the
+    CTA's :func:`flash_bwd_tiles` keys from ``k0``."""
+    kv_tile, step = flash_bwd_tiles(d)[:2]
     q_offset = t - s
-    kmax = min(k0 + BWD_KV_TILE, t) - 1
+    kmax = min(k0 + kv_tile, t) - 1
     ilo, ihi = 0, s - 1
     if causal:
         ilo = max(ilo, k0 - q_offset)
@@ -195,14 +213,14 @@ def flash_bwd_dkdv_tiles(s: int, t: int, k0: int, causal: bool,
 
 
 def flash_bwd_dq_tiles(s: int, t: int, i0: int, causal: bool,
-                       window: int | None, step: int = BWD_KV_STEP
-                       ) -> range:
-    """The key tiles (of ``step`` keys) the dQ kernel's CTA at query
-    ``i0`` walks, in order: the forward's tile-level tests over its
-    ``BWD_Q_TILE`` queries."""
+                       window: int | None, d: int = 128) -> range:
+    """The key tiles (of the ring stage's keys) the dQ kernel's CTA at
+    query ``i0`` walks at head dim ``d``, in order: the forward's
+    tile-level tests over its :func:`flash_bwd_tiles` queries."""
+    q_tile, step = flash_bwd_tiles(d)[2:]
     q_offset = t - s
     qlo = q_offset + i0
-    qhi = q_offset + min(i0 + BWD_Q_TILE, s) - 1
+    qhi = q_offset + min(i0 + q_tile, s) - 1
     klo, khi = 0, t - 1
     if causal:
         khi = min(khi, qhi)
@@ -213,11 +231,12 @@ def flash_bwd_dq_tiles(s: int, t: int, i0: int, causal: bool,
 
 def flash_bwd_tile_test(k_lo: int, q_lo: int, q_hi: int, t: int,
                         causal: bool, window: int | None) -> str:
-    """What a warpgroup of the wgmma backward does with its 64 keys from
-    ``k_lo`` against the queries at positions ``q_lo .. q_hi`` (the last
-    real one): ``skip`` (no pair kept), ``mask`` (a pair is masked, or a
-    key lies past T) or ``full`` (every pair kept, no mask applied). Rows
-    past S need no mask: their LSE is +inf, so P = 0."""
+    """What a group of 64 rows of the wgmma backward (a warpgroup's at D
+    64 and 128, the CTA's at 256) does with its 64 keys from ``k_lo``
+    against the queries at positions ``q_lo .. q_hi`` (the last real
+    one): ``skip`` (no pair kept), ``mask`` (a pair is masked, or a key
+    lies past T) or ``full`` (every pair kept, no mask applied). Rows past
+    S need no mask: their LSE is +inf, so P = 0."""
     k_last = min(k_lo + 63, t - 1)
     if k_lo >= t or (causal and k_lo > q_hi) or \
             (window is not None and k_last <= q_lo - window):
@@ -272,6 +291,49 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                            * scale).to(dt)
         dq += torch.einsum("bkgst,bktd->bkgsd", ds, kc)
     return (dq * scale).reshape(b, hq, s, d).to(dt), dk, dv
+
+
+def flash_bwd_row_floors(q, k, v, o, do, lse, *, causal=True,
+                         window=None, chunk=1024) -> tuple:
+    """The rounding floor of each row of (dq, dk, dv) for the row check:
+    2 D eps32 x the row's largest sum of absolute terms, with dS's
+    cancelling difference dP_ij - D_i replaced by the size of what
+    cancels, |dO_i|.|v_j| + |dO_i|.|O_i|. A row can cancel to near zero
+    in exact arithmetic (query 0 sees key 0 alone: P = 1 and dS = dO.v_0
+    - dO.O_0 = 0), and then fp32 sums in another order differ by this
+    much, not by a fraction of the row's own size."""
+    b, hq, s, d = q.shape
+    n_kv, t = k.shape[1], k.shape[2]
+    g = hq // n_kv
+    scale = 1.0 / d ** 0.5
+    qa = q.reshape(b, n_kv, g, s, d).float().abs()
+    doa = do.reshape(b, n_kv, g, s, d).float().abs()
+    deltaa = (doa * o.reshape(b, n_kv, g, s, d).float().abs()).sum(
+        -1, keepdim=True)
+    lseg = lse.reshape(b, n_kv, g, s, 1)
+    q_pos = (t - s) + torch.arange(s, device=q.device)
+    mag_dq = torch.zeros_like(qa)
+    mag_dk = torch.empty((b, n_kv, t, d), device=q.device)
+    mag_dv = torch.empty_like(mag_dk)
+    for lo in range(0, t, chunk):
+        hi = min(lo + chunk, t)
+        kc, vc = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
+        k_pos = torch.arange(lo, hi, device=q.device)
+        mask = torch.ones((s, hi - lo), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        sc = torch.einsum("bkgsd,bktd->bkgst",
+                          q.reshape(b, n_kv, g, s, d).float(), kc) * scale
+        p = torch.where(mask, torch.exp(sc - lseg), 0.0)
+        a = p * (torch.einsum("bkgsd,bktd->bkgst", doa, vc.abs()) + deltaa)
+        mag_dq += torch.einsum("bkgst,bktd->bkgsd", a, kc.abs())
+        mag_dk[:, :, lo:hi] = torch.einsum("bkgst,bkgsd->bktd", a, qa)
+        mag_dv[:, :, lo:hi] = torch.einsum("bkgst,bkgsd->bktd", p, doa)
+    return tuple(2 * d * EPS32 * m.reshape(-1, d).amax(-1) * f
+                 for m, f in ((mag_dq, scale), (mag_dk, scale),
+                              (mag_dv, 1.0)))
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,

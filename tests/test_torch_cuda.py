@@ -1776,8 +1776,8 @@ def _bwd_inputs(rng, dtype, b, hq, hkv, s, t, d, causal, window, card):
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal,window", _BWD_CASES)
 def test_flash_attention_bwd_kernel_matches_plain(card, dtype, b, hq, hkv,
                                                   s, t, d, causal, window):
-    """Each instance (bf16: ``wgmma`` at D 64 and 128, ``wmma`` at 32 and
-    256; fp32 up to 128, and a named refusal at 256) against the plain
+    """Each instance (bf16: ``wgmma`` at D 64, 128 and 256, ``wmma`` at
+    32; fp32 up to 128, and a named refusal at 256) against the plain
     version, the launch counted under its instance."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain,
@@ -1801,7 +1801,7 @@ def test_flash_attention_bwd_kernel_matches_plain(card, dtype, b, hq, hkv,
                                    window=window)
     inst = flash_bwd_instance(dtype, d)
     assert inst == ("f32" if dtype == torch.float32 else
-                    "wgmma" if d in (64, 128) else "wmma")
+                    "wmma" if d == 32 else "wgmma")
     assert flash_attention_bwd_cuda.launches_by_instance == {
         n: int(n == inst) for n in ("wgmma", "wmma", "f32")}
     want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
@@ -1819,7 +1819,7 @@ def test_flash_attention_bwd_kernel_matches_plain(card, dtype, b, hq, hkv,
     (torch.float32, 128, 512, 512, None, "f32"),
     (torch.bfloat16, 128, 512, 512, None, "wgmma"),
     (torch.bfloat16, 64, 333, 500, 150, "wgmma"),    # S < T, window, ragged
-    (torch.bfloat16, 256, 300, 300, None, "wmma")])
+    (torch.bfloat16, 256, 300, 300, None, "wgmma")])
 def test_flash_attention_bwd_kernel_is_bitwise_repeatable(card, dtype, d, s,
                                                           t, window, inst):
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
@@ -1832,6 +1832,57 @@ def test_flash_attention_bwd_kernel_is_bitwise_repeatable(card, dtype, d, s,
     assert flash_attention_bwd_cuda.launches == 1
     assert flash_attention_bwd_cuda.launches_by_instance[inst] == 1
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# the CPU tile-walk cases at D 256 (tests/test_torch_flash_bwd.py) and
+# gemma-7b's heads
+_D256_CASES = [
+    (1, 4, 1, 200, 333, True, None),      # S < T, G = 4, ragged tiles
+    (1, 2, 2, 130, 130, False, None),     # not causal, G = 1
+    (1, 4, 1, 150, 150, True, 70),        # sliding window, G = 4
+    (2, 2, 2, 77, 300, True, 90),         # S < T, window, G = 1
+    (1, 4, 1, 100, 190, False, 40),       # window, not causal
+    (1, 16, 16, 1024, 1024, True, None)]  # gemma-7b's heads
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,causal,window", _D256_CASES)
+def test_flash_attention_bwd_d256_wgmma_matches_plain_and_oracle(
+        card, b, hq, hkv, s, t, causal, window):
+    """bf16 at D 256 runs the ``wgmma`` instance (the head dim split
+    across two warpgroups): dq, dk and dv held by ``chip_smoke.py``'s
+    ``check_lm_launch`` (within 2^-7 x max|plain| of the plain version
+    and, row by row past ``flash_bwd_row_floors``, within 2^-7 of the
+    fp32 oracle's row); two launches give the same bits."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_bwd_row_floors)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(s + t + 256)
+    args = _bwd_inputs(rng, torch.bfloat16, b, hq, hkv, s, t, 256, causal,
+                       window, card)
+    kw = dict(causal=causal, window=window)
+    tops.reset_kernel_launches()
+    got = flash_attention_bwd_cuda(*args, **kw)
+    again = flash_attention_bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_cuda.launches_by_instance == {
+        "wgmma": 2, "wmma": 0, "f32": 0}
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    q, k, v, o, do, lse = args
+    want = flash_attention_bwd_plain(*args, **kw)
+    oracle = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                       o.float(), do.float(), lse, **kw)
+    floors = flash_bwd_row_floors(*args, **kw)
+    for name, g, w, orc, fl in zip(("dq", "dk", "dv"), got, want, oracle,
+                                   floors):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        smoke.check_lm_launch(dict(name=name, shape=str(tuple(g.shape))), g,
+                              w, orc, row_floor=fl)
 
 
 @pytest.mark.parametrize("dtype,e,c,d,f,inst", [

@@ -2,13 +2,16 @@
 copy-free dX, on the CPU, against the JAX reference.
 
 The card's ``wgmma`` backward (``csrc/flash_attention_bwd.cu``) cannot
-run here, so its tile walk is emulated in PyTorch: the dK / dV kernel's
-128-key CTAs of two 64-key warpgroups over 64-query ring stages, and the
-dQ kernel's 128-query CTAs of two 64-query warpgroups over 64-key stages,
-each walking the tiles that ``flash_bwd_dkdv_tiles`` / ``flash_bwd_dq_tiles``
-name, skipping or masking as ``flash_bwd_tile_test`` says (a "full" tile
-gets no mask), rows past S carrying an LSE of +inf and K / V rows past T
-read as zero, as TMA's fill gives them. The emulation is held against
+run here, so its tile walk is emulated in PyTorch at the tiles
+``flash_bwd_tiles`` names for the head dim: at D 64 and 128 the dK / dV
+kernel's 128-key CTAs of two 64-key warpgroups over 64-query ring stages
+and the dQ kernel's 128-query CTAs of two 64-query warpgroups over 64-key
+stages; at D 256 64-key and 64-query CTAs whose two warpgroups split the
+head dim (which leaves every output element's sum as it is). Each walks
+the tiles that ``flash_bwd_dkdv_tiles`` / ``flash_bwd_dq_tiles`` name,
+skipping or masking each group of 64 rows as ``flash_bwd_tile_test``
+says (a "full" tile gets no mask), rows past S carrying an LSE of +inf
+and K / V rows past T read as zero, as TMA's fill gives them. The emulation is held against
 ``flash_attention_bwd_plain`` and against ``jax.grad`` of the reference's
 ``chunked_attention``: fp32 within 1e-5 relative and 1e-5 of the largest
 reference value (the same sums in another order over at most a few
@@ -31,9 +34,9 @@ from repro.models.lm import attention as JA
 
 from repro_torch.configs import arch_names, get_config
 from repro_torch.kernels.flash_attention import (
-    BWD_KV_STEP, BWD_KV_TILE, BWD_Q_STEP, BWD_Q_TILE, HEAD_DIMS,
-    flash_attention_bwd_plain, flash_attention_plain_lse, flash_bwd_dkdv_tiles,
-    flash_bwd_dq_tiles, flash_bwd_instance, flash_bwd_tile_test)
+    HEAD_DIMS, flash_attention_bwd_plain, flash_attention_plain_lse,
+    flash_bwd_dkdv_tiles, flash_bwd_dq_tiles, flash_bwd_instance,
+    flash_bwd_tile_test, flash_bwd_tiles)
 from repro_torch.kernels.ragged_gemm import ragged_gemm_plain
 from repro_torch.models.lm import PORTED_FAMILIES
 
@@ -72,10 +75,11 @@ def _tiled_bwd(q, k, v, o, do, lse, *, causal, window):
     q_offset = t - s
     scale = 1.0 / math.sqrt(d)
     scale_log2 = scale * LOG2E
+    kv_tile, q_step, q_tile, kv_step = flash_bwd_tiles(d)
     delta = (do * o).sum(-1)
     # rows past S read zero (Q, dO) with an LSE of +inf; K and V past T zero
-    pad_s = -(-s // BWD_Q_TILE) * BWD_Q_TILE + BWD_Q_STEP
-    pad_t = -(-t // BWD_KV_TILE) * BWD_KV_TILE + BWD_KV_STEP
+    pad_s = -(-s // q_tile) * q_tile + q_step
+    pad_t = -(-t // kv_tile) * kv_tile + kv_step
 
     def padded(x, rows, fill=0.0):
         out = torch.full(x.shape[:2] + (rows,) + x.shape[3:], fill)
@@ -98,8 +102,8 @@ def _tiled_bwd(q, k, v, o, do, lse, *, causal, window):
 
     for bb in range(b):
         for kvh in range(hkv):
-            for k0 in range(0, t, BWD_KV_TILE):
-                for wg in range(2):
+            for k0 in range(0, t, kv_tile):
+                for wg in range(kv_tile // 64):
                     kw0 = k0 + 64 * wg
                     kw = kp[bb, kvh, kw0:kw0 + 64]
                     vw = vp[bb, kvh, kw0:kw0 + 64]
@@ -108,8 +112,8 @@ def _tiled_bwd(q, k, v, o, do, lse, *, causal, window):
                     for gg in range(g):
                         h = kvh * g + gg
                         for qt in flash_bwd_dkdv_tiles(s, t, k0, causal,
-                                                       window):
-                            i0 = qt * BWD_Q_STEP
+                                                       window, d):
+                            i0 = qt * q_step
                             qlo = q_offset + i0
                             qhi = q_offset + min(i0 + 63, s - 1)
                             test = flash_bwd_tile_test(kw0, qlo, qhi, t,
@@ -131,9 +135,9 @@ def _tiled_bwd(q, k, v, o, do, lse, *, causal, window):
                     dv[bb, kvh, kw0:kw0 + n] = acc_v[:n]
             for gg in range(g):
                 h = kvh * g + gg
-                for i0 in range(0, s, BWD_Q_TILE):
-                    tiles = flash_bwd_dq_tiles(s, t, i0, causal, window)
-                    for wg in range(2):
+                for i0 in range(0, s, q_tile):
+                    tiles = flash_bwd_dq_tiles(s, t, i0, causal, window, d)
+                    for wg in range(q_tile // 64):
                         w0 = i0 + 64 * wg
                         if w0 >= s:
                             continue
@@ -143,7 +147,7 @@ def _tiled_bwd(q, k, v, o, do, lse, *, causal, window):
                         dos = dop[bb, h, w0:w0 + 64]
                         acc = torch.zeros((64, d))
                         for kt in tiles:
-                            kpos0 = kt * BWD_KV_STEP
+                            kpos0 = kt * kv_step
                             test = flash_bwd_tile_test(kpos0, wq_lo, wq_hi,
                                                        t, causal, window)
                             if test == "skip":
@@ -168,7 +172,9 @@ def _tiled_bwd(q, k, v, o, do, lse, *, causal, window):
     (1, 2, 2, 130, 130, False, None),     # not causal, G = 1
     (1, 4, 1, 150, 150, True, 70),        # sliding window, G = 4
     (2, 2, 2, 77, 300, True, 90),         # S < T, window, G = 1
-    (1, 4, 1, 100, 190, False, 40)])      # window, not causal
+    (1, 4, 1, 100, 190, False, 40),       # window, not causal
+    (1, 6, 2, 190, 257, True, 100),       # G = 3, causal window, S < T
+    (1, 2, 1, 128, 128, True, None)])     # whole tiles, G = 2
 def test_tile_walk_matches_plain_and_jax_grad(b, hq, hkv, s, t, causal,
                                               window, d):
     """The emulated wgmma tile walk gives the plain version's and
@@ -194,19 +200,23 @@ def test_tile_walk_matches_plain_and_jax_grad(b, hq, hkv, s, t, causal,
         _close(g_, np.asarray(w_), f"d{name} against jax.grad")
 
 
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("s,t,causal,window", [
     (2048, 2048, True, None), (200, 333, True, None), (150, 150, True, 70),
     (100, 190, False, 40), (77, 300, False, None)])
-def test_tile_tests_agree_with_the_mask(s, t, causal, window):
-    """Over every tile of both walks: ``skip`` exactly where no pair is
-    kept, ``full`` only where every pair is kept and every key lies below
-    T; and the walks reach every kept pair."""
+def test_tile_tests_agree_with_the_mask(s, t, causal, window, d):
+    """Over every tile of both walks at head dim ``d``'s tiles: ``skip``
+    exactly where no pair is kept (never at D 256, whose kernels have no
+    skip branch: each tile there is a whole CTA's), ``full`` only where
+    every pair is kept and every key lies below T; and the walks reach
+    every kept pair."""
+    kv_tile, q_step, q_tile, kv_step = flash_bwd_tiles(d)
     q_offset = t - s
     seen = np.zeros((s, t), bool)
-    for k0 in range(0, t, BWD_KV_TILE):
-        for qt in flash_bwd_dkdv_tiles(s, t, k0, causal, window):
-            i0 = qt * BWD_Q_STEP
-            for kw0 in (k0, k0 + 64):
+    for k0 in range(0, t, kv_tile):
+        for qt in flash_bwd_dkdv_tiles(s, t, k0, causal, window, d):
+            i0 = qt * q_step
+            for kw0 in range(k0, k0 + kv_tile, 64):
                 qpos = q_offset + np.arange(i0, min(i0 + 64, s))[:, None]
                 kpos = np.arange(kw0, kw0 + 64)[None, :]
                 kept = _kept(kpos, qpos, t, causal, window)
@@ -214,6 +224,7 @@ def test_tile_tests_agree_with_the_mask(s, t, causal, window):
                                            int(qpos[-1, 0]), t, causal,
                                            window)
                 assert (test == "skip") == (not kept.any())
+                assert test != "skip" or d != 256
                 if test == "full":
                     assert kept.all()
                 cols = kpos[0][kpos[0] < t]
@@ -222,18 +233,19 @@ def test_tile_tests_agree_with_the_mask(s, t, causal, window):
     all_kept = _kept(np.arange(t)[None, :], qpos, t, causal, window)
     assert (seen == all_kept).all()
     seen[:] = False
-    for i0 in range(0, s, BWD_Q_TILE):
-        for kt in flash_bwd_dq_tiles(s, t, i0, causal, window):
-            for w0 in (i0, i0 + 64):
+    for i0 in range(0, s, q_tile):
+        for kt in flash_bwd_dq_tiles(s, t, i0, causal, window, d):
+            for w0 in range(i0, i0 + q_tile, 64):
                 if w0 >= s:
                     continue
                 qpos = q_offset + np.arange(w0, min(w0 + 64, s))[:, None]
-                kpos = np.arange(kt * 64, kt * 64 + 64)[None, :]
+                kpos = np.arange(kt * kv_step, kt * kv_step + 64)[None, :]
                 kept = _kept(kpos, qpos, t, causal, window)
-                test = flash_bwd_tile_test(kt * 64, int(qpos[0, 0]),
+                test = flash_bwd_tile_test(kt * kv_step, int(qpos[0, 0]),
                                            int(qpos[-1, 0]), t, causal,
                                            window)
                 assert (test == "skip") == (not kept.any())
+                assert test != "skip" or d != 256
                 if test == "full":
                     assert kept.all()
                 cols = kpos[0][kpos[0] < t]
@@ -245,7 +257,7 @@ def test_backward_instances_route_by_dtype_and_head_dim():
     assert flash_bwd_instance(torch.bfloat16, 128) == "wgmma"
     assert flash_bwd_instance(torch.bfloat16, 64) == "wgmma"
     assert flash_bwd_instance(torch.bfloat16, 32) == "wmma"
-    assert flash_bwd_instance(torch.bfloat16, 256) == "wmma"
+    assert flash_bwd_instance(torch.bfloat16, 256) == "wgmma"
     assert flash_bwd_instance(torch.float32, 128) == "f32"
     with pytest.raises(ValueError, match="227 KB"):
         flash_bwd_instance(torch.float32, 256)

@@ -456,6 +456,38 @@ def test_train_step_matches_reference(arch, kw):
     assert int(state.opt_state.step) == 3
 
 
+def test_train_step_at_head_dim_256_matches_reference():
+    """gemma's family at its head dim 256 (the card's split backward
+    instance) on a narrow config: 1 layer, d_model 512, 2 / 2 heads of
+    256, GeGLU d_ff 1,024, vocab 512, fp32. ``loss_fn`` and every
+    gradient against ``jax.grad`` of the reference's (loss rtol 1e-5,
+    gradients within 1e-4 of their largest element, as for the smoke
+    configs), then one ``make_train_step`` step against the reference's
+    jitted step (metrics rtol 1e-4, params as ``_adam_close`` holds
+    them)."""
+    narrow = dict(n_layers=1, d_model=512, n_heads=2, n_kv_heads=2,
+                  d_head=256, d_ff=1024, vocab=512, logit_chunk=16)
+    jcfg = dataclasses.replace(jax_smoke_config("gemma-7b"), **narrow)
+    cfg = dataclasses.replace(get_smoke_config("gemma-7b"), **narrow)
+    assert cfg.head_dim == 256
+    jp, tp = _jparams(cfg)
+    jb, tb = _batch(cfg, 2, 40, 5)
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p, bt: JT.loss_fn(jcfg, p, bt), has_aux=True))(jp, jb)
+    loss, metrics, grads = TTL.loss_and_grads(cfg, tp, tb)
+    _close(loss, np.asarray(jl), 1e-5, "loss")
+    _close(metrics["xent"], np.asarray(jm["xent"]), 1e-5, "xent")
+    _walk_close(grads, jax.tree_util.tree_map(np.asarray, jg), 1e-4,
+                "head dim 256 grads")
+    jstep, jopt = JTL.make_train_step(jcfg, lr=3e-3)
+    step, opt = TTL.make_train_step(cfg, lr=3e-3)
+    jstate, jm1 = jax.jit(jstep)(JTL.TrainState(jp, jopt.init(jp), None), jb)
+    state, m1 = step(TTL.TrainState(tp, opt.init(tp), None), tb)
+    for key in jm1:
+        _close(m1[key], np.asarray(jm1[key]), 1e-4, f"step {key}")
+    _adam_close(state.params, jstate.params, 3e-3 * 3, "head dim 256 step")
+
+
 def _adam_close(got: dict, want: dict, bound, what):
     """The train steps' param check (the module docstring's reasons):
     all but 0.1 % of all the params' elements within 1e-4 relative, every

@@ -29,7 +29,9 @@ barrier (exact where no tile is dense), and batches of 2 and 8 edges
 sweep and on the proteins graph; of ``csrc/segment_sum.cu`` one, four and
 eight gathered rows in flight a lane in place of two on its sliced route
 (all exact), timed at the segment-sum sizes below; of
-``csrc/flash_attention_bwd.cu`` a 3-stage ring in place of 2 (exact).
+``csrc/flash_attention_bwd.cu`` a 3-stage ring in place of 2 at D 64 /
+128 (exact) and, at D 256, the S / dP products, the dV / dK / dQ
+products or the barrier before P and dS are written again taken out.
 ``--kernels``: check and time only these (default all eleven).
 
 Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
@@ -41,7 +43,10 @@ Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
   bf16 (phase 10's prefill), and at gemma-7b's B 1, 16 heads of 256,
   beside ``scaled_dot_product_attention``;
 - the flash backward (``flashbwd``) at phase 12's shape (B 4, 32 / 8
-  heads, S = T = 2,048, D 128, causal, bf16), beside SDPA's backward;
+  heads, S = T = 2,048, D 128, causal, bf16) and at gemma-7b's (B 1,
+  16 / 16 heads of 256, S = T = 2,048, causal, bf16: each checkout's own
+  D 256 instance), each with its two kernels' device ms, beside SDPA's
+  backward;
 - the ragged GEMM's dX (``dx``) at phase 12's shape (dY 20,480 x 6,400,
   W 16 x 4,096 x 6,400, bf16) as each checkout's backward calls it: the
   kernel reading W transposed in place where the checkout's wrapper takes
@@ -164,9 +169,22 @@ VARIANTS["fusedmm_batch_8_one_cta"] = ("fusedmm", [
 VARIANTS["fusedmm_no_tile_barrier"] = ("fusedmm", [
     (_FUSED_ROUTE, "    if (false) {"),
     ("    __syncthreads();\n    int total = 0;", "    int total = 0;")])
+# the D 64 / 128 design's ring (the D 256 design has no room for a third
+# stage)
 VARIANTS["flashbwd_stages_3"] = ("flash_attention_bwd", [
-    ("  static constexpr int kStages = 2;\n  static constexpr int kAtoms",
-     "  static constexpr int kStages = 3;\n  static constexpr int kAtoms")])
+    ("  static constexpr int kStages = 2;\n  static constexpr int kAtoms = D",
+     "  static constexpr int kStages = 3;\n  static constexpr int kAtoms = D")])
+# the D 256 design with one part of its work taken out (wrong by
+# construction; only the times mean anything): the S and dP products, the
+# dV / dK / dQ products, the barrier before P / dS are written again
+VARIANTS["flashbwd_d256_no_scores"] = ("flash_attention_bwd", [
+    ("kk < C::kD / 16", "kk < 0")])
+VARIANTS["flashbwd_d256_no_grads"] = ("flash_attention_bwd", [
+    ("for (int kk = 0; kk < 4; ++kk)\n      hopper::WgmmaBf16SS<128, 1>",
+     "for (int kk = 0; kk < 0; ++kk)\n      hopper::WgmmaBf16SS<128, 1>")])
+VARIANTS["flashbwd_d256_no_war_barrier"] = ("flash_attention_bwd", [
+    ("    hopper::named_barrier_sync(3, 256);\n", ""),
+    ("again\n    hopper::named_barrier_sync(2, 256);\n", "again\n")])
 SDDMM_FILLS = (0.007, 0.02, 0.04, 0.08, 0.16, 0.5)
 SELL_CHUNKS = (256, 512, 2048)     # beside the wrapper's CHUNK_STEPS
 CACHE_DIR = ROOT / "build" / "compare_cache"
@@ -341,7 +359,9 @@ def check_flashbwd():
     for b, hq, hkv, s, t, d, causal, window in (
             (1, 8, 2, 256, 256, 128, True, None),
             (2, 4, 1, 200, 333, 64, True, 100),
-            (1, 4, 4, 300, 300, 128, False, 64)):
+            (1, 4, 4, 300, 300, 128, False, 64),
+            (1, 4, 1, 200, 333, 256, True, None),
+            (1, 4, 2, 150, 150, 256, False, 70)):
         args = _bwd_inputs(b, hq, hkv, s, t, d, causal, window, s + t)
         kw = dict(causal=causal, window=window)
         got = flash_attention_bwd_cuda(*args, **kw)
@@ -766,6 +786,19 @@ def time_flashbwd(res: dict) -> dict:
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
                                          enable_gqa=True)
     res["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), reps=20)
+    # gemma-7b's heads of 256 (each checkout's own D 256 instance)
+    del args, q, k, v, do, qg, kg, vg, out
+    args = _bwd_inputs(1, 16, 16, 2048, 2048, 256, True, None, 1)
+    res["flash_bwd_d256_ms"] = cuda_ms(
+        lambda: flash_attention_bwd_cuda(*args), reps=20)
+    for part in ("dkdv", "dq"):
+        res[f"flash_bwd_d256_{part}_device_ms"] = device_ms(
+            lambda: flash_attention_bwd_cuda(*args), f"flash_bwd_{part}")
+    q, k, v, _, do, _ = args
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    res["sdpa_bwd_d256_ms"] = cuda_ms(lambda: torch.autograd.grad(
         out, (qg, kg, vg), do, retain_graph=True), reps=20)
     return res
 
