@@ -74,6 +74,27 @@ failure:
    is traced for the device busy share; host
    sampling + packing of 8 batches is timed beside ``sample_blocks`` on
    the card; the sampling wrappers' host µs a call are logged;
+13. (run after phase 8) fault tolerance at phase 8's cell: (a)
+   ``train_gnn_minibatch(sampler="device")`` with a checkpoint every 50
+   steps and at the end, then the same run killed before step
+   ``steps_per_epoch + 36`` (epoch 1, off the cadence) by a
+   ``FaultPlan``, then resumed: the resume must start at the last
+   multiple of 50, and the losses, final params and every leaf of the
+   final checkpoint (params, the Adam step and moments) must equal the
+   clean run's bit for bit; launch counts zeroed just before the resumed
+   run and read just after (``sample_hop`` once a hop every step,
+   ``ell_spmm``, ``segment_sum`` and the evaluation's ``sell_spmm``), one
+   launch of each held against its plain version as phase 8 holds them;
+   the checkpoint's bytes, each ``train.ckpt`` span's ms and the resume's
+   set-up seconds logged; (b) a NaN added to the gradients at step 60:
+   exactly one step skipped, every loss and param finite; (c) the host
+   sampler over a window of 10 steps around the epoch boundary (a host
+   batch takes ~1.8 s to sample at this scale, so a whole host epoch
+   would take minutes): resumed from (b)'s checkpoint 2 steps before
+   epoch 1 and stopped by an injected kill, once clean and once with the
+   prefetch worker killed before item 4 and a 0.5 s straggler at epoch
+   1's batch 5 under a ``StragglerWatchdog``: the checkpoints at the
+   stop equal bit for bit, one prefetch restart, the straggler flagged;
 7. the same on ogbn-proteins, cut to scale 1/2 for device memory (the
    GCN bundle's two 128 x 128 BSR operands, Â and Â^T, take ~15 GB each
    there and would take ~51 GB each at scale 1), GCN, hidden 256, with
@@ -112,7 +133,8 @@ failure:
    timed at D = K = 256 (fusedmm for softmax, sigmoid and none)
    beside their dense-tile bound, the per-edge bound of the same
    function, the plain versions and a library yardstick the port never
-   calls (``torch.sparse.sampled_addmm``; for softmax
+   calls (``torch.sparse.sampled_addmm``, for the unscaled SDDMM over
+   the real tiles' full pattern; for softmax
    ``F.scaled_dot_product_attention`` with the dense boolean mask); the
    ordered segment sum as layer 1's backward runs it for dh (at K = 256
    and 112), checked against its plain version (2 d eps sum|terms|),
@@ -189,6 +211,13 @@ failure:
    ``flash_bwd_row_floors``); step 0 twice bit for bit; 5 steps on one
    batch with a falling loss; ms a step, tokens/s, busy share, peak
    memory and the backward's kernels' device ms in the traced step;
+   phase 13 (d): its whole train state (10.6 GB: bf16 params, fp32
+   moments) saved by an asynchronous ``Checkpointer`` under
+   ``chiprun_out/``, one in-place step at once while the write runs, the
+   restore equal to a device clone taken before the save bit for bit and
+   the next step from both bit for bit, the free disk, the host copy and
+   write seconds and the step's ms with and without a write in flight
+   logged, the directory removed;
    gemma-7b's attention shape (B 1, 16 / 16 heads of 256, S = T =
    2,048, causal, bf16) as a kernel case: the flash forward with its LSE
    and the backward (launched twice, bitwise equal), each against its
@@ -202,7 +231,9 @@ failure:
    phase 7, SDDMM and FusedMM as timed in phase 9, the ragged GEMM and
    flash attention as timed in phase 10, with phase 12's launches and
    dX timing, and the flash backward as timed in phase 12, its ``d256_*``
-   keys from gemma-7b's kernel case and step), the card line, and
+   keys from gemma-7b's kernel case and step; each entry's
+   ``launches_resume`` the launches of phase 13's resumed run, added to
+   its ``launches``), the card line, and
    ``{"ok": true, "device": {...}}``.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
@@ -213,6 +244,7 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -742,6 +774,39 @@ def device_csr(coo):
         return torch.sparse_csr_tensor(crow, coo.col[:n].long(),
                                        coo.val[:n].float(),
                                        size=(coo.nrows, coo.ncols))
+
+
+def tile_pattern_csr(a):
+    """Every position of every real tile of the BSR ``a`` as a CSR pattern
+    on the card (int32 indices, values 1, shape ``a.shape``): the
+    positions the unscaled SDDMM writes, so ``torch.sparse.sampled_addmm``
+    over it computes the same scores (a yardstick the port never calls).
+    Returns (csr, tiles of block row 0)."""
+    import torch
+    dev = a.blk_row.device
+    nb, br, bc = a.n_real_blocks, a.br, a.bc
+    blk_row, blk_col = a.blk_row[:nb].long(), a.blk_col[:nb].long()
+    counts = torch.bincount(blk_row, minlength=a.nrows // br)
+    off = torch.zeros_like(counts)
+    off[1:] = torch.cumsum(counts, 0)[:-1]
+    crow = torch.zeros(a.nrows + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(counts.repeat_interleave(br) * bc, 0)
+    nnz = int(crow[-1])
+    tile_cols = (blk_col[:, None] * bc + torch.arange(
+        bc, device=dev)).reshape(-1).to(torch.int32)
+    col = torch.empty(nnz, dtype=torch.int32, device=dev)
+    at = 0
+    for o, c in zip(off.tolist(), counts.tolist()):
+        seg = tile_cols[o * bc:(o + c) * bc]
+        col[at:at + br * c * bc] = seg.repeat(br)
+        at += br * c * bc
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # "sparse CSR is in beta"
+        csr = torch.sparse_csr_tensor(
+            crow.to(torch.int32), col,
+            torch.ones(nnz, dtype=torch.float32, device=dev),
+            size=(a.nrows, a.ncols))
+    return csr, int(counts[0])
 
 
 def time_full(name, a, coo, k, tag, gen) -> dict:
@@ -1534,6 +1599,14 @@ def gat_phase() -> dict:
     row, col = g.coo.row[:e], g.coo.col[:e]
     csr, kt = device_csr(g.coo), k.t().contiguous()
     cases = []
+    # unscaled, the function is every real tile position's score: one
+    # sampled_addmm over the tiles' full pattern computes it
+    pattern, tiles0 = tile_pattern_csr(a)
+    qp = torch.zeros(a.nrows, HIDDEN, device=q.device)
+    qp[:q.shape[0]] = q
+    kp = torch.zeros(a.ncols, HIDDEN, device=k.device)
+    kp[:k.shape[0]] = k
+    kpt = kp.t().contiguous()
     for sc in (True, False):
         # scaled by A, a position with A_ij = 0 stores 0: the output needs
         # one dot product per edge; unscaled, every tile position's
@@ -1541,23 +1614,35 @@ def gat_phase() -> dict:
             (n_real + used) * HIDDEN * 4
         tile_flops = 2.0 * nb * tile * HIDDEN + (nb * tile if sc else 0)
         edge_bytes = e * 8 * (2 if sc else 1) + (n_real + used) * HIDDEN * 4
-        lib_err = float((torch.sparse.sampled_addmm(
-            csr, q, kt, beta=0.0).values() -
-            edge_dots(q, k, row, col)).abs().max())
+        if sc:
+            library = (lambda: torch.sparse.sampled_addmm(csr, q, kt,
+                                                          beta=0.0))
+            lib_name = "torch.sparse.sampled_addmm (CSR, edges only)"
+            lib_err = float((library().values() - edge_dots(
+                q, k, row, col)).abs().max())
+        else:
+            library = (lambda: torch.sparse.sampled_addmm(
+                pattern, qp, kpt, beta=0.0))
+            lib_name = (f"torch.sparse.sampled_addmm (CSR over the "
+                        f"{a.n_real_blocks} real tiles' full pattern, "
+                        f"{pattern._nnz()} positions)")
+            got = library().values()[: a.br * tiles0 * a.bc].reshape(
+                a.br, tiles0, a.bc).permute(1, 0, 2)
+            lib_err = float((got - sddmm_bsr_cuda(
+                a, q, k, scale_by_a=False)[:tiles0]).abs().max())
+            del got
         case = dict(name="sddmm_bsr", tag=f"A/d{HIDDEN}/scale_by_a={sc}",
                     instance="nnz" if sc else "tile",
                     **edge_case_times(
                         "sddmm", lambda: sddmm_bsr_cuda(a, q, k, scale_by_a=sc),
                         lambda: sddmm_bsr_plain(a, q, k, scale_by_a=sc),
-                        lambda: torch.sparse.sampled_addmm(csr, q, kt,
-                                                           beta=0.0),
+                        library,
                         nbytes, (2.0 * HIDDEN + 1) * e if sc else tile_flops,
                         tile_flops, edge_bytes, 2.0 * e * HIDDEN),
-                    library="torch.sparse.sampled_addmm (CSR, edges only, "
-                            "unscaled)", library_max_abs_diff=lib_err,
+                    library=lib_name, library_max_abs_diff=lib_err,
                     **next(c for c in sddmm_checks if c["scale_by_a"] == sc))
         cases.append(case)
-    del csr, kt
+    del csr, kt, pattern, qp, kp, kpt
     mask = dense_mask(g.coo)
     has = mask.any(dim=1)
     for op in ("softmax", "sigmoid", "none"):
@@ -2044,9 +2129,10 @@ def trainer_hooks():
     """Hooks into ``train_gnn_minibatch``'s own device-sampled steps that
     launch nothing themselves: the first step runs under
     :func:`record_sampling` (its sampler, step function, arguments and
-    recorded primitives are kept for the checks), the next
-    ``MB_SYNC_STEPS`` steps under ``set_sync_debug_mode("error")``, and
-    each step's launches are read from the counters around it."""
+    recorded primitives are kept for the checks, and the host clock when
+    it began as ``t_first``), the next ``MB_SYNC_STEPS`` steps under
+    ``set_sync_debug_mode("error")``, and each step's launches are read
+    from the counters around it."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.train import gnn_minibatch as mb
@@ -2056,22 +2142,23 @@ def trainer_hooks():
     def make_hooked(apply_blocks, opt, dev_sampler, **kw):
         step = make(apply_blocks, opt, dev_sampler, **kw)
 
-        def hooked(*args):
+        def hooked(*args, **kw):
             i = len(hooks["per_step"])
             before = kops.kernel_launches()
             if i == 0:
+                hooks["t_first"] = time.perf_counter()
                 with record_sampling() as calls:
-                    res = step(*args)
+                    res = step(*args, **kw)
                 hooks["first"] = dict(sampler=dev_sampler, step=step,
                                       args=args, calls=calls)
             elif i <= MB_SYNC_STEPS:
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    res = step(*args)
+                    res = step(*args, **kw)
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
             else:
-                res = step(*args)
+                res = step(*args, **kw)
             after = kops.kernel_launches()
             hooks["per_step"].append({k: after[k] - before[k] for k in after})
             return res
@@ -2412,6 +2499,253 @@ def minibatch_phase(ds) -> dict:
         f"{prof['wall_s'] * 1e3:.2f} ms; top {prof['top'][:4]})")
     del hooks, first, dev, p0, s0, x, y, seeds
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: fault tolerance on the card
+# ---------------------------------------------------------------------------
+
+FT_CKPT_EVERY = 50      # the trainer's default cadence
+FT_KILL_AFTER = 36      # the kill: step steps_per_epoch + 36 (epoch 1)
+FT_NAN_STEP = 60        # nan_grad_at's step (epoch 0)
+FT_HOST_STEPS = 10      # host-sampled steps a run of (c), from the
+FT_HOST_BEFORE = 2      # checkpoint this many steps before epoch 1
+FT_PREFETCH_ITEM = 4    # (c): the prefetch worker dies before item 4
+FT_STRAGGLER = 5        # (c): the straggler, epoch 1's batch 5
+FT_DELAY_S = 0.5
+
+
+def ckpt_dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def final_state_leaves(base, step: int, params) -> list:
+    """Every leaf of the checkpoint at ``step`` under ``base`` (params,
+    the Adam step count and moments), restored on the card."""
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizer import tree_leaves
+    like = {"params": params, "opt_state": adamw(TRAIN_LR).init(params)}
+    got = restore_checkpoint(str(base), like, step=step)[0]
+    s = got["opt_state"]
+    return tree_leaves(got["params"]) + [s.step] + tree_leaves(s.mu) + \
+        tree_leaves(s.nu)
+
+
+def span_ms(tracer, name: str) -> list:
+    return [s.dur_ns / 1e6 for s in tracer.snapshot() if s.name == name]
+
+
+def fault_phase(ds, base: Path) -> dict:
+    """Phase 13 at phase 8's cell: (a) a clean device-sampled run with
+    checkpoints, the same run killed in epoch 1 off the cadence, and the
+    run resumed: losses, every final param and Adam moment bit for bit,
+    the resumed run's launches counted and one of each held against its
+    plain version; (b) a NaN gradient injected and skipped; (c) the host
+    sampler over a window of steps resumed from (b)'s checkpoint, clean
+    and with a dead prefetch worker and a straggler under the watchdog,
+    bitwise equal. Checkpoints go under ``base`` (the caller removes it).
+    Raises on the first failed check."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.ckpt import checkpoint_extra, committed_steps
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.testing import FaultPlan, expect_kill
+    from repro_torch.train import gnn_minibatch as mb
+    from repro_torch.train.fault_tolerance import StragglerWatchdog
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(base, ignore_errors=True)
+    kw = dict(fanouts=FANOUTS, batch_size=MB_BATCH, hidden=HIDDEN,
+              epochs=MB_EPOCHS, lr=TRAIN_LR, weight_decay=TRAIN_WD,
+              infer_batch=MB_INFER_BATCH, device=DEVICE)
+    dev_kw = dict(kw, sampler="device", ckpt_every=FT_CKPT_EVERY)
+    out: dict = dict(ckpt_every=FT_CKPT_EVERY)
+
+    # -- (a) clean, killed, resumed -------------------------------------------
+    with obs.profiled(ops=False) as tracer:
+        t0 = time.perf_counter()
+        clean = mb.train_gnn_minibatch(ARCH, ds, ckpt_dir=str(base / "clean"),
+                                       **dev_kw)
+        clean_s = time.perf_counter() - t0
+    spe = clean.steps_per_epoch
+    total = spe * MB_EPOCHS
+    kill = spe + FT_KILL_AFTER
+    resume_at = kill // FT_CKPT_EVERY * FT_CKPT_EVERY
+    if kill % FT_CKPT_EVERY == 0 or clean.ckpt_saves != \
+            total // FT_CKPT_EVERY + 1:
+        raise AssertionError(f"fault phase: kill {kill} on the cadence, or "
+                             f"{clean.ckpt_saves} saves in the clean run")
+    save_ms = span_ms(tracer, "train.ckpt")
+    final_dir = base / "clean" / f"step_{total:09d}"
+    ckpt_bytes = ckpt_dir_bytes(final_dir)
+    log(f"fault (a): clean run {MB_EPOCHS} epochs of {spe} steps with a "
+        f"checkpoint every {FT_CKPT_EVERY} steps and at the end: "
+        f"{clean.ckpt_saves} saves, {ckpt_bytes} bytes a checkpoint; the "
+        f"train.ckpt span ms (the counters' read and the host copy; the "
+        f"last, blocking, also the write) "
+        f"{[round(v, 3) for v in save_ms]}; epoch 2 "
+        f"{clean.epoch_time_s * 1e3:.1f} ms; {clean_s:.1f} s")
+    exc = expect_kill(mb.train_gnn_minibatch, ARCH, ds,
+                      ckpt_dir=str(base / "killed"),
+                      faults=FaultPlan(step_exception_at=kill), **dev_kw)
+    steps = committed_steps(str(base / "killed"))
+    if not steps or steps[-1] != resume_at:
+        raise AssertionError(f"fault (a): killed at {kill} ({exc}); "
+                             f"checkpoints {steps}, expected the newest at "
+                             f"{resume_at}")
+    with trainer_hooks() as hooks, record_inference_sell() as sell_calls, \
+            obs.profiled(ops=False) as tracer:
+        kops.reset_kernel_launches()
+        t_call = time.perf_counter()
+        res = mb.train_gnn_minibatch(ARCH, ds, ckpt_dir=str(base / "killed"),
+                                     **dev_kw)
+        launches = kops.kernel_launches()
+    setup_s = hooks["t_first"] - t_call
+    restore_ms = span_ms(tracer, "train.restore")
+    resume_save_ms = span_ms(tracer, "train.ckpt")
+    if res.resumed_step != resume_at or res.losses != clean.losses:
+        raise AssertionError(f"fault (a): resumed at {res.resumed_step} "
+                             f"(expected {resume_at}), losses {res.losses} "
+                             f"against the clean run's {clean.losses}")
+    same = [torch.equal(a, b) for a, b in zip(
+        tree_leaves(clean.final_params), tree_leaves(res.final_params))]
+    got = final_state_leaves(base / "killed", total, res.final_params)
+    want = final_state_leaves(base / "clean", total, clean.final_params)
+    same_state = [a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip(got, want)]
+    if not same or not all(same) or len(got) != len(want) or \
+            not all(same_state):
+        raise AssertionError(f"fault (a): the resumed run's final params "
+                             f"({same.count(False)} differ) or final "
+                             f"checkpoint ({same_state.count(False)} of "
+                             f"{len(same_state)} leaves differ) is not the "
+                             "clean run's")
+    per_step = hooks["per_step"]
+    n_hops = len(FANOUTS)
+    if len(per_step) != total - resume_at or any(
+            s[HOP_KERNEL] != n_hops for s in per_step) or any(
+            launches[n] == 0 for n in (HOP_KERNEL, "ell_spmm", "segment_sum",
+                                       "sell_spmm")):
+        raise AssertionError(f"fault (a): {len(per_step)} steps resumed of "
+                             f"{total - resume_at}; launches {launches}")
+    # one launch of each kernel against its plain version
+    by_name: dict = {}
+    for c in hooks["first"]["calls"]:
+        by_name.setdefault(c["name"], []).append(c)
+    check_sample_call(by_name[HOP_KERNEL][0])
+    a, h = by_name["ell_spmm"][0]["args"]
+    ell_err, _, ell_ratio = check_kernel("ell_spmm", a, h, "resumed step")
+    back = check_block_backward(by_name["ell_transpose_reduce"][0])
+    sell = check_inference_sell(sell_calls[:1])
+    del by_name, hooks, sell_calls
+    checks = dict(sample_hop="bitwise", ell_spmm=dict(
+        max_abs_err=ell_err, max_err_over_bound=ell_ratio),
+        segment_sum=back, sell_spmm=sell)
+    out["kill_resume"] = dict(
+        steps_per_epoch=spe, kill=kill, resumed_step=res.resumed_step,
+        losses=res.losses, leaves_bitwise=len(got),
+        params_bitwise=len(same), ckpt_bytes=ckpt_bytes,
+        save_ms=save_ms, resume_save_ms=resume_save_ms,
+        restore_ms=restore_ms, setup_s=setup_s, launches=launches,
+        resumed_steps=len(per_step), checks=checks,
+        clean_epoch_ms=clean.epoch_time_s * 1e3,
+        resumed_first_epoch_ms=res.first_epoch_s * 1e3)
+    log(f"fault (a): killed before step {kill} ({exc}); resumed from step "
+        f"{res.resumed_step}, {len(per_step)} steps replayed: losses, "
+        f"{len(same)} final params and {len(got)} leaves of the final "
+        f"checkpoint (params, Adam step and moments) equal the clean run's "
+        f"bit for bit; set-up {setup_s:.2f} s to the first step (restore "
+        f"{[round(v, 3) for v in restore_ms]} ms); launches {launches}; "
+        f"one launch each against its plain version: sample_hop bitwise, "
+        f"ELL {ell_ratio:.3f} and the block backward (segment_sum) "
+        f"{back['max_err_over_bound']:.3f} of the per-row bound, an "
+        f"evaluation SELL launch {sell['max_err_over_bound']:.3f}")
+    like = res.final_params          # shapes and devices of a restore
+    del clean, res, got, want
+    torch.cuda.empty_cache()
+
+    # -- (b) a NaN gradient, skipped ------------------------------------------
+    nan_every = spe - FT_HOST_BEFORE      # a checkpoint for (c) to start from
+    nan = mb.train_gnn_minibatch(
+        ARCH, ds, sampler="device", ckpt_dir=str(base / "nan"),
+        ckpt_every=nan_every, faults=FaultPlan(nan_grad_at=(FT_NAN_STEP, 0)),
+        **kw)
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in tree_leaves(nan.final_params))
+    extra = checkpoint_extra(str(base / "nan"), nan_every)
+    if nan.skipped_steps != 1 or not np.isfinite(nan.losses).all() or \
+            not finite or extra["skipped"] != 1:
+        raise AssertionError(f"fault (b): skipped {nan.skipped_steps}, "
+                             f"losses {nan.losses}, params finite {finite}, "
+                             f"checkpointed skips {extra['skipped']}")
+    out["nan"] = dict(step=FT_NAN_STEP, skipped=nan.skipped_steps,
+                      losses=nan.losses, test_acc=nan.test_acc)
+    log(f"fault (b): NaN injected into the gradients at step {FT_NAN_STEP}: "
+        f"1 step skipped, losses {[round(v, 5) for v in nan.losses]}, every "
+        f"param finite; the checkpoint at {nan_every} counts the skip")
+    del nan
+
+    # -- (c) the host sampler: a dead prefetch worker and a straggler ---------
+    stop = spe + FT_HOST_STEPS - FT_HOST_BEFORE   # the kill ends each window
+    host_kw = dict(kw, sampler="host", ckpt_every=5)
+    runs = {}
+    for name, plan, wd in (
+            ("clean", FaultPlan(step_exception_at=stop), None),
+            ("faulted", FaultPlan(step_exception_at=stop,
+                                  prefetch_death_at=FT_PREFETCH_ITEM,
+                                  straggler_at=spe + FT_STRAGGLER,
+                                  straggler_delay_s=FT_DELAY_S),
+             StragglerWatchdog())):
+        d = base / f"host_{name}"
+        shutil.copytree(base / "nan" / f"step_{nan_every:09d}",
+                        d / f"step_{nan_every:09d}")
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            expect_kill(mb.train_gnn_minibatch, ARCH, ds, ckpt_dir=str(d),
+                        faults=plan, watchdog=wd, **host_kw)
+        restarts = sum("prefetch worker died" in str(w.message)
+                       for w in caught)
+        runs[name] = dict(dir=d, restarts=restarts, wd=wd,
+                          seconds=time.perf_counter() - t0)
+    last = stop // 5 * 5
+    got, want = (final_state_leaves(runs[n]["dir"], last, like)
+                 for n in ("faulted", "clean"))
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    wd = runs["faulted"]["wd"]
+    flagged = [e.step for e in wd.events if e.straggler]
+    losses_same = checkpoint_extra(str(runs["faulted"]["dir"]), last)[
+        "losses"] == checkpoint_extra(str(runs["clean"]["dir"]), last)[
+        "losses"]
+    if not all(same) or not same or not losses_same or \
+            runs["faulted"]["restarts"] != 1 or \
+            runs["clean"]["restarts"] != 0 or \
+            spe + FT_STRAGGLER not in flagged:
+        raise AssertionError(f"fault (c): {same.count(False)} of "
+                             f"{len(same)} leaves differ at step {last}, "
+                             f"losses equal {losses_same}, restarts "
+                             f"{runs['faulted']['restarts']}, flagged "
+                             f"{flagged}")
+    out["host"] = dict(
+        start=nan_every, stop=stop, compared_step=last,
+        leaves_bitwise=len(same), prefetch_restarts=1, flagged=flagged,
+        watchdog=wd.summary(),
+        seconds={n: r["seconds"] for n, r in runs.items()})
+    log(f"fault (c): host sampler resumed at step {nan_every} from (b)'s "
+        f"checkpoint and stopped before step {stop} by an injected kill, "
+        f"clean and with the prefetch worker dead before item "
+        f"{FT_PREFETCH_ITEM} (1 restart) and a {FT_DELAY_S} s straggler at "
+        f"step {spe + FT_STRAGGLER}: the {len(same)} leaves of both "
+        f"checkpoints at step {last} and their losses equal bit for bit; "
+        f"the watchdog flagged {flagged} (EMA "
+        f"{wd.summary()['ema_s'] * 1e3:.2f} ms over {wd.total_steps} "
+        f"steps); {runs['clean']['seconds']:.1f} / "
+        f"{runs['faulted']['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3520,7 +3854,7 @@ def gemma_attention_case() -> dict:
 
 
 def train_checks(tag: str, cfg, batch: dict, n_steps: int,
-                 want: dict) -> dict:
+                 want: dict, keep_state: bool = False) -> dict:
     """One model's training on the card as phase 12 checks it:
     ``make_train_step``'s defaults, seeded random init on the card. Step 0
     with its launch counts (``want``: ``launches`` by kernel, the ragged
@@ -3531,7 +3865,9 @@ def train_checks(tag: str, cfg, batch: dict, n_steps: int,
     batch with a falling loss; ms a step and tokens/s (host clock over
     steps 1 ..), the busy share and device ms by kernel of a traced step,
     peak memory. ``inputs`` holds the first flash backward's and ragged
-    dX's records with their inputs, by kernel name, for timing."""
+    dX's records with their inputs, by kernel name, for timing; with
+    ``keep_state`` the result also holds ``step_fn``, the trained
+    ``state`` and the ``batch``."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
@@ -3645,14 +3981,112 @@ def train_checks(tag: str, cfg, batch: dict, n_steps: int,
         f", device busy {prof['busy_share']:.3f} in a traced step, peak "
         f"{peak_gb:.2f} GB")
     log(f"  top step kernels (ms) {prof['top']}")
-    return dict(launches=got["launches"],
-                ragged_by_direction=got["ragged_directions"],
-                ragged_instances=got["ragged_instances"],
-                flash_bwd_instances=got["bwd_instances"],
-                metrics_step0=metrics0, checks=checks,
-                worst_err_over_max=worst, worst_row=worst_row,
-                losses=losses, step_ms=step_ms, tokens_s=tokens_s,
-                peak_gb=peak_gb, profile=prof, inputs=inputs)
+    res = dict(launches=got["launches"],
+               ragged_by_direction=got["ragged_directions"],
+               ragged_instances=got["ragged_instances"],
+               flash_bwd_instances=got["bwd_instances"],
+               metrics_step0=metrics0, checks=checks,
+               worst_err_over_max=worst, worst_row=worst_row,
+               losses=losses, step_ms=step_ms, tokens_s=tokens_s,
+               peak_gb=peak_gb, profile=prof, inputs=inputs)
+    if keep_state:
+        res.update(step_fn=step_fn, state=state, batch=batch)
+    return res
+
+
+def lm_checkpoint_case(tag: str, step_fn, state, batch, base: Path) -> dict:
+    """Phase 13 (d): an asynchronous ``Checkpointer.save`` of a whole LM
+    train state on the card (bf16 params, fp32 moments) under
+    ``base``, one in-place step at once while the write runs, a
+    restore that must equal a device clone taken before the save bit for
+    bit, and the next step from both, bit for bit. Logs the free disk
+    before the save, the host copy and write seconds, whether the write
+    outlasted the step, and the step's ms with and without a write in
+    flight. The caller removes ``base``."""
+    import torch
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.train import lm as TL
+
+    def leaves(st):
+        return (tree_leaves(st.params) + [st.opt_state.step] +
+                tree_leaves(st.opt_state.mu) + tree_leaves(st.opt_state.nu))
+
+    def timed_step(st):
+        """(state, metrics, wall ms, ms until the step had enqueued its
+        work: the step reads nothing back, so that is its host time)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step_fn(st, batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return st, m, ((time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3)
+
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    free_gb = shutil.disk_usage(base).free / 1e9
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    state, _, (plain_ms, plain_host_ms) = timed_step(state)   # no write
+    clone = TL.TrainState(
+        tree_map(torch.clone, state.params),
+        state.opt_state._replace(step=state.opt_state.step.clone(),
+                                 mu=tree_map(torch.clone, state.opt_state.mu),
+                                 nu=tree_map(torch.clone, state.opt_state.nu)),
+        None)
+    torch.cuda.synchronize()
+    ck = Checkpointer(str(base), keep=1)
+    t0 = time.perf_counter()
+    ck.save(1, state)
+    t_copy = time.perf_counter()
+    # in place, while the write runs
+    state, _, (during_ms, during_host_ms) = timed_step(state)
+    overlapped = ck.in_flight
+    ck.wait()
+    t_written = time.perf_counter()
+    on_disk = ckpt_dir_bytes(base / "step_000000001")
+    changed = sum(not torch.equal(a, b)
+                  for a, b in zip(leaves(state), leaves(clone)))
+    del state
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    restored, step = ck.restore(clone)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    same = [a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+            for a, b in zip(leaves(restored), leaves(clone))]
+    if step != 1 or not same or not all(same) or not changed:
+        raise AssertionError(f"{tag} checkpoint: restored step {step}, "
+                             f"{same.count(False)} of {len(same)} leaves "
+                             f"differ from the clone; the in-place step "
+                             f"changed {changed} leaves")
+    s1, m1 = step_fn(restored, batch)
+    s2, m2 = step_fn(clone, batch)
+    next_same = [torch.equal(a, b) for a, b in zip(leaves(s1), leaves(s2))]
+    if float(m1["loss"]) != float(m2["loss"]) or not all(next_same):
+        raise AssertionError(f"{tag} checkpoint: the next step from the "
+                             f"restored state and from the clone differ "
+                             f"({next_same.count(False)} leaves)")
+    del s1, s2, restored, clone
+    torch.cuda.empty_cache()
+    out = dict(state_bytes=nbytes, bytes_on_disk=on_disk, free_gb=free_gb,
+               host_copy_s=t_copy - t0, write_s=ck.last_write_s,
+               save_to_durable_s=t_written - t0,
+               write_outlasted_step=overlapped, restore_s=restore_s,
+               step_ms_writing=during_ms, step_ms_plain=plain_ms,
+               step_host_ms_writing=during_host_ms,
+               step_host_ms_plain=plain_host_ms,
+               leaves=len(same), leaves_changed_by_step=changed)
+    log(f"{tag} checkpoint: {nbytes / 1e9:.2f} GB of state ({len(same)} "
+        f"leaves; {on_disk / 1e9:.2f} GB on disk, {free_gb:.1f} GB free "
+        f"before): host copy {out['host_copy_s']:.2f} s, then the write "
+        f"{out['write_s']:.2f} s in the background (outlasted the step: "
+        f"{overlapped}; durable {out['save_to_durable_s']:.2f} s after the "
+        f"call), restore {restore_s:.2f} s; the in-place step "
+        f"{during_ms:.1f} ms with the write in flight, {plain_ms:.1f} ms "
+        f"without (enqueued in {during_host_ms:.1f} / {plain_host_ms:.1f} "
+        f"ms of host time); restored state and the next step from it equal "
+        f"the clone's bit for bit")
+    return out
 
 
 def traced_launch_ms(prof: dict, key: str, launches: int):
@@ -3702,8 +4136,18 @@ def gemma_train_phase() -> dict:
                 ragged_instances={"wgmma": 0, "wmma": 0, "f32": 0},
                 bwd_instances={"wgmma": GEMMA_TRAIN_LAYERS, "wmma": 0,
                                "f32": 0})
-    res = train_checks(GEMMA_ARCH, cfg, batch, GEMMA_TRAIN_STEPS, want)
+    res = train_checks(GEMMA_ARCH, cfg, batch, GEMMA_TRAIN_STEPS, want,
+                       keep_state=True)
     del res["inputs"]
+    # phase 13 (d): the whole train state checkpointed while a step runs,
+    # under chiprun_out/ (removed whatever happens: it holds 10.6 GB)
+    ckpt_dir = ROOT / "chiprun_out" / "phase13_lm_ckpt"
+    try:
+        res["checkpoint"] = lm_checkpoint_case(
+            GEMMA_ARCH, res.pop("step_fn"), res.pop("state"),
+            res.pop("batch"), ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     res["bwd_device_ms"] = {
         part: traced_launch_ms(res["profile"], f"flash_bwd_{part}",
                                GEMMA_TRAIN_LAYERS)
@@ -4108,6 +4552,15 @@ def main() -> int:
     log(f"minibatch phase: {minibatch['seconds']:.1f} s")
     report["train_minibatch"] = minibatch
 
+    # -- phase 13 (a-c): fault tolerance at phase 8's cell -------------------
+    ft_dir = out_dir / "phase13_ckpt"
+    try:
+        fault = fault_phase(ds, ft_dir)
+    finally:
+        shutil.rmtree(ft_dir, ignore_errors=True)
+    log(f"fault phase: {fault['seconds']:.1f} s")
+    report["fault_tolerance"] = fault
+
     # -- phase 11 (a, b, d, e): measured tuning on reddit ------------------
     log("phase 11: measured tuning (CUDA events over the hand kernels; "
         "estimates from the H100 model)")
@@ -4345,7 +4798,11 @@ def main() -> int:
             bound_tc_ms=rep["bound_tc_ms"], bound_edge_ms=rep["bound_edge_ms"],
             library_ms=rep["library_ms"], shape=rep["tag"], pinned=True)
         if name == "sddmm_bsr":
-            entry["instance"] = rep["instance"]
+            tile = next(c for c in own if c["instance"] == "tile")
+            entry.update(instance=rep["instance"], unscaled_ms=tile["ms"],
+                         unscaled_bound_ms=tile["bound_ms"],
+                         unscaled_plain_ms=tile["plain_ms"],
+                         unscaled_library_ms=tile["library_ms"])
         else:
             entry.update(instance="edge",
                          tiles_by_route=gat["tiles_by_route"]["main_path"])
@@ -4425,6 +4882,15 @@ def main() -> int:
     for entry in kernels:       # phase 11: launches inside the timed passes
         entry["launches_measured_tuning"] = tuning["launches"].get(
             entry["name"], 0)
+    resumed = fault["kill_resume"]
+    for entry in kernels:       # phase 13 (a): the resumed run's launches
+        n = resumed["launches"].get(entry["name"], 0)
+        entry["launches_resume"] = n
+        entry["launches"] += n
+        check = resumed["checks"].get(entry["name"])
+        if isinstance(check, dict):
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       check["max_abs_err"])
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1,

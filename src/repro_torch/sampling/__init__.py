@@ -2,6 +2,7 @@
 
     seed loader        repro_torch.sampling.loader        shuffled padded
         │                                                  batches, prefetch
+        │                                                  (restarting)
     k-hop sampler      repro_torch.sampling.sampler       host, numpy
                        repro_torch.sampling.device_graph  device, hand kernels
         │
@@ -25,7 +26,7 @@ from repro_torch.sampling.buckets import (LayerBucket, merge_buckets,
 from repro_torch.sampling.device_graph import (DeviceGraph, DeviceSampler,
                                                device_graph_from_csr)
 from repro_torch.sampling.loader import (num_seed_batches, prefetch,
-                                         seed_batches)
+                                         resilient_prefetch, seed_batches)
 
 register_tuned("block_spmm", block_spmm)
 register_baseline("block_spmm", block_spmm_baseline)
@@ -50,4 +51,5 @@ __all__ = [
     "num_seed_batches",
     "seed_batches",
     "prefetch",
+    "resilient_prefetch",
 ]

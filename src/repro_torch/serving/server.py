@@ -96,7 +96,10 @@ class GNNServer:
     final layer; :meth:`refresh_embeddings` after weight or feature
     updates). ``cache_capacity`` rows of features (or historical
     embeddings) stay on the device. ``tune=False`` pins every block plan
-    to the trusted segment reduce. ``device`` defaults to the card.
+    to the trusted segment reduce. ``faults`` (a
+    ``repro_torch.testing.FaultPlan``) injects a failure before a flush
+    (``flush_exception_at``): that flush's tickets fail with it and the
+    server goes on serving. ``device`` defaults to the card.
     """
 
     def __init__(self, params, dataset, *, arch: str = "sage-sum",
@@ -105,7 +108,7 @@ class GNNServer:
                  cache_capacity: int = 4096,
                  bucket_base: int = 128, seed_bucket_base: int = 16,
                  tune: bool = True, tuning_db=None, use_isplib: bool = True,
-                 sample_seed: int = 0, start: bool = True,
+                 sample_seed: int = 0, faults=None, start: bool = True,
                  device="cuda"):
         if mode not in SERVE_MODES:
             raise ValueError(f"mode must be one of {SERVE_MODES}, "
@@ -116,6 +119,7 @@ class GNNServer:
         self.fanouts = tuple(fanouts)
         self.use_isplib = bool(use_isplib)
         self.bucket_base = int(bucket_base)
+        self.faults = faults
         self.params = {layer: {k: v.to(self.device) for k, v in p.items()}
                        for layer, p in params.items()}
         self.dims = _infer_dims(self.params)
@@ -255,6 +259,8 @@ class GNNServer:
                 tracer.add_span("serve.queue_wait", now_ns - dur, dur,
                                 flush=flush.index)
         try:
+            if self.faults is not None:
+                self.faults.before_flush(flush.index)
             with obs.span("serve.flush", index=flush.index,
                           n_real=flush.n_real, n_tickets=len(flush.tickets)):
                 out = self.run_flush(flush)

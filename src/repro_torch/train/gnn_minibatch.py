@@ -41,8 +41,23 @@ training loop's thread) unpacked, and the prefetch thread waits until
 the consumer has planned and packed it, so no step and no transfer of
 the pipeline overlaps a timed window.
 
-Data parallelism, checkpoint/resume, fault injection and the straggler
-watchdog come with later slices (ROADMAP.md).
+**Fault tolerance** (``ckpt_dir=``, ``faults=``, ``watchdog=``), the
+reference's contract. ``ckpt_dir`` checkpoints ``(params, opt_state)``
+and the loader position (the global step ``epoch * steps_per_epoch +
+batch``) through :class:`repro_torch.ckpt.Checkpointer`. Every random
+stream here is stateless (the epoch permutation is keyed ``(seed,
+epoch)``, host draws by the round counter, device draws by ``(seed,
+round, hop, node, slot)``), and a step repeats bit for bit on the card
+(the ordered segment sums), so resuming is a pure fast-forward: skip the
+first batches of the restart epoch without sampling them, and the
+replayed tail is the schedule the killed run would have run, so a killed
+and resumed run ends with bitwise-identical params and Adam moments. The
+prefetch worker restarts a bounded number of times from the delivered
+batch count (``sampling.loader.resilient_prefetch``); ``faults`` (a
+:class:`repro_torch.testing.FaultPlan`) injects each failure mode at the
+trainer's injection points; ``watchdog`` (a
+``train.fault_tolerance.StragglerWatchdog``) observes step wall-clock.
+Data parallelism comes with a later slice (ROADMAP.md queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -57,6 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.ckpt import Checkpointer, checkpoint_extra, latest_step
 from repro_torch.core import sparse as sp
 from repro_torch.core.patch import patched
 from repro_torch.models.gnn import layers as L
@@ -66,7 +82,8 @@ from repro_torch.sampling import (BlockPlanCache, DeviceSampler,
                                   NeighborSampler, block_spmm_global,
                                   device_graph_from_csr, gather_rows,
                                   num_seed_batches, pack_block, plan_buckets,
-                                  prefetch, round_bucket, seed_batches)
+                                  resilient_prefetch, round_bucket,
+                                  seed_batches)
 from repro_torch.train.gnn import accuracy, loss_and_grads
 
 __all__ = ["MB_ARCHS", "SAMPLERS", "MinibatchTrainResult",
@@ -106,6 +123,9 @@ class MinibatchTrainResult:
     capacity_escalations: int = 0  # device capacity doublings
     probed_caps: Optional[tuple] = None   # device capacities, first build
     src_caps: Optional[tuple] = None      # device capacities at the end
+    prefetch_restarts: int = 0     # prefetch-worker recoveries
+    resumed_step: int = -1         # global step restored from (-1: fresh)
+    ckpt_saves: int = 0            # checkpoints written by this run
     device: str = "cuda"
     final_params: Any = dataclasses.field(default=None, repr=False)
 
@@ -164,12 +184,17 @@ def init_step_stats(device="cuda") -> obs.DeviceCounters:
 
 
 def _step_tail(opt, p, s, loss, grads, stats, ovf, *,
-               skip_nonfinite: bool):
+               skip_nonfinite: bool, nan_inject=None, step_idx=None):
     """Everything between the gradients and the applied update, shared by
-    both samplers: the non-finite guard, decided and applied on the device
-    (gradients zeroed, then the new params and the whole Adam state, step
-    count included, discarded by ``torch.where`` when anything was
-    non-finite), the update, and the counters."""
+    both samplers: the test harness's NaN (``nan_inject=(step, shard)``
+    adds NaN to every gradient on the device when ``step_idx`` is that
+    step; both are host ints, so nothing is read back), the non-finite
+    guard, decided and applied on the device (gradients zeroed, then the
+    new params and the whole Adam state, step count included, discarded
+    by ``torch.where`` when anything was non-finite), the update, and the
+    counters."""
+    if nan_inject is not None and step_idx == nan_inject[0]:
+        grads = tree_map(lambda g: g + float("nan"), grads)
     ok = None
     if skip_nonfinite:
         flat: list = []
@@ -193,29 +218,34 @@ def _step_tail(opt, p, s, loss, grads, stats, ovf, *,
 
 
 def make_minibatch_step(apply_blocks, opt, *, batch_size: int,
-                        skip_nonfinite: bool = True):
+                        skip_nonfinite: bool = True, nan_inject=None):
     """The host-sampled update: ``step(params, opt_state, pbs, seed_ids,
-    n_real, x, y, stats) -> (params, opt_state, loss, grads, stats)``.
-    ``pbs`` are packed blocks on the device, ``seed_ids`` the padded
-    ``(batch_size,)`` seed tensor there, ``n_real`` the host count of
-    real seeds (the rest are masked out of the loss)."""
+    n_real, x, y, stats, step_idx=None) -> (params, opt_state, loss,
+    grads, stats)``. ``pbs`` are packed blocks on the device, ``seed_ids``
+    the padded ``(batch_size,)`` seed tensor there, ``n_real`` the host
+    count of real seeds (the rest are masked out of the loss), ``step_idx``
+    the host global step (read by ``nan_inject``, the test harness's
+    ``(step, shard)``)."""
 
-    def step(p, s, pbs, seed_ids, n_real, x, y, stats):
+    def step(p, s, pbs, seed_ids, n_real, x, y, stats, step_idx=None):
         mask = torch.arange(batch_size, device=x.device) < n_real
         h = gather_rows(x, pbs[0].src_ids)
         loss, grads = loss_and_grads(apply_blocks, p, pbs, h,
                                      y[seed_ids.long()], mask)
         return _step_tail(opt, p, s, loss, grads, stats, None,
-                          skip_nonfinite=skip_nonfinite)
+                          skip_nonfinite=skip_nonfinite,
+                          nan_inject=nan_inject, step_idx=step_idx)
 
     return step
 
 
 def make_device_minibatch_step(apply_blocks, opt, dev_sampler, *,
                                batch_size: int,
-                               skip_nonfinite: bool = True):
+                               skip_nonfinite: bool = True, nan_inject=None):
     """The device-sampled update: ``step(params, opt_state, seeds, n_real,
-    rnd, x, y, stats) -> (params, opt_state, loss, grads, stats)``.
+    rnd, x, y, stats, step_idx=None) -> (params, opt_state, loss, grads,
+    stats)`` (``step_idx`` and ``nan_inject`` as in
+    :func:`make_minibatch_step`).
 
     ``seeds`` is the padded ``(batch_size,)`` seed tensor on the device,
     ``n_real`` and the round counter ``rnd`` host ints. Pad seeds are
@@ -225,7 +255,7 @@ def make_device_minibatch_step(apply_blocks, opt, dev_sampler, *,
     joins the device counters. Nothing in the step reads the device."""
     num_nodes = dev_sampler.graph.num_nodes
 
-    def step(p, s, seeds, n_real, rnd, x, y, stats):
+    def step(p, s, seeds, n_real, rnd, x, y, stats, step_idx=None):
         mask = torch.arange(batch_size, device=seeds.device) < n_real
         with torch.no_grad():
             pbs, ovf = dev_sampler.sample_blocks_stats(
@@ -234,7 +264,8 @@ def make_device_minibatch_step(apply_blocks, opt, dev_sampler, *,
         loss, grads = loss_and_grads(apply_blocks, p, pbs, h,
                                      y[seeds.long()], mask)
         return _step_tail(opt, p, s, loss, grads, stats, ovf,
-                          skip_nonfinite=skip_nonfinite)
+                          skip_nonfinite=skip_nonfinite,
+                          nan_inject=nan_inject, step_idx=step_idx)
 
     return step
 
@@ -308,16 +339,23 @@ def layerwise_inference(params, sampler: NeighborSampler, x: torch.Tensor,
     return h
 
 
+
+
 def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                         batch_size: int = 256, hidden: int = 128,
                         epochs: int = 5, lr: float = 1e-2,
                         weight_decay: float = 5e-4, use_isplib: bool = True,
                         tune: bool = True, measure_tuning: bool = False,
                         seed: int = 0, tuning_db=None,
-                        bucket_base: int = 128, infer_batch: int = 1024,
-                        sampler: str = "host", skip_nonfinite: bool = True,
+                        double_buffer: bool = True, bucket_base: int = 128,
+                        infer_batch: int = 1024, sampler: str = "host",
+                        skip_nonfinite: bool = True,
+                        ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
+                        ckpt_keep: int = 3, resume: bool = True,
+                        faults=None, prefetch_restarts: int = 2,
                         device_caps=None, max_escalations: int = 2,
-                        params: dict | None = None, profile: bool = False,
+                        watchdog=None, params: dict | None = None,
+                        profile: bool = False,
                         device="cuda") -> MinibatchTrainResult:
     """Neighbour-sampled minibatch training on ``dataset`` (a
     ``data.graphs.GraphDataset``), one layer per fanout entry (outermost
@@ -327,16 +365,44 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
     ``seed`` unless ``params`` hands over a starting point (a test starts
     both packages from the same weights that way). Epoch ``e``, batch
     ``b`` samples with round ``e * 100003 + b`` on either sampler, as the
-    reference does.
+    reference does. The host sampler runs one batch ahead of the step in
+    a prefetch thread; ``double_buffer=False`` runs it in turn with the
+    steps instead (the results are the same).
 
     ``sampler="device"`` samples on the device (see the module
     docstring). Its per-hop capacities are probed from three host-sampled
     batches (1.5x the largest source count seen), unless ``device_caps``
-    (innermost first) pins them; the per-layer plans come from the same
-    ``BlockPlanCache`` sweep as the host path, restricted to ELL/trusted.
-    Edges dropped to capacity overflow are counted on the device; at an
-    epoch boundary with new drops the capacities double and the sampler is
-    rebuilt, at most ``max_escalations`` times.
+    (innermost first) pins them, and a checkpoint's capacities take
+    precedence over both (a resumed run must truncate as the killed one
+    did); the per-layer plans come from the same ``BlockPlanCache``
+    sweep as the host path, restricted to ELL/trusted. Edges dropped to
+    capacity overflow are counted on the device; at an epoch boundary
+    with new drops the capacities double and the sampler is rebuilt, at
+    most ``max_escalations`` times.
+
+    Fault tolerance (the module docstring has the contract):
+
+    * ``ckpt_dir``: every ``ckpt_every`` steps, and at the end (blocking),
+      ``{"params", "opt_state"}`` and the resume state (``extra``:
+      ``losses``, the device ``src_caps``, the ``skipped`` and
+      ``overflow`` counts and the ``escalations``) are saved; with
+      ``resume`` the newest committed step is restored and the loader
+      fast-forwards to it, the restored counters carrying into the
+      result. ``ckpt_keep`` bounds the steps kept. Each save is a
+      ``train.ckpt`` span (the counters' read, the one sync a save costs,
+      and the host copy), the restore a ``train.restore`` span.
+    * ``skip_nonfinite`` (default on): a non-finite loss or gradient
+      skips that update, decided on the device, counted in
+      ``skipped_steps``.
+    * a dead host prefetch worker is rebuilt from the delivered batch
+      count, at most ``prefetch_restarts`` times an epoch.
+    * ``faults`` (a ``repro_torch.testing.FaultPlan``) injects failures:
+      ``step_exception_at`` / ``straggler_at`` before the step,
+      ``nan_grad_at`` inside it on the device, ``prefetch_death_at`` in
+      the host stream. ``watchdog`` (a ``train.fault_tolerance.
+      StragglerWatchdog``) observes each step's wall-clock from the
+      second executed epoch on (the first is dominated by kernel builds
+      and plans), with a device sync after every step.
 
     ``measure_tuning=True`` times each bucket's candidates on ``device``
     (see the module docstring for when); ``tuning_db`` (a
@@ -387,6 +453,30 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
         y = dataset.y.to(device)
         steps_per_epoch = num_seed_batches(len(train_ids), batch_size)
 
+        # -- checkpoint / resume: a committed step N means "N steps done"
+        ckpt = None
+        resumed_step = -1
+        start_step = 0
+        prior_losses: list = []
+        restored_caps = None
+        skipped_base = overflow_base = escalations = ckpt_saves = 0
+        n_prefetch_restarts = 0
+        if ckpt_dir is not None:
+            ckpt = Checkpointer(ckpt_dir, keep=ckpt_keep)
+            if resume and latest_step(ckpt_dir) is not None:
+                with obs.span("train.restore"):
+                    restored, start_step = ckpt.restore(
+                        {"params": params, "opt_state": opt_state})
+                params, opt_state = restored["params"], restored["opt_state"]
+                resumed_step = start_step
+                extra = checkpoint_extra(ckpt_dir, start_step)
+                prior_losses = list(extra.get("losses", []))
+                restored_caps = extra.get("src_caps")
+                skipped_base = int(extra.get("skipped", 0))
+                overflow_base = int(extra.get("overflow", 0))
+                escalations = int(extra.get("escalations", 0))
+
+        nan_inject = faults.nan_grad_at if faults is not None else None
         dev = probed = src_caps = None
         if sampler == "device":
             dgraph = device_graph_from_csr(csr, device=device)
@@ -396,8 +486,11 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
             probed = [int(1.5 * max(p[n_layers - 1 - j].n_src
                                     for p in probe))
                       for j in range(n_layers)]
-            src_caps = [int(c) for c in device_caps] \
-                if device_caps is not None else list(probed)
+            # checkpointed caps > pinned > probed
+            src_caps = [int(c) for c in restored_caps] \
+                if restored_caps is not None else \
+                [int(c) for c in device_caps] if device_caps is not None \
+                else list(probed)
 
             def build_device(caps):
                 d = DeviceSampler(dgraph, fanouts, batch_size=batch_size,
@@ -408,16 +501,40 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                     for blk, bk, k in zip(probe[0], d.buckets, dims)])
                 return d, make_device_minibatch_step(
                     apply_blocks, opt, d, batch_size=batch_size,
-                    skip_nonfinite=skip_nonfinite)
+                    skip_nonfinite=skip_nonfinite, nan_inject=nan_inject)
 
             dev, step = build_device(src_caps)
         else:
             step = make_minibatch_step(apply_blocks, opt,
                                        batch_size=batch_size,
-                                       skip_nonfinite=skip_nonfinite)
+                                       skip_nonfinite=skip_nonfinite,
+                                       nan_inject=nan_inject)
 
         signatures: set = set()
         stats = init_step_stats(device)
+        losses: list = [float(v) for v in prior_losses]
+
+        def save_state(nsteps: int, last, *, blocking: bool = False):
+            """Checkpoint the state and the resume metadata after
+            ``nsteps`` steps. Reading the counters is a device sync, paid
+            at the checkpoint cadence only."""
+            nonlocal ckpt_saves
+            ep_losses = list(losses)
+            if nsteps % steps_per_epoch == 0 and last is not None and \
+                    len(ep_losses) < nsteps // steps_per_epoch:
+                # on an epoch boundary, before the epoch loop appends this
+                # epoch's loss: include it, so the restored history
+                # matches the resumed epoch count
+                ep_losses.append(float(last))
+            with obs.span("train.ckpt", step=nsteps):
+                drained = stats.drain()
+                extra = {"losses": ep_losses, "src_caps": src_caps,
+                         "skipped": skipped_base + drained["skipped"],
+                         "overflow": overflow_base + drained["overflow"],
+                         "escalations": escalations}
+                ckpt.save(nsteps, {"params": params, "opt_state": opt_state},
+                          blocking=blocking, extra=extra)
+            ckpt_saves += 1
 
         def epoch_batches(epoch: int):
             return list(seed_batches(train_ids, batch_size, shuffle=True,
@@ -445,13 +562,18 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                 sids = torch.from_numpy(seed_ids).to(device)
             return pbs, sids, sig
 
-        def batch_stream(epoch: int, planned: threading.Event):
+        def batch_stream(epoch: int, planned: threading.Event,
+                         start: int = 0):
             """Host half of the pipeline (the prefetch thread): sample,
-            bucket, pack and move one batch per step. A batch with a
-            bucket still to measure goes to the consumer unpacked
-            (``(None, ...)``), and this thread waits on ``planned`` until
-            the consumer has planned and packed it."""
+            bucket, pack and move one batch per step, from batch
+            ``start`` on (the batches before it are skipped without
+            sampling: the resume fast-forward and the prefetch restart).
+            A batch with a bucket still to measure goes to the consumer
+            unpacked (``(None, ...)``), and this thread waits on
+            ``planned`` until the consumer has planned and packed it."""
             for bi, (seed_ids, n_real) in enumerate(epoch_batches(epoch)):
+                if bi < start:
+                    continue
                 with obs.span("loader.sample", batch=bi):
                     blocks = host_sampler.sample(
                         seed_ids[:n_real], round=epoch * 100003 + bi)
@@ -469,30 +591,64 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                 pbs, sids, sig = stage(blocks, buckets, seed_ids, bi)
                 yield (pbs, sids, sig), None, n_real
 
-        def run_epoch(epoch: int):
-            nonlocal params, opt_state, stats
+        watch_on = False          # set after the first executed epoch
+
+        def before_step(gstep: int) -> float:
+            t0 = time.perf_counter() if watchdog is not None else 0.0
+            if faults is not None:      # after t0: an injected straggler's
+                faults.before_step(gstep)   # delay lands in the window
+            return t0
+
+        def after_step(gstep: int, t0: float, last) -> None:
+            if watchdog is not None and watch_on:
+                sync()
+                watchdog.observe(gstep, time.perf_counter() - t0)
+            if ckpt is not None and ckpt_every > 0 and \
+                    (gstep + 1) % ckpt_every == 0:
+                save_state(gstep + 1, last)
+
+        def run_epoch(epoch: int, start: int = 0):
+            nonlocal params, opt_state, stats, n_prefetch_restarts
             last = None
             planned = threading.Event()
+
+            def on_restart(n, delivered, exc):
+                nonlocal n_prefetch_restarts
+                n_prefetch_restarts += 1
+                warnings.warn(f"prefetch worker died ({exc!r}); restarted "
+                              f"from batch {start + delivered} (restart "
+                              f"{n})")
+
+            def make_stream(delivered: int):
+                planned.clear()         # a dead producer's flag is stale
+                s = batch_stream(epoch, planned, start + delivered)
+                return faults.wrap_stream(s) if faults is not None else s
+
+            stream = resilient_prefetch(
+                make_stream, max_restarts=prefetch_restarts,
+                on_restart=on_restart) if double_buffer else make_stream(0)
             try:
-                for bi, (ready, raw, n_real) in enumerate(
-                        prefetch(batch_stream(epoch, planned))):
+                for bi, (ready, raw, n_real) in enumerate(stream, start):
                     if ready is None:       # measured here, between steps
                         ready = stage(*raw)
                         planned.set()
                     pbs, sids, sig = ready
+                    gstep = epoch * steps_per_epoch + bi
+                    t0 = before_step(gstep)
                     signatures.add(sig)
-                    with obs.span("train.step",
-                                  step=epoch * steps_per_epoch + bi):
+                    with obs.span("train.step", step=gstep):
                         params, opt_state, last, _, stats = step(
                             params, opt_state, pbs, sids, n_real, x, y,
-                            stats)
+                            stats, step_idx=gstep)
                         if profile:   # the span times execution, not enqueue
                             sync()
+                    after_step(gstep, t0, last)
             finally:
                 planned.set()           # never leave the producer waiting
+                stream.close()
             return last
 
-        def run_epoch_device(epoch: int):
+        def run_epoch_device(epoch: int, start: int = 0):
             """The host feeds the epoch's seeds (one copy) and the round
             counter; sampling, packing and the update run on the device."""
             nonlocal params, opt_state, stats
@@ -500,47 +656,67 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
             seeds = torch.from_numpy(
                 np.stack([b[0] for b in batches]).astype(np.int32)).to(device)
             last = None
-            for bi, (_, n_real) in enumerate(batches):
+            for bi in range(start, len(batches)):
+                gstep = epoch * steps_per_epoch + bi
+                t0 = before_step(gstep)
                 signatures.add(dev.signature)
-                with obs.span("train.step",
-                              step=epoch * steps_per_epoch + bi,
-                              sampler="device"):
+                with obs.span("train.step", step=gstep, sampler="device"):
                     params, opt_state, last, _, stats = step(
-                        params, opt_state, seeds[bi], n_real,
-                        epoch * 100003 + bi, x, y, stats)
+                        params, opt_state, seeds[bi], batches[bi][1],
+                        epoch * 100003 + bi, x, y, stats, step_idx=gstep)
                     if profile:
                         sync()
+                after_step(gstep, t0, last)
             return last
 
         epoch_fn = run_epoch_device if sampler == "device" else run_epoch
-        losses: list = []
+        start_epoch, start_batch = divmod(start_step, steps_per_epoch)
         first_epoch = later = 0.0
-        escalations = ovf_seen = 0
-        for ep in range(epochs):
-            t0 = time.perf_counter()
-            with obs.span("train.epoch", epoch=ep):
-                loss = epoch_fn(ep)
-                sync()
-            dt = time.perf_counter() - t0
-            if ep == 0:
-                first_epoch = dt
-            else:
-                later += dt
-            losses.append(float(loss))          # once per epoch
-            if dev is not None:
-                # capacity-overflow escalation, at the epoch boundary
-                ovf_now = int(stats["overflow"])
-                if ovf_now > ovf_seen and escalations < max_escalations:
-                    escalations += 1
-                    src_caps = [2 * c for c in src_caps]
-                    warnings.warn(
-                        f"device sampler dropped {ovf_now - ovf_seen} edges "
-                        f"to capacity overflow in epoch {ep}; escalating "
-                        f"capacities to {src_caps} "
-                        f"({escalations}/{max_escalations})")
-                    dev, step = build_device(src_caps)
-                ovf_seen = ovf_now
-        epoch_time = later / (epochs - 1) if epochs > 1 else first_epoch
+        executed = ovf_seen = 0
+        loss = None
+        try:
+            for ep in range(start_epoch, epochs):
+                t0 = time.perf_counter()
+                with obs.span("train.epoch", epoch=ep):
+                    loss = epoch_fn(ep, start_batch if ep == start_epoch
+                                    else 0)
+                    sync()
+                dt = time.perf_counter() - t0
+                if executed == 0:
+                    first_epoch = dt
+                else:
+                    later += dt
+                executed += 1
+                watch_on = True
+                losses.append(float(loss))          # once per epoch
+                if dev is not None:
+                    # capacity-overflow escalation, at the epoch boundary
+                    # (a schedule point a checkpoint can name)
+                    ovf_now = int(stats["overflow"])
+                    if ovf_now > ovf_seen and escalations < max_escalations:
+                        escalations += 1
+                        src_caps = [2 * c for c in src_caps]
+                        warnings.warn(
+                            f"device sampler dropped {ovf_now - ovf_seen} "
+                            f"edges to capacity overflow in epoch {ep}; "
+                            f"escalating capacities to {src_caps} "
+                            f"({escalations}/{max_escalations})")
+                        dev, step = build_device(src_caps)
+                    ovf_seen = ovf_now
+        except BaseException:
+            # let an in-flight save finish, so the directory a restart
+            # reads is quiet; then the failure propagates
+            if ckpt is not None:
+                try:
+                    ckpt.wait()
+                except Exception:
+                    pass
+            raise
+        epoch_time = later / (executed - 1) if executed > 1 else first_epoch
+        if ckpt is not None:
+            if epochs * steps_per_epoch > start_step:
+                save_state(epochs * steps_per_epoch, loss, blocking=True)
+            ckpt.wait()
 
         def measure_sample_stage() -> float:
             """Wall-clock of the sample(+pack) stage alone over epoch 0's
@@ -597,9 +773,11 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
         first_epoch_s=first_epoch, infer_time_s=infer_time,
         n_buckets=len(signatures), plan_kinds=plan_cache.kinds(),
         epochs=epochs, steps_per_epoch=steps_per_epoch, sampler=sampler,
-        sample_time_s=sample_time, skipped_steps=drained["skipped"],
-        overflow_edges=drained["overflow"],
+        sample_time_s=sample_time,
+        skipped_steps=skipped_base + drained["skipped"],
+        overflow_edges=overflow_base + drained["overflow"],
         capacity_escalations=escalations,
         probed_caps=tuple(probed) if probed is not None else None,
         src_caps=tuple(src_caps) if src_caps is not None else None,
-        device=str(device), final_params=params)
+        prefetch_restarts=n_prefetch_restarts, resumed_step=resumed_step,
+        ckpt_saves=ckpt_saves, device=str(device), final_params=params)

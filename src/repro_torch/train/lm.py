@@ -12,7 +12,10 @@ backward run the hand kernels (``kernels/ops.py``).
 The reference donates the state to its jitted step. The port updates the
 state's params and moments in place (``opt.update_in_place``, leaf by
 leaf in slices), so no tree of fp32 updates is ever whole: the values
-equal ``opt.update`` + ``apply_updates`` on the same grads.
+equal ``opt.update`` + ``apply_updates`` on the same grads. The step
+declares that to :class:`~repro_torch.train.fault_tolerance.ResilientLoop`:
+its ``in_place`` flag is set just before the first write, so a step that
+fails after it is never saved as an emergency checkpoint.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch.optim import adamw
 from repro_torch.optim.compression import (ef_compress_update, ef_init,
                                            int8_decompress)
 from repro_torch.optim.optimizer import global_norm, tree_leaves, tree_map
+from repro_torch.train.fault_tolerance import InPlaceUpdate
 
 __all__ = ["TrainState", "make_train_state", "make_train_step",
            "make_data_parallel_step", "loss_and_grads", "make_prefill_step",
@@ -89,8 +93,9 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
     -> tied expert replicas -> int8 error feedback (``compression``) ->
     AdamW with clipping. The step takes the state over, as the reference
     donates it: params and moments are updated in place, and the returned
-    state holds the same tensors. ``sync_axis`` (the reference's
-    data-parallel mode) raises NotImplementedError."""
+    state holds the same tensors; ``step_fn.in_place`` (an
+    ``InPlaceUpdate``) is set just before the first write. ``sync_axis``
+    (the reference's data-parallel mode) raises NotImplementedError."""
     if sync_axis is not None:
         raise NotImplementedError(f"make_train_step(sync_axis=...): "
                                   f"{_DISTRIBUTED}")
@@ -121,11 +126,13 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
             grads = tree_map(lambda _, qs: int8_decompress(*qs), grads,
                              qtree)
         norm = global_norm(grads)
+        in_place.begin()
         opt_state = opt.update_in_place(grads, state.opt_state,
                                         state.params, norm)
         metrics = dict(metrics, loss=loss, grad_norm=norm)
         return TrainState(state.params, opt_state, ef), metrics
 
+    in_place = step.in_place = InPlaceUpdate()
     return step, opt
 
 

@@ -1995,3 +1995,124 @@ def test_lm_train_step_on_card_matches_cpu_and_repeats(card):
                                     if tree == "opt_state" else
                                     s_card.params)):
             assert torch.equal(a, b)
+
+
+def test_device_sampled_kill_and_resume_is_bitwise(card, tmp_path):
+    """``train_gnn_minibatch`` with the device sampler, 2 epochs of 3
+    steps, killed before step 4 (a checkpoint every 2 steps) and resumed
+    from step 4's predecessor on the cadence: the resumed run's losses and
+    final params equal the clean run's bit for bit, and it launched the
+    fused hop and the ordered segment sum."""
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.data import make_dataset
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.testing import FaultPlan, expect_kill
+    from repro_torch.train import gnn_minibatch as mb
+
+    ds = make_dataset("reddit", scale=1 / 64, seed=1)
+    batch = -(-int(ds.train_mask.sum()) // 3)
+    kw = dict(fanouts=(10, 25), batch_size=batch, hidden=64, epochs=2,
+              sampler="device", device=card)
+    clean = mb.train_gnn_minibatch("sage-mean", ds, ckpt_dir=str(
+        tmp_path / "clean"), ckpt_every=2, **kw)
+    d = str(tmp_path / "killed")
+    expect_kill(mb.train_gnn_minibatch, "sage-mean", ds, ckpt_dir=d,
+                ckpt_every=2, faults=FaultPlan(step_exception_at=5), **kw)
+    tops.reset_kernel_launches()
+    res = mb.train_gnn_minibatch("sage-mean", ds, ckpt_dir=d, ckpt_every=2,
+                                 **kw)
+    launches = tops.kernel_launches()
+    assert res.resumed_step == 4 and res.losses == clean.losses
+    assert launches["sample_hop"] >= 4 and launches["segment_sum"] >= 2
+    for a, b in zip(tree_leaves(clean.final_params),
+                    tree_leaves(res.final_params)):
+        assert a.device.type == card.type and torch.equal(a, b)
+    # the final checkpoints: every param and Adam moment, and the step
+    like = {"params": clean.final_params,
+            "opt_state": adamw(0.01).init(clean.final_params)}
+
+    def leaves(name):
+        got = restore_checkpoint(str(tmp_path / name), like, step=6)[0]
+        s = got["opt_state"]
+        return tree_leaves(got["params"]) + [s.step] + tree_leaves(s.mu) + \
+            tree_leaves(s.nu)
+    got = [leaves(name) for name in ("clean", "killed")]
+    n = len(tree_leaves(clean.final_params))
+    assert len(got[0]) == 3 * n + 1 and int(got[0][n]) == 6
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
+def test_async_save_then_in_place_step_restores_bitwise(card, tmp_path):
+    """An LM train state on the card (bf16 params, fp32 moments) saved
+    asynchronously, then a train step at once that updates it in place
+    while the write may be in flight: the restore equals a clone taken
+    before the save bit for bit, and the next step from the restored state
+    equals the next step from the clone."""
+    import dataclasses
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.train import lm as TL
+
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                              dtype="bfloat16")
+    step_fn, opt = TL.make_train_step(cfg)
+    state = TL.make_train_state(cfg, torch.Generator(device=card)
+                                .manual_seed(0), opt, device=card)
+    toks, tgts = synthetic_lm_batch(2, 32, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(card),
+             "targets": torch.from_numpy(tgts).to(card)}
+    state, _ = step_fn(state, batch)
+    assert tree_leaves(state.params)[0].dtype == torch.bfloat16
+
+    def clone(st):
+        return TL.TrainState(tree_map(torch.clone, st.params),
+                             st.opt_state._replace(
+                                 step=st.opt_state.step.clone(),
+                                 mu=tree_map(torch.clone, st.opt_state.mu),
+                                 nu=tree_map(torch.clone, st.opt_state.nu)),
+                             None)
+
+    def leaves(st):
+        return tree_leaves(st.params) + [st.opt_state.step] + \
+            tree_leaves(st.opt_state.mu) + tree_leaves(st.opt_state.nu)
+
+    before = clone(state)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, state)
+    state, _ = step_fn(state, batch)          # in place, during the write
+    torch.cuda.synchronize()
+    ck.wait()
+    assert any(not torch.equal(a, b)
+               for a, b in zip(leaves(state), leaves(before)))
+    restored, step = ck.restore(before)
+    assert step == 1
+    for a, b in zip(leaves(restored), leaves(before)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    s1, m1 = step_fn(restored, batch)
+    s2, m2 = step_fn(before, batch)
+    assert float(m1["loss"]) == float(m2["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(leaves(s1), leaves(s2)))
+
+
+def test_lm_launcher_restarts_and_resumes_on_card(card, tmp_path, capsys):
+    """The LM launcher on the card: ``--inject-fault`` fails a step once
+    and the resilient loop finishes with one restart; ``--resume`` goes
+    on from the newest checkpoint."""
+    from repro_torch.launch import train as launch_train
+    d = str(tmp_path / "ckpt")
+    common = ["--mode", "lm", "--arch", "phi3.5-moe-42b-a6.6b", "--smoke",
+              "--lr", "3e-3", "--ckpt-dir", d, "--ckpt-every", "5"]
+    tops.reset_kernel_launches()
+    rc = launch_train.main([*common, "--steps", "20", "--inject-fault", "7"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "on cuda" in out and "loss decreased: OK" in out
+    assert "restarts=1 emergency_saves=1 last step 20" in out, out
+    assert tops.kernel_launches()["flash_attention_bwd"] > 0
+    rc = launch_train.main([*common, "--steps", "3", "--resume"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "resumed from step 20" in out and "last step 23" in out

@@ -546,13 +546,37 @@ def test_launcher_lm_smoke_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--ckpt-dir", "x"], ["--resume"], ["--inject-fault", "3"],
     ["--mesh-data", "2"], ["--mesh-model", "2"], ["--grad-sync", "shardmap"]])
 def test_launcher_refuses_unported_flags(capsys, flag):
     rc = launch_train.main(["--mode", "lm", "--arch", "llama3-8b", "--smoke",
                             "--device", "cpu", *flag])
     assert rc == 2
     assert "ROADMAP.md queue 1" in capsys.readouterr().err
+
+
+def test_launcher_checkpoints_restarts_and_resumes_on_cpu(capsys, tmp_path):
+    """``--inject-fault 7`` fails step 7 once, before it runs: the
+    resilient loop saves the last good state as an emergency checkpoint,
+    restores it and finishes the 20 steps with a lower loss; ``--resume``
+    then goes on from the newest step. lr 3e-3: on the smoke config's
+    random tokens, 20 steps at the default 3e-4 move the loss less than
+    one batch's noise."""
+    d = str(tmp_path / "ckpt")
+    common = ["--mode", "lm", "--arch", "phi3.5-moe-42b-a6.6b", "--smoke",
+              "--device", "cpu", "--lr", "3e-3", "--ckpt-dir", d,
+              "--ckpt-every", "5"]
+    rc = launch_train.main([*common, "--steps", "20", "--inject-fault", "7"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "restarts=1 emergency_saves=1 last step 20" in out, out
+    assert "loss decreased: OK" in out
+    from repro_torch.ckpt import checkpoint_extra, latest_step
+    assert latest_step(d) == 20 and checkpoint_extra(d, 20) == {}
+    rc = launch_train.main([*common, "--steps", "3", "--resume"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "resumed from step 20" in out and "last step 23" in out, out
+    assert "step    20 loss" in out
 
 
 def test_train_entry_points_default_to_cuda_and_refuse_data_parallel():

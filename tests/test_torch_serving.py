@@ -34,6 +34,7 @@ from repro_torch.models.gnn import params_from_jax
 from repro_torch.sampling import BlockPlanCache, NeighborSampler
 from repro_torch.serving import FeatureCache, GNNServer
 from repro_torch.serving.server import SERVE_MODES
+from repro_torch.testing import FaultPlan, InjectedFault
 from repro_torch.train.gnn_minibatch import make_block_model
 
 from conftest import random_coo
@@ -237,6 +238,40 @@ def test_historical_and_offline_logits_match_reference(
             np.testing.assert_allclose(got, got_off[seeds],
                                        **_tolerance(want))
     assert port.cache.stats.hits > 0 and port.cache.stats.stale > 0
+
+
+def test_flush_exception_fails_tickets_not_server(arch_params, tiny_dataset,
+                                                  port_dataset):
+    """An injected failure before flush 1 fails that flush's ticket; the
+    server goes on serving, its feature cache consistent, with the answers
+    of a server that never failed (and the reference's, within the
+    whole-slice tolerance)."""
+    arch, jp, np_params = arch_params
+    common = dict(arch=arch, fanouts=FANOUTS, mode="full", tune=False,
+                  start=False, cache_capacity=256)
+    params = params_from_jax(np_params, device="cpu")
+    clean = GNNServer(params, port_dataset, device="cpu", **common)
+    srv = GNNServer(params, port_dataset, device="cpu",
+                    faults=FaultPlan(flush_exception_at=1), **common)
+
+    def serve_once(s, seeds):
+        t = s.submit(seeds)
+        s.run_pending(force=True)
+        return t.result(10.0)
+
+    assert np.array_equal(serve_once(srv, [1, 2]),
+                          serve_once(clean, [1, 2]))       # flush 0 ok
+    t = srv.submit([3, 4])
+    srv.run_pending(force=True)                            # flush 1 dies
+    with pytest.raises(InjectedFault):
+        t.result(5.0)
+    assert srv.flush_errors == 1
+    srv.cache.check_consistency()
+    got = serve_once(srv, [3, 4])
+    assert np.array_equal(got, serve_once(clean, [3, 4]))
+    want = JServer(jp, tiny_dataset, **common).predict([3, 4])
+    np.testing.assert_allclose(got, want, **_tolerance(want))
+    assert srv.flushes == 3 and srv.flush_errors == 1
 
 
 def test_params_from_jax_and_generator_init(arch_params):

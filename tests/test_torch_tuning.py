@@ -528,10 +528,11 @@ def test_launcher_trains_with_measured_tuning_without_jax(tmp_path):
 
 
 def test_launcher_refuses_lm_mode():
-    """LM mode runs since LM training was ported; what it still refuses,
-    before it builds anything, are the reference's checkpoint and mesh
-    flags (exit 2, naming the ROADMAP item), and it loads no JAX."""
-    out = _launch("--mode", "lm", "--arch", "llama3-8b", "--ckpt-dir", "x")
+    """LM mode runs since LM training was ported, and its checkpoint
+    flags since checkpointing was; what it still refuses, before it
+    builds anything, are the reference's mesh flags (exit 2, naming the
+    ROADMAP item), and it loads no JAX."""
+    out = _launch("--mode", "lm", "--arch", "llama3-8b", "--mesh-data", "2")
     assert out.returncode == 2
-    assert "queue 1, item 1" in out.stderr
+    assert "queue 1, item 5" in out.stderr
     assert out.stdout.splitlines()[-1] == "JAX_LOADED False"
