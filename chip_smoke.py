@@ -9,9 +9,9 @@ failure:
 1. card and build — the card's name and power limit, then the hand
    kernels compiled from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel), ptxas's registers and spills of every kernel,
-   and of the kernels the last slice added or redesigned (the flash
-   backward's D = 256 instance, ``flash_bwd_dkdv_split_kernel`` and
-   ``flash_bwd_dq_split_kernel``) on a line of their own;
+   and of the kernels the last slice extended (the flash forward's and
+   backward's ``wgmma`` instances, which now take hymba's meta-token
+   sinks) on a line of their own;
 2. sampled serving at full width — reddit at scale 1 (232,965 nodes,
    602 features, 41 classes), GraphSAGE-mean, 2 layers, hidden 256,
    fanouts (10, 25) outermost first, a 65,536-row feature cache, fp32,
@@ -53,7 +53,10 @@ failure:
    graph — GraphSAGE-mean, hidden 256, fanouts (10, 25), batches of 1024
    seeds, lr 1e-2, weight decay 5e-4, the trainer's probed capacities
    and plans. ``train_gnn_minibatch(sampler="device")`` runs 2 epochs and
-   the layer-wise evaluation first, launch counts zeroed just before and
+   the layer-wise evaluation first, checkpointing every 50 steps and at
+   the end (the run is also phase 13 (a)'s clean run; a save is a sync
+   and a host copy, ~2 ms, outside the sync-checked steps), launch counts
+   zeroed just before and
    read just after (and around each step): every hop is one
    ``sample_hop`` launch (``n_hops`` a step, the standalone
    ``segment_sample`` / ``expand_indptr`` / ``flat_gather`` none) and
@@ -75,8 +78,8 @@ failure:
    sampling + packing of 8 batches is timed beside ``sample_blocks`` on
    the card; the sampling wrappers' host µs a call are logged;
 13. (run after phase 8) fault tolerance at phase 8's cell: (a)
-   ``train_gnn_minibatch(sampler="device")`` with a checkpoint every 50
-   steps and at the end, then the same run killed before step
+   phase 8's run, which checkpointed every 50 steps and at the end,
+   then the same run killed before step
    ``steps_per_epoch + 36`` (epoch 1, off the cadence) by a
    ``FaultPlan``, then resumed: the resume must start at the last
    multiple of 50, and the losses, final params and every leaf of the
@@ -88,12 +91,12 @@ failure:
    the checkpoint's bytes, each ``train.ckpt`` span's ms and the resume's
    set-up seconds logged; (b) a NaN added to the gradients at step 60:
    exactly one step skipped, every loss and param finite; (c) the host
-   sampler over a window of 10 steps around the epoch boundary (a host
+   sampler over a window of 7 steps around the epoch boundary (a host
    batch takes ~1.8 s to sample at this scale, so a whole host epoch
    would take minutes): resumed from (b)'s checkpoint 2 steps before
    epoch 1 and stopped by an injected kill, once clean and once with the
    prefetch worker killed before item 4 and a 0.5 s straggler at epoch
-   1's batch 5 under a ``StragglerWatchdog``: the checkpoints at the
+   1's batch 4 under a ``StragglerWatchdog``: the checkpoints at the
    stop equal bit for bit, one prefetch restart, the straggler flagged;
 7. the same on ogbn-proteins, cut to scale 1/2 for device memory (the
    GCN bundle's two 128 x 128 BSR operands, Â and Â^T, take ~15 GB each
@@ -225,15 +228,42 @@ failure:
    device trace by kernel); the smoke config in
    fp32 on the card for 3 steps against the port's CPU run (losses
    rtol 1e-4, params within the CPU tests' stated tolerance);
+14. (run after phase 12 has freed its state) the ssm and hybrid
+   families at full width, bf16, seeded random weights on the card: (a)
+   mamba2-1.3b (48 layers, d_model 2,048, 64 SSD heads of 64, d_state
+   128, chunk 256, vocab 50,280 tied) and hymba-1.5b (32 layers, d_model
+   1,600, 25 / 5 heads of 64, window 1,024 with global layers 0, 15 and
+   31, 128 meta tokens, 50 SSD heads of 64, d_state 16), whole: 4 prompts
+   of 2,048 tokens, ``prefill`` into a cache of prompt + meta + 32 slots,
+   32 greedy ``decode_step``s; counts zeroed just before hymba's prefill
+   and read just after (32 flash launches, one a layer, all on the
+   ``wgmma`` instance with the sinks; none for mamba2), each launch held
+   against its plain version and, row by row, the fp32 oracle, no plain
+   flash version on a card tensor, logits finite; prefill and decode
+   times, tokens/s, peak memory, the busy share, the SSD's share of a
+   traced prefill's device time; ``ssd_chunked`` against
+   ``ssd_reference`` on layer 0's real inputs in fp32; in fp32 at one
+   prompt, a prefill of 2,048 tokens and 8 decode steps of the prompt's
+   next tokens against a prefill of 2,056 (the last logits); (b) hymba's
+   SWA attention shape (B 4, 25 / 5 heads of 64, S = T = 2,176, window
+   1,024, 128 sinks, bf16): the flash forward with its LSE and the
+   backward, each against its plain version and the fp32 oracle,
+   launched twice for the same bits, timed beside its bound over the
+   kept pairs, its plain version and SDPA with a boolean mask of the
+   same pairs; (c) both trained at full width cut to 4 layers (hymba
+   with ``global_layers=(0,)``) through phase 12's checks, 4 x 2,048
+   tokens; (d) the fp32 smoke configs on the card against the port's
+   CPU run: prefill + 4 decode steps within atol 1e-4, 3 train steps;
 5. last, the kernels line (one JSON object: the sampling kernels and the
    fused hop as timed in phase 8, the ordered segment sum and the
    per-edge SDDMM as timed in phase 9, the serving kernels as timed in phase 4, BSR as timed in
    phase 7, SDDMM and FusedMM as timed in phase 9, the ragged GEMM and
    flash attention as timed in phase 10, with phase 12's launches and
    dX timing, and the flash backward as timed in phase 12, its ``d256_*``
-   keys from gemma-7b's kernel case and step; each entry's
-   ``launches_resume`` the launches of phase 13's resumed run, added to
-   its ``launches``), the card line, and
+   keys from gemma-7b's kernel case and step; both flash entries with
+   phase 14's launches and ``meta_*`` keys from its sink case; each
+   entry's ``launches_resume`` the launches of phase 13's resumed run,
+   added to its ``launches``), the script's seconds, the card line, and
    ``{"ok": true, "device": {...}}``.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
@@ -372,9 +402,11 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
-# the kernels this slice added or redesigned: phase 1 logs their
-# registers and spills on a line of their own
-NEW_KERNELS = ("flash_bwd_dkdv_split_kernel", "flash_bwd_dq_split_kernel")
+# the kernels this slice added or redesigned (the flash forward and
+# backward instances that hymba's meta-token sinks run: D 64 on wgmma):
+# phase 1 logs their registers and spills on a line of their own
+NEW_KERNELS = ("flash_attention_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
+               "flash_bwd_dq_wgmma_kernel")
 
 
 def card_line() -> str:
@@ -2225,14 +2257,18 @@ def check_inference_sell(calls) -> dict:
     return st
 
 
-def minibatch_phase(ds) -> dict:
+def minibatch_phase(ds, ckpt_dir: Path) -> dict:
     """Phase 8: device-sampled minibatch training at full width. The main
     path runs first, with hooks that record its own first step and its
     inference's SELL launches; every check then holds what it recorded.
-    Raises on the first failed check."""
+    The main path checkpoints under ``ckpt_dir`` every FT_CKPT_EVERY steps
+    and at the end: it is also phase 13 (a)'s clean run, handed over in
+    ``out["clean_run"]`` (its result, wall seconds and ``train.ckpt``
+    spans). Raises on the first failed check."""
     import copy
 
     import torch
+    from repro_torch import obs
     from repro_torch.core import sparse as sp
     from repro_torch.kernels import ops as kops
     from repro_torch.sampling import (BlockPlanCache, NeighborSampler,
@@ -2248,16 +2284,19 @@ def minibatch_phase(ds) -> dict:
 
     # (a) the main path: train_gnn_minibatch, counts zeroed and read
     # around it
-    with trainer_hooks() as hooks, record_inference_sell() as sell_calls:
+    with trainer_hooks() as hooks, record_inference_sell() as sell_calls, \
+            obs.profiled(ops=False) as tracer:
         kops.reset_kernel_launches()
         t0 = time.perf_counter()
         res = mb.train_gnn_minibatch(
             ARCH, ds, fanouts=FANOUTS, batch_size=MB_BATCH, hidden=HIDDEN,
             epochs=MB_EPOCHS, lr=TRAIN_LR, weight_decay=TRAIN_WD,
             sampler="device", params=params, infer_batch=MB_INFER_BATCH,
-            device=DEVICE)
+            device=DEVICE, ckpt_dir=str(ckpt_dir), ckpt_every=FT_CKPT_EVERY)
         launches = kops.kernel_launches()
         wall = time.perf_counter() - t0
+    out["clean_run"] = dict(result=res, seconds=wall,
+                            save_ms=span_ms(tracer, "train.ckpt"))
     for name in (HOP_KERNEL, "segment_sum", "ell_spmm", "sell_spmm"):
         if launches[name] == 0:
             raise AssertionError(f"minibatch: {name} was not launched on the "
@@ -2509,10 +2548,10 @@ def minibatch_phase(ds) -> dict:
 FT_CKPT_EVERY = 50      # the trainer's default cadence
 FT_KILL_AFTER = 36      # the kill: step steps_per_epoch + 36 (epoch 1)
 FT_NAN_STEP = 60        # nan_grad_at's step (epoch 0)
-FT_HOST_STEPS = 10      # host-sampled steps a run of (c), from the
+FT_HOST_STEPS = 7       # host-sampled steps a run of (c), from the
 FT_HOST_BEFORE = 2      # checkpoint this many steps before epoch 1
 FT_PREFETCH_ITEM = 4    # (c): the prefetch worker dies before item 4
-FT_STRAGGLER = 5        # (c): the straggler, epoch 1's batch 5
+FT_STRAGGLER = 4        # (c): the straggler, epoch 1's batch 4
 FT_DELAY_S = 0.5
 
 
@@ -2537,9 +2576,10 @@ def span_ms(tracer, name: str) -> list:
     return [s.dur_ns / 1e6 for s in tracer.snapshot() if s.name == name]
 
 
-def fault_phase(ds, base: Path) -> dict:
-    """Phase 13 at phase 8's cell: (a) a clean device-sampled run with
-    checkpoints, the same run killed in epoch 1 off the cadence, and the
+def fault_phase(ds, base: Path, clean_run: dict) -> dict:
+    """Phase 13 at phase 8's cell: (a) phase 8's run, which checkpointed
+    under ``base / "clean"`` (``clean_run``: its result, seconds and save
+    spans), the same run killed in epoch 1 off the cadence, and the
     run resumed: losses, every final param and Adam moment bit for bit,
     the resumed run's launches counted and one of each held against its
     plain version; (b) a NaN gradient injected and skipped; (c) the host
@@ -2557,19 +2597,14 @@ def fault_phase(ds, base: Path) -> dict:
     from repro_torch.train.fault_tolerance import StragglerWatchdog
 
     t_phase = time.perf_counter()
-    shutil.rmtree(base, ignore_errors=True)
     kw = dict(fanouts=FANOUTS, batch_size=MB_BATCH, hidden=HIDDEN,
               epochs=MB_EPOCHS, lr=TRAIN_LR, weight_decay=TRAIN_WD,
               infer_batch=MB_INFER_BATCH, device=DEVICE)
     dev_kw = dict(kw, sampler="device", ckpt_every=FT_CKPT_EVERY)
     out: dict = dict(ckpt_every=FT_CKPT_EVERY)
 
-    # -- (a) clean, killed, resumed -------------------------------------------
-    with obs.profiled(ops=False) as tracer:
-        t0 = time.perf_counter()
-        clean = mb.train_gnn_minibatch(ARCH, ds, ckpt_dir=str(base / "clean"),
-                                       **dev_kw)
-        clean_s = time.perf_counter() - t0
+    # -- (a) clean (phase 8's run), killed, resumed ---------------------------
+    clean, clean_s = clean_run["result"], clean_run["seconds"]
     spe = clean.steps_per_epoch
     total = spe * MB_EPOCHS
     kill = spe + FT_KILL_AFTER
@@ -2578,11 +2613,11 @@ def fault_phase(ds, base: Path) -> dict:
             total // FT_CKPT_EVERY + 1:
         raise AssertionError(f"fault phase: kill {kill} on the cadence, or "
                              f"{clean.ckpt_saves} saves in the clean run")
-    save_ms = span_ms(tracer, "train.ckpt")
+    save_ms = clean_run["save_ms"]
     final_dir = base / "clean" / f"step_{total:09d}"
     ckpt_bytes = ckpt_dir_bytes(final_dir)
-    log(f"fault (a): clean run {MB_EPOCHS} epochs of {spe} steps with a "
-        f"checkpoint every {FT_CKPT_EVERY} steps and at the end: "
+    log(f"fault (a): clean run (phase 8's) {MB_EPOCHS} epochs of {spe} "
+        f"steps with a checkpoint every {FT_CKPT_EVERY} steps and at the end: "
         f"{clean.ckpt_saves} saves, {ckpt_bytes} bytes a checkpoint; the "
         f"train.ckpt span ms (the counters' read and the host copy; the "
         f"last, blocking, also the write) "
@@ -3123,17 +3158,19 @@ def record_lm_kernels(check: bool):
         calls.append(entry)
         return out
 
-    def flash(q, k, v, *, causal=True, window=None):
-        out = real["flash_attention"](q, k, v, causal=causal, window=window)
+    def flash(q, k, v, *, causal=True, window=None, meta_len=0):
+        out = real["flash_attention"](q, k, v, causal=causal, window=window,
+                                      meta_len=meta_len)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         entry = dict(name="flash_attention",
                      shape=f"{tuple(q.shape)}/{tuple(k.shape)}",
-                     inputs=(q, k, v), causal=causal, window=window)
+                     inputs=(q, k, v), causal=causal, window=window,
+                     meta_len=meta_len)
         if check:
-            check_lm_launch(entry, out, flash_attention_plain(
-                q, k, v, causal=causal, window=window),
-                flash_attention_plain(q.float(), k.float(), v.float(),
-                                      causal=causal, window=window))
+            kw = dict(causal=causal, window=window, meta_len=meta_len)
+            check_lm_launch(entry, out, flash_attention_plain(q, k, v, **kw),
+                            flash_attention_plain(q.float(), k.float(),
+                                                  v.float(), **kw))
         calls.append(entry)
         return out
 
@@ -3145,12 +3182,17 @@ def record_lm_kernels(check: bool):
         kops.flash_attention = real["flash_attention"]
 
 
-def attention_pairs(s: int, t: int, causal: bool, window) -> int:
-    """Kept (query, key) pairs of one head: the work the masks leave."""
+def attention_pairs(s: int, t: int, causal: bool, window,
+                    meta_len: int = 0) -> int:
+    """Kept (query, key) pairs of one head: the work the masks leave (the
+    window's band and, below it, the sink keys under ``meta_len``)."""
     qpos = np.arange(s, dtype=np.int64) + (t - s)
     hi = np.minimum(qpos, t - 1) if causal else np.full(s, t - 1)
-    lo = np.maximum(qpos - window + 1, 0) if window is not None else 0
-    return int(np.maximum(hi - lo + 1, 0).sum())
+    lo = np.maximum(qpos - window + 1, 0) if window is not None \
+        else np.zeros(s, np.int64)
+    sinks = np.minimum(np.minimum(meta_len, lo), hi + 1) \
+        if window is not None else 0
+    return int((np.maximum(hi - lo + 1, 0) + np.maximum(sinks, 0)).sum())
 
 
 def lm_kernel_case(call, device_ms) -> dict:
@@ -3194,7 +3236,8 @@ def lm_kernel_case(call, device_ms) -> dict:
         q, k, v = call["inputs"]
         b, hq, s, d = q.shape
         t = k.shape[2]
-        kw = dict(causal=call["causal"], window=call["window"])
+        kw = dict(causal=call["causal"], window=call["window"],
+                  meta_len=call.get("meta_len", 0))
         flops = 4 * d * attention_pairs(s, t, **kw) * b * hq
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
 
@@ -3248,8 +3291,8 @@ def tree_to(tree: dict, device) -> dict:
             for k, v in tree.items()}
 
 
-def lm_smoke_check() -> list:
-    """phi3.5-moe's smoke config in fp32 (the kernels' fp32 instances):
+def lm_smoke_check(arch: str = LM_ARCH) -> list:
+    """``arch``'s smoke config in fp32 (the kernels' fp32 instances):
     prefill + LM_SMOKE_DECODE decode steps on the card against the port's
     CPU run (plain versions) from the same weights and tokens. Returns
     the max |logit diff| of each call; raises past LM_SMOKE_ATOL."""
@@ -3257,14 +3300,14 @@ def lm_smoke_check() -> list:
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import synthetic_lm_batch
     from repro_torch.models import lm
-    cfg = get_smoke_config(LM_ARCH)
+    cfg = get_smoke_config(arch)
     p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     p_card = tree_to(p_cpu, DEVICE)
     toks = torch.from_numpy(synthetic_lm_batch(2, 64, cfg.vocab, step=1)[0])
     nxt = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (2, LM_SMOKE_DECODE)).astype(np.int32))
-    cap = 64 + LM_SMOKE_DECODE
+    cap = 64 + cfg.n_meta_tokens + LM_SMOKE_DECODE
     c_card, l_card = lm.prefill(cfg, p_card, {"tokens": toks.to(DEVICE)}, cap)
     c_cpu, l_cpu = lm.prefill(cfg, p_cpu, {"tokens": toks}, cap)
     errs = [float((l_card.cpu() - l_cpu).abs().max())]
@@ -3274,8 +3317,8 @@ def lm_smoke_check() -> list:
         l_cpu, c_cpu = lm.decode_step(cfg, p_cpu, c_cpu, nxt[:, i:i + 1])
         errs.append(float((l_card.cpu() - l_cpu).abs().max()))
     if not max(errs) <= LM_SMOKE_ATOL:
-        raise AssertionError(f"fp32 smoke logits, card vs CPU: {errs} "
-                             f"(atol {LM_SMOKE_ATOL})")
+        raise AssertionError(f"{arch} fp32 smoke logits, card vs CPU: "
+                             f"{errs} (atol {LM_SMOKE_ATOL})")
     return errs
 
 
@@ -3501,9 +3544,7 @@ def record_train_kernels(check: bool):
         flash_attention_plain_lse, flash_bwd_row_floors)
     from repro_torch.kernels.ragged_gemm import ragged_gemm_plain
     names = ("ragged_gemm_cuda", "flash_attention_cuda",
-             "flash_attention_bwd_cuda", "ragged_gemm_plain",
-             "flash_attention_plain", "flash_attention_plain_lse",
-             "flash_attention_bwd_plain")
+             "flash_attention_bwd_cuda")
     real = {n: getattr(kops, n) for n in names}
     calls: list = []
 
@@ -3524,15 +3565,18 @@ def record_train_kernels(check: bool):
         calls.append(entry)
         return out
 
-    def flash(q, k, v, *, causal=True, window=None, return_lse=False):
+    def flash(q, k, v, *, causal=True, window=None, return_lse=False,
+              meta_len=0):
         res = real["flash_attention_cuda"](q, k, v, causal=causal,
                                            window=window,
-                                           return_lse=return_lse)
+                                           return_lse=return_lse,
+                                           meta_len=meta_len)
         out, lse = res if return_lse else (res, None)
         entry = dict(name="flash_attention", shape=f"{tuple(q.shape)}/"
-                     f"{tuple(k.shape)}", causal=causal, window=window)
+                     f"{tuple(k.shape)}", causal=causal, window=window,
+                     meta_len=meta_len)
         if check:
-            kw = dict(causal=causal, window=window)
+            kw = dict(causal=causal, window=window, meta_len=meta_len)
             want_o, want_lse = flash_attention_plain_lse(
                 q.float(), k.float(), v.float(), **kw)
             check_lm_launch(entry, out, flash_attention_plain(q, k, v, **kw),
@@ -3546,16 +3590,19 @@ def record_train_kernels(check: bool):
         calls.append(entry)
         return res
 
-    def flash_bwd(q, k, v, o, do, lse, *, causal=True, window=None):
+    def flash_bwd(q, k, v, o, do, lse, *, causal=True, window=None,
+                  meta_len=0):
         out = real["flash_attention_bwd_cuda"](q, k, v, o, do, lse,
-                                               causal=causal, window=window)
+                                               causal=causal, window=window,
+                                               meta_len=meta_len)
         entry = dict(name="flash_attention_bwd", shape=f"{tuple(q.shape)}/"
-                     f"{tuple(k.shape)}", causal=causal, window=window)
+                     f"{tuple(k.shape)}", causal=causal, window=window,
+                     meta_len=meta_len)
         if not any("inputs" in c for c in calls
                    if c["name"] == "flash_attention_bwd"):
             entry["inputs"] = (q, k, v, o, do, lse)   # timed later
         if check:
-            kw = dict(causal=causal, window=window)
+            kw = dict(causal=causal, window=window, meta_len=meta_len)
             want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
             oracle = flash_attention_bwd_plain(q.float(), k.float(),
                                                v.float(), o.float(),
@@ -3575,21 +3622,42 @@ def record_train_kernels(check: bool):
         calls.append(entry)
         return out
 
+    kops.ragged_gemm_cuda, kops.flash_attention_cuda = ragged, flash
+    kops.flash_attention_bwd_cuda = flash_bwd
+    try:
+        with refuse_plain_on_card(PLAIN_LM, "the train step"):
+            yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(kops, n, fn)
+
+
+# the plain versions ``kernels.ops`` runs for the LM kernels on the CPU
+PLAIN_LM = ("ragged_gemm_plain", "flash_attention_plain",
+            "flash_attention_plain_lse", "flash_attention_bwd_plain")
+
+
+@contextlib.contextmanager
+def refuse_plain_on_card(names, where: str):
+    """While on, the ``kernels.ops`` plain versions ``names`` raise if
+    they are given a card tensor: none may run ``where`` on the card."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    real = {n: getattr(kops, n) for n in names}
+
     def refuse(name):
         def plain(*args, **kw):
             if any(isinstance(a, torch.Tensor) and a.device.type == "cuda"
                    for a in args):
                 raise AssertionError(f"{name} ran on a card tensor inside "
-                                     f"the train step")
+                                     f"{where}")
             return real[name](*args, **kw)
         return plain
 
-    kops.ragged_gemm_cuda, kops.flash_attention_cuda = ragged, flash
-    kops.flash_attention_bwd_cuda = flash_bwd
-    for n in names[3:]:
+    for n in names:
         setattr(kops, n, refuse(n))
     try:
-        yield calls
+        yield
     finally:
         for n, fn in real.items():
             setattr(kops, n, fn)
@@ -3637,8 +3705,8 @@ def adam_params_close(got: dict, want: dict, lr: float, steps: int,
     return worst
 
 
-def lm_train_smoke_check() -> dict:
-    """phi3.5-moe's smoke config in fp32 (the kernels' fp32 instances):
+def lm_train_smoke_check(arch: str = LM_ARCH) -> dict:
+    """``arch``'s smoke config in fp32 (the kernels' fp32 instances):
     LM_TRAIN_SMOKE_STEPS train steps on the card against the port's CPU
     run from the same weights and batches; losses within rtol 1e-4,
     params within the tolerance the CPU tests state."""
@@ -3647,7 +3715,7 @@ def lm_train_smoke_check() -> dict:
     from repro_torch.data import synthetic_lm_batch
     from repro_torch.optim.optimizer import tree_map
     from repro_torch.train import lm as TL
-    cfg = get_smoke_config(LM_ARCH)
+    cfg = get_smoke_config(arch)
     step, opt = TL.make_train_step(cfg)
     lr = 3e-4                                  # make_train_step's default
     cpu = TL.make_train_state(cfg, torch.Generator().manual_seed(0), opt,
@@ -3664,10 +3732,12 @@ def lm_train_smoke_check() -> dict:
         lc, lp = float(m_card["loss"]), float(m_cpu["loss"])
         losses.append((lc, lp))
         if not abs(lc - lp) <= 1e-4 * abs(lp):
-            raise AssertionError(f"smoke train step {i}: loss {lc} on the "
-                                 f"card, {lp} on the CPU (rtol 1e-4)")
+            raise AssertionError(f"{arch} smoke train step {i}: loss {lc} "
+                                 f"on the card, {lp} on the CPU (rtol "
+                                 f"1e-4)")
     worst = adam_params_close(card.params, cpu.params, lr,
-                              LM_TRAIN_SMOKE_STEPS, "smoke train card vs CPU")
+                              LM_TRAIN_SMOKE_STEPS,
+                              f"{arch} smoke train card vs CPU")
     return dict(losses=losses, param_max_diff_over_lr=worst)
 
 
@@ -3687,7 +3757,8 @@ def flash_bwd_case(call, device_ms) -> dict:
     q, k, v, o, do, lse = call["inputs"]
     b, hq, s, d = q.shape
     t = k.shape[2]
-    kw = dict(causal=call["causal"], window=call["window"])
+    kw = dict(causal=call["causal"], window=call["window"],
+              meta_len=call.get("meta_len", 0))
     flops = 10 * d * attention_pairs(s, t, **kw) * b * hq
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
         + lse.numel() * 4
@@ -3918,7 +3989,8 @@ def train_checks(tag: str, cfg, batch: dict, n_steps: int,
     log(f"{tag} train step 0: {len(checks)} launches held against their "
         f"plain versions; worst max|diff| / max|plain| {worst} (tolerance "
         f"{LM_TOL}); worst row against the fp32 oracle {worst_row}; "
-        f"flash LSE {max(c.get('lse_max_abs_err', 0.0) for c in checks):.2e}"
+        f"flash LSE "
+        f"{max((c.get('lse_max_abs_err', 0.0) for c in checks), default=0):.2e}"
         f" (atol {LSE_ATOL})")
     inputs = {c["name"]: c for c in calls if "inputs" in c}
     del calls
@@ -4249,6 +4321,460 @@ def lm_train_phase() -> dict:
                 smoke=smoke, seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the ssm (mamba2) and hybrid (hymba) families on the card
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2-1.3b", "hymba-1.5b")
+SSM_BATCH, SSM_PROMPT, SSM_DECODE = 4, 2048, 32
+SSM_RECUR = 8           # decode steps held against a prefill that long
+SSM_RECUR_TOL = 1e-3    # fp32: max|decoded - prefilled last logits| over
+                        # max|prefilled|: the recurrence against the chunked
+                        # SSD and decode attention against the flash path,
+                        # fp32 sums in another order through every layer
+SSD_TOL = 1e-3          # fp32: max|chunked - sequential SSD| over max|y|
+                        # on one layer's inputs (2,048 tokens, chunk 256)
+SSM_TRAIN_LAYERS = 4    # of 48 (mamba2) and of 32 (hymba)
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 2048, 5
+# hymba-1.5b's sliding-window attention with its meta-token sinks
+SINK_ATTN = dict(b=4, hq=25, hkv=5, s=2176, t=2176, d=64, window=1024,
+                 meta_len=128)
+
+
+@contextlib.contextmanager
+def ssd_capture(sink):
+    """While on, each ``ssd_chunked`` call of the mixers hands its inputs
+    (x, dt, a, b, c, init_state, chunk) to ``sink`` and runs inside a
+    ``torch.profiler.record_function("ssd_chunked")`` range, so that a
+    trace attributes its device time."""
+    import torch
+    from repro_torch.models.lm import mamba2 as M
+    real = M.ssd_chunked
+
+    def ssd(x, dt, a, b, c, *, chunk, init_state=None):
+        sink((x, dt, a, b, c, init_state, chunk))
+        with torch.profiler.record_function("ssd_chunked"):
+            return real(x, dt, a, b, c, chunk=chunk, init_state=init_state)
+
+    M.ssd_chunked = ssd
+    try:
+        yield
+    finally:
+        M.ssd_chunked = real
+
+
+def ssd_profile(fn) -> dict:
+    """A traced call of ``fn`` (:func:`profiled`: a discarded warm-up, an
+    idle gap) with every ``ssd_chunked`` in a range of its own: the
+    device ms of all kernels and of those the SSD launched, and the
+    SSD's share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    got = {}
+    with ssd_capture(lambda _: None):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: got.setdefault(
+                         "events", p.key_averages())) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.25)
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = got["events"]
+    times = kernel_times(events)
+    total = sum(us for key, us in times.items() if key != "ssd_chunked")
+    # the range's device time: its kernels' sum (the host-side range's
+    # device total), else the device-side annotation's span
+    ssd = sum(float(getattr(e, "device_time_total", 0.0) or
+                    getattr(e, "cuda_time_total", 0.0))
+              for e in events if e.key == "ssd_chunked" and
+              str(getattr(e, "device_type", "")).endswith("CPU")) or \
+        times.get("ssd_chunked", 0.0)
+    return dict(device_ms=total / 1e3, ssd_ms=ssd / 1e3 if ssd else None,
+                ssd_share=ssd / total if ssd and total else None)
+
+
+def ssm_serve_case(arch: str) -> dict:
+    """Phase 14 (a) for one model at full width and full depth, bf16,
+    seeded random weights on the card: 4 prompts of 2,048 tokens,
+    ``prefill`` into a cache of prompt + meta + 32 slots, 32 greedy
+    ``decode_step``s. Launch counts zeroed just before the prefill and
+    read just after: hymba one flash launch a layer, every one on the
+    ``wgmma`` instance with its sinks, each held against its plain version
+    and, row by row, the fp32 oracle; no plain flash version on a card
+    tensor; mamba2 none. Logits finite. Then the serving times, the busy
+    share, the SSD's share of a traced prefill's device time, the SSD
+    oracle on layer 0's inputs (fp32), and, in fp32 at one prompt, a
+    prefill of S tokens and SSM_RECUR decode steps against a prefill of S
+    + SSM_RECUR."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import lm
+    from repro_torch.models.lm import mamba2 as M
+    from repro_torch.optim.optimizer import tree_map
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    n = cfg.param_count()
+    log(f"{arch}: {n / 1e9:.3f} B parameters ({2 * n / 1e9:.2f} GB bf16, all "
+        f"{cfg.n_layers} layers) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    toks, _ = synthetic_lm_batch(SSM_BATCH, SSM_PROMPT, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(DEVICE)}
+    cap = SSM_PROMPT + cfg.n_meta_tokens + SSM_DECODE
+    n_attn = cfg.n_layers if cfg.has_attention else 0
+
+    def counts():
+        return dict(launches={k: kops.kernel_launches()[k]
+                              for k in LM_TRAIN_KERNELS},
+                    flash_instances=dict(
+                        flash_attention_cuda.launches_by_instance))
+
+    # -- the main path: prefill, then greedy decode --------------------------
+    kops.reset_kernel_launches()
+    with record_lm_kernels(check=True) as calls, \
+            refuse_plain_on_card(PLAIN_LM, f"{arch}'s prefill"):
+        cache, logits = lm.prefill(cfg, params, batch, cap)
+        torch.cuda.synchronize()
+    got = counts()
+    want = dict(launches={"ragged_gemm": 0, "flash_attention": n_attn,
+                          "flash_attention_bwd": 0},
+                flash_instances={"wgmma": n_attn, "f32": 0})
+    if got != want or any(c["meta_len"] != cfg.n_meta_tokens for c in calls):
+        raise AssertionError(f"{arch} prefill launched {got}, want {want}; "
+                             f"meta_len {[c['meta_len'] for c in calls]}")
+    if tuple(logits.shape) != (SSM_BATCH, 1, cfg.vocab_padded) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} prefill logits malformed")
+    checks = [{k: v for k, v in c.items() if k != "inputs"} for c in calls]
+    del calls
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    generated = [tok]
+    kops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    for _ in range(SSM_DECODE):
+        logits, cache = lm.decode_step(cfg, params, cache, tok)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if any(kops.kernel_launches().values()) or \
+            not bool(torch.isfinite(logits).all()) or \
+            int(cache["pos"][0]) != SSM_PROMPT + cfg.n_meta_tokens + \
+            SSM_DECODE:
+        raise AssertionError(f"{arch} decode malformed: launches "
+                             f"{kops.kernel_launches()}, pos "
+                             f"{int(cache['pos'][0])}")
+    worst = max((c["err_over_max"] for c in checks), default=0.0)
+    worst_row = max((c["row_err_over_row_max"] for c in checks), default=0.0)
+    log(f"{arch} serving: prefill launched {got}; {len(checks)} flash "
+        f"launches held against the plain version (worst max|diff| / "
+        f"max|plain| {worst:.3e}) and the fp32 oracle by row ({worst_row:.3e},"
+        f" tolerance {LM_TOL}); {SSM_DECODE} greedy decode steps, request 0 "
+        f"{torch.cat(generated, 1)[0, :8].tolist()}...")
+    del cache
+
+    # -- serving times, busy share, the SSD's share --------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = cuda_ms(lambda: lm.prefill(cfg, params, batch, cap),
+                         reps=2, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = decode_s / SSM_DECODE * 1e3
+    pre_prof = step_profile(lambda: lm.prefill(cfg, params, batch, cap))
+    cache, _ = lm.prefill(cfg, params, batch, cap)
+    one = [cache]
+
+    def dec():
+        _, one[0] = lm.decode_step(cfg, params, one[0], tok)
+    dec_prof = step_profile(dec)
+    dec_host_ms = host_us(dec, reps=5) / 1e3
+    del cache, one
+    share = ssd_profile(lambda: lm.prefill(cfg, params, batch, cap))
+    serve = dict(prefill_ms=prefill_ms,
+                 prefill_tokens_s=SSM_BATCH * SSM_PROMPT / prefill_ms * 1e3,
+                 decode_ms_per_step=step_ms,
+                 decode_tokens_s=SSM_BATCH / step_ms * 1e3,
+                 decode_host_ms=dec_host_ms,
+                 decode_device_ms=dec_prof["device_s"] * 1e3,
+                 peak_gb=peak_gb, prefill_profile=pre_prof,
+                 decode_profile=dec_prof, ssd=share)
+    log(f"{arch} serving: prefill {prefill_ms:.2f} ms "
+        f"({serve['prefill_tokens_s']:.0f} tokens/s), decode "
+        f"{step_ms:.3f} ms a step ({serve['decode_tokens_s']:.1f} tokens/s "
+        f"at batch {SSM_BATCH}; {dec_host_ms:.3f} ms to enqueue, "
+        f"{serve['decode_device_ms']:.3f} ms on the device), peak "
+        f"{peak_gb:.2f} GB; busy {pre_prof['busy_share']:.3f} in a prefill, "
+        f"{dec_prof['busy_share']:.3f} in a decode step; the SSD "
+        f"{fmt_ms(share['ssd_ms'])} of {share['device_ms']:.2f} device ms "
+        f"of a traced prefill (share {share['ssd_share']})")
+    log(f"  top prefill kernels (ms) {pre_prof['top']}")
+    log(f"  top decode kernels (ms) {dec_prof['top']}")
+
+    # -- the SSD oracle on layer 0's real inputs, fp32 -----------------------
+    first: list = []
+    with ssd_capture(lambda a: first.append(a) if not first else None):
+        lm.prefill(cfg, params, batch, cap)
+    x, dt, a, b_in, c_in, _, chunk = first[0]
+    del first
+    y, st = M.ssd_chunked(x.float(), dt, a, b_in.float(), c_in.float(),
+                          chunk=chunk)
+    y_ref, st_ref = M.ssd_reference(x.float(), dt, a, b_in.float(),
+                                    c_in.float())
+    ssd_err = float((y - y_ref).abs().max()) / float(y_ref.abs().max())
+    st_err = float((st - st_ref).abs().max()) / float(st_ref.abs().max())
+    if not ssd_err <= SSD_TOL or not st_err <= SSD_TOL:
+        raise AssertionError(f"{arch} ssd_chunked against ssd_reference on "
+                             f"layer 0's inputs {tuple(x.shape)}: {ssd_err:.3e}"
+                             f" (y), {st_err:.3e} (state) > {SSD_TOL}")
+    del x, dt, a, b_in, c_in, y, st, y_ref, st_ref
+
+    # -- chunked against recurrent, fp32, full width -------------------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    full, _ = synthetic_lm_batch(1, SSM_PROMPT + SSM_RECUR, cfg.vocab, step=1)
+    full = torch.from_numpy(full).to(DEVICE)
+    cap32 = SSM_PROMPT + SSM_RECUR + cfg.n_meta_tokens
+    cache, _ = lm.prefill(cfg32, p32, {"tokens": full[:, :SSM_PROMPT]}, cap32)
+    for i in range(SSM_PROMPT, SSM_PROMPT + SSM_RECUR):
+        dec_logits, cache = lm.decode_step(cfg32, p32, cache, full[:, i:i + 1])
+    _, pre_logits = lm.prefill(cfg32, p32, {"tokens": full}, cap32)
+    recur_err = float((dec_logits - pre_logits).abs().max()) / float(
+        pre_logits.abs().max())
+    if not recur_err <= SSM_RECUR_TOL:
+        raise AssertionError(f"{arch}: {SSM_RECUR} decode steps after a "
+                             f"{SSM_PROMPT}-token prefill against a "
+                             f"{SSM_PROMPT + SSM_RECUR}-token prefill, fp32: "
+                             f"{recur_err:.3e} > {SSM_RECUR_TOL}")
+    log(f"{arch}: ssd_chunked against ssd_reference on layer 0's inputs "
+        f"(fp32, chunk {chunk}): {ssd_err:.3e} (y), {st_err:.3e} (final "
+        f"state) of the largest (tolerance {SSD_TOL}); fp32 prefill of "
+        f"{SSM_PROMPT} + {SSM_RECUR} decode steps against a prefill of "
+        f"{SSM_PROMPT + SSM_RECUR}: last logits {recur_err:.3e} of the "
+        f"largest (tolerance {SSM_RECUR_TOL})")
+    del p32, cache
+    torch.cuda.empty_cache()
+    return dict(params=n, layers=cfg.n_layers, launches=got, checks=checks,
+                worst_err_over_max=worst, worst_row=worst_row,
+                max_abs_err=max((c["max_abs_err"] for c in checks),
+                                default=0.0),
+                serve=serve, ssd_err=ssd_err, ssd_state_err=st_err,
+                recur_err=recur_err)
+
+
+def sink_attention_case() -> dict:
+    """Phase 14 (b): hymba's SWA attention shape (``SINK_ATTN``: B 4, 25 /
+    5 heads of 64, S = T = 2,176, window 1,024, 128 sink keys, causal,
+    bf16, seeded inputs): the flash forward with its LSE and the
+    backward, each held against its plain version and, row by row, the
+    fp32 oracle, each launched twice for the same bits, each timed
+    (CUDA events and a device trace) beside its bound over the kept
+    pairs, its plain version and SDPA given a boolean mask of the same
+    kept pairs (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.autotune import H100
+    from repro_torch.kernels.flash_attention import (
+        _kept, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain,
+        flash_attention_plain_lse, flash_bwd_row_floors)
+    c = SINK_ATTN
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
+    q, do = randn(c["b"], c["hq"], c["s"], c["d"]), \
+        randn(c["b"], c["hq"], c["s"], c["d"])
+    k, v = randn(c["b"], c["hkv"], c["t"], c["d"]), \
+        randn(c["b"], c["hkv"], c["t"], c["d"])
+    kw = dict(causal=True, window=c["window"], meta_len=c["meta_len"])
+    shape = f"{tuple(q.shape)}/{tuple(k.shape)} w{c['window']} " \
+            f"m{c['meta_len']}"
+    by_inst = dict(flash_attention_cuda.launches_by_instance)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    o2, lse2 = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    fwd_inst = {n: m - by_inst[n] for n, m in
+                flash_attention_cuda.launches_by_instance.items()}
+    if not torch.equal(o, o2) or not torch.equal(lse, lse2) or \
+            fwd_inst != {"wgmma": 2, "f32": 0}:
+        raise AssertionError(f"sink forward: two launches differ, or ran "
+                             f"{fwd_inst}")
+    del o2, lse2
+    fwd = dict(name="flash_attention", shape=shape)
+    want_o, want_lse = flash_attention_plain_lse(q.float(), k.float(),
+                                                 v.float(), **kw)
+    check_lm_launch(fwd, o, flash_attention_plain(q, k, v, **kw), want_o)
+    fwd["lse_max_abs_err"] = float((lse - want_lse).abs().max())
+    if not fwd["lse_max_abs_err"] <= LSE_ATOL:
+        raise AssertionError(f"sink flash LSE off the fp32 oracle's by "
+                             f"{fwd['lse_max_abs_err']} (atol {LSE_ATOL})")
+    del want_o, want_lse
+    by_inst = dict(flash_attention_bwd_cuda.launches_by_instance)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    bwd_inst = {n: m - by_inst[n] for n, m in
+                flash_attention_bwd_cuda.launches_by_instance.items()}
+    if bwd_inst != {"wgmma": 2, "wmma": 0, "f32": 0} or \
+            not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"sink backward: ran {bwd_inst}, or two "
+                             f"launches differ")
+    del again
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    oracle = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                       o.float(), do.float(), lse, **kw)
+    floors = flash_bwd_row_floors(q, k, v, o, do, lse, **kw)
+    bwd = dict(name="flash_attention_bwd", shape=shape, instance="wgmma")
+    for part, g_, w_, orc, fl in zip(("dq", "dk", "dv"), got, want, oracle,
+                                     floors):
+        entry = dict(name=f"flash_attention_bwd {part}", shape=shape)
+        check_lm_launch(entry, g_, w_, orc, row_floor=fl)
+        for key in ("max_abs_err", "err_over_max", "row_err_over_row_max"):
+            bwd[key] = max(bwd.get(key, 0.0), entry[key])
+    del got, want, oracle, floors
+    pairs = attention_pairs(c["s"], c["t"], True, c["window"],
+                            c["meta_len"]) * c["b"] * c["hq"]
+    elem = q.element_size()
+    for case, flops, nbytes in (
+            (fwd, 4 * c["d"] * pairs, (2 * q.numel() + 2 * k.numel()) * elem),
+            (bwd, 10 * c["d"] * pairs,
+             (4 * q.numel() + 4 * k.numel()) * elem + lse.numel() * 4)):
+        t_bytes, t_ops = H100.mem_time(nbytes), flops / H100.peak_flops
+        case.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    flops=flops, bytes=nbytes, pairs=pairs)
+    fwd["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, return_lse=True,
+                                                     **kw))
+    fwd["device_ms"] = traced_ms(lambda: flash_attention_cuda(
+        q, k, v, return_lse=True, **kw), 10, "flash_attention_wgmma")
+    fwd["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                              reps=2, warmup=1)
+    bwd["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                         **kw))
+    bwd["device_ms"] = traced_ms(lambda: flash_attention_bwd_cuda(
+        q, k, v, o, do, lse, **kw), 10, "flash_bwd_")
+    bwd["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, do, lse, **kw), reps=2, warmup=1)
+    bwd["bound_7_ms"] = max(H100.mem_time(bwd["bytes"]),
+                            bwd["flops"] * 7 / 5 / H100.peak_flops) * 1e3
+    qpos = torch.arange(c["s"], device=DEVICE) + (c["t"] - c["s"])
+    mask = _kept(torch.arange(c["t"], device=DEVICE)[None, :], qpos[:, None],
+                 c["t"], True, c["window"], c["meta_len"])
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    try:
+        fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                             enable_gqa=True)
+        bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True))
+    except (RuntimeError, TypeError) as err:   # no SDPA route for the mask
+        fwd["library_ms"] = bwd["library_ms"] = None
+        fwd["library_error"] = str(err)[:200]
+    return dict(forward=fwd, backward=bwd, launches=dict(
+        forward=fwd_inst, backward=bwd_inst))
+
+
+def ssm_train_case(arch: str) -> dict:
+    """Phase 14 (c): ``arch`` at full width cut to SSM_TRAIN_LAYERS layers
+    (hymba with ``global_layers=(0,)``: its (0, 15, 31) index past 4
+    layers, so one global layer and three SWA layers, with the meta
+    tokens) through :func:`train_checks`, B SSM_TRAIN_BATCH x
+    SSM_TRAIN_SEQ tokens: hymba's step 0 launches 2 flash forwards a layer
+    (remat "full" recomputes them) and a ``wgmma`` backward a layer, all
+    with the sinks; mamba2's none."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batch
+    full = get_config(arch)
+    kw = dict(n_layers=SSM_TRAIN_LAYERS)
+    if full.hybrid:
+        kw["global_layers"] = (0,)
+    cfg = dataclasses.replace(full, **kw)
+    n = cfg.param_count()
+    cut = (f"{arch} at full width, {SSM_TRAIN_LAYERS} of {full.n_layers} "
+           f"layers{' (global layers (0,))' if full.hybrid else ''}, remat "
+           f"{cfg.remat!r}: {n / 1e6:.1f} M parameters; each further layer "
+           f"repeats the same launches in a phase the script's time limit "
+           f"bounds")
+    log(f"cut: {cut}")
+    toks, tgts = synthetic_lm_batch(SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(DEVICE),
+             "targets": torch.from_numpy(tgts).to(DEVICE)}
+    n_attn = SSM_TRAIN_LAYERS if cfg.has_attention else 0
+    want = dict(launches={"ragged_gemm": 0, "flash_attention": 2 * n_attn,
+                          "flash_attention_bwd": n_attn},
+                ragged_directions={"forward": 0, "backward": 0},
+                ragged_instances={"wgmma": 0, "wmma": 0, "f32": 0},
+                bwd_instances={"wgmma": n_attn, "wmma": 0, "f32": 0})
+    res = train_checks(arch, cfg, batch, SSM_TRAIN_STEPS, want)
+    del res["inputs"]
+    metas = {c.get("meta_len") for c in res["checks"]}
+    if cfg.has_attention and metas != {cfg.n_meta_tokens}:
+        raise AssertionError(f"{arch} train: flash launches with meta_len "
+                             f"{metas}, want {cfg.n_meta_tokens}")
+    res.update(cut=cut, layers=SSM_TRAIN_LAYERS, batch=SSM_TRAIN_BATCH,
+               seq=SSM_TRAIN_SEQ)
+    return res
+
+
+def ssm_phase() -> dict:
+    """Phase 14: mamba2-1.3b and hymba-1.5b served at full width and depth
+    (:func:`ssm_serve_case`), hymba's sink attention as a kernel case
+    (:func:`sink_attention_case`), both trained at full width cut in depth
+    (:func:`ssm_train_case`), and their smoke configs in fp32 on the card
+    against the port's CPU run (prefill + decode, train steps)."""
+    import torch
+    t_phase = time.perf_counter()
+    out: dict = {"serve": {}, "train": {}, "smoke": {}}
+    for arch in SSM_ARCHS:
+        out["serve"][arch] = ssm_serve_case(arch)
+        torch.cuda.empty_cache()
+    sink = sink_attention_case()
+    for c in (sink["forward"], sink["backward"]):
+        log(f"  hymba sinks {c['name']:20s} {c['shape']:40s} ms "
+            f"{c['ms']:.4f} device {fmt_ms(c['device_ms'])} plain "
+            f"{c['plain_ms']:.4f} bound {c['bound_ms']:.4f} "
+            f"({c['bound_by']}) SDPA with the mask "
+            f"{fmt_ms(c['library_ms'])}; max|diff| / max|plain| "
+            f"{c['err_over_max']:.2e}, row {c['row_err_over_row_max']:.2e} "
+            f"(tolerance {LM_TOL}); two launches bitwise equal")
+    out["sink_attention"] = sink
+    torch.cuda.empty_cache()
+    for arch in SSM_ARCHS:
+        out["train"][arch] = ssm_train_case(arch)
+        torch.cuda.empty_cache()
+    for arch in SSM_ARCHS:
+        serve = lm_smoke_check(arch)
+        train = lm_train_smoke_check(arch)
+        out["smoke"][arch] = dict(serve_max_abs_diff=serve, train=train)
+        log(f"{arch} smoke config fp32, card vs CPU: prefill + "
+            f"{LM_SMOKE_DECODE} decode steps max |logit diff| "
+            f"{max(serve):.3e} (atol {LM_SMOKE_ATOL}); {LM_TRAIN_SMOKE_STEPS}"
+            f" train steps' losses {train['losses']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def meta_keys(case: dict) -> dict:
+    """The kernels line's ``meta_*`` keys of a phase 14 (b) case (hymba's
+    sink attention)."""
+    keys = ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "err_over_max", "row_err_over_row_max")
+    return {f"meta_{k}": case.get(k) for k in keys}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4545,17 +5071,21 @@ def main() -> int:
     del bundle, g, a, coo
     torch.cuda.empty_cache()
 
-    # -- phase 8: device-sampled minibatch training on reddit ----------------
-    t0 = time.perf_counter()
-    minibatch = minibatch_phase(ds)
-    minibatch["seconds"] = time.perf_counter() - t0
-    log(f"minibatch phase: {minibatch['seconds']:.1f} s")
-    report["train_minibatch"] = minibatch
-
-    # -- phase 13 (a-c): fault tolerance at phase 8's cell -------------------
+    # -- phase 8: device-sampled minibatch training on reddit, which is also
+    # phase 13 (a)'s clean run --------------------------------------------
     ft_dir = out_dir / "phase13_ckpt"
+    shutil.rmtree(ft_dir, ignore_errors=True)
     try:
-        fault = fault_phase(ds, ft_dir)
+        t0 = time.perf_counter()
+        minibatch = minibatch_phase(ds, ft_dir / "clean")
+        minibatch["seconds"] = time.perf_counter() - t0
+        log(f"minibatch phase: {minibatch['seconds']:.1f} s")
+        clean_run = minibatch.pop("clean_run")
+        report["train_minibatch"] = minibatch
+
+        # -- phase 13 (a-c): fault tolerance at phase 8's cell ---------------
+        fault = fault_phase(ds, ft_dir, clean_run)
+        del clean_run
     finally:
         shutil.rmtree(ft_dir, ignore_errors=True)
     log(f"fault phase: {fault['seconds']:.1f} s")
@@ -4658,6 +5188,12 @@ def main() -> int:
     lmt = lm_train_phase()
     log(f"lm train phase: {lmt['seconds']:.1f} s")
     report["train_lm"] = lmt
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the ssm and hybrid families (mamba2-1.3b, hymba-1.5b) -----
+    ssm = ssm_phase()
+    log(f"ssm phase: {ssm['seconds']:.1f} s")
+    report["ssm_hybrid"] = ssm
     torch.cuda.empty_cache()
 
     # -- phase 5: the kernels line ------------------------------------------
@@ -4829,6 +5365,18 @@ def main() -> int:
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [
             c["max_abs_err"] for c in lmt["checks"] + gt["checks"]
             if c["name"] == name])
+        # phase 14: the ssm / hybrid models' serving and training launches
+        entry["launches_ssm_serve"] = sum(
+            r["launches"]["launches"][name] for r in ssm["serve"].values())
+        entry["launches_ssm_train"] = sum(
+            r["launches"][name] for r in ssm["train"].values())
+        entry["launches"] += entry["launches_ssm_serve"] + \
+            entry["launches_ssm_train"]
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+            c["max_abs_err"] for r in ssm["train"].values()
+            for c in r["checks"] if c["name"] == name] + (
+            [r["max_abs_err"] for r in ssm["serve"].values()]
+            if name == "flash_attention" else []))
         if name == "ragged_gemm":
             entry["instance"] = "/".join(
                 k for k, v in lmr["ragged_instances"]["prefill"].items() if v)
@@ -4844,6 +5392,9 @@ def main() -> int:
                          d256_bound_ms=g["bound_ms"],
                          d256_library_ms=g["library_ms"],
                          d256_err_over_max=g["err_over_max"])
+            entry.update(meta_keys(ssm["sink_attention"]["forward"]),
+                         meta_max_abs_err=ssm["sink_attention"]["forward"][
+                             "max_abs_err"])
         kernels.append(entry)
     bwd = lmt["flash_bwd_case"]
     gt = lmt["gemma_train"]
@@ -4878,7 +5429,19 @@ def main() -> int:
             "flash_attention_bwd"]),
         d256_row_err_over_row_max=max(
             g256["row_err_over_row_max"],
-            gt["worst_row"]["flash_attention_bwd"])))
+            gt["worst_row"]["flash_attention_bwd"]),
+        **meta_keys(ssm["sink_attention"]["backward"])))
+    bwd_entry = kernels[-1]
+    ssm_bwd = [c for r in ssm["train"].values() for c in r["checks"]
+               if c["name"] == "flash_attention_bwd"]
+    bwd_entry["launches_ssm_train"] = sum(
+        r["launches"]["flash_attention_bwd"] for r in ssm["train"].values())
+    bwd_entry["launches"] += bwd_entry["launches_ssm_train"]
+    bwd_entry["max_abs_err"] = max(
+        [bwd_entry["max_abs_err"], ssm["sink_attention"]["backward"][
+            "max_abs_err"]] + [c["max_abs_err"] for c in ssm_bwd])
+    for k, v in ssm["train"]["hymba-1.5b"]["flash_bwd_instances"].items():
+        bwd_entry["launches_by_instance"][k] += v
     for entry in kernels:       # phase 11: launches inside the timed passes
         entry["launches_measured_tuning"] = tuning["launches"].get(
             entry["name"], 0)
@@ -4893,6 +5456,8 @@ def main() -> int:
                                        check["max_abs_err"])
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
+    log(f"chip_smoke: {report['seconds']:.1f} s in all, the build included "
+        f"({report['seconds'] / 1200:.1%} of a 1,200 s limit)")
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))
     log(json.dumps({"kernels": kernels}))

@@ -3,8 +3,12 @@
 //                    v[b, h / rep, j]
 // over the keys j kept by the masks, query i at absolute position
 // q_offset + i with q_offset = T - S (queries aligned to the end of the KV
-// axis): j <= q_offset + i when causal, j > q_offset + i - window when a
-// window is given. q (B, Hq, S, D), k / v (B, Hkv, T, D), out in q's type.
+// axis): j <= q_offset + i when causal, j > q_offset + i - window or j <
+// meta_len when a window is given (the first meta_len keys are attention
+// sinks: hymba's meta tokens). q (B, Hq, S, D), k / v (B, Hkv, T, D), out
+// in q's type. The mask and the KV tiles a query tile walks (the sink
+// tiles first, then the band) come from FlashMask (flash_mask.cuh), which
+// the backward shares.
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py). There the grid's innermost KV
@@ -47,7 +51,8 @@
 // (at D = 256, three padded 64 x 260 fp32 tiles and the weights take 212
 // KB of the 227 a block can use).
 //
-// Any S <= T, causal or not, any window, D in {32, 64, 128, 256}.
+// Any S <= T, causal or not, any window and sink prefix, D in {32, 64,
+// 128, 256}.
 //
 // For training, both instances also write the row log-sum-exp of the
 // scaled scores, lse = m + log z (fp32, (B, Hq, S), natural log), when the
@@ -58,6 +63,7 @@
 
 #include <cmath>
 
+#include "flash_mask.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -95,7 +101,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
                              bf16* __restrict__ out,
                              float* __restrict__ lse, int hq, int hkv, int s,
                              int t, int causal, int has_window,
-                             long long window, float scale_log2) {
+                             long long window, long long meta_len,
+                             float scale_log2) {
   using C = Wg<D>;
   constexpr int kBQ = C::kBQ, kBK = C::kBK, kSw = C::kSw;
   extern __shared__ unsigned char smem_raw[];
@@ -113,14 +120,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
   const int i0 = blockIdx.y * kBQ;
   const long long q_offset = (long long)t - s;
 
-  // KV tiles kept by the tile-level causal and window tests
+  // KV tiles kept by the tile-level causal and window tests, sinks first;
+  // the producer and the consumers walk this one sequence
+  const FlashMask mk{t, causal, has_window, window, meta_len};
   const long long qlo = q_offset + i0;
   const long long qhi = q_offset + min(i0 + kBQ, s) - 1;
-  long long klo = 0, khi = (long long)t - 1;
-  if (causal) khi = min(khi, qhi);
-  if (has_window) klo = max(klo, qlo - window + 1);
-  const int kt0 = (int)(klo / kBK);
-  const int n_tiles = khi >= klo ? (int)(khi / kBK) - kt0 + 1 : 0;
+  const FlashMask::KvWalk walk = mk.kv_walk(qlo, qhi, kBK);
+  const int n_tiles = walk.n_tiles;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -151,7 +157,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       int stage = 0;
       uint32_t phase = 0;
       for (int i = 0; i < n_tiles; ++i) {
-        const int kpos0 = (kt0 + i) * kBK;
+        const int kpos0 = walk.tile(i) * kBK;
         hopper::mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* kst = ks + stage * C::kKVBytes;
         unsigned char* vst = vs + stage * C::kKVBytes;
@@ -191,7 +197,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
   int stage = 0;
   uint32_t phase = 0;
   for (int i = 0; i < n_tiles; ++i) {
-    const long long kpos0 = (long long)(kt0 + i) * kBK;
+    const long long kpos0 = (long long)walk.tile(i) * kBK;
     const uint32_t k_base = hopper::smem_u32(ks + stage * C::kKVBytes);
     const uint32_t v_base = hopper::smem_u32(vs + stage * C::kKVBytes);
 
@@ -218,8 +224,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
 
     // scale (base 2), mask, online softmax on the fragment
     const bool need_mask =
-        kpos0 + kBK > t || (causal && kpos0 + kBK - 1 > qlo) ||
-        (has_window && kpos0 <= q_offset + i0 + kBQ - 1 - window);
+        mk.need_mask(kpos0, kBK, qlo, q_offset + i0 + kBQ - 1);
     float tmax[2] = {-kInf, -kInf};
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
@@ -231,10 +236,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
           float x = sc[idx] * scale_log2;
           if (need_mask) {
             const long long kpos = kpos0 + 8 * j + 2 * q4 + c;
-            const long long qpos = qpos0 + 8 * h;
-            const bool ok = kpos < t && (!causal || kpos <= qpos) &&
-                            (!has_window || kpos > qpos - window);
-            x = ok ? x : -kInf;
+            x = mk.kept(qpos0 + 8 * h, kpos) ? x : -kInf;
           }
           sc[idx] = x;
           tmax[h] = fmaxf(tmax[h], x);
@@ -315,8 +317,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int bh, int hq, int hkv, int s, int t, int causal,
-                 int has_window, long long window, float scale,
-                 cudaStream_t stream) {
+                 int has_window, long long window, long long meta_len,
+                 float scale, cudaStream_t stream) {
   using C = Wg<D>;
   const int batch = bh / hq;
   CUtensorMap qm, km, vm;
@@ -346,7 +348,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)bh, (unsigned)((s + C::kBQ - 1) / C::kBQ));
   flash_attention_wgmma_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       qm, km, vm, static_cast<bf16*>(out), lse, hq, hkv, s, t, causal,
-      has_window, window, scale * 1.4426950408889634f);
+      has_window, window, meta_len, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -391,7 +393,8 @@ flash_attention_cuda_core_kernel(const float* __restrict__ q,
                                  float* __restrict__ out,
                                  float* __restrict__ lse, int hq, int hkv,
                                  int s, int t, int causal, int has_window,
-                                 long long window, float scale) {
+                                 long long window, long long meta_len,
+                                 float scale) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -418,14 +421,11 @@ flash_attention_cuda_core_kernel(const float* __restrict__ q,
 
   load_tile<D>(Qs, qb, i0, s);
 
-  // KV tiles kept by the tile-level causal and window tests
+  // KV tiles kept by the tile-level causal and window tests, sinks first
+  const FlashMask mk{t, causal, has_window, window, meta_len};
   const long long qlo = q_offset + i0;
   const long long qhi = q_offset + min(i0 + kBQ, s) - 1;
-  long long klo = 0, khi = (long long)t - 1;
-  if (causal) khi = min(khi, qhi);
-  if (has_window) klo = max(klo, qlo - window + 1);
-  const int kt0 = (int)(klo / kBK);
-  const int kt1 = khi >= klo ? (int)(khi / kBK) : kt0 - 1;
+  const FlashMask::KvWalk walk = mk.kv_walk(qlo, qhi, kBK);
 
   const long long qpos = q_offset + i0 + r;
   float m = kNeg, z = 0.f;
@@ -433,8 +433,8 @@ flash_attention_cuda_core_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int c = 0; c < D / 2; ++c) o[c] = 0.f;
 
-  for (int kt = kt0; kt <= kt1; ++kt) {
-    const long long kpos0 = (long long)kt * kBK;
+  for (int it = 0; it < walk.n_tiles; ++it) {
+    const long long kpos0 = (long long)walk.tile(it) * kBK;
     __syncthreads();                 // every warp is done with the last K, V
     load_tile<D>(Ks, kb, kpos0, t);
     load_tile<D>(Vs, vb, kpos0, t);
@@ -456,9 +456,7 @@ flash_attention_cuda_core_kernel(const float* __restrict__ q,
     float tmax = kNeg;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      const long long kpos = kpos0 + half * 32 + j;
-      const bool ok = kpos < t && (!causal || kpos <= qpos) &&
-                      (!has_window || kpos > qpos - window);
+      const bool ok = mk.kept(qpos, kpos0 + half * 32 + j);
       sc[j] = ok ? sc[j] * scale : kNeg;
       keep |= (ok ? 1u : 0u) << j;
       tmax = fmaxf(tmax, sc[j]);
@@ -504,8 +502,8 @@ flash_attention_cuda_core_kernel(const float* __restrict__ q,
 template <int D>
 int launch_cuda_core(const void* q, const void* k, const void* v, void* out,
                      float* lse, int bh, int hq, int hkv, int s, int t,
-                     int causal, int has_window, long long window, float scale,
-                     cudaStream_t stream) {
+                     int causal, int has_window, long long window,
+                     long long meta_len, float scale, cudaStream_t stream) {
   constexpr size_t kBytes = Layout<D>::kBytes;
   static bool opted_in = false;      // dynamic shared memory above 48 KB
   if (!opted_in) {
@@ -519,23 +517,23 @@ int launch_cuda_core(const void* q, const void* k, const void* v, void* out,
   flash_attention_cuda_core_kernel<D><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, hq, hkv, s,
-      t, causal, has_window, window, scale);
+      t, causal, has_window, window, meta_len, scale);
   return (int)cudaGetLastError();
 }
 
 template <bool kWgmma>
 int dispatch_d(const void* q, const void* k, const void* v, void* out,
                float* lse, int bh, int hq, int hkv, int s, int t, int d,
-               int causal, int has_window, long long window, float scale,
-               cudaStream_t stream) {
+               int causal, int has_window, long long window,
+               long long meta_len, float scale, cudaStream_t stream) {
 #define FLASH_CASE(DIM)                                                      \
   case DIM:                                                                  \
     return kWgmma ? launch_wgmma<DIM>(q, k, v, out, lse, bh, hq, hkv, s, t,  \
-                                      causal, has_window, window, scale,     \
-                                      stream)                                \
+                                      causal, has_window, window, meta_len,  \
+                                      scale, stream)                         \
                   : launch_cuda_core<DIM>(q, k, v, out, lse, bh, hq, hkv, s,  \
                                           t, causal, has_window, window,     \
-                                          scale, stream);
+                                          meta_len, scale, stream);
   switch (d) {
     FLASH_CASE(32)
     FLASH_CASE(64)
@@ -551,26 +549,28 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out,
 
 // bh = B * Hq CTAs along x (the wrapper checks the limits), Hq % Hkv == 0,
 // S <= T, 16-byte aligned contiguous operands; lse (fp32, B * Hq * S) may
-// be null, and then no log-sum-exp is written. Returns cudaGetLastError()
+// be null, and then no log-sum-exp is written; meta_len >= 0 sink keys
+// (0: none). Returns cudaGetLastError()
 // after the launch, or 1000 + the driver's code if a tensor map cannot be
 // encoded (bf16).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
                                     int bh, int hq, int hkv, int s, int t,
                                     int d, int causal, int has_window,
-                                    long long window, float scale,
-                                    cudaStream_t stream) {
+                                    long long window, long long meta_len,
+                                    float scale, cudaStream_t stream) {
   return dispatch_d<true>(q, k, v, out, static_cast<float*>(lse), bh, hq, hkv,
-                          s, t, d, causal, has_window, window, scale, stream);
+                          s, t, d, causal, has_window, window, meta_len, scale,
+                          stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    int bh, int hq, int hkv, int s, int t,
                                    int d, int causal, int has_window,
-                                   long long window, float scale,
-                                   cudaStream_t stream) {
+                                   long long window, long long meta_len,
+                                   float scale, cudaStream_t stream) {
   return dispatch_d<false>(q, k, v, out, static_cast<float*>(lse), bh, hq,
-                           hkv, s, t, d, causal, has_window, window, scale,
-                           stream);
+                           hkv, s, t, d, causal, has_window, window, meta_len,
+                           scale, stream);
 }

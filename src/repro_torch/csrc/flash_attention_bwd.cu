@@ -1,7 +1,8 @@
 // Backward of causal / sliding-window flash attention with GQA for Hopper
 // (LM training). With the forward's mask (query i at absolute position
 // q_offset + i, q_offset = T - S; key j kept when j <= q_offset + i if
-// causal and j > q_offset + i - window if windowed), the forward's row
+// causal and, if windowed, j > q_offset + i - window or j < meta_len, the
+// attention sinks; FlashMask in flash_mask.cuh), the forward's row
 // log-sum-exp lse_i of the scaled scores and s = scale * q . k:
 //     P_ij  = exp(scale q_i . k_j - lse_i) on kept pairs, 0 elsewhere
 //     D_i   = dO_i . O_i
@@ -29,11 +30,13 @@
 //   1. flash_bwd_delta_kernel: D_i = rowsum(dO o O) in fp32, a warp a row.
 //   2. dK and dV: one CTA per (batch x KV head, key tile); the CTA walks
 //      the G query heads of its group and, in order, the query tiles that
-//      can see its keys, recomputes S and dP, forms P and dS, accumulates
+//      can see its keys (to S where it holds a sink key, unclamped by the
+//      window), recomputes S and dP, forms P and dS, accumulates
 //      dV += P^T dO and dK += dS^T Q and writes dK (times scale) and dV
 //      once.
 //   3. dQ: one CTA per (batch x query head, query tile) over its visible
-//      key tiles: S, dP, dS again, dQ += dS K.
+//      key tiles (the sink tiles first, then the band, as the forward
+//      walks them): S, dP, dS again, dQ += dS K.
 //
 // bf16, D in {64, 128}: the Hopper design (flash_bwd_dkdv_wgmma_kernel,
 // flash_bwd_dq_wgmma_kernel; the main path). Per CTA one producer warp
@@ -104,7 +107,8 @@
 // a block can use, so the wrapper raises there.
 // The scale multiplies the fp32 product, as the forward kernel does.
 //
-// Any S <= T, causal or not, any window.
+// Any S <= T, causal or not, any window and sink prefix. With meta_len =
+// 0 every instance walks the tiles it walked before sinks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -112,6 +116,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "flash_mask.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -333,14 +338,12 @@ __device__ __forceinline__ void load_rows(float* lse2, float* dl,
 template <typename T, int D, bool kWriteP>
 __device__ __forceinline__ void softmax_grad(
     const float* S, const float* dP, const float* lse2, const float* dl,
-    T* P, T* dS, long long qpos0, int q_rows, long long kpos0, long long t,
-    int causal, int has_window, long long window, float scale_log2) {
+    T* P, T* dS, long long qpos0, int q_rows, long long kpos0,
+    const FlashMask& mk, float scale_log2) {
   using L = Smem<T, D>;
   for (int e = threadIdx.x; e < kB * kB; e += kThreads) {
     const int i = e / kB, j = e % kB;
-    const long long qpos = qpos0 + i, kpos = kpos0 + j;
-    const bool ok = i < q_rows && kpos < t && (!causal || kpos <= qpos) &&
-                    (!has_window || kpos > qpos - window);
+    const bool ok = i < q_rows && mk.kept(qpos0 + i, kpos0 + j);
     float p = 0.f, ds = 0.f;
     if (ok) {
       p = exp2f(S[i * L::kLdS + j] * scale_log2 - lse2[i]);
@@ -396,7 +399,7 @@ flash_bwd_dkdv_kernel(const typename Math::T* __restrict__ q,
                       typename Math::T* __restrict__ dk,
                       typename Math::T* __restrict__ dv, int hq, int hkv,
                       int s, int t, int causal, int has_window,
-                      long long window, float scale) {
+                      long long window, long long meta_len, float scale) {
   using T = typename Math::T;
   using L = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -420,12 +423,10 @@ flash_bwd_dkdv_kernel(const typename Math::T* __restrict__ q,
   load_tile<T, D>(Vs, v + (long long)bkv * t * D, k0, t);
 
   // the query rows that see a key of this tile
+  const FlashMask mk{t, causal, has_window, window, meta_len};
   const long long kmax = min(k0 + kB, (long long)t) - 1;
-  long long ilo = 0, ihi = (long long)s - 1;
-  if (causal) ilo = max(ilo, k0 - q_offset);
-  if (has_window) ihi = min(ihi, kmax + window - 1 - q_offset);
-  const int qt0 = (int)(ilo / kB);
-  const int qt1 = ihi >= ilo ? (int)(ihi / kB) : qt0 - 1;
+  int qt0, n_qt;
+  mk.q_walk(k0, kmax, s, kB, &qt0, &n_qt);
   const float scale_log2 = scale * kLog2e;
 
   typename Math::Acc adk, adv;
@@ -433,7 +434,7 @@ flash_bwd_dkdv_kernel(const typename Math::T* __restrict__ q,
   Math::zero(adv);
   for (int g = 0; g < groups; ++g) {
     const long long bh = (long long)b * hq + kvh * groups + g;
-    for (int qt = qt0; qt <= qt1; ++qt) {
+    for (int qt = qt0; qt < qt0 + n_qt; ++qt) {
       const int i0 = qt * kB;
       __syncthreads();          // every warp is done with the last tile
       load_tile<T, D>(Qs, q + bh * s * D, i0, s);
@@ -444,8 +445,7 @@ flash_bwd_dkdv_kernel(const typename Math::T* __restrict__ q,
       Math::abt(dPs, dOs, Vs);
       __syncthreads();
       softmax_grad<T, D, true>(Ss, dPs, lse2, dl, Ps, dSs, q_offset + i0,
-                               min(kB, s - i0), k0, t, causal, has_window,
-                               window, scale_log2);
+                               min(kB, s - i0), k0, mk, scale_log2);
       __syncthreads();
       Math::acc_tn(adv, Ps, dOs);
       Math::acc_tn(adk, dSs, Qs);
@@ -474,7 +474,7 @@ flash_bwd_dq_kernel(const typename Math::T* __restrict__ q,
                     const float* __restrict__ delta,
                     typename Math::T* __restrict__ dq, int hq, int hkv, int s,
                     int t, int causal, int has_window, long long window,
-                    float scale) {
+                    long long meta_len, float scale) {
   using T = typename Math::T;
   using L = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -499,20 +499,17 @@ flash_bwd_dq_kernel(const typename Math::T* __restrict__ q,
   load_tile<T, D>(dOs, dout + bh * s * D, i0, s);
   load_rows(lse2, dl, lse, delta, bh * s, i0, s);
 
-  // the key tiles its queries see (the forward's tile-level tests)
+  // the key tiles its queries see (the forward's walk: sinks, band)
+  const FlashMask mk{t, causal, has_window, window, meta_len};
   const long long qlo = q_offset + i0;
   const long long qhi = q_offset + min(i0 + kB, s) - 1;
-  long long klo = 0, khi = (long long)t - 1;
-  if (causal) khi = min(khi, qhi);
-  if (has_window) klo = max(klo, qlo - window + 1);
-  const int kt0 = (int)(klo / kB);
-  const int kt1 = khi >= klo ? (int)(khi / kB) : kt0 - 1;
+  const FlashMask::KvWalk walk = mk.kv_walk(qlo, qhi, kB);
   const float scale_log2 = scale * kLog2e;
 
   typename Math::Acc adq;
   Math::zero(adq);
-  for (int kt = kt0; kt <= kt1; ++kt) {
-    const long long kpos0 = (long long)kt * kB;
+  for (int it = 0; it < walk.n_tiles; ++it) {
+    const long long kpos0 = (long long)walk.tile(it) * kB;
     __syncthreads();            // every warp is done with the last K, V
     load_tile<T, D>(Ks, kb, kpos0, t);
     load_tile<T, D>(Vs, vb, kpos0, t);
@@ -521,8 +518,7 @@ flash_bwd_dq_kernel(const typename Math::T* __restrict__ q,
     Math::abt(dPs, dOs, Vs);
     __syncthreads();
     softmax_grad<T, D, false>(Ss, dPs, lse2, dl, nullptr, dSs, qlo,
-                              min(kB, s - i0), kpos0, t, causal, has_window,
-                              window, scale_log2);
+                              min(kB, s - i0), kpos0, mk, scale_log2);
     __syncthreads();
     Math::acc_nn(adq, dSs, Ks);
   }
@@ -550,7 +546,8 @@ int launch_simple(const void* q, const void* k, const void* v,
                   const void* o, const void* dout, const float* lse,
                   float* delta, void* dq, void* dk, void* dv, int bh, int hq,
                   int hkv, int s, int t, int causal, int has_window,
-                  long long window, float scale, cudaStream_t stream) {
+                  long long window, long long meta_len, float scale,
+                  cudaStream_t stream) {
   using T = typename Math::T;
   constexpr size_t kBytes = Smem<T, D>::kBytes;
   static bool opted_in = false;      // dynamic shared memory above 48 KB
@@ -575,13 +572,13 @@ int launch_simple(const void* q, const void* k, const void* v,
   const dim3 grid_kv((unsigned)(batch * hkv), (unsigned)((t + kB - 1) / kB));
   flash_bwd_dkdv_kernel<Math, D><<<grid_kv, kThreads, kBytes, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      hq, hkv, s, t, causal, has_window, window, scale);
+      hq, hkv, s, t, causal, has_window, window, meta_len, scale);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   const dim3 grid_q((unsigned)bh, (unsigned)((s + kB - 1) / kB));
   flash_bwd_dq_kernel<Math, D><<<grid_q, kThreads, kBytes, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), hq, hkv, s, t,
-      causal, has_window, window, scale);
+      causal, has_window, window, meta_len, scale);
   return (int)cudaGetLastError();
 }
 
@@ -682,7 +679,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
                             const float* __restrict__ delta,
                             bf16* __restrict__ dk, bf16* __restrict__ dv,
                             int hq, int hkv, int s, int t, int causal,
-                            int has_window, long long window, float scale) {
+                            int has_window, long long window,
+                            long long meta_len, float scale) {
   using C = Bw<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t kv_full, full[C::kStages],
@@ -698,12 +696,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
   const long long k0 = (long long)blockIdx.y * 128;
   const long long q_offset = (long long)t - s;
   // the 64-query tiles that see a key of this tile
+  const FlashMask mk{t, causal, has_window, window, meta_len};
   const long long kmax = min(k0 + 128, (long long)t) - 1;
-  long long ilo = 0, ihi = (long long)s - 1;
-  if (causal) ilo = max(ilo, k0 - q_offset);
-  if (has_window) ihi = min(ihi, kmax + window - 1 - q_offset);
-  const int qt0 = (int)(ilo / 64);
-  const int n_qt = ihi >= ilo ? (int)(ihi / 64) - qt0 + 1 : 0;
+  int qt0, n_qt;
+  mk.q_walk(k0, kmax, s, 64, &qt0, &n_qt);
   const int n_iter = groups * n_qt;
 
   const int warp = threadIdx.x >> 5;
@@ -793,10 +789,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     const long long qlo = q_offset + i0;
     const long long qhi = q_offset + min(i0 + 63, s - 1);
     // tile-level tests on this warpgroup's keys
-    const bool skip = kw0 >= t || (causal && kw0 > qhi) ||
-                      (has_window && kw1 <= qlo - window);
-    const bool need_mask = kw0 + 63 >= t || (causal && kw0 + 63 > qlo) ||
-                           (has_window && kw0 <= qhi - window);
+    const bool skip = mk.skip(kw0, kw1, qlo, qhi);
+    const bool need_mask = mk.need_mask(kw0, 64, qlo, qhi);
     hopper::mbar_wait(&full[stage], phase);
     if (!skip) {
       const uint32_t q_st = hopper::smem_u32(ring + stage * C::kStage);
@@ -829,10 +823,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       auto lse_at = [&](int idx) { return l2[c0 + frag_col(idx)]; };
       auto dl_at = [&](int idx) { return dl[c0 + frag_col(idx)]; };
       auto kept = [&](int idx) {
-        const long long kpos = kw0 + r0 + frag_row(idx);
-        const long long qpos = qlo + c0 + frag_col(idx);
-        return kpos < t && (!causal || kpos <= qpos) &&
-               (!has_window || kpos > qpos - window);
+        return mk.kept(qlo + c0 + frag_col(idx), kw0 + r0 + frag_row(idx));
       };
       if (need_mask)
         p_tile<true>(sc, scale_log2, lse_at, kept);
@@ -905,7 +896,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dq, int hq, int hkv, int s,
                           int t, int causal, int has_window, long long window,
-                          float scale) {
+                          long long meta_len, float scale) {
   using C = Bw<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[C::kStages],
@@ -919,14 +910,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
   const int kvh = (bh % hq) / (hq / hkv);
   const int i0 = blockIdx.y * 128;
   const long long q_offset = (long long)t - s;
-  // the 64-key tiles the CTA's queries see (the forward's tile tests)
+  // the 64-key tiles the CTA's queries see (the forward's walk: the sink
+  // tiles, then the band); the producer and the consumers walk it alike
+  const FlashMask mk{t, causal, has_window, window, meta_len};
   const long long qlo = q_offset + i0;
   const long long qhi = q_offset + min(i0 + 128, s) - 1;
-  long long klo = 0, khi = (long long)t - 1;
-  if (causal) khi = min(khi, qhi);
-  if (has_window) klo = max(klo, qlo - window + 1);
-  const int kt0 = (int)(klo / 64);
-  const int n_kt = khi >= klo ? (int)(khi / 64) - kt0 + 1 : 0;
+  const FlashMask::KvWalk walk = mk.kv_walk(qlo, qhi, 64);
+  const int n_kt = walk.n_tiles;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -959,7 +949,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       int stage = 0;
       uint32_t phase = 0;
       for (int it = 0; it < n_kt; ++it) {
-        const int kpos0 = (kt0 + it) * 64;
+        const int kpos0 = walk.tile(it) * 64;
         hopper::mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* st = ring + stage * C::kStage;
         hopper::mbar_arrive_expect_tx(&full[stage], C::kStage);
@@ -1004,13 +994,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
   int stage = 0;
   uint32_t phase = 0;
   for (int it = 0; it < n_kt; ++it) {
-    const long long kpos0 = (long long)(kt0 + it) * 64;
+    const long long kpos0 = (long long)walk.tile(it) * 64;
     const long long k_last = min(kpos0 + 63, (long long)t - 1);
-    const bool skip = w0 >= s || (causal && kpos0 > wq_hi) ||
-                      (has_window && k_last <= wq_lo - window);
-    const bool need_mask = kpos0 + 63 >= t ||
-                           (causal && kpos0 + 63 > wq_lo) ||
-                           (has_window && kpos0 <= wq_hi - window);
+    const bool skip = w0 >= s || mk.skip(kpos0, k_last, wq_lo, wq_hi);
+    const bool need_mask = mk.need_mask(kpos0, 64, wq_lo, wq_hi);
     hopper::mbar_wait(&full[stage], phase);
     if (!skip) {
       const uint32_t k_st = hopper::smem_u32(ring + stage * C::kStage);
@@ -1039,10 +1026,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       auto lse_at = [&](int idx) { return lse2[(idx >> 1) & 1]; };
       auto dl_at = [&](int idx) { return dl[(idx >> 1) & 1]; };
       auto kept = [&](int idx) {
-        const long long qpos = wq_lo + r0 + frag_row(idx);
-        const long long kpos = kpos0 + c0 + frag_col(idx);
-        return kpos < t && (!causal || kpos <= qpos) &&
-               (!has_window || kpos > qpos - window);
+        return mk.kept(wq_lo + r0 + frag_row(idx),
+                       kpos0 + c0 + frag_col(idx));
       };
       if (need_mask)
         p_tile<true>(sc, scale_log2, lse_at, kept);
@@ -1085,8 +1070,8 @@ template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, float* delta, void* dq,
                  void* dk, void* dv, int bh, int hq, int hkv, int s, int t,
-                 int causal, int has_window, long long window, float scale,
-                 cudaStream_t stream) {
+                 int causal, int has_window, long long window,
+                 long long meta_len, float scale, cudaStream_t stream) {
   using C = Bw<D>;
   const int batch = bh / hq;
   // 3-D maps over (D, rows, batch x head), 128-byte swizzle: 64- and
@@ -1136,13 +1121,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   flash_bwd_dkdv_wgmma_kernel<D><<<grid_kv, C::kThreads, C::kSmem, stream>>>(
       q64, do64, k128, v128, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), hq, hkv, s, t, causal, has_window, window,
-      scale);
+      meta_len, scale);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   const dim3 grid_q((unsigned)bh, (unsigned)((s + 127) / 128));
   flash_bwd_dq_wgmma_kernel<D><<<grid_q, C::kThreads, C::kSmem, stream>>>(
       q128, do128, k64, v64, lse, delta, static_cast<bf16*>(dq), hq, hkv, s,
-      t, causal, has_window, window, scale);
+      t, causal, has_window, window, meta_len, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1199,7 +1184,8 @@ flash_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap qm,
                             const float* __restrict__ delta,
                             bf16* __restrict__ dk, bf16* __restrict__ dv,
                             int hq, int hkv, int s, int t, int causal,
-                            int has_window, long long window, float scale) {
+                            int has_window, long long window,
+                            long long meta_len, float scale) {
   using C = Bs;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t kv_full, full[C::kStages],
@@ -1217,12 +1203,10 @@ flash_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap qm,
   const long long k0 = (long long)blockIdx.y * 64;
   const long long q_offset = (long long)t - s;
   // the 64-query tiles that see a key of this tile
+  const FlashMask mk{t, causal, has_window, window, meta_len};
   const long long kmax = min(k0 + 64, (long long)t) - 1;
-  long long ilo = 0, ihi = (long long)s - 1;
-  if (causal) ilo = max(ilo, k0 - q_offset);
-  if (has_window) ihi = min(ihi, kmax + window - 1 - q_offset);
-  const int qt0 = (int)(ilo / 64);
-  const int n_qt = ihi >= ilo ? (int)(ihi / 64) - qt0 + 1 : 0;
+  int qt0, n_qt;
+  mk.q_walk(k0, kmax, s, 64, &qt0, &n_qt);
   const int n_iter = groups * n_qt;
 
   const int warp = threadIdx.x >> 5;
@@ -1315,9 +1299,9 @@ flash_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap qm,
     const long long qhi = q_offset + min(i0 + 63, s - 1);
     // the tile-level mask test on the CTA's keys, the same for both
     // warpgroups; every tile of the walk holds a kept pair (its bounds are
-    // the keys' visibility bounds), so none is skipped
-    const bool need_mask = k0 + 63 >= t || (causal && k0 + 63 > qlo) ||
-                           (has_window && k0 <= qhi - window);
+    // the keys' visibility bounds; a sink key sees every later query), so
+    // none is skipped
+    const bool need_mask = mk.need_mask(k0, 64, qlo, qhi);
     hopper::mbar_wait(&full[stage], phase);
     const uint32_t q_st = hopper::smem_u32(ring + stage * C::kStage);
     const uint32_t do_st = q_st + C::kTile;
@@ -1347,10 +1331,7 @@ flash_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap qm,
     const float* dl = dl_s[stage];
     auto lse_at = [&](int idx) { return l2[qh + c0 + frag_col(idx)]; };
     auto kept = [&](int idx) {
-      const long long kpos = k0 + r0 + frag_row(idx);
-      const long long qpos = qlo + qh + c0 + frag_col(idx);
-      return kpos < t && (!causal || kpos <= qpos) &&
-             (!has_window || kpos > qpos - window);
+      return mk.kept(qlo + qh + c0 + frag_col(idx), k0 + r0 + frag_row(idx));
     };
     if (need_mask)
       p_tile<true>(sc, scale_log2, lse_at, kept);
@@ -1445,7 +1426,7 @@ flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap qm,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dq, int hq, int hkv, int s,
                           int t, int causal, int has_window, long long window,
-                          float scale) {
+                          long long meta_len, float scale) {
   using C = Bs;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[C::kStages],
@@ -1461,14 +1442,13 @@ flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap qm,
   // the last query tiles see the most keys under a causal mask: first
   const int i0 = (gridDim.y - 1 - blockIdx.y) * 64;
   const long long q_offset = (long long)t - s;
-  // the 64-key tiles the CTA's queries see (the forward's tile tests)
+  // the 64-key tiles the CTA's queries see (the forward's walk: the sink
+  // tiles, then the band); the producer and the consumers walk it alike
+  const FlashMask mk{t, causal, has_window, window, meta_len};
   const long long qlo = q_offset + i0;
   const long long qhi = q_offset + min(i0 + 64, s) - 1;
-  long long klo = 0, khi = (long long)t - 1;
-  if (causal) khi = min(khi, qhi);
-  if (has_window) klo = max(klo, qlo - window + 1);
-  const int kt0 = (int)(klo / 64);
-  const int n_kt = khi >= klo ? (int)(khi / 64) - kt0 + 1 : 0;
+  const FlashMask::KvWalk walk = mk.kv_walk(qlo, qhi, 64);
+  const int n_kt = walk.n_tiles;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1500,7 +1480,7 @@ flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap qm,
       int stage = 0;
       uint32_t phase = 0;
       for (int it = 0; it < n_kt; ++it) {
-        const int kpos0 = (kt0 + it) * 64;
+        const int kpos0 = walk.tile(it) * 64;
         hopper::mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* st = ring + stage * C::kStage;
         hopper::mbar_arrive_expect_tx(&full[stage], C::kStage);
@@ -1545,11 +1525,10 @@ flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap qm,
   int stage = 0;
   uint32_t phase = 0;
   for (int it = 0; it < n_kt; ++it) {
-    const long long kpos0 = (long long)(kt0 + it) * 64;
+    const long long kpos0 = (long long)walk.tile(it) * 64;
     // the tile-level mask test on the CTA's queries, the same for both
     // warpgroups; every tile of the walk holds a kept pair
-    const bool need_mask = kpos0 + 63 >= t || (causal && kpos0 + 63 > qlo) ||
-                           (has_window && kpos0 <= qhi - window);
+    const bool need_mask = mk.need_mask(kpos0, 64, qlo, qhi);
     hopper::mbar_wait(&full[stage], phase);
     const uint32_t k_st = hopper::smem_u32(ring + stage * C::kStage);
     const uint32_t v_st = k_st + C::kTile;
@@ -1576,10 +1555,8 @@ flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap qm,
     hopper::fence_regs(sc);
     auto lse_at = [&](int idx) { return lse2[(idx >> 1) & 1]; };
     auto kept = [&](int idx) {
-      const long long qpos = qlo + r0 + frag_row(idx);
-      const long long kpos = kpos0 + kh + c0 + frag_col(idx);
-      return kpos < t && (!causal || kpos <= qpos) &&
-             (!has_window || kpos > qpos - window);
+      return mk.kept(qlo + r0 + frag_row(idx),
+                     kpos0 + kh + c0 + frag_col(idx));
     };
     if (need_mask)
       p_tile<true>(sc, scale_log2, lse_at, kept);
@@ -1635,8 +1612,8 @@ flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap qm,
 int launch_split(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, float* delta, void* dq,
                  void* dk, void* dv, int bh, int hq, int hkv, int s, int t,
-                 int causal, int has_window, long long window, float scale,
-                 cudaStream_t stream) {
+                 int causal, int has_window, long long window,
+                 long long meta_len, float scale, cudaStream_t stream) {
   using C = Bs;
   constexpr int D = C::kD;
   const int batch = bh / hq;
@@ -1678,20 +1655,20 @@ int launch_split(const void* q, const void* k, const void* v, const void* o,
   flash_bwd_dkdv_split_kernel<<<grid_kv, C::kThreads, C::kSmem, stream>>>(
       qm, dom, km, vm, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), hq, hkv, s, t, causal, has_window, window,
-      scale);
+      meta_len, scale);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   const dim3 grid_q((unsigned)bh, (unsigned)((s + 63) / 64));
   flash_bwd_dq_split_kernel<<<grid_q, C::kThreads, C::kSmem, stream>>>(
       qm, dom, km, vm, lse, delta, static_cast<bf16*>(dq), hq, hkv, s, t,
-      causal, has_window, window, scale);
+      causal, has_window, window, meta_len, scale);
   return (int)cudaGetLastError();
 }
 
 #define BWD_ARGS                                                             \
   q, k, v, o, dout, static_cast<const float*>(lse),                          \
       static_cast<float*>(delta), dq, dk, dv, bh, hq, hkv, s, t, causal,     \
-      has_window, window, scale, stream
+      has_window, window, meta_len, scale, stream
 
 }  // namespace
 
@@ -1706,7 +1683,8 @@ int launch_split(const void* q, const void* k, const void* v, const void* o,
   const void *q, const void *k, const void *v, const void *o,                \
       const void *dout, const void *lse, void *delta, void *dq, void *dk,    \
       void *dv, int bh, int hq, int hkv, int s, int t, int d, int causal,    \
-      int has_window, long long window, float scale, cudaStream_t stream
+      int has_window, long long window, long long meta_len, float scale,     \
+      cudaStream_t stream
 
 // bf16, the Hopper design: D in {64, 128, 256}
 extern "C" int flash_attention_bwd_bf16_wgmma(BWD_PARAMS) {

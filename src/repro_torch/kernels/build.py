@@ -54,10 +54,10 @@ _SIGNATURES = {
     "ragged_gemm": {f"ragged_gemm_{t}": [_P] * 4 + [_L] + [_I] * 5 + [_P]
                     for t in ("bf16_wgmma", "bf16", "f32")},
     "flash_attention": {f"flash_attention_{t}":
-                        [_P] * 5 + [_I] * 8 + [_L, _F, _P]
+                        [_P] * 5 + [_I] * 8 + [_L, _L, _F, _P]
                         for t in ("bf16", "f32")},
     "flash_attention_bwd": {f"flash_attention_bwd_{t}":
-                            [_P] * 10 + [_I] * 8 + [_L, _F, _P]
+                            [_P] * 10 + [_I] * 8 + [_L, _L, _F, _P]
                             for t in ("bf16_wgmma", "bf16", "f32")},
     "segment_sum": {"segment_sum_f32": [_P, _L] + [_P] * 6 + [_I, _I, _L,
                                                             _I, _I, _I, _P]},

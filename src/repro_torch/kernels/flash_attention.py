@@ -1,5 +1,11 @@
 """Causal / sliding-window flash attention with GQA (LM prefill): the
-hand-written CUDA kernel and its plain PyTorch version.
+hand-written CUDA kernel and its plain PyTorch version. Every function
+here takes ``meta_len``, the reference's attention sinks (hymba's meta
+tokens): with a window, the first ``meta_len`` keys stay visible to
+every later query. The kernels walk the sink tiles first, then the band
+(:func:`flash_kv_walk`; ``csrc/flash_mask.cuh`` states it for both
+kernels), and with ``meta_len`` 0 walk exactly the tiles they walked
+before sinks.
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``, the Hopper
 replacement of the TPU kernel ``flash_attention_pallas``
@@ -44,9 +50,9 @@ import torch
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
            "flash_attention_plain_lse", "flash_attention_bwd_cuda",
            "flash_attention_bwd_plain", "flash_bwd_instance",
-           "flash_bwd_dkdv_tiles", "flash_bwd_dq_tiles",
+           "flash_kv_walk", "flash_bwd_dkdv_tiles", "flash_bwd_dq_tiles",
            "flash_bwd_tile_test", "flash_bwd_tiles", "flash_bwd_row_floors",
-           "HEAD_DIMS", "BWD_INSTANCES"]
+           "HEAD_DIMS", "BWD_INSTANCES", "FWD_INSTANCES"]
 
 HEAD_DIMS = (32, 64, 128, 256)     # the kernels' instances
 # backward instance -> C entry point of csrc/flash_attention_bwd.cu
@@ -59,26 +65,41 @@ BWD_INSTANCES = {"wgmma": "flash_attention_bwd_bf16_wgmma",
 BWD_KV_TILE, BWD_Q_STEP, BWD_Q_TILE, BWD_KV_STEP = 128, 64, 128, 64
 EPS32 = 2.0 ** -24
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# the forward's instance by dtype: bf16 the wgmma design, fp32 CUDA cores
+FWD_INSTANCES = {torch.bfloat16: "wgmma", torch.float32: "f32"}
 _Q_TILE, _GRID_Y = 64, 65_535
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int | None = None
-                          ) -> torch.Tensor:
+                          *, causal: bool = True, window: int | None = None,
+                          meta_len: int = 0) -> torch.Tensor:
     """Plain PyTorch flash attention: ``chunked_attention`` (KV chunks of
     1024 with a running max and sum, the reference's XLA route)."""
     from repro_torch.models.lm.attention import chunked_attention
-    return chunked_attention(q, k, v, causal=causal, window=window)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             meta_len=meta_len)
 
 
 def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
-                              window: int | None = None) -> tuple:
+                              window: int | None = None,
+                              meta_len: int = 0) -> tuple:
     """:func:`flash_attention_plain` and the fp32 (B, Hq, S) row
     log-sum-exp of the scaled scores."""
     from repro_torch.models.lm.attention import chunked_attention
     return chunked_attention(q, k, v, causal=causal, window=window,
-                             return_lse=True)
+                             return_lse=True, meta_len=meta_len)
+
+
+def _kept(kpos, qpos, t: int, causal: bool, window, meta_len: int):
+    """The kernels' element mask on (broadcast) position tensors: key
+    kpos kept for the query at qpos (``FlashMask::kept``)."""
+    ok = kpos < t
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window is not None:
+        ok = ok & ((kpos > qpos - window) | (kpos < meta_len))
+    return ok
 
 
 def _check_operands(q, k, v):
@@ -120,19 +141,28 @@ def _check_operands(q, k, v):
                          f"the launch grid")
 
 
+def _check_meta(meta_len) -> None:
+    if int(meta_len) != meta_len or meta_len < 0:
+        raise ValueError(f"flash_attention: meta_len must be an int >= 0, "
+                         f"got {meta_len!r}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
-                         return_lse: bool = False):
+                         return_lse: bool = False, meta_len: int = 0):
     """(B, Hq, S, D) attention on the card through the hand kernel. q (B,
     Hq, S, D), k / v (B, Hkv, T, D), S <= T, Hq % Hkv == 0, D in
     :data:`HEAD_DIMS`, all contiguous, all bf16 or all fp32. ``window``
-    None disables the window. Scores are scaled by 1 / sqrt(D). With
+    None disables the window; with one, the first ``meta_len`` keys are
+    sinks. Scores are scaled by 1 / sqrt(D). With
     ``return_lse`` -> (out, lse), lse the fp32 (B, Hq, S) row log-sum-exp
     of the scaled scores. Counts its launches in
-    ``flash_attention_cuda.launches``."""
+    ``flash_attention_cuda.launches`` and by instance (:data:`FWD_INSTANCES`)
+    in ``flash_attention_cuda.launches_by_instance``."""
     from repro_torch.kernels.build import load_kernel
 
     _check_operands(q, k, v)
+    _check_meta(meta_len)
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -147,15 +177,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(),
                 b * hq, hq, hkv, s, t, d, int(causal), int(window is not None),
-                0 if window is None else int(window), 1.0 / d ** 0.5,
-                stream)
+                0 if window is None else int(window), int(meta_len),
+                1.0 / d ** 0.5, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_instance[FWD_INSTANCES[q.dtype]] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_instance = dict.fromkeys(
+    FWD_INSTANCES.values(), 0)
 
 
 def flash_bwd_instance(dtype: torch.dtype, d: int) -> str:
@@ -195,54 +228,79 @@ def flash_bwd_tiles(d: int) -> tuple:
     return BWD_KV_TILE, BWD_Q_STEP, BWD_Q_TILE, BWD_KV_STEP
 
 
+def flash_kv_walk(qlo: int, qhi: int, t: int, causal: bool,
+                  window: int | None, bk: int, meta_len: int = 0) -> list:
+    """The KV tiles of ``bk`` keys that queries at positions ``qlo ..
+    qhi`` walk, in order (``FlashMask::kv_walk``, which the forward and
+    the dQ kernels call): with a window, the sink tiles first (those
+    below the band holding a key under ``meta_len`` that ``qhi`` may
+    see), then the band the causal and window tests keep; no tile
+    twice."""
+    klo, khi = 0, t - 1
+    if causal:
+        khi = min(khi, qhi)
+    if window is not None:
+        klo = max(klo, qlo - window + 1)
+    kt0 = klo // bk
+    band = list(range(kt0, khi // bk + 1)) if khi >= klo else []
+    n_sink = 0
+    if window is not None and meta_len > 0 and khi >= 0:
+        n_sink = -(-min(meta_len, khi + 1) // bk)
+        if band:
+            n_sink = min(n_sink, kt0)
+    return list(range(n_sink)) + band
+
+
 def flash_bwd_dkdv_tiles(s: int, t: int, k0: int, causal: bool,
-                         window: int | None, d: int = 128) -> range:
+                         window: int | None, d: int = 128,
+                         meta_len: int = 0) -> range:
     """The query tiles (of the ring stage's rows) the dK / dV kernel's CTA
     at key ``k0`` walks at head dim ``d``, in its order (for each query
     head of the group): those holding a query that sees a key of the
-    CTA's :func:`flash_bwd_tiles` keys from ``k0``."""
+    CTA's :func:`flash_bwd_tiles` keys from ``k0``; to S where the CTA
+    holds a sink key (``FlashMask::q_walk``)."""
     kv_tile, step = flash_bwd_tiles(d)[:2]
     q_offset = t - s
     kmax = min(k0 + kv_tile, t) - 1
     ilo, ihi = 0, s - 1
     if causal:
         ilo = max(ilo, k0 - q_offset)
-    if window is not None:
+    if window is not None and k0 >= meta_len:
         ihi = min(ihi, kmax + window - 1 - q_offset)
     return range(ilo // step, ihi // step + 1) if ihi >= ilo else range(0)
 
 
 def flash_bwd_dq_tiles(s: int, t: int, i0: int, causal: bool,
-                       window: int | None, d: int = 128) -> range:
+                       window: int | None, d: int = 128,
+                       meta_len: int = 0) -> list:
     """The key tiles (of the ring stage's keys) the dQ kernel's CTA at
-    query ``i0`` walks at head dim ``d``, in order: the forward's
-    tile-level tests over its :func:`flash_bwd_tiles` queries."""
+    query ``i0`` walks at head dim ``d``, in order: the forward's walk
+    (:func:`flash_kv_walk`) over its :func:`flash_bwd_tiles` queries."""
     q_tile, step = flash_bwd_tiles(d)[2:]
     q_offset = t - s
-    qlo = q_offset + i0
-    qhi = q_offset + min(i0 + q_tile, s) - 1
-    klo, khi = 0, t - 1
-    if causal:
-        khi = min(khi, qhi)
-    if window is not None:
-        klo = max(klo, qlo - window + 1)
-    return range(klo // step, khi // step + 1) if khi >= klo else range(0)
+    return flash_kv_walk(q_offset + i0, q_offset + min(i0 + q_tile, s) - 1,
+                         t, causal, window, step, meta_len)
 
 
 def flash_bwd_tile_test(k_lo: int, q_lo: int, q_hi: int, t: int,
-                        causal: bool, window: int | None) -> str:
+                        causal: bool, window: int | None,
+                        meta_len: int = 0) -> str:
     """What a group of 64 rows of the wgmma backward (a warpgroup's at D
     64 and 128, the CTA's at 256) does with its 64 keys from ``k_lo``
     against the queries at positions ``q_lo .. q_hi`` (the last real
     one): ``skip`` (no pair kept), ``mask`` (a pair is masked, or a key
     lies past T) or ``full`` (every pair kept, no mask applied). Rows past
-    S need no mask: their LSE is +inf, so P = 0."""
+    S need no mask: their LSE is +inf, so P = 0. A sink key (below
+    ``meta_len``) is never out of the window (``FlashMask::skip`` and
+    ``need_mask``)."""
     k_last = min(k_lo + 63, t - 1)
     if k_lo >= t or (causal and k_lo > q_hi) or \
-            (window is not None and k_last <= q_lo - window):
+            (window is not None and k_last <= q_lo - window
+             and k_lo >= meta_len):
         return "skip"
     if k_lo + 63 >= t or (causal and k_lo + 63 > q_lo) or \
-            (window is not None and k_lo <= q_hi - window):
+            (window is not None and
+             max(k_lo, meta_len) <= min(k_lo + 63, q_hi - window)):
         return "mask"
     return "full"
 
@@ -251,7 +309,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               do: torch.Tensor, lse: torch.Tensor, *,
                               causal: bool = True, window: int | None = None,
-                              chunk: int = 1024) -> tuple:
+                              chunk: int = 1024, meta_len: int = 0) -> tuple:
     """Plain PyTorch gradient of flash attention, the kernel's math over KV
     chunks: P = exp(scale q . k - lse) on kept pairs, D = rowsum(dO o O),
     dS = P (dO . v - D); dv = P^T dO, dk = scale dS^T q, dq = scale dS k,
@@ -276,11 +334,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         hi = min(lo + chunk, t)
         kc, vc = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
         k_pos = torch.arange(lo, hi, device=q.device)
-        mask = torch.ones((s, hi - lo), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= k_pos[None, :] <= q_pos[:, None]
-        if window is not None:
-            mask &= k_pos[None, :] > q_pos[:, None] - window
+        mask = _kept(k_pos[None, :], q_pos[:, None], t, causal, window,
+                     meta_len)
         sc = torch.einsum("bkgsd,bktd->bkgst", qg, kc) * scale
         p = torch.where(mask, torch.exp(sc - lseg), 0.0)
         dp = torch.einsum("bkgsd,bktd->bkgst", dog, vc)
@@ -294,7 +349,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_bwd_row_floors(q, k, v, o, do, lse, *, causal=True,
-                         window=None, chunk=1024) -> tuple:
+                         window=None, chunk=1024, meta_len=0) -> tuple:
     """The rounding floor of each row of (dq, dk, dv) for the row check:
     2 D eps32 x the row's largest sum of absolute terms, with dS's
     cancelling difference dP_ij - D_i replaced by the size of what
@@ -319,11 +374,8 @@ def flash_bwd_row_floors(q, k, v, o, do, lse, *, causal=True,
         hi = min(lo + chunk, t)
         kc, vc = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
         k_pos = torch.arange(lo, hi, device=q.device)
-        mask = torch.ones((s, hi - lo), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= k_pos[None, :] <= q_pos[:, None]
-        if window is not None:
-            mask &= k_pos[None, :] > q_pos[:, None] - window
+        mask = _kept(k_pos[None, :], q_pos[:, None], t, causal, window,
+                     meta_len)
         sc = torch.einsum("bkgsd,bktd->bkgst",
                           q.reshape(b, n_kv, g, s, d).float(), kc) * scale
         p = torch.where(mask, torch.exp(sc - lseg), 0.0)
@@ -339,11 +391,12 @@ def flash_bwd_row_floors(q, k, v, o, do, lse, *, causal=True,
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, *,
-                             causal: bool = True, window: int | None = None
-                             ) -> tuple:
+                             causal: bool = True, window: int | None = None,
+                             meta_len: int = 0) -> tuple:
     """(dq, dk, dv) of flash attention on the card through the hand
-    kernel (``csrc/flash_attention_bwd.cu``): q, k, v as
-    :func:`flash_attention_cuda` takes them, o and do like q, lse the
+    kernel (``csrc/flash_attention_bwd.cu``): q, k, v, the mask and
+    ``meta_len`` as :func:`flash_attention_cuda` takes them, o and do like
+    q, lse the
     forward's fp32 (B, Hq, S) row log-sum-exp; all contiguous. Counts its
     calls (three launches each: the row dot products dO . O, then dK and
     dV, then dQ) in ``flash_attention_bwd_cuda.launches`` and by
@@ -353,6 +406,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     from repro_torch.kernels.build import load_kernel
 
     _check_operands(q, k, v)
+    _check_meta(meta_len)
     inst = flash_bwd_instance(q.dtype, q.shape[3])
     for name, arr in (("o", o), ("do", do)):
         if arr.shape != q.shape or arr.dtype != q.dtype or \
@@ -383,8 +437,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * hq, hq, hkv,
                 s, t, d, int(causal), int(window is not None),
-                0 if window is None else int(window), 1.0 / d ** 0.5,
-                stream)
+                0 if window is None else int(window), int(meta_len),
+                1.0 / d ** 0.5, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed ({inst}): "
                            f"CUDA error {rc}")

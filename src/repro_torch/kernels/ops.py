@@ -214,15 +214,17 @@ class _FlashAttention(torch.autograd.Function):
     kernel on the card, the plain version's math on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, meta_len):
         if _backend(q, "attention") == "cuda":
             out, lse = flash_attention_cuda(q, k, v, causal=causal,
-                                            window=window, return_lse=True)
+                                            window=window, return_lse=True,
+                                            meta_len=meta_len)
         else:
             out, lse = flash_attention_plain_lse(q, k, v, causal=causal,
-                                                 window=window)
+                                                 window=window,
+                                                 meta_len=meta_len)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.meta_len = causal, window, meta_len
         return out
 
     @staticmethod
@@ -231,16 +233,18 @@ class _FlashAttention(torch.autograd.Function):
         fn = flash_attention_bwd_cuda if _backend(q, "attention") == "cuda" \
             else flash_attention_bwd_plain
         dq, dk, dv = fn(q, k, v, out, do.contiguous(), lse,
-                        causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+                        causal=ctx.causal, window=ctx.window,
+                        meta_len=ctx.meta_len)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    meta_len: int = 0) -> torch.Tensor:
     """Tiled online-softmax attention for LM prefill and training: q (B,
     Hq, S, D), k / v (B, Hkv, T, D), queries aligned to the end of the KV
-    axis; ``window`` enables sliding-window masking. The kernel takes
+    axis; ``window`` enables sliding-window masking, under which the first
+    ``meta_len`` keys stay visible (attention sinks). The kernel takes
     contiguous operands, so strided views (the model's head transposes)
     are copied first. Differentiable in q, k and v."""
     t0 = op_t0()
@@ -249,13 +253,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        out = _FlashAttention.apply(q, k, v, causal, window)
+        out = _FlashAttention.apply(q, k, v, causal, window, meta_len)
     elif backend == "cuda":
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   meta_len=meta_len)
     else:
-        out = flash_attention_plain(q, k, v, causal=causal, window=window)
+        out = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    meta_len=meta_len)
     op_record("flash_attention", out, q, k, v, t0_ns=t0, causal=causal,
-              window=window, backend=backend)
+              window=window, meta_len=meta_len, backend=backend)
     return out
 
 

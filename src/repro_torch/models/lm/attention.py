@@ -7,8 +7,10 @@ flash attention kernel (``kernels/flash_attention.py``), which the
 prefill block calls through ``kernels.ops.flash_attention`` for full
 and sliding-window layers alike (the reference's ``banded_attention`` is
 the same masked softmax; the kernel skips the KV tiles outside the
-band). ``decode_attention`` is one token against the rolling buffer; it is no
-kernel in the reference either.
+band and the sink prefix). ``decode_attention`` is one token against the
+rolling buffer; it is no kernel in the reference either. Both take the
+reference's ``meta_len``: the first ``meta_len`` keys (hymba's meta
+tokens) are attention sinks, never window-masked, still causal.
 
 GQA is computed in grouped form (B, KV, G, S, D): KV heads are never
 repeated in memory. Products take fp32 operands (bf16 widens exactly) and
@@ -33,14 +35,15 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int | None = None,
-                      chunk: int = 1024, return_lse: bool = False):
+                      chunk: int = 1024, return_lse: bool = False,
+                      meta_len: int = 0):
     """q: (B, Hq, S, D); k/v: (B, KV, T, D); q positions end-aligned to T.
     Returns (B, Hq, S, D) in q's dtype, and with ``return_lse`` also the
     fp32 (B, Hq, S) log-sum-exp of each row's scaled scores (-inf for a
     row with no kept key). q is scaled by 1 / sqrt(D) in its own dtype
     first, as the reference scales it. ``window`` None disables
-    windowing. The reference's ``meta_len`` attention sinks serve hymba
-    only, which is not ported."""
+    windowing; the first ``meta_len`` keys are sinks, visible whatever
+    the window says (subject to causality)."""
     b, hq, s, d = q.shape
     n_kv, t = k.shape[1], k.shape[2]
     qg = (_group(q, n_kv) * (1.0 / d ** 0.5)).float()   # (B, KV, G, S, D)
@@ -63,7 +66,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if causal:
             mask &= k_pos[None, :] <= q_pos[:, None]
         if window is not None:
-            mask &= k_pos[None, :] > q_pos[:, None] - window
+            in_win = k_pos[None, :] > q_pos[:, None] - window
+            if meta_len:
+                in_win |= (k_pos < meta_len)[None, :]
+            mask &= in_win
         s_blk = torch.where(mask, s_blk, _NEG)
         m_new = torch.maximum(m, s_blk.amax(dim=-1))
         alpha = torch.exp(m - m_new)
@@ -89,17 +95,20 @@ class KVSlice(NamedTuple):
 
 
 def decode_attention(q: torch.Tensor, kv: KVSlice, pos: torch.Tensor, *,
-                     window: int) -> torch.Tensor:
+                     window: int, meta_len: int = 0) -> torch.Tensor:
     """One-token attention against a rolling buffer.
 
     q: (B, Hq, 1, D); pos: (B,) the new token's absolute position;
     window: int (FULL_ATTN_WINDOW for full attention). The new token's K/V
-    must already be in the buffer."""
+    must already be in the buffer. Slots holding positions < meta_len are
+    sinks (never window-masked)."""
     b, hq, _, d = q.shape
     n_kv = kv.k.shape[1]
     qg = _group(q, n_kv)[:, :, :, 0]                 # (B, KV, G, D)
     s = torch.einsum("bkgd,bkcd->bkgc", qg.float(), kv.k.float()) / d ** 0.5
     in_win = kv.slot_pos > pos[:, None] - int(window)
+    if meta_len:
+        in_win |= kv.slot_pos < meta_len
     valid = (kv.slot_pos >= 0) & (kv.slot_pos <= pos[:, None]) & in_win
     s = torch.where(valid[:, None, None], s, _NEG)
     w = torch.softmax(s, dim=-1)

@@ -1,4 +1,5 @@
-"""Config-driven LM training and serving: the dense and MoE families.
+"""Config-driven LM training and serving: the dense, MoE, ssm (mamba2)
+and hybrid (hymba) families.
 
 Params are the reference's pytree as a dict of tensors: the same keys,
 layers stacked on a leading L axis (``params["layers"]["attn"]["wq"]`` is
@@ -26,14 +27,23 @@ The prefill block's attention goes through ``kernels.ops.flash_attention``
 on the CPU), for full-attention and sliding-window layers alike: the two
 branches of the reference's block (``chunked_attention`` /
 ``banded_attention``) compute the same masked softmax, and the kernel
-skips the KV tiles outside the band. The MoE layers' expert products go
-through ``kernels.ops.ragged_gemm``. Decode attention stays
+skips the KV tiles outside the band and the sink prefix (hymba's
+``n_meta_tokens`` meta tokens, prepended to every sequence, stay
+visible to every layer's later queries). The MoE layers' expert products
+go through ``kernels.ops.ragged_gemm``. Decode attention stays
 ``decode_attention``, as in the reference. Both kernels are
 differentiable (``kernels/ops.py``): their backwards are hand kernels on
 the card too.
 
-Not ported yet (ROADMAP queue 1): the ssm / hybrid families (mamba2,
-hymba) and the audio and vlm front ends.
+The ssm block is the Mamba2 mixer alone (``models/lm/mamba2.py``, plain
+PyTorch as the reference is plain XLA); the hybrid block runs attention
+and the mixer side by side on the same normed input and mixes them with
+per-path gains. ``prefill`` collects each layer's final SSM state and
+conv tail in the same pass as its K / V (the reference replays the
+mixers in a second pass; the states are the same function of the same
+inputs). Decode runs the mixer's one-token recurrence.
+
+Not ported yet (ROADMAP queue 1, item 3): the audio and vlm front ends.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import FULL_ATTN_WINDOW, ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models.lm import mamba2 as M
 from repro_torch.models.lm.attention import KVSlice, decode_attention
 from repro_torch.models.lm.layers import (dtype_of, glu_mlp, init_glu_mlp,
                                           init_norm, norm_apply, rope,
@@ -55,15 +66,15 @@ __all__ = ["Model", "init_params", "init_cache", "loss_fn", "prefill",
            "decode_step", "forward_hidden", "params_from_jax",
            "PORTED_FAMILIES", "REMAT_POLICIES"]
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch yet (ROADMAP queue 1: the ssm/hybrid families, "
-            f"the audio and vlm front ends); ported: {PORTED_FAMILIES}")
+            f"repro_torch yet (ROADMAP queue 1, item 3: the audio and vlm "
+            f"front ends); ported: {PORTED_FAMILIES}")
 
 
 # ==========================================================================
@@ -84,8 +95,17 @@ def _init_attn(gen, cfg: ModelConfig, device) -> dict:
 
 
 def _init_layer(gen, cfg: ModelConfig, device) -> dict:
-    p = {"ln1": init_norm(cfg, device), "attn": _init_attn(gen, cfg, device),
-         "ln2": init_norm(cfg, device)}
+    p = {"ln1": init_norm(cfg, device)}
+    if cfg.ssm:                       # the pure SSD block: the mixer only
+        p["mixer"] = M.init_mamba2(gen, cfg, device)
+        return p
+    p["attn"] = _init_attn(gen, cfg, device)
+    if cfg.hybrid:
+        p["ssm"] = M.init_mamba2(gen, cfg, device)
+        dt = dtype_of(cfg)            # per-path fusion gains
+        p["mix_attn"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+        p["mix_ssm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+    p["ln2"] = init_norm(cfg, device)
     if cfg.n_experts:
         p["moe"] = init_moe(gen, cfg, device)
     else:
@@ -121,6 +141,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = truncated_normal_init(
             generator, (cfg.d_model, cfg.vocab_padded), 1.0, dt, device)
+    if cfg.n_meta_tokens:
+        params["meta"] = truncated_normal_init(
+            generator, (cfg.n_meta_tokens, cfg.d_model), 1.0, dt, device)
     return params
 
 
@@ -178,18 +201,33 @@ def _mlp(cfg, p, x):
 
 
 def _block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
-           is_global: bool):
-    """Full-sequence block. Returns (x', aux_loss, (k, v))."""
+           is_global: bool, want_state: bool = False):
+    """Full-sequence block. Returns (x', aux_loss, (k, v) or None, the
+    mixer's final SSMSlice or None); the SSMSlice only with
+    ``want_state`` (prefill)."""
     b, s, _ = x.shape
+    aux = torch.zeros((), device=x.device)
+    if cfg.ssm:
+        out = M.mamba2_forward(cfg, p["mixer"], norm_apply(cfg, p["ln1"], x),
+                               return_state=want_state)
+        out, state = out if want_state else (out, None)
+        return x + out, aux, None, state
     xn = norm_apply(cfg, p["ln1"], x)
     q, k, v = _attn_qkv(cfg, p["attn"], xn, positions)
     win = None if (is_global or cfg.window is None) else cfg.window
-    attn = kops.flash_attention(q, k, v, causal=cfg.causal, window=win)
+    attn = kops.flash_attention(q, k, v, causal=cfg.causal, window=win,
+                                meta_len=cfg.n_meta_tokens)
     attn = attn.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim) \
         @ p["attn"]["wo"]
-    x = x + attn
+    state = None
+    if cfg.hybrid:
+        out = M.mamba2_forward(cfg, p["ssm"], xn, return_state=want_state)
+        ssm_out, state = out if want_state else (out, None)
+        x = x + 0.5 * (attn * p["mix_attn"] + ssm_out * p["mix_ssm"])
+    else:
+        x = x + attn
     mlp_out, aux = _mlp(cfg, p, norm_apply(cfg, p["ln2"], x))
-    return x + mlp_out, aux, (k, v)
+    return x + mlp_out, aux, (k, v), state
 
 
 # ==========================================================================
@@ -197,7 +235,12 @@ def _block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
 # ==========================================================================
 
 def _embed_batch(cfg: ModelConfig, params: dict, batch: dict):
-    return params["embed"][batch["tokens"].long()]
+    """The input sequence: [meta tokens | token embeddings]."""
+    x = params["embed"][batch["tokens"].long()]
+    if cfg.n_meta_tokens:
+        meta = params["meta"][None].expand(x.shape[0], -1, -1).to(x.dtype)
+        x = torch.cat([meta, x], dim=1)
+    return x
 
 
 def _unembed(cfg: ModelConfig, params: dict, h: torch.Tensor):
@@ -246,18 +289,23 @@ def _remat_block(cfg: ModelConfig):
     return functools.partial(ckpt.checkpoint, _block, **kw)
 
 
-def _run_layers(cfg, params, x, positions, kv_sink=None):
-    """All layers in order; ``kv_sink(i, k, v)`` receives each layer's K
-    and V. Returns (x, summed aux loss)."""
+def _run_layers(cfg, params, x, positions, kv_sink=None, ssm_sink=None):
+    """All layers in order; ``kv_sink(i, k, v)`` receives each attention
+    layer's K and V, ``ssm_sink(i, slice)`` each mixer's final SSMSlice.
+    Returns (x, summed aux loss)."""
     aux = torch.zeros((), device=x.device)
     layers = _unstack(params["layers"], cfg.n_layers)
     block = _remat_block(cfg)
+    want_state = ssm_sink is not None
     for lo, hi, is_global in _layer_segments(cfg):
         for i in range(lo, hi):
-            x, a, (k, v) = block(cfg, layers[i], x, positions, is_global)
+            x, a, kv, state = block(cfg, layers[i], x, positions, is_global,
+                                    want_state)
             aux = aux + a
-            if kv_sink is not None:
-                kv_sink(i, k, v)
+            if kv_sink is not None and kv is not None:
+                kv_sink(i, *kv)
+            if want_state:
+                ssm_sink(i, state)
     return x, aux
 
 
@@ -317,25 +365,37 @@ def _slot_for(cfg: ModelConfig, pos: torch.Tensor, capacity: int):
 
 def init_cache(cfg: ModelConfig, batch_size: int, capacity: int,
                device="cuda") -> dict:
-    """Empty decode cache: zero K/V (L, B, KV, C, Dh), every slot -1."""
+    """Empty decode cache: with attention zero K/V (L, B, KV, C, Dh) and
+    every slot -1; with a mixer (ssm, hybrid) zero fp32 SSM states (L, B,
+    H, P, N) and conv tails (L, B, d_conv - 1, conv_dim)."""
     _check_ported(cfg)
     dt = dtype_of(cfg)
-    l, kv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    return {
-        "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device),
-        "k": torch.zeros((l, batch_size, kv, capacity, dh), dtype=dt,
-                         device=device),
-        "v": torch.zeros((l, batch_size, kv, capacity, dh), dtype=dt,
-                         device=device),
-        "slot_pos": torch.full((batch_size, capacity), -1,
-                               dtype=torch.int32, device=device),
-    }
+    l = cfg.n_layers
+    cache = {"pos": torch.zeros((batch_size,), dtype=torch.int32,
+                                device=device)}
+    if cfg.has_attention:
+        kv, dh = cfg.n_kv_heads, cfg.head_dim
+        cache["k"] = torch.zeros((l, batch_size, kv, capacity, dh), dtype=dt,
+                                 device=device)
+        cache["v"] = torch.zeros((l, batch_size, kv, capacity, dh), dtype=dt,
+                                 device=device)
+        cache["slot_pos"] = torch.full((batch_size, capacity), -1,
+                                       dtype=torch.int32, device=device)
+    if cfg.ssm or cfg.hybrid:
+        cache["ssm_state"] = torch.zeros(
+            (l, batch_size, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.d_state),
+            dtype=torch.float32, device=device)
+        cache["conv_buf"] = torch.zeros(
+            (l, batch_size, cfg.d_conv - 1, cfg.conv_dim), dtype=dt,
+            device=device)
+    return cache
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, capacity: int
             ) -> tuple:
     """Process a full prompt (``batch["tokens"]``, (B, S) int); return
-    (cache, last-token logits (B, 1, vocab_padded))."""
+    (cache, last-token logits (B, 1, vocab_padded)). The meta tokens, where
+    the config has them, come first and take the cache's first slots."""
     _check_ported(cfg)
     x = _embed_batch(cfg, params, batch)
     b, s, _ = x.shape
@@ -345,13 +405,21 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, capacity: int
     positions = torch.arange(s, device=x.device)[None, :]
     cache = init_cache(cfg, b, capacity, device=x.device)
 
-    def sink(i, k, v):
+    def kv_sink(i, k, v):
         cache["k"][i, :, :, :s] = k
         cache["v"][i, :, :, :s] = v
 
-    x, _ = _run_layers(cfg, params, x, positions, kv_sink=sink)
-    slots = torch.arange(capacity, device=x.device)[None].expand(b, capacity)
-    cache["slot_pos"] = torch.where(slots < s, slots, -1).to(torch.int32)
+    def ssm_sink(i, state):
+        cache["ssm_state"][i] = state.state
+        cache["conv_buf"][i] = state.conv_buf
+
+    x, _ = _run_layers(cfg, params, x, positions, kv_sink=kv_sink,
+                       ssm_sink=ssm_sink if (cfg.ssm or cfg.hybrid)
+                       else None)
+    if cfg.has_attention:
+        slots = torch.arange(capacity, device=x.device)[None].expand(
+            b, capacity)
+        cache["slot_pos"] = torch.where(slots < s, slots, -1).to(torch.int32)
     cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
     x = norm_apply(cfg, params["out_norm"], x)
     return cache, _unembed(cfg, params, x[:, -1:])
@@ -360,31 +428,52 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, capacity: int
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor) -> tuple:
     """One decode step. tokens: (B, 1) int. Returns (logits (B, 1,
-    vocab_padded), new cache). The new token's K/V are written into the
-    cache's K/V tensors in place (the returned cache holds the same
-    tensors); ``pos`` and ``slot_pos`` are new tensors."""
+    vocab_padded), new cache). The new token's K/V, and each mixer's new
+    SSM state and conv tail, are written into the cache's tensors in place
+    (the returned cache holds the same tensors); ``pos`` and ``slot_pos``
+    are new tensors."""
     _check_ported(cfg)
     b = tokens.shape[0]
     pos = cache["pos"]                                  # (B,)
     x = params["embed"][tokens.long()]                  # (B, 1, D)
     windows = cfg.layer_windows(FULL_ATTN_WINDOW)
-    capacity = cache["k"].shape[3]
-    slot = _slot_for(cfg, pos, capacity).long()
     bidx = torch.arange(b, device=x.device)
-    slot_pos = cache["slot_pos"].clone()     # register the incoming token
-    slot_pos[bidx, slot] = pos               # BEFORE attention
+    slot_pos = None
+    if cfg.has_attention:
+        slot = _slot_for(cfg, pos, cache["k"].shape[3]).long()
+        slot_pos = cache["slot_pos"].clone()  # register the incoming token
+        slot_pos[bidx, slot] = pos            # BEFORE attention
     h, dh = cfg.n_heads, cfg.head_dim
+
+    def mixer(i, p, xn):
+        out, st = M.mamba2_decode(cfg, p, xn, M.SSMSlice(
+            cache["ssm_state"][i], cache["conv_buf"][i]))
+        cache["ssm_state"][i] = st.state
+        cache["conv_buf"][i] = st.conv_buf
+        return out
+
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         xn = norm_apply(cfg, lp["ln1"], x)
+        if cfg.ssm:
+            x = x + mixer(i, lp["mixer"], xn)
+            continue
         q, k, v = _attn_qkv(cfg, lp["attn"], xn, pos[:, None])
         cache["k"][i][bidx, :, slot] = k[:, :, 0]
         cache["v"][i][bidx, :, slot] = v[:, :, 0]
         kv = KVSlice(cache["k"][i], cache["v"][i], slot_pos)
-        attn = decode_attention(q, kv, pos, window=int(windows[i]))
-        x = x + attn.reshape(b, 1, h * dh) @ lp["attn"]["wo"]
+        attn = decode_attention(q, kv, pos, window=int(windows[i]),
+                                meta_len=cfg.n_meta_tokens)
+        attn = attn.reshape(b, 1, h * dh) @ lp["attn"]["wo"]
+        if cfg.hybrid:
+            ssm_out = mixer(i, lp["ssm"], xn)
+            x = x + 0.5 * (attn * lp["mix_attn"] + ssm_out * lp["mix_ssm"])
+        else:
+            x = x + attn
         mlp_out, _ = _mlp(cfg, lp, norm_apply(cfg, lp["ln2"], x))
         x = x + mlp_out
-    new_cache = dict(cache, slot_pos=slot_pos, pos=pos + 1)
+    new_cache = dict(cache, pos=pos + 1)
+    if cfg.has_attention:
+        new_cache["slot_pos"] = slot_pos
     x = norm_apply(cfg, params["out_norm"], x)
     return _unembed(cfg, params, x), new_cache
 
@@ -406,6 +495,7 @@ class Model:
 
     def decode(self, params, cache, tokens):
         """One decode step; writes the new K/V into ``cache``'s ``k`` /
-        ``v`` tensors in place (the returned cache holds them too), so a
+        ``v`` tensors and the new SSM states into ``ssm_state`` /
+        ``conv_buf`` in place (the returned cache holds them too), so a
         caller that keeps an earlier cache copies it first."""
         return decode_step(self.cfg, params, cache, tokens)

@@ -2116,3 +2116,104 @@ def test_lm_launcher_restarts_and_resumes_on_card(card, tmp_path, capsys):
     rc = launch_train.main([*common, "--steps", "3", "--resume"])
     out = capsys.readouterr().out
     assert rc == 0 and "resumed from step 20" in out and "last step 23" in out
+
+
+# the sink-aware flash kernels (hymba's meta tokens): every instance, the
+# sink prefix 0 (the windowed walk of before), 8 (inside the first tile)
+# and 128 (hymba's); hymba's group of 5 query heads a KV head
+_SINK_CASES = [
+    (1, 5, 1, 333, 333, 64, 96),         # hymba's heads of 64, G = 5
+    (2, 10, 2, 300, 450, 64, 150),       # S < T, G = 5
+    (1, 4, 2, 290, 290, 128, 70),        # D 128, ragged S
+    (1, 4, 1, 260, 300, 256, 100),       # D 256 (the split backward)
+    (1, 4, 2, 200, 200, 32, 40)]         # D 32 (wmma backward)
+
+
+@pytest.mark.parametrize("meta_len", [0, 8, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,window", _SINK_CASES)
+def test_flash_attention_sinks_match_plain(card, dtype, b, hq, hkv, s, t, d,
+                                           window, meta_len):
+    """The forward with sinks, with its LSE: against the plain version
+    and the fp32 oracle's LSE; the backward (fp32 up to D 128, bf16 at
+    every head dim) against the plain version, the launch counted under
+    its instance, two launches the same bits."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain,
+        flash_attention_plain_lse, flash_bwd_instance)
+    rng = np.random.default_rng(s + t + d + meta_len)
+    q = _randn(rng, (b, hq, s, d), dtype, card)
+    k = _randn(rng, (b, hkv, t, d), dtype, card)
+    v = _randn(rng, (b, hkv, t, d), dtype, card)
+    do = _randn(rng, (b, hq, s, d), dtype, card)
+    kw = dict(causal=True, window=window, meta_len=meta_len)
+    tops.reset_kernel_launches()
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert flash_attention_cuda.launches == 1
+    _close_lm(o, flash_attention_plain(q, k, v, **kw), dtype)
+    _, want_lse = flash_attention_plain_lse(q.float(), k.float(), v.float(),
+                                            **kw)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               rtol=1e-5 if dtype == torch.float32 else 1e-2,
+                               atol=1e-4)
+    if dtype == torch.float32 and d == 256:
+        return                        # no fp32 backward at D 256
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    inst = flash_bwd_instance(dtype, d)
+    assert flash_attention_bwd_cuda.launches_by_instance == {
+        n: 2 * int(n == inst) for n in ("wgmma", "wmma", "f32")}
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        err = float((g.float() - w.float()).abs().max())
+        tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * float(
+            w.float().abs().max())
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_ssm_and_hybrid_smoke_on_card_match_cpu(card, arch):
+    """The fp32 smoke configs on the card (the sink-aware kernels for
+    hymba) against the port's CPU run from the same weights: prefill + 4
+    decode steps within atol 1e-4 of the logits, 2 train steps' losses
+    within rtol 1e-4; the flash kernels run, no plain version on the
+    card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import lm as TL
+    cfg = get_smoke_config(arch)
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    p_card = tree_map(lambda x: x.to(card), p_cpu)
+    toks, tgts = synthetic_lm_batch(2, 80, cfg.vocab, step=1)
+    toks, tgts = torch.from_numpy(toks), torch.from_numpy(tgts)
+    cap = 80 + cfg.n_meta_tokens + 2            # hymba's cache wraps
+    tops.reset_kernel_launches()
+    c_card, l_card = lm.prefill(cfg, p_card, {"tokens": toks.to(card)}, cap)
+    c_cpu, l_cpu = lm.prefill(cfg, p_cpu, {"tokens": toks}, cap)
+    errs = [float((l_card.cpu() - l_cpu).abs().max())]
+    for i in range(4):
+        tok = toks[:, i:i + 1]
+        l_card, c_card = lm.decode_step(cfg, p_card, c_card, tok.to(card))
+        l_cpu, c_cpu = lm.decode_step(cfg, p_cpu, c_cpu, tok)
+        errs.append(float((l_card.cpu() - l_cpu).abs().max()))
+    assert max(errs) <= 1e-4, errs
+    assert tops.kernel_launches()["flash_attention"] == (
+        cfg.n_layers if cfg.has_attention else 0)
+    step, opt = TL.make_train_step(cfg)
+    cpu = TL.TrainState(tree_map(torch.clone, p_cpu), opt.init(p_cpu), None)
+    dev = TL.TrainState(p_card, opt.init(p_card), None)
+    for i in range(2):
+        b = {"tokens": toks, "targets": tgts}
+        dev, m_card = step(dev, {n: x.to(card) for n, x in b.items()})
+        cpu, m_cpu = step(cpu, b)
+        lc, lp = float(m_card["loss"]), float(m_cpu["loss"])
+        assert abs(lc - lp) <= 1e-4 * abs(lp), (i, lc, lp)
+    if cfg.has_attention:
+        assert tops.kernel_launches()["flash_attention_bwd"] == \
+            2 * cfg.n_layers

@@ -48,7 +48,7 @@ from repro_torch.train.lm import make_decode_step, make_prefill_step
 OP_TOL = dict(atol=1e-5, rtol=1e-5)
 SERVE_ARCHS = ("phi3.5-moe-42b-a6.6b", "mixtral-8x7b", "llama3-8b",
                "qwen2-1.5b", "gemma-7b")
-UNPORTED = ("mamba2-1.3b", "hymba-1.5b", "hubert-xlarge", "internvl2-2b")
+UNPORTED = ("hubert-xlarge", "internvl2-2b")
 
 
 def _t(a):
