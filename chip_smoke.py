@@ -254,6 +254,35 @@ failure:
    with ``global_layers=(0,)``) through phase 12's checks, 4 x 2,048
    tokens; (d) the fp32 smoke configs on the card against the port's
    CPU run: prefill + 4 decode steps within atol 1e-4, 3 train steps;
+15. (run after phase 14 has freed its state) the audio and vlm front
+   ends at full width and full depth, bf16, seeded random weights on the
+   card: (a) hubert-xlarge (48 layers, d_model 1,280, 16 heads of 80,
+   d_ff 5,120, layer norm, gelu, non-causal, vocab 504): an encoder
+   forward (``forward_hidden``, then the cluster logits) over 4 clips of
+   4,096 seeded-normal frames, counts zeroed just before and read just
+   after (48 flash launches, all on the ``wgmma`` instance at D 80, none
+   causal), each held against its plain version and, row by row, the
+   fp32 oracle, no plain flash version on a card tensor, logits finite;
+   its time, frames/s, peak memory and busy share; (b) internvl2-2b (24
+   layers, d_model 2,048, 16 / 8 heads of 128, d_ff 8,192, vocab 92,553,
+   RoPE theta 1e6): 4 prompts of 1,024 image embeddings + 2,048 tokens,
+   ``prefill`` into a cache of 3,072 + 32 slots, 32 greedy
+   ``decode_step``s, the prefill's 24 flash launches (causal, S = T =
+   3,072) checked as in (a), prefill and decode times, tokens/s, busy
+   share, peak memory, and in fp32 at one prompt a prefill of 3,072
+   positions and 8 decode steps of the prompt's next tokens against a
+   prefill of 3,080 (the last logits within 1e-3 x their max); (c)
+   hubert's attention shape (B 4, 16 / 16 heads of 80, S = T = 4,096,
+   non-causal, bf16) as a kernel case: the forward with its LSE and the
+   backward, each against its plain version and the fp32 oracle,
+   launched twice for the same bits, timed (CUDA events and a device
+   trace) beside its bound at the true D 80, the bound of the padded
+   work the design runs, its plain version and SDPA (``is_causal=False``);
+   (d) both trained whole at full width through phase 12's checks:
+   hubert on 4 x 4,096 frames with cluster targets, internvl2 on 4 x
+   (1,024 image + 2,048 text) positions; (e) the fp32 smoke configs on
+   the card against the port's CPU run: hubert's forward and internvl2's
+   prefill + 4 decode steps within atol 1e-4, then 3 train steps;
 5. last, the kernels line (one JSON object: the sampling kernels and the
    fused hop as timed in phase 8, the ordered segment sum and the
    per-edge SDDMM as timed in phase 9, the serving kernels as timed in phase 4, BSR as timed in
@@ -261,7 +290,8 @@ failure:
    flash attention as timed in phase 10, with phase 12's launches and
    dX timing, and the flash backward as timed in phase 12, its ``d256_*``
    keys from gemma-7b's kernel case and step; both flash entries with
-   phase 14's launches and ``meta_*`` keys from its sink case; each
+   phase 14's launches and ``meta_*`` keys from its sink case, and phase
+   15's launches and ``d80_*`` keys from hubert's kernel case; each
    entry's ``launches_resume`` the launches of phase 13's resumed run,
    added to its ``launches``), the script's seconds, the card line, and
    ``{"ok": true, "device": {...}}``.
@@ -402,11 +432,12 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
-# the kernels this slice added or redesigned (the flash forward and
-# backward instances that hymba's meta-token sinks run: D 64 on wgmma):
-# phase 1 logs their registers and spills on a line of their own
-NEW_KERNELS = ("flash_attention_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
-               "flash_bwd_dq_wgmma_kernel")
+# the kernels this slice added (the flash forward and backward instances
+# at hubert-xlarge's head dim 80, on D 128's tiles padded on chip): phase
+# 1 logs their registers and spills on a line of their own
+NEW_KERNELS = ("flash_attention_wgmma_kernel<80>",
+               "flash_bwd_dkdv_wgmma_kernel<80>",
+               "flash_bwd_dq_wgmma_kernel<80>")
 
 
 def card_line() -> str:
@@ -3081,24 +3112,29 @@ def check_lm_launch(entry, out, want, oracle, row_floor=None):
     ``LM_TOL`` x that row's max |oracle| (plus a floor of 2^-24 x the
     output's max, for rows near zero), after ``row_floor`` (a per-row
     absolute rounding floor, where the function cancels) is taken off.
-    Records the errors in ``entry``; raises past either bound or on a
-    value that is not finite."""
+    Records the errors in ``entry``, with the plain version's own worst
+    row against the oracle (the rounding the two share, for comparison);
+    raises past either bound or on a value that is not finite."""
     import torch
     err = float((out.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     ratio = err / max(scale, 1e-30)
     width = out.shape[-1]
-    row_err = (out.float() - oracle).abs().reshape(-1, width).amax(-1)
-    if row_floor is not None:
-        row_err = (row_err - row_floor).clamp(min=0.0)
     row_max = oracle.abs().reshape(-1, width).amax(-1)
-    floor = 2.0 ** -24 * float(row_max.max())
-    row_ratio = float((row_err / row_max.clamp(min=max(floor, 1e-30)))
-                      .max())
+    row_max = row_max.clamp(min=max(2.0 ** -24 * float(row_max.max()),
+                                    1e-30))
+
+    def worst_row(x):
+        row_err = (x.float() - oracle).abs().reshape(-1, width).amax(-1)
+        if row_floor is not None:
+            row_err = (row_err - row_floor).clamp(min=0.0)
+        return float((row_err / row_max).max())
+    row_ratio = worst_row(out)
     entry.update(max_abs_err=err, max_plain=scale, err_over_max=ratio,
                  median_plain=float(want.float().abs().median()),
                  median_row_max=float(row_max.median()),
-                 row_err_over_row_max=row_ratio)
+                 row_err_over_row_max=row_ratio,
+                 plain_row_err_over_row_max=worst_row(want))
     if not ratio <= LM_TOL or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{entry['name']} {entry['shape']}: kernel "
                              f"disagrees with plain, max err {err} of "
@@ -3291,11 +3327,12 @@ def tree_to(tree: dict, device) -> dict:
             for k, v in tree.items()}
 
 
-def lm_smoke_check(arch: str = LM_ARCH) -> list:
+def lm_smoke_check(arch: str = LM_ARCH, prompt: dict | None = None) -> list:
     """``arch``'s smoke config in fp32 (the kernels' fp32 instances):
     prefill + LM_SMOKE_DECODE decode steps on the card against the port's
-    CPU run (plain versions) from the same weights and tokens. Returns
-    the max |logit diff| of each call; raises past LM_SMOKE_ATOL."""
+    CPU run (plain versions) from the same weights and ``prompt`` (a CPU
+    batch; by default 2 x 64 tokens from ``data/tokens``). Returns the max
+    |logit diff| of each call; raises past LM_SMOKE_ATOL."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import synthetic_lm_batch
@@ -3304,12 +3341,15 @@ def lm_smoke_check(arch: str = LM_ARCH) -> list:
     p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     p_card = tree_to(p_cpu, DEVICE)
-    toks = torch.from_numpy(synthetic_lm_batch(2, 64, cfg.vocab, step=1)[0])
+    if prompt is None:
+        prompt = {"tokens": torch.from_numpy(
+            synthetic_lm_batch(2, 64, cfg.vocab, step=1)[0])}
     nxt = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (2, LM_SMOKE_DECODE)).astype(np.int32))
-    cap = 64 + cfg.n_meta_tokens + LM_SMOKE_DECODE
-    c_card, l_card = lm.prefill(cfg, p_card, {"tokens": toks.to(DEVICE)}, cap)
-    c_cpu, l_cpu = lm.prefill(cfg, p_cpu, {"tokens": toks}, cap)
+    cap = batch_positions(prompt) // prompt["tokens"].shape[0] + \
+        cfg.n_meta_tokens + LM_SMOKE_DECODE
+    c_card, l_card = lm.prefill(cfg, p_card, tree_to(prompt, DEVICE), cap)
+    c_cpu, l_cpu = lm.prefill(cfg, p_cpu, prompt, cap)
     errs = [float((l_card.cpu() - l_cpu).abs().max())]
     for i in range(LM_SMOKE_DECODE):
         l_card, c_card = lm.decode_step(cfg, p_card, c_card,
@@ -3540,8 +3580,7 @@ def record_train_kernels(check: bool):
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_plain, flash_attention_plain,
-        flash_attention_plain_lse, flash_bwd_row_floors)
+        flash_attention_plain, flash_attention_plain_lse)
     from repro_torch.kernels.ragged_gemm import ragged_gemm_plain
     names = ("ragged_gemm_cuda", "flash_attention_cuda",
              "flash_attention_bwd_cuda")
@@ -3602,23 +3641,10 @@ def record_train_kernels(check: bool):
                    if c["name"] == "flash_attention_bwd"):
             entry["inputs"] = (q, k, v, o, do, lse)   # timed later
         if check:
-            kw = dict(causal=causal, window=window, meta_len=meta_len)
-            want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
-            oracle = flash_attention_bwd_plain(q.float(), k.float(),
-                                               v.float(), o.float(),
-                                               do.float(), lse, **kw)
-            floors = flash_bwd_row_floors(q, k, v, o, do, lse, **kw)
-            parts = []
-            for name, g, w, orc, fl in zip(("dq", "dk", "dv"), out, want,
-                                           oracle, floors):
-                part = dict(name=f"flash_attention_bwd {name}",
-                            shape=entry["shape"])
-                check_lm_launch(part, g, w, orc, row_floor=fl)
-                parts.append(part)
-            for key in ("max_abs_err", "err_over_max",
-                        "row_err_over_row_max"):
-                entry[key] = max(p[key] for p in parts)
-            entry["max_plain"] = max(p["max_plain"] for p in parts)
+            entry.update(check_flash_bwd(
+                q, k, v, o, do, lse, out, dict(causal=causal, window=window,
+                                               meta_len=meta_len),
+                entry["shape"], plant=False))
         calls.append(entry)
         return out
 
@@ -3705,11 +3731,19 @@ def adam_params_close(got: dict, want: dict, lr: float, steps: int,
     return worst
 
 
-def lm_train_smoke_check(arch: str = LM_ARCH) -> dict:
+def batch_positions(batch: dict) -> int:
+    """Positions a batch runs through the model: its tokens, an audio
+    batch's frames, a vlm batch's image prefix."""
+    return sum(batch[key].shape[0] * batch[key].shape[1]
+               for key in ("tokens", "frames", "image_emb") if key in batch)
+
+
+def lm_train_smoke_check(arch: str = LM_ARCH, make_batch=None) -> dict:
     """``arch``'s smoke config in fp32 (the kernels' fp32 instances):
     LM_TRAIN_SMOKE_STEPS train steps on the card against the port's CPU
-    run from the same weights and batches; losses within rtol 1e-4,
-    params within the tolerance the CPU tests state."""
+    run from the same weights and batches (``make_batch(cfg, step)``, a
+    CPU batch; by default 2 x 64 tokens from ``data/tokens``); losses
+    within rtol 1e-4, params within the tolerance the CPU tests state."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import synthetic_lm_batch
@@ -3724,9 +3758,12 @@ def lm_train_smoke_check(arch: str = LM_ARCH) -> dict:
     card = TL.TrainState(card_params, opt.init(card_params), None)
     losses = []
     for i in range(LM_TRAIN_SMOKE_STEPS):
-        toks, tgts = synthetic_lm_batch(2, 64, cfg.vocab, step=i)
-        b = {"tokens": torch.from_numpy(toks),
-             "targets": torch.from_numpy(tgts)}
+        if make_batch is None:
+            toks, tgts = synthetic_lm_batch(2, 64, cfg.vocab, step=i)
+            b = {"tokens": torch.from_numpy(toks),
+                 "targets": torch.from_numpy(tgts)}
+        else:
+            b = make_batch(cfg, i)
         card, m_card = step(card, {k: v.to(DEVICE) for k, v in b.items()})
         cpu, m_cpu = step(cpu, b)
         lc, lp = float(m_card["loss"]), float(m_cpu["loss"])
@@ -3814,114 +3851,237 @@ def ragged_dx_case(call, device_ms) -> dict:
         bytes=nbytes, flops=flops)
 
 
-GEMMA_ATTN = dict(b=1, hq=16, hkv=16, s=2048, t=2048, d=256)   # gemma-7b
+def planted_bwd_faults(q, k, v, o, do, lse, grads, kw: dict):
+    """Faults a backward kernel could make, each a small part of its
+    work, planted in its outputs ``grads`` (dq, dk, dv): the dQ kernel
+    skipping two keys (T-66 and T-65, missing from every query's sum) or
+    one 64-key tile (keys T-128..T-65) for one 64-query tile (the last),
+    the dK / dV kernel skipping that query tile for that key tile, or two
+    queries (S-66 and S-65) for every key. Yields (name, index in
+    ``grads``, the faulted output in fp32); the missing terms are
+    computed in fp32 from the inputs, as the oracle's are, under the mask
+    ``kw`` (causal, window, meta_len)."""
+    import torch
+    from repro_torch.kernels.flash_attention import _kept
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g, scale = hq // hkv, 1.0 / d ** 0.5
+
+    def terms(rows, cols):
+        qf, dof, of = (x[:, :, rows].float().reshape(b, hkv, g, -1, d)
+                       for x in (q, do, o))
+        kf, vf = k[:, :, cols].float(), v[:, :, cols].float()
+        qpos = torch.arange(s, device=q.device)[rows] + (t - s)
+        mask = _kept(torch.arange(t, device=q.device)[cols][None, :],
+                     qpos[:, None], t, **kw)
+        sc = torch.einsum("bkgsd,bktd->bkgst", qf, kf) * scale
+        p = torch.where(mask, torch.exp(
+            sc - lse[:, :, rows].reshape(b, hkv, g, -1, 1)), 0.0)
+        ds = p * (torch.einsum("bkgsd,bktd->bkgst", dof, vf)
+                  - (dof * of).sum(-1, keepdim=True))
+        return (scale * torch.einsum("bkgst,bktd->bkgsd", ds, kf)
+                .reshape(b, hq, -1, d),
+                scale * torch.einsum("bkgst,bkgsd->bktd", ds, qf),
+                torch.einsum("bkgst,bkgsd->bktd", p, dof))
+
+    every_q, every_k = slice(0, s), slice(0, t)
+    q_tile, k_tile = slice(s - 64, s), slice(t - 128, t - 64)
+    two_q, two_k = slice(s - 66, s - 64), slice(t - 66, t - 64)
+    for name, part, rows, cols in (
+            ("dq without keys T-66, T-65", 0, every_q, two_k),
+            ("dq without one 64 x 64 tile", 0, q_tile, k_tile),
+            ("dk without one 64 x 64 tile", 1, q_tile, k_tile),
+            ("dv without one 64 x 64 tile", 2, q_tile, k_tile),
+            ("dk without queries S-66, S-65", 1, two_q, every_k),
+            ("dv without queries S-66, S-65", 2, two_q, every_k)):
+        faulted = grads[part].float().clone()
+        at = rows if part == 0 else cols
+        faulted[:, :, at] -= terms(rows, cols)[part]
+        yield name, part, faulted
 
 
-def gemma_attention_case() -> dict:
-    """gemma-7b's attention shape (``GEMMA_ATTN``, causal, bf16, its
-    head dim 256, seeded inputs): the flash forward with its LSE and the
-    backward (the ``wgmma`` instance, the head dim split across the
-    warpgroups), each held against its plain version and, row by row, the
-    fp32 oracle (:func:`check_lm_launch`; the LSE within ``LSE_ATOL``;
-    the backward's rows past ``flash_bwd_row_floors``), the backward
-    launched twice for the same bits, then each timed (CUDA events and a
-    device trace) beside its bound, its plain version and SDPA."""
+def check_flash_bwd(q, k, v, o, do, lse, grads, kw: dict, shape: str,
+                    plant: bool = True) -> dict:
+    """Hold a flash backward's outputs ``grads`` (dq, dk, dv) for inputs
+    q, k, v, o, do, lse under the mask ``kw`` by :func:`check_lm_launch`:
+    against the plain version and, row by row past
+    ``flash_bwd_row_floors``, the fp32 oracle. With ``plant``, then plant
+    the faults of :func:`planted_bwd_faults` in them: each must fail the
+    row check (its whole-tensor error against the plain version, which
+    may pass, is recorded). Returns the worst errors over the three
+    outputs and, by fault, the row and whole-tensor ratios; raises if the
+    outputs fail or a fault passes."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_bwd_row_floors)
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    oracle = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                       o.float(), do.float(), lse, **kw)
+    floors = flash_bwd_row_floors(q, k, v, o, do, lse, **kw)
+    out: dict = {}
+    for part, g_, w_, orc, fl in zip(("dq", "dk", "dv"), grads, want,
+                                     oracle, floors):
+        entry = dict(name=f"flash_attention_bwd {part}", shape=shape)
+        check_lm_launch(entry, g_, w_, orc, row_floor=fl)
+        for key in ("max_abs_err", "max_plain", "err_over_max",
+                    "row_err_over_row_max", "plain_row_err_over_row_max"):
+            out[key] = max(out.get(key, 0.0), entry[key])
+    if not plant:
+        return out
+    out["planted_faults"] = {}
+    for name, part, faulted in planted_bwd_faults(q, k, v, o, do, lse,
+                                                  grads, kw):
+        entry = dict(name=f"planted fault: {name}", shape=shape)
+        try:        # held against itself: only the row check can fail
+            check_lm_launch(entry, faulted, faulted, oracle[part],
+                            row_floor=floors[part])
+        except AssertionError as err:
+            if "a row" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"{shape}: the row check passed a planted "
+                                 f"fault ({name}): worst row "
+                                 f"{entry['row_err_over_row_max']:.3e}")
+        out["planted_faults"][name] = dict(
+            row=entry["row_err_over_row_max"],
+            whole_vs_plain=float((faulted - want[part].float()).abs().max())
+            / max(float(want[part].float().abs().max()), 1e-30))
+    caught = "; ".join(f"{n} {r['row']:.2e} ({r['whole_vs_plain']:.2e})"
+                       for n, r in out["planted_faults"].items())
+    log(f"  {shape}: planted backward faults, each failing the row check "
+        f"(worst row ratio, tolerance {LM_TOL}; in brackets the whole-"
+        f"tensor ratio against the plain version): {caught}")
+    return out
+
+
+GEMMA_ATTN = dict(b=1, hq=16, hkv=16, s=2048, t=2048, d=256,
+                  causal=True)                               # gemma-7b
+
+
+def attention_case(c: dict, seed: int, bwd_kernels: tuple) -> dict:
+    """One attention shape as a kernel case: ``c`` holds b, hq, hkv, s, t,
+    d and the mask (``causal``, ``window``, ``meta_len``); bf16 inputs
+    drawn from ``seed`` on the card. The flash forward with its LSE and
+    the backward, each launched twice for the same bits on the ``wgmma``
+    instance, each held against its plain version and, row by row, the
+    fp32 oracle (:func:`check_lm_launch`; the LSE within ``LSE_ATOL``; the
+    backward by :func:`check_flash_bwd`, planted faults included), then
+    each timed: CUDA
+    events, the device trace (the backward's kernels ``bwd_kernels`` one
+    by one), its bound over the kept pairs (the larger of its operations
+    at 989 TFLOP/s and its bytes at 3.35 TB/s), the bound of the work
+    the design runs (S and dP at the true depth, the products into O,
+    dV, dK, dQ at ``flash_padded_dim``; seven products in the backward),
+    its plain version, and SDPA given the same mask (``is_causal``
+    without a window, else a boolean mask of the kept pairs; a yardstick
+    the port never calls)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.autotune import H100
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        _kept, flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_cuda, flash_attention_plain,
-        flash_attention_plain_lse, flash_bwd_row_floors)
-    c = GEMMA_ATTN
-    gen = torch.Generator(device=DEVICE).manual_seed(7)
+        flash_attention_plain_lse, flash_padded_dim)
+    d, dp = c["d"], flash_padded_dim(c["d"])
+    kw = dict(causal=c.get("causal", True), window=c.get("window"),
+              meta_len=c.get("meta_len", 0))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
-    q, do = randn(c["b"], c["hq"], c["s"], c["d"]), \
-        randn(c["b"], c["hq"], c["s"], c["d"])
-    k, v = randn(c["b"], c["hkv"], c["t"], c["d"]), \
-        randn(c["b"], c["hkv"], c["t"], c["d"])
-    shape = f"{tuple(q.shape)}/{tuple(k.shape)}"
-    launched = {}
-    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
-    fwd = dict(name="flash_attention", shape=shape)
+    q, do = randn(c["b"], c["hq"], c["s"], d), randn(c["b"], c["hq"], c["s"], d)
+    k, v = randn(c["b"], c["hkv"], c["t"], d), randn(c["b"], c["hkv"], c["t"], d)
+    shape = f"{tuple(q.shape)}/{tuple(k.shape)}" + (
+        "" if kw["causal"] else " non-causal") + (
+        "" if kw["window"] is None else f" w{kw['window']} m{kw['meta_len']}")
+    by_inst = dict(flash_attention_cuda.launches_by_instance)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    o2, lse2 = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    fwd_inst = {n: m - by_inst[n] for n, m in
+                flash_attention_cuda.launches_by_instance.items()}
+    if not torch.equal(o, o2) or not torch.equal(lse, lse2) or \
+            fwd_inst != {"wgmma": 2, "f32": 0}:
+        raise AssertionError(f"{shape} forward: two launches differ, or ran "
+                             f"{fwd_inst}")
+    del o2, lse2
+    fwd = dict(name="flash_attention", shape=shape, padded_dim=dp)
     want_o, want_lse = flash_attention_plain_lse(q.float(), k.float(),
-                                                 v.float())
-    check_lm_launch(fwd, o, flash_attention_plain(q, k, v), want_o)
+                                                 v.float(), **kw)
+    check_lm_launch(fwd, o, flash_attention_plain(q, k, v, **kw), want_o)
     fwd["lse_max_abs_err"] = float((lse - want_lse).abs().max())
     if not fwd["lse_max_abs_err"] <= LSE_ATOL:
-        raise AssertionError(f"gemma flash LSE off the fp32 oracle's by "
+        raise AssertionError(f"{shape} flash LSE off the fp32 oracle's by "
                              f"{fwd['lse_max_abs_err']} (atol {LSE_ATOL})")
     del want_o, want_lse
     by_inst = dict(flash_attention_bwd_cuda.launches_by_instance)
-    got = flash_attention_bwd_cuda(q, k, v, o, do, lse)
-    again = flash_attention_bwd_cuda(q, k, v, o, do, lse)
-    launched["instance"] = {
-        n: c - by_inst[n]
-        for n, c in flash_attention_bwd_cuda.launches_by_instance.items()}
-    if launched["instance"] != {"wgmma": 2, "wmma": 0, "f32": 0}:
-        raise AssertionError(f"gemma backward ran {launched['instance']}, "
-                             f"want the wgmma instance at D = 256")
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError("gemma backward: two launches on the same "
-                             "inputs differ")
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    bwd_inst = {n: m - by_inst[n] for n, m in
+                flash_attention_bwd_cuda.launches_by_instance.items()}
+    if bwd_inst != {"wgmma": 2, "wmma": 0, "f32": 0} or \
+            not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{shape} backward: ran {bwd_inst}, or two "
+                             f"launches differ")
     del again
-    want = flash_attention_bwd_plain(q, k, v, o, do, lse)
-    oracle = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
-                                       o.float(), do.float(), lse)
-    floors = flash_bwd_row_floors(q, k, v, o, do, lse)
-    bwd = dict(name="flash_attention_bwd", shape=shape, instance="wgmma")
-    for part, g_, w_, orc, fl in zip(("dq", "dk", "dv"), got, want, oracle,
-                                     floors):
-        entry = dict(name=f"flash_attention_bwd {part}", shape=shape)
-        check_lm_launch(entry, g_, w_, orc, row_floor=fl)
-        for key in ("max_abs_err", "err_over_max", "row_err_over_row_max"):
-            bwd[key] = max(bwd.get(key, 0.0), entry[key])
-    del got, want, oracle, floors
+    bwd = dict(name="flash_attention_bwd", shape=shape, instance="wgmma",
+               padded_dim=dp, **check_flash_bwd(q, k, v, o, do, lse, got, kw,
+                                                shape))
+    del got
     torch.cuda.synchronize()
-    pairs = attention_pairs(c["s"], c["t"], True, None) * c["b"] * c["hq"]
+    pairs = attention_pairs(c["s"], c["t"], **kw) * c["b"] * c["hq"]
     elem = q.element_size()
-    for case, flops, nbytes in (
-            (fwd, 4 * c["d"] * pairs, (2 * q.numel() + 2 * k.numel()) * elem),
-            (bwd, 10 * c["d"] * pairs,
+    for case, flops, run_flops, nbytes in (
+            (fwd, 4 * d * pairs, 2 * (d + dp) * pairs,
+             (2 * q.numel() + 2 * k.numel()) * elem),
+            (bwd, 10 * d * pairs, 2 * (4 * d + 3 * dp) * pairs,
              (4 * q.numel() + 4 * k.numel()) * elem + lse.numel() * 4)):
         t_bytes, t_ops = H100.mem_time(nbytes), flops / H100.peak_flops
         case.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    flops=flops, bytes=nbytes)
-    fwd["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v,
-                                                     return_lse=True))
+                    bound_padded_ms=max(t_bytes,
+                                        run_flops / H100.peak_flops) * 1e3,
+                    flops=flops, bytes=nbytes, pairs=pairs)
+    bwd["bound_7_ms"] = max(H100.mem_time(bwd["bytes"]),
+                            bwd["flops"] * 7 / 5 / H100.peak_flops) * 1e3
+    fwd["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, return_lse=True,
+                                                     **kw))
     fwd["device_ms"] = traced_ms(lambda: flash_attention_cuda(
-        q, k, v, return_lse=True), 10, "flash_attention_wgmma")
-    fwd["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v), reps=2,
-                              warmup=1)
-    bwd["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse))
+        q, k, v, return_lse=True, **kw), 10, "flash_attention_wgmma")
+    fwd["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                              reps=2, warmup=1)
+    bwd["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                         **kw))
+    parts = {}
     for _ in range(3):      # a late trace may lose kernels: take it again
-        us = device_us(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse),
-                       10)
+        us = device_us(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                        **kw), 10)
         parts = {part: sum(t for name, t in us.items()
                            if f"flash_bwd_{part}" in name) / 10 / 1e3 or None
-                 for part in ("delta", "dkdv_split", "dq_split")}
+                 for part in bwd_kernels}
         if all(parts.values()):
             break
     bwd["kernel_device_ms"] = parts
     bwd["device_ms"] = sum(parts.values()) if all(parts.values()) else None
     bwd["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_plain(
-        q, k, v, o, do, lse), reps=2, warmup=1)
-    bwd["bound_7_ms"] = max(H100.mem_time(bwd["bytes"]),
-                            bwd["flops"] * 7 / 5 / H100.peak_flops) * 1e3
+        q, k, v, o, do, lse, **kw), reps=2, warmup=1)
+    sdpa = dict(enable_gqa=True)
+    if kw["window"] is None:
+        sdpa["is_causal"] = kw["causal"]
+    else:
+        qpos = torch.arange(c["s"], device=DEVICE) + (c["t"] - c["s"])
+        sdpa["attn_mask"] = _kept(torch.arange(c["t"], device=DEVICE)[None, :],
+                                  qpos[:, None], c["t"], **kw)
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     try:
         fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True))
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            q, k, v, **sdpa))
+        out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
         bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True))
-    except RuntimeError as err:      # no SDPA backend for this head dim
+    except (RuntimeError, TypeError) as err:   # no SDPA route for it
         fwd["library_ms"] = bwd["library_ms"] = None
         fwd["library_error"] = str(err)[:200]
-    return dict(forward=fwd, backward=bwd, launches=launched)
+    return dict(forward=fwd, backward=bwd, launches=dict(
+        forward=fwd_inst, backward=bwd_inst))
 
 
 def train_checks(tag: str, cfg, batch: dict, n_steps: int,
@@ -3979,17 +4139,19 @@ def train_checks(tag: str, cfg, batch: dict, n_steps: int,
     if not all(np.isfinite(list(metrics0.values()))):
         raise AssertionError(f"{tag} train step 0 metrics {metrics0}")
     checks = [{k: v for k, v in c.items() if k != "inputs"} for c in calls]
-    worst, worst_row = {}, {}
+    worst, worst_row, plain_row = {}, {}, {}
     for c in checks:
         key = c["name"] + (" dX" if c.get("direction") == "backward" else "")
         worst[key] = max(worst.get(key, 0.0), c["err_over_max"])
         worst_row[key] = max(worst_row.get(key, 0.0),
                              c["row_err_over_row_max"])
+        plain_row[key] = max(plain_row.get(key, 0.0),
+                             c["plain_row_err_over_row_max"])
     log(f"{tag} train step 0: {got}; metrics {metrics0}")
     log(f"{tag} train step 0: {len(checks)} launches held against their "
         f"plain versions; worst max|diff| / max|plain| {worst} (tolerance "
-        f"{LM_TOL}); worst row against the fp32 oracle {worst_row}; "
-        f"flash LSE "
+        f"{LM_TOL}); worst row against the fp32 oracle {worst_row} (the "
+        f"plain version's own {plain_row}); flash LSE "
         f"{max((c.get('lse_max_abs_err', 0.0) for c in checks), default=0):.2e}"
         f" (atol {LSE_ATOL})")
     inputs = {c["name"]: c for c in calls if "inputs" in c}
@@ -4045,11 +4207,12 @@ def train_checks(tag: str, cfg, batch: dict, n_steps: int,
         raise AssertionError(f"{tag} train: loss did not fall on a fixed "
                              f"batch: {losses}")
     step_ms = wall / (n_steps - 1) * 1e3
-    tokens_s = batch["tokens"].numel() / step_ms * 1e3
+    tokens_s = batch_positions(batch) / step_ms * 1e3
     prof = step_profile(lambda: step_fn(state, batch))
     log(f"{tag} train: losses over {n_steps} steps on one batch "
         f"{[round(x, 4) for x in losses]}; {step_ms:.1f} ms a step "
-        f"({tokens_s:.0f} tokens/s, host clock over steps 1..{n_steps - 1})"
+        f"({tokens_s:.0f} positions/s, host clock over steps "
+        f"1..{n_steps - 1})"
         f", device busy {prof['busy_share']:.3f} in a traced step, peak "
         f"{peak_gb:.2f} GB")
     log(f"  top step kernels (ms) {prof['top']}")
@@ -4059,6 +4222,7 @@ def train_checks(tag: str, cfg, batch: dict, n_steps: int,
                flash_bwd_instances=got["bwd_instances"],
                metrics_step0=metrics0, checks=checks,
                worst_err_over_max=worst, worst_row=worst_row,
+               plain_worst_row=plain_row,
                losses=losses, step_ms=step_ms, tokens_s=tokens_s,
                peak_gb=peak_gb, profile=prof, inputs=inputs)
     if keep_state:
@@ -4298,7 +4462,8 @@ def lm_train_phase() -> dict:
 
     gemma_train = gemma_train_phase()
     torch.cuda.empty_cache()
-    gemma = gemma_attention_case()
+    gemma = attention_case(GEMMA_ATTN, 7, ("delta", "dkdv_split",
+                                           "dq_split"))
     for case in (gemma["forward"], gemma["backward"]):
         log(f"  gemma-7b {case['name']:20s} {case['shape']:30s} ms "
             f"{case['ms']:.4f} device {fmt_ms(case['device_ms'])} plain "
@@ -4306,7 +4471,7 @@ def lm_train_phase() -> dict:
             f"({case['bound_by']}) library {fmt_ms(case['library_ms'])}; "
             f"max|diff| / max|plain| {case['err_over_max']:.2e}, row "
             f"{case['row_err_over_row_max']:.2e} (tolerance {LM_TOL})")
-    log(f"  gemma-7b backward by instance {gemma['launches']['instance']}, "
+    log(f"  gemma-7b backward by instance {gemma['launches']['backward']}, "
         f"seven-product bound {gemma['backward']['bound_7_ms']:.4f} ms, "
         f"two launches bitwise equal")
     torch.cuda.empty_cache()
@@ -4337,8 +4502,8 @@ SSD_TOL = 1e-3          # fp32: max|chunked - sequential SSD| over max|y|
 SSM_TRAIN_LAYERS = 4    # of 48 (mamba2) and of 32 (hymba)
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 2048, 5
 # hymba-1.5b's sliding-window attention with its meta-token sinks
-SINK_ATTN = dict(b=4, hq=25, hkv=5, s=2176, t=2176, d=64, window=1024,
-                 meta_len=128)
+SINK_ATTN = dict(b=4, hq=25, hkv=5, s=2176, t=2176, d=64, causal=True,
+                 window=1024, meta_len=128)
 
 
 @contextlib.contextmanager
@@ -4398,6 +4563,53 @@ def ssd_profile(fn) -> dict:
                 ssd_share=ssd / total if ssd and total else None)
 
 
+def serve_times(arch: str, cfg, params, prompt: dict, cap: int, tok,
+                decode_step_s: float) -> dict:
+    """The serving times of a model whose main path has run: the prefill
+    of ``prompt`` into ``cap`` slots (CUDA events, 2 calls after 1),
+    positions/s, peak memory, a traced prefill's and decode step's busy
+    share and top kernels, a decode step's host ms to enqueue (``tok``
+    fed again), and the main path's decode step (``decode_step_s``)
+    as ms and tokens/s. Logs them."""
+    import torch
+    from repro_torch.models import lm
+
+    def pre():
+        return lm.prefill(cfg, params, prompt, cap)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = cuda_ms(pre, reps=2, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pre_prof = step_profile(pre)
+    one = [pre()[0]]
+
+    def dec():
+        _, one[0] = lm.decode_step(cfg, params, one[0], tok)
+    dec_prof = step_profile(dec)
+    dec_host_ms = host_us(dec, reps=5) / 1e3
+    del one
+    step_ms = decode_step_s * 1e3
+    batch_size = tok.shape[0]
+    serve = dict(prefill_ms=prefill_ms,
+                 prefill_tokens_s=batch_positions(prompt) / prefill_ms * 1e3,
+                 decode_ms_per_step=step_ms,
+                 decode_tokens_s=batch_size / step_ms * 1e3,
+                 decode_host_ms=dec_host_ms,
+                 decode_device_ms=dec_prof["device_s"] * 1e3,
+                 peak_gb=peak_gb, prefill_profile=pre_prof,
+                 decode_profile=dec_prof)
+    log(f"{arch} serving: prefill {prefill_ms:.2f} ms "
+        f"({serve['prefill_tokens_s']:.0f} positions/s), decode "
+        f"{step_ms:.3f} ms a step ({serve['decode_tokens_s']:.1f} tokens/s "
+        f"at batch {batch_size}; {dec_host_ms:.3f} ms to enqueue, "
+        f"{serve['decode_device_ms']:.3f} ms on the device), peak "
+        f"{peak_gb:.2f} GB; busy {pre_prof['busy_share']:.3f} in a prefill, "
+        f"{dec_prof['busy_share']:.3f} in a decode step")
+    log(f"  top prefill kernels (ms) {pre_prof['top']}")
+    log(f"  top decode kernels (ms) {dec_prof['top']}")
+    return serve
+
+
 def ssm_serve_case(arch: str) -> dict:
     """Phase 14 (a) for one model at full width and full depth, bf16,
     seeded random weights on the card: 4 prompts of 2,048 tokens,
@@ -4415,7 +4627,6 @@ def ssm_serve_case(arch: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_lm_batch
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.models import lm
     from repro_torch.models.lm import mamba2 as M
     from repro_torch.optim.optimizer import tree_map
@@ -4434,19 +4645,13 @@ def ssm_serve_case(arch: str) -> dict:
     cap = SSM_PROMPT + cfg.n_meta_tokens + SSM_DECODE
     n_attn = cfg.n_layers if cfg.has_attention else 0
 
-    def counts():
-        return dict(launches={k: kops.kernel_launches()[k]
-                              for k in LM_TRAIN_KERNELS},
-                    flash_instances=dict(
-                        flash_attention_cuda.launches_by_instance))
-
     # -- the main path: prefill, then greedy decode --------------------------
     kops.reset_kernel_launches()
     with record_lm_kernels(check=True) as calls, \
             refuse_plain_on_card(PLAIN_LM, f"{arch}'s prefill"):
         cache, logits = lm.prefill(cfg, params, batch, cap)
         torch.cuda.synchronize()
-    got = counts()
+    got = lm_counts()
     want = dict(launches={"ragged_gemm": 0, "flash_attention": n_attn,
                           "flash_attention_bwd": 0},
                 flash_instances={"wgmma": n_attn, "f32": 0})
@@ -4485,41 +4690,13 @@ def ssm_serve_case(arch: str) -> dict:
     del cache
 
     # -- serving times, busy share, the SSD's share --------------------------
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    prefill_ms = cuda_ms(lambda: lm.prefill(cfg, params, batch, cap),
-                         reps=2, warmup=1)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    step_ms = decode_s / SSM_DECODE * 1e3
-    pre_prof = step_profile(lambda: lm.prefill(cfg, params, batch, cap))
-    cache, _ = lm.prefill(cfg, params, batch, cap)
-    one = [cache]
-
-    def dec():
-        _, one[0] = lm.decode_step(cfg, params, one[0], tok)
-    dec_prof = step_profile(dec)
-    dec_host_ms = host_us(dec, reps=5) / 1e3
-    del cache, one
-    share = ssd_profile(lambda: lm.prefill(cfg, params, batch, cap))
-    serve = dict(prefill_ms=prefill_ms,
-                 prefill_tokens_s=SSM_BATCH * SSM_PROMPT / prefill_ms * 1e3,
-                 decode_ms_per_step=step_ms,
-                 decode_tokens_s=SSM_BATCH / step_ms * 1e3,
-                 decode_host_ms=dec_host_ms,
-                 decode_device_ms=dec_prof["device_s"] * 1e3,
-                 peak_gb=peak_gb, prefill_profile=pre_prof,
-                 decode_profile=dec_prof, ssd=share)
-    log(f"{arch} serving: prefill {prefill_ms:.2f} ms "
-        f"({serve['prefill_tokens_s']:.0f} tokens/s), decode "
-        f"{step_ms:.3f} ms a step ({serve['decode_tokens_s']:.1f} tokens/s "
-        f"at batch {SSM_BATCH}; {dec_host_ms:.3f} ms to enqueue, "
-        f"{serve['decode_device_ms']:.3f} ms on the device), peak "
-        f"{peak_gb:.2f} GB; busy {pre_prof['busy_share']:.3f} in a prefill, "
-        f"{dec_prof['busy_share']:.3f} in a decode step; the SSD "
-        f"{fmt_ms(share['ssd_ms'])} of {share['device_ms']:.2f} device ms "
-        f"of a traced prefill (share {share['ssd_share']})")
-    log(f"  top prefill kernels (ms) {pre_prof['top']}")
-    log(f"  top decode kernels (ms) {dec_prof['top']}")
+    serve = serve_times(arch, cfg, params, batch, cap, tok,
+                        decode_s / SSM_DECODE)
+    serve["ssd"] = share = ssd_profile(
+        lambda: lm.prefill(cfg, params, batch, cap))
+    log(f"{arch}: the SSD {fmt_ms(share['ssd_ms'])} of "
+        f"{share['device_ms']:.2f} device ms of a traced prefill (share "
+        f"{share['ssd_share']})")
 
     # -- the SSD oracle on layer 0's real inputs, fp32 -----------------------
     first: list = []
@@ -4574,118 +4751,6 @@ def ssm_serve_case(arch: str) -> dict:
                 recur_err=recur_err)
 
 
-def sink_attention_case() -> dict:
-    """Phase 14 (b): hymba's SWA attention shape (``SINK_ATTN``: B 4, 25 /
-    5 heads of 64, S = T = 2,176, window 1,024, 128 sink keys, causal,
-    bf16, seeded inputs): the flash forward with its LSE and the
-    backward, each held against its plain version and, row by row, the
-    fp32 oracle, each launched twice for the same bits, each timed
-    (CUDA events and a device trace) beside its bound over the kept
-    pairs, its plain version and SDPA given a boolean mask of the same
-    kept pairs (a yardstick the port never calls)."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.core.autotune import H100
-    from repro_torch.kernels.flash_attention import (
-        _kept, flash_attention_bwd_cuda, flash_attention_bwd_plain,
-        flash_attention_cuda, flash_attention_plain,
-        flash_attention_plain_lse, flash_bwd_row_floors)
-    c = SINK_ATTN
-    gen = torch.Generator(device=DEVICE).manual_seed(11)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
-    q, do = randn(c["b"], c["hq"], c["s"], c["d"]), \
-        randn(c["b"], c["hq"], c["s"], c["d"])
-    k, v = randn(c["b"], c["hkv"], c["t"], c["d"]), \
-        randn(c["b"], c["hkv"], c["t"], c["d"])
-    kw = dict(causal=True, window=c["window"], meta_len=c["meta_len"])
-    shape = f"{tuple(q.shape)}/{tuple(k.shape)} w{c['window']} " \
-            f"m{c['meta_len']}"
-    by_inst = dict(flash_attention_cuda.launches_by_instance)
-    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    o2, lse2 = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    fwd_inst = {n: m - by_inst[n] for n, m in
-                flash_attention_cuda.launches_by_instance.items()}
-    if not torch.equal(o, o2) or not torch.equal(lse, lse2) or \
-            fwd_inst != {"wgmma": 2, "f32": 0}:
-        raise AssertionError(f"sink forward: two launches differ, or ran "
-                             f"{fwd_inst}")
-    del o2, lse2
-    fwd = dict(name="flash_attention", shape=shape)
-    want_o, want_lse = flash_attention_plain_lse(q.float(), k.float(),
-                                                 v.float(), **kw)
-    check_lm_launch(fwd, o, flash_attention_plain(q, k, v, **kw), want_o)
-    fwd["lse_max_abs_err"] = float((lse - want_lse).abs().max())
-    if not fwd["lse_max_abs_err"] <= LSE_ATOL:
-        raise AssertionError(f"sink flash LSE off the fp32 oracle's by "
-                             f"{fwd['lse_max_abs_err']} (atol {LSE_ATOL})")
-    del want_o, want_lse
-    by_inst = dict(flash_attention_bwd_cuda.launches_by_instance)
-    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
-    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
-    bwd_inst = {n: m - by_inst[n] for n, m in
-                flash_attention_bwd_cuda.launches_by_instance.items()}
-    if bwd_inst != {"wgmma": 2, "wmma": 0, "f32": 0} or \
-            not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError(f"sink backward: ran {bwd_inst}, or two "
-                             f"launches differ")
-    del again
-    want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
-    oracle = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
-                                       o.float(), do.float(), lse, **kw)
-    floors = flash_bwd_row_floors(q, k, v, o, do, lse, **kw)
-    bwd = dict(name="flash_attention_bwd", shape=shape, instance="wgmma")
-    for part, g_, w_, orc, fl in zip(("dq", "dk", "dv"), got, want, oracle,
-                                     floors):
-        entry = dict(name=f"flash_attention_bwd {part}", shape=shape)
-        check_lm_launch(entry, g_, w_, orc, row_floor=fl)
-        for key in ("max_abs_err", "err_over_max", "row_err_over_row_max"):
-            bwd[key] = max(bwd.get(key, 0.0), entry[key])
-    del got, want, oracle, floors
-    pairs = attention_pairs(c["s"], c["t"], True, c["window"],
-                            c["meta_len"]) * c["b"] * c["hq"]
-    elem = q.element_size()
-    for case, flops, nbytes in (
-            (fwd, 4 * c["d"] * pairs, (2 * q.numel() + 2 * k.numel()) * elem),
-            (bwd, 10 * c["d"] * pairs,
-             (4 * q.numel() + 4 * k.numel()) * elem + lse.numel() * 4)):
-        t_bytes, t_ops = H100.mem_time(nbytes), flops / H100.peak_flops
-        case.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    flops=flops, bytes=nbytes, pairs=pairs)
-    fwd["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, return_lse=True,
-                                                     **kw))
-    fwd["device_ms"] = traced_ms(lambda: flash_attention_cuda(
-        q, k, v, return_lse=True, **kw), 10, "flash_attention_wgmma")
-    fwd["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
-                              reps=2, warmup=1)
-    bwd["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse,
-                                                         **kw))
-    bwd["device_ms"] = traced_ms(lambda: flash_attention_bwd_cuda(
-        q, k, v, o, do, lse, **kw), 10, "flash_bwd_")
-    bwd["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_plain(
-        q, k, v, o, do, lse, **kw), reps=2, warmup=1)
-    bwd["bound_7_ms"] = max(H100.mem_time(bwd["bytes"]),
-                            bwd["flops"] * 7 / 5 / H100.peak_flops) * 1e3
-    qpos = torch.arange(c["s"], device=DEVICE) + (c["t"] - c["s"])
-    mask = _kept(torch.arange(c["t"], device=DEVICE)[None, :], qpos[:, None],
-                 c["t"], True, c["window"], c["meta_len"])
-    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    try:
-        fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True))
-        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                             enable_gqa=True)
-        bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), do, retain_graph=True))
-    except (RuntimeError, TypeError) as err:   # no SDPA route for the mask
-        fwd["library_ms"] = bwd["library_ms"] = None
-        fwd["library_error"] = str(err)[:200]
-    return dict(forward=fwd, backward=bwd, launches=dict(
-        forward=fwd_inst, backward=bwd_inst))
-
-
 def ssm_train_case(arch: str) -> dict:
     """Phase 14 (c): ``arch`` at full width cut to SSM_TRAIN_LAYERS layers
     (hymba with ``global_layers=(0,)``: its (0, 15, 31) index past 4
@@ -4732,7 +4797,7 @@ def ssm_train_case(arch: str) -> dict:
 def ssm_phase() -> dict:
     """Phase 14: mamba2-1.3b and hymba-1.5b served at full width and depth
     (:func:`ssm_serve_case`), hymba's sink attention as a kernel case
-    (:func:`sink_attention_case`), both trained at full width cut in depth
+    (:func:`attention_case`), both trained at full width cut in depth
     (:func:`ssm_train_case`), and their smoke configs in fp32 on the card
     against the port's CPU run (prefill + decode, train steps)."""
     import torch
@@ -4741,7 +4806,7 @@ def ssm_phase() -> dict:
     for arch in SSM_ARCHS:
         out["serve"][arch] = ssm_serve_case(arch)
         torch.cuda.empty_cache()
-    sink = sink_attention_case()
+    sink = attention_case(SINK_ATTN, 11, ("delta", "dkdv_wgmma", "dq_wgmma"))
     for c in (sink["forward"], sink["backward"]):
         log(f"  hymba sinks {c['name']:20s} {c['shape']:40s} ms "
             f"{c['ms']:.4f} device {fmt_ms(c['device_ms'])} plain "
@@ -4765,6 +4830,380 @@ def ssm_phase() -> dict:
             f" train steps' losses {train['losses']}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the audio (hubert) and vlm (internvl2) front ends on the card
+# ---------------------------------------------------------------------------
+
+HUBERT_ARCH, VLM_ARCH = "hubert-xlarge", "internvl2-2b"
+# 4 clips of 4,096 frames: the reference's own train_4k length
+HUBERT_BATCH, HUBERT_FRAMES = 4, 4096
+VLM_BATCH, VLM_TEXT, VLM_DECODE = 4, 2048, 32   # after 1,024 image positions
+VLM_RECUR = 8           # decode steps held against a prefill that long
+VLM_RECUR_TOL = 1e-3    # fp32: max|decoded - prefilled last logits| over
+                        # max|prefilled|, decode attention against the flash
+                        # path, fp32 sums in another order through 24 layers
+FRONT_TRAIN_STEPS = 4   # step 0 and 3 more on one batch: the loss must fall
+# hubert-xlarge's attention: 16 / 16 heads of 80, no causal mask
+HUBERT_ATTN = dict(b=4, hq=16, hkv=16, s=4096, t=4096, d=80, causal=False)
+
+
+def frontend_batch(cfg, batch_size: int, seq_len: int, seed: int,
+                   device=None) -> dict:
+    """A batch with ``train/lm.shaped_batch``'s keys, shapes and dtypes:
+    ``frames`` / ``image_emb`` drawn seeded-normal on ``device``, tokens
+    and their next-token targets from ``data/tokens``; hubert's targets
+    are cluster ids drawn uniformly (seeded)."""
+    import torch
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.train import lm as TL
+    device = DEVICE if device is None else device
+    specs = TL.shaped_batch(cfg, batch_size, seq_len)
+    out = {}
+    if "tokens" in specs:
+        toks, tgts = synthetic_lm_batch(batch_size, specs["tokens"].shape[1],
+                                        cfg.vocab, step=seed)
+        out["tokens"] = torch.from_numpy(toks).to(device)
+        out["targets"] = torch.from_numpy(tgts).to(device)
+    else:
+        out["targets"] = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, tuple(specs["targets"].shape)).astype(np.int32)
+        ).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for key in ("frames", "image_emb"):
+        if key in specs:
+            out[key] = torch.randn(tuple(specs[key].shape), generator=gen,
+                                   device=device).to(specs[key].dtype)
+    return out
+
+
+def lm_counts() -> dict:
+    """The LM kernels' launches since the last reset, and the flash
+    forward's by instance."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    return dict(launches={k: kops.kernel_launches()[k]
+                          for k in LM_TRAIN_KERNELS},
+                flash_instances=dict(flash_attention_cuda.launches_by_instance))
+
+
+def checked_main_path(tag: str, fn, n_attn: int, causal: bool, d: int):
+    """``fn()`` (an encoder forward or a prefill) with the launch counts
+    zeroed just before and read just after: ``n_attn`` flash launches,
+    all on the ``wgmma`` instance at head dim ``d`` with ``causal``, each
+    held against its plain version and, row by row, the fp32 oracle
+    (:func:`record_lm_kernels`), no plain flash version on a card tensor.
+    -> (fn's result, counts, the checks without their inputs)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    kops.reset_kernel_launches()
+    with torch.no_grad(), record_lm_kernels(check=True) as calls, \
+            refuse_plain_on_card(PLAIN_LM, f"{tag}'s main path"):
+        res = fn()
+        torch.cuda.synchronize()
+    got = lm_counts()
+    want = dict(launches={"ragged_gemm": 0, "flash_attention": n_attn,
+                          "flash_attention_bwd": 0},
+                flash_instances={"wgmma": n_attn, "f32": 0})
+    how = {(c["causal"], c["inputs"][0].shape[-1]) for c in calls}
+    if got != want or how != {(causal, d)}:
+        raise AssertionError(f"{tag} launched {got}, want {want}; (causal, "
+                             f"head dim) {how}, want {(causal, d)}")
+    checks = [{k: v for k, v in c.items() if k != "inputs"} for c in calls]
+    return res, got, checks
+
+
+def worst_of(checks: list) -> dict:
+    return dict(worst_err_over_max=max(c["err_over_max"] for c in checks),
+                worst_row=max(c["row_err_over_row_max"] for c in checks),
+                max_abs_err=max(c["max_abs_err"] for c in checks))
+
+
+def hubert_encode_case() -> dict:
+    """Phase 15 (a): hubert-xlarge whole, an encoder forward over
+    HUBERT_BATCH clips of HUBERT_FRAMES seeded-normal frames, then the
+    cluster logits; 48 non-causal flash launches at D 80, each checked;
+    the time, frames/s, peak memory and busy share."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.lm import transformer as TT
+    cfg = get_config(HUBERT_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    n = cfg.param_count()
+    log(f"{HUBERT_ARCH}: {n / 1e9:.3f} B parameters ({2 * n / 1e9:.2f} GB "
+        f"bf16, all {cfg.n_layers} layers) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    frames = {"frames": frontend_batch(cfg, HUBERT_BATCH, HUBERT_FRAMES,
+                                       seed=21)["frames"]}
+
+    def encode():
+        with torch.no_grad():
+            h, _ = lm.forward_hidden(cfg, params, frames)
+            return TT._unembed(cfg, params, h)
+    logits, got, checks = checked_main_path(HUBERT_ARCH, encode, cfg.n_layers,
+                                            False, cfg.head_dim)
+    if tuple(logits.shape) != (HUBERT_BATCH, HUBERT_FRAMES,
+                               cfg.vocab_padded) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{HUBERT_ARCH} logits malformed: "
+                             f"{tuple(logits.shape)}")
+    del logits
+    worst = worst_of(checks)
+    log(f"{HUBERT_ARCH} encoder: launched {got}; {len(checks)} flash "
+        f"launches (non-causal, D {cfg.head_dim}) held against the plain "
+        f"version (worst max|diff| / max|plain| "
+        f"{worst['worst_err_over_max']:.3e}) and the fp32 oracle by row "
+        f"({worst['worst_row']:.3e}, tolerance {LM_TOL}); logits finite")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(encode, reps=3, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = step_profile(encode)
+    frames_s = HUBERT_BATCH * HUBERT_FRAMES / ms * 1e3
+    log(f"{HUBERT_ARCH} encoder: {ms:.2f} ms for {HUBERT_BATCH} x "
+        f"{HUBERT_FRAMES} frames ({frames_s:.0f} frames/s), peak "
+        f"{peak_gb:.2f} GB, busy {prof['busy_share']:.3f} in a traced call")
+    log(f"  top encoder kernels (ms) {prof['top']}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(params=n, layers=cfg.n_layers, launches=got, checks=checks,
+                ms=ms, frames_s=frames_s, peak_gb=peak_gb, profile=prof,
+                **worst)
+
+
+def vlm_serve_case() -> dict:
+    """Phase 15 (b): internvl2-2b whole, VLM_BATCH prompts of 1,024 image
+    embeddings + VLM_TEXT tokens, ``prefill`` into a cache of the prompt
+    + VLM_DECODE slots, VLM_DECODE greedy ``decode_step``s; the prefill's
+    24 causal flash launches at D 128 checked as in (a); prefill and
+    decode times, tokens/s, busy share, peak memory; in fp32 at one
+    prompt, a prefill and VLM_RECUR decode steps of the prompt's next
+    tokens against a prefill VLM_RECUR longer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizer import tree_map
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    n = cfg.param_count()
+    log(f"{VLM_ARCH}: {n / 1e9:.3f} B parameters ({2 * n / 1e9:.2f} GB bf16, "
+        f"all {cfg.n_layers} layers) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    s = cfg.n_prefix_tokens + VLM_TEXT
+    batch = frontend_batch(cfg, VLM_BATCH, s, seed=22)
+    prompt = {k: batch[k] for k in ("tokens", "image_emb")}
+    cap = s + VLM_DECODE
+
+    def pre():
+        return lm.prefill(cfg, params, prompt, cap)
+    (cache, logits), got, checks = checked_main_path(
+        VLM_ARCH, pre, cfg.n_layers, True, cfg.head_dim)
+    if tuple(logits.shape) != (VLM_BATCH, 1, cfg.vocab_padded) or \
+            not bool(torch.isfinite(logits).all()) or \
+            int(cache["pos"][0]) != s:
+        raise AssertionError(f"{VLM_ARCH} prefill malformed")
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    generated = [tok]
+    kops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(VLM_DECODE):
+            logits, cache = lm.decode_step(cfg, params, cache, tok)
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if any(kops.kernel_launches().values()) or \
+            not bool(torch.isfinite(logits).all()) or \
+            int(cache["pos"][0]) != s + VLM_DECODE:
+        raise AssertionError(f"{VLM_ARCH} decode malformed: launches "
+                             f"{kops.kernel_launches()}, pos "
+                             f"{int(cache['pos'][0])}")
+    worst = worst_of(checks)
+    log(f"{VLM_ARCH} serving: prefill launched {got}; {len(checks)} flash "
+        f"launches (causal over the image prefix and the text) held "
+        f"against the plain version (worst {worst['worst_err_over_max']:.3e}"
+        f") and the fp32 oracle by row ({worst['worst_row']:.3e}, tolerance "
+        f"{LM_TOL}); {VLM_DECODE} greedy decode steps, request 0 "
+        f"{torch.cat(generated, 1)[0, :8].tolist()}...")
+    del cache
+
+    with torch.no_grad():
+        serve = serve_times(VLM_ARCH, cfg, params, prompt, cap, tok,
+                            decode_s / VLM_DECODE)
+
+    # -- prefill + decode against a longer prefill, fp32, full width ---------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    full = frontend_batch(cfg32, 1, s + VLM_RECUR, seed=23)
+    cap32 = s + VLM_RECUR
+    with torch.no_grad():
+        cache, _ = lm.prefill(cfg32, p32, {
+            "tokens": full["tokens"][:, :VLM_TEXT],
+            "image_emb": full["image_emb"]}, cap32)
+        for i in range(VLM_TEXT, VLM_TEXT + VLM_RECUR):
+            dec_logits, cache = lm.decode_step(cfg32, p32, cache,
+                                               full["tokens"][:, i:i + 1])
+        _, pre_logits = lm.prefill(cfg32, p32, {
+            "tokens": full["tokens"], "image_emb": full["image_emb"]}, cap32)
+    recur_err = float((dec_logits - pre_logits).abs().max()) / float(
+        pre_logits.abs().max())
+    if not recur_err <= VLM_RECUR_TOL:
+        raise AssertionError(f"{VLM_ARCH}: {VLM_RECUR} decode steps after a "
+                             f"{s}-position prefill against a "
+                             f"{s + VLM_RECUR}-position prefill, fp32: "
+                             f"{recur_err:.3e} > {VLM_RECUR_TOL}")
+    log(f"{VLM_ARCH}: fp32 prefill of {s} positions ({cfg.n_prefix_tokens} "
+        f"image + {VLM_TEXT} text) + {VLM_RECUR} decode steps against a "
+        f"prefill of {s + VLM_RECUR}: last logits {recur_err:.3e} of the "
+        f"largest (tolerance {VLM_RECUR_TOL})")
+    del p32, cache
+    torch.cuda.empty_cache()
+    return dict(params=n, layers=cfg.n_layers, launches=got, checks=checks,
+                serve=serve, recur_err=recur_err, **worst)
+
+
+def front_train_case(arch: str) -> dict:
+    """Phase 15 (d): ``arch`` whole (full width and depth) through
+    :func:`train_checks`: hubert on HUBERT_BATCH x HUBERT_FRAMES frames
+    with cluster targets, internvl2 on VLM_BATCH x (1,024 image +
+    VLM_TEXT text) positions (the loss reads the text). Step 0 launches 2
+    flash forwards a layer (remat "full" recomputes them) and a ``wgmma``
+    backward a layer, hubert's without the causal mask, and no ragged
+    GEMM."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    seq = HUBERT_FRAMES if cfg.family == "audio" \
+        else cfg.n_prefix_tokens + VLM_TEXT
+    bsz = HUBERT_BATCH if cfg.family == "audio" else VLM_BATCH
+    batch = frontend_batch(cfg, bsz, seq, seed=24)
+    n = cfg.param_count()
+    log(f"{arch} train: whole, {cfg.n_layers} layers, remat {cfg.remat!r}: "
+        f"bf16 params and grads {2 * n / 1e9:.2f} GB each, fp32 moments "
+        f"{8 * n / 1e9:.2f} GB; batch {bsz} x {seq} positions "
+        f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
+    layers = cfg.n_layers
+    want = dict(launches={"ragged_gemm": 0, "flash_attention": 2 * layers,
+                          "flash_attention_bwd": layers},
+                ragged_directions={"forward": 0, "backward": 0},
+                ragged_instances={"wgmma": 0, "wmma": 0, "f32": 0},
+                bwd_instances={"wgmma": layers, "wmma": 0, "f32": 0})
+    res = train_checks(arch, cfg, batch, FRONT_TRAIN_STEPS, want)
+    del res["inputs"]
+    causal = {c.get("causal") for c in res["checks"]
+              if c["name"].startswith("flash")}
+    if causal != {cfg.causal}:
+        raise AssertionError(f"{arch} train: flash launches with causal "
+                             f"{causal}, want {cfg.causal}")
+    res.update(layers=layers, batch=bsz, seq=seq)
+    return res
+
+
+def frontend_smoke_check(arch: str) -> dict:
+    """Phase 15 (e): ``arch``'s smoke config in fp32 (the kernels' fp32
+    instances) on the card against the port's CPU run from the same
+    weights and batch: hubert's forward (its cluster logits), internvl2's
+    prefill of an image prefix and tokens + LM_SMOKE_DECODE decode steps,
+    within LM_SMOKE_ATOL; then LM_TRAIN_SMOKE_STEPS train steps
+    (:func:`lm_train_smoke_check`)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.models.lm import transformer as TT
+    cfg = get_smoke_config(arch)
+    batch = frontend_batch(cfg, 2, 80, seed=25, device="cpu")
+    if cfg.family != "audio":
+        errs = lm_smoke_check(arch, prompt={
+            k: batch[k] for k in ("tokens", "image_emb")})
+    else:
+        p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        p_card = tree_to(p_cpu, DEVICE)
+        with torch.no_grad():
+            h_card, _ = lm.forward_hidden(cfg, p_card, tree_to(batch, DEVICE))
+            h_cpu, _ = lm.forward_hidden(cfg, p_cpu, batch)
+        errs = [float((TT._unembed(cfg, p_card, h_card).cpu()
+                       - TT._unembed(cfg, p_cpu, h_cpu)).abs().max())]
+        if not errs[0] <= LM_SMOKE_ATOL:
+            raise AssertionError(f"{arch} fp32 smoke logits, card vs CPU: "
+                                 f"{errs} (atol {LM_SMOKE_ATOL})")
+    train = lm_train_smoke_check(arch, make_batch=lambda c, i: frontend_batch(
+        c, 2, 80, seed=30 + i, device="cpu"))
+    return dict(serve_max_abs_diff=errs, train=train)
+
+
+def frontends_phase() -> dict:
+    """Phase 15: hubert-xlarge's encoder and internvl2-2b's serving whole
+    at full width (:func:`hubert_encode_case`, :func:`vlm_serve_case`),
+    hubert's attention as a kernel case (:func:`attention_case`),
+    both trained whole (:func:`front_train_case`), and their smoke
+    configs in fp32 on the card against the port's CPU run
+    (:func:`frontend_smoke_check`)."""
+    import torch
+    t_phase = time.perf_counter()
+    out: dict = {"serve": {}, "train": {}, "smoke": {}}
+    marks = [("start", t_phase)]
+    out["serve"][HUBERT_ARCH] = hubert_encode_case()
+    torch.cuda.empty_cache()
+    marks.append(("(a)", time.perf_counter()))
+    out["serve"][VLM_ARCH] = vlm_serve_case()
+    torch.cuda.empty_cache()
+    marks.append(("(b)", time.perf_counter()))
+    attn = attention_case(HUBERT_ATTN, 13, ("delta", "dkdv_wgmma",
+                                            "dq_wgmma"))
+    for c in (attn["forward"], attn["backward"]):
+        log(f"  hubert D 80 {c['name']:20s} {c['shape']:44s} ms "
+            f"{c['ms']:.4f} device {fmt_ms(c['device_ms'])} plain "
+            f"{c['plain_ms']:.4f} bound {c['bound_ms']:.4f} "
+            f"({c['bound_by']}; the padded design's work "
+            f"{c['bound_padded_ms']:.4f}) SDPA {fmt_ms(c['library_ms'])}; "
+            f"max|diff| / max|plain| {c['err_over_max']:.2e}, row "
+            f"{c['row_err_over_row_max']:.2e} (tolerance {LM_TOL}); two "
+            f"launches bitwise equal")
+    log(f"  hubert D 80 backward by kernel (device ms) "
+        f"{attn['backward']['kernel_device_ms']}, seven-product bound "
+        f"{attn['backward']['bound_7_ms']:.4f} ms")
+    out["attention"] = attn
+    torch.cuda.empty_cache()
+    marks.append(("(c)", time.perf_counter()))
+    for arch in (HUBERT_ARCH, VLM_ARCH):
+        out["train"][arch] = front_train_case(arch)
+        torch.cuda.empty_cache()
+        marks.append((f"(d) {arch}", time.perf_counter()))
+    for arch in (HUBERT_ARCH, VLM_ARCH):
+        out["smoke"][arch] = frontend_smoke_check(arch)
+        sm = out["smoke"][arch]
+        log(f"{arch} smoke config fp32, card vs CPU: max |logit diff| "
+            f"{max(sm['serve_max_abs_diff']):.3e} (atol {LM_SMOKE_ATOL}); "
+            f"{LM_TRAIN_SMOKE_STEPS} train steps' losses "
+            f"{sm['train']['losses']}")
+    marks.append(("(e)", time.perf_counter()))
+    out["seconds_by_case"] = {tag: t - marks[i][1]
+                              for i, (tag, t) in enumerate(marks[1:])}
+    log(f"front-ends phase by case (s): "
+        f"{ {k: round(v, 1) for k, v in out['seconds_by_case'].items()} }")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def d80_keys(case: dict) -> dict:
+    """The kernels line's ``d80_*`` keys of a phase 15 (c) case (hubert's
+    attention at head dim 80, non-causal)."""
+    keys = ("shape", "padded_dim", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_padded_ms", "library_ms", "err_over_max",
+            "row_err_over_row_max", "max_abs_err")
+    return {f"d80_{k}": case.get(k) for k in keys}
 
 
 def meta_keys(case: dict) -> dict:
@@ -5196,6 +5635,12 @@ def main() -> int:
     report["ssm_hybrid"] = ssm
     torch.cuda.empty_cache()
 
+    # -- phase 15: the audio and vlm front ends (hubert-xlarge, internvl2-2b)
+    front = frontends_phase()
+    log(f"front-ends phase: {front['seconds']:.1f} s")
+    report["frontends"] = front
+    torch.cuda.empty_cache()
+
     # -- phase 5: the kernels line ------------------------------------------
     kernels = []
     for name in SAMPLE_KERNELS + (HOP_KERNEL,):
@@ -5377,6 +5822,18 @@ def main() -> int:
             for c in r["checks"] if c["name"] == name] + (
             [r["max_abs_err"] for r in ssm["serve"].values()]
             if name == "flash_attention" else []))
+        # phase 15: the front ends' serving and training launches
+        entry["launches_frontends_serve"] = sum(
+            r["launches"]["launches"][name] for r in front["serve"].values())
+        entry["launches_frontends_train"] = sum(
+            r["launches"][name] for r in front["train"].values())
+        entry["launches"] += entry["launches_frontends_serve"] + \
+            entry["launches_frontends_train"]
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+            c["max_abs_err"] for r in front["train"].values()
+            for c in r["checks"] if c["name"] == name] + (
+            [r["max_abs_err"] for r in front["serve"].values()]
+            if name == "flash_attention" else []))
         if name == "ragged_gemm":
             entry["instance"] = "/".join(
                 k for k, v in lmr["ragged_instances"]["prefill"].items() if v)
@@ -5395,6 +5852,7 @@ def main() -> int:
             entry.update(meta_keys(ssm["sink_attention"]["forward"]),
                          meta_max_abs_err=ssm["sink_attention"]["forward"][
                              "max_abs_err"])
+            entry.update(d80_keys(front["attention"]["forward"]))
         kernels.append(entry)
     bwd = lmt["flash_bwd_case"]
     gt = lmt["gemma_train"]
@@ -5442,6 +5900,20 @@ def main() -> int:
             "max_abs_err"]] + [c["max_abs_err"] for c in ssm_bwd])
     for k, v in ssm["train"]["hymba-1.5b"]["flash_bwd_instances"].items():
         bwd_entry["launches_by_instance"][k] += v
+    front_bwd = [c for r in front["train"].values() for c in r["checks"]
+                 if c["name"] == "flash_attention_bwd"]
+    bwd_entry["launches_frontends_train"] = sum(
+        r["launches"]["flash_attention_bwd"] for r in front["train"].values())
+    bwd_entry["launches"] += bwd_entry["launches_frontends_train"]
+    bwd_entry["max_abs_err"] = max(
+        [bwd_entry["max_abs_err"], front["attention"]["backward"][
+            "max_abs_err"]] + [c["max_abs_err"] for c in front_bwd])
+    for r in front["train"].values():
+        for k, v in r["flash_bwd_instances"].items():
+            bwd_entry["launches_by_instance"][k] += v
+    hb = front["attention"]["backward"]
+    bwd_entry.update(d80_keys(hb), d80_kernel_device_ms=hb[
+        "kernel_device_ms"], d80_bound_7_ms=hb["bound_7_ms"])
     for entry in kernels:       # phase 11: launches inside the timed passes
         entry["launches_measured_tuning"] = tuning["launches"].get(
             entry["name"], 0)

@@ -24,8 +24,14 @@ Ported so far:
   attention and ragged GEMM kernels, and their training
   (``repro_torch.train.lm.make_train_step``: AdamW, clipping,
   accumulation, int8 error feedback) through those kernels and their
-  backwards (the flash attention backward kernel, the ragged GEMM's dX).
+  backwards (the flash attention backward kernel, the ragged GEMM's dX),
+  with checkpointing and fault tolerance (``repro_torch.ckpt``,
+  ``repro_torch.train.fault_tolerance``);
+- the ssm (mamba2) and hybrid (hymba: meta-token sinks in both flash
+  kernels) families, and the audio (hubert: precomputed frames, a
+  non-causal encoder) and vlm (internvl2: an image-embedding prefix)
+  front ends, through the same LM entry points.
 
-Still to port: the ssm / hybrid families and the audio / vlm front
-ends, checkpointing and fault tolerance, distribution (ROADMAP queue 1).
+Still to port: observability export, distribution, the launch and
+analysis tooling (ROADMAP queue 1).
 """

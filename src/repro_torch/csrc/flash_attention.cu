@@ -52,7 +52,19 @@
 // KB of the 227 a block can use).
 //
 // Any S <= T, causal or not, any window and sink prefix, D in {32, 64,
-// 128, 256}.
+// 80, 128, 256} (D 80 in bf16 only). Without the causal test (hubert's
+// encoder) a query tile walks every KV tile, and only the last one, past
+// T, is masked.
+//
+// D = 80 (hubert-xlarge) runs on D = 128's tiles and pipeline, padded on
+// chip and nowhere else: the tensor maps keep the true rows of 80 (160
+// bytes), two 64-column boxes in the 128-byte swizzle load columns 0..127,
+// and TMA writes zeros for columns 80..127 into shared memory (the
+// barrier's transaction count is the whole box's, zeros included). S =
+// Q K^T runs its true depth of 80 (five k16 steps); O += P V runs at N =
+// 128, whose last 48 columns are 0 and are never stored. The tensor cores
+// do 1.3x the true work (80 + 128 against 2 x 80); no padded copy of q, k
+// or v exists in device memory.
 //
 // For training, both instances also write the row log-sum-exp of the
 // scaled scores, lse = m + log z (fp32, (B, Hq, S), natural log), when the
@@ -74,20 +86,23 @@ using bf16 = __nv_bfloat16;
 
 template <int D>
 struct Wg {
+  // the head dim on chip: D 80 padded to D 128's tiles (zeros by TMA)
+  static constexpr int kDP = D == 80 ? 128 : D;
   static constexpr int kBQ = 128;            // queries a CTA (2 x 64)
-  static constexpr int kBK = D == 256 ? 64 : 128;   // keys a KV tile
+  static constexpr int kBK = kDP == 256 ? 64 : 128;   // keys a KV tile
   // a producer warp; at D = 256 a producer warpgroup, whose registers
   // setmaxnreg hands to the consumers (ptxas budgets a wgmma kernel's
   // threads in whole warpgroups: 168 registers a thread for either size,
   // short of D = 256's 128 of O, 32 of S and 16 of P)
-  static constexpr bool kRegHandOff = D == 256;
+  static constexpr bool kRegHandOff = kDP == 256;
   static constexpr int kThreads = 2 * 128 + (kRegHandOff ? 128 : 32);
   static constexpr int kStages = 2;
-  static constexpr int kSw = D * 2 >= 128 ? 128 : D * 2;  // swizzle bytes
+  static constexpr int kSw = kDP * 2 >= 128 ? 128 : kDP * 2;  // swizzle B
   static constexpr int kBoxCols = kSw / 2;   // bf16 a swizzled row
-  static constexpr int kAtoms = D / kBoxCols;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBK * D * 2;
+  static constexpr int kAtoms = kDP / kBoxCols;
+  // whole boxes: TMA counts the zeros it fills past D toward the barrier
+  static constexpr int kQBytes = kBQ * kDP * 2;
+  static constexpr int kKVBytes = kBK * kDP * 2;
   static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 1024;
   static constexpr CUtensorMapSwizzle kSwizzle =
       kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -104,7 +119,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
                              long long window, long long meta_len,
                              float scale_log2) {
   using C = Wg<D>;
-  constexpr int kBQ = C::kBQ, kBK = C::kBK, kSw = C::kSw;
+  constexpr int kBQ = C::kBQ, kBK = C::kBK, kSw = C::kSw, kDP = C::kDP;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full, k_full[C::kStages],
       v_full[C::kStages], empty[C::kStages];
@@ -186,9 +201,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
   const long long qpos0 = q_offset + i0 + r0;
   const float kInf = INFINITY;
 
-  float o[D / 2];
+  float o[kDP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kDP / 2; ++i) o[i] = 0.f;
   float m[2] = {-kInf, -kInf};   // row max of the scaled (base-2) scores
   float z[2] = {0.f, 0.f};       // this thread's part of the row sum
 
@@ -201,7 +216,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     const uint32_t k_base = hopper::smem_u32(ks + stage * C::kKVBytes);
     const uint32_t v_base = hopper::smem_u32(vs + stage * C::kKVBytes);
 
-    // S = Q K^T (64 x 128 a warpgroup, fp32)
+    // S = Q K^T (64 x 128 a warpgroup, fp32) over the true depth D
     float sc[kBK / 2];
 #pragma unroll
     for (int j = 0; j < kBK / 2; ++j) sc[j] = 0.f;
@@ -269,14 +284,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
                                                                 p[2 * e + 1]);
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kDP / 8; ++j) {
       o[4 * j + 0] *= alpha[0];
       o[4 * j + 1] *= alpha[0];
       o[4 * j + 2] *= alpha[1];
       o[4 * j + 3] *= alpha[1];
     }
 
-    // O += P V (V MN-major: keys are its rows)
+    // O += P V (V MN-major: keys are its rows; kDP columns, those past D
+    // zero)
     hopper::mbar_wait(&v_full[stage], phase);
     hopper::fence_regs(o);
     hopper::wgmma_fence();
@@ -284,7 +300,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint64_t dv = hopper::smem_desc(v_base + kk * 16 * kSw,
                                             kBK * kSw, 8 * kSw, kSw);
-      hopper::WgmmaBf16RS<D, 1>::mma(o, pa[kk], dv, 1);
+      hopper::WgmmaBf16RS<kDP, 1>::mma(o, pa[kk], dv, 1);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -306,7 +322,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     const float inv = 1.f / fmaxf(z[h], 1e-30f);
     bf16* orow = out + ((long long)bh * s + row) * D + 2 * q4;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {       // the true columns only
       const uint32_t v = hopper::pack_bf16(o[4 * j + 2 * h] * inv,
                                            o[4 * j + 2 * h + 1] * inv);
       *reinterpret_cast<uint32_t*>(orow + 8 * j) = v;
@@ -539,6 +555,11 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out,
     FLASH_CASE(64)
     FLASH_CASE(128)
     FLASH_CASE(256)
+    case 80:                  // bf16 only (hubert-xlarge), on D 128's tiles
+      if constexpr (kWgmma)
+        return launch_wgmma<80>(q, k, v, out, lse, bh, hq, hkv, s, t, causal,
+                                has_window, window, meta_len, scale, stream);
+      return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -38,9 +38,15 @@
 //      key tiles (the sink tiles first, then the band, as the forward
 //      walks them): S, dP, dS again, dQ += dS K.
 //
-// bf16, D in {64, 128}: the Hopper design (flash_bwd_dkdv_wgmma_kernel,
+// bf16, D in {64, 80, 128}: the Hopper design (flash_bwd_dkdv_wgmma_kernel,
 // flash_bwd_dq_wgmma_kernel; the main path). Per CTA one producer warp
-// and two consumer warpgroups (setmaxnreg 24 / 240).
+// and two consumer warpgroups (setmaxnreg 24 / 240). D = 80 (hubert-xlarge)
+// runs on D = 128's tiles, padded on chip only: the tensor maps keep the
+// true rows of 80 (160 bytes), the two 64-column boxes of Q, K, V and dO
+// load columns 0..127 with zeros past 80 (TMA's fill, counted toward the
+// barriers' transactions), S and dP run their true depth of 80, and dV,
+// dK and dQ accumulate at N = 128, whose last 48 columns are 0 and are
+// never stored. The D rows (dO . O) see the true 80 columns.
 //   dK / dV: 128 keys a CTA, 64 a consumer warpgroup. The producer loads
 //   the tile's K and V once by TMA, then streams Q and dO tiles of 64
 //   queries (and their LSE and D rows, by its 32 lanes) through a 2-stage
@@ -108,7 +114,9 @@
 // The scale multiplies the fp32 product, as the forward kernel does.
 //
 // Any S <= T, causal or not, any window and sink prefix. With meta_len =
-// 0 every instance walks the tiles it walked before sinks.
+// 0 every instance walks the tiles it walked before sinks. Without the
+// causal test (hubert's encoder) the dK / dV kernel walks every query
+// tile and the dQ kernel every key tile; only tiles past S or T mask.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -582,13 +590,15 @@ int launch_simple(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// ---- bf16, D in {64, 128}: wgmma, TMA ring, register accumulators --------
+// ---- bf16, D in {64, 80, 128}: wgmma, TMA ring, register accumulators ----
 
 template <int D>
 struct Bw {
+  // the head dim on chip: D 80 padded to D 128's tiles (zeros by TMA)
+  static constexpr int kDP = D == 80 ? 128 : D;
   static constexpr int kThreads = 3 * 128;  // 2 consumer + 1 producer WG
   static constexpr int kStages = 2;
-  static constexpr int kAtoms = D / 64;     // 64 bf16 = one 128-byte row
+  static constexpr int kAtoms = kDP / 64;   // 64 bf16 = one 128-byte row
   static constexpr int kAtom128 = 128 * 128;          // a 128-row atom
   static constexpr int kAtom64 = 64 * 128;            // a 64-row atom
   static constexpr int kTile128 = kAtoms * kAtom128;  // 128 rows x D
@@ -597,6 +607,7 @@ struct Bw {
   // 128-row K | V (dK / dV) or Q | dO (dQ), then the ring
   static constexpr int kSmem = 2 * kTile128 + kStages * kStage + 1024;
   static constexpr int kLdSt = D + 8;       // bf16 a staged output row
+                                            // (the true columns)
   static_assert(2 * 64 * kLdSt * 2 <= kStages * kStage, "dK staging");
   static_assert(2 * 64 * kLdSt * 2 <= 2 * kTile128, "dV staging");
 };
@@ -775,9 +786,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
   const long long kw1 = min(kw0 + 63, (long long)t - 1);
   const float scale_log2 = scale * kLog2e;
 
-  float adk[D / 2], adv[D / 2];
+  constexpr int kDP = C::kDP;
+  float adk[kDP / 2], adv[kDP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  for (int i = 0; i < kDP / 2; ++i) adk[i] = adv[i] = 0.f;
 
   hopper::mbar_wait(&kv_full, 0);
   const uint32_t k_base = hopper::smem_u32(ks) + wg * 64 * 128;
@@ -835,7 +847,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hopper::WgmmaBf16RS<D, 1>::mma(adv, pa[kk], desc_mn(do_st, kk), 1);
+        hopper::WgmmaBf16RS<kDP, 1>::mma(adv, pa[kk], desc_mn(do_st, kk),
+                                         1);
       hopper::wgmma_commit();
 
       // dS^T while dV's product runs, then dK += dS^T Q
@@ -846,7 +859,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hopper::WgmmaBf16RS<D, 1>::mma(adk, da[kk], desc_mn(q_st, kk), 1);
+        hopper::WgmmaBf16RS<kDP, 1>::mma(adk, da[kk], desc_mn(q_st, kk),
+                                         1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(adv);
@@ -984,9 +998,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     dl[h] = in ? delta[(long long)bh * s + row] : 0.f;
   }
 
-  float adq[D / 2];
+  constexpr int kDP = C::kDP;
+  float adq[kDP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) adq[i] = 0.f;
+  for (int i = 0; i < kDP / 2; ++i) adq[i] = 0.f;
 
   hopper::mbar_wait(&q_full, 0);
   const uint32_t q_base = hopper::smem_u32(qs) + wg * 64 * 128;
@@ -1043,7 +1058,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hopper::WgmmaBf16RS<D, 1>::mma(adq, da[kk], desc_mn(k_st, kk), 1);
+        hopper::WgmmaBf16RS<kDP, 1>::mma(adq, da[kk], desc_mn(k_st, kk),
+                                         1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(adq);
@@ -1053,7 +1069,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     if (++stage == C::kStages) { stage = 0; phase ^= 1; }
   }
 
-  // dQ times scale, rows below S, a bf16 pair a store
+  // dQ times scale, rows below S, the true columns, a bf16 pair a store
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = w0 + r0 + 8 * h;
@@ -1686,10 +1702,11 @@ int launch_split(const void* q, const void* k, const void* v, const void* o,
       int has_window, long long window, long long meta_len, float scale,     \
       cudaStream_t stream
 
-// bf16, the Hopper design: D in {64, 128, 256}
+// bf16, the Hopper design: D in {64, 80, 128, 256}
 extern "C" int flash_attention_bwd_bf16_wgmma(BWD_PARAMS) {
   switch (d) {
     case 64: return launch_wgmma<64>(BWD_ARGS);
+    case 80: return launch_wgmma<80>(BWD_ARGS);
     case 128: return launch_wgmma<128>(BWD_ARGS);
     case 256: return launch_split(BWD_ARGS);
     default: return (int)cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-"""Causal / sliding-window flash attention with GQA (LM prefill): the
-hand-written CUDA kernel and its plain PyTorch version. Every function
+"""Causal / sliding-window / non-causal flash attention with GQA (LM
+prefill, and hubert's encoder): the hand-written CUDA kernel and its
+plain PyTorch version. Every function
 here takes ``meta_len``, the reference's attention sinks (hymba's meta
 tokens): with a window, the first ``meta_len`` keys stay visible to
 every later query. The kernels walk the sink tiles first, then the band
@@ -17,8 +18,12 @@ producer warp stages Q, K and V with TMA into a ring of shared memory,
 two warpgroups of 64 queries run both products on ``wgmma`` and keep the
 accumulator and the softmax state in registers across the KV tiles it
 keeps (tiles of 128 keys, 64 at D = 256, where Q and two stages of K
-and V fill 192 KB of shared memory). The fp32 instance keeps a CUDA-core
-design (64 queries a CTA).
+and V fill 192 KB of shared memory). At D = 80 (hubert-xlarge, bf16 only)
+both kernels run D 128's tiles padded on chip: TMA reads the true rows of
+80 and fills columns 80..127 of shared memory with zeros, and the kernels
+write only the true columns (:func:`flash_padded_dim`); no padded copy
+is made in device memory. The fp32 instance keeps a CUDA-core design (64
+queries a CTA).
 The kernel scales the fp32 product, as the Pallas kernel does;
 ``flash_attention_plain`` is the port of ``chunked_attention``, the
 reference's route off the TPU, which scales q in q's dtype first. In
@@ -34,14 +39,14 @@ and its Pallas kernel has no ``custom_vjp``. It recomputes P from the
 LSE in fixed-order tiles, without atomics, so two launches give the same
 bits; ``flash_attention_bwd_plain`` is the same math in PyTorch over KV
 chunks. :func:`flash_bwd_instance` picks its instance: ``wgmma`` (bf16,
-D 64, 128 and 256, the main path: TMA ring, ``wgmma``, dK / dV and dQ in
-registers; at D 256 the head dim split across the two warpgroups;
+D 64, 80, 128 and 256, the main path: TMA ring, ``wgmma``, dK / dV and dQ
+in registers; at D 256 the head dim split across the two warpgroups;
 :func:`flash_bwd_tiles`, :func:`flash_bwd_dkdv_tiles`,
 :func:`flash_bwd_dq_tiles` and :func:`flash_bwd_tile_test` state its
 tile walk), ``wmma`` (bf16, D 32) or ``f32`` (D up to 128).
 :func:`flash_bwd_row_floors` gives the rounding floor of each gradient
-row for checks against an fp32 oracle. Head dims: :data:`HEAD_DIMS`, 256
-for gemma-7b.
+row for checks against an fp32 oracle. Head dims: :data:`HEAD_DIMS`, 80
+for hubert-xlarge (bf16 only), 256 for gemma-7b.
 """
 from __future__ import annotations
 
@@ -52,9 +57,9 @@ __all__ = ["flash_attention_cuda", "flash_attention_plain",
            "flash_attention_bwd_plain", "flash_bwd_instance",
            "flash_kv_walk", "flash_bwd_dkdv_tiles", "flash_bwd_dq_tiles",
            "flash_bwd_tile_test", "flash_bwd_tiles", "flash_bwd_row_floors",
-           "HEAD_DIMS", "BWD_INSTANCES", "FWD_INSTANCES"]
+           "flash_padded_dim", "HEAD_DIMS", "BWD_INSTANCES", "FWD_INSTANCES"]
 
-HEAD_DIMS = (32, 64, 128, 256)     # the kernels' instances
+HEAD_DIMS = (32, 64, 80, 128, 256)     # the kernels' instances
 # backward instance -> C entry point of csrc/flash_attention_bwd.cu
 BWD_INSTANCES = {"wgmma": "flash_attention_bwd_bf16_wgmma",
                  "wmma": "flash_attention_bwd_bf16",
@@ -89,6 +94,24 @@ def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor,
     from repro_torch.models.lm.attention import chunked_attention
     return chunked_attention(q, k, v, causal=causal, window=window,
                              return_lse=True, meta_len=meta_len)
+
+
+def flash_padded_dim(d: int) -> int:
+    """The head dim both kernels' bf16 instances run on chip for head dim
+    ``d``: D 80 on D 128's tiles (TMA fills columns 80..127 of shared
+    memory with zeros; only the true columns are written out), every
+    other built head dim as it is. A padded head dim has no fp32
+    instance."""
+    return 128 if d == 80 else d
+
+
+def _check_dtype_dim(what: str, dtype: torch.dtype, d: int) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not built ({HEAD_DIMS})")
+    if dtype == torch.float32 and flash_padded_dim(d) != d:
+        raise ValueError(f"{what}: fp32 at head dim {d} is not built: D "
+                         f"{d} runs only the bf16 instance, on D "
+                         f"{flash_padded_dim(d)}'s tiles padded on chip")
 
 
 def _kept(kpos, qpos, t: int, causal: bool, window, meta_len: int):
@@ -133,9 +156,7 @@ def _check_operands(q, k, v):
         raise ValueError(f"flash_attention: S = {s} queries exceed T = {t} "
                          f"keys (queries are aligned to the end of the KV "
                          f"axis)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not built "
-                         f"({HEAD_DIMS})")
+    _check_dtype_dim("flash_attention", q.dtype, d)
     if b * hq >= 2 ** 31 or -(-s // _Q_TILE) > _GRID_Y or t >= 2 ** 31:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} exceeds "
                          f"the launch grid")
@@ -152,7 +173,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          return_lse: bool = False, meta_len: int = 0):
     """(B, Hq, S, D) attention on the card through the hand kernel. q (B,
     Hq, S, D), k / v (B, Hkv, T, D), S <= T, Hq % Hkv == 0, D in
-    :data:`HEAD_DIMS`, all contiguous, all bf16 or all fp32. ``window``
+    :data:`HEAD_DIMS` (80 in bf16 only), all contiguous, all bf16 or all
+    fp32. ``causal`` False keeps every key (an encoder). ``window``
     None disables the window; with one, the first ``meta_len`` keys are
     sinks. Scores are scaled by 1 / sqrt(D). With
     ``return_lse`` -> (out, lse), lse the fp32 (B, Hq, S) row log-sum-exp
@@ -193,15 +215,14 @@ flash_attention_cuda.launches_by_instance = dict.fromkeys(
 
 def flash_bwd_instance(dtype: torch.dtype, d: int) -> str:
     """The backward's instance for these operands, from dtype and head dim
-    alone: ``wgmma`` for bf16 at D 64, 128 and 256 (at 256 the two
-    consumer warpgroups split the head dim, each holding 128 columns of
-    dK and dV), ``wmma`` for bf16 at D 32 (only smoke configs use it),
-    ``f32`` for fp32 up to D 128. Raises for fp32 at D 256, where the
-    CUDA-core instance's four padded 64 x 260 fp32 tiles take 260 KB of
-    shared memory, above the 227 KB a block can use."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head dim {d} not built "
-                         f"({HEAD_DIMS})")
+    alone: ``wgmma`` for bf16 at D 64, 80, 128 and 256 (80 on 128's tiles,
+    padded on chip; at 256 the two consumer warpgroups split the head
+    dim, each holding 128 columns of dK and dV), ``wmma`` for bf16 at D 32
+    (only smoke configs use it), ``f32`` for fp32 at D 32, 64 and 128.
+    Raises for fp32 at D 80 (bf16 only) and at D 256, where the CUDA-core
+    instance's four padded 64 x 260 fp32 tiles take 260 KB of shared
+    memory, above the 227 KB a block can use."""
+    _check_dtype_dim("flash_attention_bwd", dtype, d)
     if dtype == torch.float32:
         if d > 128:
             raise ValueError(f"flash_attention_bwd: fp32 at head dim {d} "
@@ -221,7 +242,7 @@ def flash_bwd_tiles(d: int) -> tuple:
     """The ``wgmma`` backward's tiles at head dim ``d``: (keys a CTA of the
     dK / dV kernel, queries a ring stage there, queries a CTA of the dQ
     kernel, keys a ring stage there). A CTA's rows are warpgroups of 64
-    at D 64 and 128; at D 256 one group of 64 whose columns the two
+    at D 64, 80 and 128; at D 256 one group of 64 whose columns the two
     warpgroups split."""
     if d == 256:
         return 64, 64, 64, 64
@@ -348,26 +369,45 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return (dq * scale).reshape(b, hq, s, d).to(dt), dk, dv
 
 
+DS_ROUNDING_SIGMAS = 4.0   # c of flash_bwd_row_floors' dQ rounding term
+
+
 def flash_bwd_row_floors(q, k, v, o, do, lse, *, causal=True,
                          window=None, chunk=1024, meta_len=0) -> tuple:
-    """The rounding floor of each row of (dq, dk, dv) for the row check:
-    2 D eps32 x the row's largest sum of absolute terms, with dS's
-    cancelling difference dP_ij - D_i replaced by the size of what
-    cancels, |dO_i|.|v_j| + |dO_i|.|O_i|. A row can cancel to near zero
-    in exact arithmetic (query 0 sees key 0 alone: P = 1 and dS = dO.v_0
-    - dO.O_0 = 0), and then fp32 sums in another order differ by this
-    much, not by a fraction of the row's own size."""
+    """The rounding floor of each row of (dq, dk, dv) for the row check
+    against an fp32 oracle: the row's largest element bound of (1) 2 D
+    eps32 x its sum of absolute terms, with dS's cancelling difference
+    dP_ij - D_i replaced by the size of what cancels, |dO_i|.|v_j| +
+    |dO_i|.|O_i| (fp32 sums in another order), and (2) for dq from bf16
+    inputs, c u sqrt(sum_j (dS_ij K_jd)^2) x scale, u = 2^-8 the unit
+    roundoff of bf16 and c = :data:`DS_ROUNDING_SIGMAS`. The kernel and
+    :func:`flash_attention_bwd_plain` both round dS to bf16 as an
+    operand, each element by an independent error of at most u of itself
+    (standard deviation at most u / sqrt 3), so that sum's rounding error
+    has a standard deviation of at most u / sqrt 3 times the root of its
+    squared terms: c = 4 is 6.9 of them. Only dq needs it: dS sums to
+    zero over a query's row, so where the keys share a common part dq
+    cancels to near zero while the rounding of its terms does not; dk's
+    sums run over queries, which do not cancel so, and dv's operand P is
+    positive. A row can also cancel in exact arithmetic (query 0 sees
+    key 0 alone: P = 1 and dS = dO.v_0 - dO.O_0 = 0), and then the
+    output differs from the oracle by these floors, not by a fraction of
+    the row's own size."""
     b, hq, s, d = q.shape
     n_kv, t = k.shape[1], k.shape[2]
     g = hq // n_kv
     scale = 1.0 / d ** 0.5
-    qa = q.reshape(b, n_kv, g, s, d).float().abs()
-    doa = do.reshape(b, n_kv, g, s, d).float().abs()
-    deltaa = (doa * o.reshape(b, n_kv, g, s, d).float().abs()).sum(
-        -1, keepdim=True)
+    unit = 0.0 if q.dtype == torch.float32 else torch.finfo(q.dtype).eps / 2
+    qf = q.reshape(b, n_kv, g, s, d).float()
+    dof = do.reshape(b, n_kv, g, s, d).float()
+    of = o.reshape(b, n_kv, g, s, d).float()
+    qa, doa = qf.abs(), dof.abs()
+    deltaa = (doa * of.abs()).sum(-1, keepdim=True)
+    delta = (dof * of).sum(-1, keepdim=True)
     lseg = lse.reshape(b, n_kv, g, s, 1)
     q_pos = (t - s) + torch.arange(s, device=q.device)
     mag_dq = torch.zeros_like(qa)
+    sq_dq = torch.zeros_like(qa)           # sum_j (dS_ij K_jd)^2
     mag_dk = torch.empty((b, n_kv, t, d), device=q.device)
     mag_dv = torch.empty_like(mag_dk)
     for lo in range(0, t, chunk):
@@ -376,16 +416,21 @@ def flash_bwd_row_floors(q, k, v, o, do, lse, *, causal=True,
         k_pos = torch.arange(lo, hi, device=q.device)
         mask = _kept(k_pos[None, :], q_pos[:, None], t, causal, window,
                      meta_len)
-        sc = torch.einsum("bkgsd,bktd->bkgst",
-                          q.reshape(b, n_kv, g, s, d).float(), kc) * scale
+        sc = torch.einsum("bkgsd,bktd->bkgst", qf, kc) * scale
         p = torch.where(mask, torch.exp(sc - lseg), 0.0)
         a = p * (torch.einsum("bkgsd,bktd->bkgst", doa, vc.abs()) + deltaa)
         mag_dq += torch.einsum("bkgst,bktd->bkgsd", a, kc.abs())
         mag_dk[:, :, lo:hi] = torch.einsum("bkgst,bkgsd->bktd", a, qa)
         mag_dv[:, :, lo:hi] = torch.einsum("bkgst,bkgsd->bktd", p, doa)
-    return tuple(2 * d * EPS32 * m.reshape(-1, d).amax(-1) * f
-                 for m, f in ((mag_dq, scale), (mag_dk, scale),
-                              (mag_dv, 1.0)))
+        if unit:
+            ds = p * (torch.einsum("bkgsd,bktd->bkgst", dof, vc) - delta)
+            sq_dq += torch.einsum("bkgst,bktd->bkgsd", ds.square(),
+                                  kc.square())
+    reorder = 2 * d * EPS32
+    floor_dq = reorder * mag_dq + DS_ROUNDING_SIGMAS * unit * sq_dq.sqrt()
+    return tuple(m.reshape(-1, d).amax(-1) * f
+                 for m, f in ((floor_dq, scale), (reorder * mag_dk, scale),
+                              (reorder * mag_dv, 1.0)))
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,

@@ -1,7 +1,7 @@
-"""repro_torch.models.lm — the LM path of the port (dense and MoE
-families): ``init_params``, ``loss_fn``, ``prefill``, ``decode_step`` and
-their building blocks (``layers``, ``attention``, ``moe``,
-``transformer``)."""
+"""repro_torch.models.lm — the LM path of the port (every family: dense,
+MoE, ssm, hybrid, audio and vlm): ``init_params``, ``loss_fn``,
+``prefill``, ``decode_step`` and their building blocks (``layers``,
+``attention``, ``moe``, ``mamba2``, ``transformer``)."""
 from repro_torch.models.lm.transformer import (PORTED_FAMILIES, Model,
                                                decode_step, forward_hidden,
                                                init_cache, init_params,

@@ -1,5 +1,5 @@
-"""Config-driven LM training and serving: the dense, MoE, ssm (mamba2)
-and hybrid (hymba) families.
+"""Config-driven LM training and serving: the dense, MoE, ssm (mamba2),
+hybrid (hymba), audio (hubert) and vlm (internvl2) families.
 
 Params are the reference's pytree as a dict of tensors: the same keys,
 layers stacked on a leading L axis (``params["layers"]["attn"]["wq"]`` is
@@ -43,7 +43,14 @@ conv tail in the same pass as its K / V (the reference replays the
 mixers in a second pass; the states are the same function of the same
 inputs). Decode runs the mixer's one-token recurrence.
 
-Not ported yet (ROADMAP queue 1, item 3): the audio and vlm front ends.
+The front ends are the reference's stubs (``_embed_batch``): the input
+sequence is [meta tokens? | image prefix? | tokens or frames]. An audio
+batch carries ``frames`` (B, S, d_model), precomputed frame embeddings
+used as they are (no embedding lookup), and its encoder attends without
+the causal mask (``cfg.causal`` False); a vlm batch may carry
+``image_emb`` (B, n_prefix_tokens, d_model), prepended to the token
+embeddings, so RoPE counts its positions, the causal mask covers it,
+``prefill`` puts it in the cache's first slots and ``loss_fn`` skips it.
 """
 from __future__ import annotations
 
@@ -66,15 +73,7 @@ __all__ = ["Model", "init_params", "init_cache", "loss_fn", "prefill",
            "decode_step", "forward_hidden", "params_from_jax",
            "PORTED_FAMILIES", "REMAT_POLICIES"]
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch yet (ROADMAP queue 1, item 3: the audio and vlm "
-            f"front ends); ported: {PORTED_FAMILIES}")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 # ==========================================================================
@@ -129,7 +128,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """Random params from ``generator`` (drawn on its device, stored on
     ``device`` in the config's dtype), the reference's init rules."""
-    _check_ported(cfg)
     dt = dtype_of(cfg)
     params = {
         "embed": truncated_normal_init(
@@ -235,8 +233,14 @@ def _block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
 # ==========================================================================
 
 def _embed_batch(cfg: ModelConfig, params: dict, batch: dict):
-    """The input sequence: [meta tokens | token embeddings]."""
-    x = params["embed"][batch["tokens"].long()]
+    """The input sequence: [meta tokens? | image prefix? | token
+    embeddings or audio frames], in the config's dtype."""
+    if cfg.family == "audio":
+        x = batch["frames"].to(dtype_of(cfg))     # the stub front end's
+    else:
+        x = params["embed"][batch["tokens"].long()]
+    if cfg.family == "vlm" and "image_emb" in batch:
+        x = torch.cat([batch["image_emb"].to(x.dtype), x], dim=1)
     if cfg.n_meta_tokens:
         meta = params["meta"][None].expand(x.shape[0], -1, -1).to(x.dtype)
         x = torch.cat([meta, x], dim=1)
@@ -311,7 +315,6 @@ def _run_layers(cfg, params, x, positions, kv_sink=None, ssm_sink=None):
 
 def forward_hidden(cfg: ModelConfig, params: dict, batch: dict) -> tuple:
     """Embeds, runs all layers, final norm. -> (hidden, aux loss)."""
-    _check_ported(cfg)
     x = _embed_batch(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux = _run_layers(cfg, params, x, positions)
@@ -323,7 +326,8 @@ def _chunked_xent(cfg: ModelConfig, params: dict, h: torch.Tensor,
     """Mean-per-token cross-entropy over B·S without the whole (B, S, V)
     logits at once: fp32 logits a chunk of ``cfg.logit_chunk`` positions
     at a time, the remainder chunk last, as the reference sums them.
-    ``prefix_len`` leading positions are skipped."""
+    ``prefix_len`` leading positions (meta tokens, an image prefix) are
+    skipped."""
     b = h.shape[0]
     h = h[:, prefix_len:]
     s = h.shape[1]
@@ -339,13 +343,16 @@ def _chunked_xent(cfg: ModelConfig, params: dict, h: torch.Tensor,
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple:
-    """-> (scalar loss, {"xent", "aux"}): the mean next-token
-    cross-entropy of ``batch["tokens"]`` against ``batch["targets"]``
-    ((B, S) ints) plus ``cfg.router_aux_weight`` x the summed MoE
-    load-balancing loss."""
+    """-> (scalar loss, {"xent", "aux"}): the mean cross-entropy of the
+    positions of ``batch["tokens"]`` (an audio batch's ``frames``)
+    against ``batch["targets"]`` ((B, S) ints; the meta tokens' and an
+    image prefix's positions skipped) plus ``cfg.router_aux_weight`` x
+    the summed MoE load-balancing loss."""
     hidden, aux = forward_hidden(cfg, params, batch)
-    xent = _chunked_xent(cfg, params, hidden, batch["targets"],
-                         cfg.n_meta_tokens)
+    prefix = cfg.n_meta_tokens + (
+        cfg.n_prefix_tokens if cfg.family == "vlm" and "image_emb" in batch
+        else 0)
+    xent = _chunked_xent(cfg, params, hidden, batch["targets"], prefix)
     loss = xent + cfg.router_aux_weight * aux
     return loss, {"xent": xent, "aux": aux}
 
@@ -368,7 +375,6 @@ def init_cache(cfg: ModelConfig, batch_size: int, capacity: int,
     """Empty decode cache: with attention zero K/V (L, B, KV, C, Dh) and
     every slot -1; with a mixer (ssm, hybrid) zero fp32 SSM states (L, B,
     H, P, N) and conv tails (L, B, d_conv - 1, conv_dim)."""
-    _check_ported(cfg)
     dt = dtype_of(cfg)
     l = cfg.n_layers
     cache = {"pos": torch.zeros((batch_size,), dtype=torch.int32,
@@ -393,10 +399,11 @@ def init_cache(cfg: ModelConfig, batch_size: int, capacity: int,
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, capacity: int
             ) -> tuple:
-    """Process a full prompt (``batch["tokens"]``, (B, S) int); return
-    (cache, last-token logits (B, 1, vocab_padded)). The meta tokens, where
-    the config has them, come first and take the cache's first slots."""
-    _check_ported(cfg)
+    """Process a full prompt (``batch["tokens"]``, (B, S) int, or an audio
+    batch's ``frames``); return (cache, last-position logits (B, 1,
+    vocab_padded)). The meta tokens, where the config has them, and then
+    a vlm batch's ``image_emb`` come first and take the cache's first
+    slots."""
     x = _embed_batch(cfg, params, batch)
     b, s, _ = x.shape
     if capacity < s:
@@ -432,7 +439,6 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     SSM state and conv tail, are written into the cache's tensors in place
     (the returned cache holds the same tensors); ``pos`` and ``slot_pos``
     are new tensors."""
-    _check_ported(cfg)
     b = tokens.shape[0]
     pos = cache["pos"]                                  # (B,)
     x = params["embed"][tokens.long()]                  # (B, 1, D)

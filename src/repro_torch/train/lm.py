@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import transformer as T
+from repro_torch.models.lm.layers import dtype_of
 from repro_torch.models.lm.moe import tie_expert_replica_grads
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import (ef_compress_update, ef_init,
@@ -34,7 +35,7 @@ from repro_torch.train.fault_tolerance import InPlaceUpdate
 
 __all__ = ["TrainState", "make_train_state", "make_train_step",
            "make_data_parallel_step", "loss_and_grads", "make_prefill_step",
-           "make_decode_step"]
+           "make_decode_step", "shaped_batch"]
 
 _DISTRIBUTED = ("data-parallel steps are not ported yet (ROADMAP.md queue "
                 "1, item 5: distributed)")
@@ -86,7 +87,9 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
                     compression: bool = False, sync_axis=None):
     """Returns (step_fn, opt). ``step_fn(state, batch) -> (state,
     metrics)``: ``batch`` is ``{"tokens", "targets"}`` ((B, S) int
-    tensors on the params' device), metrics ``loss``, ``xent``, ``aux``
+    tensors on the params' device; :func:`shaped_batch` names each
+    family's keys: ``frames`` for audio, ``image_emb`` beside the tokens
+    for vlm), metrics ``loss``, ``xent``, ``aux``
     and ``grad_norm`` (device scalars; the norm is the global norm of the
     gradients the optimizer receives, before clipping). The order is the
     reference's: gradients (averaged over ``accum`` microbatches in fp32)
@@ -151,3 +154,31 @@ def make_decode_step(cfg: ModelConfig):
     def dec(params, cache, tokens):
         return T.decode_step(cfg, params, cache, tokens)
     return dec
+
+
+def shaped_batch(cfg: ModelConfig, batch_size: int, seq_len: int,
+                 mesh=None) -> dict:
+    """The batch ``make_train_step`` takes for ``cfg`` at ``seq_len``
+    positions, as tensors on the ``meta`` device (shapes and dtypes, no
+    storage), with the reference's keys: audio ``frames`` (B, S,
+    d_model) in the config's dtype and ``targets``; vlm ``tokens`` and
+    ``targets`` of ``seq_len - n_prefix_tokens`` and ``image_emb`` (B,
+    n_prefix_tokens, d_model); the others ``tokens`` and ``targets``;
+    ints int32. ``mesh`` (shardings) raises NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError(f"shaped_batch(mesh=...): {_DISTRIBUTED}")
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    i32, dt = torch.int32, dtype_of(cfg)
+    if cfg.family == "audio":
+        return {"frames": spec((batch_size, seq_len, cfg.d_model), dt),
+                "targets": spec((batch_size, seq_len), i32)}
+    if cfg.family == "vlm":
+        text = seq_len - cfg.n_prefix_tokens
+        return {"tokens": spec((batch_size, text), i32),
+                "image_emb": spec((batch_size, cfg.n_prefix_tokens,
+                                   cfg.d_model), dt),
+                "targets": spec((batch_size, text), i32)}
+    return {"tokens": spec((batch_size, seq_len), i32),
+            "targets": spec((batch_size, seq_len), i32)}

@@ -2217,3 +2217,207 @@ def test_ssm_and_hybrid_smoke_on_card_match_cpu(card, arch):
     if cfg.has_attention:
         assert tops.kernel_launches()["flash_attention_bwd"] == \
             2 * cfg.n_layers
+
+
+# hubert-xlarge's head dim 80 (bf16 only: both kernels run D 128's tiles
+# padded on chip) and the encoder's path without the causal mask, at S = T
+# not a multiple of any tile and at S < T
+_D80_CASES = [
+    (1, 16, 16, 4000, 4000, False),      # hubert's heads, S = T = 4,000
+    (2, 4, 4, 333, 700, False),          # S < T, ragged S
+    (1, 4, 2, 4000, 4000, True),         # causal, G = 2
+    (2, 4, 2, 200, 333, True)]           # causal, S < T
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# hubert-xlarge's attention (non-causal, D 80) and internvl2-2b's (causal,
+# GQA 16 / 8, D 128) at their full shapes
+_FAULT_CASES = [(4, 16, 16, 4096, 4096, 80, False),
+                (4, 16, 8, 3072, 3072, 128, True)]
+
+
+# common: the scale of a part the keys share (their own part is 0.3 x a
+# normal draw), so that dQ's rows cancel (dS sums to zero over a row); at
+# 8 dQ cancels so far that the kernel and the plain version, which round
+# dS at slightly different fp32 values, differ by more than 2^-7 of dQ's
+# max, and the whole-tensor check (no floor) fails for that alone
+@pytest.mark.parametrize("common", [0.0, 2.0])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", _FAULT_CASES)
+def test_flash_bwd_row_check_catches_planted_faults(card, b, hq, hkv, s, t,
+                                                    d, causal, common):
+    """The backward's row check at the front ends' full attention shapes:
+    the kernel's dq, dk and dv pass ``chip_smoke.check_flash_bwd`` (the
+    plain version, and row by row past ``flash_bwd_row_floors`` the fp32
+    oracle), also with a common part in the keys, where dQ's rows cancel
+    and its floor takes dS's bf16 rounding; and each fault it plants in
+    them (two keys or one 64 x 64 tile missing from dQ, one tile or two
+    queries missing from dK or dV) fails the row check."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(s + d + int(common))
+    q = _randn(rng, (b, hq, s, d), torch.bfloat16, card)
+    k = (0.3 * _randn(rng, (b, hkv, t, d), torch.float32, card)
+         + common * _randn(rng, (1, 1, 1, d), torch.float32, card)
+         ).bfloat16()
+    v = _randn(rng, (b, hkv, t, d), torch.bfloat16, card)
+    do = _randn(rng, (b, hq, s, d), torch.bfloat16, card)
+    kw = dict(causal=causal, window=None, meta_len=0)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    out = smoke.check_flash_bwd(q, k, v, o, do, lse, got, kw,
+                                f"{tuple(q.shape)}/{tuple(k.shape)} "
+                                f"causal={causal} common={common}")
+    assert out["row_err_over_row_max"] <= smoke.LM_TOL
+    assert len(out["planted_faults"]) == 6
+
+
+def _fwd_bwd_against_plain_and_oracle(card, b, hq, hkv, s, t, d, causal,
+                                      seed):
+    """bf16 forward with its LSE and backward at (b, hq, hkv, s, t, d):
+    each launched twice for the same bits and counted on the ``wgmma``
+    instances; the output held by ``chip_smoke.check_lm_launch`` against
+    the plain version and, row by row, the fp32 oracle (the backward's
+    rows past ``flash_bwd_row_floors``), the LSE within 1e-3 of the
+    oracle's (fp32 sums of D products in another order, scores ~10)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain,
+        flash_attention_plain_lse, flash_bwd_row_floors)
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (b, hq, s, d), torch.bfloat16, card)
+    k = _randn(rng, (b, hkv, t, d), torch.bfloat16, card)
+    v = _randn(rng, (b, hkv, t, d), torch.bfloat16, card)
+    do = _randn(rng, (b, hq, s, d), torch.bfloat16, card)
+    kw = dict(causal=causal)
+    shape = f"{tuple(q.shape)}/{tuple(k.shape)} causal={causal}"
+    tops.reset_kernel_launches()
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    o2, lse2 = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches_by_instance == {"wgmma": 2,
+                                                         "f32": 0}
+    assert flash_attention_bwd_cuda.launches_by_instance == {
+        "wgmma": 2, "wmma": 0, "f32": 0}
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want_o, want_lse = flash_attention_plain_lse(q.float(), k.float(),
+                                                 v.float(), **kw)
+    smoke.check_lm_launch(dict(name="forward", shape=shape), o,
+                          flash_attention_plain(q, k, v, **kw), want_o)
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    del want_o, want_lse, o2, lse2, again
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    oracle = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                       o.float(), do.float(), lse, **kw)
+    floors = flash_bwd_row_floors(q, k, v, o, do, lse, **kw)
+    for name, g, w, orc, fl in zip(("dq", "dk", "dv"), got, want, oracle,
+                                   floors):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        smoke.check_lm_launch(dict(name=name, shape=shape), g, w, orc,
+                              row_floor=fl)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,causal", _D80_CASES)
+def test_flash_attention_d80_matches_plain_and_oracle(card, b, hq, hkv, s, t,
+                                                      causal):
+    """bf16 at D 80, forward with its LSE and backward, non-causal and
+    causal, against the plain versions and the fp32 oracle; two launches
+    of each give the same bits."""
+    _fwd_bwd_against_plain_and_oracle(card, b, hq, hkv, s, t, 80, causal,
+                                      seed=s + t + 80)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("b,hq,hkv,s,t", [(1, 4, 2, 4000, 4000),
+                                          (2, 4, 4, 300, 700)])
+def test_flash_attention_noncausal_every_bf16_instance(card, d, b, hq, hkv,
+                                                       s, t):
+    """The encoder's path (``causal=False``) on the bf16 ``wgmma``
+    instances at D 64, 128 and 256: the forward walks every KV tile, the
+    dK / dV kernel every query tile, the dQ kernel every key tile."""
+    _fwd_bwd_against_plain_and_oracle(card, b, hq, hkv, s, t, d, False,
+                                      seed=s + t + d)
+
+
+def test_flash_attention_fp32_d80_raises(card):
+    """fp32 at D 80 is not built: both wrappers raise a ValueError that
+    names it, and launch nothing."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    q = torch.zeros((1, 2, 64, 80), device=card)
+    lse = torch.zeros((1, 2, 64), device=card)
+    tops.reset_kernel_launches()
+    with pytest.raises(ValueError, match="fp32 at head dim 80"):
+        flash_attention_cuda(q, q, q, causal=False)
+    with pytest.raises(ValueError, match="fp32 at head dim 80"):
+        flash_attention_bwd_cuda(q, q, q, q, q, lse, causal=False)
+    assert flash_attention_cuda.launches == 0
+    assert flash_attention_bwd_cuda.launches == 0
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-2b"])
+def test_frontends_smoke_on_card_match_cpu(card, arch):
+    """The fp32 smoke configs on the card against the port's CPU run from
+    the same weights: hubert's forward (frames, non-causal) and
+    internvl2's prefill of an image prefix and tokens + 4 decode steps
+    within atol 1e-4 of the logits, 2 train steps' losses within rtol
+    1e-4; the flash kernels run, forward and backward."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.models.lm import transformer as TT
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import lm as TL
+    cfg = get_smoke_config(arch)
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    p_card = tree_map(lambda x: x.to(card), p_cpu)
+    rng = np.random.default_rng(4)
+    batch = {}
+    for key, spec in TL.shaped_batch(cfg, 2, 80).items():
+        batch[key] = torch.from_numpy(
+            rng.integers(0, cfg.vocab, tuple(spec.shape)).astype(np.int32)
+            if spec.dtype == torch.int32 else
+            rng.standard_normal(tuple(spec.shape)).astype(np.float32))
+    on_card = {k: v.to(card) for k, v in batch.items()}
+    tops.reset_kernel_launches()
+    if cfg.family == "audio":
+        h_card, _ = lm.forward_hidden(cfg, p_card, on_card)
+        h_cpu, _ = lm.forward_hidden(cfg, p_cpu, batch)
+        errs = [float((TT._unembed(cfg, p_card, h_card).cpu()
+                       - TT._unembed(cfg, p_cpu, h_cpu)).abs().max())]
+    else:
+        prompt = {k: v for k, v in batch.items() if k != "targets"}
+        c_card, l_card = lm.prefill(cfg, p_card, {
+            k: v.to(card) for k, v in prompt.items()}, 90)
+        c_cpu, l_cpu = lm.prefill(cfg, p_cpu, prompt, 90)
+        errs = [float((l_card.cpu() - l_cpu).abs().max())]
+        for i in range(4):
+            tok = batch["tokens"][:, i:i + 1]
+            l_card, c_card = lm.decode_step(cfg, p_card, c_card,
+                                            tok.to(card))
+            l_cpu, c_cpu = lm.decode_step(cfg, p_cpu, c_cpu, tok)
+            errs.append(float((l_card.cpu() - l_cpu).abs().max()))
+    assert max(errs) <= 1e-4, errs
+    assert tops.kernel_launches()["flash_attention"] == cfg.n_layers
+    step, opt = TL.make_train_step(cfg)
+    cpu = TL.TrainState(tree_map(torch.clone, p_cpu), opt.init(p_cpu), None)
+    dev = TL.TrainState(p_card, opt.init(p_card), None)
+    for i in range(2):
+        dev, m_card = step(dev, on_card)
+        cpu, m_cpu = step(cpu, batch)
+        lc, lp = float(m_card["loss"]), float(m_cpu["loss"])
+        assert abs(lc - lp) <= 1e-4 * abs(lp), (i, lc, lp)
+    assert tops.kernel_launches()["flash_attention_bwd"] == 2 * cfg.n_layers

@@ -6,7 +6,8 @@ run here, so its tile walk is emulated in PyTorch at the tiles
 ``flash_bwd_tiles`` names for the head dim: at D 64 and 128 the dK / dV
 kernel's 128-key CTAs of two 64-key warpgroups over 64-query ring stages
 and the dQ kernel's 128-query CTAs of two 64-query warpgroups over 64-key
-stages; at D 256 64-key and 64-query CTAs whose two warpgroups split the
+stages (D 80 on these tiles too: its on-chip zero columns past 80 leave
+every sum as it is); at D 256 64-key and 64-query CTAs whose two warpgroups split the
 head dim (which leaves every output element's sum as it is). Each walks
 the tiles that ``flash_bwd_dkdv_tiles`` / ``flash_bwd_dq_tiles`` name,
 skipping or masking each group of 64 rows as ``flash_bwd_tile_test``
@@ -18,7 +19,8 @@ reference value (the same sums in another order over at most a few
 hundred terms). Also: the instance routing, ``ragged_gemm_plain`` with
 ``transpose_w`` bitwise against the plain version on a copied Wᵀ, and
 every full-width config of a ported family at a head dim the kernels
-take.
+take, and ``flash_bwd_row_floors``: the plain version's bf16 rows within
+the card's row check of the fp32 oracle, dropped keys outside it.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.configs import arch_names, get_config
 from repro_torch.kernels.flash_attention import (
     HEAD_DIMS, flash_attention_bwd_plain, flash_attention_plain_lse,
     flash_bwd_dkdv_tiles, flash_bwd_dq_tiles, flash_bwd_instance,
-    flash_bwd_tile_test, flash_bwd_tiles)
+    flash_bwd_row_floors, flash_bwd_tile_test, flash_bwd_tiles)
 from repro_torch.kernels.ragged_gemm import ragged_gemm_plain
 from repro_torch.models.lm import PORTED_FAMILIES
 
@@ -166,7 +168,7 @@ def _tiled_bwd(q, k, v, o, do, lse, *, causal, window):
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("b,hq,hkv,s,t,causal,window", [
     (1, 4, 1, 200, 333, True, None),      # S < T, G = 4, ragged tiles
     (1, 2, 2, 130, 130, False, None),     # not causal, G = 1
@@ -200,7 +202,7 @@ def test_tile_walk_matches_plain_and_jax_grad(b, hq, hkv, s, t, causal,
         _close(g_, np.asarray(w_), f"d{name} against jax.grad")
 
 
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [80, 128, 256])
 @pytest.mark.parametrize("s,t,causal,window", [
     (2048, 2048, True, None), (200, 333, True, None), (150, 150, True, 70),
     (100, 190, False, 40), (77, 300, False, None)])
@@ -256,11 +258,14 @@ def test_tile_tests_agree_with_the_mask(s, t, causal, window, d):
 def test_backward_instances_route_by_dtype_and_head_dim():
     assert flash_bwd_instance(torch.bfloat16, 128) == "wgmma"
     assert flash_bwd_instance(torch.bfloat16, 64) == "wgmma"
+    assert flash_bwd_instance(torch.bfloat16, 80) == "wgmma"
     assert flash_bwd_instance(torch.bfloat16, 32) == "wmma"
     assert flash_bwd_instance(torch.bfloat16, 256) == "wgmma"
     assert flash_bwd_instance(torch.float32, 128) == "f32"
     with pytest.raises(ValueError, match="227 KB"):
         flash_bwd_instance(torch.float32, 256)
+    with pytest.raises(ValueError, match="fp32 at head dim 80"):
+        flash_bwd_instance(torch.float32, 80)
     with pytest.raises(ValueError, match="not built"):
         flash_bwd_instance(torch.bfloat16, 96)
 
@@ -286,9 +291,75 @@ def test_ragged_plain_transpose_w_is_bitwise(dtype, e, c, d, f):
 def test_every_ported_config_has_a_built_head_dim():
     """Every full-width config of a ported family runs its attention
     through the flash kernels on the card, so its head dim must be one
-    they are built for (gemma-7b's is 256)."""
+    they are built for (gemma-7b's is 256, hubert-xlarge's 80); every
+    config's family is ported."""
     dims = {a: get_config(a).head_dim for a in arch_names()
             if get_config(a).family in PORTED_FAMILIES}
-    assert dims["gemma-7b"] == 256
+    assert set(dims) == set(arch_names())
+    assert dims["gemma-7b"] == 256 and dims["hubert-xlarge"] == 80
     missing = {a: d for a, d in dims.items() if d not in HEAD_DIMS}
     assert not missing, missing
+
+
+def _row_check_ratio(out, oracle, floor):
+    """``chip_smoke.check_lm_launch``'s row measure: each row's max |out
+    - oracle| less its floor, over the row's max |oracle| (at least 2^-24
+    x the largest); the worst row."""
+    width = out.shape[-1]
+    err = (out.float() - oracle).abs().reshape(-1, width).amax(-1)
+    err = (err - floor).clamp(min=0.0)
+    row_max = oracle.abs().reshape(-1, width).amax(-1)
+    low = max(2.0 ** -24 * float(row_max.max()), 1e-30)
+    return float((err / row_max.clamp(min=low)).max())
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("common,causal,d,t", [
+    (0.0, False, 64, 256), (8.0, False, 64, 256), (8.0, True, 80, 384),
+    (50.0, False, 128, 256)])
+def test_row_floors_cover_bf16_operands_and_catch_dropped_keys(
+        common, causal, d, t):
+    """``flash_bwd_row_floors`` for bf16 inputs: the plain version (P and
+    dS rounded to bf16 as operands, the kernel's arithmetic) passes the
+    card's row check against the fp32 oracle (2^-7 of each row past its
+    floor), also where the keys share a common part, so that dQ's rows
+    cancel (dS sums to zero over a row) and a floor of fp32 reordering
+    alone does not cover dS's rounding; dK's and dV's floors are that
+    reordering floor alone. Each fault that ``chip_smoke.check_flash_bwd``
+    plants (two keys or one 64 x 64 tile missing from dQ, one tile or two
+    queries missing from dK or dV) fails it."""
+    tol = 2.0 ** -7
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(int(common) + t + d)
+    b, hq, hkv, s = 1, 4, 2, t
+
+    def randn(*shape):
+        return torch.from_numpy(_rand(rng, *shape))
+    q = randn(b, hq, s, d).bfloat16()
+    k = (0.3 * randn(b, hkv, t, d) + common * randn(1, 1, 1, d)).bfloat16()
+    v, do = randn(b, hkv, t, d).bfloat16(), randn(b, hq, s, d).bfloat16()
+    kw = dict(causal=causal, window=None, meta_len=0)
+    o, lse = flash_attention_plain_lse(q.float(), k.float(), v.float(), **kw)
+    o = o.bfloat16()
+    args32 = [x.float() for x in (q, k, v, o, do)] + [lse]
+    oracle = flash_attention_bwd_plain(*args32, **kw)
+    got = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    floors = flash_bwd_row_floors(q, k, v, o, do, lse, **kw)
+    reorder_only = flash_bwd_row_floors(*args32, **kw)
+    assert torch.equal(floors[1], reorder_only[1])
+    assert torch.equal(floors[2], reorder_only[2])
+    if common:
+        assert _row_check_ratio(got[0], oracle[0], reorder_only[0]) > tol
+    out = smoke.check_flash_bwd(q, k, v, o, do, lse, got, kw, "cpu")
+    assert out["row_err_over_row_max"] <= tol
+    assert len(out["planted_faults"]) == 6
+    assert all(f["row"] > tol for f in out["planted_faults"].values())

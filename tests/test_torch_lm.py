@@ -48,7 +48,6 @@ from repro_torch.train.lm import make_decode_step, make_prefill_step
 OP_TOL = dict(atol=1e-5, rtol=1e-5)
 SERVE_ARCHS = ("phi3.5-moe-42b-a6.6b", "mixtral-8x7b", "llama3-8b",
                "qwen2-1.5b", "gemma-7b")
-UNPORTED = ("hubert-xlarge", "internvl2-2b")
 
 
 def _t(a):
@@ -461,18 +460,6 @@ def test_init_params_shapes_and_init_rule():
         assert str(node.dtype).endswith(str(spec.dtype)), path
     wg = params["layers"]["moe"]["wg"]
     assert abs(float(wg.std()) - 0.5 * 0.88) < 0.02   # trunc(±2) std 0.88
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TLM.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TLM.prefill(cfg, {}, {"tokens": torch.zeros((1, 4),
-                                                    dtype=torch.int32)}, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TLM.decode_step(cfg, {}, {}, torch.zeros((1, 1), dtype=torch.int32))
 
 
 def test_entry_points_default_to_cuda():

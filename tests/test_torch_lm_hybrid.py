@@ -222,7 +222,10 @@ WALK_CASES = [
     (200, 450, True, 70, 130),         # S < T, sinks past a tile
     (260, 260, False, 50, 64),         # not causal
     (150, 150, True, 40, 0),           # no sinks: the old walk
-    (256, 256, True, None, 128)]       # no window: sinks change nothing
+    (256, 256, True, None, 128),       # no window: sinks change nothing
+    (1000, 1000, False, None, 0),      # an encoder: S % 64 != 0
+    (200, 450, False, None, 0),        # an encoder, S < T
+    (77, 300, False, None, 0)]         # S < T, one ragged query tile
 
 
 @pytest.mark.parametrize("bk", [64, 128])
@@ -249,7 +252,7 @@ def test_forward_walk_covers_every_kept_pair_once(s, t, causal, window,
             assert tiles == band
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("s,t,causal,window,meta_len", WALK_CASES[1:])
 def test_backward_walks_and_tile_tests_with_sinks(s, t, causal, window,
                                                   meta_len, d):
