@@ -276,8 +276,9 @@ failure:
    non-causal, bf16) as a kernel case: the forward with its LSE and the
    backward, each against its plain version and the fp32 oracle,
    launched twice for the same bits, timed (CUDA events and a device
-   trace) beside its bound at the true D 80, the bound of the padded
-   work the design runs, its plain version and SDPA (``is_causal=False``);
+   trace) beside its bound over the kept pairs, the bound of the work
+   the design runs (the backward's seven products), its plain version
+   and SDPA (``is_causal=False``);
    (d) both trained whole at full width through phase 12's checks:
    hubert on 4 x 4,096 frames with cluster targets, internvl2 on 4 x
    (1,024 image + 2,048 text) positions; (e) the fp32 smoke configs on
@@ -409,9 +410,12 @@ def ptxas_function(line: str) -> str:
 
 def ptxas_report(text: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads}} of every function
-    in nvcc's ``-Xptxas -v`` output, and ptxas's warnings under
-    ``"warnings"`` (C7512 there means serialised wgmmas)."""
-    out: dict = {"warnings": []}
+    in nvcc's ``-Xptxas -v`` output, ptxas's warnings under
+    ``"warnings"``, and under ``"performance_loss"`` its "Potential
+    Performance Loss" notes as "(code) kernel" (C7511 / C7512: the
+    kernel's wgmmas serialised for want of registers; the notes are
+    ptxas info lines, not warnings)."""
+    out: dict = {"warnings": [], "performance_loss": []}
     fn = ""
     for line in text.splitlines():
         if "Function properties for" in line:
@@ -427,15 +431,22 @@ def ptxas_report(text: str) -> dict:
         elif "Used" in line and "registers" in line and fn:
             out[fn]["registers"] = int(re.search(r"Used (\d+) registers",
                                                  line).group(1))
+        elif "Potential Performance Loss" in line:
+            code = re.search(r"\(C\d+\)", line)
+            name = re.search(r"function '([^']+)'", line)
+            out["performance_loss"].append(
+                f"{code.group() if code else '(?)'} "
+                f"{ptxas_function('in ' + name.group(1)) if name else line.strip()[:150]}")
         elif "warning" in line.lower():
             out["warnings"].append(line.strip()[:200])
     return out
 
 
-# the kernels this slice added (the flash forward and backward instances
-# at hubert-xlarge's head dim 80, on D 128's tiles padded on chip): phase
-# 1 logs their registers and spills on a line of their own
-NEW_KERNELS = ("flash_attention_wgmma_kernel<80>",
+# the kernels this slice redesigned (the flash forward and backward
+# instances at hubert-xlarge's head dim 80, at its true width; the
+# forward's two warpgroups in ping-pong): phase 1 logs their registers
+# and spills on a line of their own
+NEW_KERNELS = ("flash_attention_wgmma_d80_kernel",
                "flash_bwd_dkdv_wgmma_kernel<80>",
                "flash_bwd_dq_wgmma_kernel<80>")
 
@@ -3968,9 +3979,8 @@ def attention_case(c: dict, seed: int, bwd_kernels: tuple) -> dict:
     each timed: CUDA
     events, the device trace (the backward's kernels ``bwd_kernels`` one
     by one), its bound over the kept pairs (the larger of its operations
-    at 989 TFLOP/s and its bytes at 3.35 TB/s), the bound of the work
-    the design runs (S and dP at the true depth, the products into O,
-    dV, dK, dQ at ``flash_padded_dim``; seven products in the backward),
+    at 989 TFLOP/s and its bytes at 3.35 TB/s; the backward's also over
+    the seven products it runs, ``bound_7_ms``),
     its plain version, and SDPA given the same mask (``is_causal``
     without a window, else a boolean mask of the kept pairs; a yardstick
     the port never calls)."""
@@ -3980,8 +3990,8 @@ def attention_case(c: dict, seed: int, bwd_kernels: tuple) -> dict:
     from repro_torch.kernels.flash_attention import (
         _kept, flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_cuda, flash_attention_plain,
-        flash_attention_plain_lse, flash_padded_dim)
-    d, dp = c["d"], flash_padded_dim(c["d"])
+        flash_attention_plain_lse)
+    d = c["d"]
     kw = dict(causal=c.get("causal", True), window=c.get("window"),
               meta_len=c.get("meta_len", 0))
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -4003,7 +4013,7 @@ def attention_case(c: dict, seed: int, bwd_kernels: tuple) -> dict:
         raise AssertionError(f"{shape} forward: two launches differ, or ran "
                              f"{fwd_inst}")
     del o2, lse2
-    fwd = dict(name="flash_attention", shape=shape, padded_dim=dp)
+    fwd = dict(name="flash_attention", shape=shape)
     want_o, want_lse = flash_attention_plain_lse(q.float(), k.float(),
                                                  v.float(), **kw)
     check_lm_launch(fwd, o, flash_attention_plain(q, k, v, **kw), want_o)
@@ -4023,22 +4033,18 @@ def attention_case(c: dict, seed: int, bwd_kernels: tuple) -> dict:
                              f"launches differ")
     del again
     bwd = dict(name="flash_attention_bwd", shape=shape, instance="wgmma",
-               padded_dim=dp, **check_flash_bwd(q, k, v, o, do, lse, got, kw,
-                                                shape))
+               **check_flash_bwd(q, k, v, o, do, lse, got, kw, shape))
     del got
     torch.cuda.synchronize()
     pairs = attention_pairs(c["s"], c["t"], **kw) * c["b"] * c["hq"]
     elem = q.element_size()
-    for case, flops, run_flops, nbytes in (
-            (fwd, 4 * d * pairs, 2 * (d + dp) * pairs,
-             (2 * q.numel() + 2 * k.numel()) * elem),
-            (bwd, 10 * d * pairs, 2 * (4 * d + 3 * dp) * pairs,
+    for case, flops, nbytes in (
+            (fwd, 4 * d * pairs, (2 * q.numel() + 2 * k.numel()) * elem),
+            (bwd, 10 * d * pairs,
              (4 * q.numel() + 4 * k.numel()) * elem + lse.numel() * 4)):
         t_bytes, t_ops = H100.mem_time(nbytes), flops / H100.peak_flops
         case.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bound_padded_ms=max(t_bytes,
-                                        run_flops / H100.peak_flops) * 1e3,
                     flops=flops, bytes=nbytes, pairs=pairs)
     bwd["bound_7_ms"] = max(H100.mem_time(bwd["bytes"]),
                             bwd["flops"] * 7 / 5 / H100.peak_flops) * 1e3
@@ -5166,8 +5172,7 @@ def frontends_phase() -> dict:
         log(f"  hubert D 80 {c['name']:20s} {c['shape']:44s} ms "
             f"{c['ms']:.4f} device {fmt_ms(c['device_ms'])} plain "
             f"{c['plain_ms']:.4f} bound {c['bound_ms']:.4f} "
-            f"({c['bound_by']}; the padded design's work "
-            f"{c['bound_padded_ms']:.4f}) SDPA {fmt_ms(c['library_ms'])}; "
+            f"({c['bound_by']}) SDPA {fmt_ms(c['library_ms'])}; "
             f"max|diff| / max|plain| {c['err_over_max']:.2e}, row "
             f"{c['row_err_over_row_max']:.2e} (tolerance {LM_TOL}); two "
             f"launches bitwise equal")
@@ -5200,8 +5205,8 @@ def frontends_phase() -> dict:
 def d80_keys(case: dict) -> dict:
     """The kernels line's ``d80_*`` keys of a phase 15 (c) case (hubert's
     attention at head dim 80, non-causal)."""
-    keys = ("shape", "padded_dim", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "bound_padded_ms", "library_ms", "err_over_max",
+    keys = ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_7_ms", "library_ms", "err_over_max",
             "row_err_over_row_max", "max_abs_err")
     return {f"d80_{k}": case.get(k) for k in keys}
 
@@ -5255,8 +5260,14 @@ def main() -> int:
     if not all(any(fn.startswith(k) for fn in new_fns) for k in NEW_KERNELS):
         raise AssertionError(f"ptxas reported no function of {NEW_KERNELS}: "
                              f"{sorted(new_fns)}")
+    losses = [n for rep in ptxas.values() for n in rep["performance_loss"]]
     log(f"ptxas, this slice's kernels: {new_fns}; warnings "
-        f"{[w for rep in ptxas.values() for w in rep['warnings']]}")
+        f"{[w for rep in ptxas.values() for w in rep['warnings']]}; "
+        f"performance notes {losses}")
+    serialised = [n for n in losses if n.split()[-1].startswith(NEW_KERNELS)]
+    if serialised:
+        raise AssertionError(f"ptxas serialises this slice's kernels: "
+                             f"{serialised}")
     report["card"] = card
     report["ptxas"] = ptxas
 

@@ -40,19 +40,19 @@
 //
 // bf16, D in {64, 80, 128}: the Hopper design (flash_bwd_dkdv_wgmma_kernel,
 // flash_bwd_dq_wgmma_kernel; the main path). Per CTA one producer warp
-// and two consumer warpgroups (setmaxnreg 24 / 240). D = 80 (hubert-xlarge)
-// runs on D = 128's tiles, padded on chip only: the tensor maps keep the
-// true rows of 80 (160 bytes), the two 64-column boxes of Q, K, V and dO
-// load columns 0..127 with zeros past 80 (TMA's fill, counted toward the
-// barriers' transactions), S and dP run their true depth of 80, and dV,
-// dK and dQ accumulate at N = 128, whose last 48 columns are 0 and are
-// never stored. The D rows (dO . O) see the true 80 columns.
+// and two consumer warpgroups (setmaxnreg 24 / 240). D = 80
+// (hubert-xlarge) runs at its true width: the tiles are five 16-column
+// atoms in the 32-byte swizzle (one TMA box an atom, the barriers'
+// transactions each box's true bytes), S and dP run five k16 steps, an
+// atom each, and dV, dK and dQ accumulate at N = 80 (wgmma m64n80k16, 40
+// fp32 a thread each). Its tiles take 0.625x D 128's shared memory, which
+// buys a 4-stage ring (Bw<80>::kStages) in 121 KB.
 //   dK / dV: 128 keys a CTA, 64 a consumer warpgroup. The producer loads
 //   the tile's K and V once by TMA, then streams Q and dO tiles of 64
 //   queries (and their LSE and D rows, by its 32 lanes) through a 2-stage
-//   ring of full / empty mbarriers. A warpgroup computes S^T = K Q^T and
-//   dP^T = V dO^T (wgmma m64n64k16, both operands K-major from shared
-//   memory), forms P^T and dS^T on the accumulator fragment (masking only
+//   ring (4 at D 80) of full / empty mbarriers. A warpgroup computes
+//   S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands K-major
+//   from shared memory), forms P^T and dS^T on the accumulator fragment (masking only
 //   tiles that cross the diagonal, the window edge or T; query rows past S
 //   carry an LSE of +inf, so their P is 0), rounds them to bf16 in
 //   registers as the plain version rounds them and feeds them as the A
@@ -594,13 +594,17 @@ int launch_simple(const void* q, const void* k, const void* v,
 
 template <int D>
 struct Bw {
-  // the head dim on chip: D 80 padded to D 128's tiles (zeros by TMA)
-  static constexpr int kDP = D == 80 ? 128 : D;
+  // atoms of 64 columns in the 128-byte swizzle; at D 80 the true width,
+  // five atoms of 16 columns in the 32-byte swizzle
+  static constexpr int kAtomCols = D == 80 ? 16 : 64;
+  static constexpr int kSw = 2 * kAtomCols;           // bytes an atom row
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      D == 80 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B;
   static constexpr int kThreads = 3 * 128;  // 2 consumer + 1 producer WG
-  static constexpr int kStages = 2;
-  static constexpr int kAtoms = kDP / 64;   // 64 bf16 = one 128-byte row
-  static constexpr int kAtom128 = 128 * 128;          // a 128-row atom
-  static constexpr int kAtom64 = 64 * 128;            // a 64-row atom
+  static constexpr int kStages = D == 80 ? 4 : 2;
+  static constexpr int kAtoms = D / kAtomCols;
+  static constexpr int kAtom128 = 128 * kSw;          // a 128-row atom
+  static constexpr int kAtom64 = 64 * kSw;            // a 64-row atom
   static constexpr int kTile128 = kAtoms * kAtom128;  // 128 rows x D
   static constexpr int kTile64 = kAtoms * kAtom64;    // 64 rows x D
   static constexpr int kStage = 2 * kTile64;          // Q | dO, or K | V
@@ -615,20 +619,6 @@ struct Bw {
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// wgmma descriptors of the 128-byte swizzled tiles TMA writes (atoms of
-// 64 columns, rows of 128 bytes): a K-major operand's k16 step `kk`
-// (`rows` rows an atom), and an MN-major B whose K runs down the rows
-// (the k16 step 16 rows on, 8-row groups 1024 B apart, the next 64
-// columns an atom of 64 rows on)
-template <int kRows>
-__device__ __forceinline__ uint64_t desc_k(uint32_t base, int kk) {
-  return hopper::smem_desc(base + (kk >> 2) * kRows * 128 + (kk & 3) * 32,
-                           16, 1024, 128);
-}
-__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int kk) {
-  return hopper::smem_desc(base + kk * 16 * 128, 64 * 128, 1024, 128);
 }
 
 // P of one 64 x (N / 2) accumulator tile (row = this thread's rows,
@@ -738,10 +728,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
         hopper::mbar_arrive_expect_tx(&kv_full, 2 * C::kTile128);
 #pragma unroll
         for (int a = 0; a < C::kAtoms; ++a) {
-          hopper::tma_load_3d(ks + a * C::kAtom128, &km, &kv_full, a * 64,
-                              (int)k0, bkv);
-          hopper::tma_load_3d(vs + a * C::kAtom128, &vm, &kv_full, a * 64,
-                              (int)k0, bkv);
+          hopper::tma_load_3d(ks + a * C::kAtom128, &km, &kv_full,
+                              a * C::kAtomCols, (int)k0, bkv);
+          hopper::tma_load_3d(vs + a * C::kAtom128, &vm, &kv_full,
+                              a * C::kAtomCols, (int)k0, bkv);
         }
       }
       int stage = 0;
@@ -757,9 +747,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
 #pragma unroll
           for (int a = 0; a < C::kAtoms; ++a) {
             hopper::tma_load_3d(st + a * C::kAtom64, &qm, &full[stage],
-                                a * 64, i0, bh);
+                                a * C::kAtomCols, i0, bh);
             hopper::tma_load_3d(st + C::kTile64 + a * C::kAtom64, &dom,
-                                &full[stage], a * 64, i0, bh);
+                                &full[stage], a * C::kAtomCols, i0, bh);
           }
         }
         // rows past S: lse +inf, so P = exp2(-inf) = 0 there
@@ -786,14 +776,14 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
   const long long kw1 = min(kw0 + 63, (long long)t - 1);
   const float scale_log2 = scale * kLog2e;
 
-  constexpr int kDP = C::kDP;
-  float adk[kDP / 2], adv[kDP / 2];
+  constexpr int kSw = C::kSw;
+  float adk[D / 2], adv[D / 2];
 #pragma unroll
-  for (int i = 0; i < kDP / 2; ++i) adk[i] = adv[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
 
   hopper::mbar_wait(&kv_full, 0);
-  const uint32_t k_base = hopper::smem_u32(ks) + wg * 64 * 128;
-  const uint32_t v_base = hopper::smem_u32(vs) + wg * 64 * 128;
+  const uint32_t k_base = hopper::smem_u32(ks) + wg * 64 * kSw;
+  const uint32_t v_base = hopper::smem_u32(vs) + wg * 64 * kSw;
   int stage = 0;
   uint32_t phase = 0;
   for (int it = 0; it < n_iter; ++it) {
@@ -816,13 +806,15 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::WgmmaBf16SS<64>::mma(sc, desc_k<128>(k_base, kk),
-                                     desc_k<64>(q_st, kk), 1);
+        hopper::WgmmaBf16SS<64>::mma(
+            sc, hopper::desc_k_atoms<kSw>(k_base, 128, kk),
+            hopper::desc_k_atoms<kSw>(q_st, 64, kk), 1);
       hopper::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::WgmmaBf16SS<64>::mma(dp, desc_k<128>(v_base, kk),
-                                     desc_k<64>(do_st, kk), 1);
+        hopper::WgmmaBf16SS<64>::mma(
+            dp, hopper::desc_k_atoms<kSw>(v_base, 128, kk),
+            hopper::desc_k_atoms<kSw>(do_st, 64, kk), 1);
       hopper::wgmma_commit();
 
       // P^T (row key kw0 + r0 + 8 h, column query i0 + c0 + ...) while
@@ -847,8 +839,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hopper::WgmmaBf16RS<kDP, 1>::mma(adv, pa[kk], desc_mn(do_st, kk),
-                                         1);
+        hopper::WgmmaBf16RS<D, 1>::mma(
+            adv, pa[kk], hopper::desc_mn_atoms<kSw>(do_st, 64, kk), 1);
       hopper::wgmma_commit();
 
       // dS^T while dV's product runs, then dK += dS^T Q
@@ -859,8 +851,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hopper::WgmmaBf16RS<kDP, 1>::mma(adk, da[kk], desc_mn(q_st, kk),
-                                         1);
+        hopper::WgmmaBf16RS<D, 1>::mma(
+            adk, da[kk], hopper::desc_mn_atoms<kSw>(q_st, 64, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(adv);
@@ -954,10 +946,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       hopper::mbar_arrive_expect_tx(&q_full, 2 * C::kTile128);
 #pragma unroll
       for (int a = 0; a < C::kAtoms; ++a) {
-        hopper::tma_load_3d(qs + a * C::kAtom128, &qm, &q_full, a * 64, i0,
-                            bh);
-        hopper::tma_load_3d(dos + a * C::kAtom128, &dom, &q_full, a * 64,
-                            i0, bh);
+        hopper::tma_load_3d(qs + a * C::kAtom128, &qm, &q_full,
+                            a * C::kAtomCols, i0, bh);
+        hopper::tma_load_3d(dos + a * C::kAtom128, &dom, &q_full,
+                            a * C::kAtomCols, i0, bh);
       }
       const int kv_bh = b * hkv + kvh;
       int stage = 0;
@@ -969,10 +961,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
         hopper::mbar_arrive_expect_tx(&full[stage], C::kStage);
 #pragma unroll
         for (int a = 0; a < C::kAtoms; ++a) {
-          hopper::tma_load_3d(st + a * C::kAtom64, &km, &full[stage], a * 64,
-                              kpos0, kv_bh);
+          hopper::tma_load_3d(st + a * C::kAtom64, &km, &full[stage],
+                              a * C::kAtomCols, kpos0, kv_bh);
           hopper::tma_load_3d(st + C::kTile64 + a * C::kAtom64, &vm,
-                              &full[stage], a * 64, kpos0, kv_bh);
+                              &full[stage], a * C::kAtomCols, kpos0, kv_bh);
         }
         if (++stage == C::kStages) { stage = 0; phase ^= 1; }
       }
@@ -998,14 +990,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
     dl[h] = in ? delta[(long long)bh * s + row] : 0.f;
   }
 
-  constexpr int kDP = C::kDP;
-  float adq[kDP / 2];
+  constexpr int kSw = C::kSw;
+  float adq[D / 2];
 #pragma unroll
-  for (int i = 0; i < kDP / 2; ++i) adq[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) adq[i] = 0.f;
 
   hopper::mbar_wait(&q_full, 0);
-  const uint32_t q_base = hopper::smem_u32(qs) + wg * 64 * 128;
-  const uint32_t do_base = hopper::smem_u32(dos) + wg * 64 * 128;
+  const uint32_t q_base = hopper::smem_u32(qs) + wg * 64 * kSw;
+  const uint32_t do_base = hopper::smem_u32(dos) + wg * 64 * kSw;
   int stage = 0;
   uint32_t phase = 0;
   for (int it = 0; it < n_kt; ++it) {
@@ -1026,13 +1018,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::WgmmaBf16SS<64>::mma(sc, desc_k<128>(q_base, kk),
-                                     desc_k<64>(k_st, kk), 1);
+        hopper::WgmmaBf16SS<64>::mma(
+            sc, hopper::desc_k_atoms<kSw>(q_base, 128, kk),
+            hopper::desc_k_atoms<kSw>(k_st, 64, kk), 1);
       hopper::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::WgmmaBf16SS<64>::mma(dp, desc_k<128>(do_base, kk),
-                                     desc_k<64>(v_st, kk), 1);
+        hopper::WgmmaBf16SS<64>::mma(
+            dp, hopper::desc_k_atoms<kSw>(do_base, 128, kk),
+            hopper::desc_k_atoms<kSw>(v_st, 64, kk), 1);
       hopper::wgmma_commit();
 
       // P while dP is still in the tensor cores, then dS
@@ -1058,8 +1052,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qm,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hopper::WgmmaBf16RS<kDP, 1>::mma(adq, da[kk], desc_mn(k_st, kk),
-                                         1);
+        hopper::WgmmaBf16RS<D, 1>::mma(
+            adq, da[kk], hopper::desc_mn_atoms<kSw>(k_st, 64, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(adq);
@@ -1090,15 +1084,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  long long meta_len, float scale, cudaStream_t stream) {
   using C = Bw<D>;
   const int batch = bh / hq;
-  // 3-D maps over (D, rows, batch x head), 128-byte swizzle: 64- and
-  // 128-row boxes of Q and dO (S rows), of K and V (T rows)
+  // 3-D maps over (D, rows, batch x head), a box an atom (C::kSwizzle):
+  // 64- and 128-row boxes of Q and dO (S rows), of K and V (T rows)
   CUtensorMap q64, do64, q128, do128, k64, v64, k128, v128;
   const cuuint64_t qdims[3] = {D, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t qstr[2] = {D * 2, (cuuint64_t)s * D * 2};
   const cuuint64_t kdims[3] = {D, (cuuint64_t)t, (cuuint64_t)batch * hkv};
   const cuuint64_t kstr[2] = {D * 2, (cuuint64_t)t * D * 2};
-  const cuuint32_t box64[3] = {64, 64, 1};
-  const cuuint32_t box128[3] = {64, 128, 1};
+  const cuuint32_t box64[3] = {C::kAtomCols, 64, 1};
+  const cuuint32_t box128[3] = {C::kAtomCols, 128, 1};
   struct Map {
     CUtensorMap* map;
     const void* base;
@@ -1116,7 +1110,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   for (const Map& m : maps) {
     const int rc = hopper::make_tensor_map(
         m.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, m.base, m.dims,
-        m.strides, m.box, CU_TENSOR_MAP_SWIZZLE_128B);
+        m.strides, m.box, C::kSwizzle);
     if (rc) return rc;
   }
   static bool opted_in = false;      // dynamic shared memory above 48 KB
@@ -1330,13 +1324,15 @@ flash_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap qm,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::kD / 16; ++kk)
-      hopper::WgmmaBf16SS<32>::mma(sc, desc_k<64>(k_base, kk),
-                                   desc_k<64>(q_st + qh * 128, kk), 1);
+      hopper::WgmmaBf16SS<32>::mma(
+          sc, hopper::desc_k_atoms<128>(k_base, 64, kk),
+          hopper::desc_k_atoms<128>(q_st + qh * 128, 64, kk), 1);
     hopper::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < C::kD / 16; ++kk)
-      hopper::WgmmaBf16SS<32>::mma(dp, desc_k<64>(v_base, kk),
-                                   desc_k<64>(do_st + qh * 128, kk), 1);
+      hopper::WgmmaBf16SS<32>::mma(
+          dp, hopper::desc_k_atoms<128>(v_base, 64, kk),
+          hopper::desc_k_atoms<128>(do_st + qh * 128, 64, kk), 1);
     hopper::wgmma_commit();
 
     // P^T while dP^T is still in the tensor cores, to shared memory as
@@ -1368,8 +1364,9 @@ flash_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap qm,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      hopper::WgmmaBf16SS<128, 1>::mma(adv, desc_k<64>(pt_base, kk),
-                                       desc_mn(do_st + dh, kk), 1);
+      hopper::WgmmaBf16SS<128, 1>::mma(
+          adv, hopper::desc_k_atoms<128>(pt_base, 64, kk),
+          hopper::desc_mn_atoms<128>(do_st + dh, 64, kk), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();                // dP^T done
     hopper::fence_regs(dp);
@@ -1392,8 +1389,9 @@ flash_bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap qm,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      hopper::WgmmaBf16SS<128, 1>::mma(adk, desc_k<64>(dst_base, kk),
-                                       desc_mn(q_st + dh, kk), 1);
+      hopper::WgmmaBf16SS<128, 1>::mma(
+          adk, hopper::desc_k_atoms<128>(dst_base, 64, kk),
+          hopper::desc_mn_atoms<128>(q_st + dh, 64, kk), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(adv);
@@ -1557,13 +1555,15 @@ flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap qm,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::kD / 16; ++kk)
-      hopper::WgmmaBf16SS<32>::mma(sc, desc_k<64>(q_base, kk),
-                                   desc_k<64>(k_st + kh * 128, kk), 1);
+      hopper::WgmmaBf16SS<32>::mma(
+          sc, hopper::desc_k_atoms<128>(q_base, 64, kk),
+          hopper::desc_k_atoms<128>(k_st + kh * 128, 64, kk), 1);
     hopper::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < C::kD / 16; ++kk)
-      hopper::WgmmaBf16SS<32>::mma(dp, desc_k<64>(do_base, kk),
-                                   desc_k<64>(v_st + kh * 128, kk), 1);
+      hopper::WgmmaBf16SS<32>::mma(
+          dp, hopper::desc_k_atoms<128>(do_base, 64, kk),
+          hopper::desc_k_atoms<128>(v_st + kh * 128, 64, kk), 1);
     hopper::wgmma_commit();
 
     // P while dP is still in the tensor cores, then dS to shared memory
@@ -1597,8 +1597,9 @@ flash_bwd_dq_split_kernel(const __grid_constant__ CUtensorMap qm,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      hopper::WgmmaBf16SS<128, 1>::mma(adq, desc_k<64>(ds_base, kk),
-                                       desc_mn(k_st + dh, kk), 1);
+      hopper::WgmmaBf16SS<128, 1>::mma(
+          adq, hopper::desc_k_atoms<128>(ds_base, 64, kk),
+          hopper::desc_mn_atoms<128>(k_st + dh, 64, kk), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(adq);

@@ -20,11 +20,16 @@
 //     MN-major, swizzle S: S contiguous bytes along M / N, 8 K-rows of S
 //       bytes each, then the next 8 K-rows SBO apart; the next S-byte
 //       chunk along M / N LBO apart.
-//   Buffers start on 1024-byte boundaries, so the base offset is 0.
+//   Buffers start on 1024-byte boundaries, so the base offset is 0. In
+//   the 32-byte swizzle (head dim 80: five 16-column atoms a tile) a
+//   K-major k16 step is a whole 32-byte row (SBO 256); an MN-major B
+//   reads 16 columns an atom, LBO the atoms' distance.
 // - wgmma: fence, commit_group, wait_group and the mma_async shapes the
-//   kernels use (fp32 accumulators in registers, CUTLASS's CLayout_64xN:
+//   kernels use (bf16 from registers at N 32, 64, 80, 128 and 256; N 80
+//   is the head-dim-80 flash kernels' O, dV, dK and dQ). Accumulators are
+//   fp32 in registers, in CUTLASS's CLayout_64xN:
 //   d[4j + 2h + c] is row 16 warp + lane / 4 + 8 h, column
-//   8 j + 2 (lane % 4) + c of the warpgroup's 64 x N tile).
+//   8 j + 2 (lane % 4) + c of the warpgroup's 64 x N tile.
 #pragma once
 
 #include <cuda.h>           // CUtensorMap and its enums (types only)
@@ -120,6 +125,12 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
 }
 
+// arrives on barrier `id` without waiting: a warpgroup that lets another,
+// blocked in named_barrier_sync on the same barrier and count, go on
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(count) : "memory");
+}
+
 // ---- register reallocation between warpgroups -----------------------------
 
 // every warp of the warpgroup executes these, on paths that never rejoin
@@ -179,6 +190,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t y;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(y) : "f"(hi), "f"(lo));
   return y;
+}
+
+// descriptors of a tile of `rows` rows stored as atoms of kSw / 2 bf16
+// columns in the kSw-byte swizzle, atom a at byte a * rows * kSw (what
+// TMA writes with one box an atom): a K-major operand's k16 step kk, and
+// an MN-major B whose K runs down the rows (k16 step kk 16 rows on,
+// 8-row groups 8 kSw bytes apart, the next atom LBO on)
+template <int kSw>
+__device__ __forceinline__ uint64_t desc_k_atoms(uint32_t base, int rows,
+                                                 int kk) {
+  constexpr int kSteps = kSw / 32;          // k16 steps an atom row holds
+  return smem_desc(base + (kk / kSteps) * rows * kSw + (kk % kSteps) * 32,
+                   16, 8 * kSw, kSw);
+}
+
+template <int kSw>
+__device__ __forceinline__ uint64_t desc_mn_atoms(uint32_t base, int rows,
+                                                  int kk) {
+  return smem_desc(base + kk * 16 * kSw, rows * kSw, 8 * kSw, kSw);
 }
 
 // m64nNk8, TF32 x TF32 -> fp32, A (64 x 8) from registers in the
@@ -292,6 +322,34 @@ template <int TRANS_B> struct WgmmaBf16RS<64, TRANS_B> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d), "n"(1), "n"(1), "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B> struct WgmmaBf16RS<80, TRANS_B> {
+  __device__ __forceinline__ static void mma(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, %46, %47, %48;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
           "r"(scale_d), "n"(1), "n"(1), "n"(TRANS_B));
   }

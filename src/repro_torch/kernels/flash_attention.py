@@ -18,12 +18,12 @@ producer warp stages Q, K and V with TMA into a ring of shared memory,
 two warpgroups of 64 queries run both products on ``wgmma`` and keep the
 accumulator and the softmax state in registers across the KV tiles it
 keeps (tiles of 128 keys, 64 at D = 256, where Q and two stages of K
-and V fill 192 KB of shared memory). At D = 80 (hubert-xlarge, bf16 only)
-both kernels run D 128's tiles padded on chip: TMA reads the true rows of
-80 and fills columns 80..127 of shared memory with zeros, and the kernels
-write only the true columns (:func:`flash_padded_dim`); no padded copy
-is made in device memory. The fp32 instance keeps a CUDA-core design (64
-queries a CTA).
+and V fill 192 KB of shared memory). D = 80 (hubert-xlarge, bf16 only)
+runs at its true width in both kernels, as every head dim does: the
+160-byte rows sit in shared memory as five 16-column atoms, the products
+into O, dV, dK and dQ run N = 80, and the forward's two warpgroups take
+turns at the tensor cores, one's products under the other's softmax. The
+fp32 instance keeps a CUDA-core design (64 queries a CTA).
 The kernel scales the fp32 product, as the Pallas kernel does;
 ``flash_attention_plain`` is the port of ``chunked_attention``, the
 reference's route off the TPU, which scales q in q's dtype first. In
@@ -55,11 +55,13 @@ import torch
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
            "flash_attention_plain_lse", "flash_attention_bwd_cuda",
            "flash_attention_bwd_plain", "flash_bwd_instance",
-           "flash_kv_walk", "flash_bwd_dkdv_tiles", "flash_bwd_dq_tiles",
-           "flash_bwd_tile_test", "flash_bwd_tiles", "flash_bwd_row_floors",
-           "flash_padded_dim", "HEAD_DIMS", "BWD_INSTANCES", "FWD_INSTANCES"]
+           "flash_kv_walk", "flash_fwd_turns", "flash_bwd_dkdv_tiles",
+           "flash_bwd_dq_tiles", "flash_bwd_tile_test", "flash_bwd_tiles",
+           "flash_bwd_row_floors", "HEAD_DIMS", "BF16_ONLY_DIMS",
+           "BWD_INSTANCES", "FWD_INSTANCES"]
 
 HEAD_DIMS = (32, 64, 80, 128, 256)     # the kernels' instances
+BF16_ONLY_DIMS = (80,)                  # no fp32 instance (hubert-xlarge)
 # backward instance -> C entry point of csrc/flash_attention_bwd.cu
 BWD_INSTANCES = {"wgmma": "flash_attention_bwd_bf16_wgmma",
                  "wmma": "flash_attention_bwd_bf16",
@@ -96,22 +98,12 @@ def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor,
                              return_lse=True, meta_len=meta_len)
 
 
-def flash_padded_dim(d: int) -> int:
-    """The head dim both kernels' bf16 instances run on chip for head dim
-    ``d``: D 80 on D 128's tiles (TMA fills columns 80..127 of shared
-    memory with zeros; only the true columns are written out), every
-    other built head dim as it is. A padded head dim has no fp32
-    instance."""
-    return 128 if d == 80 else d
-
-
 def _check_dtype_dim(what: str, dtype: torch.dtype, d: int) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {d} not built ({HEAD_DIMS})")
-    if dtype == torch.float32 and flash_padded_dim(d) != d:
+    if dtype == torch.float32 and d in BF16_ONLY_DIMS:
         raise ValueError(f"{what}: fp32 at head dim {d} is not built: D "
-                         f"{d} runs only the bf16 instance, on D "
-                         f"{flash_padded_dim(d)}'s tiles padded on chip")
+                         f"{d} runs only the bf16 instance")
 
 
 def _kept(kpos, qpos, t: int, causal: bool, window, meta_len: int):
@@ -215,8 +207,8 @@ flash_attention_cuda.launches_by_instance = dict.fromkeys(
 
 def flash_bwd_instance(dtype: torch.dtype, d: int) -> str:
     """The backward's instance for these operands, from dtype and head dim
-    alone: ``wgmma`` for bf16 at D 64, 80, 128 and 256 (80 on 128's tiles,
-    padded on chip; at 256 the two consumer warpgroups split the head
+    alone: ``wgmma`` for bf16 at D 64, 80, 128 and 256 (80 at its true
+    width in 16-column atoms; at 256 the two consumer warpgroups split the head
     dim, each holding 128 columns of dK and dV), ``wmma`` for bf16 at D 32
     (only smoke configs use it), ``f32`` for fp32 at D 32, 64 and 128.
     Raises for fp32 at D 80 (bf16 only) and at D 256, where the CUDA-core
@@ -270,6 +262,34 @@ def flash_kv_walk(qlo: int, qhi: int, t: int, causal: bool,
         if band:
             n_sink = min(n_sink, kt0)
     return list(range(n_sink)) + band
+
+
+def flash_fwd_turns(n_tiles: int, wg: int) -> list:
+    """The D 80 forward's schedule for consumer warpgroup ``wg`` (0 or 1)
+    of a CTA that walks ``n_tiles`` KV tiles, in its order
+    (``flash_attention_wgmma_d80_kernel``): ``("sync", b)`` /
+    ``("arrive", b)`` on named barrier b (1 opens warpgroup 0's turn, 2
+    warpgroup 1's), ``("s", i)`` S of tile i issued, ``("pv", i)`` P V
+    of tile i issued, ``("softmax", i)`` tile i's softmax. Turn i waits
+    for its own barrier, issues S of tile i and P V of tile i - 1, lets
+    the other warpgroup go, waits for both products and runs tile i's
+    softmax; warpgroup 1 lets warpgroup 0 go first, and its last turn
+    lets no one go."""
+    if n_tiles == 0:
+        return []
+    me, other = 1 + wg, 2 - wg
+    ops = [("arrive", 1)] if wg == 1 else []
+    for i in range(n_tiles + 1):
+        ops.append(("sync", me))
+        if i < n_tiles:
+            ops.append(("s", i))
+        if i > 0:
+            ops.append(("pv", i - 1))
+        if not (wg == 1 and i == n_tiles):
+            ops.append(("arrive", other))
+        if i < n_tiles:
+            ops.append(("softmax", i))
+    return ops
 
 
 def flash_bwd_dkdv_tiles(s: int, t: int, k0: int, causal: bool,

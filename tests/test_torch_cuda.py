@@ -2174,6 +2174,43 @@ def test_flash_attention_sinks_match_plain(card, dtype, b, hq, hkv, s, t, d,
         assert err <= tol, (err, tol)
 
 
+@pytest.mark.parametrize("meta_len", [0, 8, 128])
+@pytest.mark.parametrize("b,hq,hkv,s,t,window", [
+    (1, 4, 2, 333, 333, 96), (2, 4, 4, 300, 450, 150)])
+def test_flash_attention_d80_window_and_sinks_match_plain(card, b, hq, hkv,
+                                                         s, t, window,
+                                                         meta_len):
+    """D 80's own design on the windowed walk with sinks (bf16; the
+    ``FlashMask`` walks every instance shares): the forward and its LSE,
+    the backward, against the plain versions; two launches of each the
+    same bits."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain,
+        flash_attention_plain_lse)
+    rng = np.random.default_rng(s + t + meta_len)
+    q, do = (_randn(rng, (b, hq, s, 80), torch.bfloat16, card)
+             for _ in range(2))
+    k, v = (_randn(rng, (b, hkv, t, 80), torch.bfloat16, card)
+            for _ in range(2))
+    kw = dict(causal=True, window=window, meta_len=meta_len)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    o2, lse2 = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _close_lm(o, flash_attention_plain(q, k, v, **kw), torch.bfloat16)
+    _, want_lse = flash_attention_plain_lse(q.float(), k.float(), v.float(),
+                                            **kw)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               rtol=1e-2, atol=1e-4)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    for g, w in zip(got, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 2.0 ** -7 * float(w.float().abs().max()), err
+
+
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
 def test_ssm_and_hybrid_smoke_on_card_match_cpu(card, arch):
     """The fp32 smoke configs on the card (the sink-aware kernels for
@@ -2219,10 +2256,12 @@ def test_ssm_and_hybrid_smoke_on_card_match_cpu(card, arch):
             2 * cfg.n_layers
 
 
-# hubert-xlarge's head dim 80 (bf16 only: both kernels run D 128's tiles
-# padded on chip) and the encoder's path without the causal mask, at S = T
-# not a multiple of any tile and at S < T
+# hubert-xlarge's head dim 80 (bf16 only: both kernels run it at its true
+# width, in 16-column atoms) and the encoder's path without the causal
+# mask, at hubert's full attention shape, at S = T not a multiple of any
+# tile and at S < T
 _D80_CASES = [
+    (4, 16, 16, 4096, 4096, False),      # hubert's attention, whole
     (1, 16, 16, 4000, 4000, False),      # hubert's heads, S = T = 4,000
     (2, 4, 4, 333, 700, False),          # S < T, ragged S
     (1, 4, 2, 4000, 4000, True),         # causal, G = 2

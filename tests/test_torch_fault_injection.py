@@ -16,6 +16,7 @@ rtol 1e-5; params rtol 1e-5 / atol 1e-6 x the largest reference
 magnitude where it exceeds 1."""
 import json
 import os
+import time
 
 import jax
 import numpy as np
@@ -132,19 +133,66 @@ def test_prefetch_restarts_exhausted_raises(ds):
                prefetch_restarts=0)
 
 
+class _MeasuredStraggler(FaultPlan):
+    """``FaultPlan(straggler_at=...)`` that times each step on its own
+    clock, from the trainer's ``before_step`` call to its request for the
+    next batch (the window the watchdog times), and fixes the straggler's
+    delay when its step comes: 4x the slowest step observed before it,
+    at least 2 s. Every EMA of those steps lies between their fastest and
+    slowest, so the delay passes the watchdog's threshold of 3 however
+    slow a loaded machine makes every step (on an idle machine a step
+    takes ~30 ms, beside five busy workers ~1.5 s), and the watchdog's
+    EMA is held to these times, not the other way round."""
+
+    def __init__(self, at, observed_from):
+        super().__init__(straggler_at=at)
+        self.observed_from = observed_from
+        self.step_s: dict = {}
+        self._started = None            # (step, its start) until it ends
+
+    def observed(self, upto):
+        return [self.step_s[g] for g in range(self.observed_from, upto)]
+
+    def before_step(self, gstep):
+        if gstep == self.straggler_at:
+            self.straggler_delay_s = max(2.0, 4.0 * max(self.observed(gstep)))
+        self._started = (gstep, time.perf_counter())
+        super().before_step(gstep)
+
+    def wrap_stream(self, it):
+        for item in super().wrap_stream(it):
+            yield item              # resumed when the step has ended
+            if self._started is not None:
+                gstep, t0 = self._started
+                self.step_s[gstep] = time.perf_counter() - t0
+                self._started = None
+
+
 def test_straggler_flagged(ds):
-    """A 2 s delay before step 6 (the reference's test sleeps 0.5 s: an
-    eager CPU step on a loaded test machine can take a few hundred ms,
-    and the watchdog judges against their EMA)."""
+    """A delay before step 12 (the reference's test sleeps 0.5 s before
+    step 6), with seven observed steps behind it, sized from their times
+    as the test measured them (``_MeasuredStraggler``); the EMA it is
+    judged against is the one those times give."""
+    spe = num_seed_batches(int(ds.train_mask.sum()), _KW["batch_size"])
+    assert 12 - spe >= 5        # observed steps behind the straggler
     wd = StragglerWatchdog(threshold=3.0)
-    _train(ds, faults=FaultPlan(straggler_at=6, straggler_delay_s=2.0),
-           watchdog=wd, double_buffer=False)
+    plan = _MeasuredStraggler(at=12, observed_from=spe)
+    _train(ds, faults=plan, watchdog=wd, double_buffer=False)
     flagged = [e.step for e in wd.events if e.straggler]
-    assert 6 in flagged, wd.summary()
+    assert 12 in flagged, wd.summary()
+    seen = plan.observed(12)
+    assert plan.straggler_delay_s == max(2.0, 4.0 * max(seen))
+    # the EMA step 12 was judged against: seeded by the first observed
+    # step, then each step's time clipped at 4x the EMA, weight alpha
+    ema = seen[0]
+    for w in seen:
+        ema = (1 - wd.alpha) * ema + wd.alpha * min(w, 4.0 * ema)
+    judged = next(e.ema_s for e in wd.events if e.step == 11)
+    assert min(seen) <= judged <= max(seen), (judged, seen)
+    assert judged == pytest.approx(ema, rel=0.2), (judged, seen)
     assert wd.straggler_count >= 1
     assert wd.total_steps == len(wd.events)
     # the first executed epoch is not observed
-    spe = num_seed_batches(int(ds.train_mask.sum()), _KW["batch_size"])
     assert min(e.step for e in wd.events) == spe
 
 

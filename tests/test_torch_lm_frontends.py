@@ -10,10 +10,11 @@ The same inputs, made with numpy from a seed, go through ``repro`` and
   ``flash_attention_pallas(..., causal=False, interpret=True)`` and
   ``chunked_attention``, the plain backward and ``ops.flash_attention``'s
   autograd Function against ``jax.grad`` of ``chunked_attention``; the
-  bf16 kernels' on-chip padding of D 80 to D 128's tiles emulated in
-  PyTorch (zero columns past 80, the forward's non-causal tile walk, only
-  the true columns written) against the plain version; the head-dim
-  routing (80 built in bf16 only);
+  bf16 D 80 forward at its true width emulated in PyTorch (the 16-column
+  atoms of shared memory, the two warpgroups' turn schedule, the
+  non-causal tile walk) against the plain version and the Pallas kernel
+  in interpret mode, and the turn schedule's barriers under random
+  interleavings; the head-dim routing (80 built in bf16 only);
 - ``hubert-smoke`` (frames, non-causal) and ``internvl2-smoke`` (an image
   prefix of 16 positions, GQA) from the reference's params
   (``params_from_jax``): ``forward_hidden``, ``loss_fn`` (the prefix's
@@ -60,9 +61,9 @@ from repro_torch.configs import arch_names, get_config, get_smoke_config
 from repro_torch.data import synthetic_lm_batch
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS, flash_attention_bwd_plain, flash_attention_plain,
-    flash_attention_plain_lse, flash_bwd_instance, flash_kv_walk,
-    flash_padded_dim)
+    HEAD_DIMS, flash_attention_bwd_plain,
+    flash_attention_plain, flash_attention_plain_lse, flash_bwd_instance,
+    flash_fwd_turns, flash_kv_walk)
 from repro_torch.models import lm as TLM
 from repro_torch.models.lm import transformer as TT
 from repro_torch.optim.optimizer import tree_map
@@ -171,76 +172,180 @@ def test_noncausal_backward_matches_jax_grad(b, hq, hkv, s, t, d):
         _close(g_, np.asarray(w_), OP, f"d{name} through ops")
 
 
-def _padded_forward(q, k, v, *, causal):
-    """The bf16 forward kernel's arithmetic in fp32 PyTorch at the
-    instance's on-chip width: q / k / v rows zero-filled past D to
-    ``flash_padded_dim(D)`` (TMA's fill), 128-query CTAs walking
-    ``flash_kv_walk``'s 128-key tiles, S over the true depth D, the
-    online softmax, O += P V over the padded width, and only the true
-    columns written out. Returns (out, the padded columns of O, which
-    must be 0)."""
+def _atom_index(rows: int, width: int = 80):
+    """Element offsets of a (rows, width) bf16 tile in the D 80 kernels'
+    shared memory: 16-column atoms, atom a at a * rows * 16 elements, a
+    row 16 elements (32 bytes), the 16-byte halves of rows 4..7 of each
+    8-row group swapped (the 32-byte swizzle TMA writes and the wgmma
+    descriptors read)."""
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(width)[None, :]
+    half = (c % 16) // 8 ^ ((r >> 2) & 1)
+    return (c // 16) * rows * 16 + r * 16 + half * 8 + c % 8
+
+
+def _d80_forward(q, k, v, *, causal):
+    """The bf16 D 80 forward kernel's arithmetic in fp32 PyTorch at its
+    true width: Q, K and V tiles stored through ``_atom_index`` and read
+    back an atom at a time, 128-query CTAs walking ``flash_kv_walk``'s
+    128-key tiles, each 64-query warpgroup following its
+    ``flash_fwd_turns``: S over the five 16-column atoms, the online
+    softmax (P V of a tile issued in the next turn, after O is rescaled
+    by that tile's max), O += P V over the 80 columns in k16 steps, only
+    rows below S written."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    dp, g, q_offset = flash_padded_dim(d), hq // hkv, t - s
+    g, q_offset = hq // hkv, t - s
     scale_log2 = LOG2E / math.sqrt(d)
+    bq = 128
 
-    def pad(x, rows):
-        out = torch.zeros(x.shape[:2] + (rows, dp))
-        out[:, :, :x.shape[2], :d] = x
-        return out
-    qp = pad(q, -(-s // 128) * 128)
-    kp, vp = pad(k, -(-t // 128) * 128), pad(v, -(-t // 128) * 128)
+    def tile(x, r0, rows):
+        """x's rows r0 .. r0 + rows - 1 (zeros past the end) through
+        shared memory: (5 atoms, rows, 16 columns)."""
+        idx = _atom_index(rows)
+        part = x[r0:r0 + rows]
+        flat = torch.zeros(rows * d)
+        flat[idx[:part.shape[0]].reshape(-1)] = part.reshape(-1)
+        return flat[idx].reshape(rows, 5, 16).permute(1, 0, 2)
+
     out = torch.empty_like(q)
-    tail = torch.zeros(())
     for bb in range(b):
         for h in range(hq):
-            for i0 in range(0, s, 128):
-                qlo, qhi = q_offset + i0, q_offset + min(i0 + 128, s) - 1
-                qs = qp[bb, h, i0:i0 + 128]
-                acc = torch.zeros((128, dp))
-                m = torch.full((128, 1), -math.inf)
-                z = torch.zeros((128, 1))
-                qpos = torch.arange(qlo, qlo + 128)[:, None]
-                for kt in flash_kv_walk(qlo, qhi, t, causal, None, 128):
-                    ks = kp[bb, h // g, kt * 128:(kt + 1) * 128]
-                    vs = vp[bb, h // g, kt * 128:(kt + 1) * 128]
-                    sc = (qs[:, :d] @ ks[:, :d].T) * scale_log2
-                    kpos = torch.arange(kt * 128, (kt + 1) * 128)[None, :]
-                    ok = kpos < t
-                    if causal:
-                        ok = ok & (kpos <= qpos)
-                    sc = torch.where(ok, sc, -math.inf)
-                    m_new = torch.maximum(m, sc.max(1, keepdim=True).values)
-                    m_use = torch.where(m_new == -math.inf, 0.0, m_new)
-                    alpha = torch.exp2(m - m_use)
-                    p = torch.exp2(sc - m_use)
-                    z = z * alpha + p.sum(1, keepdim=True)
-                    acc = acc * alpha + p @ vs
-                    m = m_new
-                rows = min(128, s - i0)
-                o = acc / z.clamp(min=1e-30)
-                out[bb, h, i0:i0 + rows] = o[:rows, :d]
-                tail = torch.maximum(tail, o[:rows, d:].abs().max()
-                                     if dp > d else torch.zeros(()))
-    return out, tail
+            for i0 in range(0, s, bq):
+                qlo, qhi = q_offset + i0, q_offset + min(i0 + bq, s) - 1
+                walk = flash_kv_walk(qlo, qhi, t, causal, None, 128)
+                qt = tile(q[bb, h], i0, bq)
+                for wg in range(2):
+                    qw = qt[:, 64 * wg:64 * wg + 64]
+                    qpos = torch.arange(qlo + 64 * wg,
+                                        qlo + 64 * wg + 64)[:, None]
+                    acc = torch.zeros((64, d))
+                    m = torch.full((64, 1), -math.inf)
+                    z = torch.zeros((64, 1))
+                    sc, p = {}, {}
+                    for op, i in flash_fwd_turns(len(walk), wg):
+                        if op in ("sync", "arrive"):
+                            continue
+                        kt = walk[i]
+                        if op == "s":
+                            kk = tile(k[bb, h // g], kt * 128, 128)
+                            sc[i] = sum(qw[a] @ kk[a].T for a in range(5))
+                        elif op == "pv":
+                            vv = tile(v[bb, h // g], kt * 128, 128)
+                            vrow = vv.permute(1, 0, 2).reshape(128, d)
+                            for st in range(0, 128, 16):
+                                acc = acc + p[i][:, st:st + 16] @ \
+                                    vrow[st:st + 16]
+                        else:
+                            x = sc.pop(i) * scale_log2
+                            kpos = torch.arange(kt * 128,
+                                                (kt + 1) * 128)[None, :]
+                            ok = kpos < t
+                            if causal:
+                                ok = ok & (kpos <= qpos)
+                            x = torch.where(ok, x, -math.inf)
+                            m_new = torch.maximum(
+                                m, x.max(1, keepdim=True).values)
+                            m_use = torch.where(m_new == -math.inf, 0.0,
+                                                m_new)
+                            alpha = torch.exp2(m - m_use)
+                            p[i] = torch.exp2(x - m_use)
+                            z = z * alpha + p[i].sum(1, keepdim=True)
+                            acc = acc * alpha
+                            m = m_new
+                    lo = i0 + 64 * wg
+                    rows = max(0, min(64, s - lo))
+                    o = acc / z.clamp(min=1e-30)
+                    out[bb, h, lo:lo + rows] = o[:rows]
+    return out
+
+
+def _turn_schedule(n_tiles, seed):
+    """Both warpgroups' ``flash_fwd_turns`` run one op at a time, the
+    runnable one picked at random; a sync passes once the other
+    warpgroup has arrived on its barrier. Returns the product issues in
+    order as (warpgroup, op, tile); raises on a deadlock, on both
+    warpgroups inside a turn at once, or on an arrival left over."""
+    rng = np.random.default_rng(seed)
+    groups = range(2)
+    ops = [flash_fwd_turns(n_tiles, wg) for wg in groups]
+    at, in_turn, issued = [0, 0], [False, False], []
+    pending = {1: 0, 2: 0}
+    while any(at[wg] < len(ops[wg]) for wg in groups):
+        runnable = [wg for wg in groups if at[wg] < len(ops[wg]) and not (
+            ops[wg][at[wg]][0] == "sync" and pending[ops[wg][at[wg]][1]] == 0)]
+        if not runnable:
+            raise AssertionError(f"deadlock at {at} ({n_tiles} tiles)")
+        wg = int(rng.choice(runnable))
+        op, arg = ops[wg][at[wg]]
+        at[wg] += 1
+        if op == "sync":
+            pending[arg] -= 1
+            assert not any(in_turn), "both warpgroups in a turn"
+            in_turn[wg] = True
+        elif op == "arrive":
+            pending[arg] += 1
+            in_turn[wg] = False
+        elif op in ("s", "pv"):
+            assert in_turn[wg], "a product issued outside a turn"
+            issued.append((wg, op, arg))
+        if at[wg] == len(ops[wg]):
+            in_turn[wg] = False
+    assert not any(pending.values()), pending
+    return issued
+
+
+@pytest.mark.parametrize("n_tiles", [0, 1, 2, 3, 32])
+def test_d80_forward_turns_alternate_and_balance(n_tiles):
+    """The D 80 forward's ping-pong (``flash_fwd_turns``) under any
+    interleaving of its two warpgroups: no deadlock, never both inside a
+    turn, every arrival consumed by a sync (no barrier left half-filled
+    when the CTA exits), and the tensor cores fed turn by turn,
+    warpgroup 0 first: S of tile i and P V of tile i - 1, each tile's S
+    before its softmax before its P V."""
+    for seed in range(20):
+        issued = _turn_schedule(n_tiles, seed)
+        want = []
+        for i in range(n_tiles + 1 if n_tiles else 0):
+            for wg in (0, 1):
+                if i < n_tiles:
+                    want.append((wg, "s", i))
+                if i > 0:
+                    want.append((wg, "pv", i - 1))
+        assert issued == want, (n_tiles, seed)
+    for wg in (0, 1):
+        ops = flash_fwd_turns(n_tiles, wg)
+        for i in range(n_tiles):
+            assert ops.index(("s", i)) < ops.index(("softmax", i)) < \
+                ops.index(("pv", i))
 
 
 @pytest.mark.parametrize("s,t,causal", [
-    (300, 300, False), (100, 333, False), (200, 200, True)])
+    (300, 300, False), (100, 333, False), (200, 200, True),
+    (4000, 4000, False), (4000, 4000, True)])
 def test_d80_on_chip_padding_matches_plain(s, t, causal):
-    """D 80 on D 128's tiles, as both bf16 kernels run it: the zero
-    columns past 80 add nothing to the scores and give zero columns of
-    O, never written; the non-causal walk reaches every key tile once.
-    Against the plain version (fp32)."""
-    assert flash_padded_dim(80) == 128
-    assert [flash_padded_dim(d) for d in (32, 64, 128, 256)] == \
-        [32, 64, 128, 256]
+    """D 80 at its true width, as both bf16 kernels run it now (the name
+    is from when they padded it to D 128's tiles): the shared-memory
+    layout of 16-column atoms holds each tile's 160-byte rows once (so a
+    box's bytes are its rows' true bytes, the barriers' transaction
+    counts), and the forward's turn schedule over it gives the plain
+    version (fp32) and the Pallas kernel in interpret mode; the
+    non-causal walk reaches every key tile once."""
+    for rows in (64, 128):
+        idx = _atom_index(rows)
+        assert sorted(idx.reshape(-1).tolist()) == list(range(rows * 80))
+    hq, hkv = (2, 1) if s > 1000 else (4, 2)     # S = 4,000: 2 / 1 heads
     rng = np.random.default_rng(s + t)
-    q, k, v = _t(_rand(rng, 1, 4, s, 80)), _t(_rand(rng, 1, 2, t, 80)), \
-        _t(_rand(rng, 1, 2, t, 80))
-    got, tail = _padded_forward(q, k, v, causal=causal)
-    assert float(tail) == 0.0
-    _close(got, flash_attention_plain(q, k, v, causal=causal), OP, "padded")
+    q, k, v = _rand(rng, 1, hq, s, 80), _rand(rng, 1, hkv, t, 80), \
+        _rand(rng, 1, hkv, t, 80)
+    got = _d80_forward(_t(q), _t(k), _t(v), causal=causal)
+    _close(got, flash_attention_plain(_t(q), _t(k), _t(v), causal=causal),
+           OP, "true width against plain")
+    blk = lambda n: n if n <= 512 else 500     # noqa: E731 (divides n)
+    pallas = flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        bq=blk(s), bk=blk(t), interpret=True)
+    _close(got, np.asarray(pallas), OP, "true width against Pallas")
     if not causal:
         for i0 in range(0, s, 128):
             qlo = t - s + i0

@@ -30,9 +30,18 @@ sweep and on the proteins graph; of ``csrc/segment_sum.cu`` one, four and
 eight gathered rows in flight a lane in place of two on its sliced route
 (all exact), timed at the segment-sum sizes below; of
 ``csrc/flash_attention_bwd.cu`` a 3-stage ring in place of 2 at D 64 /
-128 (exact) and, at D 256, the S / dP products, the dV / dK / dQ
-products or the barrier before P and dS are written again taken out.
-``--kernels``: check and time only these (default all eleven).
+128 (exact), a 2-stage ring in place of 4 at D 80 (exact), at D 80 the
+S / dP products, the dV / dK / dQ products or P's 2^x taken out, and, at D 256,
+the S / dP products, the dV / dK / dQ products or the barrier before P
+and dS are written again taken out; of ``csrc/flash_attention.cu``, timed
+at hubert's shape alone, the D 80 forward without its ping-pong (both
+warpgroups issue their products at once, then both run their softmax),
+with 2 or 4 ring stages in place of 3 (all exact), and with its S
+products, its P V products, its K / V loads,
+its softmax, its 2^x taken out or the 2^x as the bare ex2.approx.ftz
+instruction (wrong by construction; only their times mean anything).
+``--variants a,b``: only the variants named. ``--kernels``: check and
+time only these (default all eleven).
 
 Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
 - BSR: a synthetic 518 x 518 grid of 230,000 dense 128 x 128 tiles (5 %
@@ -40,13 +49,18 @@ Timings (CUDA events, the mean of a few calls after 2 warm-up calls):
   ogbn-proteins at scale 1/2 in ``chip_smoke.py`` phase 7, once with the
   tiles skewed over the block rows and once spread evenly;
 - flash attention at B 4, 32 / 8 heads, S = T = 2,048, D 128, causal,
-  bf16 (phase 10's prefill), and at gemma-7b's B 1, 16 heads of 256,
-  beside ``scaled_dot_product_attention``;
+  bf16 (phase 10's prefill), at gemma-7b's B 1, 16 heads of 256, and at
+  hubert-xlarge's B 4, 16 / 16 heads of 80, S = T = 4,096, non-causal
+  (phase 15's; also its device ms), beside
+  ``scaled_dot_product_attention``;
 - the flash backward (``flashbwd``) at phase 12's shape (B 4, 32 / 8
   heads, S = T = 2,048, D 128, causal, bf16) and at gemma-7b's (B 1,
   16 / 16 heads of 256, S = T = 2,048, causal, bf16: each checkout's own
-  D 256 instance), each with its two kernels' device ms, beside SDPA's
-  backward;
+  D 256 instance) and at hubert-xlarge's (as the forward), each with its
+  two kernels' device ms, beside SDPA's backward. The outputs at
+  hubert's shape (the forward's O and LSE, the backward's dQ, dK, dV)
+  are kept from each checkout's first timing run, and the largest
+  difference between the two checkouts' is printed;
 - the ragged GEMM's dX (``dx``) at phase 12's shape (dY 20,480 x 6,400,
   W 16 x 4,096 x 6,400, bf16) as each checkout's backward calls it: the
   kernel reading W transposed in place where the checkout's wrapper takes
@@ -172,8 +186,53 @@ VARIANTS["fusedmm_no_tile_barrier"] = ("fusedmm", [
 # the D 64 / 128 design's ring (the D 256 design has no room for a third
 # stage)
 VARIANTS["flashbwd_stages_3"] = ("flash_attention_bwd", [
-    ("  static constexpr int kStages = 2;\n  static constexpr int kAtoms = D",
-     "  static constexpr int kStages = 3;\n  static constexpr int kAtoms = D")])
+    ("kStages = D == 80 ? 4 : 2;", "kStages = D == 80 ? 4 : 3;")])
+VARIANTS["flashbwd_d80_stages_2"] = ("flash_attention_bwd", [
+    ("kStages = D == 80 ? 4 : 2;", "kStages = 2;")])
+# the D 80 forward without its ping-pong (the overlap of one warpgroup's
+# products with the other's softmax taken out), and with another ring
+# depth; all exact
+VARIANTS["flash_d80_no_pingpong"] = ("flash_attention", [
+    ("constexpr bool kPingPong = true;", "constexpr bool kPingPong = false;")])
+VARIANTS["flash_d80_stages_2"] = ("flash_attention", [
+    ("  static constexpr int kStages = 3;", "  static constexpr int kStages = 2;")])
+VARIANTS["flash_d80_stages_4"] = ("flash_attention", [
+    ("  static constexpr int kStages = 3;", "  static constexpr int kStages = 4;")])
+# the D 80 forward with one part of its work taken out (wrong by
+# construction; only the times mean anything): the S products, the P V
+# products, the K / V loads (the barriers complete on the arrival alone),
+# the softmax of every tile past the first, the softmax's 2^x (P = the
+# scaled score less the max), and the 2^x as the bare ex2.approx.ftz
+# instruction (close, not exact)
+_P_EXP = "p[e] = exp2f(sc[8 * kk + e] + neg[h]);"
+VARIANTS["flash_d80_no_scores"] = ("flash_attention", [
+    ("kk < kD / 16; ++kk)\n      hopper::WgmmaBf16SS", "kk < 0; ++kk)\n      hopper::WgmmaBf16SS")])
+VARIANTS["flash_d80_no_pv"] = ("flash_attention", [
+    ("kk < kBK / 16; ++kk)\n      hopper::WgmmaBf16RS<kD",
+     "kk < 0; ++kk)\n      hopper::WgmmaBf16RS<kD")])
+VARIANTS["flash_d80_no_kv_loads"] = ("flash_attention", [
+    ("hopper::mbar_arrive_expect_tx(&k_full[stage], C::kKVBytes);\n#pragma unroll\n        for (int a = 0; a < C::kAtoms; ++a)",
+     "hopper::mbar_arrive_expect_tx(&k_full[stage], 0);\n#pragma unroll\n        for (int a = 0; a < 0; ++a)"),
+    ("hopper::mbar_arrive_expect_tx(&v_full[stage], C::kKVBytes);\n#pragma unroll\n        for (int a = 0; a < C::kAtoms; ++a)",
+     "hopper::mbar_arrive_expect_tx(&v_full[stage], 0);\n#pragma unroll\n        for (int a = 0; a < 0; ++a)")])
+VARIANTS["flash_d80_no_softmax"] = ("flash_attention", [
+    ("    softmax((long long)walk.tile(i) * kBK);\n", "")])
+VARIANTS["flash_d80_no_exp"] = ("flash_attention", [
+    (_P_EXP, "p[e] = sc[8 * kk + e] + neg[h];")])
+VARIANTS["flash_d80_fast_exp"] = ("flash_attention", [
+    (_P_EXP, 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p[e]) : '
+             '"f"(sc[8 * kk + e] + neg[h]));')])
+# the backward (every wgmma instance; read at D 80) with its S / dP
+# products, its dV / dK / dQ products or P's 2^x taken out
+VARIANTS["flashbwd_d80_no_scores"] = ("flash_attention_bwd", [
+    ("kk < D / 16; ++kk)\n        hopper::WgmmaBf16SS<64>",
+     "kk < 0; ++kk)\n        hopper::WgmmaBf16SS<64>")])
+VARIANTS["flashbwd_d80_no_grads"] = ("flash_attention_bwd", [
+    ("kk < 4; ++kk)\n        hopper::WgmmaBf16RS<D, 1>",
+     "kk < 0; ++kk)\n        hopper::WgmmaBf16RS<D, 1>")])
+VARIANTS["flashbwd_d80_no_exp"] = ("flash_attention_bwd", [
+    ("const float pv = exp2f(sc[idx] * scale_log2 - lse2(idx));",
+     "const float pv = sc[idx] * scale_log2 - lse2(idx);")])
 # the D 256 design with one part of its work taken out (wrong by
 # construction; only the times mean anything): the S and dP products, the
 # dV / dK / dQ products, the barrier before P / dS are written again
@@ -297,7 +356,10 @@ def check_flash():
             (1, 8, 2, 300, 300, 128, False, None),
             (1, 4, 1, 257, 400, 64, True, 100),
             (2, 4, 4, 64, 64, 32, False, 20),
-            (1, 2, 2, 1, 150, 128, True, None)]:
+            (1, 2, 2, 1, 150, 128, True, None),
+            (1, 4, 4, 300, 300, 80, False, None),
+            (2, 4, 2, 200, 333, 80, True, None),
+            (1, 4, 1, 257, 400, 80, True, 100)]:
         q, k, v = (torch.randn((b, n, m, d), generator=g, device="cuda")
                    .bfloat16() for n, m in ((hq, s), (hkv, t), (hkv, t)))
         out = flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -361,7 +423,9 @@ def check_flashbwd():
             (2, 4, 1, 200, 333, 64, True, 100),
             (1, 4, 4, 300, 300, 128, False, 64),
             (1, 4, 1, 200, 333, 256, True, None),
-            (1, 4, 2, 150, 150, 256, False, 70)):
+            (1, 4, 2, 150, 150, 256, False, 70),
+            (1, 4, 4, 300, 300, 80, False, None),
+            (2, 4, 2, 200, 333, 80, True, 100)):
         args = _bwd_inputs(b, hq, hkv, s, t, d, causal, window, s + t)
         kw = dict(causal=causal, window=window)
         got = flash_attention_bwd_cuda(*args, **kw)
@@ -726,9 +790,12 @@ def time_run(tag: str, variant: str | None, kernels) -> dict:
         timer = {"sddmm": time_sddmm, "sell_spmm": time_sell,
                  "fusedmm": time_fusedmm,
                  "segment_sum": time_segsum,
+                 "flash_attention": time_flash,
                  "flash_attention_bwd": time_flashbwd}.get(lib_name)
         if timer is time_flashbwd:
             return timer(res)
+        if timer is time_flash:
+            return time_flash_d80(res)
         return timer(res, sweep_only=True) if timer else time_bsr(res)
     for name in kernels:
         TIMERS[name](res)
@@ -768,6 +835,49 @@ def time_flash(res: dict) -> dict:
         res["flash_d256_ms"] = None
     res["sdpa_d256_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True), reps=20)
+    del q, k, v
+    return time_flash_d80(res, keep=True)
+
+
+# hubert-xlarge's attention: B 4, 16 / 16 heads of 80, S = T = 4,096,
+# non-causal (chip_smoke.py phase 15)
+HUBERT_ATTN = (4, 16, 16, 4096, 4096, 80, False, None)
+
+
+def _keep(res: dict, what: str, tensors: dict) -> None:
+    """Save a first timing run's outputs (``this`` / ``other``) for the
+    comparison of the two checkouts."""
+    import torch
+    if res["tag"] in ("this", "other"):
+        CACHE_DIR.mkdir(parents=True, exist_ok=True)
+        path = CACHE_DIR / f"out_{what}_{res['tag']}.pt"
+        if not path.exists():
+            torch.save({n: x.cpu() for n, x in tensors.items()}, path)
+
+
+def time_flash_d80(res: dict, keep: bool = False) -> dict:
+    """The forward at hubert's shape: ms, the kernel's device ms, SDPA,
+    and its largest difference from the plain version over the plain
+    version's largest value."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    q, k, v, _, _, _ = _bwd_inputs(*HUBERT_ATTN, 2)
+    kw = dict(causal=False)
+    res["flash_d80_ms"] = cuda_ms(lambda: flash_attention_cuda(
+        q, k, v, return_lse=True, **kw), reps=20)
+    res["flash_d80_device_ms"] = device_ms(lambda: flash_attention_cuda(
+        q, k, v, return_lse=True, **kw), "flash_attention_wgmma")
+    res["sdpa_d80_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=False), reps=20)
+    want = flash_attention_plain(q, k, v, **kw).float()
+    res["flash_d80_err_over_max"] = float(
+        (flash_attention_cuda(q, k, v, **kw).float() - want).abs().max()
+        / want.abs().max())
+    del want
+    if keep:
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        _keep(res, "flash_d80", {"o": o, "lse": lse})
     return res
 
 
@@ -799,6 +909,22 @@ def time_flashbwd(res: dict) -> dict:
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     res["sdpa_bwd_d256_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), reps=20)
+    # hubert-xlarge's heads of 80, non-causal
+    del args, q, k, v, do, qg, kg, vg, out
+    args = _bwd_inputs(*HUBERT_ATTN, 2)
+    kw = dict(causal=False)
+    res["flash_bwd_d80_ms"] = cuda_ms(
+        lambda: flash_attention_bwd_cuda(*args, **kw), reps=20)
+    for part in ("dkdv", "dq"):
+        res[f"flash_bwd_d80_{part}_device_ms"] = device_ms(
+            lambda: flash_attention_bwd_cuda(*args, **kw), f"flash_bwd_{part}")
+    _keep(res, "flashbwd_d80", dict(zip(
+        ("dq", "dk", "dv"), flash_attention_bwd_cuda(*args, **kw))))
+    q, k, v, _, do, _ = args
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=False)
+    res["sdpa_bwd_d80_ms"] = cuda_ms(lambda: torch.autograd.grad(
         out, (qg, kg, vg), do, retain_graph=True), reps=20)
     return res
 
@@ -1379,13 +1505,25 @@ LIBS = {"bsr": "bsr_spmm", "flash": "flash_attention",
         "dx": "ragged_gemm"}
 
 
-def build_variants(kernels):
+def chosen_variants(kernels, which: str) -> list:
+    """The variants of these kernels' libraries, all or those named."""
+    libs = {LIBS[k] for k in kernels}
+    names = [n for n, (lib, _) in VARIANTS.items() if lib in libs]
+    if which != "all":
+        want = which.split(",")
+        unknown = set(want) - set(names)
+        if unknown:
+            raise SystemExit(f"--variants: unknown for {kernels}: {unknown}")
+        names = [n for n in names if n in want]
+    return names
+
+
+def build_variants(kernels, which: str = "all"):
     from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (kernel, edits) in VARIANTS.items():
-        if kernel not in {LIBS[k] for k in kernels}:
-            continue
+    for name in chosen_variants(kernels, which):
+        kernel, edits = VARIANTS[name]
         text = (CSRC / f"{kernel}.cu").read_text()
         for old, new in edits:
             if old not in text:
@@ -1399,14 +1537,35 @@ def build_variants(kernels):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, proc in procs.items():
         out = proc.communicate()[0]
+        (VARIANT_DIR / f"{name}.log").write_text(out)   # ptxas's report
         if proc.returncode:
             raise RuntimeError(f"variant {name} failed to build:\n{out}")
+
+
+def compare_outputs() -> None:
+    """The largest difference between the two checkouts' kept outputs
+    (the same seeded inputs), and whether they are the same bits."""
+    import torch
+    for path in sorted(CACHE_DIR.glob("out_*_this.pt")):
+        other = path.with_name(path.name.replace("_this.pt", "_other.pt"))
+        if not other.exists():
+            continue
+        a, b = torch.load(path), torch.load(other)
+        for name in a:
+            x, y = a[name].float(), b[name].float()
+            log(json.dumps({"outputs": path.name[4:-8], "tensor": name,
+                            "max_abs_diff": float((x - y).abs().max()),
+                            "max_abs": float(y.abs().max()),
+                            "bitwise_equal": bool(torch.equal(a[name],
+                                                              b[name]))}))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, default=None)
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--variants", nargs="?", const="all", default=None,
+                    help="time the source variants (all, or a "
+                    "comma-separated list of names)")
     ap.add_argument("--kernels", default=",".join(CHECKS),
                     help="comma-separated subset of " + ", ".join(CHECKS))
     ap.add_argument("--time", default=None, help=argparse.SUPPRESS)
@@ -1432,7 +1591,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build_kernels([LIBS[k] for k in kernels])
     if args.variants:
-        build_variants(kernels)
+        build_variants(kernels, args.variants)
     log(f"build {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         CHECKS[name]()
@@ -1450,12 +1609,15 @@ def main() -> int:
             raise RuntimeError(f"timing run {tag} failed:\n{r.stderr}")
         log(r.stdout.strip())
 
+    for path in CACHE_DIR.glob("out_*.pt"):
+        path.unlink()
     order = ["other", "this", "this", "other"] if args.other else ["this"]
     for tag in order:
         run(tag, args.other if tag == "other" else ROOT)
+    if args.other:
+        compare_outputs()
     if args.variants:
-        names = [n for n, (lib, _) in VARIANTS.items()
-                 if lib in {LIBS[k] for k in kernels}]
+        names = chosen_variants(kernels, args.variants)
         for name in names + names[::-1]:
             run(f"variant {name}", variant=name)
     return 0
