@@ -284,6 +284,42 @@ failure:
    (1,024 image + 2,048 text) positions; (e) the fp32 smoke configs on
    the card against the port's CPU run: hubert's forward and internvl2's
    prefill + 4 decode steps within atol 1e-4, then 3 train steps;
+16. (run after phase 15 has freed its state) data parallelism on the one
+   card: two ranks on cuda:0, started by ``dist.run_ranks`` (spawned;
+   they load the kernels phase 1 built and build none), reduce through
+   gloo (NCCL refuses two ranks on one device; gloo stages card tensors
+   through the host, so the times are the wire's staging and the ranks'
+   contention for one card, nothing about scaling across cards). (b)
+   ``train_gnn_minibatch(mesh=)`` at phase 8's cell with the train seeds
+   cut to 2 x 1,024 x 37 + 1 = 75,777 (the shards take 38 and 37
+   batches; the short one is padded to the lockstep count), one epoch
+   with the fp32 wire and one with the int8 wire, a NaN injected on rank
+   1 at step 5, the tracer on: 38 steps on both ranks, ``skipped == 1``
+   on both, the replicas bitwise equal after the last step, finite
+   losses that fall, the step ms from the ``train.step`` spans,
+   ``sync_bytes_per_step`` beside the bytes a rank hands ``all_reduce``;
+   (e) each rank writes ``chiprun_out/trace_rank{r}.json`` (pid = rank)
+   and a ``metrics_to_jsonl`` line, and the parent merges the two traces
+   into ``trace_ranks.json``, which must validate with both ranks'
+   ``train.*`` spans; (a) one full-width step on the two shards' first
+   batches (the trainer's own sampler): each rank's synced gradients and
+   updated params bitwise (g_0 + g_1) / 2 and its update, from both
+   shards' 1-rank gradients computed on the rank, the replicas equal;
+   both ranks on one batch bitwise the 1-rank step; the int8 wire within
+   amax / 127 a leaf; the wire's ms and the step's ms with 2 ranks, with
+   both ranks running 1-rank steps and with one rank alone; (c)
+   ``make_data_parallel_step`` on qwen2-1.5b at full width (d_model
+   1,536, 12 / 2 heads of 128: the flash kernels' first run at a GQA
+   group of 6, d_ff 8,960, vocab 151,936, tied) cut to 4 of 28 layers,
+   bf16, remat "full", a global batch of 4 x 2,048 tokens (2 a rank):
+   the first step's synced gradients bitwise the mean of the two halves'
+   1-rank gradients and its loss their mean, every flash launch of it
+   held against its plain version and the fp32 oracle as phase 12 holds
+   them (8 forwards and 4 backwards a rank), three more steps with the
+   replicas bitwise equal after each, one step with ``compression=True``
+   within amax / 127 a leaf of the fp32 mean; the wire's ms a step; (d)
+   meanwhile, in this process, a one-rank mesh with a card of its own
+   (so NCCL) runs (a)'s step bitwise equal to the no-mesh step;
 5. last, the kernels line (one JSON object: the sampling kernels and the
    fused hop as timed in phase 8, the ordered segment sum and the
    per-edge SDDMM as timed in phase 9, the serving kernels as timed in phase 4, BSR as timed in
@@ -293,8 +329,9 @@ failure:
    keys from gemma-7b's kernel case and step; both flash entries with
    phase 14's launches and ``meta_*`` keys from its sink case, and phase
    15's launches and ``d80_*`` keys from hubert's kernel case; each
-   entry's ``launches_resume`` the launches of phase 13's resumed run,
-   added to its ``launches``), the script's seconds, the card line, and
+   entry's ``launches_resume`` the launches of phase 13's resumed run
+   and ``launches_dp`` those of phase 16's ranks, both added to its
+   ``launches``), the script's seconds, the card line, and
    ``{"ok": true, "device": {...}}``.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
@@ -304,6 +341,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import pickle
 import re
 import shutil
 import subprocess
@@ -5202,6 +5240,696 @@ def frontends_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: data parallelism on the one card (two ranks through gloo)
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2            # two ranks on cuda:0: NCCL refuses them, gloo stages
+DP_SEEDS = 2 * MB_BATCH * 37 + 1   # 75,777 seeds: 38 and 37 batches a shard
+DP_NAN = (5, 1)         # nan_grad_at: step 5, on rank 1's shard
+DP_TIMED = 10           # steps a timing of (a) takes the median of
+DP_TIMEOUT_S = 420.0    # the rank helper's join limit for the two ranks
+QWEN_ARCH, QWEN_LAYERS = "qwen2-1.5b", 4   # of 28: see dp_phase's cut
+QWEN_BATCH, QWEN_SEQ = 4, 2048             # the global batch, 2 a rank
+QWEN_MORE_STEPS = 3
+
+
+def dp_spec() -> dict:
+    """Phase 16's sizes, handed to the ranks (a spawned rank imports this
+    script afresh: it sees the module's constants, not the parent's)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    full = get_config(QWEN_ARCH)
+    return dict(arch=ARCH, hidden=HIDDEN, fanouts=FANOUTS, batch=MB_BATCH,
+                seeds=DP_SEEDS, nan=DP_NAN, lr=TRAIN_LR, wd=TRAIN_WD,
+                infer_batch=MB_INFER_BATCH, timed=DP_TIMED,
+                lm_cfg=dc.replace(full, n_layers=QWEN_LAYERS),
+                lm_full_layers=full.n_layers, lm_batch=QWEN_BATCH,
+                lm_seq=QWEN_SEQ, lm_more=QWEN_MORE_STEPS)
+
+
+def pack_dataset(ds) -> tuple:
+    """A ``GraphDataset`` as numpy arrays and plain values (its dataclass
+    fields, nested), which pickle as bytes (CPU tensors would pickle
+    through shared memory)."""
+    import torch
+    if dataclasses.is_dataclass(ds):
+        return (type(ds), {f.name: pack_dataset(getattr(ds, f.name))
+                           for f in dataclasses.fields(ds)})
+    return ("tensor", ds.numpy()) if isinstance(ds, torch.Tensor) else ds
+
+
+def unpack_dataset(packed):
+    import torch
+    if isinstance(packed, tuple) and len(packed) == 2:
+        kind, body = packed
+        if kind == "tensor":
+            return torch.from_numpy(body)
+        if isinstance(kind, type) and dataclasses.is_dataclass(kind):
+            return kind(**{k: unpack_dataset(v) for k, v in body.items()})
+    return packed
+
+
+def dp_bitwise(a, b) -> bool:
+    """Every leaf of two trees (nested dicts of 2- and 4-byte tensors)
+    equal bit for bit (unlike ``torch.equal``, -0.0 is not 0.0)."""
+    import torch
+    from repro_torch.optim.optimizer import tree_leaves
+
+    def bits(x):
+        return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+        for x, y in zip(la, lb))
+
+
+def within_quantum(got, mean, amaxes) -> float:
+    """The worst leaf's max |int8 wire - fp32 mean| over its shared
+    quantum (amax / 127, amax the larger of the ranks' absmax); raises
+    past 1."""
+    from repro_torch.optim.optimizer import tree_leaves
+    worst = 0.0
+    for g, m, a in zip(tree_leaves(got), tree_leaves(mean), amaxes):
+        q = max(float(a) / 127, 1e-30)
+        worst = max(worst, float((g.float() - m.float()).abs().max()) / q)
+    if not worst <= 1.0:
+        raise AssertionError(f"the int8 wire is off the fp32 mean by "
+                             f"{worst:.3f} shared quanta")
+    return worst
+
+
+def moved_bytes(tree, wire: str) -> int:
+    """Bytes a rank hands ``all_reduce`` in one ``sync_grads`` of
+    ``tree``: each leaf in its own dtype (fp32 wire), or as int32 plus one
+    fp32 absmax a leaf (int8 wire: the sum runs in int32)."""
+    from repro_torch.optim.optimizer import tree_leaves
+    leaves = tree_leaves(tree)
+    if wire == "int8":
+        return sum(4 * x.numel() for x in leaves) + 4 * len(leaves)
+    return sum(x.numel() * x.element_size() for x in leaves)
+
+
+@contextlib.contextmanager
+def timed_syncs(module):
+    """While on, ``module.sync_grads`` (the step's gradient sync) is timed
+    on the host clock between two device synchronisations, and its
+    outputs are kept: ``rec`` lists ``(ms, synced tree)``."""
+    import torch
+    real = module.sync_grads
+    rec: list = []
+
+    def timed(tree, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(tree, *args, **kw)
+        torch.cuda.synchronize()
+        rec.append(((time.perf_counter() - t0) * 1e3, out))
+        return out
+
+    module.sync_grads = timed
+    try:
+        yield rec
+    finally:
+        module.sync_grads = real
+
+
+@contextlib.contextmanager
+def record_trainer_steps():
+    """While on, the device-sampled steps ``train_gnn_minibatch`` builds
+    keep each step's loss tensor (read once the run is over) under
+    ``"losses"``, and the trainer's ``DeviceSampler`` is kept under
+    ``"sampler"``."""
+    from repro_torch.train import gnn_minibatch as mb
+    make = mb.make_device_minibatch_step
+    rec: dict = dict(losses=[], sampler=None)
+
+    def make_recording(apply_blocks, opt, dev_sampler, **kw):
+        step = make(apply_blocks, opt, dev_sampler, **kw)
+        rec["sampler"] = dev_sampler
+
+        def recording(*a, **k):
+            res = step(*a, **k)
+            rec["losses"].append(res[2].detach().clone())
+            return res
+        return recording
+
+    mb.make_device_minibatch_step = make_recording
+    try:
+        yield rec
+    finally:
+        mb.make_device_minibatch_step = make
+
+
+def dp_gnn_setup(spec, ds, device, sampler=None, caps=None) -> dict:
+    """(a)'s step at phase 8's cell: ``sampler`` (the trainer's), or a
+    device sampler with the trainer's capacities ``caps`` and ELL pinned
+    on both layers, seeded params, and the first batch of epoch 0 of each
+    of the two shards."""
+    import torch
+    from repro_torch.core import sparse as sp
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.optim import adamw
+    from repro_torch.sampling import (DeviceSampler, device_graph_from_csr,
+                                      seed_batches)
+    from repro_torch.train.gnn_minibatch import make_block_model
+    if sampler is None:
+        sampler = DeviceSampler(
+            device_graph_from_csr(sp.csr_from_coo(ds.coo), device=device),
+            spec["fanouts"], batch_size=spec["batch"], seed=0, base=128,
+            src_caps=None if caps is None else list(caps))
+        sampler.set_plans([KernelPlan(kind="ell")] * len(spec["fanouts"]))
+    init, _, apply, _ = make_block_model(spec["arch"], ds.num_features,
+                                         spec["hidden"], ds.num_classes,
+                                         len(spec["fanouts"]))
+    params = init(torch.Generator().manual_seed(0), device=device)
+    opt = adamw(spec["lr"], weight_decay=spec["wd"])
+    train_ids = np.nonzero(ds.train_mask.numpy())[0]
+    firsts = [next(iter(seed_batches(train_ids, spec["batch"], seed=0,
+                                     epoch=0, num_shards=DP_RANKS,
+                                     shard_index=s)))
+              for s in range(DP_RANKS)]
+    return dict(sampler=sampler, apply=apply, params=params, opt=opt,
+                state=opt.init(params),
+                seeds=[torch.from_numpy(b[0].astype(np.int32)).to(device)
+                       for b in firsts],
+                n_real=[b[1] for b in firsts], x=ds.x.to(device),
+                y=ds.y.to(device), device=device)
+
+
+def dp_gnn_step(setup, step, shard: int, rnd: int):
+    """One step of ``step`` on shard ``shard``'s batch with round ``rnd``
+    (a mesh step adds the rank's shard to it) from the setup's params."""
+    from repro_torch.core.patch import patched
+    from repro_torch.train.gnn_minibatch import init_step_stats
+    with patched(True):
+        return step(setup["params"], setup["state"], setup["seeds"][shard],
+                    setup["n_real"][shard], rnd, setup["x"], setup["y"],
+                    init_step_stats(setup["device"]), step_idx=0)
+
+
+def dp_lockstep_case(mesh, spec, ds, out_dir) -> dict:
+    """(b) and (e): ``train_gnn_minibatch(mesh=)`` on the train seeds cut
+    to ``DP_SEEDS``, one epoch with each wire, a NaN on rank 1 at step 5,
+    the tracer on (``profile``: a device sync after every step); then this
+    rank's trace (pid = its rank) and a JSONL metrics line."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.dist import replicas_equal
+    from repro_torch.kernels import ops as kops
+    from repro_torch.testing import FaultPlan
+    from repro_torch.train.gnn_minibatch import train_gnn_minibatch
+    r = mesh.index("data")
+    train = np.nonzero(ds.train_mask.numpy())[0][:spec["seeds"]]
+    mask = torch.zeros_like(ds.train_mask)
+    mask[train] = True
+    cut = dataclasses.replace(ds, train_mask=mask)
+    obs.reset()
+    obs.metrics().reset()
+    obs.enable(ops=False)
+    runs, launches, sampler = {}, {}, None
+    try:
+        for wire in ("fp32", "int8"):
+            kops.reset_kernel_launches()
+            n0 = len(obs.get_tracer().snapshot())
+            t0 = time.perf_counter()
+            with record_trainer_steps() as rec:
+                res = train_gnn_minibatch(
+                    spec["arch"], cut, fanouts=spec["fanouts"],
+                    batch_size=spec["batch"], hidden=spec["hidden"],
+                    epochs=1, lr=spec["lr"], weight_decay=spec["wd"],
+                    seed=0, mesh=mesh, grad_sync=wire, sampler="device",
+                    infer_batch=spec["infer_batch"],
+                    faults=FaultPlan(nan_grad_at=tuple(spec["nan"])),
+                    device_caps=(None if not runs else
+                                 runs["fp32"]["src_caps"]),
+                    profile=True)
+            wall = time.perf_counter() - t0
+            got = kops.kernel_launches()
+            launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+            step_ms = [s.dur_ns / 1e6 for s in
+                       obs.get_tracer().snapshot()[n0:]
+                       if s.name == "train.step"]
+            vals = [float(v) for v in rec["losses"]]
+            sampler = sampler or rec["sampler"]
+            runs[wire] = dict(
+                losses=vals, steps=len(step_ms),
+                steps_per_epoch=res.steps_per_epoch,
+                skipped=res.skipped_steps, src_caps=list(res.src_caps),
+                sync_bytes_per_step=res.sync_bytes_per_step,
+                moved_bytes_per_step=moved_bytes(res.final_params, wire),
+                step_ms_median=float(np.median(step_ms[2:])),
+                step_ms=step_ms, test_acc=res.test_acc,
+                infer_s=res.infer_time_s, wall_s=wall,
+                launches=got,
+                replicas_equal=replicas_equal(res.final_params, mesh))
+    finally:
+        obs.disable()
+    trace = Path(out_dir) / f"trace_rank{r}.json"
+    obs.write_chrome_trace(str(trace), pid=r)
+    obs.metrics_to_jsonl(str(Path(out_dir) / f"metrics_rank{r}.jsonl"),
+                         rank=r, phase=16, skipped=runs["fp32"]["skipped"])
+    return dict(runs=runs, launches=launches, trace=str(trace),
+                sampler=sampler)
+
+
+def dp_step_case(mesh, spec, ds, sampler) -> dict:
+    """(a): one step on the two shards' batches with each wire against
+    the 1-rank steps of both batches on this rank, the identical-batch
+    step against the 1-rank step, and the timings; ``sampler`` is (b)'s
+    trainer's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import replicas_equal, sync_grads
+    from repro_torch.optim import apply_updates
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.train import gnn_minibatch as mb
+    r = mesh.index("data")
+    su = dp_gnn_setup(spec, ds, mesh.device, sampler=sampler)
+    kw = dict(batch_size=spec["batch"])
+    one = mb.make_device_minibatch_step(su["apply"], su["opt"],
+                                        su["sampler"], **kw)
+    local = [dp_gnn_step(su, one, s, s) for s in range(DP_RANKS)]
+    mean = tree_map(lambda a, b: (a + b) / 2, local[0][3], local[1][3])
+    amax = [torch.maximum(a.abs().max(), b.abs().max()) for a, b in zip(
+        tree_leaves(local[0][3]), tree_leaves(local[1][3]))]
+    upd, _ = su["opt"].update(mean, su["state"], su["params"])
+    want_p = apply_updates(su["params"], upd)
+    steps = {wire: mb.make_device_minibatch_step(
+        su["apply"], su["opt"], su["sampler"], mesh=mesh, grad_sync=wire,
+        **kw) for wire in ("fp32", "int8")}
+    got = dp_gnn_step(su, steps["fp32"], r, 0)     # the rank adds its shard
+    same = dp_gnn_step(su, steps["fp32"], 0, -r)   # every rank on shard 0
+    got8 = dp_gnn_step(su, steps["int8"], r, 0)
+    out = dict(
+        synced_is_local_mean=dp_bitwise(got[3], mean),
+        params_are_mean_update=dp_bitwise(got[0], want_p),
+        loss_is_mean=bool(got[2] == (local[0][2] + local[1][2]) / 2),
+        replicas_equal=replicas_equal(got[0], mesh),
+        same_is_one_rank=dp_bitwise(same[3], local[0][3])
+        and dp_bitwise(same[0], local[0][0])
+        and bool(same[2] == local[0][2]),
+        int8_quanta=within_quantum(got8[3], mean, amax),
+        skipped=[int(s[4].drain()["skipped"]) for s in (got, same, got8)],
+        param_elements=sum(x.numel() for x in tree_leaves(su["params"])),
+        moved_bytes={w: moved_bytes(mean, w) for w in ("fp32", "int8")})
+
+    def ms_of(fn, reps):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    n = spec["timed"]
+    out["sync_ms"] = {w: ms_of(lambda: sync_grads(local[r][3], mesh,
+                                                   wire=w), 2 * n)
+                      for w in ("fp32", "int8")}
+    out["dp_step_ms"] = ms_of(lambda: dp_gnn_step(su, steps["fp32"], r, 0),
+                              n)
+    out["concurrent_one_rank_step_ms"] = ms_of(
+        lambda: dp_gnn_step(su, one, r, r), n)
+    dist.barrier()
+    if r == 0:              # the other rank waits at the barrier
+        out["alone_one_rank_step_ms"] = ms_of(
+            lambda: dp_gnn_step(su, one, 0, 0), n)
+    dist.barrier()
+    return out
+
+
+def dp_lm_case(mesh, spec) -> dict:
+    """(c): ``make_data_parallel_step`` at qwen2-1.5b's full width cut to
+    ``QWEN_LAYERS`` layers, the global batch split over the ranks."""
+    import torch
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.dist import replicas_equal
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.train import lm as TL
+    cfg, dev = spec["lm_cfg"], mesh.device
+    toks, tgts = synthetic_lm_batch(spec["lm_batch"], spec["lm_seq"],
+                                    cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(dev),
+             "targets": torch.from_numpy(tgts).to(dev)}
+    half = spec["lm_batch"] // DP_RANKS
+    halves = [{k: v[i * half:(i + 1) * half] for k, v in batch.items()}
+              for i in range(DP_RANKS)]
+
+    def fresh(compression):
+        step, opt = TL.make_data_parallel_step(cfg, mesh,
+                                               compression=compression)
+        return step, TL.make_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0), opt,
+            compression=compression, device=dev)
+
+    step, state = fresh(False)
+    if not replicas_equal(state.params, mesh):
+        raise AssertionError("qwen2: the ranks' initial params differ")
+    local = [TL.loss_and_grads(cfg, state.params, h) for h in halves]
+    local_loss = [l[0] for l in local]
+    amax = [torch.maximum(a.abs().max(), b.abs().max()).float()
+            for a, b in zip(tree_leaves(local[0][2]),
+                            tree_leaves(local[1][2]))]
+    mean = tree_map(lambda a, b: (a + b) / 2, local[0][2], local[1][2])
+    del local
+    torch.cuda.synchronize()
+    kops.reset_kernel_launches()
+    with timed_syncs(TL) as syncs, record_train_kernels(check=True) as calls:
+        state, m0 = step(state, batch)
+        torch.cuda.synchronize()
+    launches = kops.kernel_launches()
+    checks = [{k: v for k, v in c.items() if k != "inputs"} for c in calls]
+    del calls
+    out = dict(launches=launches, checks=checks, sync_ms=[syncs[0][0]],
+               synced_is_local_mean=dp_bitwise(syncs[0][1], mean),
+               loss_is_mean=bool(m0["loss"] == (local_loss[0].float() +
+                                                local_loss[1].float()) / 2),
+               losses=[float(m0["loss"])],
+               grad_elements=sum(x.numel() for x in tree_leaves(mean)),
+               moved_bytes={w: moved_bytes(mean, w)
+                            for w in ("fp32", "int8")},
+               replicas=[replicas_equal(state.params, mesh)])
+    syncs.clear()
+    step_ms = []
+    with timed_syncs(TL) as syncs:
+        for _ in range(spec["lm_more"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(float(m["loss"]))
+            out["replicas"].append(replicas_equal(state.params, mesh))
+    out["sync_ms"] += [ms for ms, _ in syncs]
+    out["step_ms"] = step_ms
+    del state, step, syncs
+    torch.cuda.empty_cache()
+    step8, state8 = fresh(True)
+    with timed_syncs(TL) as syncs:
+        state8, m8 = step8(state8, batch)
+        torch.cuda.synchronize()
+    out.update(int8_quanta=within_quantum(syncs[0][1], mean, amax),
+               int8_sync_ms=syncs[0][0], int8_loss=float(m8["loss"]),
+               int8_replicas=replicas_equal(state8.params, mesh))
+    return out
+
+
+def dp_rank(mesh, spec, dataset_file, out_dir) -> dict:
+    """One rank of phase 16 (``dist.run_ranks``' body): (b) and (e), (a),
+    then (c), on the dataset the parent wrote to ``dataset_file``
+    (:func:`pack_dataset`, pickled). It loads the kernels the parent built
+    and builds none. Returns numbers, lists and flags only (no
+    tensors)."""
+    import pickle
+
+    import torch
+    from repro_torch.kernels.build import build_kernels
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    built = build_kernels()
+    if built:
+        raise AssertionError(f"rank {mesh.index('data')} built {sorted(built)}"
+                             ": the parent builds every kernel first")
+    t0 = time.perf_counter()
+    with open(dataset_file, "rb") as f:
+        ds = unpack_dataset(pickle.load(f))
+    out = dict(rank=mesh.index("data"), backend=mesh.backend,
+               t_enter=t_enter, load_s=time.perf_counter() - t0,
+               device=str(mesh.device), name=torch.cuda.get_device_name(
+                   mesh.device) if mesh.device.type == "cuda" else "cpu")
+    out["lockstep"] = dp_lockstep_case(mesh, spec, ds, out_dir)
+    t1 = time.perf_counter()
+    out["step"] = dp_step_case(mesh, spec, ds,
+                               out["lockstep"].pop("sampler"))
+    out["step_s"] = time.perf_counter() - t1
+    del ds
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["lm"] = dp_lm_case(mesh, spec)
+    out["lm_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def merged_trace(paths) -> dict:
+    """The ranks' traces as one: their events concatenated, each rank's
+    timestamps shifted onto the earliest rank's epoch."""
+    objs = [json.loads(Path(p).read_text()) for p in paths]
+    t0 = min(o["otherData"]["epoch_unix_s"] for o in objs)
+    events = []
+    for o in objs:
+        shift = (o["otherData"]["epoch_unix_s"] - t0) * 1e6
+        for ev in o["traceEvents"]:
+            if "ts" in ev:
+                ev = dict(ev, ts=ev["ts"] + shift)
+            events.append(ev)
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "otherData": {"ranks": [o["otherData"] for o in objs]}}
+
+
+def nccl_case(spec, ds, caps) -> dict:
+    """(d): a one-rank mesh in this process, which has a card of its own
+    (so NCCL, by the backend rule), runs (a)'s step (with the device
+    capacities ``caps``, or the worst case without them): bitwise the
+    no-mesh step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import choose_backend, init_ranks
+    from repro_torch.train import gnn_minibatch as mb
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    store = Path(build) / f"nccl_rendezvous_{time.time_ns()}"
+    store.mkdir()
+    try:
+        mesh = init_ranks(0, 1, store_dir=str(store), device=DEVICE)
+        try:
+            su = dp_gnn_setup(spec, ds, mesh.device, caps=caps)
+            kw = dict(batch_size=spec["batch"])
+            plain = dp_gnn_step(su, mb.make_device_minibatch_step(
+                su["apply"], su["opt"], su["sampler"], **kw), 0, 0)
+            got = dp_gnn_step(su, mb.make_device_minibatch_step(
+                su["apply"], su["opt"], su["sampler"], mesh=mesh, **kw), 0, 0)
+            res = dict(backend=mesh.backend,
+                       grads=dp_bitwise(got[3], plain[3]),
+                       params=dp_bitwise(got[0], plain[0]),
+                       loss=bool(got[2] == plain[2]))
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    # the rule's pick for one rank with a card of its own: NCCL
+    want = choose_backend(DEVICE, 1, torch.cuda.device_count())
+    if res != dict(backend=want, grads=True, params=True, loss=True):
+        raise AssertionError(f"(d) the one-rank {want} step: {res}")
+    return res
+
+
+def dp_phase(ds, caps=None) -> dict:
+    """Phase 16: data parallelism on the one card. Two ranks on cuda:0
+    (gloo: NCCL refuses two ranks on one device), started by
+    ``dist.run_ranks`` (from a helper thread), run (a)-(c) and (e)
+    (:func:`dp_rank`); meanwhile this process runs (d) itself (with
+    ``caps``, phase 8's probed capacities), then checks what the ranks
+    return against each other and merges and validates their traces.
+    Raises on the first failed check."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.dist import run_ranks
+    t_phase = time.perf_counter()
+    spec = dp_spec()
+    cfg = spec["lm_cfg"]
+    n = cfg.param_count()
+    cut = (f"{QWEN_ARCH} (arXiv:2407.10671) at full width (d_model "
+           f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+           f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied), "
+           f"{QWEN_LAYERS} of {spec['lm_full_layers']} layers, remat "
+           f"{cfg.remat!r}: {n / 1e6:.1f} M parameters a replica, whose "
+           f"bf16 gradient ({2 * n / 1e9:.2f} GB) crosses gloo's host "
+           f"staging every step; each further layer repeats the same "
+           f"launches and adds its gradient to the wire")
+    log(f"cut: {cut}")
+    out_dir = ROOT / "chiprun_out"
+    traces = [out_dir / f"trace_rank{r}.json" for r in range(DP_RANKS)]
+    for r in range(DP_RANKS):
+        traces[r].unlink(missing_ok=True)
+        (out_dir / f"metrics_rank{r}.jsonl").unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    handoff = build / "dp_dataset.pkl"      # a file: both ranks start at once
+    with open(handoff, "wb") as f:
+        pickle.dump(pack_dataset(ds), f, protocol=5)
+    write_s = time.perf_counter() - t0
+    t_spawn = time.time()
+    box: dict = {}
+
+    def start_ranks():
+        try:
+            box["ranks"] = run_ranks(dp_rank, DP_RANKS, str(build),
+                                     device=DEVICE, timeout_s=DP_TIMEOUT_S,
+                                     args=(spec, str(handoff), str(out_dir)))
+        except BaseException as exc:        # re-raised below
+            box["error"] = exc
+
+    helper = threading.Thread(target=start_ranks, name="dp-ranks")
+    helper.start()
+    try:
+        # (d) a one-rank NCCL mesh in this process, while the ranks run
+        t1 = time.perf_counter()
+        nccl = nccl_case(spec, ds, caps)
+        nccl["seconds"] = time.perf_counter() - t1
+        log(f"(d) one-rank mesh on {nccl['backend']}: the step bitwise the "
+            f"no-mesh step ({nccl['seconds']:.1f} s, beside the ranks)")
+    finally:
+        helper.join()
+        handoff.unlink(missing_ok=True)
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    ranks_s = time.perf_counter() - t0
+    on = "cuda:0" if DEVICE == "cuda" else DEVICE   # every rank on one card
+    for r, got in enumerate(ranks):
+        if (got["rank"], got["backend"], got["device"]) != (r, "gloo", on):
+            raise AssertionError(f"rank {r}: {got['backend']} on "
+                                 f"{got['device']}")
+
+    # (b) lockstep: equal counts, one skip, equal replicas, falling losses
+    lock = {}
+    for wire in ("fp32", "int8"):
+        runs = [got["lockstep"]["runs"][wire] for got in ranks]
+        for r, run in enumerate(runs):
+            real = run["losses"][:-1]       # the last: shard 1's empty tail
+            if not (run["steps"] == run["steps_per_epoch"] == 38 ==
+                    len(run["losses"]) and run["skipped"] == 1 and
+                    run["replicas_equal"] and np.isfinite(run["losses"]).all()
+                    and np.mean(real[-5:]) < np.mean(real[:5])):
+                raise AssertionError(f"(b) {wire} rank {r}: steps "
+                                     f"{run['steps']} of "
+                                     f"{run['steps_per_epoch']}, skipped "
+                                     f"{run['skipped']}, replicas "
+                                     f"{run['replicas_equal']}, losses "
+                                     f"{run['losses']}")
+        if runs[0]["losses"] != runs[1]["losses"]:
+            raise AssertionError(f"(b) {wire}: the ranks' losses differ")
+        lock[wire] = {k: v for k, v in runs[0].items() if k != "step_ms"}
+        lock[wire]["step_ms_median_by_rank"] = [
+            run["step_ms_median"] for run in runs]
+        log(f"(b) {wire} wire: {runs[0]['steps']} lockstep steps on both "
+            f"ranks ({DP_SEEDS} seeds: 38 and 37 batches, the short shard "
+            f"padded), skipped {[run['skipped'] for run in runs]}, replicas "
+            f"bitwise equal; loss {runs[0]['losses'][0]:.4f} -> "
+            f"{runs[0]['losses'][-2]:.4f}; step ms (median, traced, synced) "
+            f"{[round(run['step_ms_median'], 3) for run in runs]}; "
+            f"sync_bytes_per_step {runs[0]['sync_bytes_per_step']}, moved "
+            f"{runs[0]['moved_bytes_per_step']}; test acc "
+            f"{runs[0]['test_acc']:.4f}; inference "
+            f"{runs[0]['infer_s']:.1f} s; run {runs[0]['wall_s']:.1f} s")
+    launches_gnn = [got["lockstep"]["launches"] for got in ranks]
+    for r, la in enumerate(launches_gnn):
+        missing = [k for k in ("sample_hop", "ell_spmm", "sell_spmm",
+                               "segment_sum") if la[k] <= 0]
+        if missing:
+            raise AssertionError(f"(b) rank {r} launched no {missing}: {la}")
+
+    # (a) one step, distinct shards and identical batches
+    steps = [got["step"] for got in ranks]
+    for r, st in enumerate(steps):
+        flags = {k: st[k] for k in ("synced_is_local_mean",
+                                    "params_are_mean_update", "loss_is_mean",
+                                    "replicas_equal", "same_is_one_rank")}
+        if not all(flags.values()) or st["skipped"] != [0, 0, 0]:
+            raise AssertionError(f"(a) rank {r}: {flags}, skipped "
+                                 f"{st['skipped']}")
+    a = steps[0]
+    log(f"(a) full-width step, fp32 wire: synced gradients and updated "
+        f"params bitwise (g_0 + g_1) / 2 and its update on both ranks, "
+        f"replicas equal; identical batches bitwise the 1-rank step; int8 "
+        f"within {max(s['int8_quanta'] for s in steps):.3f} of a shared "
+        f"quantum; sync ms fp32 {[round(s['sync_ms']['fp32'], 3) for s in steps]}"
+        f", int8 {[round(s['sync_ms']['int8'], 3) for s in steps]} "
+        f"({a['param_elements']} parameters; moved {a['moved_bytes']} bytes a "
+        f"rank); step ms 2 ranks {[round(s['dp_step_ms'], 3) for s in steps]},"
+        f" 1-rank steps on both at once "
+        f"{[round(s['concurrent_one_rank_step_ms'], 3) for s in steps]}, one "
+        f"rank alone {a['alone_one_rank_step_ms']:.3f}")
+
+    # (c) the LM step
+    lms = [got["lm"] for got in ranks]
+    want_lm = {"flash_attention": 2 * QWEN_LAYERS,
+               "flash_attention_bwd": QWEN_LAYERS}
+    for r, lm in enumerate(lms):
+        got_lm = {k: lm["launches"][k] for k in want_lm}
+        if not (lm["synced_is_local_mean"] and lm["loss_is_mean"] and
+                all(lm["replicas"]) and lm["int8_replicas"] and
+                np.isfinite(lm["losses"] + [lm["int8_loss"]]).all() and
+                got_lm == want_lm):
+            raise AssertionError(f"(c) rank {r}: synced mean "
+                                 f"{lm['synced_is_local_mean']}, loss mean "
+                                 f"{lm['loss_is_mean']}, replicas "
+                                 f"{lm['replicas']}, losses {lm['losses']}, "
+                                 f"launches {got_lm} (want {want_lm})")
+    if lms[0]["losses"] != lms[1]["losses"]:
+        raise AssertionError("(c) the ranks' losses differ")
+    worst, worst_abs = {}, {}
+    for c in (c for lm in lms for c in lm["checks"]):
+        worst[c["name"]] = max(worst.get(c["name"], 0.0), c["err_over_max"])
+        worst_abs[c["name"]] = max(worst_abs.get(c["name"], 0.0),
+                                   c["max_abs_err"])
+    log(f"(c) {QWEN_ARCH} x {QWEN_LAYERS} layers, {QWEN_BATCH} x "
+        f"{QWEN_SEQ} tokens (2 a rank): synced gradients bitwise "
+        f"(g_0 + g_1) / 2, loss the halves' mean, replicas equal after "
+        f"every step; losses {[round(x, 4) for x in lms[0]['losses']]}; "
+        f"flash launches a rank {want_lm}, each held against its plain "
+        f"version (worst max|diff| / max|plain| {worst}, tolerance "
+        f"{LM_TOL}); int8 within {max(lm['int8_quanta'] for lm in lms):.3f} "
+        f"of a shared quantum; wire ms fp32 "
+        f"{[[round(x, 1) for x in lm['sync_ms']] for lm in lms]}, int8 "
+        f"{[round(lm['int8_sync_ms'], 1) for lm in lms]} "
+        f"({lms[0]['grad_elements']} gradient elements, moved "
+        f"{lms[0]['moved_bytes']} bytes a rank); step ms "
+        f"{[[round(x, 1) for x in lm['step_ms']] for lm in lms]}")
+
+    # (e) the two ranks' traces as one
+    merged = merged_trace(traces)
+    errs = obs.validate_chrome_trace(merged)
+    spans = {r: sum(ev["pid"] == r and ev["name"].startswith("train.")
+                    for ev in merged["traceEvents"])
+             for r in range(DP_RANKS)}
+    if errs or not all(spans.values()):
+        raise AssertionError(f"(e) merged trace: {errs[:5]}, train.* spans "
+                             f"by rank {spans}")
+    (out_dir / "trace_ranks.json").write_text(json.dumps(merged))
+    log(f"(e) the ranks' traces merged into chiprun_out/trace_ranks.json: "
+        f"{len(merged['traceEvents'])} events, no violation, train.* spans "
+        f"by rank {spans}")
+
+    launches_dp = {k: sum(g["lockstep"]["launches"].get(k, 0) +
+                          g["lm"]["launches"].get(k, 0) for g in ranks)
+                   for k in ranks[0]["lm"]["launches"]}
+    seconds = time.perf_counter() - t_phase
+    split = {k: [round(g[k], 1) for g in ranks]
+             for k in ("load_s", "step_s", "lm_s", "seconds")}
+    split["start_s"] = [round(g["t_enter"] - t_spawn, 1) for g in ranks]
+    split["lockstep_s"] = [round(sum(r["wall_s"] for r in g["lockstep"][
+        "runs"].values()), 1) for g in ranks]
+    log(f"data-parallel phase: {seconds:.1f} s (dataset file {write_s:.1f} "
+        f"s, ranks {ranks_s:.1f} s: {split}); launches in the ranks "
+        f"{launches_dp}")
+    return dict(cut=cut, ranks=DP_RANKS, backend="gloo", seeds=DP_SEEDS,
+                lockstep=lock, step=steps, lm=[
+                    {k: v for k, v in lm.items() if k != "checks"}
+                    for lm in lms], lm_worst_err_over_max=worst,
+                lm_worst_abs_err=worst_abs,
+                trace_spans=spans, nccl=nccl, launches_dp=launches_dp,
+                ranks_s=ranks_s, split_s=split, seconds=seconds)
+
+
 def d80_keys(case: dict) -> dict:
     """The kernels line's ``d80_*`` keys of a phase 15 (c) case (hubert's
     attention at head dim 80, non-causal)."""
@@ -5546,8 +6274,7 @@ def main() -> int:
         "estimates from the H100 model)")
     tuning = tuning_phase(ds, gen)
     log(f"phase 11 on reddit: {tuning['seconds']:.1f} s")
-    del ds
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()    # reddit's host arrays stay for phase 16
 
     # -- phase 7: full-graph training on ogbn-proteins, BSR pinned -----------
     t0 = time.perf_counter()
@@ -5651,6 +6378,11 @@ def main() -> int:
     log(f"front-ends phase: {front['seconds']:.1f} s")
     report["frontends"] = front
     torch.cuda.empty_cache()
+
+    # -- phase 16: data parallelism, two ranks on the one card ---------------
+    dp = dp_phase(ds, minibatch["result"]["probed_caps"])
+    report["data_parallel"] = dp
+    del ds
 
     # -- phase 5: the kernels line ------------------------------------------
     kernels = []
@@ -5937,6 +6669,16 @@ def main() -> int:
         if isinstance(check, dict):
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        check["max_abs_err"])
+    for entry in kernels:       # phase 16: the two ranks' launches
+        n = dp["launches_dp"].get(entry["name"], 0)
+        entry["launches_dp"] = n
+        entry["launches"] += n
+        if entry["name"] in dp["lm_worst_err_over_max"]:
+            entry["err_over_max_plain"] = max(
+                entry.get("err_over_max_plain", 0.0),
+                dp["lm_worst_err_over_max"][entry["name"]])
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       dp["lm_worst_abs_err"][entry["name"]])
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['seconds']:.1f} s in all, the build included "

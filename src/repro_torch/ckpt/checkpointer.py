@@ -32,7 +32,8 @@ its dtype ``"bfloat16"`` (the reference's own bf16 files, written through
 Restore places each leaf on the device and in the dtype of the matching
 leaf of ``tree_like`` and checks the leaf count and every shape. Placing
 leaves over several devices (the reference's ``shardings``) is ROADMAP.md
-queue 1, item 5 (distributed), and raises here.
+queue 1, item 5b (with the sharding rules and data-parallel resume), and
+raises here.
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ __all__ = ["Checkpointer", "save_checkpoint", "restore_checkpoint",
            "latest_step", "committed_steps", "checkpoint_extra"]
 
 _SHARDINGS = ("restore(shardings=...): placing leaves over several devices "
-              "is not ported yet (ROADMAP.md queue 1, item 5: distributed)")
+              "is not ported yet (ROADMAP.md queue 1, item 5b: the sharding "
+              "rules, sharded restore and data-parallel resume)")
 
 
 def _step_dir(base: str, step: int) -> str:

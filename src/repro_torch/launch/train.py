@@ -8,7 +8,7 @@
         --arch phi3.5-moe-42b-a6.6b --smoke --steps 20 [--batch 8] \
         [--seq 128] [--accum 1] [--grad-compression int8] \
         [--ckpt-dir DIR] [--ckpt-every 10] [--resume] [--inject-fault N] \
-        [--device cpu]
+        [--mesh-data N --grad-sync shardmap] [--device cpu]
 
 Trains on the card unless ``--device cpu``. GNN: ``--measure-tuning``
 times the candidate kernels on that device before training, and
@@ -25,22 +25,58 @@ goes on from there with the token stream at that step;
 ``--inject-fault N`` fails step N once, before it runs, to drive the
 restart. A sticky CUDA error cannot be recovered in the same process:
 run the launcher again with ``--resume``. With ``--steps`` >= 20 the
-loss must have decreased. The reference's mesh flags (``--mesh-data``,
-``--mesh-model``, ``--grad-sync``) are not ported (ROADMAP.md queue 1,
-item 5): given, they exit 2.
+loss must have decreased.
+
+``--mesh-data N --grad-sync shardmap`` trains data-parallel over N
+ranks (``train.lm.make_data_parallel_step``; the int8 wire with
+``--grad-compression int8``): unless the process already runs under a
+launcher that set ``RANK`` / ``WORLD_SIZE`` (``torchrun``; then
+``--ckpt-dir`` is needed), it starts the N ranks itself
+(``dist.run_ranks``: NCCL with a card a rank, gloo where they share a
+card or run on the CPU). Every rank draws the same global batch and
+takes its slice; only rank 0 prints and checkpoints. ``--inject-fault``
+fails that step on every rank at once, and the ranks restore the same
+durable step: rank 0's writer drained, then all ranks at a barrier.
+What waits for ROADMAP.md queue 1, item 5b exits 2: ``--mesh-model`` >
+1, ``--grad-sync gspmd`` (the sharding rules) with N > 1, and
+``--resume`` with N > 1 (data-parallel resume).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import tempfile
 import time
 
-_NOT_PORTED = {
-    "mesh_data": "item 5 (distributed)",
-    "mesh_model": "item 5 (distributed)",
-    "grad_sync": "item 5 (distributed)",
-}
+_ITEM_5B = "ROADMAP.md queue 1, item 5b"
+
+
+class _RankCheckpointer:
+    """A rank's view of the one checkpoint directory of a data-parallel
+    run: rank 0 writes, every rank reads. A restore first drains rank 0's
+    writer and meets the other ranks at a barrier, so every rank restores
+    the same durable step."""
+
+    def __init__(self, ckpt, mesh):
+        self.ckpt, self.mesh = ckpt, mesh
+        self.base = ckpt.base
+        self.writer = mesh.index("data") == 0
+
+    def save(self, *args, **kw):
+        if self.writer:
+            self.ckpt.save(*args, **kw)
+
+    def wait(self):
+        if self.writer:
+            self.ckpt.wait()
+
+    def restore(self, tree_like, shardings=None):
+        import torch.distributed as dist
+        self.wait()
+        if self.mesh.group("data") is not None:
+            dist.barrier(group=self.mesh.group("data"))
+        return self.ckpt.restore(tree_like, shardings=shardings)
 
 
 def run_gnn(args) -> int:
@@ -62,31 +98,76 @@ def run_gnn(args) -> int:
     return 0
 
 
-def run_lm(args) -> int:
+def _lm_rank(mesh, args) -> int:
+    """One rank of a data-parallel LM run (``dist.run_ranks``' body)."""
+    return run_lm(args, mesh)
+
+
+def run_lm_ranks(args) -> int:
+    """``--mesh-data N --grad-sync shardmap``: under an outside launcher
+    this process is one rank; otherwise start the N ranks here."""
+    from repro_torch.dist import init_ranks, run_ranks
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        if world != args.mesh_data:
+            print(f"--mesh-data {args.mesh_data} under a launcher of "
+                  f"{world} ranks", file=sys.stderr)
+            return 2
+        import torch.distributed as dist
+        mesh = init_ranks(int(os.environ["RANK"]), world, device=args.device)
+        try:
+            return run_lm(args, mesh)
+        finally:
+            dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as scratch:
+        if args.ckpt_dir is None:           # one directory for every rank
+            args.ckpt_dir = os.path.join(scratch, "ckpt")
+        rcs = run_ranks(_lm_rank, args.mesh_data, scratch, args=(args,),
+                        device=args.device)
+    return max(rcs)
+
+
+def run_lm(args, mesh=None) -> int:
     import torch
     from repro_torch.ckpt import Checkpointer, latest_step
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import token_stream
+    from repro_torch.dist import make_data_mesh, replicas_equal
     from repro_torch.train import lm as TL
     from repro_torch.train.fault_tolerance import (ResilientLoop,
                                                    StragglerWatchdog)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    device = torch.device(args.device)
-    print(f"[lm] {cfg.name} ({cfg.family}) on {device}")
     compression = args.grad_compression != "none"
-    step_fn, opt = TL.make_train_step(cfg, lr=args.lr, accum=args.accum,
-                                      compression=compression)
+    if args.grad_sync == "shardmap":
+        mesh = mesh or make_data_mesh(1, device=args.device)
+        device = mesh.device
+        step_fn, opt = TL.make_data_parallel_step(
+            cfg, mesh, lr=args.lr, accum=args.accum, compression=compression)
+    else:
+        device = torch.device(args.device)
+        step_fn, opt = TL.make_train_step(cfg, lr=args.lr, accum=args.accum,
+                                          compression=compression)
+    lead = mesh is None or mesh.index("data") == 0
+    say = print if lead else (lambda *a, **kw: None)
+    say(f"[lm] {cfg.name} ({cfg.family}) on {device}" + (
+        f", mesh {mesh.shape} ({mesh.backend or 'one rank'}), grad sync "
+        f"{'int8' if compression else 'fp32'}" if mesh is not None else ""),
+        flush=True)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = TL.make_train_state(cfg, gen, opt, compression=compression,
                                 device=device)
+    if mesh is not None and not replicas_equal(state.params, mesh):
+        raise RuntimeError("the ranks' initial params differ")
     with tempfile.TemporaryDirectory() as scratch:
         ckpt_dir = args.ckpt_dir or scratch
         ckpt = Checkpointer(ckpt_dir, keep=3)
+        if mesh is not None:
+            ckpt = _RankCheckpointer(ckpt, mesh)
         start = 0
         if args.resume and latest_step(ckpt_dir) is not None:
             state, start = ckpt.restore(state)
-            print(f"  resumed from step {start}")
+            say(f"  resumed from step {start}")
         armed = [args.inject_fault is not None]
 
         def wrapped_step(st, batch):
@@ -110,9 +191,9 @@ def run_lm(args) -> int:
             loss = float(metrics["loss"])
             losses.append(loss)
             if step % args.log_every == 0:
-                print(f"  step {step:5d} loss {loss:.4f} "
-                      f"grad_norm {float(metrics['grad_norm']):.3f}",
-                      flush=True)
+                say(f"  step {step:5d} loss {loss:.4f} "
+                    f"grad_norm {float(metrics['grad_norm']):.3f}",
+                    flush=True)
 
         loop = ResilientLoop(wrapped_step, ckpt, ckpt_every=args.ckpt_every,
                              watchdog=StragglerWatchdog())
@@ -120,18 +201,19 @@ def run_lm(args) -> int:
         state, end = loop.run(state, batches(), start_step=start,
                               num_steps=args.steps, on_metrics=on_metrics)
         dt = time.perf_counter() - t0
-    print(f"  {args.steps} steps in {dt:.1f}s "
-          f"({dt / max(args.steps, 1) * 1e3:.1f} ms/step); "
-          f"final loss {losses[-1]:.4f}; restarts={loop.restarts} "
-          f"emergency_saves={loop.emergency_saves} last step {end}")
+    say(f"  {args.steps} steps in {dt:.1f}s "
+        f"({dt / max(args.steps, 1) * 1e3:.1f} ms/step); "
+        f"final loss {losses[-1]:.4f}; restarts={loop.restarts} "
+        f"emergency_saves={loop.emergency_saves} last step {end}",
+        flush=True)
     if args.steps >= 20:
         if not losses[-1] < losses[0]:
-            print(f"  loss did not decrease: {losses[0]:.4f} -> "
-                  f"{losses[-1]:.4f}", file=sys.stderr)
+            say(f"  loss did not decrease: {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f}", file=sys.stderr)
             return 1
-        print("  loss decreased: OK")
+        say("  loss decreased: OK", flush=True)
     elif len(losses) > 1:
-        print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        say(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
     return 0
 
 
@@ -168,22 +250,42 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--inject-fault", type=int, default=None, metavar="N",
                     help="fail step N once, before it runs")
-    # the reference's flags that wait for a later slice
-    ap.add_argument("--mesh-data", type=int, default=None)
-    ap.add_argument("--mesh-model", type=int, default=None)
-    ap.add_argument("--grad-sync", default=None)
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data-parallel ranks (with --grad-sync shardmap)")
+    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--grad-sync", choices=["gspmd", "shardmap"],
+                    default="gspmd",
+                    help="'shardmap': the explicit data-parallel step, "
+                         "gradients reduced by the hand-written collective "
+                         "(int8 wire with --grad-compression int8)")
     args = ap.parse_args(argv)
-    refused = [f"--{k.replace('_', '-')}: ROADMAP.md queue 1, {item}"
-               for k, item in _NOT_PORTED.items()
-               if getattr(args, k) not in (None, False)]
+    refused = []
+    if args.mesh_model > 1:
+        refused.append("--mesh-model > 1 (tensor and expert parallelism)")
+    if args.mesh_data > 1 and args.grad_sync == "gspmd":
+        refused.append("--grad-sync gspmd over several ranks (the sharding "
+                       "rules; use --grad-sync shardmap)")
+    if args.mesh_data > 1 and args.resume:
+        refused.append("--resume over several ranks (data-parallel resume)")
     if refused:
-        print("not ported yet: " + "; ".join(refused), file=sys.stderr)
+        print(f"not ported yet ({_ITEM_5B}): " + "; ".join(refused),
+              file=sys.stderr)
         return 2
     if args.resume and args.ckpt_dir is None:
         ap.error("--resume needs --ckpt-dir")
+    if args.mesh_data > 1 and args.batch % args.mesh_data:
+        ap.error(f"--batch {args.batch} does not split over --mesh-data "
+                 f"{args.mesh_data}")
     if args.lr is None:
         args.lr = 1e-2 if args.mode == "gnn" else 3e-4
-    return run_gnn(args) if args.mode == "gnn" else run_lm(args)
+    if args.mode == "gnn":
+        return run_gnn(args)
+    if args.mesh_data > 1:
+        if "RANK" in os.environ and args.ckpt_dir is None:
+            ap.error("--mesh-data > 1 under an outside launcher needs "
+                     "--ckpt-dir (one directory for every rank)")
+        return run_lm_ranks(args)
+    return run_lm(args)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,9 @@ the CPU; the reference's einsum computes the same function.
 
 Weights are stored (E·R, D, F) with R = replicas; the train step ties
 the replicas' gradients (:func:`tie_expert_replica_grads`) so the copies
-stay equal. Not ported yet: the manual expert-parallel path (it needs a
-``torch.distributed`` mesh, ROADMAP queue 1).
+stay equal. Not ported yet: the manual expert-parallel path
+(``_moe_manual``, an all-to-all over the expert-parallel group; ROADMAP
+queue 1, item 5b).
 """
 from __future__ import annotations
 

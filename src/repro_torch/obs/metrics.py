@@ -12,11 +12,15 @@ most recent ``max_samples`` observations plus lifetime count/sum.
 """
 from __future__ import annotations
 
+import json
 import threading
+import time
+from typing import Optional
 
 import numpy as np
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "metrics"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "metrics",
+           "metrics_to_jsonl"]
 
 
 class Counter:
@@ -153,3 +157,13 @@ def metrics() -> MetricsRegistry:
     """The process-wide registry singleton."""
     return _REGISTRY
 
+
+def metrics_to_jsonl(path: str, registry: Optional[MetricsRegistry] = None,
+                     **extra) -> dict:
+    """Append one ``{"ts": ..., "metrics": {...}, **extra}`` line to
+    ``path`` (the JSONL metrics sink) and return the record."""
+    registry = registry or _REGISTRY
+    rec = {"ts": time.time(), "metrics": registry.snapshot(), **extra}
+    with open(path, "a") as f:
+        f.write(json.dumps(rec, default=str) + "\n")
+    return rec

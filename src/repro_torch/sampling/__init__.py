@@ -26,7 +26,8 @@ from repro_torch.sampling.buckets import (LayerBucket, merge_buckets,
 from repro_torch.sampling.device_graph import (DeviceGraph, DeviceSampler,
                                                device_graph_from_csr)
 from repro_torch.sampling.loader import (num_seed_batches, prefetch,
-                                         resilient_prefetch, seed_batches)
+                                         resilient_prefetch, seed_batches,
+                                         shard_seeds)
 
 register_tuned("block_spmm", block_spmm)
 register_baseline("block_spmm", block_spmm_baseline)
@@ -50,6 +51,7 @@ __all__ = [
     "device_graph_from_csr",
     "num_seed_batches",
     "seed_batches",
+    "shard_seeds",
     "prefetch",
     "resilient_prefetch",
 ]

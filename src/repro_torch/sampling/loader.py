@@ -1,17 +1,27 @@
 """Seed-node loaders: shuffled epochs, static batch shapes, a host
 double buffer.
 
-Port of ``src/repro/sampling/loader.py`` for one shard. Every batch is
-padded to exactly ``batch_size`` seeds (the real count rides along for
-loss masking), and the epoch permutation is the reference's numpy
-generator keyed ``(seed, epoch)``, so both packages walk the same
-batches in the same order. :func:`prefetch` runs a (sample + pack)
-generator one item (or ``depth`` items) ahead in a background thread, so
-the host prepares batch *b+1* while the device runs batch *b*;
-:func:`resilient_prefetch` rebuilds a dead producer from the count of
-items already delivered, a bounded number of times. Sharding the seeds
-over data-parallel workers (``shard_seeds``, the lockstep padding) comes
-with the distributed slice (ROADMAP.md queue 1, item 5).
+Port of ``src/repro/sampling/loader.py``. Every batch is padded to
+exactly ``batch_size`` seeds (the real count rides along for loss
+masking), and the epoch permutation is the reference's numpy generator
+keyed ``(seed, epoch)``, so both packages walk the same batches in the
+same order. :func:`prefetch` runs a (sample + pack) generator one item
+(or ``depth`` items) ahead in a background thread, so the host prepares
+batch *b+1* while the device runs batch *b*; :func:`resilient_prefetch`
+rebuilds a dead producer from the count of items already delivered, a
+bounded number of times.
+
+Data parallelism: :func:`shard_seeds` splits a seed set round-robin over
+a mesh's ``'data'`` axis, and ``seed_batches(..., num_shards=,
+shard_index=)`` walks one shard of the epoch permutation all shards
+agree on. **Lockstep contract**: once the step carries a collective (the
+gradient sync of ``train/gnn_minibatch``), every shard must take the
+same number of steps an epoch, or the odd one waits forever in the
+collective. Round-robin shard lengths differ by up to one, so
+``seed_batches`` pads every shard to the common count
+(:func:`num_seed_batches`): a shorter shard's tail is a full-size batch
+with ``n_real == 0`` (a fully masked loss, zero local gradient, still in
+the collective).
 """
 from __future__ import annotations
 
@@ -23,33 +33,71 @@ import numpy as np
 
 from repro_torch import obs
 
-__all__ = ["seed_batches", "num_seed_batches", "prefetch",
+__all__ = ["seed_batches", "shard_seeds", "num_seed_batches", "prefetch",
            "resilient_prefetch"]
 
 
-def num_seed_batches(n_seeds: int, batch_size: int) -> int:
-    """Batches per epoch: ``ceil(n_seeds / batch_size)``."""
-    return -(-n_seeds // batch_size)
+def shard_seeds(seeds, mesh, *, axis: str = "data") -> list[np.ndarray]:
+    """Partition ``seeds`` over ``mesh``'s ``axis``, one array a shard,
+    round-robin (so R-MAT's id-local communities skew no shard); an axis
+    absent from the mesh means one shard."""
+    from repro_torch.dist.mesh import axis_shard_count
+    n = axis_shard_count(mesh, axis)
+    seeds = np.asarray(seeds)
+    return [seeds[i::n] for i in range(n)]
+
+
+def num_seed_batches(n_seeds: int, batch_size: int, drop_last: bool = False,
+                     *, num_shards: int = 1) -> int:
+    """Batches *each shard* yields an epoch under the lockstep contract:
+    without ``drop_last`` the longest shard's count
+    (``ceil(ceil(n / shards) / batch)``), shorter shards padding with
+    ``n_real == 0`` tail batches; with ``drop_last`` the shortest
+    shard's (``floor(floor(n / shards) / batch)``). Either way it does not
+    depend on the shard index."""
+    num_shards = max(int(num_shards), 1)
+    if drop_last:
+        return (n_seeds // num_shards) // batch_size
+    longest = -(-n_seeds // num_shards)
+    return -(-longest // batch_size)
 
 
 def seed_batches(seeds, batch_size: int, *, shuffle: bool = True,
-                 seed: int = 0, epoch: int = 0
+                 seed: int = 0, epoch: int = 0, drop_last: bool = False,
+                 num_shards: int = 1, shard_index: int = 0,
                  ) -> Iterator[tuple[np.ndarray, int]]:
     """Yield ``(padded_seeds, n_real)`` minibatches of seed node ids.
 
     ``padded_seeds`` always has ``batch_size`` entries: a short tail batch
-    repeats its first seed (the trainer masks the pads out of the loss and
-    routes them to the sentinel before device sampling). The permutation is
-    deterministic per ``(seed, epoch)``."""
+    repeats its first seed, an empty lockstep tail its shard's first seed
+    (the trainer masks the pads out of the loss and routes them to the
+    sentinel before device sampling). The permutation is deterministic per
+    ``(seed, epoch)`` and the same for every shard; shard
+    ``shard_index`` walks its round-robin slice of it, so the shards'
+    real seeds are one pass over ``seeds``. Every shard yields
+    ``num_seed_batches(len(seeds), batch_size, drop_last,
+    num_shards=num_shards)`` batches."""
     ids = np.asarray(seeds)
     if shuffle:
         rng = np.random.default_rng((int(seed), int(epoch)))
         ids = ids[rng.permutation(len(ids))]
-    for b in range(num_seed_batches(len(ids), batch_size)):
-        chunk = ids[b * batch_size: (b + 1) * batch_size]
+    shard = ids[shard_index::num_shards] if num_shards > 1 else ids
+    n_batches = num_seed_batches(len(ids), batch_size, drop_last,
+                                 num_shards=num_shards)
+    # the lockstep invariant: the common count covers every shard's real
+    # batches, and under drop_last every shard can fill it
+    real = (len(shard) // batch_size if drop_last
+            else -(-len(shard) // batch_size))
+    if (real > n_batches) if not drop_last else (real < n_batches):
+        raise AssertionError((len(ids), num_shards, shard_index, real,
+                              n_batches))
+    pad_value = shard[0] if len(shard) else (ids[0] if len(ids) else 0)
+    for b in range(n_batches):
+        chunk = shard[b * batch_size: (b + 1) * batch_size]
         n_real = len(chunk)
         if n_real < batch_size:
-            pad = np.full(batch_size - n_real, chunk[0], ids.dtype)
+            pad = np.full(batch_size - n_real,
+                          chunk[0] if n_real else pad_value, ids.dtype)
             chunk = np.concatenate([chunk, pad])
         yield chunk, n_real
 

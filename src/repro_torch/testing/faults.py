@@ -8,9 +8,10 @@ A :class:`FaultPlan` is handed to ``train_gnn_minibatch(faults=...)`` (or
   loop just before global step ``k`` executes (the "killed mid-epoch"
   fault: the checkpoint on disk is whatever the ckpt cadence last saved);
 * ``nan_grad_at=(k, shard)`` — add NaN to every gradient on the device
-  inside the step at global step ``k`` (``shard`` names the data-parallel
-  shard of the reference; one device is shard 0). The non-finite guard
-  must skip that update;
+  inside the step at global step ``k``, on the rank whose shard of a
+  data-parallel mesh is ``shard`` (without a mesh, or on a one-shard
+  mesh, the shard is ignored). The non-finite guard must skip that
+  update on every rank;
 * ``prefetch_death_at=k`` — the producer side of the prefetch pipeline
   raises before delivering its ``k``-th item (0-based, counted over the
   whole run, restarts included), exercising ``resilient_prefetch``;

@@ -57,7 +57,23 @@ batch count (``sampling.loader.resilient_prefetch``); ``faults`` (a
 :class:`repro_torch.testing.FaultPlan`) injects each failure mode at the
 trainer's injection points; ``watchdog`` (a
 ``train.fault_tolerance.StragglerWatchdog``) observes step wall-clock.
-Data parallelism comes with a later slice (ROADMAP.md queue 1, item 5).
+
+**Data parallelism** (``mesh=``, a :class:`repro_torch.dist.Mesh`) is
+lockstep, one process a rank (the reference runs every shard in one
+process under ``shard_map``): the seed stream splits over the mesh's
+``'data'`` axis under the loader's lockstep contract (every shard the
+same number of batches an epoch; a short shard's tail is an ``n_real ==
+0`` batch), each rank samples its own shard (host draws with round
+``(epoch * 100003 + batch) * shards + shard``; the device sampler adds
+the shard to the replicated round counter), and the gradients are
+reduced over the axis (``dist.collectives.sync_grads``: the exact fp32
+mean, or the int8 shared-scale wire with ``grad_sync='int8'``) between
+the gradients and the update. Every rank holds the whole graph and
+replicated params and applies the identical update, so the replicas
+stay bitwise equal. The non-finite guard's verdict is a collective
+(``all_agree``), so one rank's NaN skips the step on every rank.
+Checkpointing a data-parallel run waits for ROADMAP.md queue 1, item 5b
+(data-parallel resume, after queue 3 item 9).
 """
 from __future__ import annotations
 
@@ -75,6 +91,10 @@ from repro_torch import obs
 from repro_torch.ckpt import Checkpointer, checkpoint_extra, latest_step
 from repro_torch.core import sparse as sp
 from repro_torch.core.patch import patched
+from repro_torch.dist.collectives import (all_agree, pmean, psum,
+                                          replicas_equal, sync_grads,
+                                          wire_bytes)
+from repro_torch.dist.mesh import axis_shard_count
 from repro_torch.models.gnn import layers as L
 from repro_torch.optim import adamw, apply_updates
 from repro_torch.optim.optimizer import tree_map
@@ -86,12 +106,13 @@ from repro_torch.sampling import (BlockPlanCache, DeviceSampler,
                                   seed_batches)
 from repro_torch.train.gnn import accuracy, loss_and_grads
 
-__all__ = ["MB_ARCHS", "SAMPLERS", "MinibatchTrainResult",
+__all__ = ["MB_ARCHS", "SAMPLERS", "GRAD_SYNC_WIRES", "MinibatchTrainResult",
            "make_block_model", "init_step_stats", "make_minibatch_step",
            "make_device_minibatch_step", "layerwise_inference",
            "train_gnn_minibatch"]
 
 MB_ARCHS = ("sage-sum", "sage-mean", "sage-max", "gin")
+GRAD_SYNC_WIRES = ("fp32", "int8")
 SAMPLERS = ("host", "device")
 
 
@@ -116,12 +137,15 @@ class MinibatchTrainResult:
     plan_kinds: tuple        # kernel kinds the bucket plans picked
     epochs: int
     steps_per_epoch: int
+    num_shards: int = 1      # the mesh's 'data'-axis degree
+    grad_sync: str = "fp32"  # the gradient sync's wire ('fp32' | 'int8')
+    sync_bytes_per_step: int = 0   # a rank's gradient bytes on the wire
     sampler: str = "host"
     sample_time_s: float = 0.0     # the sample(+pack) stage of one epoch
     skipped_steps: int = 0         # updates skipped by the non-finite guard
     overflow_edges: int = 0        # device-sampler capacity-dropped edges
     capacity_escalations: int = 0  # device capacity doublings
-    probed_caps: Optional[tuple] = None   # device capacities, first build
+    probed_caps: Optional[tuple] = None   # probed capacities (None: given)
     src_caps: Optional[tuple] = None      # device capacities at the end
     prefetch_restarts: int = 0     # prefetch-worker recoveries
     resumed_step: int = -1         # global step restored from (-1: fresh)
@@ -183,17 +207,34 @@ def init_step_stats(device="cuda") -> obs.DeviceCounters:
     return obs.device_counters("skipped", "overflow", device=device)
 
 
-def _step_tail(opt, p, s, loss, grads, stats, ovf, *,
-               skip_nonfinite: bool, nan_inject=None, step_idx=None):
+def _check_wire(grad_sync: str) -> None:
+    if grad_sync not in GRAD_SYNC_WIRES:
+        raise ValueError(f"grad_sync must be one of {GRAD_SYNC_WIRES}, "
+                         f"got {grad_sync!r}")
+
+
+def _step_tail(opt, p, s, loss, grads, stats, ovf, *, mesh=None,
+               grad_sync: str = "fp32", skip_nonfinite: bool,
+               nan_inject=None, step_idx=None):
     """Everything between the gradients and the applied update, shared by
-    both samplers: the test harness's NaN (``nan_inject=(step, shard)``
-    adds NaN to every gradient on the device when ``step_idx`` is that
-    step; both are host ints, so nothing is read back), the non-finite
-    guard, decided and applied on the device (gradients zeroed, then the
-    new params and the whole Adam state, step count included, discarded
-    by ``torch.where`` when anything was non-finite), the update, and the
-    counters."""
-    if nan_inject is not None and step_idx == nan_inject[0]:
+    both samplers, in the reference's order:
+
+    1. the test harness's NaN: ``nan_inject=(step, shard)`` adds NaN to
+       every gradient on the device when ``step_idx`` is that step (and,
+       on a mesh of more than one shard, this rank is that shard); both
+       are host ints, so nothing is read back;
+    2. the local non-finite verdict (loss and every gradient);
+    3. on a mesh, the verdict made global by ``all_agree``, a collective
+       every rank issues, so every rank keeps or skips alike;
+    4. a skipped step's gradients zeroed *before* the sync (the int8
+       wire's shared scale is a max over ``|g|``: a NaN synced first
+       would poison every rank);
+    5. on a mesh, ``sync_grads`` over ``'data'`` and the loss averaged;
+    6. the update, whose new params and whole Adam state (step count
+       included) ``torch.where`` discards on a skip, and the counters."""
+    if nan_inject is not None and step_idx == nan_inject[0] and (
+            axis_shard_count(mesh) <= 1 or
+            mesh.index("data") == nan_inject[1]):
         grads = tree_map(lambda g: g + float("nan"), grads)
     ok = None
     if skip_nonfinite:
@@ -202,8 +243,13 @@ def _step_tail(opt, p, s, loss, grads, stats, ovf, *,
         ok = torch.isfinite(loss)
         for g in flat:
             ok = ok & torch.isfinite(g).all()
+        if mesh is not None:
+            ok = all_agree(ok, mesh, "data")
         grads = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
         loss = torch.where(torch.isfinite(loss), loss, 0.0)
+    if mesh is not None:
+        grads = sync_grads(grads, mesh, "data", wire=grad_sync)
+        loss = pmean(loss, mesh, "data")
     updates, s_new = opt.update(grads, s, p)
     p_new = apply_updates(p, updates)
     if skip_nonfinite:
@@ -217,7 +263,8 @@ def _step_tail(opt, p, s, loss, grads, stats, ovf, *,
     return p_new, s_new, loss, grads, stats
 
 
-def make_minibatch_step(apply_blocks, opt, *, batch_size: int,
+def make_minibatch_step(apply_blocks, opt, *, batch_size: int, mesh=None,
+                        grad_sync: str = "fp32",
                         skip_nonfinite: bool = True, nan_inject=None):
     """The host-sampled update: ``step(params, opt_state, pbs, seed_ids,
     n_real, x, y, stats, step_idx=None) -> (params, opt_state, loss,
@@ -225,14 +272,23 @@ def make_minibatch_step(apply_blocks, opt, *, batch_size: int,
     the padded ``(batch_size,)`` seed tensor there, ``n_real`` the host
     count of real seeds (the rest are masked out of the loss), ``step_idx``
     the host global step (read by ``nan_inject``, the test harness's
-    ``(step, shard)``)."""
+    ``(step, shard)``).
+
+    With ``mesh`` (a ``dist.Mesh``) the step is this rank's part of a
+    lockstep data-parallel step: its own shard's batch, the gradients
+    reduced over the mesh's ``'data'`` axis (``grad_sync``: ``'fp32'``
+    the exact mean, ``'int8'`` the shared-scale wire) before the update,
+    the returned loss the ranks' mean and the returned grads the synced
+    tree. Every rank of the axis must call it."""
+    _check_wire(grad_sync)
 
     def step(p, s, pbs, seed_ids, n_real, x, y, stats, step_idx=None):
         mask = torch.arange(batch_size, device=x.device) < n_real
         h = gather_rows(x, pbs[0].src_ids)
         loss, grads = loss_and_grads(apply_blocks, p, pbs, h,
                                      y[seed_ids.long()], mask)
-        return _step_tail(opt, p, s, loss, grads, stats, None,
+        return _step_tail(opt, p, s, loss, grads, stats, None, mesh=mesh,
+                          grad_sync=grad_sync,
                           skip_nonfinite=skip_nonfinite,
                           nan_inject=nan_inject, step_idx=step_idx)
 
@@ -240,7 +296,8 @@ def make_minibatch_step(apply_blocks, opt, *, batch_size: int,
 
 
 def make_device_minibatch_step(apply_blocks, opt, dev_sampler, *,
-                               batch_size: int,
+                               batch_size: int, mesh=None,
+                               grad_sync: str = "fp32",
                                skip_nonfinite: bool = True, nan_inject=None):
     """The device-sampled update: ``step(params, opt_state, seeds, n_real,
     rnd, x, y, stats, step_idx=None) -> (params, opt_state, loss, grads,
@@ -252,18 +309,29 @@ def make_device_minibatch_step(apply_blocks, opt, dev_sampler, *,
     routed to the ``num_nodes`` sentinel before sampling (degree-0
     frontier rows, inert blocks) and masked out of the loss. Sampling runs
     outside autograd (it is integer work), and its capacity-overflow count
-    joins the device counters. Nothing in the step reads the device."""
+    joins the device counters. Nothing in the step reads the device.
+
+    With ``mesh``, as :func:`make_minibatch_step`; the rank samples with
+    round ``rnd`` plus its shard index (``rnd`` is the replicated counter
+    ``(epoch * 100003 + batch) * shards``, so the shards draw disjoint
+    streams), and the overflow count is summed over the axis, so the
+    counters stay equal on every rank."""
+    _check_wire(grad_sync)
     num_nodes = dev_sampler.graph.num_nodes
+    shard = mesh.index("data") if mesh is not None else 0
 
     def step(p, s, seeds, n_real, rnd, x, y, stats, step_idx=None):
         mask = torch.arange(batch_size, device=seeds.device) < n_real
         with torch.no_grad():
             pbs, ovf = dev_sampler.sample_blocks_stats(
-                torch.where(mask, seeds, num_nodes), rnd)
+                torch.where(mask, seeds, num_nodes), rnd + shard)
+            if mesh is not None:
+                ovf = psum(ovf, mesh, "data")
         h = gather_rows(x, pbs[0].src_ids)
         loss, grads = loss_and_grads(apply_blocks, p, pbs, h,
                                      y[seeds.long()], mask)
-        return _step_tail(opt, p, s, loss, grads, stats, ovf,
+        return _step_tail(opt, p, s, loss, grads, stats, ovf, mesh=mesh,
+                          grad_sync=grad_sync,
                           skip_nonfinite=skip_nonfinite,
                           nan_inject=nan_inject, step_idx=step_idx)
 
@@ -346,7 +414,8 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                         epochs: int = 5, lr: float = 1e-2,
                         weight_decay: float = 5e-4, use_isplib: bool = True,
                         tune: bool = True, measure_tuning: bool = False,
-                        seed: int = 0, tuning_db=None,
+                        seed: int = 0, tuning_db=None, mesh=None,
+                        grad_sync: str = "fp32",
                         double_buffer: bool = True, bucket_base: int = 128,
                         infer_batch: int = 1024, sampler: str = "host",
                         skip_nonfinite: bool = True,
@@ -361,6 +430,17 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
     ``data.graphs.GraphDataset``), one layer per fanout entry (outermost
     first), on ``device``.
 
+    ``mesh`` (a ``repro_torch.dist.Mesh``; every rank of it calls this
+    with the same arguments) engages lockstep data parallelism over the
+    mesh's ``'data'`` axis (see the module docstring), on the mesh's
+    device: this rank trains on its shard of the seeds, the gradients
+    are reduced over the axis before each update (``grad_sync``:
+    ``'fp32'`` exact, ``'int8'`` the shared-scale wire), and the params,
+    drawn from the same seed on every rank, are checked to be bitwise
+    equal across the ranks before the first step. ``mesh`` with
+    ``ckpt_dir`` raises: data-parallel checkpointing and resume are
+    ROADMAP.md queue 1, item 5b.
+
     The initial weights come from a ``torch.Generator`` seeded with
     ``seed`` unless ``params`` hands over a starting point (a test starts
     both packages from the same weights that way). Epoch ``e``, batch
@@ -374,7 +454,9 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
     batches (1.5x the largest source count seen), unless ``device_caps``
     (innermost first) pins them, and a checkpoint's capacities take
     precedence over both (a resumed run must truncate as the killed one
-    did); the per-layer plans come from the same ``BlockPlanCache``
+    did); given capacities leave two of the three batches unsampled. The
+    per-layer plans come from the first batch, through the same
+    ``BlockPlanCache``
     sweep as the host path, restricted to ELL/trusted. Edges dropped to
     capacity overflow are counted on the device; at an epoch boundary
     with new drops the capacities double and the sampler is rebuilt, at
@@ -415,7 +497,13 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
     / ``loader.stall`` spans, with a device sync after every step
     (attribution mode, not benchmarking)."""
     _, semiring = _block_arch(arch)
+    _check_wire(grad_sync)
     n_layers = len(fanouts)
+    if mesh is not None and ckpt_dir is not None:
+        raise NotImplementedError(
+            "train_gnn_minibatch(mesh=..., ckpt_dir=...): checkpointing and "
+            "resuming a data-parallel run wait for ROADMAP.md queue 1, item "
+            "5b (data-parallel resume, after queue 3 item 9)")
     if sampler not in SAMPLERS:
         raise ValueError(f"sampler must be one of {SAMPLERS}, "
                          f"got {sampler!r}")
@@ -426,7 +514,9 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                              f"under sum); arch {arch!r} needs {semiring}")
         if any(f is None for f in fanouts):
             raise ValueError("sampler='device' needs finite fanouts")
-    device = torch.device(device)
+    device = mesh.device if mesh is not None else torch.device(device)
+    num_shards = axis_shard_count(mesh, "data") if mesh is not None else 1
+    shard = mesh.index("data") if mesh is not None else 0
     sync = torch.cuda.synchronize if device.type == "cuda" else \
         (lambda: None)
     with contextlib.ExitStack() as ctx:
@@ -448,10 +538,14 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
         plan_cache = BlockPlanCache(semiring=semiring, tune=tune,
                                     measure=measure_tuning, db=tuning_db,
                                     device=device)
+        if mesh is not None and not replicas_equal(params, mesh, "data"):
+            raise RuntimeError("the ranks' initial params differ: every "
+                               "rank must start from the same weights")
         train_ids = np.nonzero(dataset.train_mask.numpy())[0]
         x = dataset.x.to(device)
         y = dataset.y.to(device)
-        steps_per_epoch = num_seed_batches(len(train_ids), batch_size)
+        steps_per_epoch = num_seed_batches(len(train_ids), batch_size,
+                                           num_shards=num_shards)
 
         # -- checkpoint / resume: a committed step N means "N steps done"
         ckpt = None
@@ -480,17 +574,19 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
         dev = probed = src_caps = None
         if sampler == "device":
             dgraph = device_graph_from_csr(csr, device=device)
+            # checkpointed caps > pinned > probed; the plans need the
+            # first probe batch only, the probed capacities all three
+            given = restored_caps if restored_caps is not None \
+                else device_caps
             probe = [host_sampler.sample(
                 train_ids[: min(batch_size, len(train_ids))], round=r)
-                for r in range(3)]
-            probed = [int(1.5 * max(p[n_layers - 1 - j].n_src
-                                    for p in probe))
-                      for j in range(n_layers)]
-            # checkpointed caps > pinned > probed
-            src_caps = [int(c) for c in restored_caps] \
-                if restored_caps is not None else \
-                [int(c) for c in device_caps] if device_caps is not None \
-                else list(probed)
+                for r in range(3 if given is None else 1)]
+            if given is None:
+                probed = [int(1.5 * max(p[n_layers - 1 - j].n_src
+                                        for p in probe))
+                          for j in range(n_layers)]
+            src_caps = [int(c) for c in (probed if given is None
+                                         else given)]
 
             def build_device(caps):
                 d = DeviceSampler(dgraph, fanouts, batch_size=batch_size,
@@ -500,17 +596,20 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                                         nnz=bk.nnz, k_hint=k, sell_ok=False)
                     for blk, bk, k in zip(probe[0], d.buckets, dims)])
                 return d, make_device_minibatch_step(
-                    apply_blocks, opt, d, batch_size=batch_size,
-                    skip_nonfinite=skip_nonfinite, nan_inject=nan_inject)
+                    apply_blocks, opt, d, batch_size=batch_size, mesh=mesh,
+                    grad_sync=grad_sync, skip_nonfinite=skip_nonfinite,
+                    nan_inject=nan_inject)
 
             dev, step = build_device(src_caps)
         else:
             step = make_minibatch_step(apply_blocks, opt,
-                                       batch_size=batch_size,
+                                       batch_size=batch_size, mesh=mesh,
+                                       grad_sync=grad_sync,
                                        skip_nonfinite=skip_nonfinite,
                                        nan_inject=nan_inject)
 
         signatures: set = set()
+        wire_tag = grad_sync if num_shards > 1 else None   # span attribute
         stats = init_step_stats(device)
         losses: list = [float(v) for v in prior_losses]
 
@@ -537,8 +636,12 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
             ckpt_saves += 1
 
         def epoch_batches(epoch: int):
+            """This rank's shard of the epoch (every shard the same count
+            of batches: the lockstep contract)."""
             return list(seed_batches(train_ids, batch_size, shuffle=True,
-                                     seed=seed, epoch=epoch))
+                                     seed=seed, epoch=epoch,
+                                     num_shards=num_shards,
+                                     shard_index=shard))
 
         def pack_all(blocks, buckets):
             pbs = []
@@ -576,7 +679,8 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                     continue
                 with obs.span("loader.sample", batch=bi):
                     blocks = host_sampler.sample(
-                        seed_ids[:n_real], round=epoch * 100003 + bi)
+                        seed_ids[:n_real],
+                        round=(epoch * 100003 + bi) * num_shards + shard)
                 with obs.span("loader.pack", batch=bi):
                     buckets = plan_buckets(blocks, batch_size=batch_size,
                                            fanouts=fanouts,
@@ -636,7 +740,8 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                     gstep = epoch * steps_per_epoch + bi
                     t0 = before_step(gstep)
                     signatures.add(sig)
-                    with obs.span("train.step", step=gstep):
+                    with obs.span("train.step", step=gstep,
+                                  grad_sync=wire_tag):
                         params, opt_state, last, _, stats = step(
                             params, opt_state, pbs, sids, n_real, x, y,
                             stats, step_idx=gstep)
@@ -660,10 +765,12 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
                 gstep = epoch * steps_per_epoch + bi
                 t0 = before_step(gstep)
                 signatures.add(dev.signature)
-                with obs.span("train.step", step=gstep, sampler="device"):
+                with obs.span("train.step", step=gstep, sampler="device",
+                              grad_sync=wire_tag):
                     params, opt_state, last, _, stats = step(
                         params, opt_state, seeds[bi], batches[bi][1],
-                        epoch * 100003 + bi, x, y, stats, step_idx=gstep)
+                        (epoch * 100003 + bi) * num_shards, x, y, stats,
+                        step_idx=gstep)
                     if profile:
                         sync()
                 after_step(gstep, t0, last)
@@ -772,8 +879,11 @@ def train_gnn_minibatch(arch: str, dataset, *, fanouts=(10, 10),
         train_acc=train_acc, test_acc=test_acc, epoch_time_s=epoch_time,
         first_epoch_s=first_epoch, infer_time_s=infer_time,
         n_buckets=len(signatures), plan_kinds=plan_cache.kinds(),
-        epochs=epochs, steps_per_epoch=steps_per_epoch, sampler=sampler,
-        sample_time_s=sample_time,
+        epochs=epochs, steps_per_epoch=steps_per_epoch,
+        num_shards=num_shards, grad_sync=grad_sync,
+        sync_bytes_per_step=(wire_bytes(params, grad_sync)
+                             if num_shards > 1 else 0),
+        sampler=sampler, sample_time_s=sample_time,
         skipped_steps=skipped_base + drained["skipped"],
         overflow_edges=overflow_base + drained["overflow"],
         capacity_escalations=escalations,

@@ -16,6 +16,13 @@ equal ``opt.update`` + ``apply_updates`` on the same grads. The step
 declares that to :class:`~repro_torch.train.fault_tolerance.ResilientLoop`:
 its ``in_place`` flag is set just before the first write, so a step that
 fails after it is never saved as an emergency checkpoint.
+
+Data parallelism (``make_train_step(sync_axis=, mesh=)``,
+:func:`make_data_parallel_step`) runs one process a rank over a
+``repro_torch.dist.Mesh``: each rank takes its slice of the global
+batch, and the gradients are reduced over the mesh axis by the
+hand-written collective (``dist.collectives.sync_grads``) before the
+optimizer, so the replicated state gets the same update on every rank.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.collectives import axis_size, pmean, sync_grads
 from repro_torch.models.lm import transformer as T
 from repro_torch.models.lm.layers import dtype_of
 from repro_torch.models.lm.moe import tie_expert_replica_grads
@@ -37,8 +45,10 @@ __all__ = ["TrainState", "make_train_state", "make_train_step",
            "make_data_parallel_step", "loss_and_grads", "make_prefill_step",
            "make_decode_step", "shaped_batch"]
 
-_DISTRIBUTED = ("data-parallel steps are not ported yet (ROADMAP.md queue "
-                "1, item 5: distributed)")
+_SHARDINGS = ("shardings over a mesh (the sharding rules) are not ported "
+              "yet (ROADMAP.md queue 1, item 5b: the distributed SpMM, the "
+              "pipeline, the sharding rules, the expert-parallel MoE, "
+              "sharded restore and data-parallel resume)")
 
 
 class TrainState(NamedTuple):
@@ -84,7 +94,7 @@ def _microbatches(batch: dict, accum: int) -> list:
 
 def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
                     clip_norm: float = 1.0, accum: int = 1,
-                    compression: bool = False, sync_axis=None):
+                    compression: bool = False, sync_axis=None, mesh=None):
     """Returns (step_fn, opt). ``step_fn(state, batch) -> (state,
     metrics)``: ``batch`` is ``{"tokens", "targets"}`` ((B, S) int
     tensors on the params' device; :func:`shaped_batch` names each
@@ -97,11 +107,20 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
     AdamW with clipping. The step takes the state over, as the reference
     donates it: params and moments are updated in place, and the returned
     state holds the same tensors; ``step_fn.in_place`` (an
-    ``InPlaceUpdate``) is set just before the first write. ``sync_axis``
-    (the reference's data-parallel mode) raises NotImplementedError."""
-    if sync_axis is not None:
-        raise NotImplementedError(f"make_train_step(sync_axis=...): "
-                                  f"{_DISTRIBUTED}")
+    ``InPlaceUpdate``) is set just before the first write.
+
+    ``sync_axis`` (an axis name of ``mesh``, a ``repro_torch.dist.Mesh``)
+    is the reference's explicit data-parallel mode: this rank's step on
+    its own batch, the gradients reduced over the axis after the replica
+    tie and before ``in_place.begin()`` (the exact fp32 mean, or with
+    ``compression`` the int8 shared-scale wire of
+    ``dist.collectives.compressed_psum``; the wire quantizer is
+    stateless, so the error-feedback residuals are left untouched in this
+    mode), the loss and metrics averaged over the axis. Every rank of the
+    axis must call the step."""
+    if sync_axis is not None and mesh is None:
+        raise ValueError(f"make_train_step(sync_axis={sync_axis!r}) needs "
+                         "the mesh the axis belongs to (mesh=...)")
     opt = adamw(lr, weight_decay=weight_decay, clip_norm=clip_norm,
                 state_dtype=torch.float32)
 
@@ -124,7 +143,15 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
                        "aux": torch.zeros((), device=loss.device)}
         grads = tie_expert_replica_grads(cfg, grads)
         ef = state.ef
-        if compression:
+        if sync_axis is not None:
+            grads = sync_grads(grads, mesh, sync_axis,
+                               wire="int8" if compression else "fp32")
+            keys = sorted(metrics)
+            avg = pmean(torch.stack([loss.float()] + [
+                metrics[k].float() for k in keys]), mesh, sync_axis)
+            loss = avg[0]
+            metrics = {k: avg[i + 1] for i, k in enumerate(keys)}
+        elif compression:
             qtree, ef = ef_compress_update(grads, ef)
             grads = tree_map(lambda _, qs: int8_decompress(*qs), grads,
                              qtree)
@@ -139,9 +166,34 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
     return step, opt
 
 
-def make_data_parallel_step(cfg: ModelConfig, mesh=None, **kw):
-    """The reference's ``shard_map`` data-parallel step: not ported."""
-    raise NotImplementedError(f"make_data_parallel_step: {_DISTRIBUTED}")
+def make_data_parallel_step(cfg: ModelConfig, mesh, *, axis: str = "data",
+                            **kw):
+    """:func:`make_train_step` in the reference's data-parallel call
+    contract: returns ``(step_fn, opt)`` with ``step_fn(state,
+    global_batch) -> (state, metrics)``, where every rank of ``mesh``
+    passes the same global batch and its replicated state, takes its
+    slice of the batch's leading dim (rank ``i`` of ``n`` the ``i``-th
+    of ``n`` equal parts; the batch size must divide by the axis size)
+    and the gradients are reduced over ``axis`` inside the step (fp32,
+    or the int8 wire with ``compression=True``). Pure data parallelism:
+    parameters are replicated over the whole mesh."""
+    if mesh is None:
+        raise ValueError("make_data_parallel_step needs the mesh "
+                         "(repro_torch.dist.make_data_mesh)")
+    step, opt = make_train_step(cfg, sync_axis=axis, mesh=mesh, **kw)
+    n, i = axis_size(mesh, axis), mesh.index(axis)
+
+    def dp_step(state: TrainState, batch: dict):
+        b = next(iter(batch.values())).shape[0]
+        if b % n:
+            raise ValueError(f"a global batch of {b} does not split over "
+                             f"the {n} ranks of the {axis!r} axis")
+        part = b // n
+        return step(state, {k: v[i * part:(i + 1) * part]
+                            for k, v in batch.items()})
+
+    dp_step.in_place = step.in_place
+    return dp_step, opt
 
 
 def make_prefill_step(cfg: ModelConfig, capacity: int):
@@ -166,7 +218,7 @@ def shaped_batch(cfg: ModelConfig, batch_size: int, seq_len: int,
     n_prefix_tokens, d_model); the others ``tokens`` and ``targets``;
     ints int32. ``mesh`` (shardings) raises NotImplementedError."""
     if mesh is not None:
-        raise NotImplementedError(f"shaped_batch(mesh=...): {_DISTRIBUTED}")
+        raise NotImplementedError(f"shaped_batch(mesh=...): {_SHARDINGS}")
 
     def spec(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")

@@ -78,9 +78,9 @@ def test_keep_n_gc_and_async(tmp_path):
 
 def test_restore_with_shardings_is_not_ported(tmp_path):
     save_checkpoint(str(tmp_path), 1, _tree(3.0))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5b"):
         restore_checkpoint(str(tmp_path), _tree(), shardings={"w": None})
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5b"):
         Checkpointer(str(tmp_path)).restore(_tree(), shardings=object())
 
 

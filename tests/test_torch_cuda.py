@@ -2460,3 +2460,97 @@ def test_frontends_smoke_on_card_match_cpu(card, arch):
         lc, lp = float(m_card["loss"]), float(m_cpu["loss"])
         assert abs(lc - lp) <= 1e-4 * abs(lp), (i, lc, lp)
     assert tops.kernel_launches()["flash_attention_bwd"] == 2 * cfg.n_layers
+
+
+# --------------------------------------------------------------------------
+# data parallelism on the card: ranks that share the card reduce through
+# gloo, a rank with a card of its own through NCCL
+# --------------------------------------------------------------------------
+
+def _dp_card_rank(mesh):
+    """Two ranks on cuda:0: the collectives on card tensors (fp32 and
+    bf16) bitwise the local mean, and the device-sampled lockstep step's
+    synced gradients bitwise the mean of both shards' 1-rank gradients."""
+    from repro_torch import dist as tdist
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.core.patch import patched
+    from repro_torch.data import make_dataset
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.sampling import DeviceSampler, device_graph_from_csr
+    from repro_torch.train import gnn_minibatch as mb
+    r, dev = mesh.index("data"), mesh.device
+    gen = torch.Generator(device=dev)
+    xs = [{"f": torch.randn(1000, 37, generator=gen.manual_seed(s),
+                            device=dev),
+           "h": torch.randn(513, generator=gen.manual_seed(s + 9),
+                            device=dev).to(torch.bfloat16)} for s in (0, 1)]
+    mean = tree_map(lambda a, b: (a + b) / 2, xs[0], xs[1])
+    synced = tdist.sync_grads(xs[r], mesh)
+    coll_ok = all(torch.equal(a, b) for a, b in zip(tree_leaves(synced),
+                                                    tree_leaves(mean)))
+    q = tdist.sync_grads(xs[r], mesh, wire="int8")["f"]
+    amax = torch.maximum(xs[0]["f"].abs().max(), xs[1]["f"].abs().max())
+    int8_ok = bool((q - mean["f"]).abs().max() <= amax / 127)
+    agree = bool(tdist.all_agree(torch.tensor(r == 0, device=dev), mesh))
+
+    ds = make_dataset("reddit", scale=1 / 64, seed=1)
+    csr = tsp.csr_from_coo(ds.coo)
+    init, _, apply, _ = mb.make_block_model("sage-mean", ds.num_features, 64,
+                                            ds.num_classes, 2)
+    params = init(torch.Generator().manual_seed(0), device=dev)
+    opt = adamw(1e-2)
+    sampler = DeviceSampler(device_graph_from_csr(csr, device=dev), (10, 25),
+                            batch_size=256, seed=0)
+    sampler.set_plans([KernelPlan(kind="ell")] * 2)
+    seeds = torch.arange(512, dtype=torch.int32, device=dev).reshape(2, 256)
+    x, y = ds.x.to(dev), ds.y.to(dev)
+
+    def run(step, shard, rnd):
+        with patched(True):     # the ordered sums: bitwise on the card
+            return step(params, opt.init(params), seeds[shard], 256, rnd,
+                        x, y, mb.init_step_stats(dev), step_idx=0)
+    one = mb.make_device_minibatch_step(apply, opt, sampler, batch_size=256)
+    local = [run(one, s, 6 + s) for s in (0, 1)]   # the rank adds its shard
+    dp = mb.make_device_minibatch_step(apply, opt, sampler, batch_size=256,
+                                       mesh=mesh)
+    got = run(dp, r, 6)
+    same = run(dp, 0, 6 - r)                          # both on shard 0
+    gmean = tree_map(lambda a, b: (a + b) / 2, local[0][3], local[1][3])
+    eq = lambda a, b: all(torch.equal(u, v) for u, v in zip(  # noqa: E731
+        tree_leaves(a), tree_leaves(b)))
+    return dict(backend=mesh.backend, device=str(dev), coll_ok=coll_ok,
+                int8_ok=int8_ok, agree=agree, step_ok=eq(got[3], gmean),
+                same_ok=eq(same[3], local[0][3]) and eq(same[0], local[0][0]),
+                replicas=tdist.replicas_equal(got[0], mesh),
+                launches=dict(tops.kernel_launches()))
+
+
+def test_data_parallel_ranks_share_the_card_through_gloo(card, tmp_path):
+    from repro_torch import dist as tdist
+    from repro_torch.kernels.build import build_kernels
+    build_kernels()             # the ranks load what the parent built
+    res = tdist.run_ranks(_dp_card_rank, 2, str(tmp_path), device="cuda",
+                          timeout_s=300)
+    for got in res:
+        flags = {k: got[k] for k in ("coll_ok", "int8_ok", "step_ok",
+                                     "same_ok", "replicas")}
+        assert got["backend"] == "gloo" and got["device"] == "cuda:0"
+        assert all(flags.values()) and not got["agree"], flags
+        assert got["launches"]["sample_hop"] > 0, got["launches"]
+        assert got["launches"]["segment_sum"] > 0, got["launches"]
+
+
+def _nccl_rank(mesh):
+    from repro_torch import dist as tdist
+    g = {"w": torch.randn(4096, 33, device=mesh.device)}
+    out = tdist.sync_grads(g, mesh)
+    return dict(backend=mesh.backend, same=torch.equal(out["w"], g["w"]),
+                fresh=out["w"].data_ptr() != g["w"].data_ptr())
+
+
+def test_one_rank_nccl_mesh_reduces_on_the_card(card, tmp_path):
+    from repro_torch import dist as tdist
+    got, = tdist.run_ranks(_nccl_rank, 1, str(tmp_path), device="cuda",
+                           timeout_s=120)
+    assert got == dict(backend="nccl", same=True, fresh=True)

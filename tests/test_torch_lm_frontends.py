@@ -619,7 +619,7 @@ def test_shaped_batch_matches_reference(arch):
             assert got[key].device.type == "meta"
             assert tuple(got[key].shape) == spec.shape, key
             assert str(got[key].dtype).endswith(str(spec.dtype)), key
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5b"):
         TTL.shaped_batch(get_config(arch), 3, 2048, mesh=object())
 
 

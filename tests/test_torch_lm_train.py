@@ -546,12 +546,17 @@ def test_launcher_lm_smoke_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh-data", "2"], ["--mesh-model", "2"], ["--grad-sync", "shardmap"]])
+    ["--mesh-data", "2"], ["--mesh-model", "2"],
+    ["--mesh-data", "2", "--grad-sync", "shardmap", "--resume",
+     "--ckpt-dir", "unused"]])
 def test_launcher_refuses_unported_flags(capsys, flag):
+    """What waits for the distributed item's second half exits 2 before
+    anything is built: GSPMD over several ranks (the default
+    ``--grad-sync gspmd``), a model axis, a data-parallel resume."""
     rc = launch_train.main(["--mode", "lm", "--arch", "llama3-8b", "--smoke",
                             "--device", "cpu", *flag])
     assert rc == 2
-    assert "ROADMAP.md queue 1" in capsys.readouterr().err
+    assert "ROADMAP.md queue 1, item 5b" in capsys.readouterr().err
 
 
 def test_launcher_checkpoints_restarts_and_resumes_on_cpu(capsys, tmp_path):
@@ -580,13 +585,15 @@ def test_launcher_checkpoints_restarts_and_resumes_on_cpu(capsys, tmp_path):
 
 
 def test_train_entry_points_default_to_cuda_and_refuse_data_parallel():
+    """The entry points default to the card; the data-parallel step
+    refuses to run without the mesh its axis belongs to."""
     for fn in (TTL.make_train_state, TT.Model.init):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     cfg = get_smoke_config("llama3-8b")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(ValueError, match="mesh"):
         TTL.make_train_step(cfg, sync_axis="data")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        TTL.make_data_parallel_step(cfg)
+    with pytest.raises(ValueError, match="mesh"):
+        TTL.make_data_parallel_step(cfg, None)
     if not torch.cuda.is_available():
         _, opt = TTL.make_train_step(cfg)
         with pytest.raises((RuntimeError, AssertionError)):

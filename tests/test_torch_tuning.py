@@ -534,5 +534,5 @@ def test_launcher_refuses_lm_mode():
     ROADMAP item), and it loads no JAX."""
     out = _launch("--mode", "lm", "--arch", "llama3-8b", "--mesh-data", "2")
     assert out.returncode == 2
-    assert "queue 1, item 5" in out.stderr
+    assert "queue 1, item 5b" in out.stderr
     assert out.stdout.splitlines()[-1] == "JAX_LOADED False"
