@@ -320,6 +320,32 @@ failure:
    within amax / 127 a leaf of the fp32 mean; the wire's ms a step; (d)
    meanwhile, in this process, a one-rank mesh with a card of its own
    (so NCCL) runs (a)'s step bitwise equal to the no-mesh step;
+17. (run after phase 16) distributed GNN message passing on the one
+   card: four ranks on cuda:0 through gloo, spawned as in phase 16, on
+   reddit at scale 1 (phase 8's graph) at K = D = 256. The parent picks
+   the largest reddit scale whose four 2 x 2 ELL tiles (padded to the
+   widest in-tile degree) fit ``DG_ELL_BUDGET`` side by side, computes
+   the one-card results (SpMM by ``core.spmm`` on a ``CachedGraph``,
+   SDDMM by the plain per-edge dot product, FusedMM by
+   ``kernels.ref.fusedmm_coo_ref`` and its autograd, the ring by a dense
+   product) and hands them to the ranks by file. Each rank builds its
+   own band and tiles (``dist.build_band``, ``build_tile``) and, with
+   the launch counts zeroed just before and read just after, runs the
+   1-D SpMM on 4 SELL bands (C = 8), the 2 x 2 SpMM on SELL tiles (sum,
+   mean, ``compress=True``), SDDMM, FusedMM's three edge ops and the
+   softmax backward, ``ring_allgather_matmul`` on a dense 8,192 x 8,192
+   case and the 2 x 2 SpMM on the ELL tiles (sum, mean); then it times
+   each op (CUDA events, the wire's ms apart), holds every result's rows
+   against the one-card result (the stated rtol 1e-5 / atol 1e-6 x
+   max(1, max|ref|); compressed within pc x amax / 127 more; FusedMM
+   and its gradients, where a score's fp32 rounding passes through the
+   edge op, within ``FUSED_TOL`` / ``GRAD_TOL`` of the largest element;
+   the ring within 2 d eps sum|terms|; every case's ratio to the stated
+   tolerance logged), checks the bytes it handed the backend against
+   ``comm_volume`` / ``comm_volume_2d`` x 4 (only the ring's hops
+   staged through the host), and holds one launch of each kernel (SELL,
+   ELL on a few hundred of its rows, E, S) on its own operands against
+   the plain version;
 5. last, the kernels line (one JSON object: the sampling kernels and the
    fused hop as timed in phase 8, the ordered segment sum and the
    per-edge SDDMM as timed in phase 9, the serving kernels as timed in phase 4, BSR as timed in
@@ -330,8 +356,9 @@ failure:
    phase 14's launches and ``meta_*`` keys from its sink case, and phase
    15's launches and ``d80_*`` keys from hubert's kernel case; each
    entry's ``launches_resume`` the launches of phase 13's resumed run
-   and ``launches_dp`` those of phase 16's ranks, both added to its
-   ``launches``), the script's seconds, the card line, and
+   and ``launches_dp`` those of phase 16's ranks, ``launches_dist``
+   those of phase 17's, all added to its ``launches``), the script's
+   seconds, the card line, and
    ``{"ok": true, "device": {...}}``.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
@@ -5930,6 +5957,627 @@ def dp_phase(ds, caps=None) -> dict:
                 ranks_s=ranks_s, split_s=split, seconds=seconds)
 
 
+# --------------------------------------------------------------------------
+# phase 17: distributed GNN message passing, four ranks on the one card
+# --------------------------------------------------------------------------
+
+DG_RANKS = 4            # four ranks on cuda:0: NCCL refuses them, gloo carries
+DG_K = 256              # the width of phases 8 and 9 (K = D)
+DG_SELL_C = 8           # the measured tuner's pick on reddit (phase 11)
+DG_ELL_SCALES = (1, 1 / 2, 1 / 4, 1 / 8)
+DG_ELL_BUDGET = 40e9    # bytes of the four ELL tiles side by side on the card
+DG_RING_N = 8192        # the ring's dense case: A (8,192 x 8,192) @ H (., K)
+DG_TIMED = 3            # timed calls an op (the median is kept)
+DG_TIMEOUT_S = 300.0    # the rank helper's join limit for the four ranks
+DG_RTOL, DG_ATOL = 1e-5, 1e-6   # fp32 sums reordered across the ranks
+DG_ELL_ROWS = 256       # ELL tile rows held against the plain version
+DG_SEEDS = dict(h=171, x=172, y=173, g=174, he=175, ring_a=176, ring_h=177)
+DG_EDGE_OPS = ("softmax", "sigmoid", "none")
+
+
+def dg_matrix(name: str, n: int, k: int):
+    """Phase 17's input ``name`` (``DG_SEEDS``), made on the host from its
+    seed: every rank makes the same and takes its rows."""
+    import torch
+    gen = torch.Generator().manual_seed(DG_SEEDS[name])
+    return torch.randn((n, k), generator=gen, dtype=torch.float32)
+
+
+def coo_arrays(coo) -> dict:
+    """A COO's real entries as numpy arrays and its sizes (pickles as
+    bytes)."""
+    return dict(row=coo.row[: coo.nse].numpy(), col=coo.col[: coo.nse].numpy(),
+                val=coo.val[: coo.nse].numpy(), nrows=coo.nrows,
+                ncols=coo.ncols)
+
+
+def coo_of(arrays: dict):
+    """The COO of :func:`coo_arrays` (already sorted by row and column)."""
+    import torch
+    from repro_torch.core import sparse as sp
+    n = int(arrays["row"].shape[0])
+    return sp.COO(row=torch.from_numpy(arrays["row"]),
+                  col=torch.from_numpy(arrays["col"]),
+                  val=torch.from_numpy(arrays["val"]),
+                  nrows=arrays["nrows"], ncols=arrays["ncols"], nse=n)
+
+
+def dg_tolerance(want, scale: float):
+    """Phase 17's stated per-element tolerance: rtol 1e-5 and atol 1e-6 x
+    max(1, max|ref|) (fp32 sums reordered across the ranks)."""
+    return DG_RTOL * want.abs() + DG_ATOL * max(1.0, scale)
+
+
+def dg_compare(got, want, scale: float, extra=None, bound=None) -> dict:
+    """``got`` (a rank's piece) against ``want`` (the same rows of the
+    one-card result). Every case reports its worst ratio to the stated
+    tolerance (:func:`dg_tolerance`); it passes within that tolerance
+    plus ``extra`` (the compressed wire's quanta), or, where ``bound`` is
+    given, within ``bound``: the repo's bound for that kind of result
+    (FusedMM and its gradients: ``FUSED_TOL`` / ``GRAD_TOL`` of the
+    largest element, as phases 6 and 9 hold them, where a score's fp32
+    rounding passes through ``exp``; a dense product: two fp32 sums of d
+    terms, 2 d eps sum|terms|)."""
+    import torch
+    got = got.float()
+    err = (got - want).abs()
+    stated = dg_tolerance(want, scale)
+    tol = stated + (0.0 if extra is None else extra) if bound is None \
+        else bound
+    finite = bool(torch.isfinite(got).all())
+    if not err.numel():
+        return dict(max_abs_err=0.0, max_err_over_stated=0.0,
+                    max_err_over_tol=0.0, finite=finite, ok=finite)
+    return dict(max_abs_err=float(err.max()),
+                max_err_over_stated=float((err / stated).max()),
+                max_err_over_tol=float((err / tol).max()),
+                finite=finite, ok=bool((err <= tol).all()) and finite)
+
+
+def dg_timed(fn, dev) -> dict:
+    """Median of ``DG_TIMED`` calls of ``fn``: CUDA events around each
+    call, and the wire's ms (the collectives' host time, the device
+    synced before and after each; ``wire_stats``) separated out."""
+    import torch
+    from repro_torch.dist import reset_wire_stats, wire_stats
+    ms, wire = [], []
+    for _ in range(DG_TIMED):
+        reset_wire_stats(timing=True)
+        torch.cuda.synchronize(dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize(dev)
+        ms.append(e0.elapsed_time(e1))
+        wire.append(sum(v["ms"] for v in wire_stats().values()))
+    reset_wire_stats()
+    m, w = float(np.median(ms)), float(np.median(wire))
+    return dict(ms=m, wire_ms=w, compute_ms=m - w, all_ms=ms)
+
+
+def dg_kernel_checks(tile, tile_e, hg, hg_e, xg, yg, dout, rng) -> list:
+    """Each kernel of the ranks' path launched once on this rank's own
+    operands (the SELL tile at K, kernel E over the tile's slots, kernel S
+    over its column order; the ELL tile's launch held on ``DG_ELL_ROWS``
+    of its rows, the widest among them) against its plain version on the
+    same card tensors, with phase 4's per-row bounds."""
+    import torch
+    from repro_torch.kernels import segment_sum as kseg
+    from repro_torch.kernels.edge_dots import edge_dots_cuda
+    from repro_torch.kernels.ell_spmm import ell_spmm_cuda
+    out = []
+    err, d, ratio = check_kernel("sell_spmm", tile.op, hg, "tile")
+    out.append(dict(name="sell_spmm", shape=f"tile {tile.op.n_steps} x "
+                    f"{tile.op.c} steps, K {hg.shape[1]}", max_abs_err=err,
+                    max_err_over_bound=ratio, width=d))
+    full = ell_spmm_cuda(tile_e.op, hg_e)
+    deg = (tile_e.op.idx < tile_e.op.ncols).sum(1)
+    rows = torch.cat([torch.topk(deg, DG_ELL_ROWS // 4).indices,
+                      torch.from_numpy(rng.choice(
+                          tile_e.op.nrows, DG_ELL_ROWS - DG_ELL_ROWS // 4,
+                          replace=False)).to(deg.device)])
+    sub = dataclasses.replace(tile_e.op, idx=tile_e.op.idx[rows].contiguous(),
+                              val=tile_e.op.val[rows].contiguous(),
+                              nrows=int(rows.numel()))
+    err, d, ratio = check_kernel("ell_spmm", sub, hg_e, "tile rows",
+                                 out=full[rows])
+    out.append(dict(name="ell_spmm", shape=f"tile {tile_e.op.nrows} x "
+                    f"{tile_e.op.max_deg}, {DG_ELL_ROWS} rows held, K "
+                    f"{hg_e.shape[1]}", max_abs_err=err,
+                    max_err_over_bound=ratio, width=d))
+    del full
+    c = check_edge_dots(dict(args=(xg, yg, None, None), row=tile.rows,
+                             col=tile.cols, out=(edge_dots_cuda(
+                                 xg, yg, tile.rows, tile.cols),)),
+                        "tile slots")
+    out.append(dict(name="edge_dots", shape=f"{c['edges']} slots, D "
+                    f"{c['d']}", max_abs_err=c["max_abs_err"],
+                    max_err_over_bound=c["max_err_over_bound"]))
+    order, w = tile.col_order, tile.weight
+    got = kseg.segment_sum_sorted_cuda(dout, order.offsets, index=order.src,
+                                       weight=w, weight_index=order.perm)
+    want = kseg.segment_sum_sorted_plain(dout, order.offsets,
+                                         index=order.src, weight=w,
+                                         weight_index=order.perm)
+    mag = kseg.segment_sum_sorted_plain(dout.abs(), order.offsets,
+                                        index=order.src, weight=w.abs(),
+                                        weight_index=order.perm)
+    terms = torch.diff(order.offsets).to(torch.float32)[:, None]
+    err = (got - want).abs()
+    bound = 2 * EPS32 * terms * mag + 1e-30
+    if not bool((err <= bound).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"segment_sum tile transpose: kernel disagrees "
+                             f"with plain, max err {float(err.max())}")
+    out.append(dict(name="segment_sum", shape=f"tile transpose, "
+                    f"{order.perm.numel()} slots, K {dout.shape[1]}",
+                    max_abs_err=float(err.max()),
+                    max_err_over_bound=float((err / bound).max())))
+    return out
+
+
+def dg_rank(mesh, spec, graphs_file, refs_file) -> dict:
+    """One rank of phase 17 (``dist.run_ranks``' body): its band and
+    tiles built on the host and taken to its device, the main path run
+    once with the launch counts zeroed just before and read just after
+    (1-D SELL SpMM; the 2 x 2 SELL SpMM sum, mean and compressed; SDDMM;
+    FusedMM's three edge ops and the softmax backward; the ring; the ELL
+    tiles' SpMM), then each op timed, each result held against the
+    one-card result's rows (``refs_file``, written by the parent), and
+    each kernel against its plain version on this rank's operands.
+    Returns numbers and flags only."""
+    import pickle
+
+    import torch
+    from repro_torch import dist as tdist
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.build import build_kernels
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if build_kernels():
+        raise AssertionError("a rank built kernels: the parent builds them")
+    r, dev = mesh.index("data"), mesh.device
+    grid = tdist.make_grid_mesh(device=DEVICE)
+    p = grid.index("row") * grid.shape["col"] + grid.index("col")
+    t0 = time.perf_counter()
+    with open(graphs_file, "rb") as f:
+        graphs = pickle.load(f)
+    coo, coo_e = coo_of(graphs["scale1"]), coo_of(graphs["ell"])
+    n, m, n_e = coo.nrows, coo.ncols, coo_e.nrows
+    k = spec["k"]
+    mats = {name: dg_matrix(name, *shape)
+            for name, shape in (("h", (m, k)), ("x", (n, k)), ("y", (m, k)),
+                                ("g", (n, k)), ("he", (n_e, k)))}
+    nb = DG_RING_N // DG_RANKS
+    ring_a = dg_matrix("ring_a", DG_RING_N, DG_RING_N)[r * nb:(r + 1) * nb]
+    ring_h = dg_matrix("ring_h", DG_RING_N, k)[r * nb:(r + 1) * nb]
+    refs = torch.load(refs_file, mmap=True, map_location="cpu")
+    load_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sell = KernelPlan(kind="sell", sell_c=DG_SELL_C)
+    geo1, band = tdist.build_band(coo, DG_RANKS, r, plan=sell, device=dev)
+    grid2, tile = tdist.build_tile(coo, 2, 2, p, plan=sell, device=dev)
+    h1 = tdist.shard_rows(mats["h"], DG_RANKS, r).to(dev)
+    hc = tdist.col_shard(grid2, mats["h"], p).to(dev)
+    xr = tdist.row_shard(grid2, mats["x"], p).to(dev)
+    yc = tdist.col_shard(grid2, mats["y"], p).to(dev)
+    gr = tdist.row_shard(grid2, mats["g"], p).to(dev)
+    a_band, h_ring = ring_a.to(dev), ring_h.to(dev)
+    # the graph-static slot lists and orders, built once (as a
+    # CachedGraph's are) before the path runs
+    _ = (tile.rows, tile.row_order, tile.col_order)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+
+    outs, wires = {}, {}
+
+    def case(name, fn):
+        tdist.reset_wire_stats()
+        outs[name] = fn()
+        wires[name] = tdist.wire_stats()
+
+    ring = (lambda: tdist.ring_allgather_matmul(
+        lambda s: a_band[:, s * nb:(s + 1) * nb], h_ring, mesh, "data"))
+    # -- the main path, counted -------------------------------------------
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for red in ("sum", "mean"):
+            case(f"spmm1d_sell_{red}", lambda: tdist.distributed_spmm(
+                band, h1, mesh, reduce=red))
+            case(f"spmm2d_sell_{red}", lambda: tdist.distributed_spmm_2d(
+                tile, hc, grid, reduce=red))
+        case("spmm2d_sell_compressed", lambda: tdist.distributed_spmm_2d(
+            tile, hc, grid, compress=True))
+        case("sddmm", lambda: tdist.distributed_sddmm_2d(tile, xr, yc, grid))
+        for op in DG_EDGE_OPS:
+            case(f"fused_{op}", lambda: tdist.distributed_fusedmm_2d(
+                tile, xr, yc, hc, grid, edge_op=op))
+        case("ring", ring)
+    leaves = [t.clone().requires_grad_() for t in (xr, yc, hc)]
+    tdist.reset_wire_stats()
+    tdist.distributed_fusedmm_2d(tile, *leaves, grid).backward(gr)
+    wires["fused_softmax_bwd"] = tdist.wire_stats()
+    outs.update(dx=leaves[0].grad, dy=leaves[1].grad, dh=leaves[2].grad)
+    torch.cuda.synchronize(dev)
+    sell_s = time.perf_counter() - t0
+    t1 = time.perf_counter()     # the ELL tiles: built, then driven
+    grid_e, tile_e = tdist.build_tile(coo_e, 2, 2, p, device=dev)
+    hce = tdist.col_shard(grid_e, mats["he"], p).to(dev)
+    torch.cuda.synchronize(dev)
+    build_ell_s = time.perf_counter() - t1
+    with torch.no_grad():
+        for red in ("sum", "mean"):
+            case(f"spmm2d_ell_{red}", lambda: tdist.distributed_spmm_2d(
+                tile_e, hce, grid, reduce=red))
+    torch.cuda.synchronize(dev)
+    main_s = time.perf_counter() - t0
+    launches = kops.kernel_launches()
+    sell_routes = dict(kops._CUDA_WRAPPERS["sell_spmm"].launches_by_instance)
+    peak_main = torch.cuda.max_memory_allocated(dev)
+
+    # -- the bytes each op handed the backend, against comm_volume x 4 ------
+    vol1 = 4 * tdist.comm_volume(geo1, k)["elements"]
+    vol2 = 4 * tdist.comm_volume_2d(grid2, k)["elements"]
+    vol_e = 4 * tdist.comm_volume_2d(grid_e, k)["elements"]
+    wire_bytes_ok = {}
+    for name, w in wires.items():      # (compressed: the amax's pmax aside)
+        got = sum(v["bytes"] for op, v in w.items()
+                  if op in ("all_gather", "psum_scatter"))
+        want = (vol1 if name.startswith("spmm1d") else
+                vol_e if name.startswith("spmm2d_ell") else
+                vol2 if name.startswith("spmm2d") else None)
+        if want is not None:
+            wire_bytes_ok[name] = (got, want)
+    staged = {name: sum(v["staged_bytes"] for v in w.values())
+              for name, w in wires.items()}
+
+    # -- timings (not counted) ----------------------------------------------
+    timings = {}
+    with torch.no_grad():
+        timings["spmm1d_sell"] = dg_timed(lambda: tdist.distributed_spmm(
+            band, h1, mesh), dev)
+        timings["spmm2d_sell"] = dg_timed(lambda: tdist.distributed_spmm_2d(
+            tile, hc, grid), dev)
+        timings["spmm2d_sell_compressed"] = dg_timed(
+            lambda: tdist.distributed_spmm_2d(tile, hc, grid, compress=True),
+            dev)
+        timings["spmm2d_ell"] = dg_timed(lambda: tdist.distributed_spmm_2d(
+            tile_e, hce, grid), dev)
+        timings["sddmm"] = dg_timed(lambda: tdist.distributed_sddmm_2d(
+            tile, xr, yc, grid), dev)
+        timings["fused_softmax"] = dg_timed(
+            lambda: tdist.distributed_fusedmm_2d(tile, xr, yc, hc, grid),
+            dev)
+        timings["ring"] = dg_timed(ring, dev)
+
+    def fwd_bwd():
+        lv = [t.clone().requires_grad_() for t in (xr, yc, hc)]
+        tdist.distributed_fusedmm_2d(tile, *lv, grid).backward(gr)
+    timings["fused_softmax_fwd_bwd"] = dg_timed(fwd_bwd, dev)
+
+    # -- every result against the one-card result's rows ---------------------
+    checks = {}
+    scale = refs["max_abs"]
+
+    def rows_of(ref, lo, cnt, limit):
+        hi = min(lo + cnt, limit)
+        return ref[lo:max(hi, lo)].to(dev), max(hi - lo, 0)
+
+    rp = geo1.rows_per_part
+    for red in ("sum", "mean"):
+        want, cnt = rows_of(refs[f"spmm_{red}"], r * rp, rp, n)
+        checks[f"spmm1d_sell_{red}"] = dg_compare(
+            outs[f"spmm1d_sell_{red}"][:cnt], want, scale[f"spmm_{red}"])
+    nr = grid2.rows_per_tile // grid2.pc
+    for red in ("sum", "mean"):
+        want, cnt = rows_of(refs[f"spmm_{red}"], p * nr, nr, n)
+        checks[f"spmm2d_sell_{red}"] = dg_compare(
+            outs[f"spmm2d_sell_{red}"][:cnt], want, scale[f"spmm_{red}"])
+    # the compressed wire: pc quanta of the shared grid (the max over the
+    # column blocks of |partial product|), as the reference bounds it
+    with torch.no_grad():
+        part = kops.sell_spmm(tile.op, tdist.all_gather(hc, grid, "row"))
+        amax = float(tdist.pmax(part.abs().amax().reshape(1), grid,
+                                "col")[0])
+    del part
+    want, cnt = rows_of(refs["spmm_sum"], p * nr, nr, n)
+    checks["spmm2d_sell_compressed"] = dg_compare(
+        outs["spmm2d_sell_compressed"][:cnt], want, scale["spmm_sum"],
+        extra=grid2.pc * amax / 127)
+    checks["spmm2d_sell_compressed"]["quantum"] = amax / 127
+    for op in DG_EDGE_OPS:
+        want, cnt = rows_of(refs[f"fused_{op}"], p * nr, nr, n)
+        checks[f"fused_{op}"] = dg_compare(
+            outs[f"fused_{op}"][:cnt], want, scale[f"fused_{op}"],
+            bound=FUSED_TOL * scale["h" if op == "softmax" else f"fused_{op}"])
+    want, cnt = rows_of(refs["dx"], p * nr, nr, n)
+    checks["dx"] = dg_compare(outs["dx"][:cnt], want, scale["dx"],
+                              bound=GRAD_TOL * scale["dx"])
+    i, j = divmod(p, grid2.pc)
+    nc = grid2.cols_per_tile // grid2.pr
+    for key in ("dy", "dh"):
+        want, cnt = rows_of(refs[key], j * grid2.cols_per_tile + i * nc, nc,
+                            m)
+        checks[key] = dg_compare(outs[key][:cnt], want, scale[key],
+                                 bound=GRAD_TOL * scale[key])
+    # SDDMM: each real slot's score against the edge's, pad slots 0
+    s = outs["sddmm"].reshape(-1)
+    valid = tile.cols < tile.op.ncols
+    keys = (i * grid2.rows_per_tile + tile.rows[valid].long()) * m + \
+        j * grid2.cols_per_tile + tile.cols[valid].long()
+    coo_keys = (coo.row.to(dev).long() * m + coo.col.to(dev).long())
+    at = torch.searchsorted(coo_keys, keys).clamp(max=coo_keys.numel() - 1)
+    found = bool((coo_keys[at] == keys).all())
+    checks["sddmm"] = dg_compare(s[valid], refs["sddmm"].to(dev)[at],
+                                 scale["sddmm"])
+    checks["sddmm"].update(found=found, slots=int(valid.sum()),
+                           pad_zero=bool((s[~valid] == 0).all()))
+    checks["sddmm"]["ok"] &= found and checks["sddmm"]["pad_zero"]
+    del coo_keys, at, keys
+    want, cnt = rows_of(refs["ring"], r * nb, nb, DG_RING_N)
+    mag, _ = rows_of(refs["ring_mag"], r * nb, nb, DG_RING_N)
+    checks["ring"] = dg_compare(outs["ring"], want, scale["ring"],
+                                bound=2 * DG_RING_N * EPS32 * mag + 1e-30)
+    nr_e = grid_e.rows_per_tile // grid_e.pc
+    for red in ("sum", "mean"):
+        want, cnt = rows_of(refs[f"ell_{red}"], p * nr_e, nr_e, n_e)
+        checks[f"spmm2d_ell_{red}"] = dg_compare(
+            outs[f"spmm2d_ell_{red}"][:cnt], want, scale[f"ell_{red}"])
+    on_card = all(t.device == dev for t in outs.values())
+    del outs, refs
+
+    # -- each kernel against its plain version on this rank's operands -------
+    with torch.no_grad():
+        hg = tdist.all_gather(hc, grid, "row")
+        hg_e = tdist.all_gather(hce, grid, "row")
+        xg = tdist.all_gather(xr, grid, "col")
+        yg = tdist.all_gather(yc, grid, "row")
+        kchecks = dg_kernel_checks(tile, tile_e, hg, hg_e, xg, yg,
+                                   dg_matrix("g", tile.op.nrows, k).to(dev),
+                                   np.random.default_rng(r))
+    torch.cuda.synchronize(dev)
+    return dict(
+        rank=r, tile=p, coords=(grid.index("row"), grid.index("col")),
+        backend=mesh.backend, device=str(dev), t_enter=t_enter,
+        load_s=load_s, build_s=build_s, build_ell_s=build_ell_s,
+        sell_s=sell_s, main_s=main_s, launches=launches,
+        sell_routes=sell_routes,
+        peak_main_gb=peak_main / 1e9,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        wire_bytes=wire_bytes_ok, staged_bytes=staged,
+        wires=wires,
+        timings=timings, checks=checks, kernel_checks=kchecks,
+        on_card=on_card, ell_tile=dict(rows=tile_e.op.nrows,
+                                       width=tile_e.op.max_deg,
+                                       bytes=tile_e.op.idx.numel() * 8),
+        sell_tile=dict(steps=tile.op.n_steps, c=tile.op.c,
+                       slots=int(valid.numel())),
+        band=dict(steps=band.op.n_steps, rows=band.op.nrows))
+
+
+def dg_ell_scale(ds) -> tuple:
+    """The largest reddit scale of ``DG_ELL_SCALES`` whose four 2 x 2 ELL
+    tiles (8 bytes a slot, padded to the widest in-tile degree) fit
+    ``DG_ELL_BUDGET`` together and index in int32: (scale, its COO, the
+    sizes considered)."""
+    from repro_torch.data import make_dataset
+    from repro_torch.dist import ell_tile_width
+    sizes = []
+    for scale in DG_ELL_SCALES:
+        coo = ds.coo if scale == 1 else make_dataset("reddit",
+                                                     scale=scale).coo
+        grid, width = ell_tile_width(coo, 2, 2)
+        slots = grid.rows_per_tile * width
+        sizes.append(dict(scale=scale, nodes=coo.nrows, edges=coo.nse,
+                          tile_rows=grid.rows_per_tile, tile_width=width,
+                          tile_gb=slots * 8 / 1e9,
+                          four_tiles_gb=4 * slots * 8 / 1e9))
+        if 4 * slots * 8 <= DG_ELL_BUDGET and slots < 2 ** 31:
+            return scale, coo, sizes
+    raise AssertionError(f"no reddit scale's ELL tiles fit: {sizes}")
+
+
+def dg_references(coo, coo_e, k) -> dict:
+    """The one-card results phase 17's ranks are held against, on the
+    card: SpMM by ``core.spmm`` on a ``CachedGraph`` (its trusted plan:
+    the ordered segment sum), SDDMM by the plain per-edge dot product,
+    FusedMM by ``kernels.ref.fusedmm_coo_ref`` and its autograd, the ring
+    by one dense product. CPU tensors, and each one's max |value|."""
+    import torch
+    from repro_torch.core import sparse as sp
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.core.cache import build_cached_graph
+    from repro_torch.core.spmm import spmm
+    from repro_torch.kernels.ref import edge_dots, fusedmm_coo_ref
+    dev = torch.device(DEVICE)
+    n, m = coo.nrows, coo.ncols
+    refs = {}
+    for tag, a, h in (("spmm", coo, dg_matrix("h", m, k)),
+                      ("ell", coo_e, dg_matrix("he", coo_e.nrows, k))):
+        cg = build_cached_graph(a, plan=KernelPlan.trusted(), tune=False
+                                ).to(dev)
+        h = h.to(dev)
+        for red in ("sum", "mean"):
+            refs[f"{tag}_{red}"] = spmm(cg, h, red).cpu()
+        del cg, h
+    a = sp.to_device(coo, dev)
+    x, y, h = (dg_matrix(name, rows, k).to(dev)
+               for name, rows in (("x", n), ("y", m), ("h", m)))
+    with torch.no_grad():
+        s = edge_dots(x, y, a.row[: a.nse], a.col[: a.nse])
+        refs["sddmm"] = (s * a.val[: a.nse]).cpu()
+        for op in DG_EDGE_OPS:
+            refs[f"fused_{op}"] = fusedmm_coo_ref(a, x, y, h,
+                                                  edge_op=op).cpu()
+    leaves = [t.clone().requires_grad_() for t in (x, y, h)]
+    fusedmm_coo_ref(a, *leaves).backward(dg_matrix("g", n, k).to(dev))
+    refs.update(dx=leaves[0].grad.cpu(), dy=leaves[1].grad.cpu(),
+                dh=leaves[2].grad.cpu())
+    del leaves, x, y, h, a
+    ra = dg_matrix("ring_a", DG_RING_N, DG_RING_N).to(dev)
+    rh = dg_matrix("ring_h", DG_RING_N, k).to(dev)
+    refs["ring"] = (ra @ rh).cpu()
+    refs["ring_mag"] = (ra.abs() @ rh.abs()).cpu()    # sum |terms| a row
+    del ra, rh
+    torch.cuda.empty_cache()
+    refs["max_abs"] = {key: float(v.abs().max()) for key, v in refs.items()}
+    refs["max_abs"]["h"] = float(dg_matrix("h", m, k).abs().max())
+    return refs
+
+
+def dg_phase(ds) -> dict:
+    """Phase 17: distributed GNN message passing, four ranks on the one
+    card (gloo, spawned as in phase 16). The parent picks the ELL scale,
+    computes the one-card results and writes them and the graphs to
+    files; the ranks (:func:`dg_rank`) run, check and time; the parent
+    checks what they return. Raises on the first failed check."""
+    import pickle
+
+    import torch
+    from repro_torch.dist import run_ranks
+    t_phase = time.perf_counter()
+    k = DG_K
+    ell_scale, coo_e, sizes = dg_ell_scale(ds)
+    cut = (f"ELL tiles on reddit at scale {ell_scale} ({coo_e.nrows} nodes, "
+           f"{coo_e.nse} edges): the 2 x 2 ELL tiles pad every row to the "
+           f"widest in-tile degree (R-MAT's hub), "
+           + "; ".join(f"scale {s['scale']}: {s['tile_rows']} x "
+                       f"{s['tile_width']} slots, {s['four_tiles_gb']:.1f} "
+                       f"GB for four" for s in sizes)
+           + f" (budget {DG_ELL_BUDGET / 1e9:.0f} GB, int32 slot ids); the "
+             f"SELL bands and tiles, SDDMM, FusedMM run at scale 1")
+    log(f"cut: {cut}")
+    t0 = time.perf_counter()
+    refs = dg_references(ds.coo, coo_e, k)
+    refs_s = time.perf_counter() - t0
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    graphs_file, refs_file = build / "dg_graphs.pkl", build / "dg_refs.pt"
+    with open(graphs_file, "wb") as f:
+        pickle.dump(dict(scale1=coo_arrays(ds.coo), ell=coo_arrays(coo_e)),
+                    f, protocol=5)
+    torch.save(refs, refs_file)
+    write_s = time.perf_counter() - t0
+    del refs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_spawn = time.time()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(dg_rank, DG_RANKS, str(build), device=DEVICE,
+                          timeout_s=DG_TIMEOUT_S,
+                          args=(dict(k=k), str(graphs_file), str(refs_file)))
+    finally:
+        graphs_file.unlink(missing_ok=True)
+        refs_file.unlink(missing_ok=True)
+    ranks_s = time.perf_counter() - t0
+    on = "cuda:0" if DEVICE == "cuda" else DEVICE
+    failed = []
+    for r, got in enumerate(ranks):
+        if (got["rank"], got["tile"], got["backend"], got["device"]) != \
+                (r, r, "gloo", on) or not got["on_card"]:
+            failed.append(f"rank {r}: {got['backend']} on {got['device']}, "
+                          f"tile {got['tile']}, on card {got['on_card']}")
+        bad = {k: v for k, v in got["checks"].items() if not v["ok"]}
+        if bad:
+            failed.append(f"rank {r} disagrees with the one-card result: "
+                          f"{bad}")
+        wb = {k: v for k, v in got["wire_bytes"].items() if v[0] != v[1]}
+        if wb:
+            failed.append(f"rank {r}: bytes handed the backend against "
+                          f"comm_volume x 4: {wb}")
+        # gloo carries card tensors itself but for the ring's hops
+        staged = {k: v for k, v in got["staged_bytes"].items()
+                  if (v != 0) != (k == "ring" and DEVICE == "cuda")}
+        if staged:
+            failed.append(f"rank {r}: host-staged bytes where none (or "
+                          f"where the ring's) were due: {staged}")
+        missing = [kk for kk in ("sell_spmm", "ell_spmm", "edge_dots",
+                                 "segment_sum") if got["launches"][kk] <= 0]
+        if missing:
+            failed.append(f"rank {r} launched no {missing}: "
+                          f"{got['launches']}")
+    launches_dist = {kk: sum(g["launches"][kk] for g in ranks)
+                     for kk in ranks[0]["launches"]}
+    worst = {}
+    for g in ranks:
+        for name, c in g["checks"].items():
+            w = worst.setdefault(name, dict(max_abs_err=0.0,
+                                            max_err_over_tol=0.0,
+                                            max_err_over_stated=0.0))
+            for kk in w:
+                w[kk] = max(w[kk], c[kk])
+    kworst = {}
+    for g in ranks:
+        for c in g["kernel_checks"]:
+            w = kworst.setdefault(c["name"], dict(shape=c["shape"],
+                                                  max_abs_err=0.0,
+                                                  max_err_over_bound=0.0))
+            w["max_abs_err"] = max(w["max_abs_err"], c["max_abs_err"])
+            w["max_err_over_bound"] = max(w["max_err_over_bound"],
+                                          c["max_err_over_bound"])
+    times = {op: [round(g["timings"][op]["ms"], 3) for g in ranks]
+             for op in ranks[0]["timings"]}
+    wire_ms = {op: [round(g["timings"][op]["wire_ms"], 3) for g in ranks]
+               for op in ranks[0]["timings"]}
+    seconds = time.perf_counter() - t_phase
+    split = {kk: [round(g[kk], 1) for g in ranks]
+             for kk in ("load_s", "build_s", "sell_s", "build_ell_s",
+                        "main_s")}
+    split["start_s"] = [round(g["t_enter"] - t_spawn, 1) for g in ranks]
+    g0 = ranks[0]
+    log(f"(17) four gloo ranks on {on} against the one-card result: worst "
+        f"ratio to the stated tolerance (rtol {DG_RTOL}, atol {DG_ATOL} x "
+        f"max(1, max|ref|)) "
+        f"{ {kk: round(v['max_err_over_stated'], 3) for kk, v in worst.items()} }"
+        f"; to the tolerance each case is held to (the stated one; "
+        f"compressed: plus pc x amax / 127; FusedMM: FUSED_TOL x max|h| "
+        f"(softmax) or max|ref|; gradients: GRAD_TOL x max|ref|; the ring: "
+        f"2 d eps sum|terms|) "
+        f"{ {kk: round(v['max_err_over_tol'], 3) for kk, v in worst.items()} }"
+        f"; max |diff| "
+        f"{ {kk: '%.3g' % v['max_abs_err'] for kk, v in worst.items()} }")
+    log(f"(17) bytes a rank handed the backend = comm_volume x 4: "
+        f"{ {kk: v[0] for kk, v in g0['wire_bytes'].items()} }; the ring's "
+        f"hops staged through the host ({g0['staged_bytes']['ring']} bytes "
+        f"a rank), nothing else staged")
+    log(f"(17) ms a rank (CUDA events, median of {DG_TIMED}) {times}; of "
+        f"it the wire {wire_ms}")
+    log(f"(17) kernels against plain on the ranks' operands: {kworst}; "
+        f"launches in the ranks {launches_dist}; SELL routes (rank 0) "
+        f"{g0['sell_routes']}")
+    log(f"(17) peak GB a rank: main path "
+        f"{[round(g['peak_main_gb'], 2) for g in ranks]}, with the checks "
+        f"{[round(g['peak_gb'], 2) for g in ranks]}; ELL tile "
+        f"{g0['ell_tile']}, SELL tile {g0['sell_tile']}, band {g0['band']}")
+    log(f"distributed GNN phase: {seconds:.1f} s (one-card results "
+        f"{refs_s:.1f} s, files {write_s:.1f} s, ranks {ranks_s:.1f} s: "
+        f"{split})")
+    if failed:
+        (ROOT / "chiprun_out" / "dist_gnn_failed.json").write_text(
+            json.dumps(ranks, indent=1, default=str))
+        raise AssertionError("phase 17: " + "; ".join(failed))
+    return dict(cut=cut, ell_scale=ell_scale, ell_sizes=sizes,
+                ranks=DG_RANKS, backend="gloo", k=k, worst=worst,
+                kernel_checks=kworst, launches_dist=launches_dist,
+                timings=[g["timings"] for g in ranks],
+                wires=[g["wires"] for g in ranks],
+                wire_bytes=g0["wire_bytes"], staged_bytes=g0["staged_bytes"],
+                peak_main_gb=[g["peak_main_gb"] for g in ranks],
+                peak_gb=[g["peak_gb"] for g in ranks],
+                ell_tile=g0["ell_tile"], sell_tile=g0["sell_tile"],
+                band=g0["band"], sell_routes=g0["sell_routes"],
+                refs_s=refs_s, write_s=write_s, ranks_s=ranks_s,
+                split_s=split, seconds=seconds)
+
+
 def d80_keys(case: dict) -> dict:
     """The kernels line's ``d80_*`` keys of a phase 15 (c) case (hubert's
     attention at head dim 80, non-causal)."""
@@ -6382,6 +7030,11 @@ def main() -> int:
     # -- phase 16: data parallelism, two ranks on the one card ---------------
     dp = dp_phase(ds, minibatch["result"]["probed_caps"])
     report["data_parallel"] = dp
+    torch.cuda.empty_cache()
+
+    # -- phase 17: distributed GNN message passing, four ranks on the card --
+    dg = dg_phase(ds)
+    report["dist_gnn"] = dg
     del ds
 
     # -- phase 5: the kernels line ------------------------------------------
@@ -6679,6 +7332,15 @@ def main() -> int:
                 dp["lm_worst_err_over_max"][entry["name"]])
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        dp["lm_worst_abs_err"][entry["name"]])
+    for entry in kernels:       # phase 17: the four ranks' launches
+        n = dg["launches_dist"].get(entry["name"], 0)
+        entry["launches_dist"] = n
+        entry["launches"] += n
+        if entry["name"] in dg["kernel_checks"]:
+            kc = dg["kernel_checks"][entry["name"]]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       kc["max_abs_err"])
+            entry["dist_shape"] = kc["shape"]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['seconds']:.1f} s in all, the build included "

@@ -1,13 +1,15 @@
-"""A data-parallel mesh over ``torch.distributed``, and the one helper
-that starts its ranks (``src/repro/dist/mesh.py``).
+"""The meshes of the port's distributed paths over ``torch.distributed``,
+and the one helper that starts their ranks (``src/repro/dist/mesh.py``).
 
-The reference runs data parallelism in one process, with ``shard_map``
-over a JAX mesh's ``'data'`` axis. The port runs one process a rank: a
-:class:`Mesh` is this rank's view of the mesh, its named axes
-``('data', 'model')`` with their sizes, the rank's coordinate on each,
-its device, and the process group each axis reduces over. Pure data
-parallelism only: ``'model'`` > 1 (tensor and expert parallelism, the
-sharding rules) is ROADMAP.md queue 1, item 5b, and raises.
+The reference runs every rank in one process, with ``shard_map`` over a
+JAX mesh. The port runs one process a rank: a :class:`Mesh` is this
+rank's view of the mesh, its named axes with their sizes, the rank's
+coordinate on each, its device, and the process group each axis
+reduces over. Two meshes: the ``('data', 'model')`` mesh of data
+parallelism (``'model'`` > 1, tensor and expert parallelism and the
+sharding rules, is ROADMAP.md queue 1, item 5b, and raises) and the
+``('row', 'col')`` grid of the 2-D vertex-cut GNN path
+(:func:`make_grid_mesh`, the most square factorisation of the ranks).
 
 **The backend is chosen once, by one rule** (:func:`choose_backend`),
 when the ranks start, and the mesh records it: NCCL when every rank has
@@ -39,7 +41,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "axis_shard_count", "choose_backend", "make_local_mesh",
-           "make_data_mesh", "init_ranks", "run_ranks"]
+           "make_data_mesh", "make_grid_mesh", "grid_shape", "init_ranks",
+           "run_ranks"]
 
 _MODEL_AXIS = ("a 'model' axis larger than 1 (tensor and expert "
                "parallelism, the sharding rules) is not ported yet "
@@ -140,6 +143,56 @@ def make_data_mesh(data: int | None = None, *, model: int = 1,
     run (``'cuda'``: card ``rank % cards``)."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     return _mesh(n if data is None else int(data), int(model), device)
+
+
+def grid_shape(n: int) -> tuple[int, int]:
+    """The most square ``(pr, pc)`` factorisation of ``n`` ranks: ``pr``
+    the largest divisor of ``n`` not above its square root (the
+    reference's ``make_grid_mesh`` rule)."""
+    if n < 1:
+        raise ValueError(f"a grid of {n} ranks")
+    pr = max(int(n ** 0.5), 1)
+    while n % pr:
+        pr -= 1
+    return pr, n // pr
+
+
+def make_grid_mesh(devices: int | None = None, *,
+                   device: str = "cuda") -> Mesh:
+    """The ``('row', 'col')`` mesh of the 2-D vertex-cut GNN path
+    (``dist.gnn2d``) over ``devices`` ranks (default: every rank), shaped
+    by :func:`grid_shape`. Rank ``p`` sits at ``(p // pc, p % pc)``, the
+    row-major order of the reference's tile stack. A collective over
+    ``'row'`` runs among the ranks of this rank's grid column (the ranks
+    that differ only in their row), one over ``'col'`` among those of its
+    grid row: one process group for each grid column and each grid row.
+
+    Every rank creates every group, in one order (the column groups, then
+    the row groups); an axis of size 1 gets none (its collectives are
+    identities). Call it on every rank."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = world if devices is None else int(devices)
+    if n != world:
+        raise ValueError(f"a grid of {n} ranks over {world} ranks: the grid "
+                         "spans every rank")
+    pr, pc = grid_shape(n)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    i, j = divmod(rank, pc)
+    groups = {"row": None, "col": None}
+    if pr > 1:
+        for jj in range(pc):
+            g = dist.new_group([ii * pc + jj for ii in range(pr)])
+            if jj == j:
+                groups["row"] = g
+    if pc > 1:
+        for ii in range(pr):
+            g = dist.new_group([ii * pc + jj for jj in range(pc)])
+            if ii == i:
+                groups["col"] = g
+    return Mesh(shape={"row": pr, "col": pc}, coords={"row": i, "col": j},
+                device=_rank_device(device, rank),
+                backend=dist.get_backend() if dist.is_initialized() else None,
+                groups=groups)
 
 
 def init_ranks(rank: int, world_size: int, *, store_dir: str | None = None,

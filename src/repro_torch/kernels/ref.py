@@ -320,24 +320,37 @@ def sddmm_bsr_ref(a: "BSR", x: torch.Tensor, y: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def edge_weights(s: torch.Tensor, row_ids: torch.Tensor, nrows: int,
-                 valid, edge_op: str, order: SegmentOrder | None = None
-                 ) -> torch.Tensor:
+                 valid, edge_op: str, order: SegmentOrder | None = None,
+                 mesh=None, axis: str | None = None) -> torch.Tensor:
     """Per-edge weights f(s) for a FusedMM edge op, zero on invalid
     entries (``valid`` None: every entry is real). Softmax normalizes
     over each row's neighborhood with segment ops; its max is detached —
     softmax is shift-invariant, so the derivative is exact without it.
     The denominators are a :func:`scatter_sum`: ordered on the card when
-    ``order``, the stable sort of ``row_ids``, is given."""
+    ``order``, the stable sort of ``row_ids``, is given.
+
+    With a mesh ``axis`` (the reference's ``axis_name``: the 2-D vertex
+    cut, where a row's neighbourhood spans the ranks of the axis), the
+    row max is max-reduced over the axis (``dist.collectives.pmax``,
+    detached) and the denominators summed over it, differentiably
+    (``axis_sum``): the exact softmax over the whole row from each rank's
+    piece. Every rank of the axis must call it."""
     if edge_op == "softmax":
         sm = s if valid is None else torch.where(valid, s, -torch.inf)
         ids = row_ids.long()
         m = torch.full((nrows,), -torch.inf, dtype=s.dtype, device=s.device)
         m = m.scatter_reduce(0, ids, sm.detach(), "amax")
+        if axis is not None:
+            from repro_torch.dist.collectives import pmax
+            m = pmax(m, mesh, axis)
         m = torch.where(torch.isinf(m), 0.0, m)
         e = torch.exp(sm - m[ids])
         if valid is not None:
             e = torch.where(valid, e, 0.0)
         z = kseg.scatter_sum(e, row_ids, nrows, order)
+        if axis is not None:
+            from repro_torch.dist.collectives import axis_sum
+            z = axis_sum(z, mesh, axis)
         return e / torch.clamp(z, min=1e-30)[ids]
     if edge_op == "sigmoid":
         w = torch.sigmoid(s)

@@ -11,6 +11,8 @@ in slot order with fma, the plain version with ``sum(dim=1)`` /
 most ~30 terms of magnitude ~1 per output here. Wider sums state their
 own tolerance. The sampling kernels are integer work (or a word copy)
 and must equal their plain versions bit for bit."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -2554,3 +2556,244 @@ def test_one_rank_nccl_mesh_reduces_on_the_card(card, tmp_path):
     got, = tdist.run_ranks(_nccl_rank, 1, str(tmp_path), device="cuda",
                            timeout_s=120)
     assert got == dict(backend="nccl", same=True, fresh=True)
+
+
+# --------------------------------------------------------------------------
+# the distributed GNN path: the ranks' kernels on band and tile shapes
+# --------------------------------------------------------------------------
+
+def _hub_graph(rng, n=1200, m=3000, nnz=9000, hub=2600):
+    """A random graph with a hub row of ``hub`` neighbours (its SELL slice
+    longer than ``CHUNK_STEPS``: the split route) in band 0 / tile 0."""
+    lin = rng.choice(n * m, size=nnz, replace=False)
+    dst, src = lin // m, lin % m
+    hub_cols = rng.choice(m, size=hub, replace=False)
+    dst = np.concatenate([dst[dst != 3], np.full(hub, 3)])
+    src = np.concatenate([src[lin // m != 3], hub_cols])
+    val = rng.standard_normal(dst.shape[0]).astype(np.float32)
+    return tsp.coo_from_edges(src, dst, val, n, m)
+
+
+def _row_bound(op, h):
+    """2 d eps sum|terms| a row: d the row's slots."""
+    abs_op = dataclasses.replace(op, val=op.val.abs())
+    plain = sell_spmm_plain if isinstance(op, tsp.SELL) else ell_spmm_plain
+    mag = plain(abs_op, h.abs())
+    d = torch.bincount((_slot_rows_cpu(op))[op.idx.reshape(-1) < op.ncols]
+                       .long(), minlength=op.nrows).float()[:, None]
+    return 2 * (d + 1) * EPS32 * mag + 1e-30
+
+
+def _slot_rows_cpu(op):
+    from repro_torch.dist.gnn import _slot_rows
+    return _slot_rows(op)
+
+
+@pytest.mark.parametrize("kind", ["ell", "sell"])
+def test_dist_band_and_tile_kernels_match_plain(card, kind):
+    """The 1-D bands (global column ids, sentinel ``ncols``) and the 2 x 2
+    tiles (local ids, sentinel ``cols_per_tile``) through the ELL / SELL
+    kernel, kernel E over their slots and kernel S over their column
+    order, each against its plain version on the same piece; the hub
+    band's SELL launch takes the split route."""
+    from repro_torch import dist as tdist
+    from repro_torch.core.autotune import KernelPlan
+    from repro_torch.kernels import segment_sum as kseg
+    from repro_torch.kernels.edge_dots import edge_dots, edge_dots_plain
+    rng = np.random.default_rng(11)
+    a = _hub_graph(rng)
+    plan = KernelPlan(kind="sell", sell_c=8) if kind == "sell" else None
+    g1 = tdist.build_dist_graph(a, 4, plan=plan)
+    g2 = tdist.partition_2d(a, 2, 2, plan=plan)
+    pieces = [(f"band{p}", g1.band(p, "cpu")) for p in range(4)] + \
+        [(f"tile{p}", g2.tile(p, "cpu")) for p in range(4)]
+    if kind == "ell":   # the tiles' sentinel is cols_per_tile
+        assert bool((g2.tile(0, "cpu").op.idx == g2.cols_per_tile).any())
+    tops.reset_kernel_launches()
+    from repro_torch.dist.gnn import Band
+    for name, cpu in pieces:
+        dev = Band.make(cpu.op, cpu.inv_deg, cpu.index, card)
+        h = _h(rng, cpu.op.ncols, 64)
+        got = (tops.sell_spmm if kind == "sell" else tops.ell_spmm)(
+            dev.op, h.to(card)).cpu()
+        want = (sell_spmm_plain if kind == "sell" else ell_spmm_plain)(
+            cpu.op, h)
+        assert ((got - want).abs() <= _row_bound(cpu.op, h)).all(), name
+        dout = _h(rng, cpu.op.nrows, 64)
+        got = kseg.gather_scale_sum(dout.to(card), dev.col_order,
+                                    dev.weight).cpu()
+        want = kseg.gather_scale_sum(dout, cpu.col_order, cpu.weight)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+        got = edge_dots(dout.to(card), h.to(card), dev.rows, dev.cols).cpu()
+        want = edge_dots_plain(dout, h, cpu.rows, cpu.cols)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    torch.cuda.synchronize()
+    la = tops.kernel_launches()
+    assert la["ell_spmm" if kind == "ell" else "sell_spmm"] == 8
+    assert la["segment_sum"] >= 8 and la["edge_dots"] == 8
+    if kind == "sell":
+        from repro_torch.kernels.sell_spmm import sell_spmm_cuda
+        assert sell_spmm_cuda.launches_by_instance["split"] >= 1
+
+
+@pytest.mark.parametrize("kind", ["ell", "sell"])
+def test_dist_ops_on_one_card_match_the_cpu(card, kind):
+    """One band and the 1 x 1 grid on the card (the collectives are
+    identities): SpMM forward and gradient, SDDMM, FusedMM with its
+    gradients, against the same calls on the CPU (plain versions)."""
+    from repro_torch import dist as tdist
+    from repro_torch.core.autotune import KernelPlan
+    rng = np.random.default_rng(5)
+    a = _hub_graph(rng)
+    plan = KernelPlan(kind="sell", sell_c=8) if kind == "sell" else None
+    g1 = tdist.build_dist_graph(a, 1, plan=plan)
+    g2 = tdist.partition_2d(a, 1, plan=plan)
+    h, x = _h(rng, a.ncols, 64), _h(rng, a.nrows, 32)
+    y = _h(rng, a.ncols, 32)
+
+    def run(device):
+        data = tdist.make_data_mesh(device=device)
+        grid = tdist.make_grid_mesh(device=device)
+        band, tile = g1.local(data), g2.local(grid)
+        hh, xx, yy = (t.to(device).requires_grad_() for t in (h, x, y))
+        out = {"spmm": tdist.distributed_spmm(band, hh, data, "mean")}
+        out["spmm"].square().sum().backward()
+        out["dh_spmm"] = hh.grad
+        out["spmm2d"] = tdist.distributed_spmm_2d(tile, hh.detach(), grid)
+        out["sddmm"] = tdist.distributed_sddmm_2d(tile, xx.detach(),
+                                                  yy.detach(), grid)
+        hh.grad = None
+        for op in ("softmax", "sigmoid", "none"):
+            f = tdist.distributed_fusedmm_2d(tile, xx, yy, hh, grid,
+                                             edge_op=op)
+            f.square().sum().backward()
+            out[op] = f
+            for n_, t in zip("xyh", (xx, yy, hh)):
+                out[f"{op}_d{n_}"] = t.grad
+                t.grad = None
+        return {k: v.detach().cpu() for k, v in out.items()}
+
+    tops.reset_kernel_launches()
+    got = run("cuda")
+    torch.cuda.synchronize()
+    la = tops.kernel_launches()
+    want = run("cpu")
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5 * max(1.0, float(w.abs().max())),
+                                   err_msg=k)
+    assert la["ell_spmm" if kind == "ell" else "sell_spmm"] >= 5
+    assert la["edge_dots"] >= 7 and la["segment_sum"] >= 7, la
+
+
+def _dist_gnn_card_rank(mesh, edges):
+    """Four ranks on the one card: 1-D SELL bands, the 2 x 2 grid's SpMM
+    (ELL, compressed), SDDMM, FusedMM softmax forward and backward, the
+    ring (its send / receive staged through the host)."""
+    from repro_torch import dist as tdist
+    from repro_torch.core.autotune import KernelPlan
+    src, dst, val, n, m, h, x, y = edges
+    a = tsp.coo_from_edges(src, dst, val, n, m)
+    r, dev = mesh.index("data"), mesh.device
+    grid = tdist.make_grid_mesh(device="cuda")
+    sell = KernelPlan(kind="sell", sell_c=8)
+    h, x, y = (torch.from_numpy(t) for t in (h, x, y))
+    tops.reset_kernel_launches()
+    tdist.reset_wire_stats()
+    g1 = tdist.build_dist_graph(a, 4, plan=sell)
+    out = {"spmm1d": tdist.distributed_spmm(
+        g1.local(mesh), tdist.shard_rows(h, 4, r).to(dev), mesh)}
+    g2 = tdist.partition_2d(a, 2, 2)
+    tile = g2.local(grid)
+    p = tile.index
+    hc = tdist.col_shard(g2, h, p).to(dev)
+    out["spmm2d"] = tdist.distributed_spmm_2d(tile, hc, grid)
+    out["spmm2d_c"] = tdist.distributed_spmm_2d(tile, hc, grid,
+                                                compress=True)
+    xr = tdist.row_shard(g2, x, p).to(dev).requires_grad_()
+    yc = tdist.col_shard(g2, y, p).to(dev).requires_grad_()
+    hc = hc.clone().requires_grad_()
+    out["sddmm"] = tdist.distributed_sddmm_2d(tile, xr.detach(), yc.detach(),
+                                              grid)
+    f = tdist.distributed_fusedmm_2d(tile, xr, yc, hc, grid)
+    f.square().sum().backward()
+    out.update(fused=f, dx=xr.grad, dy=yc.grad, dh=hc.grad)
+    dense_band = torch.zeros(n // 4, n, device=dev)
+    ring_a = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (n, n)).astype(np.float32))
+    dense_band.copy_(ring_a[r * (n // 4):(r + 1) * (n // 4)])
+    out["ring"] = tdist.ring_allgather_matmul(
+        lambda s: dense_band[:, s * (n // 4):(s + 1) * (n // 4)],
+        h[r * (n // 4):(r + 1) * (n // 4)].to(dev), mesh, "data")
+    torch.cuda.synchronize()
+    on_card = all(t.device.type == "cuda" for t in out.values())
+    return dict(rank=r, tile=p, coords=(grid.index("row"), grid.index("col")),
+                backend=mesh.backend, device=str(dev), on_card=on_card,
+                launches=tops.kernel_launches(), wire=tdist.wire_stats(),
+                out={k: v.detach().cpu().numpy() for k, v in out.items()})
+
+
+def test_dist_gnn_four_ranks_share_the_card(card, tmp_path):
+    """Four gloo ranks on cuda:0 against the same calls in one process on
+    the CPU: every output and gradient within 1e-4 (compressed within
+    ``pc * amax / 127``), the ranks' kernels launched, the ring's hops
+    staged through the host and nothing else."""
+    from repro_torch import dist as tdist
+    from repro_torch.kernels.build import build_kernels
+    from repro_torch.kernels.ref import fusedmm_coo_ref
+    build_kernels()
+    rng = np.random.default_rng(2)
+    n = 3000
+    a = _hub_graph(rng, n=n, m=n)
+    src, dst, val = (t[: a.nse].numpy() for t in (a.col, a.row, a.val))
+    h, x, y = _h(rng, n, 64), _h(rng, n, 32), _h(rng, n, 32)
+    res = tdist.run_ranks(_dist_gnn_card_rank, 4, str(tmp_path),
+                          args=((src, dst, val, n, n, h.numpy(), x.numpy(),
+                                 y.numpy()),), device="cuda", timeout_s=300)
+    dense = torch.zeros(n, n)
+    dense[torch.from_numpy(dst).long(), torch.from_numpy(src).long()] = \
+        torch.from_numpy(val)
+    want = dense @ h
+    cat = (lambda key: np.concatenate([r["out"][key] for r in res])[:n])
+    for key in ("spmm1d", "spmm2d"):
+        np.testing.assert_allclose(cat(key), want.numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=key)
+    cpt = -(-n // 2)
+    parts = [dense[:, j * cpt:(j + 1) * cpt] @ h[j * cpt:(j + 1) * cpt]
+             for j in range(2)]
+    bound = 2 * max(float(q.abs().max()) for q in parts) / 127 + 1e-6
+    assert float(np.abs(cat("spmm2d_c") - want.numpy()).max()) <= bound
+    xg, yg, hg = (t.clone().requires_grad_() for t in (x, y, h))
+    f = fusedmm_coo_ref(a, xg, yg, hg)
+    f.square().sum().backward()
+    np.testing.assert_allclose(cat("fused"), f.detach().numpy(), atol=1e-4)
+    g2 = tdist.partition_2d(a, 2, 2)
+    cm = [None] * 4
+    for r in res:
+        i, j = r["coords"]
+        cm[j * 2 + i] = r
+    for key, leaf, major in (("dx", xg, "row"), ("dy", yg, "col"),
+                             ("dh", hg, "col")):
+        order = res if major == "row" else cm
+        got = np.concatenate([r["out"][key] for r in order])[:n]
+        w = leaf.grad.numpy()
+        assert np.abs(got - w).max() <= 1e-4 * np.abs(w).max(), key
+    s = np.stack([r["out"]["sddmm"] for r in res])
+    np.testing.assert_allclose(tdist.scores_to_dense(g2, s),
+                               (x @ y.T * dense).numpy(), atol=1e-4)
+    ring_a = np.random.default_rng(9).standard_normal((n, n)).astype(
+        np.float32)
+    np.testing.assert_allclose(cat("ring"), ring_a @ h.numpy(), rtol=1e-4,
+                               atol=1e-3)
+    for r in res:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert r["on_card"]
+        for k in ("sell_spmm", "ell_spmm", "edge_dots", "segment_sum"):
+            assert r["launches"][k] > 0, (k, r["launches"])
+        w = r["wire"]
+        assert w["ppermute"]["calls"] == 3 and \
+            w["ppermute"]["staged_bytes"] == 2 * w["ppermute"]["bytes"]
+        assert all(v["staged_bytes"] == 0 for k, v in w.items()
+                   if k != "ppermute")

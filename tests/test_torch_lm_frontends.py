@@ -42,6 +42,7 @@ different points.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import jax
@@ -72,6 +73,18 @@ from repro_torch.train import lm as TTL
 ARCHS = ("hubert-xlarge", "internvl2-2b")
 OP = 1e-5
 LOG2E = 1.4426950408889634
+
+
+@pytest.fixture(autouse=True)
+def _one_compute_thread():
+    """One intra-op thread a test: the suite runs beside other workers,
+    and a process's idle OpenMP threads spin between the many small ops
+    these tests run, which slowed each such test 40x or more beside the
+    other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -172,6 +185,7 @@ def test_noncausal_backward_matches_jax_grad(b, hq, hkv, s, t, d):
         _close(g_, np.asarray(w_), OP, f"d{name} through ops")
 
 
+@functools.lru_cache(maxsize=None)
 def _atom_index(rows: int, width: int = 80):
     """Element offsets of a (rows, width) bf16 tile in the D 80 kernels'
     shared memory: 16-column atoms, atom a at a * rows * 16 elements, a

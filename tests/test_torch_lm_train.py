@@ -69,6 +69,18 @@ ARCHS = ("phi3.5-moe-42b-a6.6b", "mixtral-8x7b", "llama3-8b", "qwen2-1.5b",
 OP_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _one_compute_thread():
+    """One intra-op thread a test: the suite runs beside other workers,
+    and a process's idle OpenMP threads spin between the many small ops
+    these tests run, which slowed each such test 40x or more beside the
+    other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
 
