@@ -3482,31 +3482,45 @@ def lm_phase() -> dict:
     # -- the main path: prefill, then greedy decode --------------------------
     counts, instances = {}, {}
     kops.reset_kernel_launches()
-    with record_lm_kernels(check=True) as pre_calls:
-        cache, logits = lm.prefill(cfg, params, batch, LM_CAPACITY)
-        torch.cuda.synchronize()
-    counts["prefill"] = launches()
-    instances["prefill"] = ragged_instances()
-    if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_padded) or \
-            not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"prefill logits malformed: "
-                             f"{tuple(logits.shape)}")
-    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
-    generated = [tok]
-    kops.reset_kernel_launches()
-    with record_lm_kernels(check=True) as dec_calls:
-        logits, cache = lm.decode_step(cfg, params, cache, tok)
-        torch.cuda.synchronize()
-    counts["decode_1"] = launches()
-    instances["decode_1"] = ragged_instances()
-    kops.reset_kernel_launches()
-    t0 = time.perf_counter()
-    for _ in range(LM_DECODE - 1):
+    # every routing is recorded for phase 18's digest
+    with record_routing() as routes:
+        with record_lm_kernels(check=True) as pre_calls:
+            cache, logits = lm.prefill(cfg, params, batch, LM_CAPACITY)
+            torch.cuda.synchronize()
+        counts["prefill"] = launches()
+        instances["prefill"] = ragged_instances()
+        if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_padded) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill logits malformed: "
+                                 f"{tuple(logits.shape)}")
         tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
-        generated.append(tok)
-        logits, cache = lm.decode_step(cfg, params, cache, tok)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
+        generated = [tok]
+        all_logits = [logits.float()]
+        kops.reset_kernel_launches()
+        with record_lm_kernels(check=True) as dec_calls:
+            logits, cache = lm.decode_step(cfg, params, cache, tok)
+            torch.cuda.synchronize()
+        all_logits.append(logits.float())
+        counts["decode_1"] = launches()
+        instances["decode_1"] = ragged_instances()
+        kops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        for _ in range(LM_DECODE - 1):
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            generated.append(tok)
+            logits, cache = lm.decode_step(cfg, params, cache, tok)
+            all_logits.append(logits.float())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    (ROOT / "build").mkdir(exist_ok=True)
+    torch.save(dict(
+        tokens=torch.cat(generated, dim=1).cpu().numpy(),
+        logits=torch.stack(all_logits).cpu().numpy(),
+        pre_routes=routes_np(routes, LM_LAYERS),
+        dec_routes=routes_np(routes[LM_LAYERS:], LM_LAYERS * LM_DECODE,
+                             layer0_logits=False)),
+        ROOT / "build" / TP_SERVE_DIGEST)
+    del routes, all_logits
     counts["decode_rest"] = launches()
     instances["decode_rest"] = ragged_instances()
     want = {"prefill": {"ragged_gemm": 3 * LM_LAYERS,
@@ -4156,7 +4170,8 @@ def attention_case(c: dict, seed: int, bwd_kernels: tuple) -> dict:
 
 
 def train_checks(tag: str, cfg, batch: dict, n_steps: int,
-                 want: dict, keep_state: bool = False) -> dict:
+                 want: dict, keep_state: bool = False,
+                 digest: bool = False) -> dict:
     """One model's training on the card as phase 12 checks it:
     ``make_train_step``'s defaults, seeded random init on the card. Step 0
     with its launch counts (``want``: ``launches`` by kernel, the ragged
@@ -4169,7 +4184,8 @@ def train_checks(tag: str, cfg, batch: dict, n_steps: int,
     peak memory. ``inputs`` holds the first flash backward's and ragged
     dX's records with their inputs, by kernel name, for timing; with
     ``keep_state`` the result also holds ``step_fn``, the trained
-    ``state`` and the ``batch``."""
+    ``state`` and the ``batch``; with ``digest``, step 0's
+    :func:`train_digest` (phase 18 holds its split step against it)."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
@@ -4194,7 +4210,8 @@ def train_checks(tag: str, cfg, batch: dict, n_steps: int,
     kops.reset_kernel_launches()
     with record_train_kernels(check=True) as calls, \
             record_grads(lambda r: run1.append(
-                (r[0].clone(), tree_map(torch.clone, r[2])))):
+                (r[0].clone(), tree_map(torch.clone, r[2])))), \
+            record_routing() as routes:
         state, m0 = step_fn(state, batch)
         torch.cuda.synchronize()
     got = dict(launches={name: kops.kernel_launches()[name]
@@ -4231,6 +4248,9 @@ def train_checks(tag: str, cfg, batch: dict, n_steps: int,
     # -- step 0 again from the same state: the same bits ---------------------
     p1 = tree_map(torch.clone, state.params)
     loss1, g1 = run1.pop()
+    dig = train_digest(loss1, p0, g1, p1, routes, cfg.n_layers) \
+        if digest else None
+    del routes
     mismatched = []
 
     def compare(res):
@@ -4298,6 +4318,8 @@ def train_checks(tag: str, cfg, batch: dict, n_steps: int,
                peak_gb=peak_gb, profile=prof, inputs=inputs)
     if keep_state:
         res.update(step_fn=step_fn, state=state, batch=batch)
+    if digest:
+        res["digest"] = dig
     return res
 
 
@@ -4510,8 +4532,11 @@ def lm_train_phase() -> dict:
                 ragged_instances={"wgmma": 3 * n_ragged, "wmma": 0, "f32": 0},
                 bwd_instances={"wgmma": LM_TRAIN_LAYERS, "wmma": 0,
                                "f32": 0})
-    phi = train_checks(LM_ARCH, cfg, batch, LM_TRAIN_STEPS, want)
+    phi = train_checks(LM_ARCH, cfg, batch, LM_TRAIN_STEPS, want,
+                       digest=True)
     del batch
+    (ROOT / "build").mkdir(exist_ok=True)
+    torch.save(phi.pop("digest"), ROOT / "build" / TP_TRAIN_DIGEST)
     inputs = phi.pop("inputs")
     prof = phi["profile"]
 
@@ -5275,7 +5300,8 @@ DP_RANKS = 2            # two ranks on cuda:0: NCCL refuses them, gloo stages
 DP_SEEDS = 2 * MB_BATCH * 37 + 1   # 75,777 seeds: 38 and 37 batches a shard
 DP_NAN = (5, 1)         # nan_grad_at: step 5, on rank 1's shard
 DP_TIMED = 10           # steps a timing of (a) takes the median of
-DP_TIMEOUT_S = 420.0    # the rank helper's join limit for the two ranks
+DP_TIMEOUT_S = 720.0    # the rank helper's join limit for the two ranks
+                        # (phase 16, then phase 18 in the same ranks)
 QWEN_ARCH, QWEN_LAYERS = "qwen2-1.5b", 4   # of 28: see dp_phase's cut
 QWEN_BATCH, QWEN_SEQ = 4, 2048             # the global batch, 2 a rank
 QWEN_MORE_STEPS = 3
@@ -5292,7 +5318,7 @@ def dp_spec() -> dict:
                 infer_batch=MB_INFER_BATCH, timed=DP_TIMED,
                 lm_cfg=dc.replace(full, n_layers=QWEN_LAYERS),
                 lm_full_layers=full.n_layers, lm_batch=QWEN_BATCH,
-                lm_seq=QWEN_SEQ, lm_more=QWEN_MORE_STEPS)
+                lm_seq=QWEN_SEQ, lm_more=QWEN_MORE_STEPS, **tp_spec())
 
 
 def pack_dataset(ds) -> tuple:
@@ -5667,9 +5693,10 @@ def dp_lm_case(mesh, spec) -> dict:
 def dp_rank(mesh, spec, dataset_file, out_dir) -> dict:
     """One rank of phase 16 (``dist.run_ranks``' body): (b) and (e), (a),
     then (c), on the dataset the parent wrote to ``dataset_file``
-    (:func:`pack_dataset`, pickled). It loads the kernels the parent built
-    and builds none. Returns numbers, lists and flags only (no
-    tensors)."""
+    (:func:`pack_dataset`, pickled); then phase 18 in the same ranks
+    (:func:`tp_case`: the rank start is paid once). It loads the kernels
+    the parent built and builds none. Returns numbers, lists, flags and
+    numpy arrays only (no tensors)."""
     import pickle
 
     import torch
@@ -5698,6 +5725,10 @@ def dp_rank(mesh, spec, dataset_file, out_dir) -> dict:
     t1 = time.perf_counter()
     out["lm"] = dp_lm_case(mesh, spec)
     out["lm_s"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["tp"] = tp_case(mesh, spec)           # phase 18
+    out["tp_s"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -5816,6 +5847,7 @@ def dp_phase(ds, caps=None) -> dict:
     finally:
         helper.join()
         handoff.unlink(missing_ok=True)
+    digests = tp_digests(spec)                # phase 18's, then removed
     if "error" in box:
         raise box["error"]
     ranks = box["ranks"]
@@ -5922,6 +5954,11 @@ def dp_phase(ds, caps=None) -> dict:
         f"{lms[0]['moved_bytes']} bytes a rank); step ms "
         f"{[[round(x, 1) for x in lm['step_ms']] for lm in lms]}")
 
+    # phase 18, in the same two ranks after (c)
+    tp = tp_checks([got["tp"] for got in ranks], spec, *digests)
+    tp["rank_s"] = [round(got["tp_s"], 1) for got in ranks]
+    tp_log(tp)
+
     # (e) the two ranks' traces as one
     merged = merged_trace(traces)
     errs = obs.validate_chrome_trace(merged)
@@ -5941,7 +5978,7 @@ def dp_phase(ds, caps=None) -> dict:
                    for k in ranks[0]["lm"]["launches"]}
     seconds = time.perf_counter() - t_phase
     split = {k: [round(g[k], 1) for g in ranks]
-             for k in ("load_s", "step_s", "lm_s", "seconds")}
+             for k in ("load_s", "step_s", "lm_s", "tp_s", "seconds")}
     split["start_s"] = [round(g["t_enter"] - t_spawn, 1) for g in ranks]
     split["lockstep_s"] = [round(sum(r["wall_s"] for r in g["lockstep"][
         "runs"].values()), 1) for g in ranks]
@@ -5954,7 +5991,710 @@ def dp_phase(ds, caps=None) -> dict:
                     for lm in lms], lm_worst_err_over_max=worst,
                 lm_worst_abs_err=worst_abs,
                 trace_spans=spans, nccl=nccl, launches_dp=launches_dp,
-                ranks_s=ranks_s, split_s=split, seconds=seconds)
+                ranks_s=ranks_s, split_s=split, seconds=seconds, tp=tp)
+
+
+# --------------------------------------------------------------------------
+# phase 18: tensor and expert parallelism, two model ranks on the one card
+# --------------------------------------------------------------------------
+
+TP_RANKS = 2            # one 'model' axis of 2, in phase 16's two ranks
+TP_SAMPLES = 4096       # a leaf's seeded sample of entries in the digests
+TP_TRAIN_DIGEST = "tp_train_digest.pt"   # phase 12's step 0, under build/
+TP_SERVE_DIGEST = "tp_serve_digest.pt"   # phase 10's serving, under build/
+TP_MORE_STEPS = 2       # after step 0; replicated leaves checked after each
+TP_WIRE_DECODE = 4      # decode steps timed with the wire synced
+# The bounds, stated before the first card run (PERF.md §6, PR 31). A split
+# product (wo, the MoE's combine, the vocabulary's sums) adds at most one
+# bf16 rounding before its sum: 2^-8 of the product. Where that moves a
+# router logit across a near-tie of the top-k, the token's experts change
+# and with them its whole contribution (the experts' outputs dominate the
+# residual: their fan-in rule takes E, not D). So: the loss, a mean over
+# every token, within TP_LOSS_TOL of its size; a routing change in the
+# first MoE layer only where phase 12's (phase 10's) top-k margin is within
+# twice this run's largest router-logit difference there; each leaf's
+# gradient (its seeded samples, and its norm) within TP_GRAD_BASE (four
+# bf16 ulps) + 2 sqrt(f) in relative L2, f the share of token-layers whose
+# experts changed (f N of N token contributions replaced moves a sum of
+# random-direction terms by sqrt(2 f) of its norm); each updated param
+# within 2 lr (1 + 2^-7) + 2 bf16 ulps of phase 12's (AdamW's first step
+# moves an entry by at most lr; the update is rounded to bf16, then the
+# sum, either side of a binade at worst); a logit row whose own routing matched in every layer within
+# TP_ROW_BASE + 2 f_ctx of its largest (a decode row averages over the
+# context, of which f_ctx changed experts somewhere), at most
+# TP_FLIPPED_ROWS of the rows with a routing change of their own.
+TP_LOSS_TOL = 2.0 ** -8
+TP_GRAD_BASE = 2.0 ** -5
+TP_ROW_BASE = 2.0 ** -6
+TP_FLIPPED_ROWS = 0.25
+
+
+@contextlib.contextmanager
+def record_routing():
+    """While on, every ``dispatch.route_topk`` call (one an MoE layer, in
+    order; a recomputed layer again) is recorded: its router logits and
+    its top-k experts."""
+    from repro_torch.core import dispatch as D
+    real = D.route_topk
+    calls: list = []
+
+    def recorded(logits, k, **kw):
+        r = real(logits, k, **kw)
+        calls.append((logits.detach().float().clone(),
+                      r.expert_idx.detach().clone(), k))
+        return r
+
+    D.route_topk = recorded
+    try:
+        yield calls
+    finally:
+        D.route_topk = real
+
+
+def routes_np(calls, n: int, layer0_logits: bool = True) -> dict:
+    """The first ``n`` recorded routings as numpy: each token's expert set
+    (sorted ids) and its top-k margin (the k-th router logit minus the
+    (k+1)-th), and the first call's router logits."""
+    import torch
+    ids, margins = [], []
+    for logits, idx, k in calls[:n]:
+        top = torch.topk(logits, k + 1, dim=-1).values
+        margins.append((top[:, k - 1] - top[:, k]).cpu().numpy())
+        ids.append(torch.sort(idx, -1).values.to(torch.int16).cpu().numpy())
+    out = dict(ids=ids, margins=margins)
+    if layer0_logits:
+        out["logits0"] = calls[0][0].cpu().numpy()
+    return out
+
+
+def leaf_sample(i: int, numel: int) -> np.ndarray:
+    """Leaf ``i``'s seeded sample of flat indices (sorted)."""
+    rng = np.random.default_rng([18, i])
+    return np.sort(rng.choice(numel, min(TP_SAMPLES, numel), replace=False))
+
+
+def take(t, idx) -> np.ndarray:
+    """``t``'s flat entries at ``idx``, in fp32, on the host."""
+    import torch
+    return t.reshape(-1)[torch.from_numpy(np.asarray(idx)).to(
+        t.device)].float().cpu().numpy()
+
+
+def sum_sq(t) -> float:
+    """The sum of ``t``'s squares: fp32 over slices of 2^26 entries,
+    summed in fp64 (no whole fp32 copy of an expert leaf)."""
+    flat, total = t.reshape(-1), 0.0
+    for lo in range(0, flat.numel(), 1 << 26):
+        total += float(flat[lo:lo + (1 << 26)].float().square().sum())
+    return total
+
+
+def train_digest(loss, p0, grads, p1, routes, n_layers: int) -> dict:
+    """Phase 12's step 0 for phase 18: the loss, each leaf's gradient sum
+    of squares, a seeded sample of each leaf's initial and updated params
+    and gradient, and the routing of the step's forward."""
+    from repro_torch.optim.optimizer import tree_leaves
+    leaves = []
+    for i, (a, g, b) in enumerate(zip(tree_leaves(p0), tree_leaves(grads),
+                                      tree_leaves(p1))):
+        idx = leaf_sample(i, a.numel())
+        leaves.append(dict(shape=tuple(a.shape), idx=idx, p0=take(a, idx),
+                           g=take(g, idx), p1=take(b, idx), g_sq=sum_sq(g)))
+    return dict(loss=float(loss), leaves=leaves,
+                routes=routes_np(routes, n_layers))
+
+
+def local_samples(idx, shape, sh) -> tuple:
+    """The positions in a leaf's sample that this rank holds, and their
+    flat indices into its slice (``sh`` the leaf's sharding)."""
+    multi = np.unravel_index(idx, shape)
+    lshape = sh.local_shape(shape)
+    keep = np.ones(len(idx), bool)
+    local = []
+    for d in range(len(shape)):
+        blk = multi[d] // lshape[d]
+        keep &= blk == sh.block(d)
+        local.append(multi[d] - blk * lshape[d])
+    pos = np.nonzero(keep)[0]
+    return pos, np.ravel_multi_index(tuple(m[pos] for m in local), lshape)
+
+
+def tp_wire_bytes(cfg, b: int, s: int, m: int, what: str) -> int:
+    """The bytes a rank hands the backend (the gathered buffers of
+    ``dist.collectives``' sums: m x each rank's part) in one train step
+    (remat "full"), one prefill or one decode step of the split model at
+    (b, s) positions: the embedding's sum, then a layer's two split
+    products (``wo``, the MoE's combine) forward; the recompute of a
+    layer's backward runs ``wo``'s sum again but not the MoE's, the
+    block's last collective (the non-reentrant checkpoint stops its
+    recompute once the saved tensors are back, and that sum saves none);
+    backward, the ranks' gradients of the head's input, a layer's
+    attention input and MoE input (bf16 (b, s, d_model) each), and its
+    router logits (fp32 (b s, E)); the cross-entropy's max, sum and
+    target logit a chunk (fp32 (b, c)); the global norm's scalar. Serving
+    gathers the last position's logits (bf16 vocab)."""
+    n = cfg.n_layers
+    act = m * b * s * cfg.d_model * 2
+    if what == "train":
+        recompute = n if cfg.remat == "full" else 0
+        return ((1 + 2 * n + recompute + 1 + 2 * n) * act
+                + n * m * b * s * cfg.n_experts * 4 + 3 * m * 4 * b * s
+                + m * 4)
+    return (1 + 2 * n) * act + b * cfg.vocab_padded * 2
+
+
+def tp_spec() -> dict:
+    """Phase 18's sizes for the ranks (phase 16's spawned ranks import this
+    script afresh)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    full = get_config(LM_ARCH)
+    build = ROOT / "build"
+    return dict(tp_train_cfg=dc.replace(full, n_layers=LM_TRAIN_LAYERS),
+                tp_serve_cfg=dc.replace(full, n_layers=LM_LAYERS),
+                tp_train_digest=str(build / TP_TRAIN_DIGEST),
+                tp_serve_digest=str(build / TP_SERVE_DIGEST),
+                lm_train_batch=LM_TRAIN_BATCH, lm_train_seq=LM_TRAIN_SEQ,
+                serve_batch=LM_BATCH, serve_prompt=LM_PROMPT,
+                serve_decode=LM_DECODE, serve_capacity=LM_CAPACITY)
+
+
+def tp_train_case(tp, spec) -> dict:
+    """(a) on one rank: phi3.5-moe x 2 layers split over the 'model' axis
+    of ``tp``, seeded as phase 12; step 0 with every launch held against
+    its plain version, the rank's samples of its params and gradients,
+    the wire's bytes; then TP_MORE_STEPS steps (one with the wire synced),
+    the replicated leaves compared across the ranks after each."""
+    import torch
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.dist import replicas_equal, reset_wire_stats, wire_stats
+    from repro_torch.dist.partition import param_shardings
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.train import lm as TL
+    cfg, dev = spec["tp_train_cfg"], tp.device
+    dig = torch.load(spec["tp_train_digest"], weights_only=False)
+    step_fn, opt = TL.make_train_step(cfg, mesh=tp)
+    t0 = time.perf_counter()
+    state = TL.make_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), opt, mesh=tp)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    like = TL.full_param_shapes(cfg)
+    shards = tree_leaves(param_shardings(tp, like))
+    shapes = [tuple(t.shape) for t in tree_leaves(like)]
+    maps = [local_samples(l["idx"], shp, s)
+            for l, shp, s in zip(dig["leaves"], shapes, shards)]
+    p0 = [take(p, lidx) for p, (_, lidx) in zip(tree_leaves(state.params),
+                                                maps)]
+    toks, tgts = synthetic_lm_batch(spec["lm_train_batch"],
+                                    spec["lm_train_seq"], cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(dev),
+             "targets": torch.from_numpy(tgts).to(dev)}
+    got: list = []
+    torch.cuda.synchronize()
+    kops.reset_kernel_launches()
+    reset_wire_stats()
+    t0 = time.perf_counter()
+    with record_train_kernels(check=True) as calls, \
+            record_grads(got.append), record_routing() as routes:
+        state, m0 = step_fn(state, batch)
+        torch.cuda.synchronize()
+    step0_s = time.perf_counter() - t0
+    wire0 = wire_stats()
+    counts = dict(launches={n: kops.kernel_launches()[n]
+                            for n in LM_TRAIN_KERNELS},
+                  ragged_directions=dict(
+                      ragged_gemm_cuda.launches_by_direction),
+                  ragged_instances=dict(ragged_gemm_cuda.launches_by_instance),
+                  bwd_instances=dict(
+                      flash_attention_bwd_cuda.launches_by_instance))
+    loss, _, grads = got.pop()
+    leaves = []
+    for i, (g, p1, (pos, lidx), s) in enumerate(zip(
+            tree_leaves(grads), tree_leaves(state.params), maps, shards)):
+        leaves.append(dict(pos=pos, p0=p0[i], g=take(g, lidx),
+                           p1=take(p1, lidx), sq=sum_sq(g), split=s.is_split))
+    del grads, got
+    checks = [{k: v for k, v in c.items() if k != "inputs"} for c in calls]
+    del calls
+    sh_tree = param_shardings(tp, like)
+
+    def whole(params):                  # the leaves every model rank holds
+        out: list = []
+        tree_map(lambda p, s: None if s.is_split else out.append(p),
+                 params, sh_tree)
+        return {str(j): p for j, p in enumerate(out)}
+
+    replicated = [replicas_equal(whole(state.params), tp, "model")]
+    losses, step_ms = [float(m0["loss"])], []
+    for k in range(TP_MORE_STEPS):
+        reset_wire_stats(timing=k == TP_MORE_STEPS - 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        replicated.append(replicas_equal(whole(state.params), tp, "model"))
+    wire_timed = wire_stats()
+    res = dict(loss=float(loss), metrics0={k: float(v) for k, v in
+                                           m0.items()},
+               leaves=leaves, counts=counts, checks=checks, wire=wire0,
+               wire_timed=wire_timed, routes=routes_np(routes,
+                                                       cfg.n_layers),
+               replicated=replicated, losses=losses, step_ms=step_ms,
+               init_s=init_s, step0_s=step0_s,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9
+               if dev.type == "cuda" else 0.0)
+    del state, step_fn, opt, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_serve_case(tp, spec) -> dict:
+    """(b) on one rank: phi3.5-moe x 4 layers split over ``tp``, seeded as
+    phase 10: prefill of phase 10's prompts, then its 32 decode steps fed
+    phase 10's tokens; every launch of the prefill and the first decode
+    step held against its plain version; the logits of each step, the
+    routing, the wire's bytes; the prefill's and a decode step's ms, and
+    their wire's ms apart."""
+    import torch
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.dist import reset_wire_stats, wire_stats
+    from repro_torch.dist.partition import shard_params
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
+    from repro_torch.models import lm
+    cfg, dev = spec["tp_serve_cfg"], tp.device
+    sd = torch.load(spec["tp_serve_digest"], weights_only=False)
+    t0 = time.perf_counter()
+    params = shard_params(tp, lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks, _ = synthetic_lm_batch(spec["serve_batch"], spec["serve_prompt"],
+                                 cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    fed = torch.from_numpy(sd["tokens"]).to(dev)
+    cap, n_dec = spec["serve_capacity"], spec["serve_decode"]
+
+    def launches():
+        return {n: kops.kernel_launches()[n] for n in LM_KERNELS}
+
+    counts, instances, wire, logits_all = {}, {}, {}, []
+    with tp, torch.no_grad(), record_routing() as routes:
+        kops.reset_kernel_launches()
+        reset_wire_stats()
+        with record_lm_kernels(check=True) as pre_calls:
+            cache, logits = lm.prefill(cfg, params, batch, cap)
+            torch.cuda.synchronize()
+        counts["prefill"], wire["prefill"] = launches(), wire_stats()
+        instances["prefill"] = dict(ragged_gemm_cuda.launches_by_instance)
+        logits_all.append(logits.float())
+        kops.reset_kernel_launches()
+        reset_wire_stats()
+        with record_lm_kernels(check=True) as dec_calls:
+            logits, cache = lm.decode_step(cfg, params, cache, fed[:, :1])
+            torch.cuda.synchronize()
+        counts["decode_1"], wire["decode_1"] = launches(), wire_stats()
+        instances["decode_1"] = dict(ragged_gemm_cuda.launches_by_instance)
+        logits_all.append(logits.float())
+        kops.reset_kernel_launches()
+        reset_wire_stats()
+        t0 = time.perf_counter()
+        for i in range(1, n_dec):
+            logits, cache = lm.decode_step(cfg, params, cache,
+                                           fed[:, i:i + 1])
+            logits_all.append(logits.float())
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / (n_dec - 1) * 1e3
+        counts["decode_rest"], wire["decode_rest"] = launches(), \
+            wire_stats()
+        instances["decode_rest"] = dict(
+            ragged_gemm_cuda.launches_by_instance)
+        n_routes = len(routes)
+    # the times: a prefill, then one with the wire synced; decode steps
+    # with the wire synced (the cache keeps TP_WIRE_DECODE spare slots)
+    with tp, torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.prefill(cfg, params, batch, cap)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        reset_wire_stats(timing=True)
+        lm.prefill(cfg, params, batch, cap)
+        wire["prefill_timed"] = wire_stats()
+        reset_wire_stats(timing=True)
+        for _ in range(TP_WIRE_DECODE):
+            logits, cache = lm.decode_step(cfg, params, cache, fed[:, -1:])
+        torch.cuda.synchronize()
+        wire["decode_timed"] = wire_stats()
+    reset_wire_stats()
+    checks = [{k: v for k, v in c.items() if k != "inputs"}
+              for c in pre_calls + dec_calls]
+    n = cfg.n_layers
+    res = dict(logits=torch.stack(logits_all).cpu().numpy(),
+               counts=counts, instances=instances, checks=checks,
+               wire=wire, init_s=init_s, prefill_ms=prefill_ms,
+               decode_ms=decode_ms, n_routes=n_routes,
+               pre_routes=routes_np(routes, n),
+               dec_routes=routes_np(routes[n:], n * n_dec,
+                                    layer0_logits=False))
+    del params, cache, routes, pre_calls, dec_calls
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_case(mesh, spec) -> dict:
+    """Phase 18 on one of phase 16's ranks: the two ranks as one 'model'
+    axis (every rank creates the mesh), (a) then (b)."""
+    import torch
+    from repro_torch.dist import make_data_mesh
+    tp = make_data_mesh(1, model=TP_RANKS, device=mesh.device)
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
+    train = tp_train_case(tp, spec)
+    t1 = time.perf_counter()
+    serve = tp_serve_case(tp, spec)
+    return dict(coords=(tp.index("data"), tp.index("model")), train=train,
+                serve=serve, train_s=t1 - t0,
+                serve_s=time.perf_counter() - t1)
+
+
+def tp_rank(mesh, spec) -> dict:
+    """Phase 18 alone in two spawned ranks (``tp_phase``; the whole script
+    runs :func:`tp_case` in phase 16's ranks instead)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.build import build_kernels
+    if build_kernels():
+        raise AssertionError("a rank built kernels: the parent builds them")
+    t1 = time.perf_counter()
+    out = tp_case(mesh, spec)
+    out["tp_s"] = time.perf_counter() - t1
+    return out
+
+
+def tp_phase() -> dict:
+    """Phase 18 alone (after phases 10 and 12 wrote their digests): two
+    ranks on the card, its checks, its log. ``tools/tp_probe.py`` runs
+    it."""
+    import torch
+    from repro_torch.dist import run_ranks
+    spec = tp_spec()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    build = ROOT / "build"
+    t0 = time.perf_counter()
+    try:
+        tps = run_ranks(tp_rank, TP_RANKS, str(build), device=DEVICE,
+                        timeout_s=DP_TIMEOUT_S, args=(spec,))
+    except BaseException:
+        for key in ("tp_train_digest", "tp_serve_digest"):
+            Path(spec[key]).unlink(missing_ok=True)
+        raise
+    digests = tp_digests(spec)
+    tp = tp_checks(tps, spec, *digests)
+    tp["rank_s"] = [round(t["tp_s"], 1) for t in tps]
+    tp["seconds"] = time.perf_counter() - t0
+    tp_log(tp)
+    return tp
+
+
+def tp_log(tp: dict) -> None:
+    tr, sv, tm = tp["train"], tp["serve"], tp["times"]
+    w0 = tp["wire"][0]
+    log(f"phase 18 (a) phi3.5-moe x {LM_TRAIN_LAYERS} layers on a 'model' "
+        f"axis of {TP_RANKS}: loss {tr['loss']:.6f} against phase 12's "
+        f"{tr['loss_one_card']:.6f} (tolerance {TP_LOSS_TOL} of it); "
+        f"routing changes by layer {tr['flips_by_layer']} (share "
+        f"{tr['flipped_share']:.5f}), layer 0's at margins <= "
+        f"{tr['layer0']['worst_flip_margin']:.3e} against its router "
+        f"logits' largest difference {tr['layer0']['max_logit_diff']:.3e}; "
+        f"gradients' worst relative L2 {tr['grad_rel_l2']:.3e}, norm "
+        f"{tr['grad_norm_rel']:.3e} (bound {tr['grad_bound']:.3e}); "
+        f"updates {tr['update_over_bound']:.3f} of 2 lr (1 + 2^-7) + 2 "
+        f"ulps; the "
+        f"initial slices phase 12's bits; replicated leaves bitwise on both "
+        f"ranks after {1 + TP_MORE_STEPS} steps; losses {tp['losses']}")
+    log(f"phase 18 (b) phi3.5-moe x {LM_LAYERS} layers: prefill and "
+        f"{LM_DECODE} decode steps fed phase 10's tokens; rows with a "
+        f"routing change of their own {sv['rows_own_flip']} of {sv['rows']} "
+        f"(worst {sv['worst_flipped_row']:.3e}); the others' worst "
+        f"max|diff| / max|row| {sv['worst_clean_row']:.3e}, median "
+        f"{sv['median_clean_row']:.3e} (bound {sv['row_bound']:.3e}, the "
+        f"context's changed share {sv['context_flipped_share']:.5f}); "
+        f"prefill routing changes by layer {sv['prefill_flips_by_layer']}")
+    log(f"phase 18 kernels: {tp['checks']} launches held against their "
+        f"plain versions (worst max|diff| / max|plain| "
+        f"{tp['worst_err_over_max']}, tolerance {LM_TOL}); launches "
+        f"{tp['launches_tp']}, every ragged GEMM wgmma")
+    log(f"phase 18 wire, rank 0: train step {w0['train']['bytes']} bytes in "
+        f"{w0['train']['calls']} calls (worked out from the shapes: equal), "
+        f"prefill {w0['prefill']['bytes']}, decode step "
+        f"{w0['decode']['bytes']}; step ms {tm['step_ms']} (wire "
+        f"{[round(x, 1) for x in tm['step_wire_ms']]} ms in the synced "
+        f"step); prefill ms {[round(x, 1) for x in tm['prefill_ms']]} (wire "
+        f"{[round(x, 1) for x in tm['prefill_wire_ms']]}); decode ms a step "
+        f"{[round(x, 2) for x in tm['decode_ms']]} (wire "
+        f"{[round(x, 2) for x in tm['decode_wire_ms']]}); init s "
+        f"{tm['init_s']}, train s {[round(x, 1) for x in tm['train_s']]}, "
+        f"serve s {[round(x, 1) for x in tm['serve_s']]}, peak GB "
+        f"{[round(x, 2) for x in tm['peak_gb']]}; ranks {tp['rank_s']} s")
+
+
+def tp_rel(got, want) -> float:
+    """The relative L2 difference of two sample vectors."""
+    return float(np.linalg.norm(got - want) /
+                 max(np.linalg.norm(want), 1e-30))
+
+
+def tp_flips(ids_got, ids_want) -> np.ndarray:
+    """Tokens whose expert set differs."""
+    return (ids_got != ids_want).any(-1)
+
+
+def tp_layer0(got: dict, want: dict) -> dict:
+    """The first MoE layer's routing changes against the one-card run's:
+    each must sit at a near-tie, phase 10's or 12's top-k margin within
+    twice this run's largest router-logit difference on the tokens whose
+    experts matched."""
+    flip = tp_flips(got["ids"][0], want["ids"][0])
+    diff = np.abs(got["logits0"] - want["logits0"]).max(-1)
+    delta = float(diff[~flip].max()) if (~flip).any() else 0.0
+    worst = float(want["margins"][0][flip].max()) if flip.any() else 0.0
+    if flip.any() and not worst <= 2 * delta:
+        raise AssertionError(f"phase 18: a first-layer routing change at a "
+                             f"top-k margin of {worst:.3e}, past twice the "
+                             f"router logits' largest difference "
+                             f"{delta:.3e}")
+    return dict(flips=int(flip.sum()), tokens=int(flip.size),
+                max_logit_diff=delta, worst_flip_margin=worst)
+
+
+def tp_train_checks(ranks: list, dig: dict, cfg, lr: float) -> dict:
+    """(a)'s checks against phase 12's step 0 (the bounds above)."""
+    want_counts = dict(
+        launches={"ragged_gemm": 9 * cfg.n_layers,
+                  "flash_attention": 2 * cfg.n_layers,
+                  "flash_attention_bwd": cfg.n_layers},
+        ragged_directions={"forward": 6 * cfg.n_layers,
+                           "backward": 3 * cfg.n_layers},
+        ragged_instances={"wgmma": 9 * cfg.n_layers, "wmma": 0, "f32": 0},
+        bwd_instances={"wgmma": cfg.n_layers, "wmma": 0, "f32": 0})
+    for r, t in enumerate(ranks):
+        if t["counts"] != want_counts:
+            raise AssertionError(f"phase 18 (a) rank {r} launched "
+                                 f"{t['counts']}, want {want_counts}")
+        if t["replicated"] != [True] * (1 + TP_MORE_STEPS):
+            raise AssertionError(f"phase 18 (a): the replicated leaves "
+                                 f"parted across the ranks: "
+                                 f"{t['replicated']}")
+        if t["loss"] != ranks[0]["loss"] or \
+                t["losses"] != ranks[0]["losses"]:
+            raise AssertionError("phase 18 (a): the ranks' losses differ")
+        for key in ("ids", "margins"):
+            if any(not np.array_equal(a, b) for a, b in zip(
+                    t["routes"][key], ranks[0]["routes"][key])):
+                raise AssertionError("phase 18 (a): the ranks routed "
+                                     "differently")
+    loss, want = ranks[0]["loss"], dig["loss"]
+    if not abs(loss - want) <= TP_LOSS_TOL * abs(want):
+        raise AssertionError(f"phase 18 (a): loss {loss} against phase "
+                             f"12's {want} (tolerance {TP_LOSS_TOL} of it)")
+    routes, wroutes = ranks[0]["routes"], dig["routes"]
+    flips = [tp_flips(a, b) for a, b in zip(routes["ids"], wroutes["ids"])]
+    f = float(np.mean([x.mean() for x in flips]))
+    layer0 = tp_layer0(routes, wroutes)
+    bound = TP_GRAD_BASE + 2 * f ** 0.5
+    worst = dict(grad_rel_l2=0.0, grad_norm_rel=0.0, update_over_bound=0.0)
+    for i, w in enumerate(dig["leaves"]):
+        parts = [t["leaves"][i] for t in ranks]
+        n = len(w["idx"])
+        p0, g, p1 = (np.full(n, np.nan, np.float32) for _ in range(3))
+        for part in parts:
+            pos = part["pos"]
+            if parts[0]["split"]:
+                if not np.isnan(p0[pos]).all():
+                    raise AssertionError(f"leaf {i}: two ranks hold one "
+                                         f"sampled entry")
+            elif not (np.array_equal(part["g"], parts[0]["g"]) and
+                      np.array_equal(part["p1"], parts[0]["p1"])):
+                raise AssertionError(f"leaf {i}: a replicated leaf differs "
+                                     f"across the ranks")
+            p0[pos], g[pos], p1[pos] = part["p0"], part["g"], part["p1"]
+        if np.isnan(p0).any():
+            raise AssertionError(f"leaf {i}: sampled entries held by no "
+                                 f"rank")
+        if not np.array_equal(p0, w["p0"]):
+            raise AssertionError(f"leaf {i} {w['shape']}: the initial slices "
+                                 f"are not phase 12's bits")
+        sq = sum(p["sq"] for p in parts) if parts[0]["split"] \
+            else parts[0]["sq"]
+        rel = tp_rel(g, w["g"])
+        norm_rel = abs(sq ** 0.5 - w["g_sq"] ** 0.5) / max(
+            w["g_sq"] ** 0.5, 1e-30)
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(w["p1"]),
+                                                  2.0 ** -126))) - 7)
+        upd = float((np.abs(p1 - w["p1"]) /
+                     (2 * lr * (1 + 2.0 ** -7) + 2 * ulp)).max())
+        worst = dict(grad_rel_l2=max(worst["grad_rel_l2"], rel),
+                     grad_norm_rel=max(worst["grad_norm_rel"], norm_rel),
+                     update_over_bound=max(worst["update_over_bound"], upd))
+        if not (rel <= bound and norm_rel <= bound and upd <= 1.0):
+            raise AssertionError(
+                f"phase 18 (a) leaf {i} {w['shape']}: gradient relative L2 "
+                f"{rel:.3e}, norm {norm_rel:.3e} (bound {bound:.3e}, f "
+                f"{f:.4f}); update {upd:.3f} of its bound")
+    return dict(loss=loss, loss_one_card=want, flips_by_layer=[
+        int(x.sum()) for x in flips], flipped_share=f, layer0=layer0,
+        grad_bound=bound, **worst)
+
+
+def tp_serve_checks(ranks: list, sd: dict, cfg) -> dict:
+    """(b)'s checks against phase 10's serving (the bounds above)."""
+    n, n_dec = cfg.n_layers, len(sd["logits"]) - 1
+    want_counts = {"prefill": {"ragged_gemm": 3 * n, "flash_attention": n},
+                   "decode_1": {"ragged_gemm": 3 * n, "flash_attention": 0},
+                   "decode_rest": {"ragged_gemm": 3 * n * (n_dec - 1),
+                                   "flash_attention": 0}}
+    for r, s in enumerate(ranks):
+        if s["counts"] != want_counts or any(
+                by != {"wgmma": want_counts[run]["ragged_gemm"], "wmma": 0,
+                       "f32": 0} for run, by in s["instances"].items()):
+            raise AssertionError(f"phase 18 (b) rank {r}: launches "
+                                 f"{s['counts']} by instance "
+                                 f"{s['instances']}, want {want_counts}, "
+                                 "every ragged launch wgmma")
+        if not np.array_equal(s["logits"], ranks[0]["logits"]):
+            raise AssertionError("phase 18 (b): the ranks' logits differ")
+    got, want = ranks[0]["logits"][:, :, 0], sd["logits"][:, :, 0]
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"phase 18 (b): logits {got.shape}, want "
+                             f"{want.shape}, finite {np.isfinite(got).all()}")
+    pre, wpre = ranks[0]["pre_routes"], sd["pre_routes"]
+    layer0 = tp_layer0(pre, wpre)
+    pflips = [tp_flips(a, b) for a, b in zip(pre["ids"], wpre["ids"])]
+    f_ctx = float(np.mean([x.mean() for x in pflips]))
+    b = got.shape[1]
+    s_len = pflips[0].size // b
+    # a row's own routing: the prompt's last position, then each step's
+    own = np.zeros((n_dec + 1, b), bool)
+    for l in range(n):
+        own[0] |= pflips[l].reshape(b, s_len)[:, -1]
+    dec, wdec = ranks[0]["dec_routes"]["ids"], sd["dec_routes"]["ids"]
+    for step in range(n_dec):
+        for l in range(n):
+            own[step + 1] |= tp_flips(dec[step * n + l],
+                                      wdec[step * n + l])
+    err = np.abs(got - want).max(-1) / np.abs(want).max(-1)
+    bound = TP_ROW_BASE + 2 * f_ctx
+    clean = err[~own]
+    if own.mean() > TP_FLIPPED_ROWS or (clean.size and
+                                         not clean.max() <= bound):
+        raise AssertionError(f"phase 18 (b): {int(own.sum())} of {own.size} "
+                             f"rows changed experts (at most "
+                             f"{TP_FLIPPED_ROWS}); the others' worst "
+                             f"max|diff| / max|row| "
+                             f"{clean.max() if clean.size else 0:.3e} "
+                             f"(bound {bound:.3e})")
+    return dict(layer0=layer0, prefill_flips_by_layer=[
+        int(x.sum()) for x in pflips], context_flipped_share=f_ctx,
+        rows=int(own.size), rows_own_flip=int(own.sum()), row_bound=bound,
+        worst_clean_row=float(clean.max()) if clean.size else 0.0,
+        worst_flipped_row=float(err[own].max()) if own.any() else 0.0,
+        median_clean_row=float(np.median(clean)) if clean.size else 0.0)
+
+
+def tp_wire_check(stats: dict, want: int, what: str) -> dict:
+    got = sum(v["bytes"] for v in stats.values())
+    if got != want:
+        raise AssertionError(f"phase 18 {what}: a rank handed the backend "
+                             f"{got} bytes, worked out {want} "
+                             f"({stats})")
+    return dict(bytes=got, calls=sum(v["calls"] for v in stats.values()),
+                ms=sum(v["ms"] for v in stats.values()))
+
+
+def tp_digests(spec: dict) -> tuple:
+    """Phases 12's and 10's digests, read, and their files removed."""
+    import torch
+    out = []
+    for key in ("tp_train_digest", "tp_serve_digest"):
+        path = Path(spec[key])
+        try:
+            out.append(torch.load(path, weights_only=False))
+        finally:
+            path.unlink(missing_ok=True)
+    return tuple(out)
+
+
+def tp_checks(tps: list, spec: dict, dig: dict, sd: dict) -> dict:
+    """Phase 18's checks in the parent, on what the two ranks returned,
+    against phase 12's digest ``dig`` and phase 10's ``sd``."""
+    cfg, cfg4 = spec["tp_train_cfg"], spec["tp_serve_cfg"]
+    if sorted(t["coords"] for t in tps) != [(0, 0), (0, 1)]:
+        raise AssertionError(f"phase 18: mesh coordinates "
+                             f"{[t['coords'] for t in tps]}")
+    train = tp_train_checks([t["train"] for t in tps], dig, cfg, 3e-4)
+    serve = tp_serve_checks([t["serve"] for t in tps], sd, cfg4)
+    b, s = spec["lm_train_batch"], spec["lm_train_seq"]
+    pb, ps = spec["serve_batch"], spec["serve_prompt"]
+    wire = {}
+    for r, t in enumerate(tps):
+        wire[r] = dict(
+            train=tp_wire_check(t["train"]["wire"], tp_wire_bytes(
+                cfg, b, s, TP_RANKS, "train"), "train step 0"),
+            train_timed=tp_wire_check(t["train"]["wire_timed"], tp_wire_bytes(
+                cfg, b, s, TP_RANKS, "train"), "a timed train step"),
+            prefill=tp_wire_check(t["serve"]["wire"]["prefill"],
+                                  tp_wire_bytes(cfg4, pb, ps, TP_RANKS,
+                                                "serve"), "prefill"),
+            decode=tp_wire_check(t["serve"]["wire"]["decode_1"],
+                                 tp_wire_bytes(cfg4, pb, 1, TP_RANKS,
+                                               "serve"), "decode step"),
+            prefill_timed=tp_wire_check(t["serve"]["wire"]["prefill_timed"],
+                                        tp_wire_bytes(cfg4, pb, ps, TP_RANKS,
+                                                      "serve"), "prefill"),
+            decode_timed=tp_wire_check(
+                t["serve"]["wire"]["decode_timed"], TP_WIRE_DECODE *
+                tp_wire_bytes(cfg4, pb, 1, TP_RANKS, "serve"), "decode"))
+    checks = [c for t in tps for c in t["train"]["checks"] +
+              t["serve"]["checks"]]
+    worst, worst_abs = {}, {}
+    for c in checks:
+        worst[c["name"]] = max(worst.get(c["name"], 0.0), c["err_over_max"])
+        worst_abs[c["name"]] = max(worst_abs.get(c["name"], 0.0),
+                                   c["max_abs_err"])
+    launches_tp = {}
+    for t in tps:
+        for name, v in t["train"]["counts"]["launches"].items():
+            launches_tp[name] = launches_tp.get(name, 0) + v
+        for run in t["serve"]["counts"].values():
+            for name, v in run.items():
+                launches_tp[name] = launches_tp.get(name, 0) + v
+    times = dict(
+        step_ms=[t["train"]["step_ms"] for t in tps],
+        step_wire_ms=[t["train"]["wire_timed"] and sum(
+            v["ms"] for v in t["train"]["wire_timed"].values()) for t in tps],
+        prefill_ms=[t["serve"]["prefill_ms"] for t in tps],
+        prefill_wire_ms=[wire[r]["prefill_timed"]["ms"] for r in wire],
+        decode_ms=[t["serve"]["decode_ms"] for t in tps],
+        decode_wire_ms=[wire[r]["decode_timed"]["ms"] / TP_WIRE_DECODE
+                        for r in wire],
+        init_s=[(t["train"]["init_s"], t["serve"]["init_s"]) for t in tps],
+        train_s=[t["train_s"] for t in tps],
+        serve_s=[t["serve_s"] for t in tps],
+        peak_gb=[t["train"]["peak_gb"] for t in tps])
+    return dict(train=train, serve=serve, wire=wire, times=times,
+                worst_err_over_max=worst, worst_abs_err=worst_abs,
+                launches_tp=launches_tp, checks=len(checks),
+                losses=tps[0]["train"]["losses"])
 
 
 # --------------------------------------------------------------------------
@@ -6117,6 +6857,20 @@ def dg_kernel_checks(tile, tile_e, hg, hg_e, xg, yg, dout, rng) -> list:
     return out
 
 
+def dg_wait_for(path, refs_file) -> float:
+    """Seconds a rank waited for the parent's ``path``; raises when the
+    parent marked its failure (``<refs_file>.failed``) or DG_TIMEOUT_S
+    passed."""
+    t0 = time.perf_counter()
+    while not Path(path).exists():
+        if Path(f"{refs_file}.failed").exists() or \
+                time.perf_counter() - t0 > DG_TIMEOUT_S:
+            raise AssertionError(f"no {path}: the parent failed or took "
+                                 f"over {DG_TIMEOUT_S} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
 def dg_rank(mesh, spec, graphs_file, refs_file) -> dict:
     """One rank of phase 17 (``dist.run_ranks``' body): its band and
     tiles built on the host and taken to its device, the main path run
@@ -6141,6 +6895,9 @@ def dg_rank(mesh, spec, graphs_file, refs_file) -> dict:
     r, dev = mesh.index("data"), mesh.device
     grid = tdist.make_grid_mesh(device=DEVICE)
     p = grid.index("row") * grid.shape["col"] + grid.index("col")
+    # the ranks start while the parent writes the graphs and then computes
+    # the one-card results: each file is renamed into place when whole
+    wait_s = dg_wait_for(graphs_file, refs_file)
     t0 = time.perf_counter()
     with open(graphs_file, "rb") as f:
         graphs = pickle.load(f)
@@ -6153,7 +6910,6 @@ def dg_rank(mesh, spec, graphs_file, refs_file) -> dict:
     nb = DG_RING_N // DG_RANKS
     ring_a = dg_matrix("ring_a", DG_RING_N, DG_RING_N)[r * nb:(r + 1) * nb]
     ring_h = dg_matrix("ring_h", DG_RING_N, k)[r * nb:(r + 1) * nb]
-    refs = torch.load(refs_file, mmap=True, map_location="cpu")
     load_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -6263,6 +7019,8 @@ def dg_rank(mesh, spec, graphs_file, refs_file) -> dict:
 
     # -- every result against the one-card result's rows ---------------------
     checks = {}
+    wait_s += dg_wait_for(refs_file, refs_file)  # built, run: now the refs
+    refs = torch.load(refs_file, mmap=True, map_location="cpu")
     scale = refs["max_abs"]
 
     def rows_of(ref, lo, cnt, limit):
@@ -6345,7 +7103,7 @@ def dg_rank(mesh, spec, graphs_file, refs_file) -> dict:
     return dict(
         rank=r, tile=p, coords=(grid.index("row"), grid.index("col")),
         backend=mesh.backend, device=str(dev), t_enter=t_enter,
-        load_s=load_s, build_s=build_s, build_ell_s=build_ell_s,
+        load_s=load_s, wait_s=wait_s, build_s=build_s, build_ell_s=build_ell_s,
         sell_s=sell_s, main_s=main_s, launches=launches,
         sell_routes=sell_routes,
         peak_main_gb=peak_main / 1e9,
@@ -6453,31 +7211,62 @@ def dg_phase(ds) -> dict:
            + f" (budget {DG_ELL_BUDGET / 1e9:.0f} GB, int32 slot ids); the "
              f"SELL bands and tiles, SDDMM, FusedMM run at scale 1")
     log(f"cut: {cut}")
-    t0 = time.perf_counter()
-    refs = dg_references(ds.coo, coo_e, k)
-    refs_s = time.perf_counter() - t0
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
-    t0 = time.perf_counter()
     graphs_file, refs_file = build / "dg_graphs.pkl", build / "dg_refs.pt"
-    with open(graphs_file, "wb") as f:
-        pickle.dump(dict(scale1=coo_arrays(ds.coo), ell=coo_arrays(coo_e)),
-                    f, protocol=5)
-    torch.save(refs, refs_file)
-    write_s = time.perf_counter() - t0
-    del refs
+    for f in (graphs_file, refs_file):
+        f.unlink(missing_ok=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    # the ranks start now, beside the parent's writing of the graphs and
+    # its one-card results; each builds its pieces and runs once the
+    # graphs are in place, and waits for the references only to check
     t_spawn = time.time()
-    t0 = time.perf_counter()
+    t_ranks = time.perf_counter()
+    box: dict = {}
+
+    def start_ranks():
+        try:
+            box["ranks"] = run_ranks(
+                dg_rank, DG_RANKS, str(build), device=DEVICE,
+                timeout_s=DG_TIMEOUT_S,
+                args=(dict(k=k), str(graphs_file), str(refs_file)))
+        except BaseException as exc:        # re-raised below
+            box["error"] = exc
+
+    helper = threading.Thread(target=start_ranks, name="dg-ranks")
+    helper.start()
     try:
-        ranks = run_ranks(dg_rank, DG_RANKS, str(build), device=DEVICE,
-                          timeout_s=DG_TIMEOUT_S,
-                          args=(dict(k=k), str(graphs_file), str(refs_file)))
+        t0 = time.perf_counter()
+        part = build / "dg_graphs.pkl.part"
+        with open(part, "wb") as f:
+            pickle.dump(dict(scale1=coo_arrays(ds.coo),
+                             ell=coo_arrays(coo_e)), f, protocol=5)
+        part.replace(graphs_file)       # the ranks build their pieces now
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        refs = dg_references(ds.coo, coo_e, k)
+        refs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        part = build / "dg_refs.pt.part"
+        torch.save(refs, part)
+        part.replace(refs_file)
+        write_s += time.perf_counter() - t0
+        del refs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    except BaseException:
+        Path(f"{refs_file}.failed").touch()  # the waiting ranks stop
+        raise
     finally:
-        graphs_file.unlink(missing_ok=True)
-        refs_file.unlink(missing_ok=True)
-    ranks_s = time.perf_counter() - t0
+        helper.join()
+        for f in (graphs_file, refs_file, Path(f"{refs_file}.failed"),
+                  build / "dg_graphs.pkl.part", build / "dg_refs.pt.part"):
+            f.unlink(missing_ok=True)
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    ranks_s = time.perf_counter() - t_ranks
     on = "cuda:0" if DEVICE == "cuda" else DEVICE
     failed = []
     for r, got in enumerate(ranks):
@@ -6529,7 +7318,8 @@ def dg_phase(ds) -> dict:
                for op in ranks[0]["timings"]}
     seconds = time.perf_counter() - t_phase
     split = {kk: [round(g[kk], 1) for g in ranks]
-             for kk in ("load_s", "build_s", "sell_s", "build_ell_s",
+             for kk in ("wait_s", "load_s", "build_s", "sell_s",
+                        "build_ell_s",
                         "main_s")}
     split["start_s"] = [round(g["t_enter"] - t_spawn, 1) for g in ranks]
     g0 = ranks[0]
@@ -6558,8 +7348,8 @@ def dg_phase(ds) -> dict:
         f"{[round(g['peak_gb'], 2) for g in ranks]}; ELL tile "
         f"{g0['ell_tile']}, SELL tile {g0['sell_tile']}, band {g0['band']}")
     log(f"distributed GNN phase: {seconds:.1f} s (one-card results "
-        f"{refs_s:.1f} s, files {write_s:.1f} s, ranks {ranks_s:.1f} s: "
-        f"{split})")
+        f"{refs_s:.1f} s and files {write_s:.1f} s, beside the ranks' start "
+        f"and builds; ranks {ranks_s:.1f} s from the spawn: {split})")
     if failed:
         (ROOT / "chiprun_out" / "dist_gnn_failed.json").write_text(
             json.dumps(ranks, indent=1, default=str))
@@ -6622,7 +7412,18 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()}")
+    # phase 2's dataset is host work: it is made beside the build
+    made: dict = {}
+
+    def make_reddit():
+        try:
+            made["ds"] = make_dataset("reddit", scale=1)
+        except BaseException as exc:        # re-raised in phase 2
+            made["error"] = exc
+        made["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    maker = threading.Thread(target=make_reddit, name="reddit")
+    maker.start()
     per_kernel = build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{n} {s:.1f} s' for n, s in per_kernel.items())})")
@@ -6648,11 +7449,13 @@ def main() -> int:
     report["ptxas"] = ptxas
 
     # -- phase 2: sampled serving at full width ------------------------------
-    t0 = time.perf_counter()
-    ds = make_dataset("reddit", scale=1)
+    maker.join()
+    if "error" in made:
+        raise made["error"]
+    ds = made["ds"]
     log(f"dataset reddit scale=1: {ds.num_nodes} nodes, {ds.coo.nse} edges, "
         f"{ds.num_features} features, {ds.num_classes} classes "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({made['seconds']:.1f} s, beside the build)")
     init, _, _, dims = make_block_model(ARCH, ds.num_features, HIDDEN,
                                         ds.num_classes, len(FANOUTS))
     params = init(torch.Generator().manual_seed(0), device=DEVICE)
@@ -7027,7 +7830,8 @@ def main() -> int:
     report["frontends"] = front
     torch.cuda.empty_cache()
 
-    # -- phase 16: data parallelism, two ranks on the one card ---------------
+    # -- phase 16: data parallelism, two ranks on the one card; then, in the
+    # same two ranks, phase 18: tensor and expert parallelism over 'model'
     dp = dp_phase(ds, minibatch["result"]["probed_caps"])
     report["data_parallel"] = dp
     torch.cuda.empty_cache()
@@ -7332,6 +8136,18 @@ def main() -> int:
                 dp["lm_worst_err_over_max"][entry["name"]])
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        dp["lm_worst_abs_err"][entry["name"]])
+    tpr = dp["tp"]
+    report["tensor_parallel"] = tpr
+    for entry in kernels:       # phase 18: the two model ranks' launches
+        n = tpr["launches_tp"].get(entry["name"], 0)
+        entry["launches_tp"] = n
+        entry["launches"] += n
+        if entry["name"] in tpr["worst_err_over_max"]:
+            entry["err_over_max_plain"] = max(
+                entry.get("err_over_max_plain", 0.0),
+                tpr["worst_err_over_max"][entry["name"]])
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       tpr["worst_abs_err"][entry["name"]])
     for entry in kernels:       # phase 17: the four ranks' launches
         n = dg["launches_dist"].get(entry["name"], 0)
         entry["launches_dist"] = n

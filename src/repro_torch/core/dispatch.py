@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["RouteInfo", "route_topk", "dispatch", "combine",
+__all__ = ["RouteInfo", "route_topk", "topk_gates", "dispatch", "combine",
            "moe_mlp", "as_coo_matrices", "expand_replicas"]
 
 
@@ -78,6 +78,19 @@ def route_topk(logits: torch.Tensor, k: int, *, capacity_factor: float = 1.25,
                      capacity=cap, num_experts=e)
 
 
+def topk_gates(logits: torch.Tensor, expert_idx: torch.Tensor
+               ) -> torch.Tensor:
+    """The kept, renormalized gates of :func:`route_topk` recomputed from
+    ``logits`` at its ``expert_idx`` (logical experts, before
+    ``expand_replicas``): the same values, bit for bit, through another
+    autograd path (the expert-parallel MoE sums this path's gradient
+    over the ranks)."""
+    gates_all = torch.softmax(logits.float(), dim=-1)
+    g = gates_all.gather(-1, expert_idx.long())
+    g = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+    return g.to(logits.dtype)
+
+
 def expand_replicas(r: RouteInfo, reps: int) -> RouteInfo:
     """Remap logical experts onto replica-major storage slots (slot =
     rep·E + e, rep round-robin over tokens), the reference's layout of
@@ -101,37 +114,54 @@ def expand_replicas(r: RouteInfo, reps: int) -> RouteInfo:
                      aux_loss=r.aux_loss, capacity=cap, num_experts=n_slots)
 
 
-def dispatch(x: torch.Tensor, r: RouteInfo) -> torch.Tensor:
+def _held(r: RouteInfo, experts) -> tuple:
+    """(first expert, experts, kept pairs whose expert is among them)."""
+    if experts is None:
+        return 0, r.num_experts, r.keep
+    lo, n = experts
+    return lo, n, r.keep & (r.expert_idx >= lo) & (r.expert_idx < lo + n)
+
+
+def dispatch(x: torch.Tensor, r: RouteInfo, experts=None) -> torch.Tensor:
     """P @ X: scatter tokens into the (E, C, D) expert buffer. The kept
     pairs' (expert, slot) rows are unique, so their writes are
     deterministic; the dropped pairs all go to one spare row past the
     buffer, which is cut off (the reference adds them as zeros into slot
     (E-1, C-1), which changes nothing). No host sync: no boolean-mask
-    indexing."""
+    indexing. ``experts = (first, n)`` builds only those experts' (n, C,
+    D) rows (the expert-parallel MoE: a rank's own experts)."""
     t, d = x.shape
-    e, c = r.num_experts, r.capacity
+    lo, e, held = _held(r, experts)
+    c = r.capacity
     flat = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
-    row = torch.where(r.keep, r.expert_idx.long() * c + r.pos.long(), e * c)
+    row = torch.where(held, (r.expert_idx.long() - lo) * c + r.pos.long(),
+                      e * c)
     tok = torch.arange(t, device=x.device)[:, None].expand_as(row)
     flat[row.reshape(-1)] = x[tok.reshape(-1)]
     return flat[:e * c].view(e, c, d)
 
 
-def combine(y: torch.Tensor, r: RouteInfo) -> torch.Tensor:
-    """Pᵀ(g) @ Y: gather expert outputs back, weighted by the gates."""
-    e_idx = torch.where(r.keep, r.expert_idx, 0).long()
-    p_idx = torch.where(r.keep, r.pos, 0).long()
+def combine(y: torch.Tensor, r: RouteInfo, experts=None) -> torch.Tensor:
+    """Pᵀ(g) @ Y: gather expert outputs back, weighted by the gates; with
+    ``experts = (first, n)``, ``y`` holds those experts' rows and the
+    others' pairs weigh 0."""
+    lo, _, held = _held(r, experts)
+    e_idx = torch.where(held, r.expert_idx - lo, 0).long()
+    p_idx = torch.where(held, r.pos, 0).long()
     gathered = y[e_idx, p_idx]                                   # (T, k, F)
-    w = torch.where(r.keep, r.gates, torch.zeros_like(r.gates))[..., None]
+    w = torch.where(held, r.gates, torch.zeros_like(r.gates))[..., None]
     return torch.sum(gathered * w.to(y.dtype), dim=1)
 
 
 def moe_mlp(x: torch.Tensor, r: RouteInfo, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, act=F.silu,
-            tm: int = 128) -> torch.Tensor:
+            tm: int = 128, experts=None) -> torch.Tensor:
     """Expert GLU-MLP over the dispatched buffer.
 
     x: (T, D); w_gate/w_up: (E, D, F); w_down: (E, F, D). Returns (T, D).
+    ``experts = (first, n)``: the weights are those n experts' stacks,
+    only their rows are dispatched and combined (the others' pairs add
+    0), and the products run over n groups.
     The three grouped products go through ``kernels.ops.ragged_gemm``
     (the hand kernel on the card, its plain version, a batched product,
     on the CPU), which needs ``tm``-row tiles of one expert each. A
@@ -148,7 +178,7 @@ def moe_mlp(x: torch.Tensor, r: RouteInfo, w_gate: torch.Tensor,
     shapes; ``tile_expert`` is never read back to the host).
     """
     from repro_torch.kernels import ops as kops
-    buf = dispatch(x, r)                                # (E, C, D)
+    buf = dispatch(x, r, experts)                       # (E, C, D)
     e, c, d = buf.shape
     c_pad = -(-c // tm) * tm
     if c_pad != c:
@@ -159,7 +189,7 @@ def moe_mlp(x: torch.Tensor, r: RouteInfo, w_gate: torch.Tensor,
     g = kops.ragged_gemm(flat, w_gate, tile_expert, tm=tm, n_groups=e)
     u = kops.ragged_gemm(flat, w_up, tile_expert, tm=tm, n_groups=e)
     y = kops.ragged_gemm(act(g) * u, w_down, tile_expert, tm=tm, n_groups=e)
-    return combine(y.reshape(e, c_pad, -1)[:, :c].to(x.dtype), r)
+    return combine(y.reshape(e, c_pad, -1)[:, :c].to(x.dtype), r, experts)
 
 
 def as_coo_matrices(r: RouteInfo, t: int):

@@ -18,23 +18,24 @@ queue 1, item 5a) and the distributed GNN half of item 5b:
   ``pmean``, ``wire_bytes``, ``replicas_equal``; the GNN path's
   ``all_gather``, ``psum_scatter``, ``pmax``, ``axis_sum``,
   ``compressed_psum_scatter`` and ``ring_allgather_matmul``, with
-  ``wire_stats``;
+  ``wire_stats``; the Megatron pair ``copy_to_axis`` /
+  ``reduce_from_axis``, and ``gather_dim``;
 * :mod:`~repro_torch.dist.gnn` — 1-D row bands (ELL or SELL) and the
   halo'd ``distributed_spmm``;
 * :mod:`~repro_torch.dist.gnn2d` — the 2-D vertex-cut grid:
   ``distributed_spmm_2d``, ``distributed_sddmm_2d``,
   ``distributed_fusedmm_2d``.
 
-The rest of item 5b waits: the pipeline, the sharding rules and
-``PARAM_AXES``, ``shaped_*(mesh=)``, the manual expert-parallel MoE,
-sharded restore and data-parallel resume.
+The rest of item 5b waits: the manual expert-parallel MoE (5b.2), the
+pipeline (5b.3), sharded restore and data-parallel resume (5b.4).
 """
 from repro_torch.dist.collectives import (GLOO_STAGED, all_agree, all_gather,
                                           axis_size, axis_sum,
                                           compressed_psum,
-                                          compressed_psum_scatter, pmax,
+                                          compressed_psum_scatter,
+                                          copy_to_axis, gather_dim, pmax,
                                           pmean, psum, psum_scatter,
-                                          replicas_equal,
+                                          reduce_from_axis, replicas_equal,
                                           reset_wire_stats,
                                           ring_allgather_matmul, sync_grads,
                                           wire_bytes, wire_stats)
@@ -48,15 +49,32 @@ from repro_torch.dist.gnn2d import (Graph2D, Grid, build_tile, col_shard,
                                     distributed_spmm_2d, partition_2d,
                                     row_shard, scores_to_dense)
 from repro_torch.dist.mesh import (Mesh, axis_shard_count, choose_backend,
-                                   grid_shape, init_ranks, make_data_mesh,
+                                   current_mesh, grid_shape, init_ranks,
+                                   leading_axis_sharding, make_data_mesh,
                                    make_grid_mesh, make_local_mesh,
-                                   run_ranks)
-from repro_torch.dist.sharding import grid_axes
+                                   make_production_mesh, replicated_device_put,
+                                   replicated_sharding, run_ranks)
+from repro_torch.dist.partition import (LM_RULES, batch_shardings,
+                                        cache_shardings, gather_params,
+                                        graph2d_shardings, param_logical_axes,
+                                        param_shardings, shard_params,
+                                        state_shardings)
+from repro_torch.dist.sharding import (Rules, Sharding, current_rules,
+                                       grid_axes, logical_sharding,
+                                       resolve_spec, shard_constraint,
+                                       split_axes, use_rules)
 
 __all__ = [
     "Mesh", "axis_shard_count", "choose_backend", "make_data_mesh",
-    "make_local_mesh", "make_grid_mesh", "grid_shape", "grid_axes",
-    "init_ranks", "run_ranks",
+    "make_local_mesh", "make_grid_mesh", "make_production_mesh",
+    "grid_shape", "grid_axes", "init_ranks", "run_ranks", "current_mesh",
+    "replicated_sharding", "leading_axis_sharding", "replicated_device_put",
+    "Rules", "use_rules", "current_rules", "resolve_spec",
+    "logical_sharding", "Sharding", "split_axes", "shard_constraint",
+    "LM_RULES", "param_logical_axes", "param_shardings", "state_shardings",
+    "batch_shardings", "cache_shardings", "graph2d_shardings",
+    "shard_params", "gather_params", "copy_to_axis", "reduce_from_axis",
+    "gather_dim",
     "axis_size", "all_agree", "psum", "pmean", "compressed_psum",
     "sync_grads", "wire_bytes", "replicas_equal",
     "all_gather", "psum_scatter", "pmax", "axis_sum",

@@ -23,7 +23,15 @@ reference's: :func:`all_gather` (its backward :func:`psum_scatter`),
 :func:`psum_scatter` (its backward :func:`all_gather`), :func:`pmax` (no
 gradient), :func:`axis_sum` (differentiable; its backward the sum of the
 gradients), :func:`compressed_psum_scatter` and
-:func:`ring_allgather_matmul`. The backend only moves data: a
+:func:`ring_allgather_matmul`; and the tensor-parallel LM path's
+Megatron pair: :func:`copy_to_axis` (identity forward, the ranks'
+gradients summed backward: at the input of a product whose columns are
+split) and :func:`reduce_from_axis` (the ranks' sum forward, identity
+backward: at the output of a product whose rows are split). Unlike
+:func:`axis_sum`, whose backward sums the ranks' gradients (right where
+each rank's downstream differs, as in the 2-D GNN path), the reduced
+output of a tensor-parallel product feeds the same replicated
+computation on every rank, so its gradient is already whole there. The backend only moves data: a
 reduce-scatter is an ``all_to_all_single`` and a sum of the received
 pieces in rank order, a sum or max an ``all_gather_into_tensor`` and
 the reduction of the gathered rows, so the arithmetic runs on the
@@ -58,7 +66,8 @@ __all__ = ["axis_size", "all_agree", "psum", "pmean", "compressed_psum",
            "sync_grads", "wire_bytes", "replicas_equal", "all_gather",
            "psum_scatter", "pmax", "axis_sum", "compressed_psum_scatter",
            "ring_allgather_matmul", "GLOO_STAGED", "wire_stats",
-           "reset_wire_stats"]
+           "reset_wire_stats", "copy_to_axis", "reduce_from_axis",
+           "gather_dim"]
 
 
 def axis_size(mesh, axis: str = "data") -> int:
@@ -332,6 +341,70 @@ def axis_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if mesh.group(axis) is None:
         return x
     return _AxisSum.apply(x, mesh, axis)
+
+
+def _axis_total(x, mesh, axis):
+    """The sum of every rank's ``x`` over ``axis``, in rank order."""
+    g = _gathered(x.reshape(1) if x.dim() == 0 else x, mesh, axis, "psum")
+    return g.sum(0, dtype=x.dtype).reshape(x.shape)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _axis_total(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _axis_total(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_axis(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Megatron's ``f``: ``x`` unchanged forward; backward, the sum of the
+    ranks' gradients over ``axis`` (an axis name or a tuple of names),
+    in rank order, so every rank gets the same bits. Put it on the
+    replicated input of a product whose columns are split over the
+    axis: each rank's gradient is its columns' share."""
+    for a in _axes(axis):
+        if mesh.group(a) is not None:
+            x = _CopyToAxis.apply(x, mesh, a)
+    return x
+
+
+def reduce_from_axis(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Megatron's ``g``: the sum of the ranks' ``x`` over ``axis``, in
+    rank order (the same bits on every rank); backward, the gradient
+    unchanged. Put it on the partial output of a product whose rows are
+    split over the axis."""
+    for a in _axes(axis):
+        if mesh.group(a) is not None:
+            x = _ReduceFromAxis.apply(x, mesh, a)
+    return x
+
+
+def _axes(axis) -> tuple:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def gather_dim(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``axis`` joined along ``dim``, in axis order
+    (``all_gather(..., axis=dim, tiled=True)``); not differentiable."""
+    if mesh.group(axis) is None:
+        return x
+    moved = x.detach().movedim(dim, 0).contiguous()
+    g = _gathered(moved, mesh, axis, "all_gather")
+    return g.reshape((-1,) + tuple(moved.shape[1:])).movedim(0, dim)
 
 
 def compressed_psum_scatter(x: torch.Tensor, mesh, axis: str, *,

@@ -5,11 +5,21 @@ The reference runs every rank in one process, with ``shard_map`` over a
 JAX mesh. The port runs one process a rank: a :class:`Mesh` is this
 rank's view of the mesh, its named axes with their sizes, the rank's
 coordinate on each, its device, and the process group each axis
-reduces over. Two meshes: the ``('data', 'model')`` mesh of data
-parallelism (``'model'`` > 1, tensor and expert parallelism and the
-sharding rules, is ROADMAP.md queue 1, item 5b, and raises) and the
-``('row', 'col')`` grid of the 2-D vertex-cut GNN path
-(:func:`make_grid_mesh`, the most square factorisation of the ranks).
+reduces over. Three meshes: the ``('data', 'model')`` mesh of data,
+tensor and expert parallelism (ranks row-major, as the reference's
+``jax.make_mesh((data, model))`` lays out devices: rank = data index x
+model + model index; a process group for each ``'data'`` column and
+each ``'model'`` row), the ``('row', 'col')`` grid of the 2-D
+vertex-cut GNN path (:func:`make_grid_mesh`, the most square
+factorisation of the ranks), and the shape-only production meshes
+(:func:`make_production_mesh`: 16 x 16 or 2 x 16 x 16, no ranks, device
+``meta``), which the sharding rules and the ``*_shardings`` builders
+read; a collective on one raises.
+
+``with mesh:`` makes a mesh the active one (:func:`current_mesh`), as
+the reference's ``with mesh:`` does: the LM layers read it, with the
+active rules (``dist.sharding``), to know which of their products are
+split over ``'model'``.
 
 **The backend is chosen once, by one rule** (:func:`choose_backend`),
 when the ranks start, and the mesh records it: NCCL when every rank has
@@ -41,12 +51,12 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "axis_shard_count", "choose_backend", "make_local_mesh",
-           "make_data_mesh", "make_grid_mesh", "grid_shape", "init_ranks",
-           "run_ranks"]
+           "make_data_mesh", "make_grid_mesh", "make_production_mesh",
+           "grid_shape", "init_ranks", "run_ranks", "current_mesh",
+           "replicated_sharding", "leading_axis_sharding",
+           "replicated_device_put"]
 
-_MODEL_AXIS = ("a 'model' axis larger than 1 (tensor and expert "
-               "parallelism, the sharding rules) is not ported yet "
-               "(ROADMAP.md queue 1, item 5b)")
+_ACTIVE: list = []          # the meshes entered with ``with mesh:``
 
 
 @dataclasses.dataclass(eq=False)
@@ -64,13 +74,37 @@ class Mesh:
     device: torch.device
     backend: Optional[str]
     groups: dict
+    abstract: bool = False     # shape only (make_production_mesh)
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= int(v)
+        return n
 
     def index(self, axis: str = "data") -> int:
         """This rank's coordinate on ``axis`` (0 on an absent axis)."""
         return int(self.coords.get(axis, 0))
 
     def group(self, axis: str = "data"):
+        if self.abstract and int(self.shape.get(axis, 1)) > 1:
+            raise RuntimeError(f"mesh {self.shape} is shape-only (no "
+                               f"ranks): no collective runs over {axis!r}")
         return self.groups.get(axis)
+
+    def __enter__(self) -> "Mesh":
+        _ACTIVE.append(self)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _ACTIVE.pop()
+        return False
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The innermost mesh entered with ``with mesh:``, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
 
 
 def axis_shard_count(mesh, axis: str = "data") -> int:
@@ -106,43 +140,104 @@ def _rank_device(device: str, rank: int) -> torch.device:
 
 
 def _mesh(data: int, model: int, device: str) -> Mesh:
-    if model != 1:
-        raise NotImplementedError(f"mesh model={model}: {_MODEL_AXIS}")
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh data={data} model={model}")
     if not dist.is_initialized():
-        if data != 1:
-            raise RuntimeError(f"a mesh of data={data} needs its ranks "
-                               "started first (run_ranks or init_ranks)")
+        if data * model != 1:
+            raise RuntimeError(f"a mesh of data={data} model={model} needs "
+                               "its ranks started first (run_ranks or "
+                               "init_ranks)")
         return Mesh(shape={"data": 1, "model": 1},
                     coords={"data": 0, "model": 0},
                     device=_rank_device(device, 0), backend=None,
                     groups={"data": None, "model": None})
     world, rank = dist.get_world_size(), dist.get_rank()
-    if data != world:
-        raise ValueError(f"mesh data={data} over {world} ranks: the data "
-                         "axis spans every rank")
-    return Mesh(shape={"data": world, "model": 1},
-                coords={"data": rank, "model": 0},
+    if data * model != world:
+        raise ValueError(f"mesh data={data} x model={model} over {world} "
+                         "ranks: the mesh spans every rank")
+    i, j = divmod(rank, model)
+    groups = {"data": None, "model": None}
+    # every rank creates every group, in one order: the 'data' columns,
+    # then the 'model' rows; an axis that spans every rank takes WORLD
+    if data > 1:
+        if model == 1:
+            groups["data"] = dist.group.WORLD
+        else:
+            for jj in range(model):
+                g = dist.new_group([ii * model + jj for ii in range(data)])
+                if jj == j:
+                    groups["data"] = g
+    if model > 1:
+        if data == 1:
+            groups["model"] = dist.group.WORLD
+        else:
+            for ii in range(data):
+                g = dist.new_group([ii * model + jj for jj in range(model)])
+                if ii == i:
+                    groups["model"] = g
+    return Mesh(shape={"data": data, "model": model},
+                coords={"data": i, "model": j},
                 device=_rank_device(device, rank),
-                backend=dist.get_backend(),
-                groups={"data": dist.group.WORLD, "model": None})
+                backend=dist.get_backend(), groups=groups)
 
 
 def make_local_mesh(data: int = 1, model: int = 1, *,
                     device: str = "cuda") -> Mesh:
     """The reference's small local mesh: ``data`` clamps to the ranks
-    that exist (one without a process group)."""
+    that exist, then ``model`` to the ranks left (one rank without a
+    process group)."""
     n = dist.get_world_size() if dist.is_initialized() else 1
-    return _mesh(min(int(data), n), int(model), device)
+    data = min(int(data), n)
+    return _mesh(data, min(int(model), max(n // data, 1)), device)
 
 
 def make_data_mesh(data: int | None = None, *, model: int = 1,
                    device: str = "cuda") -> Mesh:
     """``('data', 'model')`` mesh with an explicit data-parallel degree,
-    the one the lockstep minibatch trainer and the data-parallel LM step
-    take. ``data`` defaults to every rank; ``device`` is where the ranks
-    run (``'cuda'``: card ``rank % cards``)."""
+    the one the lockstep minibatch trainer, the data-parallel LM step
+    and the tensor-parallel LM step take. ``data`` defaults to every
+    rank over ``model``; ``device`` is where the ranks run (``'cuda'``:
+    card ``rank % cards``). Call it on every rank: it creates the axes'
+    process groups."""
     n = dist.get_world_size() if dist.is_initialized() else 1
-    return _mesh(n if data is None else int(data), int(model), device)
+    model = int(model)
+    return _mesh(max(n // model, 1) if data is None else int(data), model,
+                 device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh as a shape: 16 x 16 ``('data',
+    'model')`` (256 chips) or 2 x 16 x 16 ``('pod', 'data', 'model')``,
+    with no ranks, no groups and device ``meta``. The sharding rules and
+    the ``*_shardings`` builders read it; a collective over one of its
+    axes raises."""
+    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else \
+        {"data": 16, "model": 16}
+    return Mesh(shape=shape, coords={k: 0 for k in shape},
+                device=torch.device("meta"), backend=None,
+                groups={k: None for k in shape}, abstract=True)
+
+
+def replicated_sharding(mesh):
+    """The fully replicated sharding on ``mesh`` (every rank holds the
+    whole tensor)."""
+    from repro_torch.dist.sharding import Sharding
+    return Sharding(mesh, ())
+
+
+def leading_axis_sharding(mesh, axis: str = "data"):
+    """Dim 0 split over ``axis``: each rank holds its own block of rows
+    (the placement of per-shard batches)."""
+    from repro_torch.dist.sharding import Sharding
+    return Sharding(mesh, (axis,))
+
+
+def replicated_device_put(x, mesh=None, *, device="cuda") -> torch.Tensor:
+    """``x`` (a tensor or anything ``torch.as_tensor`` takes) whole on
+    this rank's device when a mesh is given (every rank holds a copy),
+    else on ``device``."""
+    dev = mesh.device if mesh is not None else torch.device(device)
+    return torch.as_tensor(x).to(dev)
 
 
 def grid_shape(n: int) -> tuple[int, int]:
@@ -196,13 +291,13 @@ def make_grid_mesh(devices: int | None = None, *,
 
 
 def init_ranks(rank: int, world_size: int, *, store_dir: str | None = None,
-               device: str = "cuda",
-               timeout_s: float = 600.0) -> Mesh:
+               device: str = "cuda", timeout_s: float = 600.0,
+               model: int = 1) -> Mesh:
     """Start this process's rank: the backend by :func:`choose_backend`,
     the card of ``rank % cards`` made current, the process group over a
     ``FileStore`` in ``store_dir`` (or, without one, the ``env://``
-    variables a launcher such as ``torchrun`` sets), and the data mesh
-    over all ranks."""
+    variables a launcher such as ``torchrun`` sets), and the ``(world /
+    model, model)`` mesh over all ranks."""
     n_cards = torch.cuda.device_count() if torch.device(device).type \
         == "cuda" else 0
     # the ranks that share this host's cards: all of them, unless a
@@ -225,14 +320,17 @@ def init_ranks(rank: int, world_size: int, *, store_dir: str | None = None,
         kw["store"] = dist.FileStore(os.path.join(store_dir, "rendezvous"),
                                      world_size)
     dist.init_process_group(**kw)
-    return make_data_mesh(world_size, device=device)
+    if world_size % model:
+        raise ValueError(f"{world_size} ranks do not split into a 'model' "
+                         f"axis of {model}")
+    return make_data_mesh(world_size // model, model=model, device=device)
 
 
 def _rank_main(fn, rank: int, world_size: int, store_dir: str, device: str,
-               timeout_s: float, args: tuple, out) -> None:
+               timeout_s: float, args: tuple, out, model: int = 1) -> None:
     try:
         mesh = init_ranks(rank, world_size, store_dir=store_dir,
-                          device=device, timeout_s=timeout_s)
+                          device=device, timeout_s=timeout_s, model=model)
         try:
             result = fn(mesh, *args)
         finally:
@@ -245,9 +343,10 @@ def _rank_main(fn, rank: int, world_size: int, store_dir: str, device: str,
 
 def run_ranks(fn: Callable, world_size: int, store_dir: str, *,
               args: Sequence = (), device: str = "cuda",
-              timeout_s: float = 600.0) -> list:
+              timeout_s: float = 600.0, model: int = 1) -> list:
     """Run ``fn(mesh, *args)`` in ``world_size`` spawned ranks and return
-    their results, rank 0 first.
+    their results, rank 0 first. ``mesh`` is the ``(world_size / model,
+    model)`` mesh.
 
     ``fn`` and ``args`` are pickled (``fn`` by its import path) and the
     results come back pickled. The ranks rendezvous through a
@@ -262,7 +361,7 @@ def run_ranks(fn: Callable, world_size: int, store_dir: str, *,
     out = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
                          args=(fn, r, world_size, run_dir, device,
-                               timeout_s, tuple(args), out))
+                               timeout_s, tuple(args), out, model))
              for r in range(world_size)]
     results: dict[int, Any] = {}
     errors: dict[int, str] = {}

@@ -8,7 +8,8 @@
         --arch phi3.5-moe-42b-a6.6b --smoke --steps 20 [--batch 8] \
         [--seq 128] [--accum 1] [--grad-compression int8] \
         [--ckpt-dir DIR] [--ckpt-every 10] [--resume] [--inject-fault N] \
-        [--mesh-data N --grad-sync shardmap] [--device cpu]
+        [--mesh-data N --grad-sync shardmap] \
+        [--mesh-data D --mesh-model M] [--device cpu]
 
 Trains on the card unless ``--device cpu``. GNN: ``--measure-tuning``
 times the candidate kernels on that device before training, and
@@ -37,9 +38,22 @@ card or run on the CPU). Every rank draws the same global batch and
 takes its slice; only rank 0 prints and checkpoints. ``--inject-fault``
 fails that step on every rank at once, and the ranks restore the same
 durable step: rank 0's writer drained, then all ranks at a barrier.
-What waits for ROADMAP.md queue 1, item 5b exits 2: ``--mesh-model`` >
-1, ``--grad-sync gspmd`` (the sharding rules) with N > 1, and
-``--resume`` with N > 1 (data-parallel resume).
+
+``--mesh-data D --mesh-model M`` with ``--grad-sync gspmd`` (the
+default) trains over D x M ranks with the sharding rules
+(``train.lm.make_train_step(mesh=)``): each rank holds its slices of
+the params and moments (tensor and expert parallelism over ``'model'``)
+and takes its ``'data'`` block of the global batch; the gradients are
+synced over ``'data'``. Rank 0 checkpoints, the split leaves gathered
+over ``'model'`` first, so the files are in the one-rank format; a
+restart restores them and every rank takes its slices again.
+
+What is not ported exits 2 before anything is built, naming its ROADMAP
+item: ``--resume`` over several ranks (queue 1, item 5b.4),
+``--grad-compression int8`` with ``--mesh-model`` > 1 (item 5b.5), and
+``--grad-sync shardmap`` with ``--mesh-model`` > 1 (the explicit
+data-parallel step replicates the params over the whole mesh, as the
+reference's does: use ``--grad-sync gspmd``).
 """
 from __future__ import annotations
 
@@ -52,31 +66,60 @@ import time
 _ITEM_5B = "ROADMAP.md queue 1, item 5b"
 
 
+def _zip_state(fn, a, b):
+    """``fn`` over the leaves of two trees of one structure (dicts and
+    NamedTuples; None stays None)."""
+    if a is None:
+        return None
+    if isinstance(a, dict):
+        return {k: _zip_state(fn, a[k], b[k]) for k in a}
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(_zip_state(fn, x, y) for x, y in zip(a, b)))
+    return fn(a, b)
+
+
 class _RankCheckpointer:
-    """A rank's view of the one checkpoint directory of a data-parallel
-    run: rank 0 writes, every rank reads. A restore first drains rank 0's
-    writer and meets the other ranks at a barrier, so every rank restores
-    the same durable step."""
+    """A rank's view of the one checkpoint directory of a run over
+    several ranks: rank 0 writes, every rank reads. A restore first
+    drains rank 0's writer and meets the other ranks at a barrier, so
+    every rank restores the same durable step. With ``shardings`` (the
+    whole state's, when the ranks hold slices) a save first gathers the
+    split leaves on every rank, so the files are the one-rank state, and
+    a restore reads the whole state and keeps this rank's slices."""
 
-    def __init__(self, ckpt, mesh):
-        self.ckpt, self.mesh = ckpt, mesh
+    def __init__(self, ckpt, mesh, shardings=None):
+        self.ckpt, self.mesh, self.shardings = ckpt, mesh, shardings
         self.base = ckpt.base
-        self.writer = mesh.index("data") == 0
+        self.writer = mesh.index("data") == 0 and mesh.index("model") == 0
 
-    def save(self, *args, **kw):
+    def save(self, step, tree, **kw):
+        if self.shardings is not None:       # a collective: every rank
+            tree = _zip_state(lambda x, s: s.gather(x) if s.is_split
+                              else x, tree, self.shardings)
         if self.writer:
-            self.ckpt.save(*args, **kw)
+            self.ckpt.save(step, tree, **kw)
 
     def wait(self):
         if self.writer:
             self.ckpt.wait()
 
     def restore(self, tree_like, shardings=None):
+        import torch
         import torch.distributed as dist
         self.wait()
-        if self.mesh.group("data") is not None:
-            dist.barrier(group=self.mesh.group("data"))
-        return self.ckpt.restore(tree_like, shardings=shardings)
+        if dist.is_initialized():
+            dist.barrier()
+        if self.shardings is None:
+            return self.ckpt.restore(tree_like, shardings=shardings)
+        dev = self.mesh.device
+        whole = _zip_state(
+            lambda x, s: torch.empty(tuple(n * s.shards(i) for i, n in
+                                           enumerate(x.shape)),
+                                     dtype=x.dtype, device=dev),
+            tree_like, self.shardings)
+        whole, step = self.ckpt.restore(whole, shardings=shardings)
+        return _zip_state(lambda x, s: s.local(x).contiguous().clone(),
+                          whole, self.shardings), step
 
 
 def run_gnn(args) -> int:
@@ -99,22 +142,26 @@ def run_gnn(args) -> int:
 
 
 def _lm_rank(mesh, args) -> int:
-    """One rank of a data-parallel LM run (``dist.run_ranks``' body)."""
+    """One rank of an LM run over several ranks (``dist.run_ranks``'
+    body)."""
     return run_lm(args, mesh)
 
 
 def run_lm_ranks(args) -> int:
-    """``--mesh-data N --grad-sync shardmap``: under an outside launcher
-    this process is one rank; otherwise start the N ranks here."""
+    """``--mesh-data D [--mesh-model M]``: under an outside launcher this
+    process is one rank; otherwise start the D x M ranks here."""
     from repro_torch.dist import init_ranks, run_ranks
+    n = args.mesh_data * args.mesh_model
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         world = int(os.environ["WORLD_SIZE"])
-        if world != args.mesh_data:
-            print(f"--mesh-data {args.mesh_data} under a launcher of "
-                  f"{world} ranks", file=sys.stderr)
+        if world != n:
+            print(f"--mesh-data {args.mesh_data} x --mesh-model "
+                  f"{args.mesh_model} under a launcher of {world} ranks",
+                  file=sys.stderr)
             return 2
         import torch.distributed as dist
-        mesh = init_ranks(int(os.environ["RANK"]), world, device=args.device)
+        mesh = init_ranks(int(os.environ["RANK"]), world, device=args.device,
+                          model=args.mesh_model)
         try:
             return run_lm(args, mesh)
         finally:
@@ -122,8 +169,8 @@ def run_lm_ranks(args) -> int:
     with tempfile.TemporaryDirectory() as scratch:
         if args.ckpt_dir is None:           # one directory for every rank
             args.ckpt_dir = os.path.join(scratch, "ckpt")
-        rcs = run_ranks(_lm_rank, args.mesh_data, scratch, args=(args,),
-                        device=args.device)
+        rcs = run_ranks(_lm_rank, n, scratch, args=(args,),
+                        device=args.device, model=args.mesh_model)
     return max(rcs)
 
 
@@ -139,31 +186,47 @@ def run_lm(args, mesh=None) -> int:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     compression = args.grad_compression != "none"
+    sharded = False                     # the ranks hold slices of the state
     if args.grad_sync == "shardmap":
         mesh = mesh or make_data_mesh(1, device=args.device)
         device = mesh.device
         step_fn, opt = TL.make_data_parallel_step(
             cfg, mesh, lr=args.lr, accum=args.accum, compression=compression)
+    elif mesh is not None:
+        device = mesh.device
+        sharded = True
+        step_fn, opt = TL.make_train_step(cfg, lr=args.lr, accum=args.accum,
+                                          compression=compression, mesh=mesh)
     else:
         device = torch.device(args.device)
         step_fn, opt = TL.make_train_step(cfg, lr=args.lr, accum=args.accum,
                                           compression=compression)
-    lead = mesh is None or mesh.index("data") == 0
+    lead = mesh is None or (mesh.index("data") == 0
+                            and mesh.index("model") == 0)
     say = print if lead else (lambda *a, **kw: None)
     say(f"[lm] {cfg.name} ({cfg.family}) on {device}" + (
         f", mesh {mesh.shape} ({mesh.backend or 'one rank'}), grad sync "
-        f"{'int8' if compression else 'fp32'}" if mesh is not None else ""),
-        flush=True)
+        f"{'int8' if compression else 'fp32'}"
+        + (" (the sharding rules)" if sharded else "")
+        if mesh is not None else ""), flush=True)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = TL.make_train_state(cfg, gen, opt, compression=compression,
-                                device=device)
+                                device=device, mesh=mesh if sharded else None)
     if mesh is not None and not replicas_equal(state.params, mesh):
         raise RuntimeError("the ranks' initial params differ")
+    rows = slice(None)                  # this rank's rows of the batch
+    if sharded:
+        part = args.batch // mesh.shape["data"]
+        rows = slice(mesh.index("data") * part,
+                     (mesh.index("data") + 1) * part)
     with tempfile.TemporaryDirectory() as scratch:
         ckpt_dir = args.ckpt_dir or scratch
         ckpt = Checkpointer(ckpt_dir, keep=3)
         if mesh is not None:
-            ckpt = _RankCheckpointer(ckpt, mesh)
+            from repro_torch.dist.partition import state_shardings
+            ckpt = _RankCheckpointer(ckpt, mesh, state_shardings(
+                mesh, TL.shaped_state(cfg, opt, compression=compression))
+                if sharded else None)
         start = 0
         if args.resume and latest_step(ckpt_dir) is not None:
             state, start = ckpt.restore(state)
@@ -181,8 +244,8 @@ def run_lm(args, mesh=None) -> int:
             for i, (toks, tgts) in enumerate(
                     token_stream(args.batch, args.seq, cfg.vocab,
                                  start_step=start)):
-                yield {"tokens": torch.from_numpy(toks).to(device),
-                       "targets": torch.from_numpy(tgts).to(device),
+                yield {"tokens": torch.from_numpy(toks[rows]).to(device),
+                       "targets": torch.from_numpy(tgts[rows]).to(device),
                        "step": start + i}
 
         losses = []
@@ -251,38 +314,47 @@ def main(argv=None) -> int:
     ap.add_argument("--inject-fault", type=int, default=None, metavar="N",
                     help="fail step N once, before it runs")
     ap.add_argument("--mesh-data", type=int, default=1,
-                    help="data-parallel ranks (with --grad-sync shardmap)")
-    ap.add_argument("--mesh-model", type=int, default=1)
+                    help="data-parallel ranks")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="tensor / expert-parallel ranks (--grad-sync "
+                         "gspmd)")
     ap.add_argument("--grad-sync", choices=["gspmd", "shardmap"],
                     default="gspmd",
-                    help="'shardmap': the explicit data-parallel step, "
-                         "gradients reduced by the hand-written collective "
-                         "(int8 wire with --grad-compression int8)")
+                    help="'gspmd': the sharding rules over --mesh-data x "
+                         "--mesh-model ranks; 'shardmap': the explicit "
+                         "data-parallel step, gradients reduced by the "
+                         "hand-written collective (int8 wire with "
+                         "--grad-compression int8)")
     args = ap.parse_args(argv)
     refused = []
-    if args.mesh_model > 1:
-        refused.append("--mesh-model > 1 (tensor and expert parallelism)")
-    if args.mesh_data > 1 and args.grad_sync == "gspmd":
-        refused.append("--grad-sync gspmd over several ranks (the sharding "
-                       "rules; use --grad-sync shardmap)")
-    if args.mesh_data > 1 and args.resume:
-        refused.append("--resume over several ranks (data-parallel resume)")
+    ranks = args.mesh_data * args.mesh_model
+    if ranks > 1 and args.resume:
+        refused.append(f"--resume over several ranks (sharded restore and "
+                       f"data-parallel resume, {_ITEM_5B}.4)")
+    if args.mesh_model > 1 and args.grad_compression != "none":
+        refused.append(f"--grad-compression with --mesh-model > 1 (int8 "
+                       f"error feedback over a 'model' axis, {_ITEM_5B}.5)")
+    if args.mesh_model > 1 and args.grad_sync == "shardmap":
+        refused.append("--grad-sync shardmap with --mesh-model > 1 (the "
+                       "explicit data-parallel step replicates the params; "
+                       "--grad-sync gspmd splits them)")
     if refused:
-        print(f"not ported yet ({_ITEM_5B}): " + "; ".join(refused),
-              file=sys.stderr)
+        print("not ported: " + "; ".join(refused), file=sys.stderr)
         return 2
     if args.resume and args.ckpt_dir is None:
         ap.error("--resume needs --ckpt-dir")
     if args.mesh_data > 1 and args.batch % args.mesh_data:
         ap.error(f"--batch {args.batch} does not split over --mesh-data "
                  f"{args.mesh_data}")
+    if args.mesh_model > 1 and args.mode != "lm":
+        ap.error("--mesh-model is an LM option")
     if args.lr is None:
         args.lr = 1e-2 if args.mode == "gnn" else 3e-4
     if args.mode == "gnn":
         return run_gnn(args)
-    if args.mesh_data > 1:
+    if ranks > 1:
         if "RANK" in os.environ and args.ckpt_dir is None:
-            ap.error("--mesh-data > 1 under an outside launcher needs "
+            ap.error("several ranks under an outside launcher need "
                      "--ckpt-dir (one directory for every rank)")
         return run_lm_ranks(args)
     return run_lm(args)

@@ -4,16 +4,26 @@ Functional, like the reference: params are dicts of tensors with the
 reference's keys (per layer stacked on a leading L axis by the
 transformer), and forwards are plain functions of (cfg, params, x).
 Random init draws from an explicit ``torch.Generator`` on that
-generator's device and then moves to ``device``.
+generator's device and then moves to ``device``; on the ``meta`` device
+it draws nothing (shapes only: ``train/lm.shaped_state``).
+
+Under an active mesh whose rules split ``d_ff`` (``dist.sharding``),
+:func:`glu_mlp` holds this rank's columns of ``wg`` / ``wu`` and rows of
+``wd`` and is Megatron's pair: the input through ``copy_to_axis``, the
+output through ``reduce_from_axis``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.collectives import copy_to_axis, reduce_from_axis
+from repro_torch.dist.mesh import current_mesh
+from repro_torch.dist.sharding import split_axes
+
 __all__ = ["dtype_of", "rmsnorm", "layernorm", "norm_apply", "rope",
            "glu_mlp", "act_fn", "init_norm", "init_dense", "init_glu_mlp",
-           "truncated_normal_init"]
+           "truncated_normal_init", "PARAM_AXES"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -35,6 +45,8 @@ def truncated_normal_init(generator: torch.Generator, shape, scale: float,
     """Normal truncated to ±2 std, std = scale / sqrt(shape[0]) (the
     reference's fan-in rule, which takes the leading dim: E for a stacked
     expert weight), drawn in fp32 on the generator's device."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) > 1 else 1
     std = scale / max(fan_in, 1) ** 0.5
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
@@ -121,7 +133,22 @@ def init_glu_mlp(generator: torch.Generator, cfg, device="cuda") -> dict:
 
 
 def glu_mlp(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """(act(x wg) * x wu) wd; column-parallel ``wg`` / ``wu`` and
+    row-parallel ``wd`` where the active rules split ``d_ff``."""
     act = act_fn(cfg)
+    axes = split_axes(PARAM_AXES["wg"], (cfg.d_model, cfg.d_ff), 1)
+    if axes:
+        x = copy_to_axis(x, current_mesh(), axes)
     g = x @ p["wg"]
     u = x @ p["wu"]
-    return (act(g) * u) @ p["wd"]
+    out = (act(g) * u) @ p["wd"]
+    return reduce_from_axis(out, current_mesh(), axes) if axes else out
+
+
+# Logical axes of the GLU MLP's leaves (``dist/partition.py`` holds every
+# leaf's, by name).
+PARAM_AXES = {
+    "wg": ("d_model", "d_ff"),
+    "wu": ("d_model", "d_ff"),
+    "wd": ("d_ff", "d_model"),
+}

@@ -51,6 +51,24 @@ the causal mask (``cfg.causal`` False); a vlm batch may carry
 ``image_emb`` (B, n_prefix_tokens, d_model), prepended to the token
 embeddings, so RoPE counts its positions, the causal mask covers it,
 ``prefill`` puts it in the cache's first slots and ``loss_fn`` skips it.
+
+**Tensor and expert parallelism.** Under an active mesh (``with
+mesh:``) and the active rules (``dist.sharding``; by default
+``dist.partition.LM_RULES``), each rank holds its slice of every split
+leaf (``dist.partition.shard_params``) and the blocks call the
+collectives themselves, where the reference lets GSPMD place the data:
+``_attn_qkv`` makes this rank's heads (``wq`` / ``wk`` / ``wv`` split by
+columns, the input through ``copy_to_axis``) and ``wo`` is row-parallel
+(``reduce_from_axis``); the embedding is a vocab-parallel lookup (rows
+outside the rank's range are zeros, then the sum); the loss's chunked
+cross-entropy is vocab-parallel (the max and the log-sum-exp reduced
+over the vocab's axes, the target's logit from the rank that holds it;
+a chunk's whole (B, c, V) never exists); ``prefill`` and
+``decode_step`` return the whole logits on every rank; the MLP and the
+MoE layer (``layers.glu_mlp``, ``moe.moe_layer``) split ``d_ff`` or the
+experts. A rule set that splits ``seq`` or ``d_model``, and the ssm and
+hybrid families with a ``'model'`` axis, raise (ROADMAP.md queue 1,
+item 5b.5).
 """
 from __future__ import annotations
 
@@ -61,6 +79,11 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import FULL_ATTN_WINDOW, ModelConfig
+from repro_torch.dist.collectives import (copy_to_axis, gather_dim, pmax,
+                                          reduce_from_axis)
+from repro_torch.dist.mesh import current_mesh
+from repro_torch.dist.sharding import (Sharding, current_rules,
+                                       split_axes)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.lm import mamba2 as M
 from repro_torch.models.lm.attention import KVSlice, decode_attention
@@ -179,9 +202,71 @@ def _unstack(tree: dict, n: int) -> list:
 # Block body
 # ==========================================================================
 
+_ITEM = "ROADMAP.md queue 1, item 5b.5"
+
+
+def _split(axes) -> tuple:
+    """(shards, this rank's block) of a dim split over ``axes`` under the
+    active mesh."""
+    sh = Sharding(current_mesh(), (axes,))
+    return sh.shards(0), sh.block(0)
+
+
+def _check_mesh(cfg: ModelConfig) -> None:
+    """Refuse what the port's split layers cannot run: rule sets that
+    split ``seq`` or ``d_model``, and a ``'model'`` axis under the ssm and
+    hybrid families (mamba2's ``in_proj`` packs z, x, B, C and dt into one
+    ``d_inner`` dim that no column slice computes alone)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size <= 1:
+        return
+    rules = current_rules()
+    for name in ("seq", "d_model"):
+        if any(int(mesh.shape.get(a, 1)) > 1 for a in rules.axes_for(name)):
+            raise NotImplementedError(
+                f"{cfg.name}: rules that split {name!r} over "
+                f"{rules.axes_for(name)} are not ported ({_ITEM})")
+    inner = [a for a in rules.axes_for("d_inner")
+             if int(mesh.shape.get(a, 1)) > 1]
+    if (cfg.ssm or cfg.hybrid) and inner:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family with 'd_inner' over "
+            f"{inner} of mesh {mesh.shape} is not ported ({_ITEM})")
+
+
+def _head_split(cfg: ModelConfig) -> tuple:
+    """The mesh axes this rank's heads are split over, and their count:
+    ((), 1) when ``wq`` / ``wk`` / ``wv`` are whole. Raises, naming the
+    leaf and the mesh, where the rules would cut a head (a column split
+    that divides H·Dh or KV·Dh but not H or KV) or split the query heads
+    without the KV heads."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    aq = split_axes(("d_model", "qkv"), (d, h * dh), 1)
+    ak = split_axes(("d_model", "qkv"), (d, kv * dh), 1)
+    if not aq and not ak:
+        return (), 1
+    mesh = current_mesh()
+    for leaf, axes, heads in (("wq", aq, h), ("wk", ak, kv)):
+        n = _split(axes)[0] if axes else 1
+        if heads % n:
+            raise ValueError(
+                f"{cfg.name}: the rules split {leaf}'s {heads * dh} "
+                f"columns over {axes} ({n} ranks of mesh {mesh.shape}), "
+                f"which cuts its {heads} heads of {dh}")
+    if aq != ak:
+        raise ValueError(f"{cfg.name}: the rules split wq's columns over "
+                         f"{aq} and wk's over {ak} on mesh {mesh.shape}: "
+                         "the GQA groups would cross ranks")
+    return aq, _split(aq)[0]
+
+
 def _attn_qkv(cfg, p, x, positions):
+    """This rank's q, k, v heads: (B, H/n, S, Dh), (B, KV/n, S, Dh)."""
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    axes, n = _head_split(cfg)
+    h, kv, dh = cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim
+    if axes:
+        x = copy_to_axis(x, current_mesh(), axes)
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -215,8 +300,7 @@ def _block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     win = None if (is_global or cfg.window is None) else cfg.window
     attn = kops.flash_attention(q, k, v, causal=cfg.causal, window=win,
                                 meta_len=cfg.n_meta_tokens)
-    attn = attn.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim) \
-        @ p["attn"]["wo"]
+    attn = _attn_out(cfg, p["attn"], attn.transpose(1, 2).reshape(b, s, -1))
     state = None
     if cfg.hybrid:
         out = M.mamba2_forward(cfg, p["ssm"], xn, return_state=want_state)
@@ -228,9 +312,53 @@ def _block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     return x + mlp_out, aux, (k, v), state
 
 
+def _attn_out(cfg, p, attn):
+    """(B, S, H·Dh) heads -> (B, S, D) through ``wo``: row-parallel, its
+    partial products summed over the heads' axes, where they are
+    split."""
+    axes, _ = _head_split(cfg)
+    out = attn @ p["wo"]
+    return reduce_from_axis(out, current_mesh(), axes) if axes else out
+
+
 # ==========================================================================
 # Embedding / unembedding / the layer stack
 # ==========================================================================
+
+def _vocab_split(cfg: ModelConfig) -> tuple:
+    """The axes the vocabulary is split over (the embedding's rows, the
+    head's columns), or ()."""
+    if cfg.tie_embeddings:
+        return split_axes(("vocab", "d_model"),
+                          (cfg.vocab_padded, cfg.d_model), 0)
+    return split_axes(("d_model", "vocab"), (cfg.d_model, cfg.vocab_padded),
+                      1)
+
+
+def _vocab_range(cfg: ModelConfig, axes) -> tuple:
+    """(first row, rows) of this rank's vocabulary slice."""
+    n, blk = _split(axes)
+    rows = cfg.vocab_padded // n
+    return blk * rows, rows
+
+
+def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """The embedding lookup; vocab-parallel where the rows are split:
+    rows outside this rank's range give zeros, then the sum over the
+    vocabulary's axes (each token's row comes from the one rank that
+    holds it, so the sum is exact)."""
+    axes = split_axes(("vocab", "d_model"), (cfg.vocab_padded, cfg.d_model),
+                      0)
+    if not axes:
+        return params["embed"][tokens.long()]
+    lo, rows = _vocab_range(cfg, axes)
+    t = tokens.long() - lo
+    inside = (t >= 0) & (t < rows)
+    x = params["embed"][t.clamp(0, rows - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return reduce_from_axis(x, current_mesh(), axes)
+
 
 def _embed_batch(cfg: ModelConfig, params: dict, batch: dict):
     """The input sequence: [meta tokens? | image prefix? | token
@@ -238,7 +366,7 @@ def _embed_batch(cfg: ModelConfig, params: dict, batch: dict):
     if cfg.family == "audio":
         x = batch["frames"].to(dtype_of(cfg))     # the stub front end's
     else:
-        x = params["embed"][batch["tokens"].long()]
+        x = _embed_tokens(cfg, params, batch["tokens"])
     if cfg.family == "vlm" and "image_emb" in batch:
         x = torch.cat([batch["image_emb"].to(x.dtype), x], dim=1)
     if cfg.n_meta_tokens:
@@ -248,8 +376,14 @@ def _embed_batch(cfg: ModelConfig, params: dict, batch: dict):
 
 
 def _unembed(cfg: ModelConfig, params: dict, h: torch.Tensor):
+    """The whole logits, on every rank: a vocab-split head's columns are
+    gathered over their axes."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w
+    axes = _vocab_split(cfg)
+    logits = h @ w
+    for a in reversed(axes):                      # the minor axis first
+        logits = gather_dim(logits, current_mesh(), a, logits.dim() - 1)
+    return logits
 
 
 def _layer_segments(cfg: ModelConfig) -> list:
@@ -315,6 +449,7 @@ def _run_layers(cfg, params, x, positions, kv_sink=None, ssm_sink=None):
 
 def forward_hidden(cfg: ModelConfig, params: dict, batch: dict) -> tuple:
     """Embeds, runs all layers, final norm. -> (hidden, aux loss)."""
+    _check_mesh(cfg)
     x = _embed_batch(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux = _run_layers(cfg, params, x, positions)
@@ -335,10 +470,30 @@ def _chunked_xent(cfg: ModelConfig, params: dict, h: torch.Tensor,
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     c = min(cfg.logit_chunk, s)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    axes = _vocab_split(cfg)
+    if axes:
+        mesh = current_mesh()
+        v_lo, rows = _vocab_range(cfg, axes)
+        h = copy_to_axis(h, mesh, axes)
     for lo in range(0, s, c):
         logits = (h[:, lo:lo + c] @ w).float()
-        picked = logits.gather(-1, t[:, lo:lo + c, None])[..., 0]
-        tot = tot + torch.sum(torch.logsumexp(logits, dim=-1) - picked)
+        tc = t[:, lo:lo + c]
+        if not axes:
+            picked = logits.gather(-1, tc[..., None])[..., 0]
+            tot = tot + torch.sum(torch.logsumexp(logits, dim=-1) - picked)
+            continue
+        # vocab-parallel: this rank's (B, c, V/n) columns only
+        m = logits.detach().amax(-1)
+        for a in axes:
+            m = pmax(m, mesh, a)
+        se = reduce_from_axis(torch.exp(logits - m[..., None]).sum(-1),
+                              mesh, axes)
+        tl = tc - v_lo
+        inside = (tl >= 0) & (tl < rows)
+        picked = logits.gather(-1, tl.clamp(0, rows - 1)[..., None])[..., 0]
+        picked = reduce_from_axis(torch.where(inside, picked, 0.0), mesh,
+                                  axes)
+        tot = tot + torch.sum(m + torch.log(se) - picked)
     return tot / (b * s)
 
 
@@ -370,31 +525,47 @@ def _slot_for(cfg: ModelConfig, pos: torch.Tensor, capacity: int):
     return torch.where(pos < m, pos, roll).to(torch.int32)
 
 
-def init_cache(cfg: ModelConfig, batch_size: int, capacity: int,
-               device="cuda") -> dict:
-    """Empty decode cache: with attention zero K/V (L, B, KV, C, Dh) and
-    every slot -1; with a mixer (ssm, hybrid) zero fp32 SSM states (L, B,
-    H, P, N) and conv tails (L, B, d_conv - 1, conv_dim)."""
+def _empty_cache(cfg: ModelConfig, b: int, kv: int, capacity: int,
+                 device) -> dict:
     dt = dtype_of(cfg)
     l = cfg.n_layers
-    cache = {"pos": torch.zeros((batch_size,), dtype=torch.int32,
-                                device=device)}
+    cache = {"pos": torch.zeros((b,), dtype=torch.int32, device=device)}
     if cfg.has_attention:
-        kv, dh = cfg.n_kv_heads, cfg.head_dim
-        cache["k"] = torch.zeros((l, batch_size, kv, capacity, dh), dtype=dt,
+        dh = cfg.head_dim
+        cache["k"] = torch.zeros((l, b, kv, capacity, dh), dtype=dt,
                                  device=device)
-        cache["v"] = torch.zeros((l, batch_size, kv, capacity, dh), dtype=dt,
+        cache["v"] = torch.zeros((l, b, kv, capacity, dh), dtype=dt,
                                  device=device)
-        cache["slot_pos"] = torch.full((batch_size, capacity), -1,
-                                       dtype=torch.int32, device=device)
+        cache["slot_pos"] = torch.full((b, capacity), -1, dtype=torch.int32,
+                                       device=device)
     if cfg.ssm or cfg.hybrid:
         cache["ssm_state"] = torch.zeros(
-            (l, batch_size, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.d_state),
+            (l, b, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.d_state),
             dtype=torch.float32, device=device)
         cache["conv_buf"] = torch.zeros(
-            (l, batch_size, cfg.d_conv - 1, cfg.conv_dim), dtype=dt,
-            device=device)
+            (l, b, cfg.d_conv - 1, cfg.conv_dim), dtype=dt, device=device)
     return cache
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, capacity: int,
+               device="cuda", mesh=None) -> dict:
+    """Empty decode cache: with attention zero K/V (L, B, KV, C, Dh) and
+    every slot -1; with a mixer (ssm, hybrid) zero fp32 SSM states (L, B,
+    H, P, N) and conv tails (L, B, d_conv - 1, conv_dim). With ``mesh``
+    (``batch_size`` the global batch), this rank's batch rows and KV
+    heads, as ``dist.partition.cache_shardings`` splits them, on the
+    mesh's device unless ``device`` is ``meta``."""
+    if mesh is None:
+        return _empty_cache(cfg, batch_size, cfg.n_kv_heads, capacity,
+                            device)
+    from repro_torch.dist.partition import cache_shardings
+    full = _empty_cache(cfg, batch_size, cfg.n_kv_heads, capacity, "meta")
+    sh = cache_shardings(mesh, full)
+    b = sh["pos"].local_shape(full["pos"].shape)[0]
+    kv = sh["k"].local_shape(full["k"].shape)[2] if "k" in full \
+        else cfg.n_kv_heads
+    dev = device if torch.device(device).type == "meta" else mesh.device
+    return _empty_cache(cfg, b, kv, capacity, dev)
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, capacity: int
@@ -404,13 +575,16 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, capacity: int
     vocab_padded)). The meta tokens, where the config has them, and then
     a vlm batch's ``image_emb`` come first and take the cache's first
     slots."""
+    _check_mesh(cfg)
     x = _embed_batch(cfg, params, batch)
     b, s, _ = x.shape
     if capacity < s:
         raise ValueError(f"prefill: a {s}-token prompt does not fit a "
                          f"{capacity}-slot cache")
     positions = torch.arange(s, device=x.device)[None, :]
-    cache = init_cache(cfg, b, capacity, device=x.device)
+    kv = cfg.n_kv_heads // _head_split(cfg)[1] if cfg.has_attention \
+        else cfg.n_kv_heads
+    cache = _empty_cache(cfg, b, kv, capacity, x.device)
 
     def kv_sink(i, k, v):
         cache["k"][i, :, :, :s] = k
@@ -439,9 +613,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     SSM state and conv tail, are written into the cache's tensors in place
     (the returned cache holds the same tensors); ``pos`` and ``slot_pos``
     are new tensors."""
+    _check_mesh(cfg)
     b = tokens.shape[0]
     pos = cache["pos"]                                  # (B,)
-    x = params["embed"][tokens.long()]                  # (B, 1, D)
+    x = _embed_tokens(cfg, params, tokens)              # (B, 1, D)
     windows = cfg.layer_windows(FULL_ATTN_WINDOW)
     bidx = torch.arange(b, device=x.device)
     slot_pos = None
@@ -449,7 +624,6 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         slot = _slot_for(cfg, pos, cache["k"].shape[3]).long()
         slot_pos = cache["slot_pos"].clone()  # register the incoming token
         slot_pos[bidx, slot] = pos            # BEFORE attention
-    h, dh = cfg.n_heads, cfg.head_dim
 
     def mixer(i, p, xn):
         out, st = M.mamba2_decode(cfg, p, xn, M.SSMSlice(
@@ -469,7 +643,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         kv = KVSlice(cache["k"][i], cache["v"][i], slot_pos)
         attn = decode_attention(q, kv, pos, window=int(windows[i]),
                                 meta_len=cfg.n_meta_tokens)
-        attn = attn.reshape(b, 1, h * dh) @ lp["attn"]["wo"]
+        attn = _attn_out(cfg, lp["attn"], attn.reshape(b, 1, -1))
         if cfg.hybrid:
             ssm_out = mixer(i, lp["ssm"], xn)
             x = x + 0.5 * (attn * lp["mix_attn"] + ssm_out * lp["mix_ssm"])

@@ -78,10 +78,30 @@ def _as_schedule(lr) -> Callable:
                                    device=step.device)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32 (a device scalar)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in fp32 (a device scalar).
+
+    ``shardings`` (a matching tree of ``dist.sharding.Sharding``; the
+    leaves are this rank's slices) gives the norm of the whole tree: the
+    squares of the split leaves are summed over their axes (in rank
+    order, the same bits on every rank), the replicated leaves counted
+    once, so the clip scale is the one-rank step's."""
+    sq = lambda x: torch.sum(torch.square(x.float()))   # noqa: E731
+    if shardings is None:
+        return torch.sqrt(sum(sq(x) for x in tree_leaves(tree)))
+    from repro_torch.dist.collectives import reduce_from_axis
+    whole, split, meshes = [], {}, []
+
+    def add(x, s):                       # pairs each leaf with its sharding
+        axes = tuple(a for i in range(len(s.spec)) for a in s.dim_axes(i)
+                     if int(s.mesh.shape[a]) > 1)
+        (split.setdefault(axes, []) if axes else whole).append(sq(x))
+        meshes.append(s.mesh)
+    tree_map(add, tree, shardings)
+    total = sum(whole, torch.zeros((), device=tree_leaves(tree)[0].device))
+    for axes, parts in sorted(split.items()):
+        total = total + reduce_from_axis(sum(parts), meshes[0], axes)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(tree, max_norm: float):

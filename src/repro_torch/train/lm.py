@@ -23,6 +23,16 @@ Data parallelism (``make_train_step(sync_axis=, mesh=)``,
 batch, and the gradients are reduced over the mesh axis by the
 hand-written collective (``dist.collectives.sync_grads``) before the
 optimizer, so the replicated state gets the same update on every rank.
+
+Tensor and expert parallelism (``make_train_state(mesh=)``,
+``make_train_step(mesh=)``) run over a ``('data', 'model')`` mesh: a
+rank holds its slices of the params and moments by the rules
+(``dist.partition.param_shardings``), takes its rows of the global
+batch, runs the step under ``with mesh:`` (the layers call the
+``'model'`` collectives), syncs the gradients over ``'data'`` within its
+``'model'`` coordinate, and clips by the whole tree's norm.
+:func:`shaped_batch`, :func:`shaped_state` and :func:`shaped_cache` give
+``meta`` tensors of a rank's shapes, each with its ``.sharding``.
 """
 from __future__ import annotations
 
@@ -32,6 +42,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import axis_size, pmean, sync_grads
+from repro_torch.dist.partition import (batch_shardings, cache_shardings,
+                                        param_shardings, shard_params)
+from repro_torch.dist.sharding import Sharding
 from repro_torch.models.lm import transformer as T
 from repro_torch.models.lm.layers import dtype_of
 from repro_torch.models.lm.moe import tie_expert_replica_grads
@@ -43,12 +56,12 @@ from repro_torch.train.fault_tolerance import InPlaceUpdate
 
 __all__ = ["TrainState", "make_train_state", "make_train_step",
            "make_data_parallel_step", "loss_and_grads", "make_prefill_step",
-           "make_decode_step", "shaped_batch"]
+           "make_decode_step", "shaped_batch", "shaped_state",
+           "shaped_cache", "full_param_shapes"]
 
-_SHARDINGS = ("shardings over a mesh (the sharding rules) are not ported "
-              "yet (ROADMAP.md queue 1, item 5b: the distributed SpMM, the "
-              "pipeline, the sharding rules, the expert-parallel MoE, "
-              "sharded restore and data-parallel resume)")
+_EF_MODEL = ("int8 error feedback over a 'model' axis (the int8 scale of a "
+             "split leaf needs the absmax over 'model') is not ported "
+             "(ROADMAP.md queue 1, item 5b.5)")
 
 
 class TrainState(NamedTuple):
@@ -57,11 +70,30 @@ class TrainState(NamedTuple):
     ef: Any          # error-feedback residuals or None
 
 
+def _model_split(mesh) -> bool:
+    return mesh is not None and int(mesh.shape.get("model", 1)) > 1
+
+
+def full_param_shapes(cfg: ModelConfig) -> dict:
+    """The whole params as ``meta`` tensors (shapes and dtypes)."""
+    return T.init_params(cfg, None, device="meta")
+
+
 def make_train_state(cfg: ModelConfig, generator: torch.Generator, opt, *,
-                     compression: bool = False, device="cuda") -> TrainState:
+                     compression: bool = False, device="cuda",
+                     mesh=None) -> TrainState:
     """Random params from ``generator`` on ``device``, the optimizer's
-    zero state and, with ``compression``, zero EF residuals."""
-    params = T.init_params(cfg, generator, device)
+    zero state and, with ``compression``, zero EF residuals. With
+    ``mesh``: the whole params drawn from ``generator`` on the mesh's
+    device and this rank's slices kept (bitwise the one-rank state's
+    slices), the moments zero in those shapes."""
+    if mesh is not None:
+        if compression and _model_split(mesh):
+            raise NotImplementedError(f"make_train_state: {_EF_MODEL}")
+        params = shard_params(mesh, T.init_params(cfg, generator,
+                                                  mesh.device))
+    else:
+        params = T.init_params(cfg, generator, device)
     ef = ef_init(params) if compression else None
     return TrainState(params=params, opt_state=opt.init(params), ef=ef)
 
@@ -117,14 +149,36 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
     ``dist.collectives.compressed_psum``; the wire quantizer is
     stateless, so the error-feedback residuals are left untouched in this
     mode), the loss and metrics averaged over the axis. Every rank of the
-    axis must call the step."""
+    axis must call the step.
+
+    ``mesh`` without ``sync_axis`` is the tensor- and expert-parallel
+    step (the reference's GSPMD step): the state holds this rank's slices
+    (:func:`make_train_state` with the mesh), ``batch`` this rank's rows
+    of the global batch (its block of the ``'data'`` axis); the step runs
+    under ``with mesh:``, the experts' replicas are tied across ranks,
+    the gradients are synced over ``'data'`` (fp32) within each
+    ``'model'`` coordinate, the loss and metrics averaged over
+    ``'data'``, and the clip norm is the whole tree's. ``compression``
+    with a ``'model'`` axis raises. Every rank of the mesh must call
+    the step."""
     if sync_axis is not None and mesh is None:
         raise ValueError(f"make_train_step(sync_axis={sync_axis!r}) needs "
                          "the mesh the axis belongs to (mesh=...)")
+    sharded = mesh is not None and sync_axis is None
+    if sharded and compression and _model_split(mesh):
+        raise NotImplementedError(f"make_train_step: {_EF_MODEL}")
     opt = adamw(lr, weight_decay=weight_decay, clip_norm=clip_norm,
                 state_dtype=torch.float32)
+    shardings = param_shardings(mesh, full_param_shapes(cfg)) \
+        if sharded else None
 
     def step(state: TrainState, batch: dict):
+        if not sharded:
+            return _step(state, batch)
+        with mesh:
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: dict):
         if accum == 1:
             loss, metrics, grads = loss_and_grads(cfg, state.params, batch)
         else:
@@ -143,19 +197,20 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
                        "aux": torch.zeros((), device=loss.device)}
         grads = tie_expert_replica_grads(cfg, grads)
         ef = state.ef
-        if sync_axis is not None:
-            grads = sync_grads(grads, mesh, sync_axis,
+        axis = "data" if sharded else sync_axis
+        if axis is not None:
+            grads = sync_grads(grads, mesh, axis,
                                wire="int8" if compression else "fp32")
             keys = sorted(metrics)
             avg = pmean(torch.stack([loss.float()] + [
-                metrics[k].float() for k in keys]), mesh, sync_axis)
+                metrics[k].float() for k in keys]), mesh, axis)
             loss = avg[0]
             metrics = {k: avg[i + 1] for i, k in enumerate(keys)}
         elif compression:
             qtree, ef = ef_compress_update(grads, ef)
             grads = tree_map(lambda _, qs: int8_decompress(*qs), grads,
                              qtree)
-        norm = global_norm(grads)
+        norm = global_norm(grads, shardings)
         in_place.begin()
         opt_state = opt.update_in_place(grads, state.opt_state,
                                         state.params, norm)
@@ -208,29 +263,79 @@ def make_decode_step(cfg: ModelConfig):
     return dec
 
 
+def _with_shardings(tree: dict, shardings: dict) -> dict:
+    """``meta`` tensors of each leaf's local shape, carrying its sharding
+    as ``.sharding``."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out[key] = _with_shardings(val, shardings[key])
+            continue
+        sh = shardings[key]
+        t = torch.empty(sh.local_shape(val.shape), dtype=val.dtype,
+                        device="meta")
+        t.sharding = sh
+        out[key] = t
+    return out
+
+
 def shaped_batch(cfg: ModelConfig, batch_size: int, seq_len: int,
-                 mesh=None) -> dict:
+                 mesh=None, rules=None) -> dict:
     """The batch ``make_train_step`` takes for ``cfg`` at ``seq_len``
     positions, as tensors on the ``meta`` device (shapes and dtypes, no
     storage), with the reference's keys: audio ``frames`` (B, S,
     d_model) in the config's dtype and ``targets``; vlm ``tokens`` and
     ``targets`` of ``seq_len - n_prefix_tokens`` and ``image_emb`` (B,
     n_prefix_tokens, d_model); the others ``tokens`` and ``targets``;
-    ints int32. ``mesh`` (shardings) raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(f"shaped_batch(mesh=...): {_SHARDINGS}")
-
+    ints int32. With ``mesh`` (a rank's ``Mesh``, or the shape-only
+    production mesh), each tensor has this rank's shape by
+    ``dist.partition.batch_shardings`` and carries that sharding as
+    ``.sharding``."""
     def spec(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")
     i32, dt = torch.int32, dtype_of(cfg)
     if cfg.family == "audio":
-        return {"frames": spec((batch_size, seq_len, cfg.d_model), dt),
-                "targets": spec((batch_size, seq_len), i32)}
-    if cfg.family == "vlm":
+        b = {"frames": spec((batch_size, seq_len, cfg.d_model), dt),
+             "targets": spec((batch_size, seq_len), i32)}
+    elif cfg.family == "vlm":
         text = seq_len - cfg.n_prefix_tokens
-        return {"tokens": spec((batch_size, text), i32),
-                "image_emb": spec((batch_size, cfg.n_prefix_tokens,
-                                   cfg.d_model), dt),
-                "targets": spec((batch_size, text), i32)}
-    return {"tokens": spec((batch_size, seq_len), i32),
-            "targets": spec((batch_size, seq_len), i32)}
+        b = {"tokens": spec((batch_size, text), i32),
+             "image_emb": spec((batch_size, cfg.n_prefix_tokens,
+                                cfg.d_model), dt),
+             "targets": spec((batch_size, text), i32)}
+    else:
+        b = {"tokens": spec((batch_size, seq_len), i32),
+             "targets": spec((batch_size, seq_len), i32)}
+    if mesh is None:
+        return b
+    return _with_shardings(b, batch_shardings(mesh, b, rules))
+
+
+def shaped_state(cfg: ModelConfig, opt, mesh=None,
+                 compression: bool = False, rules=None) -> TrainState:
+    """The :class:`TrainState` of ``cfg`` as ``meta`` tensors; with
+    ``mesh``, this rank's slices' shapes, each leaf carrying its
+    ``.sharding`` (the moments and residuals their param's)."""
+    params = full_param_shapes(cfg)
+    ef = ef_init(params) if compression else None
+    state = TrainState(params=params, opt_state=opt.init(params), ef=ef)
+    if mesh is None:
+        return state
+    sh = param_shardings(mesh, params, rules)
+    local = lambda t: _with_shardings(t, sh) if t is not None \
+        else None                                           # noqa: E731
+    state.opt_state.step.sharding = Sharding(mesh, ())   # replicated
+    return TrainState(params=local(params), opt_state=state.opt_state._replace(
+        mu=local(state.opt_state.mu), nu=local(state.opt_state.nu)),
+        ef=local(ef))
+
+
+def shaped_cache(cfg: ModelConfig, batch_size: int, capacity: int,
+                 mesh=None, rules=None) -> dict:
+    """The decode cache of ``cfg`` as ``meta`` tensors; with ``mesh``,
+    this rank's shapes by ``dist.partition.cache_shardings``, each with
+    its ``.sharding``."""
+    cache = T.init_cache(cfg, batch_size, capacity, device="meta")
+    if mesh is None:
+        return cache
+    return _with_shardings(cache, cache_shardings(mesh, cache, rules))

@@ -2797,3 +2797,87 @@ def test_dist_gnn_four_ranks_share_the_card(card, tmp_path):
             w["ppermute"]["staged_bytes"] == 2 * w["ppermute"]["bytes"]
         assert all(v["staged_bytes"] == 0 for k, v in w.items()
                    if k != "ppermute")
+
+
+def _tp_card_rank(mesh, arch):
+    """Two ranks on the one card as one 'model' axis: an fp32 smoke
+    config's loss and gradients (gathered), then prefill and 2 decode
+    steps, through the kernels' fp32 instances."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.dist.partition import gather_params, shard_params
+    from repro_torch.models.lm import transformer as TT
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import lm as TL
+    cfg = get_smoke_config(arch)
+    dev = mesh.device
+    local = shard_params(mesh, TT.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"), device=dev)
+    toks, tgts = synthetic_lm_batch(2, 64, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks).to(dev),
+             "targets": torch.from_numpy(tgts).to(dev)}
+    tops.reset_kernel_launches()
+    with mesh:
+        loss, _, grads = TL.loss_and_grads(cfg, local, batch)
+        with torch.no_grad():
+            cache, lg = TT.prefill(cfg, local, {"tokens": batch["tokens"]},
+                                   80)
+            logits = [lg]
+            for i in range(2):
+                lg, cache = TT.decode_step(cfg, local, cache,
+                                           batch["tokens"][:, i:i + 1])
+                logits.append(lg)
+    whole = gather_params(mesh, grads, TL.full_param_shapes(cfg))
+    torch.cuda.synchronize()
+    return dict(backend=mesh.backend, loss=float(loss),
+                launches=dict(tops.kernel_launches()),
+                grads=tree_map(lambda t: t.cpu().numpy(), whole),
+                logits=[t.cpu().numpy() for t in logits])
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "qwen2-1.5b"])
+def test_tp_two_model_ranks_share_the_card(card, tmp_path, arch):
+    """Two gloo ranks on cuda:0 as one 'model' axis (the kernels' fp32
+    instances) against the same calls in one process on the CPU (the
+    plain versions): the loss, every gradient and the logits of a
+    prefill and 2 decode steps within 1e-4 of the largest value (the
+    fp32 smoke configs' card-against-CPU tolerance, ``chip_smoke.py``'s
+    LM_SMOKE_ATOL); the flash and ragged kernels launched on each rank."""
+    from repro_torch import dist as tdist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.kernels.build import build_kernels
+    from repro_torch.models.lm import transformer as TT
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import lm as TL
+    build_kernels()
+    res = tdist.run_ranks(_tp_card_rank, 2, str(tmp_path), args=(arch,),
+                          device="cuda", timeout_s=300, model=2)
+    cfg = get_smoke_config(arch)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    toks, tgts = synthetic_lm_batch(2, 64, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks),
+             "targets": torch.from_numpy(tgts)}
+    loss, _, grads = TL.loss_and_grads(cfg, params, batch)
+    with torch.no_grad():
+        cache, lg = TT.prefill(cfg, params, {"tokens": batch["tokens"]}, 80)
+        want = [lg]
+        for i in range(2):
+            lg, cache = TT.decode_step(cfg, params, cache,
+                                       batch["tokens"][:, i:i + 1])
+            want.append(lg)
+
+    def close(got, w, what):
+        w = w.numpy() if isinstance(w, torch.Tensor) else w
+        assert np.abs(got - w).max() <= 1e-4 * max(np.abs(w).max(), 1e-30), \
+            what
+    for r in res:
+        assert r["backend"] == "gloo"
+        assert abs(r["loss"] - float(loss)) <= 1e-4 * abs(float(loss))
+        tree_map(lambda g, w: close(g, w.numpy(), "grad"), r["grads"], grads)
+        for got, w in zip(r["logits"], want):
+            close(got, w, "logits")
+        kernels = ("flash_attention", "ragged_gemm") if cfg.n_experts \
+            else ("flash_attention",)
+        assert all(r["launches"][k] > 0 for k in kernels), r["launches"]

@@ -121,8 +121,8 @@ def test_mesh_backend_rule_and_shard_count():
         assert tdist.axis_shard_count(mesh, "pod") == 1
     assert tdist.axis_shard_count(None) == 1
     assert tdist.make_local_mesh(4, device="cpu").shape["data"] == 1
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        tdist.make_data_mesh(model=2, device="cpu")
+    with pytest.raises(RuntimeError, match="started first"):
+        tdist.make_data_mesh(model=2, device="cpu")   # 'model' needs ranks
     with pytest.raises(RuntimeError, match="started first"):
         tdist.make_data_mesh(2, device="cpu")
     # a one-rank mesh's collectives are identities
@@ -655,4 +655,6 @@ def test_launcher_trains_data_parallel_on_cpu_ranks(tmp_path):
     assert latest_step(str(tmp_path / "ckpt")) == 20
     bad = subprocess.run(cmd[:-2] + ["--mesh-model", "2"], capture_output=True,
                          text=True, env=env, timeout=RANK_TIMEOUT)
-    assert bad.returncode == 2 and "item 5b" in bad.stderr
+    # the explicit data-parallel step replicates the params over the mesh
+    assert bad.returncode == 2 and \
+        "--grad-sync shardmap with --mesh-model > 1" in bad.stderr

@@ -622,8 +622,10 @@ def test_full_configs_are_the_published_widths():
 @pytest.mark.parametrize("arch", arch_names())
 def test_shaped_batch_matches_reference(arch):
     """``train/lm.shaped_batch``: the reference's keys, shapes and dtypes
-    for every config (smoke and full), as ``meta`` tensors; ``mesh=``
-    raises, naming the distributed item."""
+    for every config (smoke and full), as ``meta`` tensors; with the
+    production mesh each is this rank's block, by the reference's rules
+    (its ``resolve_spec`` of ``("batch", "seq")``), carrying its
+    sharding."""
     for cfg, jcfg in ((get_config(arch), jax_config(arch)),
                       (get_smoke_config(arch), jax_smoke_config(arch))):
         got = TTL.shaped_batch(cfg, 3, 2048)
@@ -633,8 +635,20 @@ def test_shaped_batch_matches_reference(arch):
             assert got[key].device.type == "meta"
             assert tuple(got[key].shape) == spec.shape, key
             assert str(got[key].dtype).endswith(str(spec.dtype)), key
-    with pytest.raises(NotImplementedError, match="queue 1, item 5b"):
-        TTL.shaped_batch(get_config(arch), 3, 2048, mesh=object())
+    from repro.dist.partition import LM_RULES as JRULES
+    from repro.dist.sharding import resolve_spec as jresolve
+    from repro_torch.dist import make_production_mesh
+    mesh = make_production_mesh()
+    cfg = get_config(arch)
+    for b in (3, 32):
+        got = TTL.shaped_batch(cfg, b, 2048, mesh=mesh)
+        want = JTL.shaped_batch(jax_config(arch), b, 2048)
+        for key, spec in want.items():
+            axes = ("batch", "seq") + (None,) * (len(spec.shape) - 2)
+            jspec = tuple(jresolve(axes, mesh, spec.shape, JRULES))
+            assert got[key].sharding.spec == jspec, (key, jspec)
+            n = 16 if jspec and jspec[0] == "data" else 1
+            assert tuple(got[key].shape) == (b // n,) + spec.shape[1:]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

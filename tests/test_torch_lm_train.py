@@ -557,18 +557,26 @@ def test_launcher_lm_smoke_on_cpu(capsys):
     assert "step     0 loss" in out and "loss decreased: OK" in out
 
 
+_REFUSED = {"--grad-compression": "ROADMAP.md queue 1, item 5b.5",
+            "--grad-sync": "--grad-sync shardmap with --mesh-model > 1",
+            "--resume": "ROADMAP.md queue 1, item 5b.4"}
+
+
 @pytest.mark.parametrize("flag", [
-    ["--mesh-data", "2"], ["--mesh-model", "2"],
+    ["--mesh-model", "2", "--grad-compression", "int8"],
+    ["--mesh-model", "2", "--grad-sync", "shardmap"],
     ["--mesh-data", "2", "--grad-sync", "shardmap", "--resume",
      "--ckpt-dir", "unused"]])
 def test_launcher_refuses_unported_flags(capsys, flag):
-    """What waits for the distributed item's second half exits 2 before
-    anything is built: GSPMD over several ranks (the default
-    ``--grad-sync gspmd``), a model axis, a data-parallel resume."""
+    """What is not ported exits 2 before anything is built: int8 error
+    feedback over a model axis, the explicit data-parallel step over one
+    (it replicates the params), a resume over several ranks."""
     rc = launch_train.main(["--mode", "lm", "--arch", "llama3-8b", "--smoke",
                             "--device", "cpu", *flag])
     assert rc == 2
-    assert "ROADMAP.md queue 1, item 5b" in capsys.readouterr().err
+    why = _REFUSED[next(f for f in reversed(flag[:-1]) if f in _REFUSED)
+                   if "--resume" not in flag else "--resume"]
+    assert why in capsys.readouterr().err
 
 
 def test_launcher_checkpoints_restarts_and_resumes_on_cpu(capsys, tmp_path):

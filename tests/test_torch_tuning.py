@@ -530,9 +530,11 @@ def test_launcher_trains_with_measured_tuning_without_jax(tmp_path):
 def test_launcher_refuses_lm_mode():
     """LM mode runs since LM training was ported, and its checkpoint
     flags since checkpointing was; what it still refuses, before it
-    builds anything, are the reference's mesh flags (exit 2, naming the
-    ROADMAP item), and it loads no JAX."""
-    out = _launch("--mode", "lm", "--arch", "llama3-8b", "--mesh-data", "2")
+    builds anything, are the mesh flags not ported yet (exit 2, naming
+    the ROADMAP item: here a resume over several ranks), and it loads no
+    JAX."""
+    out = _launch("--mode", "lm", "--arch", "llama3-8b", "--mesh-data", "2",
+                  "--resume", "--ckpt-dir", "unused")
     assert out.returncode == 2
     assert "queue 1, item 5b" in out.stderr
     assert out.stdout.splitlines()[-1] == "JAX_LOADED False"
