@@ -345,7 +345,30 @@ failure:
    ``comm_volume`` / ``comm_volume_2d`` x 4 (only the ring's hops
    staged through the host), and holds one launch of each kernel (SELL,
    ELL on a few hundred of its rows, E, S) on its own operands against
-   the plain version;
+   the plain version; then, in the same four ranks, the GPipe pipeline
+   (``dist.pipeline_apply`` over a ``('pipe',)`` mesh of the four: 4
+   stages of ``tanh(a @ w)`` at width 4,096, fp32, 8 microbatches, the
+   hops staged through the host) held to the sequential composition on
+   the card within 1e-5, its outputs bitwise on every rank;
+19. (run after phase 17) the manual expert-parallel MoE on the one card:
+   phi3.5-moe at full width on a ``'model'`` axis of 16 (one expert a
+   rank; sixteen ranks on cuda:0 through gloo, spawned as in phase 16),
+   the attention kept whole on every rank (``WHOLE_ATTENTION_RULES``: 8
+   KV heads do not split over 16), the experts and the vocabulary split.
+   The parent first runs the one-card oracle (the same model with its MoE
+   layers ``moe_manual_reference`` of 16 virtual ranks) and frees it; the
+   ranks draw their slices in turns (a whole layer is drawn before its
+   slices are kept), then (a) train 1 layer on 2 x 512 tokens, step 0
+   and one more, and (b) serve 4 layers: a 2 x 1,024-token prefill
+   through the manual path and 4 decode steps through the split einsum.
+   Every flash, flash backward and ragged launch is held against its
+   plain version; the loss, sampled gradients and updates, routing and
+   logits against the oracle within the bounds stated before the first
+   card run (PERF.md §6); the whole leaves bitwise on all sixteen;
+   the bytes each rank hands gloo exactly ``ep_wire_bytes``; and, with
+   no code of the manual path shared, layer 0's MoE through the manual
+   path on the sixteen ranks at a capacity where no slot drops against
+   the einsum route (the ragged GEMM kernel) on one card;
 5. last, the kernels line (one JSON object: the sampling kernels and the
    fused hop as timed in phase 8, the ordered segment sum and the
    per-edge SDDMM as timed in phase 9, the serving kernels as timed in phase 4, BSR as timed in
@@ -357,7 +380,8 @@ failure:
    15's launches and ``d80_*`` keys from hubert's kernel case; each
    entry's ``launches_resume`` the launches of phase 13's resumed run
    and ``launches_dp`` those of phase 16's ranks, ``launches_dist``
-   those of phase 17's, all added to its ``launches``), the script's
+   those of phase 17's, ``launches_pp`` its pipeline's, ``launches_ep``
+   those of phase 19's, all added to its ``launches``), the script's
    seconds, the card line, and
    ``{"ok": true, "device": {...}}``.
 
@@ -3007,25 +3031,31 @@ def tuning_phase(ds, gen) -> dict:
                                      f"plan source {plans[-1]['source']}")
             picks.append(dict(measure_record(tag, recs[0]), build_s=secs))
             graphs[tag] = g
-    kops.reset_kernel_launches()
-    again, recs, plans, secs = traced(lambda: build_cached_graph(
-        ds.coo, k_hint=TUNE_K, measure=True, db=TuningDB(str(db_path)),
-        device=DEVICE))
-    hit_launches = sum(kops.kernel_launches().values())
-    if recs or plans[-1]["source"] != "db" or hit_launches or \
-            again.plan != graphs["reddit/A"].plan:
-        raise AssertionError(f"second build: {len(recs)} measured passes, "
-                             f"source {plans[-1]['source']}, "
-                             f"{hit_launches} launches")
-    log(f"  reddit/A again with the filled DB: served from it "
-        f"({again.plan.kind}), {hit_launches} launches ({secs:.1f} s)")
-    del again
-    res, recs, plans, secs = traced(lambda: train_gnn(
-        ARCH, ds, hidden=TUNE_K, epochs=3, measure_tuning=True,
-        tuning_db=TuningDB(str(db_path)), device=DEVICE))
-    if recs or not np.isfinite(res.losses).all():
+    # the filled DB serves A's measured plan: its row read back, and
+    # train_gnn's own build of A takes it from the DB with no measured pass
+    t0 = time.perf_counter()
+    db = TuningDB(str(db_path))
+    served = db.get_key(db.key(ds.coo, TUNE_K, "sum"), device=DEVICE)
+    if served != graphs["reddit/A"].plan:
+        raise AssertionError(f"the filled DB's row for reddit/A {served}, "
+                             f"measured {graphs['reddit/A'].plan}")
+    row_s = time.perf_counter() - t0
+    with measured_launches() as counts_served:
+        res, recs, plans, secs = traced(lambda: train_gnn(
+            ARCH, ds, hidden=TUNE_K, epochs=3, measure_tuning=True,
+            tuning_db=TuningDB(str(db_path)), device=DEVICE))
+    hit_launches = sum(counts_served.values())
+    if recs or hit_launches or not plans or any(
+            (p["source"], p["kind"]) != ("db", served.kind) for p in plans) \
+            or not np.isfinite(res.losses).all():
         raise AssertionError(f"train_gnn(measure_tuning=True): "
-                             f"{len(recs)} passes, losses {res.losses}")
+                             f"{len(recs)} passes, {hit_launches} launches "
+                             f"to measure, plans {plans}, losses "
+                             f"{res.losses}")
+    log(f"  reddit/A again with the filled DB: its row is the measured plan "
+        f"({served.kind}, read in {row_s:.1f} s); train_gnn's build served "
+        f"from it, {len(recs)} measured passes, {hit_launches} launches to "
+        f"measure")
     g = graphs["reddit/A"]
     name, a_op = plan_operand(g)
     trained = dict(plan=res.plan_kind, losses=res.losses,
@@ -3786,8 +3816,8 @@ def record_grads(sink):
     from repro_torch.train import lm as TL
     real = TL.loss_and_grads
 
-    def recorded(cfg, params, batch):
-        res = real(cfg, params, batch)
+    def recorded(cfg, params, batch, **kw):
+        res = real(cfg, params, batch, **kw)
         sink(res)
         return res
 
@@ -6212,11 +6242,13 @@ def tp_train_case(tp, spec) -> dict:
                   bwd_instances=dict(
                       flash_attention_bwd_cuda.launches_by_instance))
     loss, _, grads = got.pop()
+    t0 = time.perf_counter()
     leaves = []
     for i, (g, p1, (pos, lidx), s) in enumerate(zip(
             tree_leaves(grads), tree_leaves(state.params), maps, shards)):
         leaves.append(dict(pos=pos, p0=p0[i], g=take(g, lidx),
                            p1=take(p1, lidx), sq=sum_sq(g), split=s.is_split))
+    samples_s = time.perf_counter() - t0
     del grads, got
     checks = [{k: v for k, v in c.items() if k != "inputs"} for c in calls]
     del calls
@@ -6477,6 +6509,56 @@ def tp_layer0(got: dict, want: dict) -> dict:
                 max_logit_diff=delta, worst_flip_margin=worst)
 
 
+def leaf_checks(ranks: list, want: list, lr: float, bound: float,
+                tag: str) -> dict:
+    """Each leaf's samples assembled from the ranks (a split leaf's from
+    the rank that holds each entry, a replicated leaf's equal on every
+    rank) and held against the one-card digest's ``want``: the initial
+    params bitwise, the gradient and its norm within ``bound`` in relative
+    L2, each update within 2 lr (1 + 2^-7) + 2 bf16 ulps. -> the worst of
+    each."""
+    worst = dict(grad_rel_l2=0.0, grad_norm_rel=0.0, update_over_bound=0.0)
+    for i, w in enumerate(want):
+        parts = [t[i] for t in ranks]
+        n = len(w["idx"])
+        p0, g, p1 = (np.full(n, np.nan, np.float32) for _ in range(3))
+        for part in parts:
+            pos = part["pos"]
+            if parts[0]["split"]:
+                if not np.isnan(p0[pos]).all():
+                    raise AssertionError(f"{tag} leaf {i}: two ranks hold "
+                                         f"one sampled entry")
+            elif not (np.array_equal(part["g"], parts[0]["g"]) and
+                      np.array_equal(part["p1"], parts[0]["p1"])):
+                raise AssertionError(f"{tag} leaf {i}: a replicated leaf "
+                                     f"differs across the ranks")
+            p0[pos], g[pos], p1[pos] = part["p0"], part["g"], part["p1"]
+        if np.isnan(p0).any():
+            raise AssertionError(f"{tag} leaf {i}: sampled entries held by "
+                                 f"no rank")
+        if not np.array_equal(p0, w["p0"]):
+            raise AssertionError(f"{tag} leaf {i} {w['shape']}: the initial "
+                                 f"slices are not the one-card draw's bits")
+        sq = sum(p["sq"] for p in parts) if parts[0]["split"] \
+            else parts[0]["sq"]
+        rel = tp_rel(g, w["g"])
+        norm_rel = abs(sq ** 0.5 - w["g_sq"] ** 0.5) / max(
+            w["g_sq"] ** 0.5, 1e-30)
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(w["p1"]),
+                                                  2.0 ** -126))) - 7)
+        upd = float((np.abs(p1 - w["p1"]) /
+                     (2 * lr * (1 + 2.0 ** -7) + 2 * ulp)).max())
+        worst = dict(grad_rel_l2=max(worst["grad_rel_l2"], rel),
+                     grad_norm_rel=max(worst["grad_norm_rel"], norm_rel),
+                     update_over_bound=max(worst["update_over_bound"], upd))
+        if not (rel <= bound and norm_rel <= bound and upd <= 1.0):
+            raise AssertionError(
+                f"{tag} leaf {i} {w['shape']}: gradient relative L2 "
+                f"{rel:.3e}, norm {norm_rel:.3e} (bound {bound:.3e}); "
+                f"update {upd:.3f} of its bound")
+    return worst
+
+
 def tp_train_checks(ranks: list, dig: dict, cfg, lr: float) -> dict:
     """(a)'s checks against phase 12's step 0 (the bounds above)."""
     want_counts = dict(
@@ -6512,45 +6594,8 @@ def tp_train_checks(ranks: list, dig: dict, cfg, lr: float) -> dict:
     f = float(np.mean([x.mean() for x in flips]))
     layer0 = tp_layer0(routes, wroutes)
     bound = TP_GRAD_BASE + 2 * f ** 0.5
-    worst = dict(grad_rel_l2=0.0, grad_norm_rel=0.0, update_over_bound=0.0)
-    for i, w in enumerate(dig["leaves"]):
-        parts = [t["leaves"][i] for t in ranks]
-        n = len(w["idx"])
-        p0, g, p1 = (np.full(n, np.nan, np.float32) for _ in range(3))
-        for part in parts:
-            pos = part["pos"]
-            if parts[0]["split"]:
-                if not np.isnan(p0[pos]).all():
-                    raise AssertionError(f"leaf {i}: two ranks hold one "
-                                         f"sampled entry")
-            elif not (np.array_equal(part["g"], parts[0]["g"]) and
-                      np.array_equal(part["p1"], parts[0]["p1"])):
-                raise AssertionError(f"leaf {i}: a replicated leaf differs "
-                                     f"across the ranks")
-            p0[pos], g[pos], p1[pos] = part["p0"], part["g"], part["p1"]
-        if np.isnan(p0).any():
-            raise AssertionError(f"leaf {i}: sampled entries held by no "
-                                 f"rank")
-        if not np.array_equal(p0, w["p0"]):
-            raise AssertionError(f"leaf {i} {w['shape']}: the initial slices "
-                                 f"are not phase 12's bits")
-        sq = sum(p["sq"] for p in parts) if parts[0]["split"] \
-            else parts[0]["sq"]
-        rel = tp_rel(g, w["g"])
-        norm_rel = abs(sq ** 0.5 - w["g_sq"] ** 0.5) / max(
-            w["g_sq"] ** 0.5, 1e-30)
-        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(w["p1"]),
-                                                  2.0 ** -126))) - 7)
-        upd = float((np.abs(p1 - w["p1"]) /
-                     (2 * lr * (1 + 2.0 ** -7) + 2 * ulp)).max())
-        worst = dict(grad_rel_l2=max(worst["grad_rel_l2"], rel),
-                     grad_norm_rel=max(worst["grad_norm_rel"], norm_rel),
-                     update_over_bound=max(worst["update_over_bound"], upd))
-        if not (rel <= bound and norm_rel <= bound and upd <= 1.0):
-            raise AssertionError(
-                f"phase 18 (a) leaf {i} {w['shape']}: gradient relative L2 "
-                f"{rel:.3e}, norm {norm_rel:.3e} (bound {bound:.3e}, f "
-                f"{f:.4f}); update {upd:.3f} of its bound")
+    worst = leaf_checks([t["leaves"] for t in ranks], dig["leaves"], lr,
+                        bound, "phase 18 (a)")
     return dict(loss=loss, loss_one_card=want, flips_by_layer=[
         int(x.sum()) for x in flips], flipped_share=f, layer0=layer0,
         grad_bound=bound, **worst)
@@ -6612,13 +6657,17 @@ def tp_serve_checks(ranks: list, sd: dict, cfg) -> dict:
 
 
 def tp_wire_check(stats: dict, want: int, what: str) -> dict:
+    """The bytes a rank handed the backend (``wire_stats``) against the
+    count worked out from the shapes; their calls and ms, and the
+    exchanges' (``all_to_all``) ms and bytes apart."""
     got = sum(v["bytes"] for v in stats.values())
     if got != want:
-        raise AssertionError(f"phase 18 {what}: a rank handed the backend "
-                             f"{got} bytes, worked out {want} "
-                             f"({stats})")
+        raise AssertionError(f"{what}: a rank handed the backend {got} "
+                             f"bytes, worked out {want} ({stats})")
     return dict(bytes=got, calls=sum(v["calls"] for v in stats.values()),
-                ms=sum(v["ms"] for v in stats.values()))
+                ms=sum(v["ms"] for v in stats.values()),
+                exchange_ms=stats.get("all_to_all", {}).get("ms", 0.0),
+                exchange_bytes=stats.get("all_to_all", {}).get("bytes", 0))
 
 
 def tp_digests(spec: dict) -> tuple:
@@ -6649,21 +6698,20 @@ def tp_checks(tps: list, spec: dict, dig: dict, sd: dict) -> dict:
     for r, t in enumerate(tps):
         wire[r] = dict(
             train=tp_wire_check(t["train"]["wire"], tp_wire_bytes(
-                cfg, b, s, TP_RANKS, "train"), "train step 0"),
+                cfg, b, s, TP_RANKS, "train"), "phase 18 train step 0"),
             train_timed=tp_wire_check(t["train"]["wire_timed"], tp_wire_bytes(
-                cfg, b, s, TP_RANKS, "train"), "a timed train step"),
-            prefill=tp_wire_check(t["serve"]["wire"]["prefill"],
-                                  tp_wire_bytes(cfg4, pb, ps, TP_RANKS,
-                                                "serve"), "prefill"),
-            decode=tp_wire_check(t["serve"]["wire"]["decode_1"],
-                                 tp_wire_bytes(cfg4, pb, 1, TP_RANKS,
-                                               "serve"), "decode step"),
-            prefill_timed=tp_wire_check(t["serve"]["wire"]["prefill_timed"],
-                                        tp_wire_bytes(cfg4, pb, ps, TP_RANKS,
-                                                      "serve"), "prefill"),
+                cfg, b, s, TP_RANKS, "train"), "phase 18 a timed train step"),
+            prefill=tp_wire_check(t["serve"]["wire"]["prefill"], tp_wire_bytes(
+                cfg4, pb, ps, TP_RANKS, "serve"), "phase 18 prefill"),
+            decode=tp_wire_check(t["serve"]["wire"]["decode_1"], tp_wire_bytes(
+                cfg4, pb, 1, TP_RANKS, "serve"), "phase 18 decode step"),
+            prefill_timed=tp_wire_check(
+                t["serve"]["wire"]["prefill_timed"], tp_wire_bytes(
+                    cfg4, pb, ps, TP_RANKS, "serve"), "phase 18 prefill"),
             decode_timed=tp_wire_check(
                 t["serve"]["wire"]["decode_timed"], TP_WIRE_DECODE *
-                tp_wire_bytes(cfg4, pb, 1, TP_RANKS, "serve"), "decode"))
+                tp_wire_bytes(cfg4, pb, 1, TP_RANKS, "serve"),
+                "phase 18 decode"))
     checks = [c for t in tps for c in t["train"]["checks"] +
               t["serve"]["checks"]]
     worst, worst_abs = {}, {}
@@ -6695,6 +6743,983 @@ def tp_checks(tps: list, spec: dict, dig: dict, sd: dict) -> dict:
                 worst_err_over_max=worst, worst_abs_err=worst_abs,
                 launches_tp=launches_tp, checks=len(checks),
                 losses=tps[0]["train"]["losses"])
+
+
+# --------------------------------------------------------------------------
+# phase 19: the manual expert-parallel MoE, sixteen model ranks on the card
+# --------------------------------------------------------------------------
+
+EP_RANKS = 16           # a 'model' axis of phi3.5-moe's 16 experts: one a rank
+EP_TRAIN_LAYERS = 1     # of 32: trained, step 0 and EP_MORE_STEPS more
+EP_SERVE_LAYERS = 4     # of 32: served (phase 10's cut)
+EP_TRAIN_BATCH, EP_TRAIN_SEQ = 2, 512       # 64 tokens a rank, 16 slots a peer
+EP_BATCH, EP_PROMPT, EP_DECODE = 2, 1024, 4  # 128 tokens a rank, 24 slots
+EP_CAPACITY = EP_PROMPT + EP_DECODE + 8
+EP_MORE_STEPS = 1       # after step 0, timed with the wire synced
+EP_DRAW_TURN = 1        # ranks that draw their params at once: a rank holds
+#                         one whole layer (~4.3 GB with its fp32 temporary)
+#                         while it draws, so the sixteen take turns
+EP_TIMEOUT_S = 600.0    # the rank helper's join limit for the sixteen ranks
+EP_TRAIN_DIGEST = "ep_train_digest.pt"   # the one-card oracle, under build/
+EP_SERVE_DIGEST = "ep_serve_digest.pt"
+EP_DECODE_SEED = 19     # the decode steps' fed tokens
+EP_EINSUM_SEED = 23     # the no-drop check's input (EP_BATCH x EP_PROMPT)
+EP_EINSUM_CF = 8.0      # = E / k: Cs = the 128 tokens a rank holds, so no
+#                         peer's slots overflow; the einsum's capacity is
+#                         every token, so no expert's do
+EP_EINSUM_ROW_TOL = 2.0 ** -6   # max|manual - einsum| / max|einsum row|
+EP_EINSUM_AUX_TOL = 1e-5        # relative, with no routing change
+# The bounds, stated before the first card run (PERF.md §6). The
+# oracle is the ranks' own arithmetic in one process: the one-card model
+# whose MoE layers run ``moe_manual_reference`` for a 'model' axis of 16.
+# The attention is whole on every rank (the same kernels on the same
+# inputs), the embedding's vocab-parallel sum adds zeros, the manual path
+# runs the products each rank runs at the oracle's shapes: the forward up
+# to the head is predicted bitwise. What adds rounding is the vocabulary's
+# split: the head's partial logits and the cross-entropy's fp32 sums in
+# another order, and in the backward the head's input gradient, a sum of
+# 16 bf16 partials. So phase 18's bounds hold it (TP_*): the loss within
+# TP_LOSS_TOL; a first-layer routing change only at a near-tie of the
+# oracle's top-k; each sampled gradient within TP_GRAD_BASE + 2 sqrt(f)
+# in relative L2 (f the share of token-layers whose experts changed, 0
+# predicted); each update within 2 lr (1 + 2^-7) + 2 bf16 ulps; each logit
+# row without a routing change of its own within TP_ROW_BASE + 2 f_ctx of
+# its largest, at most TP_FLIPPED_ROWS of the rows with one; the leaves
+# every rank holds bitwise equal on all sixteen; the bytes each rank hands
+# gloo exactly ``ep_wire_bytes``.
+# The no-drop check holds the ranks' arithmetic against code it does not
+# share: layer 0's MoE of the served model through the manual path on the
+# sixteen ranks (one ``moe_layer`` call at EP_EINSUM_CF, where neither
+# route drops a slot) against the einsum route on the one card
+# (``moe._moe_einsum``: ``route_topk``, the dispatch buffer, the ragged
+# GEMM kernel, ``dispatch.combine``). Both round to bf16 at the same
+# points (the three products, the gated rows, their sum), but the fp32
+# sums before each rounding run in other orders (the kernel's tiles,
+# cuBLAS's), so a rounding may fall the other way at each of three
+# points: each token's row within EP_EINSUM_ROW_TOL of its largest
+# value; a token whose top-k changed (the router's fp32 product on 128
+# rows against 2,048) only at a top-k logit margin within twice the
+# logits' largest difference, and left out of the row check; the aux
+# loss within EP_EINSUM_AUX_TOL relative plus what the changed picks can
+# move it.
+
+
+@contextlib.contextmanager
+def manual_reference_layers(model: int):
+    """While on, the one-card model's MoE layers compute what the ranks of
+    a 'model' axis of ``model`` compute: ``moe_manual_reference`` where
+    the ranks take the manual path (the sequence dividing over
+    ``model``), the einsum route elsewhere (decode's one position). The
+    transformer's ``moe_layer`` is swapped, as ``record_manual_routing``
+    swaps ``route_manual``."""
+    from repro_torch.models.lm import moe as M
+    from repro_torch.models.lm import transformer as T
+    real = T.moe_layer
+
+    def layer(cfg, p, x):
+        if cfg.moe_sparse_dispatch and x.shape[1] % model == 0 and \
+                cfg.n_experts * cfg.n_expert_replicas == model:
+            return M.moe_manual_reference(cfg, p, x, model)
+        return real(cfg, p, x)
+
+    T.moe_layer = layer
+    try:
+        yield
+    finally:
+        T.moe_layer = real
+
+
+@contextlib.contextmanager
+def record_manual_routing():
+    """While on, every ``moe.route_manual`` call (one a rank an MoE layer
+    of the manual path, in order; a recomputed layer again; the one-card
+    oracle's one a virtual rank) is recorded: its router logits and its
+    top-k experts."""
+    from repro_torch.models.lm import moe as M
+    real = M.route_manual
+    calls: list = []
+
+    def recorded(logits, k):
+        out = real(logits, k)
+        calls.append((logits.detach().float().clone(),
+                      out[2].detach().clone(), k))
+        return out
+
+    M.route_manual = recorded
+    try:
+        yield calls
+    finally:
+        M.route_manual = real
+
+
+def ep_routes(calls, n: int, with_logits: int) -> dict:
+    """The first ``n`` recorded routings as numpy (``routes_np``'s expert
+    sets and top-k margins) and the router logits of the first
+    ``with_logits``."""
+    out = routes_np(calls, n, layer0_logits=False)
+    out["logits"] = [c[0].cpu().numpy() for c in calls[:with_logits]]
+    return out
+
+
+def ep_wire_bytes(cfg, b: int, s: int, m: int, what: str) -> int:
+    """The bytes a rank hands the backend (each collective's filled
+    buffer) on a 'model' axis of ``m`` = E ranks with the attention whole,
+    the MoE layers through the manual path: one train step (remat
+    "full"), one prefill, or one decode step of (b, s) positions. A
+    layer's manual path: the sequence's gather (``gather_from_axis``,
+    the whole (b, s, d_model) bf16) and the two exchanges (the (E, Cs,
+    d_model) send buffer each way, Cs = ``manual_capacity`` of b s / m
+    tokens), the stats' sum (m x (2E + 1) fp32); its backward: the two
+    exchanges again, the sequence split's gather of the gradient, the
+    router's gradient summed over the ranks (m x d_model x E fp32); the
+    recompute of a layer's backward runs its forward's two exchanges and
+    the stats' sum again but not the sequence's gather (the non-reentrant
+    checkpoint stops once the saved tensors are back, and the gather saves
+    none). The embedding's
+    vocab-parallel sum (m x (b, s, d_model) bf16), the cross-entropy's
+    max, sum and target logit a chunk (m x (b, c) fp32 each), the head
+    input's gradient summed over the ranks (m x (b, s, d_model) bf16),
+    the global norm's scalar (m x 4). Serving: the embedding's sum, each
+    layer's forward, the last position's logits gathered (b x vocab
+    bf16); a decode step's MoE takes the split einsum, its partial
+    outputs summed (m x (b, d_model) bf16 a layer)."""
+    from repro_torch.models.lm.moe import manual_capacity
+    n, d, e = cfg.n_layers, cfg.d_model, cfg.n_experts
+    act = b * s * d * 2
+    stats = m * (2 * e + 1) * 4
+    if what == "decode":
+        return m * act + n * m * act + b * cfg.vocab_padded * 2
+    exchange = e * manual_capacity(cfg, b * s // m) * d * 2
+    layer = act + 2 * exchange + stats
+    if what == "prefill":
+        return m * act + n * layer + b * cfg.vocab_padded * 2
+    recompute = 2 * exchange + stats if cfg.remat == "full" else 0
+    backward = 2 * exchange + act + m * d * e * 4
+    return (m * act + n * (layer + recompute + backward)
+            + 3 * m * b * s * 4 + m * act + m * 4)
+
+
+def ep_spec() -> dict:
+    """Phase 19's sizes and rules for the ranks (spawned: they import this
+    script afresh)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.dist import WHOLE_ATTENTION_RULES
+    full = get_config(LM_ARCH)
+    build = ROOT / "build"
+    return dict(train_cfg=dc.replace(full, n_layers=EP_TRAIN_LAYERS),
+                serve_cfg=dc.replace(full, n_layers=EP_SERVE_LAYERS),
+                rules=WHOLE_ATTENTION_RULES,
+                train_digest=str(build / EP_TRAIN_DIGEST),
+                serve_digest=str(build / EP_SERVE_DIGEST),
+                go=str(build / "ep_go"),
+                train_batch=EP_TRAIN_BATCH, train_seq=EP_TRAIN_SEQ,
+                batch=EP_BATCH, prompt=EP_PROMPT, decode=EP_DECODE,
+                capacity=EP_CAPACITY, more_steps=EP_MORE_STEPS,
+                draw_turn=EP_DRAW_TURN)
+
+
+def ep_batches(spec, dev) -> tuple:
+    """(the train batch, the prompt, the decode steps' fed tokens), on
+    ``dev``."""
+    import torch
+    from repro_torch.data import synthetic_lm_batch
+    cfg = spec["train_cfg"]
+    toks, tgts = synthetic_lm_batch(spec["train_batch"], spec["train_seq"],
+                                    cfg.vocab)
+    train = {"tokens": torch.from_numpy(toks).to(dev),
+             "targets": torch.from_numpy(tgts).to(dev)}
+    ptoks, _ = synthetic_lm_batch(spec["batch"], spec["prompt"], cfg.vocab,
+                                  step=1)
+    fed = np.random.default_rng(EP_DECODE_SEED).integers(
+        0, cfg.vocab, (spec["batch"], spec["decode"])).astype(np.int32)
+    return train, {"tokens": torch.from_numpy(ptoks).to(dev)}, \
+        torch.from_numpy(fed).to(dev)
+
+
+def ep_einsum_cfg(spec):
+    """The served config at the no-drop check's capacity factor."""
+    import dataclasses as dc
+    return dc.replace(spec["serve_cfg"], capacity_factor=EP_EINSUM_CF)
+
+
+def ep_einsum_input(spec, dev):
+    """The no-drop check's input: (EP_BATCH, EP_PROMPT, d_model) bf16 from
+    EP_EINSUM_SEED, the same on every rank."""
+    import torch
+    cfg = spec["serve_cfg"]
+    x = np.random.default_rng(EP_EINSUM_SEED).standard_normal(
+        (spec["batch"], spec["prompt"], cfg.d_model), dtype=np.float32)
+    return torch.from_numpy(x).to(dev).to(torch.bfloat16)
+
+
+def ep_layer0_moe(params) -> dict:
+    """Layer 0's MoE leaves of stacked (L, ...) params (a rank's slices on
+    a rank)."""
+    return {k: v[0] for k, v in params["layers"]["moe"].items()}
+
+
+def ep_einsum_reference(spec, params, dev) -> dict:
+    """The no-drop check's oracle on the one card: layer 0's MoE of the
+    whole served params through the einsum route (``moe._moe_einsum``,
+    no mesh) on ``ep_einsum_input`` at EP_EINSUM_CF. -> the output, the
+    aux loss, each token's top-k experts, its top-k logit margin (the
+    k-th logit less the next), its router logits, and max(me) / n."""
+    import torch
+    from repro_torch.models.lm import moe as M
+    cfg, k = ep_einsum_cfg(spec), spec["serve_cfg"].top_k
+    x, p = ep_einsum_input(spec, dev), ep_layer0_moe(params)
+    out, aux = M._moe_einsum(cfg, p, x)
+    logits = x.reshape(-1, cfg.d_model).float() @ p["router"]
+    top = torch.topk(logits, k + 1, dim=-1, sorted=True)
+    probs = torch.softmax(logits, dim=-1)
+    res = dict(out=out.float().cpu().numpy(), aux=float(aux),
+               ids=top.indices[:, :k].cpu().numpy(),
+               margin=(top.values[:, k - 1] - top.values[:, k]).cpu().numpy(),
+               logits=logits.cpu().numpy(),
+               me_max=float(probs.sum(0).max()) / probs.shape[0])
+    del out, x, logits, probs
+    return res
+
+
+def ep_oracle(spec) -> dict:
+    """Phase 19's one-card oracle, in this process before the ranks start:
+    the one-card model under ``manual_reference_layers(EP_RANKS)`` (its
+    MoE layers ``moe_manual_reference`` of a 'model' axis of 16), drawn
+    from the ranks' seed. Train: step 0's loss, sampled params and
+    gradients, routing, then EP_MORE_STEPS losses; serve: the prefill's
+    and decode steps' logits and routing, and the no-drop check's einsum
+    route (:func:`ep_einsum_reference`). Written under ``build/`` and
+    freed."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import lm as TL
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    cfg, cfg4 = spec["train_cfg"], spec["serve_cfg"]
+    train, prompt, fed = ep_batches(spec, dev)
+    got: list = []
+    with manual_reference_layers(EP_RANKS):
+        step_fn, opt = TL.make_train_step(cfg)
+        state = TL.make_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0), opt, device=dev)
+        p0 = tree_map(torch.clone, state.params)
+        with record_grads(got.append), record_manual_routing() as routes:
+            state, m0 = step_fn(state, train)
+        loss, _, grads = got.pop()
+        dig = train_digest(loss, p0, grads, state.params, routes,
+                           cfg.n_layers * EP_RANKS)
+        dig["routes"] = ep_routes(routes, cfg.n_layers * EP_RANKS, EP_RANKS)
+        del p0, grads, routes
+        losses = [float(m0["loss"])]
+        for _ in range(spec["more_steps"]):
+            state, m = step_fn(state, train)
+            losses.append(float(m["loss"]))
+        dig["losses"] = losses
+        del state, step_fn, opt
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            params = lm.init_params(
+                cfg4, torch.Generator(device=dev).manual_seed(0), device=dev)
+            with record_manual_routing() as pre, record_routing() as dec:
+                cache, logits = lm.prefill(cfg4, params, prompt,
+                                           spec["capacity"])
+                out = [logits.float()]
+                for i in range(spec["decode"]):
+                    logits, cache = lm.decode_step(cfg4, params, cache,
+                                                   fed[:, i:i + 1])
+                    out.append(logits.float())
+            sd = dict(logits=torch.stack(out).cpu().numpy(),
+                      pre_routes=ep_routes(pre, cfg4.n_layers * EP_RANKS,
+                                           EP_RANKS),
+                      dec_routes=routes_np(dec, cfg4.n_layers
+                                           * spec["decode"],
+                                           layer0_logits=False))
+            sd["einsum"] = ep_einsum_reference(spec, params, dev)
+        del params, cache, out, pre, dec
+    torch.save(dig, spec["train_digest"])
+    torch.save(sd, spec["serve_digest"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(train_s=t1 - t0, serve_s=time.perf_counter() - t1,
+                losses=losses)
+
+
+def host_available_gb() -> float:
+    """The host's ``MemAvailable`` in GB (``/proc/meminfo``; 0 where the
+    file is missing)."""
+    try:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return 0.0
+
+
+def ep_in_turns(ep, turn: int, fn):
+    """``fn()`` on every rank of ``ep``'s 'model' axis, ``turn`` ranks at
+    a time (a barrier between turns), the card's cache emptied after each:
+    what a rank draws whole before it keeps its slices never sits on the
+    card beside sixteen others."""
+    import torch
+    import torch.distributed as dist
+    r, out = ep.index("model"), None
+    for t in range(0, int(ep.shape["model"]), turn):
+        if t <= r < t + turn:
+            out = fn()
+            if ep.device.type == "cuda":
+                torch.cuda.synchronize(ep.device)
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def ep_train_case(ep, spec) -> dict:
+    """(a) on one rank: phi3.5-moe x 1 layer on the 'model' axis of 16, the
+    MoE through the manual path; step 0 with every launch held against its
+    plain version, the rank's samples of its params and gradients, its
+    routing, the wire's bytes; then EP_MORE_STEPS steps (the last timed
+    with the wire synced), the leaves every rank holds compared after
+    each; the case's timeline."""
+    import torch
+    from repro_torch.dist import replicas_equal, reset_wire_stats, wire_stats
+    from repro_torch.dist.partition import param_shardings
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.train import lm as TL
+    cfg, dev = spec["train_cfg"], ep.device
+    t_case, tl = time.perf_counter(), {}
+
+    def mark(name):
+        tl[name] = round(time.perf_counter() - t_case, 2)
+
+    step_fn, opt = TL.make_train_step(cfg, mesh=ep)
+    mark("step_fn")
+    t0 = time.perf_counter()
+    state = ep_in_turns(ep, spec["draw_turn"], lambda: TL.make_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), opt, mesh=ep))
+    init_s = time.perf_counter() - t0
+    mark("drawn")
+    draw_gb = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    like = TL.full_param_shapes(cfg)
+    shards = tree_leaves(param_shardings(ep, like))
+    shapes = [tuple(t.shape) for t in tree_leaves(like)]
+    maps = [local_samples(leaf_sample(i, int(np.prod(shp))), shp, s)
+            for i, (shp, s) in enumerate(zip(shapes, shards))]
+    p0 = [take(p, lidx) for p, (_, lidx) in zip(tree_leaves(state.params),
+                                                maps)]
+    train, _, _ = ep_batches(spec, dev)
+    mark("samples_mapped")
+    got: list = []
+    torch.cuda.synchronize()
+    kops.reset_kernel_launches()
+    reset_wire_stats()
+    tl["host_available_gb_before"] = round(host_available_gb(), 1)
+    t0, cpu0 = time.perf_counter(), time.process_time()
+    with record_train_kernels(check=True) as calls, \
+            record_grads(got.append), record_manual_routing() as routes:
+        state, m0 = step_fn(state, train)
+        torch.cuda.synchronize()
+    step0_s = time.perf_counter() - t0
+    tl["step0_cpu_s"] = round(time.process_time() - cpu0, 2)
+    tl["host_available_gb"] = round(host_available_gb(), 1)
+    if dev.type == "cuda":
+        tl["alloc_retries"] = torch.cuda.memory_stats(dev).get(
+            "num_alloc_retries", 0)
+    mark("step0")
+    wire0 = wire_stats()
+    counts = {n: kops.kernel_launches()[n] for n in LM_TRAIN_KERNELS}
+    loss, _, grads = got.pop()
+    t0 = time.perf_counter()
+    leaves = []
+    for i, (g, p1, (pos, lidx), s) in enumerate(zip(
+            tree_leaves(grads), tree_leaves(state.params), maps, shards)):
+        leaves.append(dict(pos=pos, p0=p0[i], g=take(g, lidx),
+                           p1=take(p1, lidx), sq=sum_sq(g), split=s.is_split))
+    samples_s = time.perf_counter() - t0
+    mark("samples")
+    del grads, got
+    checks = [{k: v for k, v in c.items() if k != "inputs"} for c in calls]
+    del calls
+    sh_tree = param_shardings(ep, like)
+
+    def whole(params):                  # the leaves every model rank holds
+        out: list = []
+        tree_map(lambda p, s: None if s.is_split else out.append(p),
+                 params, sh_tree)
+        return {str(j): p for j, p in enumerate(out)}
+
+    t0 = time.perf_counter()
+    replicated = [replicas_equal(whole(state.params), ep, "model")]
+    replicas_s = time.perf_counter() - t0
+    losses, step_ms = [float(m0["loss"])], []
+    for k in range(spec["more_steps"]):
+        reset_wire_stats(timing=k == spec["more_steps"] - 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, train)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        wire_timed = wire_stats()
+        t0 = time.perf_counter()
+        replicated.append(replicas_equal(whole(state.params), ep, "model"))
+        replicas_s += time.perf_counter() - t0
+    mark("steps")
+    res = dict(loss=float(loss), metrics0={k: float(v) for k, v in
+                                           m0.items()},
+               leaves=leaves, counts=counts, checks=checks, wire=wire0,
+               wire_timed=wire_timed,
+               routes=ep_routes(routes, cfg.n_layers, cfg.n_layers),
+               replicated=replicated, losses=losses, step_ms=step_ms,
+               init_s=init_s, step0_s=step0_s, draw_gb=draw_gb,
+               replicas_s=replicas_s, samples_s=samples_s, timeline=tl,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9
+               if dev.type == "cuda" else 0.0)
+    del state, step_fn, opt, train
+    torch.cuda.empty_cache()
+    mark("freed")
+    return res
+
+
+def ep_serve_case(ep, spec) -> dict:
+    """(b) on one rank: phi3.5-moe x 4 layers on the 'model' axis of 16:
+    the prefill through the manual path, then EP_DECODE decode steps
+    through the split einsum fed the oracle's tokens; every launch of the
+    prefill and the first decode step held against its plain version; the
+    logits, the routing, the wire's bytes; a decode step's ms, and a
+    prefill's with the wire synced, the wire's ms apart; then the no-drop
+    check's manual layer (layer 0's MoE at EP_EINSUM_CF), its block of
+    the output, its aux loss and routing."""
+    import torch
+    from repro_torch.dist import reset_wire_stats, wire_stats
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ragged_gemm import ragged_gemm_cuda
+    from repro_torch.models import lm
+    from repro_torch.models.lm import moe as M
+    cfg, dev = spec["serve_cfg"], ep.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = ep_in_turns(ep, spec["draw_turn"], lambda: lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        mesh=ep))
+    init_s = time.perf_counter() - t0
+    _, prompt, fed = ep_batches(spec, dev)
+    cap, n_dec = spec["capacity"], spec["decode"]
+    t_checked = time.perf_counter()
+
+    def launches():
+        return {n: kops.kernel_launches()[n] for n in LM_KERNELS}
+
+    counts, instances, wire, logits_all = {}, {}, {}, []
+    with ep, torch.no_grad(), record_manual_routing() as pre, \
+            record_routing() as dec:
+        kops.reset_kernel_launches()
+        reset_wire_stats()
+        with record_lm_kernels(check=True) as pre_calls:
+            cache, logits = lm.prefill(cfg, params, prompt, cap)
+            torch.cuda.synchronize()
+        counts["prefill"], wire["prefill"] = launches(), wire_stats()
+        instances["prefill"] = dict(ragged_gemm_cuda.launches_by_instance)
+        logits_all.append(logits.float())
+        kops.reset_kernel_launches()
+        reset_wire_stats()
+        with record_lm_kernels(check=True) as dec_calls:
+            logits, cache = lm.decode_step(cfg, params, cache, fed[:, :1])
+            torch.cuda.synchronize()
+        counts["decode_1"], wire["decode_1"] = launches(), wire_stats()
+        instances["decode_1"] = dict(ragged_gemm_cuda.launches_by_instance)
+        logits_all.append(logits.float())
+        kops.reset_kernel_launches()
+        reset_wire_stats()
+        t0 = time.perf_counter()
+        for i in range(1, n_dec):
+            logits, cache = lm.decode_step(cfg, params, cache,
+                                           fed[:, i:i + 1])
+            logits_all.append(logits.float())
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / (n_dec - 1) * 1e3
+        counts["decode_rest"], wire["decode_rest"] = launches(), \
+            wire_stats()
+        instances["decode_rest"] = dict(
+            ragged_gemm_cuda.launches_by_instance)
+        n = cfg.n_layers
+        pre_routes = ep_routes(pre, n, 1)
+        dec_routes = routes_np(dec, n * n_dec, layer0_logits=False)
+    del pre, dec
+    checked_s = time.perf_counter() - t_checked
+    # the time: a prefill with the wire synced (its ms and the wire's)
+    with ep, torch.no_grad():
+        torch.cuda.synchronize()
+        reset_wire_stats(timing=True)
+        t0 = time.perf_counter()
+        lm.prefill(cfg, params, prompt, cap)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        wire["prefill_timed"] = wire_stats()
+    # the no-drop check: layer 0's MoE alone through the manual path
+    cfg_e, x = ep_einsum_cfg(spec), ep_einsum_input(spec, dev)
+    with ep, torch.no_grad(), record_manual_routing() as calls:
+        took = M._manual_ok(cfg_e, x.shape[1], ep)
+        out, aux = M.moe_layer(cfg_e, ep_layer0_moe(params), x)
+    j, sl = ep.index("model"), x.shape[1] // int(ep.shape["model"])
+    einsum_case = dict(took=took, aux=float(aux),
+                       out=out[:, j * sl:(j + 1) * sl].float().cpu().numpy(),
+                       logits=calls[0][0].cpu().numpy(),
+                       ids=calls[0][1].cpu().numpy(), calls=len(calls),
+                       cs=M.manual_capacity(cfg_e, x.shape[0] * sl))
+    del x, out, calls
+    reset_wire_stats()
+    checks = [{k: v for k, v in c.items() if k != "inputs"}
+              for c in pre_calls + dec_calls]
+    res = dict(logits=torch.stack(logits_all).cpu().numpy(), counts=counts,
+               einsum_case=einsum_case,
+               instances=instances, checks=checks, wire=wire, init_s=init_s,
+               prefill_ms=prefill_ms, decode_ms=decode_ms,
+               pre_routes=pre_routes, dec_routes=dec_routes,
+               checked_s=checked_s,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9
+               if dev.type == "cuda" else 0.0)
+    del params, cache, pre_calls, dec_calls
+    torch.cuda.empty_cache()
+    return res
+
+
+def ep_rank(mesh, spec) -> dict:
+    """One of phase 19's sixteen ranks (``dist.run_ranks``' body): the
+    kernels phase 1 built loaded, none built; (a) then (b) under the
+    whole-attention rules."""
+    import torch
+    t_enter = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist import use_rules
+    from repro_torch.kernels.build import build_kernels
+    if build_kernels():
+        raise AssertionError("a rank built kernels: the parent builds them")
+    wait_s = dg_wait_for(spec["go"], spec["go"])    # the oracle freed
+    with use_rules(spec["rules"]):
+        t0 = time.perf_counter()
+        train = ep_train_case(mesh, spec)
+        t1 = time.perf_counter()
+        serve = ep_serve_case(mesh, spec)
+    return dict(coords=(mesh.index("data"), mesh.index("model")),
+                backend=mesh.backend, device=str(mesh.device),
+                train=train, serve=serve, train_s=t1 - t0,
+                serve_s=time.perf_counter() - t1, t_enter=t_enter,
+                wait_s=wait_s)
+
+
+def ep_flips(ranks: list, want: dict, n_layers: int) -> tuple:
+    """Each rank's routing changes against the oracle's virtual rank, layer
+    by layer (``want``'s calls are layer-major, EP_RANKS a layer), and the
+    first layer's near-tie check on every rank (phase 18's rule). ->
+    (flip masks [layer][rank], the first layer's worst margin and largest
+    logit difference)."""
+    flips = [[tp_flips(r["ids"][l], want["ids"][l * EP_RANKS + j])
+              for j, r in enumerate(ranks)] for l in range(n_layers)]
+    worst, delta = 0.0, 0.0
+    for j, r in enumerate(ranks):
+        f = flips[0][j]
+        diff = np.abs(r["logits"][0] - want["logits"][j]).max(-1)
+        d = float(diff[~f].max()) if (~f).any() else 0.0
+        w = float(want["margins"][j][f].max()) if f.any() else 0.0
+        if f.any() and not w <= 2 * d:
+            raise AssertionError(f"phase 19: rank {j}'s first-layer routing "
+                                 f"changed at a top-k margin of {w:.3e}, "
+                                 f"past twice its router logits' largest "
+                                 f"difference {d:.3e}")
+        worst, delta = max(worst, w), max(delta, d)
+    return flips, worst, delta
+
+
+def ep_train_checks(ranks: list, dig: dict, cfg, lr: float) -> dict:
+    """(a)'s checks against the oracle (the bounds above)."""
+    want_counts = {"ragged_gemm": 0, "flash_attention": 2 * cfg.n_layers,
+                   "flash_attention_bwd": cfg.n_layers}
+    for r, t in enumerate(ranks):
+        if t["counts"] != want_counts:
+            raise AssertionError(f"phase 19 (a) rank {r} launched "
+                                 f"{t['counts']}, want {want_counts}")
+        if t["replicated"] != [True] * (1 + EP_MORE_STEPS):
+            raise AssertionError(f"phase 19 (a): the whole leaves parted "
+                                 f"across the ranks: {t['replicated']}")
+        if t["loss"] != ranks[0]["loss"] or \
+                t["losses"] != ranks[0]["losses"]:
+            raise AssertionError("phase 19 (a): the ranks' losses differ")
+    for got, want in zip(ranks[0]["losses"], dig["losses"]):
+        if not abs(got - want) <= TP_LOSS_TOL * abs(want):
+            raise AssertionError(f"phase 19 (a): losses {ranks[0]['losses']}"
+                                 f" against the oracle's {dig['losses']} "
+                                 f"(tolerance {TP_LOSS_TOL} of it)")
+    flips, margin, delta = ep_flips([t["routes"] for t in ranks],
+                                    dig["routes"], cfg.n_layers)
+    f = float(np.mean([x.mean() for row in flips for x in row]))
+    bound = TP_GRAD_BASE + 2 * f ** 0.5
+    worst = leaf_checks([t["leaves"] for t in ranks], dig["leaves"], lr,
+                        bound, "phase 19 (a)")
+    return dict(loss=ranks[0]["loss"], loss_oracle=dig["losses"][0],
+                losses=ranks[0]["losses"], losses_oracle=dig["losses"],
+                flips_by_layer=[int(sum(x.sum() for x in row))
+                                for row in flips], flipped_share=f,
+                worst_flip_margin=margin, max_logit_diff=delta,
+                grad_bound=bound, **worst)
+
+
+def ep_serve_checks(ranks: list, sd: dict, cfg) -> dict:
+    """(b)'s checks against the oracle (the bounds above)."""
+    n, n_dec = cfg.n_layers, len(sd["logits"]) - 1
+    want_counts = {"prefill": {"ragged_gemm": 0, "flash_attention": n},
+                   "decode_1": {"ragged_gemm": 3 * n, "flash_attention": 0},
+                   "decode_rest": {"ragged_gemm": 3 * n * (n_dec - 1),
+                                   "flash_attention": 0}}
+    for r, s in enumerate(ranks):
+        if s["counts"] != want_counts or any(
+                by != {"wgmma": want_counts[run]["ragged_gemm"], "wmma": 0,
+                       "f32": 0} for run, by in s["instances"].items()):
+            raise AssertionError(f"phase 19 (b) rank {r}: launches "
+                                 f"{s['counts']} by instance "
+                                 f"{s['instances']}, want {want_counts}, "
+                                 "every ragged launch wgmma")
+        if not np.array_equal(s["logits"], ranks[0]["logits"]):
+            raise AssertionError("phase 19 (b): the ranks' logits differ")
+        for key in ("ids", "margins"):
+            if any(not np.array_equal(a, b) for a, b in zip(
+                    s["dec_routes"][key], ranks[0]["dec_routes"][key])):
+                raise AssertionError("phase 19 (b): the ranks routed the "
+                                     "decode steps differently")
+    got, want = ranks[0]["logits"][:, :, 0], sd["logits"][:, :, 0]
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"phase 19 (b): logits {got.shape}, want "
+                             f"{want.shape}, finite {np.isfinite(got).all()}")
+    flips, margin, delta = ep_flips([s["pre_routes"] for s in ranks],
+                                    sd["pre_routes"], n)
+    f_ctx = float(np.mean([x.mean() for row in flips for x in row]))
+    b = got.shape[1]
+    # a row's own routing: the prompt's last position (the last rank's
+    # block, each batch row's last token), then each decode step's
+    own = np.zeros((n_dec + 1, b), bool)
+    for l in range(n):
+        last = flips[l][EP_RANKS - 1]
+        own[0] |= last.reshape(b, -1)[:, -1]
+    dec, wdec = ranks[0]["dec_routes"]["ids"], sd["dec_routes"]["ids"]
+    for step in range(n_dec):
+        for l in range(n):
+            own[step + 1] |= tp_flips(dec[step * n + l], wdec[step * n + l])
+    err = np.abs(got - want).max(-1) / np.abs(want).max(-1)
+    bound = TP_ROW_BASE + 2 * f_ctx
+    clean = err[~own]
+    if own.mean() > TP_FLIPPED_ROWS or (clean.size and
+                                         not clean.max() <= bound):
+        raise AssertionError(f"phase 19 (b): {int(own.sum())} of {own.size} "
+                             f"rows changed experts (at most "
+                             f"{TP_FLIPPED_ROWS}); the others' worst "
+                             f"max|diff| / max|row| "
+                             f"{clean.max() if clean.size else 0:.3e} "
+                             f"(bound {bound:.3e})")
+    return dict(prefill_flips_by_layer=[int(sum(x.sum() for x in row))
+                                        for row in flips],
+                context_flipped_share=f_ctx, worst_flip_margin=margin,
+                max_logit_diff=delta, rows=int(own.size),
+                rows_own_flip=int(own.sum()), row_bound=bound,
+                worst_clean_row=float(clean.max()) if clean.size else 0.0,
+                worst_flipped_row=float(err[own].max()) if own.any()
+                else 0.0,
+                median_clean_row=float(np.median(clean)) if clean.size
+                else 0.0)
+
+
+def ep_einsum_check(ranks: list, want: dict, cfg) -> dict:
+    """The no-drop check in the parent (the bounds above): every rank took
+    the manual path and dropped nothing, the ranks' aux losses equal;
+    against the one-card einsum route, each token's row, its routing and
+    the aux loss."""
+    k, e = cfg.top_k, cfg.n_experts
+    b, s = want["out"].shape[:2]
+    sl = s // len(ranks)
+    ids_w = np.sort(want["ids"].reshape(b, s, k), -1)
+    logits_w = want["logits"].reshape(b, s, e)
+    margin = want["margin"].reshape(b, s)
+    flipped, delta, outs = np.zeros((b, s), bool), 0.0, []
+    for j, r in enumerate(ranks):
+        c = r["einsum_case"]
+        load = int(np.bincount(c["ids"].ravel(), minlength=e).max())
+        if not c["took"] or c["calls"] != 1 or load > c["cs"] or \
+                c["aux"] != ranks[0]["einsum_case"]["aux"]:
+            raise AssertionError(
+                f"phase 19 no-drop check, rank {j}: manual path {c['took']} "
+                f"({c['calls']} routings), {load} picks of one peer against "
+                f"{c['cs']} slots, aux {c['aux']} against rank 0's "
+                f"{ranks[0]['einsum_case']['aux']}")
+        blk = slice(j * sl, (j + 1) * sl)
+        f = (np.sort(c["ids"].reshape(b, sl, k), -1) != ids_w[:, blk]).any(-1)
+        d = float(np.abs(c["logits"].reshape(b, sl, e)
+                         - logits_w[:, blk]).max())
+        if f.any() and not float(margin[:, blk][f].max()) <= 2 * d:
+            raise AssertionError(
+                f"phase 19 no-drop check, rank {j}: {int(f.sum())} tokens "
+                f"routed otherwise than the einsum route, at a top-k logit "
+                f"margin up to {float(margin[:, blk][f].max()):.3e}, past "
+                f"twice the logits' largest difference {d:.3e}")
+        flipped[:, blk], delta = f, max(delta, d)
+        outs.append(c["out"])
+    got, ref = np.concatenate(outs, 1), want["out"]
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"phase 19 no-drop check: output {got.shape}, "
+                             f"want {ref.shape}")
+    err = np.abs(got - ref).max(-1) / np.maximum(np.abs(ref).max(-1),
+                                                 1e-30)
+    clean = err[~flipped]
+    n = b * s
+    aux_bound = EP_EINSUM_AUX_TOL * abs(want["aux"]) + \
+        2 * e * int(flipped.sum()) * want["me_max"] / n
+    aux = ranks[0]["einsum_case"]["aux"]
+    if (clean.size and not clean.max() <= EP_EINSUM_ROW_TOL) or \
+            not abs(aux - want["aux"]) <= aux_bound:
+        raise AssertionError(
+            f"phase 19 no-drop check: the manual path against the einsum "
+            f"route, worst row max|diff| / max|row| "
+            f"{clean.max() if clean.size else 0:.3e} (tolerance "
+            f"{EP_EINSUM_ROW_TOL:.3e}), aux {aux} against {want['aux']} "
+            f"(bound {aux_bound:.3e})")
+    return dict(rows=int(n), rows_flipped=int(flipped.sum()),
+                worst_row=float(clean.max()) if clean.size else 0.0,
+                median_row=float(np.median(clean)) if clean.size else 0.0,
+                row_tol=EP_EINSUM_ROW_TOL, aux=aux, aux_einsum=want["aux"],
+                aux_rel=abs(aux - want["aux"]) / abs(want["aux"]),
+                aux_bound=aux_bound, max_logit_diff=delta,
+                slots_a_peer=ranks[0]["einsum_case"]["cs"])
+
+
+def ep_checks(eps: list, spec: dict, dig: dict, sd: dict) -> dict:
+    """Phase 19's checks in the parent, on what the sixteen ranks
+    returned, against the oracle's digests."""
+    cfg, cfg4 = spec["train_cfg"], spec["serve_cfg"]
+    on = "cuda:0" if DEVICE == "cuda" else DEVICE
+    if [t["coords"] for t in eps] != [(0, j) for j in range(EP_RANKS)] or \
+            any((t["backend"], t["device"]) != ("gloo", on) for t in eps):
+        got = [(t["coords"], t["backend"], t["device"]) for t in eps]
+        raise AssertionError(f"phase 19: ranks {got}")
+    train = ep_train_checks([t["train"] for t in eps], dig, cfg, 3e-4)
+    serve = ep_serve_checks([t["serve"] for t in eps], sd, cfg4)
+    einsum = ep_einsum_check([t["serve"] for t in eps], sd["einsum"], cfg4)
+    b, s = spec["train_batch"], spec["train_seq"]
+    pb, ps = spec["batch"], spec["prompt"]
+    wire = {}
+    for r, t in enumerate(eps):
+        w = t["serve"]["wire"]
+        wire[r] = dict(
+            train=tp_wire_check(t["train"]["wire"], ep_wire_bytes(
+                cfg, b, s, EP_RANKS, "train"), "phase 19 train step 0"),
+            train_timed=tp_wire_check(t["train"]["wire_timed"],
+                                      ep_wire_bytes(cfg, b, s, EP_RANKS,
+                                                    "train"),
+                                      "phase 19 a timed train step"),
+            prefill=tp_wire_check(w["prefill"], ep_wire_bytes(
+                cfg4, pb, ps, EP_RANKS, "prefill"), "phase 19 prefill"),
+            prefill_timed=tp_wire_check(w["prefill_timed"], ep_wire_bytes(
+                cfg4, pb, ps, EP_RANKS, "prefill"),
+                "phase 19 a timed prefill"),
+            decode=tp_wire_check(w["decode_1"], ep_wire_bytes(
+                cfg4, pb, 1, EP_RANKS, "decode"), "phase 19 decode step"),
+            decode_rest=tp_wire_check(w["decode_rest"], (spec["decode"] - 1)
+                                      * ep_wire_bytes(cfg4, pb, 1, EP_RANKS,
+                                                      "decode"),
+                                      "phase 19 decode steps"))
+    checks = [c for t in eps for c in t["train"]["checks"] +
+              t["serve"]["checks"]]
+    worst, worst_abs = {}, {}
+    for c in checks:
+        worst[c["name"]] = max(worst.get(c["name"], 0.0), c["err_over_max"])
+        worst_abs[c["name"]] = max(worst_abs.get(c["name"], 0.0),
+                                   c["max_abs_err"])
+    launches_ep = {}
+    for t in eps:
+        for name, v in t["train"]["counts"].items():
+            launches_ep[name] = launches_ep.get(name, 0) + v
+        for run in t["serve"]["counts"].values():
+            for name, v in run.items():
+                launches_ep[name] = launches_ep.get(name, 0) + v
+    step_ms = [t["train"]["step_ms"] for t in eps]
+    times = dict(
+        step_ms=step_ms,
+        step_exchange_share=[wire[r]["train_timed"]["exchange_ms"]
+                             / t["train"]["step_ms"][-1]
+                             for r, t in enumerate(eps)],
+        step_wire_share=[wire[r]["train_timed"]["ms"]
+                         / t["train"]["step_ms"][-1]
+                         for r, t in enumerate(eps)],
+        prefill_ms=[t["serve"]["prefill_ms"] for t in eps],
+        prefill_wire_ms=[wire[r]["prefill_timed"]["ms"] for r in wire],
+        prefill_exchange_ms=[wire[r]["prefill_timed"]["exchange_ms"]
+                             for r in wire],
+        decode_ms=[t["serve"]["decode_ms"] for t in eps],
+        init_s=[(t["train"]["init_s"], t["serve"]["init_s"]) for t in eps],
+        train_split_s=[dict(step0=t["train"]["step0_s"],
+                            samples=t["train"]["samples_s"],
+                            replicas=t["train"]["replicas_s"]) for t in eps],
+        serve_checked_s=[t["serve"]["checked_s"] for t in eps],
+        train_timeline=eps[0]["train"]["timeline"],
+        train_s=[t["train_s"] for t in eps],
+        serve_s=[t["serve_s"] for t in eps],
+        peak_gb=[dict(draw=t["train"]["draw_gb"],
+                      train=t["train"]["peak_gb"],
+                      serve=t["serve"]["peak_gb"]) for t in eps])
+    return dict(train=train, serve=serve, einsum=einsum, wire=wire,
+                times=times, worst_err_over_max=worst,
+                worst_abs_err=worst_abs, launches_ep=launches_ep,
+                checks=len(checks))
+
+
+def ep_phase() -> dict:
+    """Phase 19: the manual expert-parallel MoE on sixteen model ranks of
+    the one card (gloo, spawned as in phases 16 and 17). The ranks start
+    (imports, their card contexts, the rendezvous) beside the parent's
+    one-card oracle and wait for its go file, written once the oracle is
+    freed; then they (:func:`ep_rank`) train and serve, and the parent
+    checks what they return. Raises on the first failed check."""
+    import torch
+    from repro_torch.dist import run_ranks
+    t_phase = time.perf_counter()
+    spec = ep_spec()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    go = Path(spec["go"])
+    files = (go, Path(f"{go}.failed"), Path(spec["train_digest"]),
+             Path(spec["serve_digest"]))
+    for f in files:
+        f.unlink(missing_ok=True)
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    card = dict(parent_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                parent_reserved_gb=torch.cuda.memory_reserved() / 1e9,
+                host_available_gb=host_available_gb())
+    if DEVICE == "cuda":
+        free, total = torch.cuda.mem_get_info()
+        card.update(free_gb=free / 1e9, total_gb=total / 1e9)
+    t_spawn = time.time()
+    t_ranks = time.perf_counter()
+    box: dict = {}
+
+    def start_ranks():
+        try:
+            box["ranks"] = run_ranks(ep_rank, EP_RANKS, str(build),
+                                     device=DEVICE, timeout_s=EP_TIMEOUT_S,
+                                     args=(spec,), model=EP_RANKS)
+        except BaseException as exc:        # re-raised below
+            box["error"] = exc
+
+    helper = threading.Thread(target=start_ranks, name="ep-ranks")
+    helper.start()
+    try:
+        try:
+            oracle = ep_oracle(spec)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            go.touch()                      # the ranks draw and run now
+        except BaseException:
+            Path(f"{go}.failed").touch()    # the waiting ranks stop
+            raise
+        finally:
+            helper.join()
+        if "error" in box:
+            raise box["error"]
+        eps = box["ranks"]
+        ranks_s = time.perf_counter() - t_ranks
+        dig = torch.load(spec["train_digest"], weights_only=False)
+        sd = torch.load(spec["serve_digest"], weights_only=False)
+    finally:
+        for f in files:
+            f.unlink(missing_ok=True)
+    log(f"(19) the one-card oracle (moe_manual_reference for a 'model' axis "
+        f"of {EP_RANKS}, beside the ranks' start): train "
+        f"{oracle['train_s']:.1f} s, losses {oracle['losses']}; serve "
+        f"{oracle['serve_s']:.1f} s")
+    ep = ep_checks(eps, spec, dig, sd)
+    ep.update(oracle=oracle, ranks_s=ranks_s, card_at_start=card,
+              start_s=[round(t["t_enter"] - t_spawn, 1) for t in eps],
+              wait_s=[round(t["wait_s"], 1) for t in eps],
+              seconds=time.perf_counter() - t_phase)
+    ep_log(ep)
+    return ep
+
+
+def ep_log(ep: dict) -> None:
+    tr, sv, tm = ep["train"], ep["serve"], ep["times"]
+    w0, split = ep["wire"][0], tm["train_split_s"]
+    log(f"phase 19 (a) phi3.5-moe x {EP_TRAIN_LAYERS} layer on a 'model' "
+        f"axis of {EP_RANKS}, the MoE through the manual path, "
+        f"{EP_TRAIN_BATCH} x {EP_TRAIN_SEQ} tokens: losses {tr['losses']} "
+        f"against the oracle's {tr['losses_oracle']} (tolerance "
+        f"{TP_LOSS_TOL} of it); routing changes by layer "
+        f"{tr['flips_by_layer']} (share {tr['flipped_share']:.5f}; worst "
+        f"margin {tr['worst_flip_margin']:.3e}, largest router-logit "
+        f"difference {tr['max_logit_diff']:.3e}); gradients' worst "
+        f"relative L2 {tr['grad_rel_l2']:.3e}, norm "
+        f"{tr['grad_norm_rel']:.3e} (bound {tr['grad_bound']:.3e}); updates "
+        f"{tr['update_over_bound']:.3f} of 2 lr (1 + 2^-7) + 2 ulps; the "
+        f"initial slices the oracle's bits; whole leaves bitwise on all "
+        f"{EP_RANKS} ranks after {1 + EP_MORE_STEPS} steps")
+    log(f"phase 19 (b) phi3.5-moe x {EP_SERVE_LAYERS} layers: prefill of "
+        f"{EP_BATCH} x {EP_PROMPT} through the manual path, {EP_DECODE} "
+        f"decode steps through the split einsum; rows with a routing change "
+        f"of their own {sv['rows_own_flip']} of {sv['rows']}; the others' "
+        f"worst max|diff| / max|row| {sv['worst_clean_row']:.3e}, median "
+        f"{sv['median_clean_row']:.3e} (bound {sv['row_bound']:.3e}); "
+        f"prefill routing changes by layer {sv['prefill_flips_by_layer']}")
+    ei = ep["einsum"]
+    log(f"phase 19 no-drop check: layer 0's MoE through the manual path on "
+        f"the {EP_RANKS} ranks ({ei['slots_a_peer']} slots a peer, capacity "
+        f"factor {EP_EINSUM_CF}) against the einsum route on one card: "
+        f"tokens routed otherwise {ei['rows_flipped']} of {ei['rows']} "
+        f"(router logits' largest difference {ei['max_logit_diff']:.3e}); "
+        f"the others' worst max|diff| / max|row| {ei['worst_row']:.3e}, "
+        f"median {ei['median_row']:.3e} (tolerance {ei['row_tol']:.3e}); "
+        f"aux {ei['aux']} against {ei['aux_einsum']} (relative "
+        f"{ei['aux_rel']:.3e}, bound {ei['aux_bound']:.3e})")
+    log(f"phase 19 kernels: {ep['checks']} launches held against their "
+        f"plain versions (worst max|diff| / max|plain| "
+        f"{ep['worst_err_over_max']}, tolerance {LM_TOL}); launches "
+        f"{ep['launches_ep']}")
+    log(f"phase 19 wire, rank 0 (= ep_wire_bytes on every rank): train step "
+        f"{w0['train']['bytes']} bytes in {w0['train']['calls']} calls, "
+        f"{w0['train']['exchange_bytes']} of them the exchanges; prefill "
+        f"{w0['prefill']['bytes']} ({w0['prefill']['exchange_bytes']}); "
+        f"decode step {w0['decode']['bytes']}")
+    log(f"phase 19 times: step ms "
+        f"{[[round(x, 1) for x in r] for r in tm['step_ms']]}; the "
+        f"exchanges' share of "
+        f"the synced step {[round(x, 3) for x in tm['step_exchange_share']]}"
+        f", the wire's {[round(x, 3) for x in tm['step_wire_share']]}; "
+        f"prefill ms {[round(x, 1) for x in tm['prefill_ms']]} (wire "
+        f"{[round(x, 1) for x in tm['prefill_wire_ms']]}, exchanges "
+        f"{[round(x, 1) for x in tm['prefill_exchange_ms']]}); decode ms a "
+        f"step {[round(x, 2) for x in tm['decode_ms']]}; init s (train, "
+        f"serve) {[(round(a, 1), round(b, 1)) for a, b in tm['init_s']]}; "
+        f"train s {[round(x, 1) for x in tm['train_s']]} (step 0, the "
+        f"samples, the replica checks: "
+        f"{[tuple(round(v, 1) for v in d.values()) for d in split]}"
+        f"), "
+        f"rank 0's train timeline (s) {tm['train_timeline']}; "
+        f"serve s {[round(x, 1) for x in tm['serve_s']]} (the checked "
+        f"prefill and decode steps "
+        f"{[round(x, 1) for x in tm['serve_checked_s']]}); peak GB a rank "
+        f"(train draw, train steps, serve with its draw) "
+        f"{[tuple(round(v, 2) for v in p.values()) for p in tm['peak_gb']]}"
+        f"; ranks started "
+        f"{ep['start_s']} s after the spawn and waited {ep['wait_s']} s for "
+        f"the oracle, {ep['ranks_s']:.1f} s in all; the card at the spawn "
+        f"{ {k: round(v, 2) for k, v in ep['card_at_start'].items()} }; "
+        f"phase {ep['seconds']:.1f} s")
 
 
 # --------------------------------------------------------------------------
@@ -6869,6 +7894,55 @@ def dg_wait_for(path, refs_file) -> float:
                                  f"over {DG_TIMEOUT_S} s")
         time.sleep(0.05)
     return time.perf_counter() - t0
+
+
+PP_STAGES = 4           # the pipeline's stages: phase 17's four ranks
+PP_WIDTH = 4096         # tanh(a @ w), w (4,096 x 4,096) fp32 a stage
+PP_MICRO = 8            # microbatches
+PP_BATCH = PP_MICRO * 64
+PP_ATOL = 1e-5          # against the one-card composition (outputs in
+#                         [-1, 1]): the reference test's own tolerance
+
+
+def pp_case(dev) -> dict:
+    """Phase 17's pipeline, in each of its four ranks: ``pipeline_apply``
+    over a ``('pipe',)`` mesh of the four, PP_STAGES stages of ``tanh(a @
+    w)`` at width PP_WIDTH (the fp32 stage stack drawn from a seed on
+    every rank), PP_MICRO microbatches, the launch counts zeroed just
+    before and read just after (the stages are plain products: no hand
+    kernel runs); held to the sequential composition on the same card
+    within PP_ATOL, the drained outputs bitwise equal on every rank."""
+    import torch
+    from repro_torch import dist as tdist
+    from repro_torch.kernels import ops as kops
+    pipe = tdist.make_pipe_mesh(device=DEVICE)
+    g = torch.Generator(device=dev).manual_seed(20)
+    w = torch.randn((PP_STAGES, PP_WIDTH, PP_WIDTH), generator=g,
+                    device=dev) / PP_WIDTH ** 0.5
+    x = torch.randn((PP_BATCH, PP_WIDTH), generator=g, device=dev)
+
+    def stage(wi, a):
+        return torch.tanh(a @ wi)
+
+    with torch.no_grad():
+        torch.cuda.synchronize(dev)
+        kops.reset_kernel_launches()
+        tdist.reset_wire_stats()
+        t0 = time.perf_counter()
+        y = tdist.pipeline_apply(stage, pipe, w, x, microbatches=PP_MICRO)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in kops.kernel_launches().items() if v}
+        wire = tdist.wire_stats()
+        ref = x
+        for i in range(PP_STAGES):
+            ref = stage(w[i], ref)
+        err = float((y - ref).abs().max())
+        same = tdist.replicas_equal({"y": y}, pipe, "pipe")
+    return dict(max_abs_err=err, ms=ms, launches=launches, wire=wire,
+                replicated=same, on_card=y.device == dev,
+                shape=f"{PP_STAGES} stages x ({PP_BATCH}, {PP_WIDTH}) fp32, "
+                      f"{PP_MICRO} microbatches")
 
 
 def dg_rank(mesh, spec, graphs_file, refs_file) -> dict:
@@ -7100,7 +8174,8 @@ def dg_rank(mesh, spec, graphs_file, refs_file) -> dict:
                                    dg_matrix("g", tile.op.nrows, k).to(dev),
                                    np.random.default_rng(r))
     torch.cuda.synchronize(dev)
-    return dict(
+    pp = pp_case(dev)
+    return dict(pp=pp,
         rank=r, tile=p, coords=(grid.index("row"), grid.index("col")),
         backend=mesh.backend, device=str(dev), t_enter=t_enter,
         load_s=load_s, wait_s=wait_s, build_s=build_s, build_ell_s=build_ell_s,
@@ -7293,6 +8368,18 @@ def dg_phase(ds) -> dict:
         if missing:
             failed.append(f"rank {r} launched no {missing}: "
                           f"{got['launches']}")
+    pp_hops = PP_STAGES + PP_MICRO - 1
+    for r, got in enumerate(ranks):
+        pp = got["pp"]
+        if not (pp["max_abs_err"] <= PP_ATOL and pp["replicated"]
+                and pp["on_card"] and not pp["launches"]
+                and pp["wire"]["ppermute"]["calls"] == pp_hops):
+            failed.append(f"rank {r}: the pipeline {pp['max_abs_err']:.3e} "
+                          f"off the one-card composition (atol {PP_ATOL}), "
+                          f"replicated {pp['replicated']}, launches "
+                          f"{pp['launches']}, hops "
+                          f"{pp['wire']['ppermute']['calls']} (want "
+                          f"{pp_hops})")
     launches_dist = {kk: sum(g["launches"][kk] for g in ranks)
                      for kk in ranks[0]["launches"]}
     worst = {}
@@ -7347,6 +8434,14 @@ def dg_phase(ds) -> dict:
         f"{[round(g['peak_main_gb'], 2) for g in ranks]}, with the checks "
         f"{[round(g['peak_gb'], 2) for g in ranks]}; ELL tile "
         f"{g0['ell_tile']}, SELL tile {g0['sell_tile']}, band {g0['band']}")
+    pps = [g["pp"] for g in ranks]
+    log(f"(17) the pipeline ({pps[0]['shape']}) on the four ranks: max "
+        f"|diff| to the one-card composition "
+        f"{[float('%.3g' % p['max_abs_err']) for p in pps]} (atol "
+        f"{PP_ATOL}), the outputs bitwise on every rank, {pp_hops} "
+        f"host-staged hops a rank ({pps[0]['wire']['ppermute']['bytes']} "
+        f"bytes); ms a rank {[round(p['ms'], 1) for p in pps]}; hand "
+        f"kernels launched: none (plain products)")
     log(f"distributed GNN phase: {seconds:.1f} s (one-card results "
         f"{refs_s:.1f} s and files {write_s:.1f} s, beside the ranks' start "
         f"and builds; ranks {ranks_s:.1f} s from the spawn: {split})")
@@ -7365,7 +8460,8 @@ def dg_phase(ds) -> dict:
                 ell_tile=g0["ell_tile"], sell_tile=g0["sell_tile"],
                 band=g0["band"], sell_routes=g0["sell_routes"],
                 refs_s=refs_s, write_s=write_s, ranks_s=ranks_s,
-                split_s=split, seconds=seconds)
+                split_s=split, seconds=seconds,
+                pipeline=[{k: v for k, v in p.items()} for p in pps])
 
 
 def d80_keys(case: dict) -> dict:
@@ -7383,6 +8479,27 @@ def meta_keys(case: dict) -> dict:
     keys = ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "err_over_max", "row_err_over_row_max")
     return {f"meta_{k}": case.get(k) for k in keys}
+
+
+def proteins_host() -> dict:
+    """Phase 7's first host work, which needs no card: the ogbn-proteins
+    dataset at PROTEINS_SCALE and its Â with the analytic tuner's
+    statistics and pick. ``main`` runs it in a thread beside phase 11
+    (it emits no span phase 11 reads: the analytic tuner's sweep instants
+    only; the bundle, whose build emits ``tuning.plan``, is built in
+    phase 7)."""
+    from repro_torch.core import sparse as sp
+    from repro_torch.core.autotune import autotune, graph_stats
+    from repro_torch.data import make_dataset
+    t0 = time.perf_counter()
+    pds = make_dataset("ogbn-proteins", scale=PROTEINS_SCALE)
+    split = {"dataset": time.perf_counter() - t0}
+    a_norm = sp.gcn_normalize(pds.coo)
+    stats = graph_stats(a_norm)
+    would = autotune(a_norm, HIDDEN, stats=stats)
+    split["normalize_tune"] = time.perf_counter() - t0 - sum(split.values())
+    return dict(pds=pds, a_norm=a_norm, stats=stats, would=would,
+                split=split)
 
 
 def main() -> int:
@@ -7721,6 +8838,18 @@ def main() -> int:
     report["fault_tolerance"] = fault
 
     # -- phase 11 (a, b, d, e): measured tuning on reddit ------------------
+    # phase 7's host work runs beside it (it needs no card)
+    prep: dict = {}
+
+    def prepare_proteins():
+        try:
+            prep.update(proteins_host())
+        except BaseException as exc:        # re-raised in phase 7
+            prep["error"] = exc
+
+    prep_thread = threading.Thread(target=prepare_proteins,
+                                   name="proteins-host")
+    prep_thread.start()
     log("phase 11: measured tuning (CUDA events over the hand kernels; "
         "estimates from the H100 model)")
     tuning = tuning_phase(ds, gen)
@@ -7729,20 +8858,24 @@ def main() -> int:
 
     # -- phase 7: full-graph training on ogbn-proteins, BSR pinned -----------
     t0 = time.perf_counter()
-    pds = make_dataset("ogbn-proteins", scale=PROTEINS_SCALE)
+    prep_thread.join()
+    if "error" in prep:
+        raise prep["error"]
+    pds, a_norm, stats, would = (prep.pop(k) for k in ("pds", "a_norm",
+                                                      "stats", "would"))
+    split = prep.pop("split")
+    split["waited"] = time.perf_counter() - t0
+    from repro_torch.kernels.bsr_spmm import K_TILE
+    bsr_plan = KernelPlan(kind="bsr", br=128, bc=128, fk=K_TILE,
+                          k_hint=HIDDEN)
     cut = (f"ogbn-proteins at scale 1/{round(1 / PROTEINS_SCALE)} "
            f"({pds.num_nodes} nodes, {pds.coo.nse} edges): the GCN "
            f"bundle's two 128x128 BSR operands (Â, Â^T) must fit the "
            f"card's memory, ~51 GB each at scale 1")
     log(f"cut: {cut}")
-    from repro_torch.kernels.bsr_spmm import K_TILE
-    bsr_plan = KernelPlan(kind="bsr", br=128, bc=128, fk=K_TILE,
-                          k_hint=HIDDEN)
-    a_norm = sp.gcn_normalize(pds.coo)
-    stats = graph_stats(a_norm)
-    would = autotune(a_norm, HIDDEN, stats=stats)
     # phase 11 (c): the measured pass on Â, before the pinned bundle
     tuning["proteins"] = proteins_tuning(a_norm, stats, tuning)
+    split["measured_pass"] = time.perf_counter() - t0 - split["waited"]
     del a_norm
     est_would = estimate_plan_time(stats, HIDDEN, would, H100)
     est_bsr = estimate_plan_time(stats, HIDDEN, bsr_plan, H100)
@@ -7751,14 +8884,19 @@ def main() -> int:
         f"K={HIDDEN}, estimated {est_would * 1e3:.3f} ms, against "
         f"{est_bsr * 1e3:.3f} ms for the pinned bsr 128x128 (split TF32 "
         f"at {H100.bsr_flops / 1e12:.0f} TFLOP/s)")
-    bundle = build_bundle(pds, k_hint=HIDDEN, plan=bsr_plan,
-                          arch="gcn").to(DEVICE)
+    t1 = time.perf_counter()
+    bundle = build_bundle(pds, k_hint=HIDDEN, plan=bsr_plan, arch="gcn")
+    split["build"] = time.perf_counter() - t1
+    bundle = bundle.to(DEVICE)
+    torch.cuda.synchronize()
+    split["move"] = time.perf_counter() - t1 - split["build"]
     g = bundle.tuned_norm
     log(f"proteins: {pds.num_nodes} nodes, {pds.coo.nse} edges, "
         f"{pds.num_features} features, {pds.num_classes} classes; Â has "
         f"{g.bsr.nblocks} tiles of 128x128 ({g.bsr.density:.4f} of all, "
         f"{g.bsr.blocks.numel() * 4 / 1e9:.2f} GB), built and moved in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s, the dataset and Â made beside "
+        f"phase 11 ({ {k: round(v, 1) for k, v in split.items()} })")
     torch.cuda.reset_peak_memory_stats()
     proteins = train_phase("proteins", pds, "gcn", bundle, "bsr_spmm")
     proteins["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -7840,6 +8978,12 @@ def main() -> int:
     dg = dg_phase(ds)
     report["dist_gnn"] = dg
     del ds
+    torch.cuda.empty_cache()
+
+    # -- phase 19: the manual expert-parallel MoE, sixteen model ranks ------
+    ep = ep_phase()
+    report["expert_parallel"] = ep
+    torch.cuda.empty_cache()
 
     # -- phase 5: the kernels line ------------------------------------------
     kernels = []
@@ -8157,6 +9301,21 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        kc["max_abs_err"])
             entry["dist_shape"] = kc["shape"]
+    for entry in kernels:       # phase 19: the sixteen model ranks' launches
+        n = ep["launches_ep"].get(entry["name"], 0)
+        entry["launches_ep"] = n
+        entry["launches"] += n
+        if entry["name"] in ep["worst_err_over_max"]:
+            entry["err_over_max_plain"] = max(
+                entry.get("err_over_max_plain", 0.0),
+                ep["worst_err_over_max"][entry["name"]])
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       ep["worst_abs_err"][entry["name"]])
+        # phase 17's pipeline: plain products, no hand kernel (counted all
+        # the same, zeroed just before it and read just after)
+        n = sum(p["launches"].get(entry["name"], 0) for p in dg["pipeline"])
+        entry["launches_pp"] = n
+        entry["launches"] += n
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['seconds']:.1f} s in all, the build included "

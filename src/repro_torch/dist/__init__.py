@@ -24,20 +24,26 @@ queue 1, item 5a) and the distributed GNN half of item 5b:
   halo'd ``distributed_spmm``;
 * :mod:`~repro_torch.dist.gnn2d` — the 2-D vertex-cut grid:
   ``distributed_spmm_2d``, ``distributed_sddmm_2d``,
-  ``distributed_fusedmm_2d``.
+  ``distributed_fusedmm_2d``;
+* :mod:`~repro_torch.dist.pipeline` — ``pipeline_apply``, GPipe's
+  forward schedule over a ``('pipe',)`` mesh (:func:`make_pipe_mesh`);
+* the manual expert-parallel MoE's ``all_to_all`` over a subgroup of an
+  axis (``Mesh.axis_group``) and the sequence's Megatron pair
+  ``split_to_axis`` / ``gather_from_axis``.
 
-The rest of item 5b waits: the manual expert-parallel MoE (5b.2), the
-pipeline (5b.3), sharded restore and data-parallel resume (5b.4).
+Item 5b's sharded restore and data-parallel resume (5b.4) wait.
 """
 from repro_torch.dist.collectives import (GLOO_STAGED, all_agree, all_gather,
-                                          axis_size, axis_sum,
+                                          all_to_all, axis_size, axis_sum,
                                           compressed_psum,
                                           compressed_psum_scatter,
-                                          copy_to_axis, gather_dim, pmax,
-                                          pmean, psum, psum_scatter,
+                                          copy_to_axis, gather_dim,
+                                          gather_from_axis, pmax, pmean,
+                                          psum, psum_scatter,
                                           reduce_from_axis, replicas_equal,
                                           reset_wire_stats,
-                                          ring_allgather_matmul, sync_grads,
+                                          ring_allgather_matmul,
+                                          split_to_axis, sync_grads,
                                           wire_bytes, wire_stats)
 from repro_torch.dist.gnn import (Band, Bands, DistGraph, build_band,
                                   build_dist_graph, comm_volume,
@@ -52,13 +58,15 @@ from repro_torch.dist.mesh import (Mesh, axis_shard_count, choose_backend,
                                    current_mesh, grid_shape, init_ranks,
                                    leading_axis_sharding, make_data_mesh,
                                    make_grid_mesh, make_local_mesh,
-                                   make_production_mesh, replicated_device_put,
+                                   make_pipe_mesh, make_production_mesh, replicated_device_put,
                                    replicated_sharding, run_ranks)
-from repro_torch.dist.partition import (LM_RULES, batch_shardings,
+from repro_torch.dist.partition import (LM_RULES, WHOLE_ATTENTION_RULES,
+                                        batch_shardings,
                                         cache_shardings, gather_params,
                                         graph2d_shardings, param_logical_axes,
                                         param_shardings, shard_params,
                                         state_shardings)
+from repro_torch.dist.pipeline import pipeline_apply
 from repro_torch.dist.sharding import (Rules, Sharding, current_rules,
                                        grid_axes, logical_sharding,
                                        resolve_spec, shard_constraint,
@@ -66,15 +74,16 @@ from repro_torch.dist.sharding import (Rules, Sharding, current_rules,
 
 __all__ = [
     "Mesh", "axis_shard_count", "choose_backend", "make_data_mesh",
-    "make_local_mesh", "make_grid_mesh", "make_production_mesh",
+    "make_local_mesh", "make_grid_mesh", "make_pipe_mesh",
+    "make_production_mesh", "pipeline_apply",
     "grid_shape", "grid_axes", "init_ranks", "run_ranks", "current_mesh",
     "replicated_sharding", "leading_axis_sharding", "replicated_device_put",
     "Rules", "use_rules", "current_rules", "resolve_spec",
     "logical_sharding", "Sharding", "split_axes", "shard_constraint",
-    "LM_RULES", "param_logical_axes", "param_shardings", "state_shardings",
+    "LM_RULES", "WHOLE_ATTENTION_RULES", "param_logical_axes", "param_shardings", "state_shardings",
     "batch_shardings", "cache_shardings", "graph2d_shardings",
     "shard_params", "gather_params", "copy_to_axis", "reduce_from_axis",
-    "gather_dim",
+    "gather_dim", "split_to_axis", "gather_from_axis", "all_to_all",
     "axis_size", "all_agree", "psum", "pmean", "compressed_psum",
     "sync_grads", "wire_bytes", "replicas_equal",
     "all_gather", "psum_scatter", "pmax", "axis_sum",

@@ -31,7 +31,16 @@ backward: at the output of a product whose rows are split). Unlike
 :func:`axis_sum`, whose backward sums the ranks' gradients (right where
 each rank's downstream differs, as in the 2-D GNN path), the reduced
 output of a tensor-parallel product feeds the same replicated
-computation on every rank, so its gradient is already whole there. The backend only moves data: a
+computation on every rank, so its gradient is already whole there; the
+same pair for a dimension (the sequence) split over an axis:
+:func:`split_to_axis` (this rank's block forward, the blocks' gradients
+gathered backward) and :func:`gather_from_axis` (the blocks gathered
+forward, this rank's block of the gradient kept backward, without a
+sum: every rank computes the same replicated downstream, so each already
+holds the whole gradient). :func:`all_to_all` is the manual
+expert-parallel MoE's exchange (``jax.lax.all_to_all`` with
+``axis_index_groups``), its backward the same exchange of the
+gradients. The backend only moves data: a
 reduce-scatter is an ``all_to_all_single`` and a sum of the received
 pieces in rank order, a sum or max an ``all_gather_into_tensor`` and
 the reduction of the gathered rows, so the arithmetic runs on the
@@ -67,7 +76,7 @@ __all__ = ["axis_size", "all_agree", "psum", "pmean", "compressed_psum",
            "psum_scatter", "pmax", "axis_sum", "compressed_psum_scatter",
            "ring_allgather_matmul", "GLOO_STAGED", "wire_stats",
            "reset_wire_stats", "copy_to_axis", "reduce_from_axis",
-           "gather_dim"]
+           "gather_dim", "split_to_axis", "gather_from_axis", "all_to_all"]
 
 
 def axis_size(mesh, axis: str = "data") -> int:
@@ -203,7 +212,8 @@ def reset_wire_stats(timing: bool = False) -> None:
 def wire_stats() -> dict:
     """``{op: {"calls", "bytes", "staged_bytes", "ms"}}`` since the last
     :func:`reset_wire_stats`, ops named as the reference's collectives
-    (``all_gather``, ``psum_scatter``, ``pmax``, ``psum``, ``ppermute``)."""
+    (``all_gather``, ``psum_scatter``, ``pmax``, ``psum``, ``ppermute``,
+    ``all_to_all``)."""
     return {k: dict(v) for k, v in _STATS.items()}
 
 
@@ -407,6 +417,102 @@ def gather_dim(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return g.reshape((-1,) + tuple(moved.shape[1:])).movedim(0, dim)
 
 
+def _block(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    n = axis_size(mesh, axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over the {n} ranks of {axis!r}")
+    step = x.shape[dim] // n
+    return x.narrow(dim, mesh.index(axis) * step, step).contiguous()
+
+
+class _SplitToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _block(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, *ctx.args), None, None, None
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return gather_dim(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, *ctx.args), None, None, None
+
+
+def split_to_axis(x: torch.Tensor, mesh, axis: str, dim: int
+                  ) -> torch.Tensor:
+    """This rank's block of dim ``dim`` of a tensor every rank of ``axis``
+    holds whole (block ``i`` of ``n`` on the axis's ``i``-th rank).
+    Backward, the ranks' block gradients gathered along ``dim``
+    (:func:`gather_dim`): each block's gradient comes from its rank
+    alone, so the gathered gradient is the whole one, on every rank."""
+    if mesh.group(axis) is None:
+        return x
+    return _SplitToAxis.apply(x, mesh, axis, dim)
+
+
+def gather_from_axis(x: torch.Tensor, mesh, axis: str, dim: int
+                     ) -> torch.Tensor:
+    """Every rank's ``x`` of ``axis`` joined along ``dim``, in axis order
+    (:func:`gather_dim`, differentiable). Backward, this rank's block of
+    the gradient, without a sum: the gathered tensor feeds the same
+    replicated computation on every rank, so every rank already holds
+    the whole gradient (a sum would scale it by the axis size)."""
+    if mesh.group(axis) is None:
+        return x
+    return _GatherFromAxis.apply(x, mesh, axis, dim)
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    with _Wire("all_to_all", x) as w:
+        w.bytes = _nbytes(out)
+        dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, groups=None
+               ) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, 0, 0, axis_index_groups=groups)``:
+    dim 0 cut into ``n`` equal blocks, ``n`` the size of this rank's group
+    (the whole axis, or its part of ``groups``, the reference's lists of
+    axis indices; :meth:`~repro_torch.dist.mesh.Mesh.axis_group`); block
+    ``i`` goes to the group's ``i``-th rank, and block ``i`` of the
+    result came from it. One ``all_to_all_single``, which gloo carries on
+    card tensors. Differentiable: with equal blocks the exchange is its
+    own transpose, so the backward is the same exchange of the
+    gradients."""
+    group = mesh.axis_group(axis, groups)
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: {x.shape[0]} blocks over a group "
+                         f"of {n}")
+    return _AllToAll.apply(x, group)
+
+
 def compressed_psum_scatter(x: torch.Tensor, mesh, axis: str, *,
                             mean: bool = False) -> torch.Tensor:
     """The int8 reduce-scatter: :func:`psum_scatter` with
@@ -426,14 +532,16 @@ def compressed_psum_scatter(x: torch.Tensor, mesh, axis: str, *,
     return out.to(x.dtype)
 
 
-def _ppermute(h: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Send ``h`` to the axis's previous rank and return the next rank's
-    (one ring hop); staged through host buffers where gloo would carry
-    card tensors."""
+def _ppermute(h: torch.Tensor, mesh, axis: str, shift: int = -1
+              ) -> torch.Tensor:
+    """Send ``h`` to the rank ``shift`` places along the axis's ring and
+    return what the rank ``shift`` places back sent (one ring hop; by
+    default to the previous rank, from the next); staged through host
+    buffers where gloo would carry card tensors."""
     group, n, me = mesh.group(axis), axis_size(mesh, axis), \
         mesh.index(axis)
-    to = dist.get_global_rank(group, (me - 1) % n)
-    frm = dist.get_global_rank(group, (me + 1) % n)
+    to = dist.get_global_rank(group, (me + shift) % n)
+    frm = dist.get_global_rank(group, (me - shift) % n)
     staged = h.device.type == "cuda" and mesh.backend == "gloo" and \
         "send_recv" in GLOO_STAGED
     h = h.contiguous()

@@ -5,16 +5,20 @@ The reference runs every rank in one process, with ``shard_map`` over a
 JAX mesh. The port runs one process a rank: a :class:`Mesh` is this
 rank's view of the mesh, its named axes with their sizes, the rank's
 coordinate on each, its device, and the process group each axis
-reduces over. Three meshes: the ``('data', 'model')`` mesh of data,
+reduces over. Four meshes: the ``('data', 'model')`` mesh of data,
 tensor and expert parallelism (ranks row-major, as the reference's
 ``jax.make_mesh((data, model))`` lays out devices: rank = data index x
 model + model index; a process group for each ``'data'`` column and
 each ``'model'`` row), the ``('row', 'col')`` grid of the 2-D
 vertex-cut GNN path (:func:`make_grid_mesh`, the most square
-factorisation of the ranks), and the shape-only production meshes
+factorisation of the ranks), the 1-D ``('pipe',)`` mesh of the GPipe
+schedule (:func:`make_pipe_mesh`), and the shape-only production meshes
 (:func:`make_production_mesh`: 16 x 16 or 2 x 16 x 16, no ranks, device
 ``meta``), which the sharding rules and the ``*_shardings`` builders
-read; a collective on one raises.
+read; a collective on one raises. :meth:`Mesh.axis_group` gives the
+process group of a subgroup of an axis (the reference's
+``axis_index_groups``: the manual expert-parallel MoE's groups of ``E``
+consecutive model ranks).
 
 ``with mesh:`` makes a mesh the active one (:func:`current_mesh`), as
 the reference's ``with mesh:`` does: the LM layers read it, with the
@@ -52,7 +56,8 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "axis_shard_count", "choose_backend", "make_local_mesh",
            "make_data_mesh", "make_grid_mesh", "make_production_mesh",
-           "grid_shape", "init_ranks", "run_ranks", "current_mesh",
+           "make_pipe_mesh", "grid_shape", "init_ranks", "run_ranks",
+           "current_mesh",
            "replicated_sharding", "leading_axis_sharding",
            "replicated_device_put"]
 
@@ -75,6 +80,7 @@ class Mesh:
     backend: Optional[str]
     groups: dict
     abstract: bool = False     # shape only (make_production_mesh)
+    subgroups: dict = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
@@ -92,6 +98,58 @@ class Mesh:
             raise RuntimeError(f"mesh {self.shape} is shape-only (no "
                                f"ranks): no collective runs over {axis!r}")
         return self.groups.get(axis)
+
+    def rank_of(self, coords: dict) -> int:
+        """The global rank at ``coords`` (every axis, row-major in the
+        order of ``shape``: the layout of every mesh here)."""
+        r = 0
+        for a, n in self.shape.items():
+            r = r * int(n) + int(coords[a])
+        return r
+
+    def axis_group(self, axis: str, groups=None):
+        """The process group of this rank's part of ``axis`` when the axis
+        is cut into ``groups`` (the reference's ``axis_index_groups``: a
+        list of equal, increasing lists of axis indices that cover the
+        axis), or the axis's own group when ``groups`` is None or one
+        group of the whole axis in order.
+
+        The groups are made on the first call for a given cut, every
+        group of every line of the axis (each setting of the other axes,
+        in rank order) in one order, so every rank of the mesh makes that
+        call together (the layer that first needs them runs on every rank
+        at once); later calls return the cached group."""
+        n = int(self.shape[axis])
+        if groups is None:
+            return self.group(axis)
+        key = (axis, tuple(tuple(int(i) for i in g) for g in groups))
+        flat = sorted(i for g in key[1] for i in g)
+        size = len(key[1][0])
+        if flat != list(range(n)) or any(
+                len(g) != size or list(g) != sorted(g) for g in key[1]):
+            raise ValueError(f"axis_index_groups {groups} do not cut the "
+                             f"{n} indices of {axis!r} into equal, "
+                             "increasing groups")
+        if key[1] == (tuple(range(n)),):
+            return self.group(axis)
+        if self.abstract:
+            self.group(axis)                       # raises
+        if key not in self.subgroups:
+            others = [a for a in self.shape if a != axis]
+            mine, here = None, self.index(axis)
+            lines = [{}]
+            for a in others:
+                lines = [dict(c, **{a: i}) for c in lines
+                         for i in range(int(self.shape[a]))]
+            for line in lines:
+                for g in key[1]:
+                    pg = dist.new_group([self.rank_of(dict(line, **{axis: i}))
+                                         for i in g])
+                    if here in g and all(self.index(a) == line[a]
+                                         for a in others):
+                        mine = pg
+            self.subgroups[key] = mine
+        return self.subgroups[key]
 
     def __enter__(self) -> "Mesh":
         _ACTIVE.append(self)
@@ -288,6 +346,17 @@ def make_grid_mesh(devices: int | None = None, *,
                 device=_rank_device(device, rank),
                 backend=dist.get_backend() if dist.is_initialized() else None,
                 groups=groups)
+
+
+def make_pipe_mesh(*, device: str = "cuda") -> Mesh:
+    """The 1-D ``('pipe',)`` mesh of ``dist.pipeline.pipeline_apply`` over
+    every rank, rank ``i`` stage ``i``. Call it on every rank."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return Mesh(shape={"pipe": n}, coords={"pipe": rank},
+                device=_rank_device(device, rank),
+                backend=dist.get_backend() if dist.is_initialized() else None,
+                groups={"pipe": dist.group.WORLD if n > 1 else None})
 
 
 def init_ranks(rank: int, world_size: int, *, store_dir: str | None = None,

@@ -7,7 +7,13 @@ meshes (``'pod'`` x ``'data'`` x ``'model'``): ``batch`` over ``('pod',
 'data')``; ``d_ff``, ``d_inner``, ``vocab``, ``qkv``, ``heads``,
 ``kv_heads`` and ``experts`` over ``'model'``; ``seq`` and ``d_model``
 whole (``override(seq="model")`` is the reference's sequence-parallel
-rule set, which the port's layers refuse).
+rule set, which the port's layers refuse). :data:`WHOLE_ATTENTION_RULES`
+keeps the attention whole on every rank (``qkv``, ``heads`` and
+``kv_heads`` unsplit; the experts and the vocabulary still split): the
+rule set of a ``'model'`` axis wider than the KV heads, which the
+default rules would cut (``transformer._head_split`` raises there).
+The builders take the active rules (``dist.sharding.use_rules``) unless
+given others, as the layers do.
 
 The builders map nested dicts (params, a ``TrainState``'s params and
 moments, batches, decode caches) to matching trees of
@@ -26,12 +32,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import Rules, Sharding, grid_axes, \
-    resolve_spec
+from repro_torch.dist.sharding import Rules, Sharding, current_rules, \
+    grid_axes, resolve_spec
 
-__all__ = ["LM_RULES", "param_logical_axes", "param_shardings",
-           "state_shardings", "batch_shardings", "cache_shardings",
-           "graph2d_shardings", "shard_params", "gather_params"]
+__all__ = ["LM_RULES", "WHOLE_ATTENTION_RULES", "param_logical_axes",
+           "param_shardings", "state_shardings", "batch_shardings",
+           "cache_shardings", "graph2d_shardings", "shard_params",
+           "gather_params"]
 
 
 LM_RULES = Rules({
@@ -48,6 +55,8 @@ LM_RULES = Rules({
     "expert_capacity": (),
     "d_state": (),
 })
+
+WHOLE_ATTENTION_RULES = LM_RULES.override(qkv=(), heads=(), kv_heads=())
 
 
 # Trailing-dim logical axes per parameter leaf name
@@ -111,7 +120,7 @@ def _map_with_path(fn, tree, path=()):
 
 def param_shardings(mesh, params, rules: Optional[Rules] = None):
     """Params tree -> matching tree of :class:`Sharding`."""
-    rules = rules or LM_RULES
+    rules = rules or current_rules()
     return _map_with_path(
         lambda p, l: _sharding(mesh, param_logical_axes(p, l), l, rules),
         params)
@@ -127,7 +136,7 @@ def batch_shardings(mesh, batch: dict, rules: Optional[Rules] = None
                     ) -> dict:
     """Batch dict -> {key: Sharding}: dim 0 the global batch, dim 1 the
     sequence, further dims whole."""
-    rules = rules or LM_RULES
+    rules = rules or current_rules()
     return {k: _sharding(mesh, ("batch", "seq"), v, rules)
             for k, v in batch.items()}
 
@@ -147,7 +156,7 @@ _CACHE_AXES: dict = {
 def cache_shardings(mesh, cache: dict, rules: Optional[Rules] = None
                     ) -> dict:
     """Decode-cache dict -> {key: Sharding}."""
-    rules = rules or LM_RULES
+    rules = rules or current_rules()
     return {k: _sharding(mesh, _CACHE_AXES.get(k, ()), v, rules)
             for k, v in cache.items()}
 

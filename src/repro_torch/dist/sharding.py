@@ -31,7 +31,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-import threading
 from typing import Mapping, Optional, Sequence
 
 import torch
@@ -70,18 +69,18 @@ class Rules:
         return Rules(table={**self.table, **kw})
 
 
-class _RulesStack(threading.local):
-    def __init__(self):
-        self.stack: list = []
-
-
-_ACTIVE = _RulesStack()
+# the rule sets entered with ``use_rules``: process-wide, as the active
+# mesh is (``dist.mesh.current_mesh``), because the autograd engine runs a
+# card tensor's backward on a thread of its own, and a layer recomputed
+# there (``torch.utils.checkpoint``) must split its products as the
+# forward did
+_ACTIVE: list = []
 
 
 def current_rules() -> Rules:
     """The innermost :func:`use_rules` rule set, by default ``LM_RULES``."""
-    if _ACTIVE.stack:
-        return _ACTIVE.stack[-1]
+    if _ACTIVE:
+        return _ACTIVE[-1]
     from repro_torch.dist.partition import LM_RULES   # lazy: import cycle
     return LM_RULES
 
@@ -89,11 +88,11 @@ def current_rules() -> Rules:
 @contextlib.contextmanager
 def use_rules(rules: Rules):
     """Make ``rules`` the active rule set inside the block."""
-    _ACTIVE.stack.append(rules)
+    _ACTIVE.append(rules)
     try:
         yield rules
     finally:
-        _ACTIVE.stack.pop()
+        _ACTIVE.pop()
 
 
 def resolve_spec(logical_axes: Sequence[Optional[str]], mesh,

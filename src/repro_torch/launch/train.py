@@ -44,13 +44,20 @@ default) trains over D x M ranks with the sharding rules
 (``train.lm.make_train_step(mesh=)``): each rank holds its slices of
 the params and moments (tensor and expert parallelism over ``'model'``)
 and takes its ``'data'`` block of the global batch; the gradients are
-synced over ``'data'``. Rank 0 checkpoints, the split leaves gathered
+synced over ``'data'`` (and with ``--grad-compression int8`` the
+error feedback runs on each rank's slices, a split leaf onto its whole
+leaf's scale). Where ``--mesh-model`` equals the MoE config's
+``n_experts · n_expert_replicas`` and ``--seq`` divides by it, the MoE
+layers take the manual expert-parallel path (an all-to-all over the
+expert-parallel groups). Where the default rules would cut a head (a
+``'model'`` axis wider than the KV heads), the attention is kept whole
+on every model rank (``dist.partition.WHOLE_ATTENTION_RULES``; the
+header says so). Rank 0 checkpoints, the split leaves gathered
 over ``'model'`` first, so the files are in the one-rank format; a
 restart restores them and every rank takes its slices again.
 
 What is not ported exits 2 before anything is built, naming its ROADMAP
-item: ``--resume`` over several ranks (queue 1, item 5b.4),
-``--grad-compression int8`` with ``--mesh-model`` > 1 (item 5b.5), and
+item: ``--resume`` over several ranks (queue 1, item 5b.4), and
 ``--grad-sync shardmap`` with ``--mesh-model`` > 1 (the explicit
 data-parallel step replicates the params over the whole mesh, as the
 reference's does: use ``--grad-sync gspmd``).
@@ -175,16 +182,29 @@ def run_lm_ranks(args) -> int:
 
 
 def run_lm(args, mesh=None) -> int:
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.lm.transformer import heads_split_cleanly
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if mesh is not None and args.grad_sync == "gspmd":
+        with mesh:
+            whole = not heads_split_cleanly(cfg)
+        if whole:
+            from repro_torch.dist import WHOLE_ATTENTION_RULES, use_rules
+            with use_rules(WHOLE_ATTENTION_RULES):
+                return _run_lm(args, cfg, mesh, whole_attention=True)
+    return _run_lm(args, cfg, mesh)
+
+
+def _run_lm(args, cfg, mesh=None, whole_attention=False) -> int:
     import torch
     from repro_torch.ckpt import Checkpointer, latest_step
-    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import token_stream
     from repro_torch.dist import make_data_mesh, replicas_equal
+    from repro_torch.models.lm.moe import _manual_ok
     from repro_torch.train import lm as TL
     from repro_torch.train.fault_tolerance import (ResilientLoop,
                                                    StragglerWatchdog)
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     compression = args.grad_compression != "none"
     sharded = False                     # the ranks hold slices of the state
     if args.grad_sync == "shardmap":
@@ -201,6 +221,10 @@ def run_lm(args, mesh=None) -> int:
         device = torch.device(args.device)
         step_fn, opt = TL.make_train_step(cfg, lr=args.lr, accum=args.accum,
                                           compression=compression)
+    manual = False
+    if sharded:
+        with mesh:
+            manual = _manual_ok(cfg, args.seq, mesh)
     lead = mesh is None or (mesh.index("data") == 0
                             and mesh.index("model") == 0)
     say = print if lead else (lambda *a, **kw: None)
@@ -208,6 +232,9 @@ def run_lm(args, mesh=None) -> int:
         f", mesh {mesh.shape} ({mesh.backend or 'one rank'}), grad sync "
         f"{'int8' if compression else 'fp32'}"
         + (" (the sharding rules)" if sharded else "")
+        + (", the attention whole (the default rules would cut its heads)"
+           if whole_attention else "")
+        + (", MoE: manual expert parallelism" if manual else "")
         if mesh is not None else ""), flush=True)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = TL.make_train_state(cfg, gen, opt, compression=compression,
@@ -331,9 +358,6 @@ def main(argv=None) -> int:
     if ranks > 1 and args.resume:
         refused.append(f"--resume over several ranks (sharded restore and "
                        f"data-parallel resume, {_ITEM_5B}.4)")
-    if args.mesh_model > 1 and args.grad_compression != "none":
-        refused.append(f"--grad-compression with --mesh-model > 1 (int8 "
-                       f"error feedback over a 'model' axis, {_ITEM_5B}.5)")
     if args.mesh_model > 1 and args.grad_sync == "shardmap":
         refused.append("--grad-sync shardmap with --mesh-model > 1 (the "
                        "explicit data-parallel step replicates the params; "

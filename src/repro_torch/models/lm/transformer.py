@@ -66,9 +66,17 @@ over the vocab's axes, the target's logit from the rank that holds it;
 a chunk's whole (B, c, V) never exists); ``prefill`` and
 ``decode_step`` return the whole logits on every rank; the MLP and the
 MoE layer (``layers.glu_mlp``, ``moe.moe_layer``) split ``d_ff`` or the
-experts. A rule set that splits ``seq`` or ``d_model``, and the ssm and
-hybrid families with a ``'model'`` axis, raise (ROADMAP.md queue 1,
-item 5b.5).
+experts, and where the ``'model'`` axis is exactly ``n_experts ·
+n_expert_replicas`` wide and the sequence divides over it, the MoE layer
+takes the manual expert-parallel path (each rank its sequence block, an
+all-to-all over the expert-parallel groups; ``moe.moe_layer``): a train
+step's and a prefill's layers do, a decode step's one position takes the
+split einsum. A rule set that splits ``seq`` or ``d_model``, and the
+ssm and hybrid families with a ``'model'`` axis, raise (ROADMAP.md queue
+1, item 5b.5); so does a ``'model'`` axis wider than the KV heads under
+rules that split them (``_head_split``; :func:`heads_split_cleanly`
+asks): keep the attention whole there
+(``dist.partition.WHOLE_ATTENTION_RULES``), as the launcher does.
 """
 from __future__ import annotations
 
@@ -94,7 +102,8 @@ from repro_torch.models.lm.moe import init_moe, moe_layer
 
 __all__ = ["Model", "init_params", "init_cache", "loss_fn", "prefill",
            "decode_step", "forward_hidden", "params_from_jax",
-           "PORTED_FAMILIES", "REMAT_POLICIES"]
+           "sequence_length", "heads_split_cleanly", "PORTED_FAMILIES",
+           "REMAT_POLICIES"]
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
@@ -137,34 +146,50 @@ def _init_layer(gen, cfg: ModelConfig, device) -> dict:
 
 def _stack(layers: list) -> dict:
     """Per-layer dicts -> one dict of (L, ...) tensors; each layer's
-    tensors are released as their leaf is stacked."""
+    tensors are released as their leaf is stacked. ``meta`` leaves (shapes
+    only) are stacked as a new ``meta`` tensor: ``torch.stack`` on the
+    meta device takes seconds the first time (it loads its Python
+    decompositions), which every rank would pay."""
     out = {}
     for key in list(layers[0]):
-        if isinstance(layers[0][key], dict):
+        first = layers[0][key]
+        if isinstance(first, dict):
             out[key] = _stack([lp[key] for lp in layers])
+        elif first.device.type == "meta":
+            out[key] = torch.empty((len(layers),) + tuple(first.shape),
+                                   dtype=first.dtype, device="meta")
         else:
             out[key] = torch.stack([lp.pop(key) for lp in layers])
     return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> dict:
+                device="cuda", *, mesh=None) -> dict:
     """Random params from ``generator`` (drawn on its device, stored on
-    ``device`` in the config's dtype), the reference's init rules."""
+    ``device`` in the config's dtype), the reference's init rules. With
+    ``mesh``: this rank's slices by the active rules
+    (``dist.partition.shard_params``) on the mesh's device, each layer's
+    leaves cut as soon as the layer is drawn, so no rank holds more than
+    one whole layer; the generator is consumed in the same order, so the
+    slices are bitwise the whole draw's."""
     dt = dtype_of(cfg)
-    params = {
-        "embed": truncated_normal_init(
-            generator, (cfg.vocab_padded, cfg.d_model), 1.0, dt, device),
-        "out_norm": init_norm(cfg, device),
-        "layers": _stack([_init_layer(generator, cfg, device)
-                          for _ in range(cfg.n_layers)]),
-    }
+    if mesh is None:
+        keep = lambda tree: tree                           # noqa: E731
+    else:
+        from repro_torch.dist.partition import shard_params
+        keep = lambda tree: shard_params(mesh, tree)       # noqa: E731
+    params = keep({"embed": truncated_normal_init(
+        generator, (cfg.vocab_padded, cfg.d_model), 1.0, dt, device)})
+    params.update(keep({"out_norm": init_norm(cfg, device)}))
+    params["layers"] = _stack([
+        keep({"layers": _init_layer(generator, cfg, device)})["layers"]
+        for _ in range(cfg.n_layers)])
     if not cfg.tie_embeddings:
-        params["lm_head"] = truncated_normal_init(
-            generator, (cfg.d_model, cfg.vocab_padded), 1.0, dt, device)
+        params.update(keep({"lm_head": truncated_normal_init(
+            generator, (cfg.d_model, cfg.vocab_padded), 1.0, dt, device)}))
     if cfg.n_meta_tokens:
-        params["meta"] = truncated_normal_init(
-            generator, (cfg.n_meta_tokens, cfg.d_model), 1.0, dt, device)
+        params.update(keep({"meta": truncated_normal_init(
+            generator, (cfg.n_meta_tokens, cfg.d_model), 1.0, dt, device)}))
     return params
 
 
@@ -252,12 +277,24 @@ def _head_split(cfg: ModelConfig) -> tuple:
             raise ValueError(
                 f"{cfg.name}: the rules split {leaf}'s {heads * dh} "
                 f"columns over {axes} ({n} ranks of mesh {mesh.shape}), "
-                f"which cuts its {heads} heads of {dh}")
+                f"which cuts its {heads} heads of {dh} (keep the attention "
+                f"whole: dist.WHOLE_ATTENTION_RULES; the KV heads "
+                f"replicated over the ranks are {_ITEM})")
     if aq != ak:
         raise ValueError(f"{cfg.name}: the rules split wq's columns over "
                          f"{aq} and wk's over {ak} on mesh {mesh.shape}: "
                          "the GQA groups would cross ranks")
     return aq, _split(aq)[0]
+
+
+def heads_split_cleanly(cfg: ModelConfig) -> bool:
+    """Whether the active mesh and rules split the attention without
+    cutting a head (the layers raise where they would)."""
+    try:
+        _head_split(cfg)
+    except ValueError:
+        return False
+    return True
 
 
 def _attn_qkv(cfg, p, x, positions):
@@ -373,6 +410,15 @@ def _embed_batch(cfg: ModelConfig, params: dict, batch: dict):
         meta = params["meta"][None].expand(x.shape[0], -1, -1).to(x.dtype)
         x = torch.cat([meta, x], dim=1)
     return x
+
+
+def sequence_length(cfg: ModelConfig, batch: dict) -> int:
+    """The positions the layers see for ``batch``: ``_embed_batch``'s
+    sequence, without embedding it."""
+    s = int(batch["frames" if cfg.family == "audio" else "tokens"].shape[1])
+    if cfg.family == "vlm" and "image_emb" in batch:
+        s += int(batch["image_emb"].shape[1])
+    return s + cfg.n_meta_tokens
 
 
 def _unembed(cfg: ModelConfig, params: dict, h: torch.Tensor):

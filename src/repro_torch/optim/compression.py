@@ -13,7 +13,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.optim.optimizer import tree_map
+from repro_torch.optim.optimizer import tree_leaves, tree_map
 
 __all__ = ["int8_compress", "int8_decompress", "ErrorFeedbackState",
            "ef_init", "ef_compress_update"]
@@ -45,13 +45,49 @@ def ef_init(grads_like) -> ErrorFeedbackState:
         grads_like))
 
 
-def ef_compress_update(grads, ef: ErrorFeedbackState):
+def _whole_absmax(amax: list, shardings: list) -> list:
+    """Each leaf's absmax ``amax``, max-reduced over the axes its
+    sharding splits it over (one collective for the leaves of each set of
+    axes, in the tree's order, the same on every rank): a split leaf's
+    absmax is its whole leaf's."""
+    from repro_torch.dist.collectives import pmax
+    amax = list(amax)
+    groups: dict = {}
+    for i, sh in enumerate(shardings):
+        axes = () if sh is None else tuple(
+            a for d in range(len(sh.spec)) for a in sh.dim_axes(d)
+            if int(sh.mesh.shape[a]) > 1)
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    for axes, idx in groups.items():
+        m = torch.stack([amax[i] for i in idx])
+        for a in axes:
+            m = pmax(m, shardings[idx[0]].mesh, a)
+        for i, v in zip(idx, m):
+            amax[i] = v
+    return amax
+
+
+def ef_compress_update(grads, ef: ErrorFeedbackState, shardings=None):
     """-> (tree of (q, scale), new EF state): each leaf is compressed
     with the last residual added, and the new residual is what the int8
-    grid lost of it."""
+    grid lost of it. ``shardings`` (a matching tree of
+    ``dist.sharding.Sharding``, the leaves this rank's slices) makes a
+    split leaf's scale its whole leaf's: its absmax is max-reduced over
+    its split axes (the reference's ``amax`` override), so every rank
+    quantises its slice onto the grid the whole leaf would take."""
+    gs, rs = tree_leaves(grads), tree_leaves(ef.residual)
+    if shardings is None:
+        amax = [None] * len(gs)
+    else:
+        amax = _whole_absmax([torch.amax(torch.abs(g.to(torch.float32) + r))
+                              for g, r in zip(gs, rs)],
+                             tree_leaves(shardings))
+    it = iter(amax)
+
     def one(g, r):
         corrected = g.to(torch.float32) + r
-        q, s = int8_compress(corrected)
+        q, s = int8_compress(corrected, amax=next(it))
         return (q, s), corrected - int8_decompress(q, s)
 
     pairs = tree_map(one, grads, ef.residual)

@@ -30,7 +30,17 @@ rank holds its slices of the params and moments by the rules
 (``dist.partition.param_shardings``), takes its rows of the global
 batch, runs the step under ``with mesh:`` (the layers call the
 ``'model'`` collectives), syncs the gradients over ``'data'`` within its
-``'model'`` coordinate, and clips by the whole tree's norm.
+``'model'`` coordinate, and clips by the whole tree's norm. With
+``compression`` the int8 error feedback runs after that sync on the
+rank's slices, a split leaf quantised onto its whole leaf's scale (the
+absmax max-reduced over its split axes, the reference's ``amax``
+override; under GSPMD the reference's absmax is the whole leaf's).
+Where the ``'model'`` axis is ``n_experts · n_expert_replicas`` wide,
+the MoE layers take the manual expert-parallel path (``models/lm/moe``),
+whose aux loss is the whole global batch's: the step scales its share
+of each rank's gradient by the ``'data'`` size before the mean
+(:func:`data_aux_scale`). The rules active when the state and the step are built are the ones
+the step runs under (``dist.sharding.use_rules``).
 :func:`shaped_batch`, :func:`shaped_state` and :func:`shaped_cache` give
 ``meta`` tensors of a rank's shapes, each with its ``.sharding``.
 """
@@ -43,11 +53,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.collectives import axis_size, pmean, sync_grads
 from repro_torch.dist.partition import (batch_shardings, cache_shardings,
-                                        param_shardings, shard_params)
-from repro_torch.dist.sharding import Sharding
+                                        param_shardings)
+from repro_torch.dist.sharding import Sharding, current_rules, use_rules
 from repro_torch.models.lm import transformer as T
 from repro_torch.models.lm.layers import dtype_of
-from repro_torch.models.lm.moe import tie_expert_replica_grads
+from repro_torch.models.lm.moe import _manual_ok, tie_expert_replica_grads
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import (ef_compress_update, ef_init,
                                            int8_decompress)
@@ -55,23 +65,15 @@ from repro_torch.optim.optimizer import global_norm, tree_leaves, tree_map
 from repro_torch.train.fault_tolerance import InPlaceUpdate
 
 __all__ = ["TrainState", "make_train_state", "make_train_step",
-           "make_data_parallel_step", "loss_and_grads", "make_prefill_step",
+           "make_data_parallel_step", "loss_and_grads", "data_aux_scale",
+           "make_prefill_step",
            "make_decode_step", "shaped_batch", "shaped_state",
            "shaped_cache", "full_param_shapes"]
-
-_EF_MODEL = ("int8 error feedback over a 'model' axis (the int8 scale of a "
-             "split leaf needs the absmax over 'model') is not ported "
-             "(ROADMAP.md queue 1, item 5b.5)")
-
 
 class TrainState(NamedTuple):
     params: Any
     opt_state: Any
     ef: Any          # error-feedback residuals or None
-
-
-def _model_split(mesh) -> bool:
-    return mesh is not None and int(mesh.shape.get("model", 1)) > 1
 
 
 def full_param_shapes(cfg: ModelConfig) -> dict:
@@ -84,32 +86,51 @@ def make_train_state(cfg: ModelConfig, generator: torch.Generator, opt, *,
                      mesh=None) -> TrainState:
     """Random params from ``generator`` on ``device``, the optimizer's
     zero state and, with ``compression``, zero EF residuals. With
-    ``mesh``: the whole params drawn from ``generator`` on the mesh's
-    device and this rank's slices kept (bitwise the one-rank state's
-    slices), the moments zero in those shapes."""
+    ``mesh``: the params drawn from ``generator`` on the mesh's device
+    and this rank's slices kept by the active rules, layer by layer as
+    they are drawn (bitwise the one-rank state's slices), the moments and
+    residuals zero in those shapes."""
     if mesh is not None:
-        if compression and _model_split(mesh):
-            raise NotImplementedError(f"make_train_state: {_EF_MODEL}")
-        params = shard_params(mesh, T.init_params(cfg, generator,
-                                                  mesh.device))
+        params = T.init_params(cfg, generator, mesh.device, mesh=mesh)
     else:
         params = T.init_params(cfg, generator, device)
     ef = ef_init(params) if compression else None
     return TrainState(params=params, opt_state=opt.init(params), ef=ef)
 
 
-def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict) -> tuple:
+def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict, *,
+                   aux_scale: int = 1) -> tuple:
     """-> (loss, metrics, grads): ``T.loss_fn`` and its gradient in every
-    param (a tree like ``params``, in the params' dtypes)."""
+    param (a tree like ``params``, in the params' dtypes). ``aux_scale``
+    multiplies the aux term's share of the gradient (not the loss): see
+    :func:`data_aux_scale`."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     flat = tree_leaves(leaves)
     with torch.enable_grad():
         loss, metrics = T.loss_fn(cfg, leaves, batch)
-        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+        target = loss if aux_scale == 1 else \
+            loss + (aux_scale - 1) * cfg.router_aux_weight * metrics["aux"]
+        gs = torch.autograd.grad(target, flat, allow_unused=True)
     it = iter(torch.zeros_like(p) if g is None else g
               for g, p in zip(gs, flat))
     grads = tree_map(lambda _: next(it), leaves)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def data_aux_scale(cfg: ModelConfig, mesh, batch: dict) -> int:
+    """The ``'data'`` size where the MoE layers' aux loss is the whole
+    global batch's, else 1. The manual expert-parallel path
+    (``moe._manual_ok``) sums its statistics over every axis and hands
+    each rank its own tokens' share of the aux gradient, so a step that
+    averages the gradients over ``'data'`` takes that share this many
+    times: the mean is then the sum of the shares, the whole batch's
+    gradient, as the reference's. Elsewhere each rank's aux loss is its
+    own rows', and the plain mean is right. Call it under the mesh and
+    the rules the step runs with."""
+    if mesh is None or int(mesh.shape.get("data", 1)) <= 1:
+        return 1
+    seq = T.sequence_length(cfg, batch)
+    return int(mesh.shape["data"]) if _manual_ok(cfg, seq, mesh) else 1
 
 
 def _microbatches(batch: dict, accum: int) -> list:
@@ -156,17 +177,18 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
     (:func:`make_train_state` with the mesh), ``batch`` this rank's rows
     of the global batch (its block of the ``'data'`` axis); the step runs
     under ``with mesh:``, the experts' replicas are tied across ranks,
-    the gradients are synced over ``'data'`` (fp32) within each
-    ``'model'`` coordinate, the loss and metrics averaged over
-    ``'data'``, and the clip norm is the whole tree's. ``compression``
-    with a ``'model'`` axis raises. Every rank of the mesh must call
-    the step."""
+    the gradients are synced over ``'data'`` (fp32, the exact mean:
+    the reference's gradient of the global batch) within each ``'model'``
+    coordinate, then ``compression``'s error feedback runs on the slices
+    (a split leaf's int8 scale its whole leaf's), the loss and metrics
+    are averaged over ``'data'``, and the clip norm is the whole tree's.
+    The rules active here are the ones the step runs under. Every rank of
+    the mesh must call the step."""
     if sync_axis is not None and mesh is None:
         raise ValueError(f"make_train_step(sync_axis={sync_axis!r}) needs "
                          "the mesh the axis belongs to (mesh=...)")
     sharded = mesh is not None and sync_axis is None
-    if sharded and compression and _model_split(mesh):
-        raise NotImplementedError(f"make_train_step: {_EF_MODEL}")
+    rules = current_rules()
     opt = adamw(lr, weight_decay=weight_decay, clip_norm=clip_norm,
                 state_dtype=torch.float32)
     shardings = param_shardings(mesh, full_param_shapes(cfg)) \
@@ -175,16 +197,19 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
     def step(state: TrainState, batch: dict):
         if not sharded:
             return _step(state, batch)
-        with mesh:
+        with mesh, use_rules(rules):
             return _step(state, batch)
 
     def _step(state: TrainState, batch: dict):
+        scale = data_aux_scale(cfg, mesh, batch) if sharded else 1
         if accum == 1:
-            loss, metrics, grads = loss_and_grads(cfg, state.params, batch)
+            loss, metrics, grads = loss_and_grads(cfg, state.params, batch,
+                                                  aux_scale=scale)
         else:
             grads, loss = None, 0.0
             for mb in _microbatches(batch, accum):
-                l_mb, _, g = loss_and_grads(cfg, state.params, mb)
+                l_mb, _, g = loss_and_grads(cfg, state.params, mb,
+                                            aux_scale=scale)
                 if grads is None:
                     grads = tree_map(lambda x: x.float(), g)
                 else:
@@ -199,15 +224,15 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, weight_decay: float = 0.1,
         ef = state.ef
         axis = "data" if sharded else sync_axis
         if axis is not None:
-            grads = sync_grads(grads, mesh, axis,
-                               wire="int8" if compression else "fp32")
+            grads = sync_grads(grads, mesh, axis, wire="int8" if (
+                compression and not sharded) else "fp32")
             keys = sorted(metrics)
             avg = pmean(torch.stack([loss.float()] + [
                 metrics[k].float() for k in keys]), mesh, axis)
             loss = avg[0]
             metrics = {k: avg[i + 1] for i, k in enumerate(keys)}
-        elif compression:
-            qtree, ef = ef_compress_update(grads, ef)
+        if compression and (sharded or axis is None):
+            qtree, ef = ef_compress_update(grads, ef, shardings)
             grads = tree_map(lambda _, qs: int8_decompress(*qs), grads,
                              qtree)
         norm = global_norm(grads, shardings)

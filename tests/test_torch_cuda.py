@@ -2881,3 +2881,113 @@ def test_tp_two_model_ranks_share_the_card(card, tmp_path, arch):
         kernels = ("flash_attention", "ragged_gemm") if cfg.n_experts \
             else ("flash_attention",)
         assert all(r["launches"][k] > 0 for k in kernels), r["launches"]
+
+
+def _ep_card_rank(mesh, arch):
+    """Four ranks on the one card as one 'model' axis of phi3.5's four
+    experts, the attention whole (``WHOLE_ATTENTION_RULES``): the MoE
+    layers through the manual path; an fp32 smoke config's loss and
+    gradients (gathered), then prefill and 2 decode steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.dist import WHOLE_ATTENTION_RULES, use_rules
+    from repro_torch.dist.partition import gather_params
+    from repro_torch.models.lm import transformer as TT
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import lm as TL
+    cfg = get_smoke_config(arch)
+    dev = mesh.device
+    with use_rules(WHOLE_ATTENTION_RULES):
+        local = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu", mesh=mesh)
+        toks, tgts = synthetic_lm_batch(2, 64, cfg.vocab)
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "targets": torch.from_numpy(tgts).to(dev)}
+        tops.reset_kernel_launches()
+        with mesh:
+            loss, _, grads = TL.loss_and_grads(cfg, local, batch)
+            train_launches = dict(tops.kernel_launches())
+            with torch.no_grad():
+                cache, lg = TT.prefill(cfg, local,
+                                       {"tokens": batch["tokens"]}, 80)
+                logits = [lg]
+                for i in range(2):
+                    lg, cache = TT.decode_step(cfg, local, cache,
+                                               batch["tokens"][:, i:i + 1])
+                    logits.append(lg)
+        whole = gather_params(mesh, grads, TL.full_param_shapes(cfg))
+    torch.cuda.synchronize()
+    return dict(backend=mesh.backend, loss=float(loss),
+                train_launches=train_launches,
+                launches=dict(tops.kernel_launches()),
+                grads=tree_map(lambda t: t.cpu().numpy(), whole),
+                logits=[t.cpu().numpy() for t in logits])
+
+
+def test_ep_four_model_ranks_take_the_manual_path_on_the_card(card,
+                                                              tmp_path):
+    """Four gloo ranks on cuda:0 as a 'model' axis of phi3.5's smoke
+    config's four experts (the kernels' fp32 instances; the MoE through
+    the manual path: an all-to-all of card tensors) against the
+    one-process model on the CPU with its MoE layers
+    ``moe_manual_reference`` for a 'model' axis of 4 (the transformer's
+    ``moe_layer`` swapped for it where the ranks take the manual path,
+    as ``tests/test_torch_expert_parallel.py`` does): the loss, every
+    gradient and the logits of a prefill and 2 decode steps within 1e-4
+    of the largest value, as the two-rank case above; the train step
+    launched the flash kernels and no ragged GEMM (the manual path's
+    expert products are dense), decode the ragged GEMM (the split
+    einsum)."""
+    from repro_torch import dist as tdist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.kernels.build import build_kernels
+    from repro_torch.models.lm import moe as TM
+    from repro_torch.models.lm import transformer as TT
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.train import lm as TL
+    arch = "phi3.5-moe-42b-a6.6b"
+    build_kernels()
+    res = tdist.run_ranks(_ep_card_rank, 4, str(tmp_path), args=(arch,),
+                          device="cuda", timeout_s=300, model=4)
+    cfg = get_smoke_config(arch)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    toks, tgts = synthetic_lm_batch(2, 64, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(toks),
+             "targets": torch.from_numpy(tgts)}
+    plain = TT.moe_layer
+
+    def manual(cfg_, p, x):
+        if x.shape[1] % 4 == 0:
+            return TM.moe_manual_reference(cfg_, p, x, 4)
+        return plain(cfg_, p, x)
+
+    TT.moe_layer = manual
+    try:
+        loss, _, grads = TL.loss_and_grads(cfg, params, batch)
+        with torch.no_grad():
+            cache, lg = TT.prefill(cfg, params, {"tokens": batch["tokens"]},
+                                   80)
+            want = [lg]
+            for i in range(2):
+                lg, cache = TT.decode_step(cfg, params, cache,
+                                           batch["tokens"][:, i:i + 1])
+                want.append(lg)
+    finally:
+        TT.moe_layer = plain
+
+    def close(got, w, what):
+        w = w.numpy() if isinstance(w, torch.Tensor) else w
+        assert np.abs(got - w).max() <= 1e-4 * max(np.abs(w).max(), 1e-30), \
+            what
+    for r in res:
+        assert r["backend"] == "gloo"
+        assert abs(r["loss"] - float(loss)) <= 1e-4 * abs(float(loss))
+        tree_map(lambda g, w: close(g, w.numpy(), "grad"), r["grads"], grads)
+        for got, w in zip(r["logits"], want):
+            close(got, w, "logits")
+        t = r["train_launches"]
+        assert t["flash_attention"] > 0 and t["flash_attention_bwd"] > 0, t
+        assert t["ragged_gemm"] == 0, t
+        assert r["launches"]["ragged_gemm"] > 0, r["launches"]

@@ -557,20 +557,21 @@ def test_launcher_lm_smoke_on_cpu(capsys):
     assert "step     0 loss" in out and "loss decreased: OK" in out
 
 
-_REFUSED = {"--grad-compression": "ROADMAP.md queue 1, item 5b.5",
-            "--grad-sync": "--grad-sync shardmap with --mesh-model > 1",
+_REFUSED = {"--grad-sync": "--grad-sync shardmap with --mesh-model > 1",
             "--resume": "ROADMAP.md queue 1, item 5b.4"}
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh-model", "2", "--grad-compression", "int8"],
+    ["--mesh-model", "2", "--grad-compression", "int8", "--resume",
+     "--ckpt-dir", "unused"],
     ["--mesh-model", "2", "--grad-sync", "shardmap"],
     ["--mesh-data", "2", "--grad-sync", "shardmap", "--resume",
      "--ckpt-dir", "unused"]])
 def test_launcher_refuses_unported_flags(capsys, flag):
-    """What is not ported exits 2 before anything is built: int8 error
-    feedback over a model axis, the explicit data-parallel step over one
-    (it replicates the params), a resume over several ranks."""
+    """What is not ported exits 2 before anything is built: a resume over
+    several ranks (over model ranks, with the int8 error feedback that is
+    ported now; over data ranks), the explicit data-parallel step over a
+    model axis (it replicates the params)."""
     rc = launch_train.main(["--mode", "lm", "--arch", "llama3-8b", "--smoke",
                             "--device", "cpu", *flag])
     assert rc == 2

@@ -270,5 +270,13 @@ def test_unported_rule_sets_and_families_raise():
             TT._check_mesh(get_smoke_config(arch))
     with mesh, tsh.use_rules(tsh.Rules({})):
         TT._check_mesh(get_smoke_config("mamba2-1.3b"))   # nothing split
-    with pytest.raises(NotImplementedError, match="item 5b.5"):
-        TTL.make_train_step(cfg, compression=True, mesh=mesh)
+    # int8 error feedback under a 'model' axis is ported: the step builds
+    step_fn, _ = TTL.make_train_step(cfg, compression=True, mesh=mesh)
+    assert callable(step_fn)
+    # a 'model' axis wider than the KV heads is refused under the default
+    # rules (item 5b.5); the whole-attention rules keep the heads whole
+    wide = _stand_in({"data": 1, "model": 4})
+    with wide, pytest.raises(ValueError, match="wk's .* cuts its"):
+        TT._head_split(cfg)
+    with wide, tsh.use_rules(tpart.WHOLE_ATTENTION_RULES):
+        assert TT._head_split(cfg) == ((), 1)
